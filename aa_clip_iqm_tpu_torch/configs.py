@@ -99,6 +99,24 @@ class ModelConfig:
     surgery_until_layer: int = 20
 
 
+@dataclass(frozen=True)
+class EvalConfig:
+    dataset: str = "MVTec"
+    img_size: int = 518
+    batch_size: int = 32
+    seed: int = 111
+    save_path: str = "ckpt/baseline"
+    visualize: bool = False
+    iqm_weight: float = 0.4  # fusion weights (test_last.py:66-68)
+    text_weight: float = 0.6
+    compute_dtype: str = "bfloat16"
+    # Image-level score semantics. "fixed" (default) = per-sample
+    # abnormal-channel logit. "reference_eval" = exact transcription of the
+    # reference's executed eval path (the whole batch pinned to sample 1's
+    # normal channel; needs batch >= 2), for parity studies only.
+    image_score_mode: str = "fixed"
+
+
 def list_models() -> list:
     if not os.path.isdir(_CONFIG_DIR):
         return []

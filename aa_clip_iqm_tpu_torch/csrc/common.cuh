@@ -1,6 +1,6 @@
 // Device helpers shared by the port's CUDA kernels (sm_90a): dtype
-// conversion, cp.async copies, ldmatrix loads and the m16n8k16 bf16
-// tensor-core product, with the register layouts they imply.
+// conversion, cp.async copies, ldmatrix loads and the tensor-core products
+// (m16n8k16 bf16, m16n8k32 int8), with the register layouts they imply.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -84,6 +84,36 @@ __device__ __forceinline__ void mma16816(float (&c)[4], const unsigned (&a)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8-row x 16-byte matrices of int8 from shared memory (ldmatrix moves
+// 16-bit units, so one of its 8x8 b16 matrices is 8 rows of 16 int8). Lanes
+// 8i..8i+7 give the row addresses of matrix i; register r[i] receives, per
+// lane l, row l / 4, bytes 4(l % 4) .. 4(l % 4) + 3 of matrix i.
+__device__ __forceinline__ void ldsm_x4_b8(unsigned (&r)[4], const void* lane_row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(lane_row)));
+}
+
+// c += a . b for one m16n8k32 tile, int8 in, int32 accumulate. With
+// g = lane / 4 and t = lane % 4: a holds rows g, g+8 x k-bytes 4t..4t+3 and
+// 16+4t..16+4t+3 as {a[g][4t..], a[g+8][4t..], a[g][16+4t..], a[g+8][16+4t..]}
+// (four int8 per register); b holds column g x k 4t..4t+3 and 16+4t..; c as
+// in mma16816.
+__device__ __forceinline__ void mma16832_s8(int (&c)[4], const unsigned (&a)[4],
+                                            unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

@@ -1,12 +1,18 @@
-"""Dataset registry: class lists, descriptive names, domains, prompts.
+"""Dataset registry: paths, class lists, descriptive names, domains, prompts.
 
-The part of ``aa_clip_iqm_tpu/data/registry.py`` that the serving path reads:
-per-class descriptive "real names" for the prompt engine, each dataset's
-domain (Industrial|Medical, which selects the blur kernel), the prompt
-templates and the CLIP normalization statistics. Class order matches the
+Counterpart of ``aa_clip_iqm_tpu/data/registry.py``: each dataset's data
+directory (relative to ``$AACLIP_DATA_ROOT`` or ``./data``), per-class
+descriptive "real names" for the prompt engine, its domain
+(Industrial|Medical, which selects the blur kernel), the prompt templates,
+the CLIP normalization statistics and the JSONL metadata files (this
+package's own copy under ``data/metadata``). Class order matches the
 reference so per-class tables align.
 """
 from __future__ import annotations
+
+import os
+
+DATA_ROOT = os.environ.get("AACLIP_DATA_ROOT", "./data")
 
 # name -> (relative data dir, domain, {class: real name})
 DATASETS = {
@@ -135,6 +141,7 @@ PROMPTS = {
     "templates": ["{}.", "a photo of {}."],
 }
 
+DATA_PATH = {name: os.path.join(DATA_ROOT, d["path"]) for name, d in DATASETS.items()}
 DOMAINS = {name: d["domain"] for name, d in DATASETS.items()}
 CLASS_NAMES = {name: list(d["classes"].keys()) for name, d in DATASETS.items()}
 REAL_NAMES = {name: dict(d["classes"]) for name, d in DATASETS.items()}
@@ -142,3 +149,12 @@ REAL_NAMES = {name: dict(d["classes"]) for name, d in DATASETS.items()}
 # CLIP preprocessing statistics.
 IMAGE_MEAN = (0.48145466, 0.4578275, 0.40821073)
 IMAGE_STD = (0.26862954, 0.26130258, 0.27577711)
+
+
+def metadata_path(dataset_name: str, shot: int = -1, metadata_root=None) -> str:
+    """JSONL metadata path, reference layout. Root precedence: explicit arg >
+    $AACLIP_METADATA_ROOT > the packaged metadata/."""
+    root = (metadata_root or os.environ.get("AACLIP_METADATA_ROOT")
+            or os.path.join(os.path.dirname(__file__), "metadata"))
+    fname = f"{shot}-shot.jsonl" if shot > 0 else "full-shot.jsonl"
+    return os.path.join(root, dataset_name, fname)

@@ -7,7 +7,7 @@ Counterpart of ``aa_clip_iqm_tpu/evaluation/scoring.py`` (test path):
   - IQM maps: sigmoid of the cosine-similarity difference,
     align_corners=False upsample;
   - fusion 0.6 * sum(text maps) + 0.4 * sum(IQM maps), and the per-sample
-    image logit.
+    image logit (or the reference's executed eval score, for parity studies).
 """
 from __future__ import annotations
 
@@ -72,3 +72,16 @@ def image_logit(det_token, anchors):
     """Per-sample abnormal-channel image score ((det_i @ anchors_i)[1]+1)/2."""
     pred = torch.matmul(det_token.float()[:, None, :], anchors.float())[:, 0]
     return (pred[:, 1] + 1.0) * 0.5
+
+
+def image_logit_reference_eval(det_token, anchors):
+    """Exact transcription of the reference's executed eval image score
+    (test_last.py:90-92 + forward_utils.py:269-271), for parity studies: the
+    whole batch scores as sample index 1's normal-anchor cosine. Requires
+    B >= 2 like the reference (B == 1 raises there)."""
+    if det_token.shape[0] < 2:
+        raise ValueError(
+            "image_logit_reference_eval requires batch >= 2: the reference's"
+            " pred[:, 1] crashes at B == 1 (test_last.py:90-92)")
+    pred = torch.einsum("d,bdc->bc", det_token.float()[1], anchors.float())
+    return (pred[:, 0] + 1.0) * 0.5

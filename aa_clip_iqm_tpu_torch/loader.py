@@ -1,12 +1,16 @@
 """Model assembly: config + backbone weights + adapter init.
 
-Counterpart of ``aa_clip_iqm_tpu/loader.py`` for the serving path:
-:func:`build_model_config`, a seeded random backbone (the JAX package's
-``allow_random`` / ``--random_backbone``) and :func:`init_trainable`.
-Loading OpenAI ``.pt`` weights is not ported yet.
+Counterpart of ``aa_clip_iqm_tpu/loader.py``: :func:`build_model_config`,
+:func:`load_frozen_backbone` (a converted ``.npz`` weight cache, or with
+``allow_random`` a seeded random backbone, the ``--random_backbone`` of the
+CLIs) and :func:`init_trainable`. Converting OpenAI ``.pt`` weights is not
+ported yet: convert them to ``.npz`` with the JAX package.
 """
 from __future__ import annotations
 
+from typing import Optional
+
+import numpy as np
 import torch
 
 from .configs import (
@@ -17,8 +21,10 @@ from .configs import (
     tiny_test_config,
 )
 from .models.convert import (
+    find_backbone,
     init_adapter_params_np,
     init_clip_params_np,
+    load_params_npz,
     params_from_jax,
 )
 
@@ -64,6 +70,37 @@ def random_backbone(cfg: ModelConfig, seed: int = 0, device="cuda",
     """Seeded random frozen CLIP params at the config's full width."""
     frozen, _ = params_from_jax(init_clip_params_np(cfg, seed), None, cfg,
                                 device=device, dtype=dtype)
+    return frozen
+
+
+def load_frozen_backbone(cfg: ModelConfig, backbone_path: Optional[str] = None,
+                         allow_random: bool = False, seed: int = 0,
+                         device="cuda", dtype=torch.bfloat16):
+    """Load (or randomly init) the frozen CLIP params for cfg.clip, onto
+    ``device`` with the matmul weights in ``dtype``."""
+    path = backbone_path or find_backbone()
+    if path is None:
+        if not allow_random:
+            raise FileNotFoundError(
+                "No CLIP backbone checkpoint found. Provide --backbone "
+                "pointing to a converted .npz of the OpenAI "
+                "ViT-L-14-336px weights, or pass allow_random for an "
+                "untrained backbone.")
+        return random_backbone(cfg, seed=seed, device=device, dtype=dtype)
+    if not path.endswith(".npz"):
+        raise NotImplementedError(
+            f"{path}: only .npz weight caches are read so far; converting "
+            "an OpenAI .pt checkpoint is not ported yet (convert it with "
+            "aa_clip_iqm_tpu.models.convert and save_params_npz)")
+    params = load_params_npz(path)
+    pos = np.asarray(params["visual"]["positional_embedding"])
+    want = cfg.clip.vision.grid ** 2 + 1
+    if pos.shape[0] != want:
+        raise NotImplementedError(
+            f"{path} holds a {pos.shape[0]}-row positional embedding, the "
+            f"config wants {want}: resizing it is not ported yet; cache the "
+            "weights at this image size")
+    frozen, _ = params_from_jax(params, None, cfg, device=device, dtype=dtype)
     return frozen
 
 

@@ -13,11 +13,14 @@ of per-layer dicts instead of leaves stacked on a layer axis:
   block = {ln_1, attn: {qkv: {w,b}, out: {w,b}}, ln_2,
            mlp: {c_fc: {w,b}, c_proj: {w,b}}}
 
-Every block, vision and text, runs its MLP half through
-:func:`..ops.fused_mlp.ln_mlp_residual` (the Hopper kernel on the card, its
-plain twin on the CPU) and its unmasked attention through the packed-qkv
-kernel. The tower is not padded: the attention kernel masks the ragged key
-tile itself.
+A block with float MLP weights, vision or text, runs its MLP half through
+:func:`..ops.fused_mlp.ln_mlp_residual`; one with int8 MLP weights
+(``ops.quant``) through :func:`..ops.fused_mlp.ln_mlp_residual_int8` where
+that kernel's gate allows (bf16, width a multiple of 128), else through the
+unfused ``x + mlp_block(...)`` on ``int8_linear``. Each fused function is the
+Hopper kernel on the card and its plain twin on the CPU. Unmasked attention
+goes through the packed-qkv kernel. The tower is not padded: the attention
+kernel masks the ragged key tile itself.
 """
 from __future__ import annotations
 
@@ -27,11 +30,16 @@ import torch
 
 from ..configs import TextConfig, VisionConfig
 from ..ops import attention as attn_ops
-from ..ops.fused_mlp import ln_mlp_residual
+from ..ops.fused_mlp import (
+    ln_mlp_residual,
+    ln_mlp_residual_int8,
+    ln_mlp_residual_int8_ok,
+)
 from ..ops.layers import (
     ACTIVATIONS,
     layer_norm,
     linear,
+    mlp_block,
     norm_preserving_blend,
     simple_adapter,
 )
@@ -58,7 +66,22 @@ def _run_block(block, x, num_heads, act, attn_mask=None, vv=False,
         a = attn_ops.mha(block["attn"], h, num_heads, attn_mask=attn_mask,
                          valid_len=valid_len)
     x = x + a
-    return ln_mlp_residual(block["ln_2"], block["mlp"], x, act)
+    mlp = block["mlp"]
+    if "w_q" not in mlp["c_fc"] and "w_q" not in mlp["c_proj"]:
+        return ln_mlp_residual(block["ln_2"], mlp, x, act)
+    if ln_mlp_residual_int8_ok(x, mlp, act):
+        return ln_mlp_residual_int8(block["ln_2"], mlp, x, act)
+    return x + mlp_block(mlp, layer_norm(block["ln_2"], x), act)
+
+
+def embed_patches(params, cfg: VisionConfig, images, compute_dtype):
+    """Patch embedding, class token, positional embedding and ln_pre:
+    (B, 3, H, W) -> (B, L+1, width), the input of the first block."""
+    x = patchify(params, images.to(compute_dtype), cfg.patch_size)
+    cls = params["class_embedding"].to(compute_dtype).expand(x.shape[0], 1, cfg.width)
+    x = torch.cat([cls, x], dim=1)
+    x = x + params["positional_embedding"].to(compute_dtype)
+    return layer_norm(params["ln_pre"], x)
 
 
 def run_blocks(blocks, x, num_heads: int, act, attn_mask=None, vv_from=None,
@@ -100,12 +123,7 @@ def vision_forward(
 
     Returns: (pooled (B, output_dim), taps list of (B, L+1, width), final x).
     """
-    x = patchify(params, images.to(compute_dtype), cfg.patch_size)
-    b = x.shape[0]
-    cls = params["class_embedding"].to(compute_dtype).expand(b, 1, cfg.width)
-    x = torch.cat([cls, x], dim=1)
-    x = x + params["positional_embedding"].to(compute_dtype)
-    x = layer_norm(params["ln_pre"], x)
+    x = embed_patches(params, cfg, images, compute_dtype)
     x, taps = run_blocks(params["blocks"], x, cfg.heads, ACTIVATIONS[act_name],
                          vv_from=vv_from, adapters=adapters,
                          adapter_weight=adapter_weight, adapt_until=adapt_until,

@@ -15,10 +15,19 @@ Two parts:
 Matmul weights (every ``w`` with 2+ dims, ``proj`` and ``text_projection``)
 are stored in the compute dtype; everything else (biases, LayerNorm
 parameters, embeddings) stays float32, as the JAX functions cast it at use.
+A quantized JAX pytree (``w_q`` int8, ``scale`` float32 ``(layers, 1, out)``,
+``b``) passes through with the same integers and per-layer ``(1, out)``
+scales.
+
+:func:`save_params_npz` / :func:`load_params_npz` are the flat ``.npz``
+weight cache of the JAX package (same key scheme, so either package reads
+the other's file).
 """
 from __future__ import annotations
 
+import io
 import math
+import os
 
 import numpy as np
 import torch
@@ -48,13 +57,16 @@ def _convert(tree, device, dtype, key=None):
         out = {}
         for k, v in tree.items():
             if (key, k) in _STACKED:
-                out[k] = [_convert(layer, device, dtype, k)
-                          for layer in _unstack(v)]
+                layers = v if isinstance(v, (list, tuple)) else _unstack(v)
+                out[k] = [_convert(layer, device, dtype, k) for layer in layers]
             else:
                 out[k] = _convert(v, device, dtype, k)
         return out
     if isinstance(tree, (list, tuple)):
         return [_convert(v, device, dtype, key) for v in tree]
+    if key == "w_q":
+        # An int8-quantized weight (ops.quant) stays the same integers.
+        return torch.tensor(np.asarray(tree, dtype=np.int8), device=device)
     arr = np.asarray(tree, dtype=np.float32)
     is_matrix = (key == "w" and arr.ndim >= 2) or key in _MATRIX_KEYS
     return torch.tensor(arr, device=device,
@@ -69,7 +81,8 @@ def params_from_jax(frozen_np, trainable_np, cfg: ModelConfig, device="cuda",
     frozen = trainable = None
     if frozen_np is not None:
         blocks = frozen_np["visual"]["blocks"]
-        depth = np.shape(blocks["ln_1"]["scale"])[0]
+        depth = (len(blocks) if isinstance(blocks, (list, tuple))
+                 else np.shape(blocks["ln_1"]["scale"])[0])
         if depth != cfg.clip.vision.layers:
             raise ValueError(f"visual tower has {depth} blocks, config says "
                              f"{cfg.clip.vision.layers}")
@@ -78,6 +91,68 @@ def params_from_jax(frozen_np, trainable_np, cfg: ModelConfig, device="cuda",
     if trainable_np is not None:
         trainable = _convert(trainable_np, device, dtype)
     return frozen, trainable
+
+
+# --------------------------------------------------------------------------
+# Flat npz round trip (the converted backbone's weight cache)
+# --------------------------------------------------------------------------
+
+def _flatten(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _flatten(v, f"{prefix}{k}/")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _flatten(v, f"{prefix}{i}/")
+    else:
+        arr = tree.detach().float().cpu().numpy() if isinstance(tree, torch.Tensor) else tree
+        yield prefix[:-1], np.asarray(arr)
+
+
+def save_params_npz(params, path: str):
+    """Write a parameter pytree (numpy arrays or tensors; dicts and lists)
+    as one flat ``.npz`` with ``/``-joined keys."""
+    buf = io.BytesIO()
+    np.savez(buf, **dict(_flatten(params)))
+    with open(path, "wb") as f:
+        f.write(buf.getvalue())
+
+
+def load_params_npz(path: str):
+    """Read a :func:`save_params_npz` file back into nested dicts (and
+    lists, where all keys of a level are digits) of numpy arrays."""
+    with np.load(path) as data:
+        flat = {k: data[k] for k in data.files}
+    root: dict = {}
+    for key, val in flat.items():
+        parts = key.split("/")
+        node = root
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = val
+
+    def listify(node):
+        if isinstance(node, dict):
+            keys = list(node.keys())
+            if keys and all(k.isdigit() for k in keys):
+                return [listify(node[str(i)]) for i in range(len(keys))]
+            return {k: listify(v) for k, v in node.items()}
+        return node
+
+    return listify(root)
+
+
+def find_backbone(model_name: str = "ViT-L-14-336",
+                  search_dirs=(".", "weights", os.path.expanduser("~"))):
+    """Locate a usable backbone checkpoint (.npz cache preferred, else .pt)."""
+    names = [f"{model_name}.npz", f"{model_name}px.npz",
+             f"{model_name}px.pt", f"{model_name}.pt"]
+    for d in search_dirs:
+        for n in names:
+            p = os.path.join(d, n)
+            if os.path.isfile(p):
+                return p
+    return None
 
 
 # --------------------------------------------------------------------------

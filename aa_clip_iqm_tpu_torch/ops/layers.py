@@ -35,7 +35,13 @@ ACTIVATIONS = {"gelu": gelu, "quick_gelu": quick_gelu}
 
 def linear(params, x):
     """y = x @ W + b, W stored (in, out): the product accumulated in float32,
-    the bias added in float32, one rounding to x.dtype."""
+    the bias added in float32, one rounding to x.dtype. Params carrying an
+    int8-quantized weight ({"w_q", "scale"} from ops.quant) go to the int8
+    product: one hook covers every projection in the model."""
+    if "w_q" in params:
+        from .quant import int8_linear
+
+        return int8_linear(params, x)
     w = params["w"].to(x.dtype)
     b = params.get("b")
     if b is None:

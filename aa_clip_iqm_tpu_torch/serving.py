@@ -8,12 +8,13 @@ Counterpart of ``AnomalyDetector`` in ``aa_clip_iqm_tpu/serving.py``
 
 Anchors are computed once per dataset and kept on the device. Caller batches
 are padded up to the smallest fitting bucket and larger ones split into
-largest-bucket chunks, as in the JAX package. The checkpoint, path-loading,
-export and micro-batching surfaces are not ported yet.
+largest-bucket chunks, as in the JAX package. ``quantize=`` selects an int8
+backbone tier (``ops/quant.py``). The checkpoint, path-loading, export and
+micro-batching surfaces are not ported yet.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -62,8 +63,20 @@ class AnomalyDetector:
                  compute_dtype=torch.bfloat16, text_weight: float = 0.6,
                  iqm_weight: float = 0.4,
                  batch_buckets: Sequence[int] = DEFAULT_BATCH_BUCKETS,
-                 device="cuda"):
+                 quantize: Optional[str] = None, device="cuda"):
         self.device = torch.device(device)
+        if quantize is not None:
+            # Serve-time int8 backbone tier: "int8" (all block matmuls),
+            # "int8_attn" (qkv/out only, the MLP keeps the fused float
+            # kernel) or "int8_mlp" (the MLP only, through the fused int8
+            # kernel). The anchors below come from the full-precision text
+            # tower either way. A "+smooth" suffix adds SmoothQuant outlier
+            # migration, calibrated here on a seeded random batch through
+            # the adapted tower.
+            from .ops.quant import quantize_backbone_auto
+
+            frozen = quantize_backbone_auto(frozen, quantize, cfg=model_cfg,
+                                            trainable=trainable)
         self.frozen = frozen
         self.trainable = trainable
         self.cfg = model_cfg

@@ -8,7 +8,7 @@ present. On a machine with an H100 and nvcc run
 import pytest
 import torch
 
-from aa_clip_iqm_tpu_torch.ops import fused_mlp, packed_attention as pa
+from aa_clip_iqm_tpu_torch.ops import fused_mlp, packed_attention as pa, quant
 from aa_clip_iqm_tpu_torch.ops.compare import BF16_MAX_ULPS, BF16_RMS_ULPS, bf16_error
 from aa_clip_iqm_tpu_torch.ops.layers import gelu, quick_gelu
 
@@ -75,6 +75,68 @@ def test_ln_mlp_residual_matches_twin(dev, dtype, m, d, h, act):
     out = fused_mlp.ln_mlp_residual(ln, mlp, x, act)
     assert fused_mlp.LAUNCHES == before + 1
     _check(out, fused_mlp.ln_mlp_residual_reference(ln, mlp, x, act), x)
+
+
+def _int8_case(dev, m, d, h, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape, std=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * std
+
+    ln = {"scale": 1.0 + 0.1 * rnd(d), "bias": 0.1 * rnd(d)}
+    mlp = {"c_fc": {"w": rnd(d, h, std=d ** -0.5), "b": rnd(h, std=0.02)},
+           "c_proj": {"w": rnd(h, d, std=h ** -0.5), "b": rnd(d, std=0.02)}}
+    qmlp = {k: quant.quantize_linear_params(p) for k, p in mlp.items()}
+    return ln, qmlp, rnd(m, d).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("m,d,h,act", [
+    (10960, 1024, 4096, gelu),        # ViT-L/518, batch 8
+    (1370, 1024, 4096, quick_gelu),   # batch 1
+    (1000, 768, 3072, gelu),          # the text tower's widths
+    (77, 128, 384, quick_gelu),       # an odd row count, 128-wide chunks
+    (333, 256, 1024, gelu),
+    (5, 128, 512, gelu),              # fewer rows than a tile
+])
+def test_ln_mlp_residual_int8_matches_twin(dev, m, d, h, act):
+    """Integer products are exact, so kernel and twin differ only where a
+    float32 sum of the LayerNorm, taken in another order, flips a rounding:
+    held on y - x in bf16 ulps like the float kernel."""
+    ln, qmlp, x = _int8_case(dev, m, d, h, m + h)
+    assert fused_mlp.ln_mlp_residual_int8_ok(x, qmlp, act)
+    before = (fused_mlp.INT8_LAUNCHES, fused_mlp.LAUNCHES)
+    out = fused_mlp.ln_mlp_residual_int8(ln, qmlp, x, act)
+    assert (fused_mlp.INT8_LAUNCHES, fused_mlp.LAUNCHES) == (before[0] + 1, before[1])
+    _check(out, fused_mlp.ln_mlp_residual_int8_reference(ln, qmlp, x, act), x)
+    batched = fused_mlp.ln_mlp_residual_int8(ln, qmlp, x.reshape(1, m, d), act)
+    assert torch.equal(batched.reshape(m, d), out)
+
+
+def test_int8_wrapper_refuses_bad_inputs(dev):
+    ln, qmlp, x = _int8_case(dev, 64, 128, 512, 1)
+    with pytest.raises(TypeError, match="dtype"):
+        fused_mlp.ln_mlp_residual_int8(ln, qmlp, x.float(), gelu)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_mlp.ln_mlp_residual_int8(ln, qmlp, x.t().contiguous().t(), gelu)
+    flipped = {"c_fc": dict(qmlp["c_fc"], w_q=qmlp["c_fc"]["w_q"].t().contiguous().t()),
+               "c_proj": qmlp["c_proj"]}
+    with pytest.raises(ValueError, match="c_fc w_q must be contiguous"):
+        fused_mlp.ln_mlp_residual_int8(ln, flipped, x, gelu)
+    wrong = {"c_fc": dict(qmlp["c_fc"], w_q=qmlp["c_fc"]["w_q"].to(torch.int32)),
+             "c_proj": qmlp["c_proj"]}
+    with pytest.raises(TypeError, match="c_fc w_q"):
+        fused_mlp.ln_mlp_residual_int8(ln, wrong, x, gelu)
+    half = {"c_fc": dict(qmlp["c_fc"], scale=qmlp["c_fc"]["scale"].double()),
+            "c_proj": qmlp["c_proj"]}
+    with pytest.raises(TypeError, match="c_fc scale"):
+        fused_mlp.ln_mlp_residual_int8(ln, half, x, gelu)
+    with pytest.raises(ValueError, match="ln bias"):
+        fused_mlp.ln_mlp_residual_int8(dict(ln, bias=ln["bias"].cpu()), qmlp, x, gelu)
+    with pytest.raises(ValueError, match="activation"):
+        fused_mlp.ln_mlp_residual_int8(ln, qmlp, x, torch.relu)
+    wide_ln, wide, wide_x = _int8_case(dev, 8, 1280, 512, 2)
+    with pytest.raises(ValueError, match="not supported"):
+        fused_mlp.ln_mlp_residual_int8(wide_ln, wide, wide_x, gelu)
 
 
 def test_wrappers_refuse_bad_inputs(dev):

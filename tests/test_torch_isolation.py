@@ -1,4 +1,6 @@
-"""The port and chip_smoke.py import neither JAX nor the JAX package."""
+"""The port and chip_smoke.py import neither JAX nor the JAX package, and
+importing them needs neither PIL, pandas nor sklearn (the machine with the
+card is promised none of the three)."""
 import ast
 import os
 import subprocess
@@ -41,6 +43,14 @@ def test_no_jax_imports(path):
     assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
 
 
+def test_new_modules_are_covered():
+    covered = {os.path.relpath(p, PACKAGE) for p in _sources()}
+    for rel in ("ops/quant.py", "ops/metrics.py", "ops/fused_mlp.py",
+                "evaluation/predict.py", "data/datasets.py", "data/synthetic.py",
+                "cli/evaluate.py", "cli/bench.py", "utils/misc.py"):
+        assert rel in covered, rel
+
+
 def test_forbidden_names():
     assert _forbidden("jax.numpy") and _forbidden("aa_clip_iqm_tpu.ops")
     assert _forbidden("jaxlib")
@@ -56,7 +66,7 @@ def test_import_leaves_jax_unloaded():
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'aa_clip_iqm_tpu')]\n"
+        "('jax', 'jaxlib', 'aa_clip_iqm_tpu', 'PIL', 'pandas', 'sklearn')]\n"
         "assert not bad, bad\n"
         "print('clean')\n"
     )
