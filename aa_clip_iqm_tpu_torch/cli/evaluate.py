@@ -3,12 +3,14 @@
 AUROC / AP table.
 
     python -m aa_clip_iqm_tpu_torch.cli.evaluate --dataset MVTec \\
-        --random_backbone --no_adapters [--quantize_backbone int8]
+        --random_backbone --save_path ckpt/baseline [--quantize_backbone int8]
 
 Counterpart of ``aa_clip_iqm_tpu/cli/evaluate.py``. It runs on ``cuda``
-unless ``--device cpu`` is given. Restoring trained adapters from a
-checkpoint, visualization, reference-checkpoint import, data-parallel
-evaluation and profiling are not ported yet.
+unless ``--device cpu`` is given, and restores the adapters that
+``cli.train`` left under ``--save_path`` (the stage-1 text adapter if there
+is one, then the newest stage-2 checkpoint); ``--no_adapters`` evaluates
+untrained adapters instead. Visualization, reference-checkpoint import,
+data-parallel evaluation and profiling are not ported yet.
 """
 import argparse
 
@@ -20,6 +22,7 @@ from ..evaluation.predict import evaluate_dataset, results_table
 from ..loader import build_model_config, init_trainable, load_frozen_backbone
 from ..ops.quant import quantize_backbone_auto
 from ..prompts import compute_frozen_anchors
+from ..train.checkpoint import restore_adapters
 from ..utils.misc import setup_logger, setup_seed
 
 TIERS = ["int8", "int8_attn", "int8_mlp", "int8+smooth", "int8_attn+smooth",
@@ -64,11 +67,6 @@ def build_parser():
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if not args.no_adapters:
-        raise NotImplementedError(
-            "restoring trained adapters from --save_path "
-            "(train/checkpoint.restore_adapters) is not ported yet; pass "
-            "--no_adapters to evaluate with untrained adapters")
     setup_seed(args.seed)
     logger = setup_logger(args.save_path, "test.log")
     logger.info("args: %s", vars(args))
@@ -88,8 +86,14 @@ def main(argv=None):
         logger.info("frozen backbone quantized (tier=%s)",
                     args.quantize_backbone)
 
+    adapted_text = False
+    if not args.no_adapters:
+        trainable, adapted_text, epoch = restore_adapters(args.save_path, trainable)
+        logger.info("restored adapters from %s (epoch %s, adapted text: %s)",
+                    args.save_path, epoch, adapted_text)
+
     anchors = compute_frozen_anchors(frozen, trainable, model_cfg,
-                                     args.dataset, adapted=False,
+                                     args.dataset, adapted=adapted_text,
                                      compute_dtype=dtype)
     datasets = get_dataset(args.dataset, args.img_size, "test", logger=logger,
                            metadata_root=args.metadata_root,

@@ -1,9 +1,8 @@
 """Configuration dataclasses + JSON model-config registry.
 
-Counterpart of ``aa_clip_iqm_tpu/configs.py`` for the serving path: the same
-dataclasses, field names and defaults, and the same JSON schema
-(``embed_dim`` / ``vision_cfg`` / ``text_cfg``) read from this package's own
-``registry/model_configs``.
+Counterpart of ``aa_clip_iqm_tpu/configs.py``: the same dataclasses, field
+names and defaults, and the same JSON schema (``embed_dim`` / ``vision_cfg``
+/ ``text_cfg``) read from this package's own ``registry/model_configs``.
 """
 from __future__ import annotations
 
@@ -97,6 +96,57 @@ class ModelConfig:
     adapter: AdapterConfig = field(default_factory=AdapterConfig)
     iqm: IQMConfig = field(default_factory=IQMConfig)
     surgery_until_layer: int = 20
+
+
+@dataclass
+class TrainConfig:
+    """Two-stage training schedule (reference train.py:240-286, 335-353)."""
+
+    dataset: str = "VisA"
+    img_size: int = 518
+    training_mode: str = "few_shot"  # or full_shot
+    shot: int = 32
+    text_batch_size: int = 16
+    image_batch_size: int = 2
+    text_epoch: int = 5
+    image_epoch: int = 20
+    text_lr: float = 1e-5
+    image_lr: float = 5e-4
+    iqm_lr_scale: float = 0.1
+    image_weight_decay: float = 1e-4
+    iqm_weight_decay: float = 1e-3
+    text_norm_weight: float = 0.1  # orthogonality regularizer
+    iqm_loss_weight: float = 0.4
+    text_loss_weight: float = 0.6
+    det_loss_weight: float = 0.5
+    seed: int = 111
+    save_path: str = "ckpt/baseline"
+    # The reference's stage-1 loop reassigns the loss so that only the deepest
+    # tapped level backprops. True reproduces that; False sums all levels.
+    stage1_last_level_only: bool = True
+    # Global-norm gradient clipping for stage 2. None matches the executed
+    # reference, whose clip runs before backward and so never clips.
+    clip_grad_norm: Optional[float] = None
+    # The reference's schedule quirk: CosineAnnealingLR(T_max=image_epoch)
+    # stepped per batch. False runs one cosine over the true step count.
+    torch_lr_quirk: bool = False
+    compute_dtype: str = "bfloat16"
+    # Checkpoint the transformer blocks in the stage-2 backward (memory for
+    # recomputation; useful for large image batches).
+    remat: bool = False
+    # Keep only the last N numbered stage-2 checkpoints (0 = keep all).
+    keep_checkpoints: int = 0
+    # Mid-epoch checkpoint interval in steps for both stages (0 = off). An
+    # interrupted run resumes at (epoch, step) with bit-identical results:
+    # an epoch's batch stream is a pure function of (seed, epoch).
+    checkpoint_every_steps: int = 0
+    # Write step checkpoints on a background thread from device-side
+    # snapshots (default); False writes them in the step loop.
+    async_step_checkpoint: bool = True
+    # Stage-2 gradient accumulation (1 = off): the step runs this many
+    # microbatches, so peak activation memory is one microbatch's; exact
+    # against the unaccumulated step (train/steps.py).
+    grad_accum_steps: int = 1
 
 
 @dataclass(frozen=True)

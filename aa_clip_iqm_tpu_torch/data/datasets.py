@@ -1,12 +1,19 @@
-"""JSONL test datasets: loading and CLIP preprocessing.
+"""JSONL datasets: loading, CLIP preprocessing, joint geometric augmentation.
 
-Counterpart of the evaluation half of ``aa_clip_iqm_tpu/data/datasets.py``:
-metadata JSONL rows {image_path, label, class_name, mask_path}, the
-class-filtered test dataset without augmentation, batch collation and a
-background prefetcher. Images are decoded with PIL (bicubic resize for
-images, nearest for masks), imported only inside the functions that decode a
-file, so that importing this module needs numpy alone. The training dataset,
-its augmentations and the native C++ transform pipeline are not ported yet.
+Counterpart of ``aa_clip_iqm_tpu/data/datasets.py``: metadata JSONL rows
+{image_path, label, class_name, mask_path}; the training dataset with its
+augmentations (per-channel colour jitter at the original resolution, image
+stage only; then CLIP bicubic resize and normalisation; the mask nearest-
+resized and binarized; then one joint rotation / translation / flip of the
+stacked image and mask channels, nearest neighbour so the mask stays
+binary); the class-filtered test dataset without augmentation; batch
+collation and a background prefetcher. Images are decoded with PIL, imported
+only inside the functions that decode a file, so that importing this module
+needs numpy alone. The random draws are numpy ``default_rng`` streams seeded
+as in the JAX package, so a training batch equals that package's for the
+same (seed, epoch). The JAX package's C++ transform pipeline is not ported:
+the nearest-neighbour warp here is a numpy transcription of it, and resizes
+go through PIL.
 """
 from __future__ import annotations
 
@@ -65,6 +72,167 @@ def _load_image_u8(path: str, img_size: int) -> np.ndarray:
     a quarter of the host-to-device bytes of normalized float32."""
     img01 = _load_image(path, img_size)  # CHW float32, values k/255 exactly
     return np.rint(img01 * 255.0).astype(np.uint8)
+
+
+def _pil_gray(img_u8: np.ndarray) -> np.ndarray:
+    """PIL Image.convert('L') exact: rounded 16.16 fixed-point ITU-R 601-2
+    luma, (19595 R + 38470 G + 7471 B + 0x8000) >> 16. (H, W, 3) uint8 ->
+    (H, W) uint8."""
+    r = img_u8[..., 0].astype(np.uint32)
+    g = img_u8[..., 1].astype(np.uint32)
+    b = img_u8[..., 2].astype(np.uint32)
+    return ((19595 * r + 38470 * g + 7471 * b + 0x8000) >> 16).astype(np.uint8)
+
+
+def _pil_blend(degenerate: np.ndarray, img_u8: np.ndarray, f) -> np.ndarray:
+    """PIL Image.blend exact: in1 + alpha*(in2-in1) in float32, clamped to
+    [0, 255], truncated back to uint8."""
+    d = degenerate.astype(np.float32)
+    out = d + np.float32(f) * (img_u8.astype(np.float32) - d)
+    return np.clip(out, 0.0, 255.0).astype(np.uint8)
+
+
+def _color_jitter(rng: np.random.Generator, img_u8: np.ndarray,
+                  factors=None) -> np.ndarray:
+    """Brightness/contrast/saturation jitter (strength 0.5, each applied with
+    p=0.7) on (H, W, 3) uint8, byte-identical to the PIL ImageEnhance chain:
+    brightness blends from black, contrast from the rounded mean of the L
+    image, colour from the L image. Runs at the original resolution, before
+    the bicubic resize. ``factors`` overrides the three draws."""
+    img = img_u8
+    fb, fc, fs = factors if factors is not None else (None, None, None)
+    if factors is not None or rng.random() < 0.7:
+        f = fb if fb is not None else rng.uniform(0.5, 1.5)
+        img = _pil_blend(np.zeros_like(img), img, f)
+    if factors is not None or rng.random() < 0.7:
+        f = fc if fc is not None else rng.uniform(0.5, 1.5)
+        mean = int(float(_pil_gray(img).mean()) + 0.5)
+        img = _pil_blend(np.full_like(img, mean), img, f)
+    if factors is not None or rng.random() < 0.7:
+        f = fs if fs is not None else rng.uniform(0.5, 1.5)
+        img = _pil_blend(_pil_gray(img)[..., None], img, f)
+    return img
+
+
+def _resize_bicubic_u8(u8_hwc: np.ndarray, img_size: int) -> np.ndarray:
+    """(H, W, 3) uint8 -> [0, 1] CHW float32 through PIL's bicubic resize (no
+    resize when the size is already right)."""
+    if u8_hwc.shape[:2] == (img_size, img_size):
+        return u8_hwc.astype(np.float32).transpose(2, 0, 1) / 255.0
+    from PIL import Image
+
+    arr = np.asarray(Image.fromarray(u8_hwc).resize((img_size, img_size),
+                                                    Image.BICUBIC),
+                     np.float32) / 255.0
+    return arr.transpose(2, 0, 1)
+
+
+def _warp_nearest(chw: np.ndarray, M: np.ndarray) -> np.ndarray:
+    """cv2.warpAffine semantics with nearest-neighbour sampling and zeros
+    outside: dst(x, y) = src(round(Minv (x, y, 1))). M is the 2x3 forward
+    matrix, float64."""
+    _, h, w = chw.shape
+    (a, b, tx), (d, e, ty) = np.asarray(M, np.float64)
+    det = a * e - b * d
+    ia, ib, id_, ie = e / det, -b / det, -d / det, a / det
+    itx = -(ia * tx + ib * ty)
+    ity = -(id_ * tx + ie * ty)
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float64)
+    xx = np.floor(ia * xs + ib * ys + itx + 0.5).astype(np.int64)
+    yy = np.floor(id_ * xs + ie * ys + ity + 0.5).astype(np.int64)
+    inside = (xx >= 0) & (xx < w) & (yy >= 0) & (yy < h)
+    out = chw[:, np.clip(yy, 0, h - 1), np.clip(xx, 0, w - 1)]
+    return np.where(inside[None], out, np.zeros((), chw.dtype))
+
+
+def _joint_geometric(rng: np.random.Generator, stacked: np.ndarray) -> np.ndarray:
+    """Rotation +-30 deg (p=0.5), translation +-0.15 (p=0.5) and H/V flips
+    (p=0.5 each), applied identically to all channels of ``stacked``
+    (C, H, W): the image channels and the mask channel. Nearest-neighbour
+    warps keep the mask exactly binary."""
+    _, h, w = stacked.shape
+
+    def rotation_matrix(angle_deg):
+        # cv2.getRotationMatrix2D about the pixel-centre of the image.
+        a = np.deg2rad(angle_deg)
+        cx, cy = w / 2 - 0.5, h / 2 - 0.5
+        cos, sin = np.cos(a), np.sin(a)
+        return np.array([[cos, sin, (1 - cos) * cx - sin * cy],
+                         [-sin, cos, sin * cx + (1 - cos) * cy]], np.float64)
+
+    img = stacked
+    if rng.random() < 0.5:
+        img = _warp_nearest(img, rotation_matrix(rng.uniform(-30.0, 30.0)))
+    if rng.random() < 0.5:
+        tx = rng.uniform(-0.15, 0.15) * w
+        ty = rng.uniform(-0.15, 0.15) * h
+        img = _warp_nearest(img, np.array([[1, 0, tx], [0, 1, ty]], np.float64))
+    if rng.random() < 0.5:
+        img = img[:, :, ::-1]
+    if rng.random() < 0.5:
+        img = img[:, ::-1, :]
+    return np.ascontiguousarray(img)
+
+
+class TrainDataset:
+    """Reference BaseDataset (dataset/__init__.py:13-121). ``text=True``
+    (stage 1) skips the colour jitter; the geometric augmentation is joint on
+    image and mask in both stages."""
+
+    def __init__(self, data_path: str, meta_path: str, img_size: int,
+                 text: bool = False, seed: int = 111):
+        self.data_path = data_path
+        self.img_size = img_size
+        self.text = text
+        self.meta = load_metadata(meta_path)
+        self.seed = seed
+
+    def __len__(self):
+        return len(self.meta)
+
+    def _get(self, idx: int, rng: np.random.Generator) -> dict:
+        from PIL import Image
+
+        meta = self.meta[idx]
+        path = os.path.join(self.data_path, meta["image_path"])
+        raw = np.asarray(Image.open(path).convert("RGB"), np.uint8)
+        if not self.text:
+            # Jitter before the resize, at the original resolution.
+            raw = _color_jitter(rng, raw)
+        img = normalize_clip(_resize_bicubic_u8(raw, self.img_size))
+        if meta["label"]:
+            mask = _load_mask(os.path.join(self.data_path, meta["mask_path"]),
+                              self.img_size)
+        else:
+            mask = np.zeros((1, self.img_size, self.img_size), np.float32)
+        stacked = _joint_geometric(rng, np.concatenate([img, mask], axis=0))
+        return {
+            "image": stacked[:3],
+            "mask": stacked[3:4],
+            "label": np.int64(meta["label"]),
+            "file_name": meta["image_path"],
+            "class_name": meta["class_name"],
+        }
+
+    def epoch_batches(self, epoch: int, batch_size: int,
+                      start_batch: int = 0, drop_last: bool = False):
+        """Deterministic per-epoch batch stream for resumable training: the
+        shuffle order derives from (seed, epoch) and every sample's
+        augmentation stream from (seed, epoch, position in the epoch), so
+        the stream is a pure function of (dataset seed, epoch). A run
+        resumed mid-epoch skips ``start_batch`` batches, without decoding
+        them, and continues with bit-identical data."""
+        order = np.arange(len(self.meta))
+        np.random.default_rng((self.seed, epoch)).shuffle(order)
+        for b, start in enumerate(range(0, len(order), batch_size)):
+            idxs = order[start:start + batch_size]
+            if drop_last and len(idxs) < batch_size:
+                break
+            if b < start_batch:
+                continue
+            yield collate([
+                self._get(int(i), np.random.default_rng((self.seed, epoch, start + j)))
+                for j, i in enumerate(idxs)])
 
 
 class SingleClassTestDataset:
@@ -193,16 +361,29 @@ def collate(items: List[dict]) -> dict:
 
 def get_dataset(dataset_name: str, img_size: int, stage: str = "test",
                 logger=None, metadata_root: Optional[str] = None,
-                device_normalize: bool = False):
-    """{class: SingleClassTestDataset} for the test split, in the dataset's
-    class order. Classes without samples (a partial download) are skipped.
-    The training split is not ported yet."""
+                device_normalize: bool = False,
+                training_mode: Optional[str] = None, shot: int = -1,
+                seed: int = 111):
+    """``stage="test"``: {class: SingleClassTestDataset} for the test split,
+    in the dataset's class order; classes without samples (a partial
+    download) are skipped. ``stage="train"``: (text_dataset, image_dataset),
+    the stage-1 and stage-2 :class:`TrainDataset` over the ``shot``-shot
+    metadata (``training_mode="few_shot"``) or the full one."""
     if dataset_name not in DATA_PATH:
         raise KeyError(
             f"Dataset {dataset_name!r} not found; available: "
             f"{sorted(DATA_PATH)}")
+    if stage == "train":
+        if training_mode == "few_shot" and shot <= 0:
+            raise ValueError("shot should be positive in few_shot mode")
+        meta = metadata_path(dataset_name,
+                             shot if training_mode == "few_shot" else -1,
+                             metadata_root)
+        data_path = DATA_PATH[dataset_name.split("-")[0]]
+        return (TrainDataset(data_path, meta, img_size, text=True, seed=seed),
+                TrainDataset(data_path, meta, img_size, text=False, seed=seed + 1))
     if stage != "test":
-        raise ValueError(f"stage {stage!r} not ported; available: test")
+        raise ValueError(f"stage {stage!r} not found; available: train, test")
     meta = metadata_path(dataset_name, -1, metadata_root)
     datasets = {}
     for c in CLASS_NAMES[dataset_name]:

@@ -8,6 +8,7 @@ ported yet: convert them to ``.npz`` with the JAX package.
 """
 from __future__ import annotations
 
+from dataclasses import replace
 from typing import Optional
 
 import numpy as np
@@ -26,6 +27,7 @@ from .models.convert import (
     init_clip_params_np,
     load_params_npz,
     params_from_jax,
+    tree_leaves,
 )
 
 
@@ -35,10 +37,18 @@ def build_model_config(model_name: str = "ViT-L-14-336", img_size: int = 518,
                        text_adapt_until: int = 3, image_adapt_until: int = 6,
                        levels=(6, 12, 18, 24), iqm_hidden_size: int = 512,
                        iqm_num_layers: int = 2, iqm_num_heads: int = 8,
-                       surgery_until_layer: int = 20) -> ModelConfig:
+                       surgery_until_layer: int = 20,
+                       patch_dropout: float = 0.0) -> ModelConfig:
     if model_name == "tiny-test":
-        return tiny_test_config(img_size)
+        cfg = tiny_test_config(img_size)
+        if patch_dropout:
+            vision = replace(cfg.clip.vision, patch_dropout=patch_dropout)
+            cfg = replace(cfg, clip=replace(cfg.clip, vision=vision))
+        return cfg
     clip_cfg = get_model_config(model_name, img_size=img_size)
+    if patch_dropout:
+        clip_cfg = replace(clip_cfg, vision=replace(clip_cfg.vision,
+                                                    patch_dropout=patch_dropout))
     patch = clip_cfg.vision.patch_size
     if img_size % patch:
         raise ValueError(
@@ -105,8 +115,16 @@ def load_frozen_backbone(cfg: ModelConfig, backbone_path: Optional[str] = None,
 
 
 def init_trainable(cfg: ModelConfig, seed: int = 111, device="cuda",
-                   dtype=torch.bfloat16):
-    """Seeded random (untrained) adapter / IQM params."""
+                   dtype=torch.bfloat16, requires_grad: bool = False):
+    """Seeded random (untrained) adapter / IQM params. ``dtype`` is that of
+    the matrices: bf16 suits serving; a trainer passes ``torch.float32`` and
+    ``requires_grad=True`` for float32 master weights (``ops.layers.linear``
+    casts them to the compute dtype at each call, which autograd
+    differentiates), while the frozen backbone stays bf16 and never requires
+    grad."""
     _, trainable = params_from_jax(None, init_adapter_params_np(cfg, seed), cfg,
                                    device=device, dtype=dtype)
+    if requires_grad:
+        for t in tree_leaves(trainable):
+            t.requires_grad_(True)
     return trainable

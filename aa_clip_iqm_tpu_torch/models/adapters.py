@@ -23,7 +23,14 @@ from typing import Any, List, Optional
 import torch
 
 from ..configs import ModelConfig
-from ..ops.layers import l2_normalize, layer_norm, leaky_relu, linear, simple_proj
+from ..ops.layers import (
+    l2_normalize,
+    layer_norm,
+    leaky_relu,
+    linear,
+    patch_dropout_indices,
+    simple_proj,
+)
 from . import clip as clip_model
 from . import iqm as iqm_model
 
@@ -34,22 +41,40 @@ class AdaptedOutputs:
     det_token: Any               # (B, embed_dim), L2-normalized + mean-pooled
     iqm_queries: Optional[Any]   # (B, 2, iqm_hidden) or None
     cls_raw: Any                 # (B, width) final-block CLS (pre ln_post)
+    keep_idx: Optional[Any] = None  # (B, K) patch-dropout kept indices
 
 
 def encode_image_adapted(frozen, trainable, cfg: ModelConfig, images,
-                         text_anchors=None,
-                         compute_dtype=torch.float32) -> AdaptedOutputs:
+                         text_anchors=None, compute_dtype=torch.float32,
+                         remat: bool = False, patch_drop_rng=None,
+                         fused_mlp=True) -> AdaptedOutputs:
     """AdaptedCLIP.forward. text_anchors: (B, embed_dim, 2) per-sample
-    anchors, or None to skip IQM."""
+    anchors, or None to skip IQM. remat: checkpoint the tower's blocks in
+    the backward. patch_drop_rng: a ``torch.Generator`` that switches patch
+    dropout on at the configured rate (``cfg.clip.vision.patch_dropout``),
+    or a ready (B, K) index tensor; seg_tokens then carry K < L tokens and
+    ``keep_idx`` maps them back to grid cells. fused_mlp: True, or "frozen"
+    for the dx-only backward through the frozen backbone's MLPs."""
     a = cfg.adapter
     vis = frozen["visual"]
     ia = trainable["image_adapter"]
+
+    keep_idx = None
+    rate = cfg.clip.vision.patch_dropout
+    if patch_drop_rng is not None and rate > 0.0:
+        if isinstance(patch_drop_rng, torch.Tensor):
+            keep_idx = patch_drop_rng
+        else:
+            keep_idx = patch_dropout_indices(
+                patch_drop_rng, images.shape[0], cfg.clip.vision.num_patches,
+                rate, device=images.device)
 
     _, taps, x_final = clip_model.vision_forward(
         vis, cfg.clip.vision, images, out_layers=tuple(a.levels),
         act_name=cfg.clip.act, adapters=ia["layer_adapters"],
         adapter_weight=a.image_adapt_weight, adapt_until=a.image_adapt_until,
-        compute_dtype=compute_dtype,
+        compute_dtype=compute_dtype, remat=remat, keep_idx=keep_idx,
+        fused_mlp=fused_mlp,
     )
 
     # Patch tokens (CLS dropped) -> frozen ln_post.
@@ -67,7 +92,8 @@ def encode_image_adapted(frozen, trainable, cfg: ModelConfig, images,
         iqm_queries = _iqm_branch(trainable, cfg, tokens, x_final, text_anchors)
 
     return AdaptedOutputs(seg_tokens=seg_tokens, det_token=det_token,
-                          iqm_queries=iqm_queries, cls_raw=x_final[:, 0])
+                          iqm_queries=iqm_queries, cls_raw=x_final[:, 0],
+                          keep_idx=keep_idx)
 
 
 def _iqm_branch(trainable, cfg: ModelConfig, tokens, x_final, text_anchors):

@@ -14,7 +14,9 @@ of per-layer dicts instead of leaves stacked on a layer axis:
            mlp: {c_fc: {w,b}, c_proj: {w,b}}}
 
 A block with float MLP weights, vision or text, runs its MLP half through
-:func:`..ops.fused_mlp.ln_mlp_residual`; one with int8 MLP weights
+:func:`..ops.fused_mlp.ln_mlp_residual`, or with ``fused_mlp="frozen"``
+through :func:`..ops.fused_mlp.ln_mlp_residual_frozen`, whose backward is the
+dx-only kernel (the stage-2 frozen backbone); one with int8 MLP weights
 (``ops.quant``) through :func:`..ops.fused_mlp.ln_mlp_residual_int8` where
 that kernel's gate allows (bf16, width a multiple of 128), else through the
 unfused ``x + mlp_block(...)`` on ``int8_linear``. Each fused function is the
@@ -27,11 +29,13 @@ from __future__ import annotations
 from typing import Optional, Sequence
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs import TextConfig, VisionConfig
 from ..ops import attention as attn_ops
 from ..ops.fused_mlp import (
     ln_mlp_residual,
+    ln_mlp_residual_frozen,
     ln_mlp_residual_int8,
     ln_mlp_residual_int8_ok,
 )
@@ -55,9 +59,11 @@ def patchify(params, images, patch_size: int):
 
 
 def _run_block(block, x, num_heads, act, attn_mask=None, vv=False,
-               valid_len=None):
+               valid_len=None, fused_mlp=True):
     """Pre-norm residual attention block. ``vv`` selects the CLIP-Surgery
-    value-value attention."""
+    value-value attention. ``fused_mlp="frozen"`` takes the fused MLP whose
+    backward is the dx-only kernel: valid only while the block's parameters
+    carry no gradient (it raises otherwise)."""
     h = layer_norm(block["ln_1"], x)
     if vv:
         a = attn_ops.vv_attention(block["attn"], h, num_heads,
@@ -68,36 +74,57 @@ def _run_block(block, x, num_heads, act, attn_mask=None, vv=False,
     x = x + a
     mlp = block["mlp"]
     if "w_q" not in mlp["c_fc"] and "w_q" not in mlp["c_proj"]:
-        return ln_mlp_residual(block["ln_2"], mlp, x, act)
+        fn = ln_mlp_residual_frozen if fused_mlp == "frozen" else ln_mlp_residual
+        return fn(block["ln_2"], mlp, x, act)
     if ln_mlp_residual_int8_ok(x, mlp, act):
         return ln_mlp_residual_int8(block["ln_2"], mlp, x, act)
     return x + mlp_block(mlp, layer_norm(block["ln_2"], x), act)
 
 
-def embed_patches(params, cfg: VisionConfig, images, compute_dtype):
+def embed_patches(params, cfg: VisionConfig, images, compute_dtype,
+                  keep_idx=None):
     """Patch embedding, class token, positional embedding and ln_pre:
-    (B, 3, H, W) -> (B, L+1, width), the input of the first block."""
+    (B, 3, H, W) -> (B, L+1, width), the input of the first block.
+    ``keep_idx`` (B, K): patch-dropout kept-token indices
+    (``ops.layers.patch_dropout_indices``), applied after the positional
+    embedding and before ln_pre; the class token is always kept."""
     x = patchify(params, images.to(compute_dtype), cfg.patch_size)
     cls = params["class_embedding"].to(compute_dtype).expand(x.shape[0], 1, cfg.width)
     x = torch.cat([cls, x], dim=1)
     x = x + params["positional_embedding"].to(compute_dtype)
+    if keep_idx is not None:
+        idx = keep_idx[..., None].expand(-1, -1, x.shape[-1])
+        x = torch.cat([x[:, :1], torch.gather(x[:, 1:], 1, idx)], dim=1)
     return layer_norm(params["ln_pre"], x)
 
 
 def run_blocks(blocks, x, num_heads: int, act, attn_mask=None, vv_from=None,
                adapters=None, adapter_weight: float = 0.0, adapt_until: int = 0,
-               out_layers: Sequence[int] = ()):
-    """Run every block in order. Blocks [0, adapt_until) are each followed by
-    their SimpleAdapter and the norm-preserving blend; blocks at index >=
-    ``vv_from`` use value-value attention; the outputs of the 1-based layers
-    in ``out_layers`` are collected. Returns (x, taps)."""
+               out_layers: Sequence[int] = (), start: int = 0, stop=None,
+               remat: bool = False, fused_mlp=True):
+    """Run blocks [start, stop) in order (all by default). Blocks
+    [0, adapt_until) are each followed by their SimpleAdapter and the
+    norm-preserving blend; blocks at index >= ``vv_from`` use value-value
+    attention; the outputs of the 1-based layers in ``out_layers`` are
+    collected. With ``remat`` each block (and its adapter) is checkpointed:
+    its activations are recomputed in the backward instead of kept.
+    Returns (x, taps)."""
     taps = []
-    for i, block in enumerate(blocks):
-        vv = vv_from is not None and i >= vv_from
-        x = _run_block(block, x, num_heads, act, attn_mask=attn_mask, vv=vv)
-        if i < adapt_until:
-            x = norm_preserving_blend(x, simple_adapter(adapters[i], x),
-                                      adapter_weight)
+    stop = len(blocks) if stop is None else stop
+    for i in range(start, stop):
+        def body(x, i=i):
+            y = _run_block(blocks[i], x, num_heads, act, attn_mask=attn_mask,
+                           vv=vv_from is not None and i >= vv_from,
+                           fused_mlp=fused_mlp)
+            if i < adapt_until:
+                y = norm_preserving_blend(y, simple_adapter(adapters[i], y),
+                                          adapter_weight)
+            return y
+
+        if remat and torch.is_grad_enabled():
+            x = checkpoint(body, x, use_reentrant=False)
+        else:
+            x = body(x)
         if i + 1 in out_layers:
             taps.append(x)
     return x, taps
@@ -114,23 +141,61 @@ def vision_forward(
     adapter_weight: float = 0.0,
     adapt_until: int = 0,
     compute_dtype=torch.float32,
+    remat: bool = False,
+    keep_idx=None,
+    fused_mlp=True,
 ):
     """ViT forward with multi-depth taps.
 
     out_layers: 1-based layer indices whose full token outputs (incl. CLS)
     are collected. vv_from: 0-based first value-value block. adapters: list
-    of SimpleAdapter params applied after blocks [0, adapt_until).
+    of SimpleAdapter params applied after blocks [0, adapt_until). remat:
+    checkpoint each block in the backward. keep_idx: (B, K) patch-dropout
+    kept-token indices; the taps then carry K+1 tokens. fused_mlp: True, or
+    "frozen" for the dx-only backward (see :func:`_run_block`).
 
     Returns: (pooled (B, output_dim), taps list of (B, L+1, width), final x).
     """
-    x = embed_patches(params, cfg, images, compute_dtype)
+    x = embed_patches(params, cfg, images, compute_dtype, keep_idx=keep_idx)
     x, taps = run_blocks(params["blocks"], x, cfg.heads, ACTIVATIONS[act_name],
                          vv_from=vv_from, adapters=adapters,
                          adapter_weight=adapter_weight, adapt_until=adapt_until,
-                         out_layers=out_layers)
+                         out_layers=out_layers, remat=remat, fused_mlp=fused_mlp)
     pooled = layer_norm(params["ln_post"], x[:, 0])
     pooled = linear({"w": params["proj"]}, pooled)
     return pooled, taps, x
+
+
+def dual_vision_features(params, cfg: VisionConfig, images,
+                         out_layers: Sequence[int], vv_from: int,
+                         act_name: str = "gelu", compute_dtype=torch.float32):
+    """Stage-1 visual features: surgery taps + plain CLS, shared prefix.
+
+    The reference runs two complete CLIP copies per stage-1 batch, a
+    surgeried one for the patch taps and a plain one for the CLS token. Both
+    share weights and computation up to the first value-value block, so one
+    forward forks at ``vv_from``: blocks [0, vv_from) run once, then the v-v
+    branch and the plain branch continue separately.
+
+    Returns (cls_pooled (B, output_dim), surgery_taps [(B, L+1, width)]).
+    """
+    act = ACTIVATIONS[act_name]
+    blocks = params["blocks"]
+    x = embed_patches(params, cfg, images, compute_dtype)
+    x, taps = run_blocks(blocks, x, cfg.heads, act, out_layers=out_layers,
+                         stop=vv_from)
+    _, vv_taps = run_blocks(blocks, x, cfg.heads, act, vv_from=vv_from,
+                            out_layers=out_layers, start=vv_from)
+    xp, _ = run_blocks(blocks, x, cfg.heads, act, start=vv_from)
+    pooled = layer_norm(params["ln_post"], xp[:, 0])
+    pooled = linear({"w": params["proj"]}, pooled)
+    return pooled, taps + vv_taps
+
+
+def surgery_vv_from(num_layers: int, dpam_layer: int) -> int:
+    """0-based first v-v block index for a surgery depth of ``dpam_layer``
+    (the last dpam_layer - 1 blocks are replaced)."""
+    return num_layers - (dpam_layer - 1)
 
 
 def text_forward(

@@ -6,6 +6,9 @@ Two parts:
     leaves stacked on a leading layer axis; ``aa_clip_iqm_tpu/models/clip.py``
     and ``adapters.py`` document it) into this package's dicts of tensors,
     with stacked layer axes split into per-layer lists.
+  - :func:`params_to_jax` is the inverse for a trainable dict: numpy arrays
+    in the JAX layout, layers stacked again, so that tests can compare
+    updated parameters.
   - :func:`init_clip_params_np` / :func:`init_adapter_params_np` build seeded
     random weights at full width with numpy ``default_rng`` and the shapes of
     the JAX initializers (``init_clip_params``, ``init_adapter_params``). They
@@ -77,7 +80,9 @@ def params_from_jax(frozen_np, trainable_np, cfg: ModelConfig, device="cuda",
                     dtype=torch.bfloat16):
     """(frozen, trainable) pytrees of numpy arrays in the JAX layout ->
     (frozen, trainable) dicts of tensors on ``device``. Either may be None.
-    ``cfg`` is checked against the visual tower's depth."""
+    ``cfg`` is checked against the visual tower's depth. ``dtype`` is that of
+    the matrices: bf16 for a frozen backbone and for serving; training wants
+    its trainable dict in ``torch.float32`` (master weights)."""
     frozen = trainable = None
     if frozen_np is not None:
         blocks = frozen_np["visual"]["blocks"]
@@ -91,6 +96,49 @@ def params_from_jax(frozen_np, trainable_np, cfg: ModelConfig, device="cuda",
     if trainable_np is not None:
         trainable = _convert(trainable_np, device, dtype)
     return frozen, trainable
+
+
+def tree_leaves(tree):
+    """Every tensor of a nested dict / list of tensors, in a fixed order."""
+    if isinstance(tree, dict):
+        for k in tree:
+            yield from tree_leaves(tree[k])
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from tree_leaves(v)
+    else:
+        yield tree
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of nested dicts / lists of one shape."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)]
+    return fn(tree, *rest)
+
+
+def params_to_jax(trainable):
+    """A trainable dict of tensors -> numpy float32 pytree in the JAX layout:
+    the per-layer lists that :func:`params_from_jax` split are stacked on a
+    leading layer axis again. The arrays are copies: later in-place updates
+    of the tensors do not reach them."""
+    def to_np(tree, key=None):
+        if isinstance(tree, dict):
+            out = {}
+            for k, v in tree.items():
+                if (key, k) in _STACKED:
+                    layers = [to_np(layer, k) for layer in v]
+                    out[k] = tree_map(lambda *xs: np.stack(xs), layers[0], *layers[1:])
+                else:
+                    out[k] = to_np(v, k)
+            return out
+        if isinstance(tree, (list, tuple)):
+            return [to_np(v, key) for v in tree]
+        return np.array(tree.detach().float().cpu().numpy())   # a copy
+
+    return to_np(trainable)
 
 
 # --------------------------------------------------------------------------

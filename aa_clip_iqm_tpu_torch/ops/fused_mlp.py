@@ -1,13 +1,23 @@
 """Fused LayerNorm -> MLP -> residual: the Hopper kernels and their plain twins.
 
-Counterpart of ``ln_mlp_residual`` and ``ln_mlp_residual_int8`` in
-``aa_clip_iqm_tpu/ops/pallas_mlp.py`` (kernels ``_kernel`` and
-``_int8_kernel``). The kernels live in ``csrc/ln_mlp_residual.cu`` and
-``csrc/ln_mlp_residual_int8.cu``; see their headers for the designs. On a CPU
-tensor :func:`ln_mlp_residual` and :func:`ln_mlp_residual_int8` run the plain
-twins :func:`ln_mlp_residual_reference` and
-:func:`ln_mlp_residual_int8_reference`; on a CUDA tensor they launch the
-kernel or raise. GELU is exact erf in all of them.
+Counterpart of ``ln_mlp_residual``, ``ln_mlp_residual_int8`` and
+``ln_mlp_residual_frozen`` in ``aa_clip_iqm_tpu/ops/pallas_mlp.py`` (kernels
+``_kernel``, ``_int8_kernel`` and ``_bwd_dx_kernel``). The kernels live in
+``csrc/ln_mlp_residual.cu``, ``csrc/ln_mlp_residual_int8.cu`` and
+``csrc/ln_mlp_residual_dx.cu``; see their headers for the designs. On a CPU
+tensor every function here runs its plain twin
+(:func:`ln_mlp_residual_reference`, :func:`ln_mlp_residual_int8_reference`,
+:func:`ln_mlp_residual_dx_reference`); on a CUDA tensor it launches its
+kernel or raises. GELU, and its derivative, are exact erf in all of them.
+
+Gradients (each function is a ``torch.autograd.Function`` when its input
+requires one):
+  - :func:`ln_mlp_residual_frozen`: dx only, from the dx kernel; the
+    LayerNorm and MLP parameters must be frozen (it raises otherwise);
+  - :func:`ln_mlp_residual`: the backward recomputes the plain chain and
+    differentiates it (x and every parameter), as the JAX function does;
+  - :func:`ln_mlp_residual_int8`: the straight-through estimator on the
+    dequantized plain chain (``_int8_bwd``, pallas_mlp.py:364).
 """
 from __future__ import annotations
 
@@ -24,15 +34,18 @@ from .quant import int8_matmul
 LAUNCHES = 0
 #: int8-kernel launches since the last reset.
 INT8_LAUNCHES = 0
+#: dx-kernel (frozen backward) launches since the last reset.
+DX_LAUNCHES = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ACTS = {gelu: 0, quick_gelu: 1}
 
 
 def reset_launches() -> None:
-    global LAUNCHES, INT8_LAUNCHES
+    global LAUNCHES, INT8_LAUNCHES, DX_LAUNCHES
     LAUNCHES = 0
     INT8_LAUNCHES = 0
+    DX_LAUNCHES = 0
 
 
 def ln_mlp_residual_reference(ln_params, mlp_params, x, act, eps: float = 1e-5):
@@ -62,8 +75,9 @@ def _operand(t, dtype, device, what, fn="ln_mlp_residual"):
     return t.data_ptr()
 
 
-def ln_mlp_residual(ln_params, mlp_params, x, act, eps: float = 1e-5):
-    """x + c_proj(act(c_fc(layer_norm(x)))) in one kernel.
+def _forward(ln_params, mlp_params, x, act, eps: float = 1e-5):
+    """x + c_proj(act(c_fc(layer_norm(x)))) without autograd: the twin on the
+    CPU, one kernel on the card.
 
     x: (..., d), bf16 or fp32, contiguous. The matmul weights must share x's
     dtype and layout (in, out); LayerNorm scale/bias and the biases are fp32.
@@ -189,10 +203,9 @@ def _int8_lib():
     return fn
 
 
-def ln_mlp_residual_int8(ln_params, mlp_params, x, act, eps: float = 1e-5):
-    """:func:`ln_mlp_residual` with int8 MLP weights
-    (``quant.quantize_linear_params`` dicts) in one kernel. Guard call sites
-    with :func:`ln_mlp_residual_int8_ok`.
+def _int8_forward(ln_params, mlp_params, x, act, eps: float = 1e-5):
+    """The int8 forward without autograd: the twin on the CPU, one kernel on
+    the card.
 
     x: (..., d) bf16, contiguous, d a multiple of 128 up to 1024. ``w_q`` is
     int8 (in, out), ``scale`` fp32 with ``out`` elements, LayerNorm
@@ -243,3 +256,247 @@ def ln_mlp_residual_int8(ln_params, mlp_params, x, act, eps: float = 1e-5):
     global INT8_LAUNCHES
     INT8_LAUNCHES += 1
     return y
+
+
+# --------------------------------------------------------------------------
+# Gradients
+# --------------------------------------------------------------------------
+
+_SQRT_HALF = 0.7071067811865476
+_INV_SQRT_2PI = 0.3989422804014327
+
+
+def _dgelu(x):
+    """d/dx of the exact GELU: Phi(x) + x phi(x)."""
+    return (0.5 * (1.0 + torch.erf(x * _SQRT_HALF))
+            + x * _INV_SQRT_2PI * torch.exp(-0.5 * x * x))
+
+
+def _dquick_gelu(x):
+    s = torch.sigmoid(1.702 * x)
+    return s + x * 1.702 * s * (1.0 - s)
+
+
+_DACTS = {gelu: _dgelu, quick_gelu: _dquick_gelu}
+
+
+def ln_mlp_residual_dx_reference(ln_params, mlp_params, x, g, act,
+                                 eps: float = 1e-5):
+    """Plain PyTorch dx of y = x + c_proj(act(c_fc(ln(x)))) for frozen
+    LayerNorm / MLP parameters, step by step as ``_bwd_dx_kernel``
+    (pallas_mlp.py:200) with the exact-erf derivative of GELU: the hidden
+    chunk recomputed, da = g W_proj^T, dh = da * act'(hid) rounded to x's
+    dtype, du += dh W_fc^T in float32, the closed-form LayerNorm backward per
+    row, plus g."""
+    dact = _DACTS[act]
+    dt = x.dtype
+    d = x.shape[-1]
+    w_fc = mlp_params["c_fc"]["w"].to(dt).float()
+    w_proj = mlp_params["c_proj"]["w"].to(dt).float()
+    b_fc = mlp_params["c_fc"]["b"].float()
+    h = w_fc.shape[-1]
+    ch = hidden_chunk(h) or h
+    scale, bias = ln_params["scale"].float(), ln_params["bias"].float()
+    x32 = x.reshape(-1, d).float()
+    g32 = g.reshape(-1, d).to(dt).float()
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = (x32 - mu).square().mean(dim=-1, keepdim=True)
+    rstd = torch.rsqrt(var + eps)
+    xn = (x32 - mu) * rstd
+    xin = (xn * scale + bias).to(dt).float()
+    du = torch.zeros_like(x32)
+    for j in range(0, h, ch):
+        hid = xin @ w_fc[:, j:j + ch] + b_fc[j:j + ch]
+        da = g32 @ w_proj[j:j + ch].t()
+        dh = (da * dact(hid)).to(dt).float()
+        du = du + dh @ w_fc[:, j:j + ch].t()
+    dxh = du * scale
+    m1 = dxh.mean(dim=-1, keepdim=True)
+    m2 = (dxh * xn).mean(dim=-1, keepdim=True)
+    dx = (dxh - m1 - xn * m2) * rstd
+    return (dx + g32).to(dt).reshape(x.shape)
+
+
+def _dx_lib():
+    lib = _build.load("ln_mlp_residual_dx")
+    fn = lib.aaclip_ln_mlp_residual_dx
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 8 + [
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def ln_mlp_residual_dx(ln_params, mlp_params, x, g, act, eps: float = 1e-5):
+    """dx (same shape as x) of the fused chain for frozen parameters: the
+    plain version on CPU tensors, one kernel on CUDA tensors."""
+    fn = "ln_mlp_residual_dx"
+    if x.device.type == "cpu":
+        return ln_mlp_residual_dx_reference(ln_params, mlp_params, x, g, act, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"{fn}: unsupported device {x.device}")
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"{fn}: dtype {x.dtype} not supported (bfloat16 or float32)")
+    if act not in _ACTS:
+        raise ValueError(f"{fn}: unsupported activation {act!r}")
+    if not x.is_contiguous() or g.shape != x.shape:
+        raise ValueError(f"{fn}: x must be contiguous and g of its shape")
+    c_fc, c_proj = mlp_params["c_fc"], mlp_params["c_proj"]
+    d = x.shape[-1]
+    h = c_fc["w"].shape[-1]
+    if tuple(c_fc["w"].shape) != (d, h) or tuple(c_proj["w"].shape) != (h, d):
+        raise ValueError(f"{fn}: weight shapes do not match x")
+    m = x.numel() // d
+    dev, f32 = x.device, torch.float32
+    ptrs = [
+        _operand(x, x.dtype, dev, "x", fn),
+        _operand(g, x.dtype, dev, "g", fn),
+        _operand(ln_params["scale"], f32, dev, "ln scale", fn),
+        _operand(ln_params["bias"], f32, dev, "ln bias", fn),
+        _operand(c_fc["w"], x.dtype, dev, "c_fc weight", fn),
+        _operand(c_fc["b"], f32, dev, "c_fc bias", fn),
+        _operand(c_proj["w"], x.dtype, dev, "c_proj weight", fn),
+    ]
+    dx = torch.empty_like(x)
+    err = _dx_lib()(*ptrs, dx.data_ptr(), m, d, h, float(eps), _ACTS[act],
+                    _DTYPES[x.dtype], _build.stream_ptr(dev))
+    _build.check("ln_mlp_residual_dx", err)
+    global DX_LAUNCHES
+    DX_LAUNCHES += 1
+    return dx
+
+
+def _leaves(ln_params, mlp_params):
+    """The float chain's parameter tensors, in a fixed order."""
+    return (ln_params["scale"], ln_params["bias"], mlp_params["c_fc"]["w"],
+            mlp_params["c_fc"]["b"], mlp_params["c_proj"]["w"],
+            mlp_params["c_proj"]["b"])
+
+
+def _trees(leaves):
+    ls, lb, wf, bf, wp, bp = leaves
+    return ({"scale": ls, "bias": lb},
+            {"c_fc": {"w": wf, "b": bf}, "c_proj": {"w": wp, "b": bp}})
+
+
+def _chain_grads(ctx, need, x, leaves, g):
+    """Gradients of the plain chain at (x, *leaves) for the inputs flagged in
+    ``need``: the chain is recomputed under grad mode and differentiated."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(n) for t, n in zip((x, *leaves), need)]
+        y = ln_mlp_residual_reference(*_trees(ins[1:]), ins[0], ctx.act, ctx.eps)
+        wanted = [t for t, n in zip(ins, need) if n]
+        grads = iter(torch.autograd.grad(y, wanted, g) if wanted else ())
+    return [next(grads) if n else None for n in need]
+
+
+class _LnMlpResidual(torch.autograd.Function):
+    """Forward: the fused kernel (twin on the CPU). Backward: the plain chain
+    recomputed and differentiated, for x and every parameter."""
+
+    @staticmethod
+    def forward(ctx, x, act, eps, *leaves):
+        ctx.save_for_backward(x, *leaves)
+        ctx.act, ctx.eps = act, eps
+        return _forward(*_trees(leaves), x, act, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, *leaves = ctx.saved_tensors
+        need = (ctx.needs_input_grad[0], *ctx.needs_input_grad[3:])
+        dx, *dleaves = _chain_grads(ctx, need, x, leaves, g)
+        return (dx, None, None, *dleaves)
+
+
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def ln_mlp_residual(ln_params, mlp_params, x, act, eps: float = 1e-5):
+    """x + c_proj(act(c_fc(layer_norm(x)))) in one kernel, differentiable in
+    x and in every parameter (the backward recomputes the plain chain; no
+    kernel there, as in the JAX package). For frozen parameters
+    :func:`ln_mlp_residual_frozen` has the dx kernel.
+
+    x: (..., d), bf16 or fp32, contiguous. The matmul weights must share x's
+    dtype and layout (in, out); LayerNorm scale/bias and the biases are fp32.
+    """
+    leaves = _leaves(ln_params, mlp_params)
+    if _needs_grad(x, *leaves):
+        return _LnMlpResidual.apply(x, act, eps, *leaves)
+    return _forward(ln_params, mlp_params, x, act, eps)
+
+
+class _LnMlpResidualFrozen(torch.autograd.Function):
+    """Forward: the fused kernel (twin on the CPU). Backward: dx alone, from
+    the dx kernel (plain dx on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, x, act, eps, *leaves):
+        ctx.save_for_backward(x, *leaves)
+        ctx.act, ctx.eps = act, eps
+        return _forward(*_trees(leaves), x, act, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, *leaves = ctx.saved_tensors
+        dx = ln_mlp_residual_dx(*_trees(leaves), x, g.contiguous(), ctx.act, ctx.eps)
+        return (dx, None, None, *([None] * len(leaves)))
+
+
+def ln_mlp_residual_frozen(ln_params, mlp_params, x, act, eps: float = 1e-5):
+    """:func:`ln_mlp_residual` for frozen LayerNorm / MLP parameters: the
+    backward is the dx-only kernel and no parameter gets a gradient. It
+    raises if a parameter requires one (the JAX function returns zeros
+    there without a word)."""
+    leaves = _leaves(ln_params, mlp_params)
+    if any(t.requires_grad for t in leaves):
+        raise ValueError(
+            "ln_mlp_residual_frozen: a LayerNorm / MLP parameter requires "
+            "grad; this function differentiates x only, use ln_mlp_residual")
+    if _needs_grad(x):
+        return _LnMlpResidualFrozen.apply(x, act, eps, *leaves)
+    return _forward(ln_params, mlp_params, x, act, eps)
+
+
+class _LnMlpResidualInt8(torch.autograd.Function):
+    """Forward: the fused int8 kernel (twin on the CPU). Backward: the
+    straight-through estimator, the plain float chain on the dequantized
+    weights recomputed and differentiated; ``w_q`` and ``scale`` get none."""
+
+    @staticmethod
+    def forward(ctx, x, act, eps, mlp_params, ls, lb, bf, bp):
+        ctx.save_for_backward(x, ls, lb, bf, bp)
+        ctx.act, ctx.eps, ctx.mlp = act, eps, mlp_params
+        return _int8_forward({"scale": ls, "bias": lb}, mlp_params, x, act, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, ls, lb, bf, bp = ctx.saved_tensors
+        c_fc, c_proj = ctx.mlp["c_fc"], ctx.mlp["c_proj"]
+        wf = (c_fc["w_q"].float() * c_fc["scale"].float()).to(x.dtype)
+        wp = (c_proj["w_q"].float() * c_proj["scale"].float()).to(x.dtype)
+        n = ctx.needs_input_grad
+        need = (n[0], n[4], n[5], False, n[6], False, n[7])
+        dx, dls, dlb, _, dbf, _, dbp = _chain_grads(
+            ctx, need, x, (ls, lb, wf, bf, wp, bp), g)
+        return (dx, None, None, None, dls, dlb, dbf, dbp)
+
+
+def ln_mlp_residual_int8(ln_params, mlp_params, x, act, eps: float = 1e-5):
+    """:func:`ln_mlp_residual` with int8 MLP weights
+    (``quant.quantize_linear_params`` dicts) in one kernel. Guard call sites
+    with :func:`ln_mlp_residual_int8_ok`. Its gradient is the straight-
+    through estimator on the dequantized plain chain: x, the LayerNorm
+    parameters and the biases get real gradients, ``w_q`` and ``scale`` none.
+
+    x: (..., d) bf16, contiguous, d a multiple of 128 up to 1024. ``w_q`` is
+    int8 (in, out), ``scale`` fp32 with ``out`` elements, LayerNorm
+    parameters and biases fp32.
+    """
+    floats = (ln_params["scale"], ln_params["bias"], mlp_params["c_fc"]["b"],
+              mlp_params["c_proj"]["b"])
+    if _needs_grad(x, *floats):
+        return _LnMlpResidualInt8.apply(x, act, eps, mlp_params, *floats)
+    return _int8_forward(ln_params, mlp_params, x, act, eps)

@@ -78,10 +78,13 @@ def upsample_operator(src: int, dst: int, align_corners: bool):
 
 @functools.lru_cache(maxsize=64)
 def _device_operator(op_key, device):
-    """The operator as a float32 tensor on ``device``, built once."""
+    """The operator as a float32 tensor on ``device``, built once. Built
+    outside inference mode, whoever asks first: a training step saves the
+    cached tensor for its backward, which an inference tensor refuses."""
     kind, args = op_key
     fn = blur_upsample_operator if kind == "blur" else upsample_operator
-    return torch.from_numpy(fn(*args)).to(device)
+    with torch.inference_mode(False):
+        return torch.from_numpy(fn(*args)).to(device)
 
 
 def apply_separable(op_h, op_w, img):

@@ -33,9 +33,33 @@ def quick_gelu(x):
 ACTIVATIONS = {"gelu": gelu, "quick_gelu": quick_gelu}
 
 
+class _AddmmF32Bias(torch.autograd.Function):
+    """bf16 ``x2 @ w + b`` on the card with the float32 bias joining the
+    float32 accumulator before the one rounding (``addmm`` with a float32
+    output, which autograd cannot differentiate itself). The backward is the
+    two transposed products and the column sum of the cotangent."""
+
+    @staticmethod
+    def forward(ctx, b, x2, w):
+        ctx.save_for_backward(x2, w)
+        ctx.b_dtype = b.dtype
+        return torch.addmm(b.float(), x2, w, out_dtype=torch.float32).to(x2.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w = ctx.saved_tensors
+        need_b, need_x, need_w = ctx.needs_input_grad
+        db = g.float().sum(dim=0).to(ctx.b_dtype) if need_b else None
+        dx = torch.matmul(g, w.t()) if need_x else None
+        dw = torch.matmul(x2.t(), g) if need_w else None
+        return db, dx, dw
+
+
 def linear(params, x):
     """y = x @ W + b, W stored (in, out): the product accumulated in float32,
-    the bias added in float32, one rounding to x.dtype. Params carrying an
+    the bias added in float32, one rounding to x.dtype. The weight is cast to
+    x.dtype at each call, so float32 master weights train under a bf16
+    forward (autograd differentiates the cast). Params carrying an
     int8-quantized weight ({"w_q", "scale"} from ops.quant) go to the int8
     product: one hook covers every projection in the model."""
     if "w_q" in params:
@@ -52,7 +76,11 @@ def linear(params, x):
     elif x.is_cuda:
         # cuBLAS keeps the float32 accumulator as the output, the float32
         # bias joins it in the epilogue, and the cast rounds once.
-        y = torch.addmm(b.float(), x2, w, out_dtype=torch.float32).to(x.dtype)
+        if torch.is_grad_enabled() and (x2.requires_grad or w.requires_grad
+                                        or b.requires_grad):
+            y = _AddmmF32Bias.apply(b, x2, w)
+        else:
+            y = torch.addmm(b.float(), x2, w, out_dtype=torch.float32).to(x.dtype)
     else:
         # The CPU has no float32-output bf16 product; products of bf16
         # values are exact in float32, so the upcast product is the same.
@@ -95,3 +123,22 @@ def mlp_block(params, x, act):
     h = linear(params["c_fc"], x)
     h = act(h)
     return linear(params["c_proj"], h)
+
+
+def patch_dropout_indices(generator, batch: int, num_tokens: int, rate: float,
+                          device=None):
+    """Per-sample kept-token indices for patch dropout: keep
+    max(1, int(L*(1-rate))) of L tokens, uniformly without replacement (the
+    top-k of normal scores drawn from ``generator``, a ``torch.Generator``).
+
+    Returns (B, K) int64 sorted ascending, so the kept tokens preserve their
+    spatial order and the stage-2 loss can gather the matching mask cells.
+    The draws are torch's, not the JAX package's: tests hand both the same
+    indices.
+    """
+    keep = max(1, int(num_tokens * (1.0 - rate)))
+    scores = torch.randn((batch, num_tokens), generator=generator,
+                         device=generator.device)
+    idx = torch.topk(scores, keep, dim=-1).indices
+    idx = torch.sort(idx, dim=-1).values
+    return idx if device is None else idx.to(device)

@@ -70,11 +70,14 @@ def compute_frozen_anchors(frozen, trainable, model_cfg: ModelConfig,
                            compute_dtype=torch.float32) -> Dict[str, torch.Tensor]:
     """Per-class anchors (dim, 2) from the adapted (or raw) text encoder; all
     classes' sentences go through one batched encoder call, on the device
-    that holds the text tower."""
+    that holds the text tower. Built under ``no_grad`` with inference mode
+    off, so that stage 2's loss can save the anchors for its backward (an
+    inference tensor cannot be saved), even when the caller is in inference
+    mode itself."""
     classes, tokens, n_norm, n_abn = batched_prompt_tokens(dataset_name)
     device = frozen["text"]["token_embedding"].device
     tokens = torch.from_numpy(np.asarray(tokens, np.int64)).to(device)
-    with torch.inference_mode():
+    with torch.inference_mode(False), torch.no_grad():
         if adapted:
             emb = adapters_mod.encode_text_adapted(
                 frozen, trainable, model_cfg, tokens, compute_dtype=compute_dtype)

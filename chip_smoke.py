@@ -8,14 +8,17 @@ line):
   1. device: needs CUDA; prints the card's name and power limit;
   2. build: compiles csrc/*.cu with nvcc (one process per source, in
      parallel) and prints the seconds;
-  3. kernels: each hand-written kernel against its plain PyTorch twin at the
-     main path's shapes in bf16 (largest and RMS error in bf16 ulps,
-     ops/compare.py), with CUDA-event times of the kernel, the twin
-     and one stock PyTorch call as a yardstick, and the bound from bytes and
-     operations. Planted faults (a twin with its key tail unmasked, its
-     biases dropped, the wrong activation; for the int8 MLP one hidden scale
-     per row instead of per chunk, the c_fc weight scales dropped,
-     round-half-away) must fail the same check;
+  3. kernels: each hand-written kernel (three forward, two backward) against
+     its plain PyTorch twin at the main path's shapes in bf16 (largest and
+     RMS error in bf16 ulps, ops/compare.py), with CUDA-event times of the
+     kernel, the twin and one stock PyTorch call as a yardstick, and the
+     bound from bytes and operations. Planted faults (a twin with its key
+     tail unmasked, its biases dropped, the wrong activation; for the int8
+     MLP one hidden scale per row instead of per chunk, the c_fc weight
+     scales dropped, round-half-away; for the attention backward the key
+     tail unmasked and the scale on dK dropped; for the MLP dx the wrong
+     activation derivative and the LayerNorm backward without its mean
+     terms) must fail the same check;
   4. main path: AnomalyDetector on ViT-L-14-336 at 518 px with seeded random
      weights (dataset MVTec, bf16): builds the text anchors, answers predict
      at batch 1 and 8 and a mixed-class predict_multi, checks shapes, finite
@@ -32,7 +35,18 @@ line):
      two classes, for the bf16 and the int8 tier; the device metrics must
      equal the host's on the fetched maps. Then the pixel metrics alone on
      random maps of the largest shipped class (3,714 images), for their time
-     and peak memory.
+     and peak memory;
+  7. training: run_training on an in-memory synthetic dataset of two MVTec
+     classes, ViT-L-14-336 at 518 px, full depth, bf16 compute with float32
+     adapters: stage 1 for 2 steps at batch 16, the anchors, stage 2 for 3
+     steps at batch 8. Finite losses; the backward kernels launched 23 times
+     each per stage-2 step and never in stage 1; every trained tensor moved
+     and every frozen one did not; the first stage-2 step's gradients from
+     the kernels against the same step with the backward kernels swapped for
+     their plain versions (and for a planted fault that the comparison must
+     catch) and with every kernel swapped; checkpointed blocks give the same
+     loss; a step checkpoint restores tensors bit for bit; images/s of both
+     stages and a profile of one stage-2 step.
 Launch counts are set to 0 before each driven path and read after it. The
 second-to-last line is a JSON object with one entry per kernel; the last
 line is {"ok": true, "device": {...}}.
@@ -60,7 +74,15 @@ MAP_TOL = 4e-2                           # end to end: rms(diff) / std(twin map)
 # 4e-2, B3 agreeing with its twin on all but 7e-4 of its elements. So the
 # tier's map gets twice the room of the float tier's.
 INT8_MAP_TOL = 8e-2
-KERNELS = ("packed_attention", "ln_mlp_residual", "ln_mlp_residual_int8")
+KERNELS = ("packed_attention", "ln_mlp_residual", "ln_mlp_residual_int8",
+           "packed_attention_bwd", "ln_mlp_residual_dx")
+DEVICE = "cuda"                          # the training phase's device
+GRAD_TOL = 5e-2                          # per tensor: rms(diff) / rms(plain gradient)
+# The same with only the backward kernels swapped for their plain versions:
+# the forward is shared, so only the backward kernels' own rounding is left
+# (a few 1e-3), and a planted fault in the MLP dx (3e-2 to 4e-2 on this
+# random backbone, whose MLP branch is small beside the residual) stands out.
+GRAD_BWD_TOL = 1e-2
 METRIC_TOL = 1e-4                        # device vs host AUROC / AP, in [0, 1]
 
 
@@ -169,7 +191,14 @@ def read_counts():
     from aa_clip_iqm_tpu_torch.ops import fused_mlp, packed_attention as pa
 
     return {"packed_attention": pa.LAUNCHES, "ln_mlp_residual": fused_mlp.LAUNCHES,
-            "ln_mlp_residual_int8": fused_mlp.INT8_LAUNCHES}
+            "ln_mlp_residual_int8": fused_mlp.INT8_LAUNCHES,
+            "packed_attention_bwd": pa.BWD_LAUNCHES,
+            "ln_mlp_residual_dx": fused_mlp.DX_LAUNCHES}
+
+
+def counts_of(**launched):
+    """A full launch-count dict: zero but for the kernels named."""
+    return {**dict.fromkeys(KERNELS, 0), **launched}
 
 
 def add_counts(total, got):
@@ -380,7 +409,152 @@ def phase_kernels():
         "replaces": "aa_clip_iqm_tpu/ops/pallas_mlp.py:161",
         "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
         "bound_by": b_by, "library_ms": lib_ms}
+    del x, out, ref, mlp, xn
+
+    # --- B4: packed attention backward at ViT-L/518, batch 8 --------------
+    w = WIDTH
+    qkv = torch.randn((B, TOKENS, 3 * w), generator=gen, device=dev).to(bf16)
+    d_out = torch.randn((B, TOKENS, w), generator=gen, device=dev).to(bf16)
+
+    def hold_sections(what, out, ref):
+        # dq, dk and dv each on its own scale.
+        return max(hold(f"{what} {name}", out[..., i * w:(i + 1) * w],
+                        ref[..., i * w:(i + 1) * w]) for i, name in enumerate(("dq", "dk", "dv")))
+
+    worst = 0.0
+    ref_full = None
+    for batch, valid_len in ((B, None), (B, 1300), (1, None)):
+        out = pa.flash_mha_packed_bwd(qkv[:batch], d_out[:batch], HEADS, scale,
+                                      valid_len=valid_len)
+        ref = pa.flash_mha_packed_bwd_reference(qkv[:batch], d_out[:batch], HEADS, scale,
+                                                valid_len=valid_len)
+        worst = max(worst, hold_sections(
+            f"B4 packed_attention_bwd batch={batch} valid_len={valid_len}", out, ref))
+        if ref_full is None:
+            ref_full = ref
+        del out, ref
+    require(torch.equal(pa.flash_mha_packed_bwd(qkv, d_out, HEADS, scale),
+                        pa.flash_mha_packed_bwd(qkv, d_out, HEADS, scale)),
+            "B4: two launches on the same inputs differ (the design has no atomics)")
+    fault = attn_bwd_tail_unmasked(qkv, d_out, HEADS, scale)
+    planted("B4 key tail unmasked (dv)", fault[..., 2 * w:], ref_full[..., 2 * w:])
+    fault = ref_full.clone()
+    fault[..., w:2 * w] = (ref_full[..., w:2 * w].float() / scale).to(bf16)
+    planted("B4 scale on dK dropped (dk)", fault[..., w:2 * w], ref_full[..., w:2 * w])
+    del fault, ref_full
+    ms = cuda_time(lambda: pa.flash_mha_packed_bwd(qkv, d_out, HEADS, scale), 10)
+    plain_ms = cuda_time(
+        lambda: pa.flash_mha_packed_bwd_reference(qkv, d_out, HEADS, scale), 2)
+    q, k, v = (t.detach().requires_grad_(True)
+               for t in qkv.view(B, TOKENS, 3, HEADS, HD).permute(2, 0, 3, 1, 4))
+    attn = F.scaled_dot_product_attention(q, k, v, scale=scale)
+    g_heads = d_out.view(B, TOKENS, HEADS, HD).transpose(1, 2)
+    lib_ms = cuda_time(
+        lambda: torch.autograd.grad(attn, (q, k, v), g_heads, retain_graph=True), 10)
+    flops = 10 * B * HEADS * TOKENS * TOKENS * HD
+    nbytes = (2 * qkv.numel() + d_out.numel()) * 2
+    b_ms, b_by = bound(flops, nbytes)
+    log(f"# B4 time: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, sdpa backward {lib_ms:.3f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by}; {flops:.3e} FLOP, {nbytes / 1e6:.1f} MB)")
+    results["packed_attention_bwd"] = {
+        "name": "packed_attention_bwd", "route": "cuda",
+        "source": "aa_clip_iqm_tpu_torch/csrc/packed_attention_bwd.cu",
+        "replaces": "aa_clip_iqm_tpu/ops/pallas_attention.py:332",
+        "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+        "bound_by": b_by, "library_ms": lib_ms}
+    del qkv, d_out, q, k, v, attn, g_heads
+
+    # --- B5: dx of the fused LN -> MLP -> residual, frozen parameters ------
+    m, d, h = B * TOKENS, WIDTH, 4 * WIDTH
+    ln = {"scale": 1.0 + 0.1 * rnd(d), "bias": 0.1 * rnd(d)}
+    mlp = {"c_fc": {"w": rnd(d, h, std=d ** -0.5).to(bf16), "b": rnd(h, std=0.02)},
+           "c_proj": {"w": rnd(h, d, std=h ** -0.5).to(bf16), "b": rnd(d, std=0.02)}}
+    x, g = rnd(m, d).to(bf16), rnd(m, d).to(bf16)
+    worst = 0.0
+    for act in (gelu, quick_gelu):
+        out = fused_mlp.ln_mlp_residual_dx(ln, mlp, x, g, act)
+        ref = fused_mlp.ln_mlp_residual_dx_reference(ln, mlp, x, g, act)
+        # Held on dx - g: the residual cotangent g is the same in both.
+        worst = max(worst, hold(f"B5 ln_mlp_residual_dx M={m} d={d} h={h} {act.__name__}",
+                                out, ref, g))
+    ref = fused_mlp.ln_mlp_residual_dx_reference(ln, mlp, x, g, gelu)
+    require(torch.equal(dx_variant(ln, mlp, x, g, gelu), ref),
+            "the plain dx's second transcription differs from the plain dx")
+    planted("B5 act' of QuickGELU for GELU",
+            fused_mlp.ln_mlp_residual_dx_reference(ln, mlp, x, g, quick_gelu), ref, g)
+    planted("B5 LayerNorm backward without its mean terms",
+            dx_variant(ln, mlp, x, g, gelu, ln_means=False), ref, g)
+    ms = cuda_time(lambda: fused_mlp.ln_mlp_residual_dx(ln, mlp, x, g, gelu), 10)
+    plain_ms = cuda_time(
+        lambda: fused_mlp.ln_mlp_residual_dx_reference(ln, mlp, x, g, gelu), 3)
+    xg = x.detach().requires_grad_(True)
+    ln_w, ln_b = ln["scale"].to(bf16), ln["bias"].to(bf16)
+    b_fc, b_proj = mlp["c_fc"]["b"].to(bf16), mlp["c_proj"]["b"].to(bf16)
+
+    def library_chain():
+        y = xg + torch.addmm(b_proj, F.gelu(torch.addmm(
+            b_fc, F.layer_norm(xg, (d,), ln_w, ln_b), mlp["c_fc"]["w"])), mlp["c_proj"]["w"])
+        return torch.autograd.grad(y, xg, g)
+
+    lib_ms = cuda_time(library_chain, 10)
+    flops = 6 * m * d * h
+    nbytes = 3 * m * d * 2 + 2 * d * h * 2 + (2 * d + h) * 4
+    b_ms, b_by = bound(flops, nbytes)
+    log(f"# B5 time: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, forward + backward of the "
+        f"cuBLAS LN-addmm-gelu-addmm chain (x alone requiring grad) {lib_ms:.3f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by}; {flops:.3e} FLOP, {nbytes / 1e6:.1f} MB)")
+    results["ln_mlp_residual_dx"] = {
+        "name": "ln_mlp_residual_dx", "route": "cuda",
+        "source": "aa_clip_iqm_tpu_torch/csrc/ln_mlp_residual_dx.cu",
+        "replaces": "aa_clip_iqm_tpu/ops/pallas_mlp.py:200",
+        "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+        "bound_by": b_by, "library_ms": lib_ms}
     return results
+
+
+def attn_bwd_tail_unmasked(qkv, d_out, num_heads, scale):
+    """Planted fault: the plain attention backward with the zero-filled rows
+    of the ragged last 64-key tile counted as keys."""
+    from aa_clip_iqm_tpu_torch.ops.packed_attention import flash_mha_packed_bwd_reference
+
+    b, l, c = qkv.shape
+    lp = -(-l // 64) * 64
+    padded, g = qkv.new_zeros((b, lp, c)), d_out.new_zeros((b, lp, c // 3))
+    padded[:, :l], g[:, :l] = qkv, d_out
+    return flash_mha_packed_bwd_reference(padded, g, num_heads, scale)[:, :l]
+
+
+def dx_variant(ln, mlp, x, g, act, ln_means=True, eps=1e-5):
+    """The plain dx written out once more, with its planted fault: the
+    LayerNorm backward without its two mean terms. Without the fault it is
+    the plain dx."""
+    import torch
+
+    from aa_clip_iqm_tpu_torch.ops import fused_mlp
+
+    dact = fused_mlp._DACTS[act]
+    dt, d = x.dtype, x.shape[-1]
+    w_fc, w_proj = mlp["c_fc"]["w"].float(), mlp["c_proj"]["w"].float()
+    ch = fused_mlp.hidden_chunk(w_fc.shape[-1])
+    x32, g32 = x.reshape(-1, d).float(), g.reshape(-1, d).float()
+    mu = x32.mean(dim=-1, keepdim=True)
+    rstd = torch.rsqrt((x32 - mu).square().mean(dim=-1, keepdim=True) + eps)
+    xn = (x32 - mu) * rstd
+    xin = (xn * ln["scale"] + ln["bias"]).to(dt).float()
+    du = torch.zeros_like(x32)
+    for j in range(0, w_fc.shape[-1], ch):
+        hid = xin @ w_fc[:, j:j + ch] + mlp["c_fc"]["b"][j:j + ch]
+        dh = ((g32 @ w_proj[j:j + ch].t()) * dact(hid)).to(dt).float()
+        du = du + dh @ w_fc[:, j:j + ch].t()
+    dxh = du * ln["scale"]
+    if ln_means:
+        dxh = dxh - dxh.mean(dim=-1, keepdim=True) - xn * (dxh * xn).mean(dim=-1, keepdim=True)
+    return (dxh * rstd + g32).to(dt).reshape(x.shape)
+
+
+def dx_no_ln_means(ln, mlp, x, g, act, eps=1e-5):
+    """Planted fault for the end-to-end gradient check."""
+    return dx_variant(ln, mlp, x, g, act, ln_means=False, eps=eps)
 
 
 def attn_tail_unmasked(qkv, num_heads, scale, vv=False, valid_len=None):
@@ -403,9 +577,10 @@ def mlp_quick_gelu(ln, mlp, x, act, eps=1e-5):
 
 
 class _Twins:
-    """Route the port's three kernel call sites to their plain twins, or to
-    the given stand-ins (used only to compare the main path against the
-    twins)."""
+    """Route the port's kernel call sites to their plain twins, or to the
+    given stand-ins (used only to compare the main path against the twins).
+    Autograd differentiates the twins themselves, so the backward kernels
+    are out of the way too."""
 
     def __init__(self, attn=None, mlp=None, mlp_int8=None, keep_attn=False):
         self._attn, self._mlp, self._mlp_int8 = attn, mlp, mlp_int8
@@ -416,13 +591,14 @@ class _Twins:
         from aa_clip_iqm_tpu_torch.ops import attention, fused_mlp, packed_attention
 
         self._saved = (attention.flash_mha_packed, clip.ln_mlp_residual,
-                       clip.ln_mlp_residual_int8)
+                       clip.ln_mlp_residual_int8, clip.ln_mlp_residual_frozen)
         if not self._keep_attn:
             attention.flash_mha_packed = (self._attn
                                           or packed_attention.flash_mha_packed_reference)
         clip.ln_mlp_residual = self._mlp or fused_mlp.ln_mlp_residual_reference
         clip.ln_mlp_residual_int8 = (self._mlp_int8
                                      or fused_mlp.ln_mlp_residual_int8_reference)
+        clip.ln_mlp_residual_frozen = clip.ln_mlp_residual
         return self
 
     def __exit__(self, *exc):
@@ -430,7 +606,28 @@ class _Twins:
         from aa_clip_iqm_tpu_torch.ops import attention
 
         (attention.flash_mha_packed, clip.ln_mlp_residual,
-         clip.ln_mlp_residual_int8) = self._saved
+         clip.ln_mlp_residual_int8, clip.ln_mlp_residual_frozen) = self._saved
+
+
+class _PlainBackward:
+    """Keep the forward kernels and route the two backward kernels' call
+    sites to their plain versions, or to the given stand-in."""
+
+    def __init__(self, mlp_dx=None):
+        self._mlp_dx = mlp_dx
+
+    def __enter__(self):
+        from aa_clip_iqm_tpu_torch.ops import fused_mlp, packed_attention
+
+        self._saved = (packed_attention.flash_mha_packed_bwd, fused_mlp.ln_mlp_residual_dx)
+        packed_attention.flash_mha_packed_bwd = packed_attention.flash_mha_packed_bwd_reference
+        fused_mlp.ln_mlp_residual_dx = self._mlp_dx or fused_mlp.ln_mlp_residual_dx_reference
+        return self
+
+    def __exit__(self, *exc):
+        from aa_clip_iqm_tpu_torch.ops import fused_mlp, packed_attention
+
+        packed_attention.flash_mha_packed_bwd, fused_mlp.ln_mlp_residual_dx = self._saved
 
 
 def phase_main_path(card):
@@ -466,8 +663,8 @@ def phase_main_path(card):
     torch.cuda.synchronize()
     counts = read_counts()
     log(f"# anchors: {len(det.class_names())} classes, launches {counts}")
-    require(counts == {"packed_attention": 0, "ln_mlp_residual": cfg.clip.text.layers,
-                       "ln_mlp_residual_int8": 0}, f"anchor build launches {counts}")
+    require(counts == counts_of(ln_mlp_residual=cfg.clip.text.layers),
+            f"anchor build launches {counts}")
 
     classes = det.class_names()
     requests = [("predict b1", images(1), ["bottle"]),
@@ -554,16 +751,15 @@ def phase_int8_tiers(card, ctx):
                               compute_dtype=torch.bfloat16, quantize=tier, device="cuda")
         torch.cuda.synchronize()
         got = read_counts()
-        require(got == {"packed_attention": 0, "ln_mlp_residual": text_layers,
-                        "ln_mlp_residual_int8": 0},
+        require(got == counts_of(ln_mlp_residual=text_layers),
                 f"{tier}: anchor build launches {got} (the text tower is never quantized)")
         maps, scores = det.predict(imgs8, "screw")
         got = read_counts()
         log(f"# tier {tier}: quantized and anchors built in {time.perf_counter() - t0:.1f} s; "
             f"batch-8 maps in [{maps.min():.4f}, {maps.max():.4f}], launches {got}")
         ctx["check"](maps, scores, B, f"tier {tier}")
-        require(got == {"packed_attention": b1, "ln_mlp_residual": text_layers + b2,
-                        "ln_mlp_residual_int8": b3}, f"tier {tier}: launches {got}")
+        require(got == counts_of(packed_attention=b1, ln_mlp_residual=text_layers + b2,
+                                 ln_mlp_residual_int8=b3), f"tier {tier}: launches {got}")
         add_counts(total, got)
         rel_bf16 = map_diff(maps, ctx["maps_bf16"])
         log(f"# tier {tier} vs the bf16 tier, batch 8 map: rms diff / std {rel_bf16:.3e} "
@@ -758,50 +954,357 @@ def map_diff(maps, ref):
     return float(np.sqrt((d ** 2).mean()) / ref.std())
 
 
-def profile_request(det, imgs):
-    """Device time by kernel group for one batch-8 request (torch.profiler):
-    where the time goes, and the device's idle share of the request."""
+def named_leaves(tree, prefix=""):
+    """(name, tensor) for every leaf of a nested dict / list, in tree order."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from named_leaves(v, f"{prefix}{k}/")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from named_leaves(v, f"{prefix}{i}/")
+    else:
+        yield prefix[:-1], tree
+
+
+def phase_train(card, cfg, frozen):
+    """run_training on a synthetic two-class dataset written to a temporary
+    directory: ViT-L-14-336 at 518 px, full depth, bf16 compute, float32
+    adapters; stage 1 for 2 steps, the anchors, stage 2 for 3 steps."""
+    import contextlib
+    import logging
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from aa_clip_iqm_tpu_torch.cli import bench
+    from aa_clip_iqm_tpu_torch.configs import TrainConfig
+    from aa_clip_iqm_tpu_torch.data import synthetic
+    from aa_clip_iqm_tpu_torch.loader import init_trainable
+    from aa_clip_iqm_tpu_torch.models import clip
+    from aa_clip_iqm_tpu_torch.models.convert import tree_leaves
+    from aa_clip_iqm_tpu_torch.train import checkpoint as ckpt, driver, optim, steps
+
+    classes = ("bottle", "screw")
+    layers, text_layers = cfg.clip.vision.layers, cfg.clip.text.layers
+    vv_blocks = layers - clip.surgery_vv_from(layers, cfg.surgery_until_layer)
+    logger = logging.getLogger("chip_smoke.train")
+    logger.addHandler(logging.NullHandler())
+    logger.propagate = False
+    trainable = init_trainable(cfg, seed=111, device=DEVICE, dtype=torch.float32,
+                               requires_grad=True)
+    names = [n for n, _ in named_leaves(trainable)]
+    labels = list(tree_leaves(optim.stage2_param_labels(trainable)))
+    start = [t.detach().clone() for t in tree_leaves(trainable)]
+
+    def snapshot(params):
+        return [t.detach().clone() for t in tree_leaves(params)]
+
+    def grads_of(params):
+        return [None if t.grad is None else t.grad.detach().clone()
+                for t in tree_leaves(params)]
+
+    # Every step that run_training takes goes through these spies: launch
+    # counts and the loss per step, and for the first stage-2 step its
+    # inputs, the parameters before it and the gradients after it.
+    record = {"stage1": [], "stage2": [], "first": None}
+    makers = (steps.make_stage1_step, steps.make_stage2_step)
+
+    def spying(make, stage):
+        def make_spied(*a, **k):
+            step = make(*a, **k)
+
+            def spied(params, opt_state, *rest):
+                first = stage == "stage2" and record["first"] is None
+                before = snapshot(params) if first else None
+                torch.cuda.synchronize()
+                c0, t0 = read_counts(), time.perf_counter()
+                out = step(params, opt_state, *rest)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                c1 = read_counts()
+                record[stage].append({"counts": {n: c1[n] - c0[n] for n in KERNELS},
+                                      "ms": ms, "loss": float(out[2])})
+                if first:
+                    record["first"] = {"before": before, "args": rest,
+                                       "opt_state": opt_state, "grads": grads_of(params)}
+                return out
+
+            spied.loss_fn = step.loss_fn
+            return spied
+
+        return make_spied
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as root:
+        t0 = time.perf_counter()
+        synthetic.generate(root, n_normal=6, n_anomalous=6, size=IMG, class_names=classes,
+                           seed=11)
+        meta_root = synthetic.register_synthetic(root, classes)
+        train_cfg = TrainConfig(
+            dataset="Synth", img_size=IMG, training_mode="full_shot", shot=-1,
+            text_batch_size=16, image_batch_size=B, text_epoch=1, image_epoch=1,
+            save_path=os.path.join(root, "ckpt"), compute_dtype="bfloat16", remat=False)
+        log(f"# training: 24 synthetic images of {len(classes)} classes at {IMG}px written "
+            f"in {time.perf_counter() - t0:.1f} s")
+        reset_counts()
+        steps.make_stage1_step = spying(makers[0], "stage1")
+        steps.make_stage2_step = spying(makers[1], "stage2")
+        try:
+            t0 = time.perf_counter()
+            out, anchors = driver.run_training(frozen, trainable, cfg, train_cfg, logger,
+                                               metadata_root=meta_root)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        finally:
+            steps.make_stage1_step, steps.make_stage2_step = makers
+        counts = read_counts()
+        require(out is trainable and list(anchors) == list(classes), "run_training outputs")
+        rows = [json.loads(line) for line in open(os.path.join(train_cfg.save_path,
+                                                               "scalars.jsonl"))]
+        require([(r["stage"], r["step"]) for r in rows]
+                == [("stage1", 0), ("stage1", 1), ("stage2", 0), ("stage2", 1), ("stage2", 2)],
+                f"scalars.jsonl rows {rows}")
+        restored = init_trainable(cfg, seed=5, device=DEVICE, dtype=torch.float32)
+        _, adapted, epoch = ckpt.restore_adapters(train_cfg.save_path, restored)
+        require(adapted and epoch == 1, "restore_adapters found no trained checkpoint")
+        require(all(torch.equal(a, b) for a, b in zip(tree_leaves(restored),
+                                                      tree_leaves(trainable))),
+                "the epoch checkpoint does not hold the trained tensors")
+
+        # A step checkpoint written and read back: tensors and optimizer state
+        # bit for bit.
+        first = record["first"]
+        ckpt.save_step(train_cfg.save_path, "stage2", 0, 3, trainable, first["opt_state"])
+        other = init_trainable(cfg, seed=5, device=DEVICE, dtype=torch.float32)
+        opt2 = optim.stage2_optimizer(other, train_cfg.image_lr, 3)
+        got = ckpt.load_step(train_cfg.save_path, "stage2", other, opt2)
+        require(got is not None and (got["epoch"], got["step"]) == (0, 3), "load_step")
+        same = all(torch.equal(a, b) for a, b in zip(tree_leaves(other), tree_leaves(trainable)))
+        st_a = first["opt_state"].state_dict()["optimizer"]["state"]
+        st_b = opt2.state_dict()["optimizer"]["state"]
+        same_opt = st_a.keys() == st_b.keys() and all(
+            torch.equal(torch.as_tensor(st_a[k][f]).cpu(), torch.as_tensor(st_b[k][f]).cpu())
+            for k in st_a for f in st_a[k])
+        log(f"# training: step checkpoint round trip: tensors equal {same}, optimizer state "
+            f"equal {same_opt} ({len(st_a)} tensors with moments)")
+        require(same and same_opt, "a reloaded step checkpoint differs from what was saved")
+        del restored, other, opt2
+
+    s1, s2 = record["stage1"], record["stage2"]
+    log(f"# training: run_training took {seconds:.1f} s; launches {counts}")
+    for stage, recs in (("stage1", s1), ("stage2", s2)):
+        for i, r in enumerate(recs):
+            log(f"#   {stage} step {i}: loss {r['loss']:.5f}, {r['ms']:.1f} ms, "
+                f"launches {r['counts']}")
+    require(len(s1) == 2 and len(s2) == 3, f"steps taken: {len(s1)} + {len(s2)}")
+    require(all(np.isfinite(r["loss"]) for r in s1 + s2), "a training loss is not finite")
+    # Stage 1: the step proper is the text tower's forward, whose backward
+    # differentiates the plain chain, so no backward kernel. The dual visual
+    # towers (shared prefix, then the value-value and the plain branch) run
+    # before each step without a graph and show in the run's totals.
+    vis = layers + vv_blocks
+    for r in s1:
+        require(r["counts"] == counts_of(ln_mlp_residual=text_layers),
+                f"stage-1 step launches {r['counts']}")
+    # Stage 2: block 0's input needs no gradient (its adapter comes after
+    # it), so autograd calls the backward of blocks 1 .. layers-1 only.
+    for r in s2:
+        require(r["counts"] == counts_of(packed_attention=layers, ln_mlp_residual=layers,
+                                         packed_attention_bwd=layers - 1,
+                                         ln_mlp_residual_dx=layers - 1),
+                f"stage-2 step launches {r['counts']}")
+    require(counts == counts_of(
+        packed_attention=2 * vis + 3 * layers,
+        ln_mlp_residual=2 * (vis + text_layers) + text_layers + 3 * layers,
+        packed_attention_bwd=3 * (layers - 1), ln_mlp_residual_dx=3 * (layers - 1)),
+        f"run_training launches {counts}")
+
+    # What moved: stage 1 trains the text adapter, stage 2 the image and IQM
+    # groups; the rest of the "frozen" label group stays as it was made.
+    moved = [not torch.equal(a, b) for a, b in zip(start, tree_leaves(trainable))]
+    for name, label, m in zip(names, labels, moved):
+        want = label != "frozen" or name.startswith("text_adapter/")
+        require(m == want, f"{name} ({label}): {'moved' if m else 'did not move'}")
+    log(f"# training: {sum(moved)} of {len(moved)} tensors moved; the "
+        f"{len(moved) - sum(moved)} that did not carry the 'frozen' label")
+    require(all(not t.requires_grad and t.grad is None for t in tree_leaves(frozen)),
+            "the frozen backbone got a gradient")
+
+    # The first stage-2 step once more from the same parameters: through the
+    # kernels (must reproduce the recorded gradients), with the backward
+    # kernels alone swapped for their plain versions (and for a planted
+    # fault), and with every kernel swapped. That last route checkpoints its
+    # blocks: autograd through the plain attention would otherwise keep every
+    # block's (B, H, L, L) probabilities.
+    _, images, masks, labels_t, anchor_stack, weights, rng = first["args"]
+
+    def grads_through(route, remat, batch=B):
+        params = init_trainable(cfg, seed=111, device=DEVICE, dtype=torch.float32)
+        with torch.no_grad():
+            for dst, src in zip(tree_leaves(params), first["before"]):
+                dst.copy_(src)
+        for t in tree_leaves(params):
+            t.requires_grad_(True)
+        step_cfg = TrainConfig(dataset="Synth", img_size=IMG, compute_dtype="bfloat16",
+                               remat=remat)
+        fn = steps.make_stage2_step(cfg, step_cfg, compute_dtype=torch.bfloat16).loss_fn
+        with route:
+            loss = fn(params, frozen, images[:batch], masks[:batch], labels_t[:batch],
+                      anchor_stack[:batch], weights[:batch], rng)
+            loss.backward()
+        torch.cuda.synchronize()
+        return float(loss.detach()), grads_of(params)
+
+    def rel(a, b):
+        return float((a.float() - b.float()).square().mean().sqrt()
+                     / b.float().square().mean().sqrt().clamp_min(1e-30))
+
+    _, g_again = grads_through(contextlib.nullcontext(), remat=False)
+    require(all((a is None) == (b is None) for a, b in zip(first["grads"], g_again)),
+            "a second run of the step gives gradients to other tensors")
+    pairs = [(a, b) for a, b in zip(g_again, first["grads"]) if a is not None]
+    again_equal = all(torch.equal(a, b) for a, b in pairs)
+    again_rel = max(rel(a, b) for a, b in pairs)
+    require(again_rel <= 1e-3, f"the same step twice: gradients differ by {again_rel}")
+    # (a) The same forward kernels with the backward kernels swapped for
+    # their plain versions: only the adapters of blocks 0-5 lie upstream of a
+    # backward kernel, every other tensor must come out the same.
+    loss_b, g_bwd = grads_through(_PlainBackward(), remat=False)
+    _, g_fault = grads_through(_PlainBackward(mlp_dx=dx_no_ln_means), remat=False)
+    # (b) Every kernel, forward and backward, swapped for its plain version.
+    loss_p, g_plain = grads_through(_Twins(), remat=True)
+    upstream = "image_adapter/layer_adapters/"
+    worst = {"bwd": 0.0, "fault": 0.0, "twins": 0.0, "rest": 0.0, "rest_twins": (0.0, "")}
+    got_grad = 0
+    for name, gk, gb, gf, gp in zip(names, first["grads"], g_bwd, g_fault, g_plain):
+        require((gk is None) == (gb is None) == (gp is None),
+                f"{name}: a gradient on one route only")
+        if gk is None:
+            continue
+        got_grad += 1
+        require(torch.isfinite(gk).all().item(), f"{name}: gradient not finite")
+        rb, rf, rp = rel(gk, gb), rel(gf, gb), rel(gk, gp)
+        if name.startswith(upstream):
+            log(f"#   grad {name}: rms {gb.float().square().mean().sqrt().item():.3e}; kernels "
+                f"vs plain backward {rb:.3e}, planted fault vs plain backward {rf:.3e}, "
+                f"kernels vs all plain {rp:.3e}")
+            worst["bwd"], worst["fault"] = max(worst["bwd"], rb), max(worst["fault"], rf)
+            worst["twins"] = max(worst["twins"], rp)
+            require(rb <= GRAD_BWD_TOL, f"{name}: the backward kernels' gradient differs "
+                    f"from the plain backward's by {rb}")
+            require(rp <= GRAD_TOL, f"{name}: kernel-route gradient differs from the plain "
+                    f"route's by {rp}")
+        else:
+            worst["rest"] = max(worst["rest"], rb)
+            worst["rest_twins"] = max(worst["rest_twins"], (rp, name))
+            if rp > GRAD_TOL:
+                log(f"#   grad {name} (downstream of the tower): rms "
+                    f"{gp.float().square().mean().sqrt().item():.3e}, kernels vs all plain "
+                    f"{rp:.3e}")
+    block0 = trainable["image_adapter"]["layer_adapters"][0]["w"]
+    g0 = first["grads"][[id(t) for t in tree_leaves(trainable)].index(id(block0))]
+    require(g0 is not None and g0.abs().max().item() > 0,
+            "no gradient reached block 0's adapter")
+    log(f"# training, first stage-2 step, {got_grad} tensors with gradients. Adapters of blocks "
+        f"0-5 (upstream of B4/B5), worst rms diff / rms: kernels vs plain backward "
+        f"{worst['bwd']:.3e} (tol {GRAD_BWD_TOL:.0e}), planted fault (B5 without the LayerNorm "
+        f"mean terms) {worst['fault']:.3e}, kernels vs all plain {worst['twins']:.3e} (tol "
+        f"{GRAD_TOL:.0e}). Other tensors: kernels vs plain backward {worst['rest']:.3e} (the "
+        f"same forward), vs all plain at most {worst['rest_twins'][0]:.3e} "
+        f"({worst['rest_twins'][1]}; forward rounding only, not held). Loss {s2[0]['loss']:.5f}, "
+        f"plain backward {loss_b:.5f}, all plain {loss_p:.5f}; the kernel route twice: gradients "
+        f"{'equal bit for bit' if again_equal else f'differ by at most {again_rel:.3e}'}")
+    require(worst["rest"] <= 1e-6, "a tensor downstream of the tower depends on the backward route")
+    require(worst["fault"] > GRAD_BWD_TOL, "the gradient check missed the planted fault")
+
+    # Checkpointed blocks: the same loss (and gradients) at batch 2.
+    loss_a, g_a = grads_through(contextlib.nullcontext(), remat=False, batch=2)
+    reset = read_counts()
+    loss_r, g_b = grads_through(contextlib.nullcontext(), remat=True, batch=2)
+    remat_counts = {n: read_counts()[n] - reset[n] for n in KERNELS}
+    g_rel = max(rel(a, b) for a, b in zip(g_b, g_a) if a is not None)
+    log(f"# training, remat at batch 2: loss {loss_r:.6f} against {loss_a:.6f} without, "
+        f"gradients differ by at most {g_rel:.3e}; launches with remat {remat_counts}")
+    require(abs(loss_r - loss_a) <= 1e-3 * abs(loss_a), "remat changes the loss")
+    require(g_rel <= 1e-3, "remat changes the gradients")
+    del g_again, g_bwd, g_plain, g_fault, g_a, g_b, record, first
+    torch.cuda.empty_cache()
+
+    # Rates of both stages (cli/bench.py's train and stage1 modes: a fixed
+    # device-resident batch, MVTec's prompt ensemble, CUDA events) and where
+    # a stage-2 step's time goes.
+    for mode, batch in (("stage1", 16), ("train", B)):
+        samples = bench._measure_train(mode, cfg, frozen, batch, IMG, None, iters=3, repeats=2)
+        ips = float(np.median(samples))
+        log(f"# training, {bench.TRAIN_METRICS[mode]}: {ips:.2f} images/s, "
+            f"{batch / ips * 1e3:.1f} ms per step of {batch} on {card} "
+            f"(blocks of 3 steps: {', '.join(f'{s:.2f}' for s in samples)})")
+    step_cfg = TrainConfig(dataset="Synth", img_size=IMG, compute_dtype="bfloat16")
+    step = steps.make_stage2_step(cfg, step_cfg, compute_dtype=torch.bfloat16)
+    opt_state = optim.stage2_optimizer(trainable, step_cfg.image_lr, 100)
+    args = (images, masks, labels_t, anchor_stack, weights, rng)
+    step(trainable, opt_state, frozen, *args)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    profile_call(lambda: step(trainable, opt_state, frozen, *args),
+                 f"one stage-2 step at batch {B}")
+    log(f"# training: peak memory of a stage-2 step at batch {B} "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+    return counts
+
+
+def kernel_group(name):
+    """The profiler group of a device kernel, by its name."""
+    low = name.lower()
+    if "attention_bwd" in low:
+        return "B4 packed_attention_bwd"
+    if "packed_attention" in low:
+        return "B1 packed_attention"
+    if "ln_mlp_residual_dx" in low:
+        return "B5 ln_mlp_residual_dx"
+    if "ln_mlp_residual_int8" in low:
+        return "B3 ln_mlp_residual_int8"
+    if "ln_mlp_residual" in low:
+        return "B2 ln_mlp_residual"
+    if "memcpy" in low or "memset" in low:
+        return "memcpy"
+    if any(k in low for k in ("gemm", "nvjet", "sm90_xmma", "cutlass", "imma", "i8816")):
+        return "GEMM (cuBLAS)"
+    return "other"
+
+
+def profile_call(fn, what):
+    """Device time by kernel group for one call of ``fn`` (torch.profiler):
+    where the time goes, and the device's idle share of the call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        det.predict(imgs, "screw")
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
-    groups = {"B1 packed_attention": 0.0, "B2 ln_mlp_residual": 0.0,
-              "B3 ln_mlp_residual_int8": 0.0, "GEMM (cuBLAS)": 0.0, "memcpy": 0.0,
-              "other": 0.0}
-    kernels = []
+    groups, kernels = {}, []
     for evt in prof.key_averages():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
         ms = evt.self_device_time_total / 1e3
-        name = evt.key
-        low = name.lower()
-        if "packed_attention" in low:
-            group = "B1 packed_attention"
-        elif "ln_mlp_residual_int8" in low:
-            group = "B3 ln_mlp_residual_int8"
-        elif "ln_mlp_residual" in low:
-            group = "B2 ln_mlp_residual"
-        elif "memcpy" in low:
-            group = "memcpy"
-        elif any(k in low for k in ("gemm", "nvjet", "sm90_xmma", "cutlass", "imma", "i8816")):
-            group = "GEMM (cuBLAS)"
-        else:
-            group = "other"
-        groups[group] += ms
-        kernels.append((ms, evt.count, name[:90]))
+        group = kernel_group(evt.key)
+        groups[group] = groups.get(group, 0.0) + ms
+        kernels.append((ms, evt.count, evt.key[:90]))
     busy = sum(groups.values())
+    require(busy > 0, f"profile, {what}: the profiler saw no device time")
     idle = 1.0 - busy / wall_ms
-    log(f"# profile, one batch-{len(imgs)} request: wall {wall_ms:.1f} ms under the "
+    log(f"# profile, {what}: wall {wall_ms:.1f} ms under the "
         f"profiler, device busy {busy:.1f} ms, idle share {idle:.3f}")
-    for group, ms in groups.items():
-        if ms:
-            log(f"#   {group}: {ms:.2f} ms ({ms / busy:.1%} of device time)")
+    for group, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+        log(f"#   {group}: {ms:.2f} ms ({ms / busy:.1%} of device time)")
     for ms, count, name in sorted(kernels, reverse=True)[:8]:
         log(f"#   {ms:8.2f} ms x{count:<4d} {name}")
+
+
+def profile_request(det, imgs):
+    profile_call(lambda: det.predict(imgs, "screw"), f"one batch-{len(imgs)} request")
 
 
 def main():
@@ -816,8 +1319,10 @@ def main():
         launches, ctx = phase_main_path(card)
         add_counts(launches, phase_int8_tiers(card, ctx))
         add_counts(launches, phase_sweep(card, ctx))
+        cfg, frozen = ctx["cfg"], ctx["frozen"]
         del ctx
         phase_metrics_scale(card)
+        add_counts(launches, phase_train(card, cfg, frozen))
         for name in KERNELS:
             require(launches[name] > 0, f"the driven paths never launched {name}")
     except (Failure, ImportError, RuntimeError, subprocess.CalledProcessError) as exc:

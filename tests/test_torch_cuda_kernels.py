@@ -152,3 +152,179 @@ def test_wrappers_refuse_bad_inputs(dev):
            "c_proj": {"w": torch.zeros(256, 64, device=dev), "b": torch.zeros(64, device=dev)}}
     with pytest.raises(ValueError, match="ln bias"):
         fused_mlp.ln_mlp_residual(ln, mlp, torch.zeros(4, 64, device=dev), gelu)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("batch,heads,seq_len,valid_len", [
+    (2, 16, 1370, None),              # ViT-L/518
+    (1, 16, 1370, 1300),              # batch 1, keys masked short of L
+    (2, 2, 77, 70),
+    (2, 4, 17, None),                 # less than one tile
+    (1, 2, 200, 129),                 # a masked key tile and a ragged tail
+    (2, 4, 65, 1),
+])
+def test_packed_attention_bwd_matches_plain(dev, dtype, batch, heads, seq_len, valid_len):
+    hd = 64
+    gen = torch.Generator(device=dev).manual_seed(seq_len + heads)
+    qkv = torch.randn((batch, seq_len, 3 * heads * hd), generator=gen, device=dev).to(dtype)
+    d_out = torch.randn((batch, seq_len, heads * hd), generator=gen, device=dev).to(dtype)
+    before = (pa.BWD_LAUNCHES, pa.LAUNCHES)
+    out = pa.flash_mha_packed_bwd(qkv, d_out, heads, hd ** -0.5, valid_len=valid_len)
+    assert (pa.BWD_LAUNCHES, pa.LAUNCHES) == (before[0] + 1, before[1])
+    ref = pa.flash_mha_packed_bwd_reference(qkv, d_out, heads, hd ** -0.5,
+                                            valid_len=valid_len)
+    w = heads * hd
+    for sec in range(3):              # dq, dk, dv each on its own scale
+        _check(out[..., sec * w:(sec + 1) * w], ref[..., sec * w:(sec + 1) * w])
+
+
+def test_packed_attention_autograd_on_the_card(dev):
+    """The Function's backward launches the kernel, and the value-value
+    variant raises instead of returning zeros or taking the plain route."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    qkv = torch.randn((1, 130, 3 * 128), generator=gen, device=dev).to(torch.bfloat16)
+    qkv.requires_grad_(True)
+    g = torch.randn((1, 130, 128), generator=gen, device=dev).to(torch.bfloat16)
+    before = (pa.LAUNCHES, pa.BWD_LAUNCHES)
+    out = pa.flash_mha_packed(qkv, 2, 0.125)
+    assert out.grad_fn is not None
+    (grad,) = torch.autograd.grad(out, qkv, g)
+    assert (pa.LAUNCHES, pa.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    _check(grad, pa.flash_mha_packed_bwd_reference(qkv.detach(), g, 2, 0.125))
+    out = pa.flash_mha_packed(qkv, 2, 0.125, vv=True)
+    with pytest.raises(NotImplementedError, match="_vv_bwd_kernel_grouped"):
+        torch.autograd.grad(out, qkv, g)
+
+
+def _float_case(dev, dtype, m, d, h, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape, std=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * std
+
+    ln = {"scale": 1.0 + 0.1 * rnd(d), "bias": 0.1 * rnd(d)}
+    mlp = {"c_fc": {"w": rnd(d, h, std=d ** -0.5).to(dtype), "b": rnd(h, std=0.02)},
+           "c_proj": {"w": rnd(h, d, std=h ** -0.5).to(dtype), "b": rnd(d, std=0.02)}}
+    return ln, mlp, rnd(m, d).to(dtype), rnd(m, d).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,d,h,act", [
+    (1000, 1024, 4096, gelu),         # the vision tower's widths
+    (1000, 768, 3072, quick_gelu),    # the text tower's
+    (77, 256, 512, gelu),             # an odd row count
+    (33, 64, 256, gelu),              # the generic kernel for bf16 too
+    (5, 128, 384, quick_gelu),
+])
+def test_ln_mlp_residual_dx_matches_plain(dev, dtype, m, d, h, act):
+    ln, mlp, x, g = _float_case(dev, dtype, m, d, h, m + d)
+    before = (fused_mlp.DX_LAUNCHES, fused_mlp.LAUNCHES)
+    out = fused_mlp.ln_mlp_residual_dx(ln, mlp, x, g, act)
+    assert (fused_mlp.DX_LAUNCHES, fused_mlp.LAUNCHES) == (before[0] + 1, before[1])
+    # Held on dx - g: the residual cotangent g is the same in both.
+    _check(out, fused_mlp.ln_mlp_residual_dx_reference(ln, mlp, x, g, act), g)
+
+
+def test_fused_mlp_autograd_on_the_card(dev):
+    """The frozen Function goes forward through the fused kernel and backward
+    through the dx kernel; the general one recomputes the plain chain."""
+    ln, mlp, x, g = _float_case(dev, torch.bfloat16, 200, 256, 512, 9)
+    x.requires_grad_(True)
+    before = (fused_mlp.LAUNCHES, fused_mlp.DX_LAUNCHES)
+    y = fused_mlp.ln_mlp_residual_frozen(ln, mlp, x, gelu)
+    (dx,) = torch.autograd.grad(y, x, g)
+    assert (fused_mlp.LAUNCHES, fused_mlp.DX_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    ref = fused_mlp.ln_mlp_residual_dx_reference(ln, mlp, x.detach(), g, gelu)
+    _check(dx, ref, g)
+    mlp["c_fc"]["b"].requires_grad_(True)
+    with pytest.raises(ValueError, match="requires grad"):
+        fused_mlp.ln_mlp_residual_frozen(ln, mlp, x, gelu)
+    y = fused_mlp.ln_mlp_residual(ln, mlp, x, gelu)
+    dx2, db = torch.autograd.grad(y, [x, mlp["c_fc"]["b"]], g)
+    assert (fused_mlp.LAUNCHES, fused_mlp.DX_LAUNCHES) == (before[0] + 2, before[1] + 1)
+    assert db.shape == mlp["c_fc"]["b"].shape and torch.isfinite(db).all()
+    _check(dx2, ref, g)
+
+
+# --------------------------------------------------------------------------
+# A stage-2 step on the card against the same step on the CPU
+# --------------------------------------------------------------------------
+
+def _stage2_step(device, dtype, patch_dropout=0.0, quantize=None, **train_kw):
+    """One stage-2 step of a small model whose heads are 64 wide (the width
+    the attention kernels take), on numpy-seeded inputs. Returns the loss,
+    the gradients the step left and the launch counts it added."""
+    from dataclasses import replace
+
+    import numpy as np
+
+    from aa_clip_iqm_tpu_torch.configs import TrainConfig, tiny_test_config
+    from aa_clip_iqm_tpu_torch.loader import init_trainable, random_backbone
+    from aa_clip_iqm_tpu_torch.models.convert import tree_leaves
+    from aa_clip_iqm_tpu_torch.train import optim, steps
+
+    cfg = tiny_test_config(56)
+    vision = replace(cfg.clip.vision, width=128, head_width=64, layers=3,
+                     patch_dropout=patch_dropout)
+    cfg = replace(cfg, clip=replace(cfg.clip, vision=vision),
+                  adapter=replace(cfg.adapter, levels=(2, 3)), surgery_until_layer=3)
+    frozen = random_backbone(cfg, seed=0, device=device, dtype=dtype)
+    if quantize:
+        frozen = quant.quantize_backbone_auto(frozen, quantize, cfg=cfg)
+    trainable = init_trainable(cfg, seed=1, device=device, dtype=torch.float32,
+                               requires_grad=True)
+    rng = np.random.default_rng(4)
+    n = 4
+
+    def on_device(a):
+        return torch.from_numpy(a).to(device)
+
+    images = on_device(rng.standard_normal((n, 3, 56, 56)).astype(np.float32))
+    masks = on_device((rng.random((n, 1, 56, 56)) > 0.8).astype(np.float32))
+    labels = on_device(rng.integers(0, 2, n).astype(np.int64))
+    anchors = on_device(rng.standard_normal((n, cfg.clip.embed_dim, 2)).astype(np.float32))
+    weights = on_device(np.array([1, 1, 1, 0], np.float32))
+    keep_idx = None
+    if patch_dropout:
+        keep_idx = on_device(np.stack([np.sort(rng.permutation(16)[:12]) for _ in range(n)]))
+    step = steps.make_stage2_step(
+        cfg, TrainConfig(img_size=56, **train_kw), compute_dtype=dtype)
+    before = (pa.LAUNCHES, pa.BWD_LAUNCHES, fused_mlp.LAUNCHES, fused_mlp.DX_LAUNCHES,
+              fused_mlp.INT8_LAUNCHES)
+    _, _, loss = step(trainable, optim.stage2_optimizer(trainable, 5e-4, 4), frozen, images,
+                      masks, labels, anchors, weights, keep_idx)
+    after = (pa.LAUNCHES, pa.BWD_LAUNCHES, fused_mlp.LAUNCHES, fused_mlp.DX_LAUNCHES,
+             fused_mlp.INT8_LAUNCHES)
+    grads = [None if t.grad is None else t.grad.detach().float().cpu()
+             for t in tree_leaves(trainable)]
+    return float(loss), grads, tuple(a - b for a, b in zip(after, before))
+
+
+@pytest.mark.parametrize("options,launches", [
+    # (B1, B4, B2, B5, B3) launches: 3 blocks, block 0 out of the graph.
+    ({}, (3, 2, 3, 2, 0)),
+    ({"grad_accum_steps": 2}, (6, 4, 6, 4, 0)),
+    ({"remat": True}, (6, 2, 6, 2, 0)),
+    ({"patch_dropout": 0.25}, (3, 2, 3, 2, 0)),
+])
+def test_stage2_step_on_the_card_matches_the_cpu(dev, options, launches):
+    """float32 end to end: the kernels' float32 paths, forward and backward,
+    give the CPU step's loss and gradients (the plain versions there)."""
+    loss_c, grads_c, got = _stage2_step(dev, torch.float32, **options)
+    loss_h, grads_h, none = _stage2_step(torch.device("cpu"), torch.float32, **options)
+    assert got == launches and none == (0, 0, 0, 0, 0)
+    assert abs(loss_c - loss_h) <= 1e-4 * abs(loss_h), (loss_c, loss_h)
+    for gc, gh in zip(grads_c, grads_h):
+        assert (gc is None) == (gh is None)
+        if gc is not None:
+            err = (gc - gh).square().mean().sqrt().item()
+            assert err <= 2e-3 * gh.square().mean().sqrt().item() + 1e-9, err
+
+
+def test_stage2_step_on_the_card_int8_mlp(dev):
+    """With an int8 MLP the block takes the fused int8 kernel and its plain
+    straight-through backward: the dx kernel does not launch."""
+    loss, grads, got = _stage2_step(dev, torch.bfloat16, quantize="int8_mlp")
+    assert got == (3, 2, 0, 0, 3)
+    assert loss == loss and all(g is None or torch.isfinite(g).all() for g in grads)
+    assert any(g is not None and g.abs().max() > 0 for g in grads)

@@ -329,8 +329,12 @@ def test_datasets_match_jax(data):
     assert len(tdatasets.load_metadata(os.path.join(meta_root, "Synth", "full-shot.jsonl"))) == 22
     with pytest.raises(KeyError, match="not found"):
         tdatasets.get_dataset("Nope", IMG)
-    with pytest.raises(ValueError, match="not ported"):
-        tdatasets.get_dataset("Synth", IMG, stage="train")
+    with pytest.raises(ValueError, match="not found"):
+        tdatasets.get_dataset("Synth", IMG, stage="visualize")
+    text_ds, image_ds = tdatasets.get_dataset("Synth", IMG, stage="train",
+                                              metadata_root=meta_root,
+                                              training_mode="full_shot")
+    assert len(text_ds) == len(image_ds) == 22 and text_ds.text and not image_ds.text
     # Resizing decode (PIL bicubic / nearest) keeps shapes and binary masks.
     item = tdatasets.SingleClassTestDataset(os.path.join(root, "Synth"),
                                             os.path.join(meta_root, "Synth", "full-shot.jsonl"),
@@ -370,7 +374,8 @@ def test_cli_evaluate_end_to_end(data, tmp_path, capsys, tier):
         for k in tpredict.METRIC_KEYS:
             assert np.isfinite(r[k]) and 0.0 <= r[k] <= 100.0
     assert os.path.isfile(tmp_path / "out" / "test.log")
-    with pytest.raises(NotImplementedError, match="restoring trained adapters"):
+    # Without --no_adapters it restores a trainer's checkpoint; there is none.
+    with pytest.raises(FileNotFoundError, match="no stage-2 image-adapter checkpoint"):
         tcli.main([a for a in args if a != "--no_adapters"])
     with pytest.raises(SystemExit):
         tcli.main(args + ["--quantize_backbone", "int8-attn"])
@@ -386,13 +391,21 @@ def test_bench_helpers_and_gpu_requirement():
     for samples in ([98.0, 100.0, 101.0], [5.0], [0.0, 0.0]):
         assert tbench._median_spread(samples) == jbench._median_spread(samples)
     assert tbench.METRIC.endswith("_per_gpu")
-    before = (attention.flash_mha_packed, tclip.ln_mlp_residual, tclip.ln_mlp_residual_int8)
+    def sites():
+        return (attention.flash_mha_packed, tclip.ln_mlp_residual,
+                tclip.ln_mlp_residual_frozen, tclip.ln_mlp_residual_int8)
+
+    before = sites()
     with tbench.plain_twins():
         assert attention.flash_mha_packed is packed_attention.flash_mha_packed_reference
         assert tclip.ln_mlp_residual is fused_mlp.ln_mlp_residual_reference
+        assert tclip.ln_mlp_residual_frozen is fused_mlp.ln_mlp_residual_reference
         assert tclip.ln_mlp_residual_int8 is fused_mlp.ln_mlp_residual_int8_reference
-    assert before == (attention.flash_mha_packed, tclip.ln_mlp_residual,
-                      tclip.ln_mlp_residual_int8)
+    assert before == sites()
+    assert set(tbench.TRAIN_METRICS) == {"train", "stage1"}
+    assert all(m.endswith("_per_gpu") for m in tbench.TRAIN_METRICS.values())
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit, match="needs a GPU"):
             tbench.main(["--batch", "1"])
+        with pytest.raises(SystemExit, match="needs a GPU"):
+            tbench.main(["--mode", "train"])

@@ -47,7 +47,10 @@ def test_new_modules_are_covered():
     covered = {os.path.relpath(p, PACKAGE) for p in _sources()}
     for rel in ("ops/quant.py", "ops/metrics.py", "ops/fused_mlp.py",
                 "evaluation/predict.py", "data/datasets.py", "data/synthetic.py",
-                "cli/evaluate.py", "cli/bench.py", "utils/misc.py"):
+                "cli/evaluate.py", "cli/bench.py", "utils/misc.py",
+                "ops/losses.py", "ops/packed_attention.py", "train/optim.py",
+                "train/steps.py", "train/checkpoint.py", "train/driver.py",
+                "cli/train.py"):
         assert rel in covered, rel
 
 
