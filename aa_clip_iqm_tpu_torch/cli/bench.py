@@ -3,7 +3,8 @@
 two training stages.
 
     python -m aa_clip_iqm_tpu_torch.cli.bench [--mode inference|train|stage1]
-        [--quant int8] [--batch 8] [--twins] [--repeats 3] [--iters 10]
+        [--quant int8] [--batch 8] [--img_size 518] [--twins] [--repeats 3]
+        [--iters 10]
 
 ``--mode inference`` (default) runs the whole scoring pipeline (adapted ViT-L/14 forward with taps at
 {6, 12, 18, 24}, seg/det projections, IQM query transformer, 4-level anchor
@@ -52,19 +53,21 @@ def plain_twins():
     """Route the kernel call sites to their plain PyTorch twins (autograd
     then differentiates the twins, so the backward kernels are out too)."""
     from ..models import clip
-    from ..ops import attention, fused_mlp, packed_attention
+    from ..ops import attention, attn_block, fused_mlp, packed_attention
 
-    saved = (attention.flash_mha_packed, clip.ln_mlp_residual,
-             clip.ln_mlp_residual_frozen, clip.ln_mlp_residual_int8)
+    saved = (attention.flash_mha_packed, attention.flash_mha, clip.ln_attn_residual,
+             clip.ln_mlp_residual, clip.ln_mlp_residual_frozen, clip.ln_mlp_residual_int8)
     attention.flash_mha_packed = packed_attention.flash_mha_packed_reference
+    attention.flash_mha = attention.sdpa
+    clip.ln_attn_residual = attn_block.ln_attn_residual_reference
     clip.ln_mlp_residual = fused_mlp.ln_mlp_residual_reference
     clip.ln_mlp_residual_frozen = fused_mlp.ln_mlp_residual_reference
     clip.ln_mlp_residual_int8 = fused_mlp.ln_mlp_residual_int8_reference
     try:
         yield
     finally:
-        (attention.flash_mha_packed, clip.ln_mlp_residual,
-         clip.ln_mlp_residual_frozen, clip.ln_mlp_residual_int8) = saved
+        (attention.flash_mha_packed, attention.flash_mha, clip.ln_attn_residual,
+         clip.ln_mlp_residual, clip.ln_mlp_residual_frozen, clip.ln_mlp_residual_int8) = saved
 
 
 def _measure(predict, frozen, trainable, batch, img, embed_dim, iters, repeats):
@@ -216,6 +219,7 @@ def main(argv=None):
         "unit": "images/sec",
         "spread_pct": round(spread, 1),
         "batch": args.batch,
+        "img_size": args.img_size,
         "quant": args.quant,
         "kernels": "twins" if args.twins else "cuda",
         "device": torch.cuda.get_device_name(0),

@@ -4,402 +4,46 @@
 // flash_mha_packed -> _row_kernel_grouped (whole-row softmax over 2-head
 // 128-lane panels of the packed (B, L, 3W) qkv projection).
 //
-// What it computes, per (batch b, head h):
-//   S = scale * Q K^T in fp32, keys >= valid_len masked to -inf,
-//   O = softmax(S) V, with the probabilities rounded to V's dtype before the
-//   P.V product and fp32 accumulation, written in merged-head (B, L, W)
-//   layout. q, k, v are read strided straight out of the packed tensor at
-//   column offset sec*W + h*hd, sec = (0, 1, 2), or (2, 2, 2) for the
-//   CLIP-Surgery value-value variant.
+// What it computes, per (batch b, head h): softmax(scale * Q K^T) V with keys
+// >= valid_len masked, written in merged-head (B, L, W) layout. q, k, v are
+// read strided straight out of the packed tensor at column offset
+// sec*W + h*hd, sec = (0, 1, 2), or (2, 2, 2) for the CLIP-Surgery
+// value-value variant, so no head split or merge copies exist.
 //
 // What bounds it on the H100: at ViT-L/518 (B=8, L=1370, 16 heads of 64)
 // a layer is 4*B*H*L^2*hd = 6.2e10 FLOP (62 us at 989 TFLOP/s dense bf16)
 // against ~90 MB of qkv/out traffic (27 us at 3.35 TB/s): compute-bound.
 //
-// What the design does about it: the (L, L) score matrix never leaves the
-// SM. One thread block (4 warps) owns a 64-row query tile of one head and
-// walks the keys in 64-key tiles with an online softmax (fp32 running max,
-// sum and accumulator), so device memory sees one read of q/k/v per tile and
-// one write of the output. Two paths:
-//   - bf16: the FlashAttention-2 layout. Each warp keeps its 16 query rows'
-//     Q operands, scores, probabilities and output accumulator in registers;
-//     both products are mma.sync m16n8k16 with operands from ldmatrix; row
-//     statistics need two quad shuffles; the next K/V tile loads by cp.async
-//     while this one multiplies;
-//   - fp32: plain FMAs over shared-memory tiles, so it keeps full fp32
-//     precision.
-// The ragged last key tile and keys >= valid_len are masked; rows past L are
-// zero-filled on load and never written. Not yet done: TMA, wgmma, warp
-// specialisation.
-//
-// Online softmax differs from the TPU kernel's whole-row softmax only by
-// fp32 rounding of the running rescale, plus the bf16 rounding of P (taken
-// against the running instead of the final row max).
+// What the design does about it: the online-softmax tile walk of
+// attention_fwd.cuh (shared with the unpacked kernel, csrc/flash_attention.cu)
+// keeps the (L, L) scores on the SM, with mma.sync for bf16 and FMAs for
+// fp32; here the layout is the packed one: row stride 3W, head stride hd.
 
-#include <math.h>
 #include <stdint.h>
 
-#include "common.cuh"
+#include "attention_fwd.cuh"
 
 using namespace aaclip;
 
-namespace {
-
-constexpr int BQ = 64;                 // query rows per block
-constexpr int BK = 64;                 // keys per tile
-constexpr int NWARPS = 4;              // each warp owns 16 query rows
-constexpr int NTHREADS = NWARPS * 32;
-constexpr int ROWS_PER_WARP = BQ / NWARPS;
-
-// ---------------------------------------------------------------------------
-// bf16 path: FlashAttention-2 register layout.
-// ---------------------------------------------------------------------------
-
-template <int HD>
-struct MmaLayout {
-  static constexpr int LD = HD + 8;    // tile row stride (16-byte padding)
-  static constexpr size_t tile = round_up(sizeof(bf16) * 64 * LD, 128);
-  static constexpr size_t q = 0;       // Q, then K[2], then V[2]
-  static constexpr size_t k = tile;
-  static constexpr size_t v = 3 * tile;
-  static constexpr size_t bytes = 5 * tile;
-};
-
-// Start copying rows [r0, r0 + 64) of one head's column panel into shared
-// memory; rows at or past L are zero-filled.
-template <int HD>
-__device__ __forceinline__ void load_panel(bf16* dst, const bf16* src,
-                                           long row_stride, int r0, int L) {
-  constexpr int VPR = HD / 8;          // 16-byte vectors per row
-  constexpr int LD = MmaLayout<HD>::LD;
-  for (int i = threadIdx.x; i < 64 * VPR; i += NTHREADS) {
-    const int r = i / VPR, c = (i % VPR) * 8;
-    const bool real = r0 + r < L;
-    cp_async16(dst + r * LD + c, real ? src + (long)(r0 + r) * row_stride + c : src,
-               real ? 16 : 0);
-  }
-}
-
-template <int HD>
-__global__ void __launch_bounds__(NTHREADS)
-packed_attention_mma_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
-                            int L, int W, int n_keys, float scale, int q_sec,
-                            int k_sec, int v_sec) {
-  using Lay = MmaLayout<HD>;
-  constexpr int LD = Lay::LD;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem + Lay::q);
-  auto kbuf = [&](int i) { return reinterpret_cast<bf16*>(smem + Lay::k + i * Lay::tile); };
-  auto vbuf = [&](int i) { return reinterpret_cast<bf16*>(smem + Lay::v + i * Lay::tile); };
-
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4, tq = lane % 4;
-  const long row_stride = 3L * W;
-  const bf16* base = qkv + (long)b * L * row_stride;
-  const bf16* ksrc = base + k_sec * W + h * HD;
-  const bf16* vsrc = base + v_sec * W + h * HD;
-  const int ntiles = (n_keys + BK - 1) / BK;
-
-  load_panel<HD>(Qs, base + q_sec * W + h * HD, row_stride, q0, L);
-  load_panel<HD>(kbuf(0), ksrc, row_stride, 0, L);
-  load_panel<HD>(vbuf(0), vsrc, row_stride, 0, L);
-  cp_async_commit();
-
-  unsigned qa[HD / 16][4];             // this warp's Q rows as A operands
-  float o[HD / 8][4];                  // output accumulator, n8 tiles over hd
-#pragma unroll
-  for (int n = 0; n < HD / 8; ++n)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) o[n][i] = 0.f;
-  // Running max and (per-lane partial) sum of rows g and g + 8.
-  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
-
-  for (int kt = 0; kt < ntiles; ++kt) {
-    if (kt + 1 < ntiles) {
-      load_panel<HD>(kbuf((kt + 1) & 1), ksrc, row_stride, (kt + 1) * BK, L);
-      load_panel<HD>(vbuf((kt + 1) & 1), vsrc, row_stride, (kt + 1) * BK, L);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (kt == 0) {
-#pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk)
-        ldsm_x4(qa[kk], tile_lane_row(Qs + warp * 16 * LD + kk * 16, LD));
-    }
-    const bf16* Kt = kbuf(kt & 1);
-    const bf16* Vt = vbuf(kt & 1);
-
-    // S = Q K^T: 8 n8 tiles of keys. K is [key][d], so its plain 8x8
-    // matrices are B operands; lane l addresses key (l % 8) + 8 (l / 16),
-    // column block (l / 8) % 2.
-    float sc[BK / 8][4];
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) sc[n][i] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-#pragma unroll
-      for (int j = 0; j < BK / 16; ++j) {
-        unsigned kb[4];
-        ldsm_x4(kb, Kt + (j * 16 + lane % 8 + (lane / 16) * 8) * LD + kk * 16 +
-                        ((lane / 8) % 2) * 8);
-        mma16816(sc[2 * j], qa[kk], kb[0], kb[1]);
-        mma16816(sc[2 * j + 1], qa[kk], kb[2], kb[3]);
-      }
-    }
-
-    // Scale, mask, online softmax. The lane holds columns 2tq, 2tq+1 of each
-    // n8 tile for rows g (i = 0, 1) and g + 8 (i = 2, 3); a row lives in a quad.
-    const int k0 = kt * BK;
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int key = k0 + n * 8 + 2 * tq + (i & 1);
-        const float v = key < n_keys ? sc[n][i] * scale : -INFINITY;
-        sc[n][i] = v;
-        mx[i / 2] = fmaxf(mx[i / 2], v);
-      }
-    float alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      // k0 < n_keys, so key k0 is real and the row max is finite.
-      const float m_new = fmaxf(m_run[r], mx[r]);
-      alpha[r] = expf(m_run[r] - m_new);
-      m_run[r] = m_new;
-      l_run[r] *= alpha[r];
-    }
-    // P = exp(S - m), rounded to bf16 as the A operands of P.V: key group
-    // kk2 takes n8 tiles 2kk2 (registers 0, 1) and 2kk2 + 1 (registers 2, 3).
-    unsigned pa[BK / 16][4];
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n) {
-      const float p0 = expf(sc[n][0] - m_run[0]), p1 = expf(sc[n][1] - m_run[0]);
-      const float p2 = expf(sc[n][2] - m_run[1]), p3 = expf(sc[n][3] - m_run[1]);
-      l_run[0] += p0 + p1;
-      l_run[1] += p2 + p3;
-      pa[n / 2][(n % 2) * 2] = pack_bf16x2(p0, p1);
-      pa[n / 2][(n % 2) * 2 + 1] = pack_bf16x2(p2, p3);
-    }
-#pragma unroll
-    for (int n = 0; n < HD / 8; ++n) {
-      o[n][0] *= alpha[0];
-      o[n][1] *= alpha[0];
-      o[n][2] *= alpha[1];
-      o[n][3] *= alpha[1];
-    }
-
-    // O += P V: V is [key][d], its transposed 8x8 matrices are B operands.
-#pragma unroll
-    for (int kk2 = 0; kk2 < BK / 16; ++kk2) {
-#pragma unroll
-      for (int j = 0; j < HD / 16; ++j) {
-        unsigned vb[4];
-        ldsm_x4_t(vb, tile_lane_row(Vt + kk2 * 16 * LD + j * 16, LD));
-        mma16816(o[2 * j], pa[kk2], vb[0], vb[1]);
-        mma16816(o[2 * j + 1], pa[kk2], vb[2], vb[3]);
-      }
-    }
-    __syncthreads();  // this tile's buffers are refilled next iteration
-  }
-
-  // Normalise and write rows g and g + 8 in merged-head layout.
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
-    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
-    const int q = q0 + warp * 16 + g + r * 8;
-    if (q >= L) continue;
-    const float inv = 1.f / l_run[r];
-    bf16* dst = out + ((long)b * L + q) * W + h * HD + 2 * tq;
-#pragma unroll
-    for (int n = 0; n < HD / 8; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(dst + n * 8) =
-          __floats2bfloat162_rn(o[n][2 * r] * inv, o[n][2 * r + 1] * inv);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// fp32 path: shared-memory tiles and plain FMAs.
-// ---------------------------------------------------------------------------
-
-constexpr int LDS = BK + 4;            // score / probability row stride
-
-template <int HD>
-struct F32Layout {
-  static constexpr int LDT = HD + 4;   // q/k/v tile row stride
-  static constexpr int LDO = HD + 4;   // accumulator row stride
-  static constexpr size_t q = 0;
-  static constexpr size_t k = q + round_up(sizeof(float) * BQ * LDT, 128);
-  static constexpr size_t v = k + round_up(sizeof(float) * BK * LDT, 128);
-  static constexpr size_t s = v + round_up(sizeof(float) * BK * LDT, 128);
-  static constexpr size_t o = s + round_up(sizeof(float) * BQ * LDS, 128);
-  static constexpr size_t bytes = o + round_up(sizeof(float) * BQ * LDO, 128);
-};
-
-// Copy rows [r0, r0 + ROWS) of one head's column panel into shared memory,
-// 16 bytes per thread per step; rows at or past L are zero-filled.
-template <int HD, int ROWS>
-__device__ __forceinline__ void load_tile_f32(float* dst, const float* src,
-                                              long row_stride, int r0, int L) {
-  constexpr int VPR = HD / 4;
-  constexpr int LDT = F32Layout<HD>::LDT;
-  for (int i = threadIdx.x; i < ROWS * VPR; i += NTHREADS) {
-    const int r = i / VPR, c = (i % VPR) * 4;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + r < L)
-      val = *reinterpret_cast<const float4*>(src + (long)(r0 + r) * row_stride + c);
-    *reinterpret_cast<float4*>(dst + r * LDT + c) = val;
-  }
-}
-
-template <int HD>
-__global__ void __launch_bounds__(NTHREADS)
-packed_attention_f32_kernel(const float* __restrict__ qkv, float* __restrict__ out,
-                            int L, int W, int n_keys, float scale, int q_sec,
-                            int k_sec, int v_sec) {
-  using Lay = F32Layout<HD>;
-  constexpr int LDT = Lay::LDT, LDO = Lay::LDO;
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* Qs = reinterpret_cast<float*>(smem + Lay::q);
-  float* Ks = reinterpret_cast<float*>(smem + Lay::k);
-  float* Vs = reinterpret_cast<float*>(smem + Lay::v);
-  float* Ss = reinterpret_cast<float*>(smem + Lay::s);   // scores, then P
-  float* Os = reinterpret_cast<float*>(smem + Lay::o);
-
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int wr0 = warp * ROWS_PER_WARP;
-  const long row_stride = 3L * W;
-  const float* base = qkv + (long)b * L * row_stride;
-  const float* ksrc = base + k_sec * W + h * HD;
-  const float* vsrc = base + v_sec * W + h * HD;
-
-  load_tile_f32<HD, BQ>(Qs, base + q_sec * W + h * HD, row_stride, q0, L);
-  for (int i = threadIdx.x; i < BQ * LDO; i += NTHREADS) Os[i] = 0.f;
-  // Lanes 2i and 2i+1 own row wr0 + i of the online softmax (each takes
-  // every other column) and both keep its running max and sum.
-  static_assert(ROWS_PER_WARP * 2 == 32, "two lanes per softmax row");
-  const int my_row = wr0 + lane / 2, half = lane % 2;
-  float m_row = -INFINITY, l_row = 0.f;
-  __syncthreads();
-
-  for (int k0 = 0; k0 < n_keys; k0 += BK) {
-    load_tile_f32<HD, BK>(Ks, ksrc, row_stride, k0, L);
-    load_tile_f32<HD, BK>(Vs, vsrc, row_stride, k0, L);
-    __syncthreads();
-
-    for (int i = lane; i < ROWS_PER_WARP * BK; i += 32) {
-      const int r = wr0 + i / BK, c = i % BK;
-      float acc = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < HD; ++d) acc = fmaf(Qs[r * LDT + d], Ks[c * LDT + d], acc);
-      Ss[r * LDS + c] = acc;
-    }
-    __syncwarp();
-
-    float sv[BK / 2];
-    float mx = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < BK / 2; ++j) {
-      const int c = 2 * j + half;
-      sv[j] = (k0 + c < n_keys) ? Ss[my_row * LDS + c] * scale : -INFINITY;
-      mx = fmaxf(mx, sv[j]);
-    }
-    // k0 < n_keys, so key k0 is real and the pair's max is finite.
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    const float m_new = fmaxf(m_row, mx);
-    const float alpha = expf(m_row - m_new);
-    float sum = 0.f;
-#pragma unroll
-    for (int j = 0; j < BK / 2; ++j) {
-      const float p = expf(sv[j] - m_new);
-      sum += p;
-      Ss[my_row * LDS + 2 * j + half] = p;   // each lane overwrites what it read
-    }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    m_row = m_new;
-    l_row = l_row * alpha + sum;
-    for (int c = half; c < HD; c += 2) Os[my_row * LDO + c] *= alpha;
-    __syncwarp();
-
-    for (int i = lane; i < ROWS_PER_WARP * HD; i += 32) {
-      const int r = wr0 + i / HD, c = i % HD;
-      float acc = Os[r * LDO + c];
-#pragma unroll 8
-      for (int key = 0; key < BK; ++key) acc = fmaf(Ss[r * LDS + key], Vs[key * LDT + c], acc);
-      Os[r * LDO + c] = acc;
-    }
-    __syncthreads();  // K/V tiles are overwritten by the next iteration
-  }
-
-#pragma unroll
-  for (int i = 0; i < ROWS_PER_WARP; ++i) {
-    const float inv = 1.f / __shfl_sync(0xffffffffu, l_row, 2 * i);
-    const int q = q0 + wr0 + i;
-    if (q >= L) break;
-    float* dst = out + ((long)b * L + q) * W + h * HD;
-    for (int c = lane; c < HD; c += 32) dst[c] = Os[(wr0 + i) * LDO + c] * inv;
-  }
-}
-
-template <typename T, typename Kernel>
-cudaError_t launch(Kernel kernel, size_t smem, const void* qkv, void* out, int B,
-                   int L, int W, int H, int n_keys, float scale, int vv,
-                   cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((L + BQ - 1) / BQ, H, B);
-  const int qs = vv ? 2 : 0, ks = vv ? 2 : 1;
-  kernel<<<grid, NTHREADS, smem, stream>>>(
-      static_cast<const T*>(qkv), static_cast<T*>(out), L, W, n_keys, scale,
-      qs, ks, 2);
-  return cudaGetLastError();
-}
-
-template <int HD>
-cudaError_t launch_hd(int dtype, const void* qkv, void* out, int B, int L,
-                      int W, int H, int n_keys, float scale, int vv,
-                      cudaStream_t stream) {
-  if (dtype == 0)
-    return launch<float>(packed_attention_f32_kernel<HD>, F32Layout<HD>::bytes,
-                         qkv, out, B, L, W, H, n_keys, scale, vv, stream);
-  if (dtype == 1)
-    return launch<bf16>(packed_attention_mma_kernel<HD>, MmaLayout<HD>::bytes,
-                        qkv, out, B, L, W, H, n_keys, scale, vv, stream);
-  return cudaErrorInvalidValue;
-}
-
-}  // namespace
+// The kernels' tag: their names read attention_mma_kernel<packed_attention>.
+struct packed_attention;
 
 // dtype: 0 = float32, 1 = bfloat16. Returns the launch's cudaError_t.
-extern "C" int aaclip_packed_attention(const void* qkv, void* out, int B,
-                                       int L, int W, int num_heads,
-                                       int head_dim, int valid_len, float scale,
+extern "C" int aaclip_packed_attention(const void* qkv, void* out, int B, int L, int W,
+                                       int num_heads, int head_dim, int valid_len, float scale,
                                        int vv, int dtype, void* stream) {
-  if (B <= 0 || L <= 0 || num_heads <= 0 || head_dim * num_heads != W ||
-      valid_len <= 0 || (W % 8) != 0)
+  // Head width 64 only: the one width on the port's path (ViT-L's 16 heads).
+  if (B <= 0 || L <= 0 || num_heads <= 0 || head_dim * num_heads != W || valid_len <= 0 ||
+      (W % 8) != 0 || head_dim != attn_fwd::HD)
     return cudaErrorInvalidValue;
   const int n_keys = valid_len < L ? valid_len : L;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // Head width 64 only: the one width on the port's path (ViT-L's 16 heads).
-  if (head_dim != 64) return cudaErrorInvalidValue;
-  return launch_hd<64>(dtype, qkv, out, B, L, W, num_heads, n_keys, scale, vv, s);
+  const size_t elem = dtype == 1 ? sizeof(bf16) : sizeof(float);
+  const char* base = static_cast<const char*>(qkv);
+  auto section = [&](int sec) { return base + (size_t)sec * W * elem; };
+  const attn_fwd::Layout lay{(long)L * 3 * W, head_dim, 3 * W, (long)L * W, head_dim, W};
+  return attn_fwd::launch<packed_attention>(dtype, section(vv ? 2 : 0), section(vv ? 2 : 1),
+                                            section(2), out, lay, L, num_heads, B, n_keys,
+                                            scale, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* aaclip_packed_attention_error_string(int err) {

@@ -1,9 +1,12 @@
-// Packed-qkv self-attention backward for Hopper (sm_90a).
+// Packed-qkv self-attention backward for Hopper (sm_90a), plain (B4) and
+// value-value (B6).
 //
-// Replaces the TPU kernel aa_clip_iqm_tpu/ops/pallas_attention.py:
-// _flash_packed_bwd_kernelized -> _bwd_kernel_grouped (one program per
+// Replaces the TPU kernels aa_clip_iqm_tpu/ops/pallas_attention.py:
+// _flash_packed_bwd_kernelized -> _bwd_kernel_grouped (B4: one program per
 // q-block with whole (blk, L) score rows in VMEM, dK/dV carried in fp32
-// scratch across the sequential q-block axis of the grid).
+// scratch across the sequential q-block axis of the grid) and
+// _flash_packed_vv_bwd_kernelized -> _vv_bwd_kernel_grouped (B6: the same
+// walk for q = k = v = A, the three terms of dA summed in one fp32 scratch).
 //
 // What it computes, per (batch b, head h), from the packed qkv (B, L, 3W) and
 // dO (B, L, W), read strided as the forward kernel reads them:
@@ -23,7 +26,9 @@
 // What bounds it on the H100: at ViT-L/518 (B=8, L=1370, 16 heads of 64) the
 // five products are 10*B*H*L^2*hd = 1.54e11 FLOP (155 us at 989 TFLOP/s dense
 // bf16) against ~157 MB of qkv/dO/dqkv traffic (47 us at 3.35 TB/s):
-// compute-bound.
+// compute-bound. The value-value variant has the same five products and less
+// traffic (it reads only the value columns; its fp32 query-term scratch adds
+// 45 MB each way).
 //
 // What the design does about it. A Hopper grid has no sequential axis to carry
 // dK/dV along, and a block cannot hold (blk, L) rows, so the work is two
@@ -43,6 +48,17 @@
 //      statistics of the query columns come from the scratch.
 // That is nine tile products where five would do (S and dP are computed three
 // times): the price of no atomics and of saving nothing in the forward.
+//
+// The value-value variant (VV = true; CLIP-Surgery, q = k = v = A, the value
+// columns) takes the same two kernels with all three operand pointers at the
+// value section. A is read as Q, K and V at once, so its gradient has three
+// terms, dA = P^T dO + scale dS A + scale dS^T A (value, query and key
+// operands). The dq kernel computes the query term per 64-query tile into an
+// fp32 (B, L, W) scratch instead of rounding it; the dk/dv kernel computes the
+// value and key terms per 64-key tile, adds the scratch rows of the same
+// tokens, and rounds each element of dA once, as the TPU kernel's single fp32
+// scratch does. It writes zeros to the q and k columns of dqkv (the forward
+// never reads them). No atomics either, so results repeat bit for bit.
 // fp32 inputs take the same two kernels with shared-memory tiles and plain
 // FMAs. Head width 64 only, as the forward. Not yet done: TMA, wgmma, one
 // pass with dQ reduced across key tiles.
@@ -140,15 +156,69 @@ __device__ __forceinline__ void store_rows(bf16* dst, long row_stride,
   }
 }
 
+// Rows g and g + 8 of this warp's 16 x 64 accumulator, times `mul`, into the
+// fp32 (B, L, W) query-term scratch at `dst` (row 0 of the block's tile).
+__device__ __forceinline__ void store_rows_f32(float* dst, int W, const float (&acc)[HD / 8][4],
+                                               float mul, int row0, int L, int warp,
+                                               int lane) {
+  const int g = lane / 4, tq = lane % 4;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = warp * 16 + g + r * 8;
+    if (row0 + row >= L) continue;
+    float* p = dst + (long)row * W + 2 * tq;
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n)
+      *reinterpret_cast<float2*>(p + n * 8) =
+          make_float2(acc[n][2 * r] * mul, acc[n][2 * r + 1] * mul);
+  }
+}
+
+// Value-value: rows g and g + 8 of dA = dV + scale dK + the query term from
+// the scratch, rounded once into the value columns at `dst` (row 0 of the
+// block's tile in dqkv); the q and k columns of those rows get zeros.
+__device__ __forceinline__ void store_rows_vv(bf16* dst, long row_stride, int W,
+                                              const float* qterm, const float (&dv)[HD / 8][4],
+                                              const float (&dk)[HD / 8][4], float scale,
+                                              int row0, int L, int warp, int lane) {
+  const int g = lane / 4, tq = lane % 4;
+  const __nv_bfloat162 zero = __floats2bfloat162_rn(0.f, 0.f);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = warp * 16 + g + r * 8;
+    if (row0 + row >= L) continue;
+    bf16* p = dst + (long)row * row_stride + 2 * tq;
+    const float* t = qterm + (long)row * W + 2 * tq;
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n) {
+      const float2 qt = *reinterpret_cast<const float2*>(t + n * 8);
+      *reinterpret_cast<__nv_bfloat162*>(p + n * 8 + 2 * W) = __floats2bfloat162_rn(
+          dv[n][2 * r] + dk[n][2 * r] * scale + qt.x,
+          dv[n][2 * r + 1] + dk[n][2 * r + 1] * scale + qt.y);
+      *reinterpret_cast<__nv_bfloat162*>(p + n * 8) = zero;
+      *reinterpret_cast<__nv_bfloat162*>(p + n * 8 + W) = zero;
+    }
+  }
+}
+
+// Column offsets of the operands in a packed qkv row: q, k, v at sections 0,
+// 1, 2, or all three at the value section for the value-value variant.
+template <bool VV>
+__device__ __forceinline__ int q_off(int W) { return VV ? 2 * W : 0; }
+template <bool VV>
+__device__ __forceinline__ int k_off(int W) { return VV ? 2 * W : W; }
+
 // ---------------------------------------------------------------------------
-// bf16, kernel 1: row statistics, then dQ. Shared memory: Q, dO, K[2], V[2].
+// bf16, kernel 1: row statistics, then dQ (for VV the query term, unrounded,
+// into the scratch). Shared memory: Q, dO, K[2], V[2].
 // ---------------------------------------------------------------------------
 
+template <bool VV>
 __global__ void __launch_bounds__(NTHREADS)
 attention_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dO,
                         bf16* __restrict__ dqkv, float* __restrict__ lse_out,
-                        float* __restrict__ d_out, int L, int W, int H, int n_keys,
-                        float scale) {
+                        float* __restrict__ d_out, float* __restrict__ qterm, int L,
+                        int W, int H, int n_keys, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
   auto tile = [&](int i) { return reinterpret_cast<bf16*>(smem + i * TILE); };
   bf16* Qs = tile(0);
@@ -164,11 +234,11 @@ attention_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ d
   const int g = lane / 4, tq = lane % 4;
   const long row_stride = 3L * W;
   const bf16* base = qkv + (long)b * L * row_stride + h * HD;
-  const bf16* ksrc = base + W;
+  const bf16* ksrc = base + k_off<VV>(W);
   const bf16* vsrc = base + 2 * W;
   const int ntiles = (n_keys + BT - 1) / BT;
 
-  load_panel(Qs, base, row_stride, q0, L);
+  load_panel(Qs, base + q_off<VV>(W), row_stride, q0, L);
   load_panel(Gs, dO + (long)b * L * W + h * HD, W, q0, L);
   load_panel(kbuf(0), ksrc, row_stride, 0, L);
   load_panel(vbuf(0), vsrc, row_stride, 0, L);
@@ -277,8 +347,11 @@ attention_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ d
     __syncthreads();  // this tile's buffers are refilled next iteration
   }
 
-  store_rows(dqkv + ((long)b * L + q0) * row_stride + h * HD, row_stride, dq, scale,
-             q0, L, warp, lane);
+  if (VV)
+    store_rows_f32(qterm + ((long)b * L + q0) * W + h * HD, W, dq, scale, q0, L, warp, lane);
+  else
+    store_rows(dqkv + ((long)b * L + q0) * row_stride + h * HD, row_stride, dq, scale,
+               q0, L, warp, lane);
 }
 
 // ---------------------------------------------------------------------------
@@ -286,11 +359,12 @@ attention_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ d
 // columns' statistics lse[2][64], D[2][64].
 // ---------------------------------------------------------------------------
 
+template <bool VV>
 __global__ void __launch_bounds__(NTHREADS)
 attention_bwd_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dO,
                          bf16* __restrict__ dqkv, const float* __restrict__ lse_in,
-                         const float* __restrict__ d_in, int L, int W, int H,
-                         int n_keys, float scale) {
+                         const float* __restrict__ d_in, const float* __restrict__ qterm,
+                         int L, int W, int H, int n_keys, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
   auto tile = [&](int i) { return reinterpret_cast<bf16*>(smem + i * TILE); };
   bf16* Ks = tile(0);
@@ -322,9 +396,10 @@ attention_bwd_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ 
     stat[(buf * 2 + (is_d ? 1 : 0)) * BT + c] = v;
   };
 
-  load_panel(Ks, base + W, row_stride, k0, L);
+  const bf16* qsrc = base + q_off<VV>(W);
+  load_panel(Ks, base + k_off<VV>(W), row_stride, k0, L);
   load_panel(Vs, base + 2 * W, row_stride, k0, L);
-  load_panel(qbuf(0), base, row_stride, 0, L);
+  load_panel(qbuf(0), qsrc, row_stride, 0, L);
   load_panel(gbuf(0), gsrc, W, 0, L);
   cp_async_commit();
   load_stats(0, 0);
@@ -340,7 +415,7 @@ attention_bwd_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ 
 
   for (int qt = 0; qt < ntiles; ++qt) {
     if (qt + 1 < ntiles) {
-      load_panel(qbuf((qt + 1) & 1), base, row_stride, (qt + 1) * BT, L);
+      load_panel(qbuf((qt + 1) & 1), qsrc, row_stride, (qt + 1) * BT, L);
       load_panel(gbuf((qt + 1) & 1), gsrc, W, (qt + 1) * BT, L);
       cp_async_commit();
       load_stats((qt + 1) & 1, qt + 1);
@@ -381,8 +456,13 @@ attention_bwd_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ 
   }
 
   bf16* out = dqkv + ((long)b * L + k0) * row_stride + h * HD;
-  store_rows(out + W, row_stride, dk, scale, k0, L, warp, lane);
-  store_rows(out + 2 * W, row_stride, dv, 1.f, k0, L, warp, lane);
+  if (VV) {
+    store_rows_vv(out, row_stride, W, qterm + ((long)b * L + k0) * W + h * HD, dv, dk,
+                  scale, k0, L, warp, lane);
+  } else {
+    store_rows(out + W, row_stride, dk, scale, k0, L, warp, lane);
+    store_rows(out + 2 * W, row_stride, dv, 1.f, k0, L, warp, lane);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -428,11 +508,12 @@ __device__ __forceinline__ void tile_acc_f32(float* Acc, const float* P, const f
 
 // Shared memory: Q, dO, K, V, S, dP, dQ (7 tiles) and the row statistics
 // m, l, d (3 x 64). Threads 0-63 own one query row's statistics each.
+template <bool VV>
 __global__ void __launch_bounds__(NTHREADS)
 attention_bwd_dq_f32_kernel(const float* __restrict__ qkv, const float* __restrict__ dO,
                             float* __restrict__ dqkv, float* __restrict__ lse_out,
-                            float* __restrict__ d_out, int L, int W, int H, int n_keys,
-                            float scale) {
+                            float* __restrict__ d_out, float* __restrict__ qterm, int L,
+                            int W, int H, int n_keys, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
   auto tile = [&](int i) { return reinterpret_cast<float*>(smem + i * TILE_F); };
   float *Qs = tile(0), *Gs = tile(1), *Ks = tile(2), *Vs = tile(3), *Ss = tile(4),
@@ -445,7 +526,7 @@ attention_bwd_dq_f32_kernel(const float* __restrict__ qkv, const float* __restri
   const int ntiles = (n_keys + BT - 1) / BT;
   const int row = threadIdx.x;         // statistics owner when < 64
 
-  load_tile_f32(Qs, base, row_stride, q0, L);
+  load_tile_f32(Qs, base + q_off<VV>(W), row_stride, q0, L);
   load_tile_f32(Gs, dO + (long)b * L * W + h * HD, W, q0, L);
   for (int i = threadIdx.x; i < BT * LDF; i += NTHREADS) Acc[i] = 0.f;
   if (row < BT) {
@@ -467,7 +548,7 @@ attention_bwd_dq_f32_kernel(const float* __restrict__ qkv, const float* __restri
         d_out[off] = rowstat[2 * BT + row];
       }
     }
-    load_tile_f32(Ks, base + W, row_stride, k0, L);
+    load_tile_f32(Ks, base + k_off<VV>(W), row_stride, k0, L);
     load_tile_f32(Vs, base + 2 * W, row_stride, k0, L);
     __syncthreads();
     tile_nt_f32(Ss, Qs, Ks);
@@ -505,17 +586,21 @@ attention_bwd_dq_f32_kernel(const float* __restrict__ qkv, const float* __restri
 
   for (int i = threadIdx.x; i < BT * HD; i += NTHREADS) {
     const int r = i / HD, d = i % HD;
-    if (q0 + r < L)
+    if (q0 + r >= L) continue;
+    if (VV)
+      qterm[((long)b * L + q0 + r) * W + h * HD + d] = Acc[r * LDF + d] * scale;
+    else
       dqkv[((long)b * L + q0 + r) * row_stride + h * HD + d] = Acc[r * LDF + d] * scale;
   }
 }
 
 // Shared memory: K, V, Q, dO, P^T, dS^T, dK, dV (8 tiles) and lse, D (2 x 64).
+template <bool VV>
 __global__ void __launch_bounds__(NTHREADS)
 attention_bwd_dkv_f32_kernel(const float* __restrict__ qkv, const float* __restrict__ dO,
                              float* __restrict__ dqkv, const float* __restrict__ lse_in,
-                             const float* __restrict__ d_in, int L, int W, int H,
-                             int n_keys, float scale) {
+                             const float* __restrict__ d_in, const float* __restrict__ qterm,
+                             int L, int W, int H, int n_keys, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
   auto tile = [&](int i) { return reinterpret_cast<float*>(smem + i * TILE_F); };
   float *Ks = tile(0), *Vs = tile(1), *Qs = tile(2), *Gs = tile(3), *Pt = tile(4),
@@ -529,12 +614,12 @@ attention_bwd_dkv_f32_kernel(const float* __restrict__ qkv, const float* __restr
   const float* lse_row = lse_in + ((long)b * H + h) * L;
   const float* d_row = d_in + ((long)b * H + h) * L;
 
-  load_tile_f32(Ks, base + W, row_stride, k0, L);
+  load_tile_f32(Ks, base + k_off<VV>(W), row_stride, k0, L);
   load_tile_f32(Vs, base + 2 * W, row_stride, k0, L);
   for (int i = threadIdx.x; i < BT * LDF; i += NTHREADS) dK[i] = dV[i] = 0.f;
 
   for (int q0 = 0; q0 < L; q0 += BT) {
-    load_tile_f32(Qs, base, row_stride, q0, L);
+    load_tile_f32(Qs, base + q_off<VV>(W), row_stride, q0, L);
     load_tile_f32(Gs, gsrc, W, q0, L);
     {
       const int c = threadIdx.x % BT, q = q0 + c;
@@ -561,8 +646,13 @@ attention_bwd_dkv_f32_kernel(const float* __restrict__ qkv, const float* __restr
 
   for (int i = threadIdx.x; i < BT * HD; i += NTHREADS) {
     const int r = i / HD, d = i % HD;
-    if (k0 + r < L) {
-      float* out = dqkv + ((long)b * L + k0 + r) * row_stride + h * HD + d;
+    if (k0 + r >= L) continue;
+    float* out = dqkv + ((long)b * L + k0 + r) * row_stride + h * HD + d;
+    if (VV) {
+      out[0] = out[W] = 0.f;
+      out[2 * W] = dV[r * LDF + d] + dK[r * LDF + d] * scale +
+                   qterm[((long)b * L + k0 + r) * W + h * HD + d];
+    } else {
       out[W] = dK[r * LDF + d] * scale;
       out[2 * W] = dV[r * LDF + d];
     }
@@ -579,16 +669,50 @@ cudaError_t launch(Kernel kernel, size_t smem, dim3 grid, cudaStream_t stream,
   return cudaGetLastError();
 }
 
+template <typename T, typename DqKernel, typename DkvKernel>
+cudaError_t launch_pair(DqKernel dq_kernel, size_t dq_smem, DkvKernel dkv_kernel,
+                        size_t dkv_smem, dim3 grid, cudaStream_t s, const void* qkv,
+                        const void* dO, void* dqkv, float* lse, float* d, float* qterm,
+                        int L, int W, int H, int n_keys, float scale) {
+  const T* x = static_cast<const T*>(qkv);
+  const T* g = static_cast<const T*>(dO);
+  T* out = static_cast<T*>(dqkv);
+  cudaError_t err = launch(dq_kernel, dq_smem, grid, s, x, g, out, lse, d, qterm, L, W, H,
+                           n_keys, scale);
+  if (err != cudaSuccess) return err;
+  return launch(dkv_kernel, dkv_smem, grid, s, x, g, out, (const float*)lse,
+                (const float*)d, (const float*)qterm, L, W, H, n_keys, scale);
+}
+
+template <bool VV>
+cudaError_t dispatch(int dtype, dim3 grid, cudaStream_t s, const void* qkv, const void* dO,
+                     void* dqkv, float* lse, float* d, float* qterm, int L, int W, int H,
+                     int n_keys, float scale) {
+  if (dtype == 1)
+    return launch_pair<bf16>(attention_bwd_dq_kernel<VV>, 6 * TILE,
+                                 attention_bwd_dkv_kernel<VV>, 6 * TILE + 4 * BT * sizeof(float),
+                                 grid, s, qkv, dO, dqkv, lse, d, qterm, L, W, H, n_keys, scale);
+  if (dtype == 0)
+    return launch_pair<float>(attention_bwd_dq_f32_kernel<VV>,
+                                  7 * TILE_F + 3 * BT * sizeof(float),
+                                  attention_bwd_dkv_f32_kernel<VV>,
+                                  8 * TILE_F + 2 * BT * sizeof(float), grid, s, qkv, dO,
+                                  dqkv, lse, d, qterm, L, W, H, n_keys, scale);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. lse and d are (B, H, L) float32 scratch.
-// Returns the first failing launch's cudaError_t.
+// dtype: 0 = float32, 1 = bfloat16. lse and d are (B, H, L) float32 scratch;
+// qterm is a (B, L, W) float32 scratch, read only when vv is set (it may be
+// null otherwise). Returns the first failing launch's cudaError_t.
 extern "C" int aaclip_packed_attention_bwd(const void* qkv, const void* dO, void* dqkv,
-                                           void* lse, void* d, int B, int L, int W,
-                                           int num_heads, int head_dim, int valid_len,
-                                           float scale, int dtype, void* stream) {
+                                           void* lse, void* d, void* qterm, int B, int L,
+                                           int W, int num_heads, int head_dim,
+                                           int valid_len, float scale, int vv, int dtype,
+                                           void* stream) {
   if (B <= 0 || L <= 0 || num_heads <= 0 || head_dim * num_heads != W ||
-      valid_len <= 0 || (W % 8) != 0)
+      valid_len <= 0 || (W % 8) != 0 || (vv && qterm == nullptr))
     return cudaErrorInvalidValue;
   // Head width 64 only, as the forward kernel.
   if (head_dim != HD) return cudaErrorInvalidValue;
@@ -596,31 +720,12 @@ extern "C" int aaclip_packed_attention_bwd(const void* qkv, const void* dO, void
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* lse_f = static_cast<float*>(lse);
   float* d_f = static_cast<float*>(d);
+  float* qt = static_cast<float*>(qterm);
   const dim3 grid((L + BT - 1) / BT, num_heads, B);
-  cudaError_t err;
-  if (dtype == 1) {
-    const bf16* x = static_cast<const bf16*>(qkv);
-    const bf16* g = static_cast<const bf16*>(dO);
-    bf16* out = static_cast<bf16*>(dqkv);
-    err = launch(attention_bwd_dq_kernel, 6 * TILE, grid, s, x, g, out, lse_f, d_f, L,
-                 W, num_heads, n_keys, scale);
-    if (err != cudaSuccess) return err;
-    return launch(attention_bwd_dkv_kernel, 6 * TILE + 4 * BT * sizeof(float), grid, s,
-                  x, g, out, (const float*)lse_f, (const float*)d_f, L, W, num_heads,
-                  n_keys, scale);
-  }
-  if (dtype == 0) {
-    const float* x = static_cast<const float*>(qkv);
-    const float* g = static_cast<const float*>(dO);
-    float* out = static_cast<float*>(dqkv);
-    err = launch(attention_bwd_dq_f32_kernel, 7 * TILE_F + 3 * BT * sizeof(float), grid,
-                 s, x, g, out, lse_f, d_f, L, W, num_heads, n_keys, scale);
-    if (err != cudaSuccess) return err;
-    return launch(attention_bwd_dkv_f32_kernel, 8 * TILE_F + 2 * BT * sizeof(float),
-                  grid, s, x, g, out, (const float*)lse_f, (const float*)d_f, L, W,
-                  num_heads, n_keys, scale);
-  }
-  return cudaErrorInvalidValue;
+  if (vv) return dispatch<true>(dtype, grid, s, qkv, dO, dqkv, lse_f, d_f, qt, L, W,
+                                num_heads, n_keys, scale);
+  return dispatch<false>(dtype, grid, s, qkv, dO, dqkv, lse_f, d_f, qt, L, W, num_heads,
+                         n_keys, scale);
 }
 
 extern "C" const char* aaclip_packed_attention_bwd_error_string(int err) {

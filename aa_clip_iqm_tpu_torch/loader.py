@@ -3,8 +3,9 @@
 Counterpart of ``aa_clip_iqm_tpu/loader.py``: :func:`build_model_config`,
 :func:`load_frozen_backbone` (a converted ``.npz`` weight cache, or with
 ``allow_random`` a seeded random backbone, the ``--random_backbone`` of the
-CLIs) and :func:`init_trainable`. Converting OpenAI ``.pt`` weights is not
-ported yet: convert them to ``.npz`` with the JAX package.
+CLIs; a cache saved at another grid has its positional embedding resized
+bicubically) and :func:`init_trainable`. Converting OpenAI ``.pt`` weights
+is not ported yet: convert them to ``.npz`` with the JAX package.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ from .configs import (
     get_model_config,
     tiny_test_config,
 )
+from .models.clip import resize_pos_embed_np
 from .models.convert import (
     find_backbone,
     init_adapter_params_np,
@@ -103,13 +105,12 @@ def load_frozen_backbone(cfg: ModelConfig, backbone_path: Optional[str] = None,
             "an OpenAI .pt checkpoint is not ported yet (convert it with "
             "aa_clip_iqm_tpu.models.convert and save_params_npz)")
     params = load_params_npz(path)
+    # An .npz cache may hold another grid's positional embedding (the
+    # checkpoint's native one): resize it bicubically to the config's.
     pos = np.asarray(params["visual"]["positional_embedding"])
-    want = cfg.clip.vision.grid ** 2 + 1
-    if pos.shape[0] != want:
-        raise NotImplementedError(
-            f"{path} holds a {pos.shape[0]}-row positional embedding, the "
-            f"config wants {want}: resizing it is not ported yet; cache the "
-            "weights at this image size")
+    if pos.shape[0] != cfg.clip.vision.grid ** 2 + 1:
+        params["visual"]["positional_embedding"] = resize_pos_embed_np(
+            pos, cfg.clip.vision.grid)
     frozen, _ = params_from_jax(params, None, cfg, device=device, dtype=dtype)
     return frozen
 

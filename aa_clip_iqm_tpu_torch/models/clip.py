@@ -20,19 +20,28 @@ dx-only kernel (the stage-2 frozen backbone); one with int8 MLP weights
 (``ops.quant``) through :func:`..ops.fused_mlp.ln_mlp_residual_int8` where
 that kernel's gate allows (bf16, width a multiple of 128), else through the
 unfused ``x + mlp_block(...)`` on ``int8_linear``. Each fused function is the
-Hopper kernel on the card and its plain twin on the CPU. Unmasked attention
-goes through the packed-qkv kernel. The tower is not padded: the attention
-kernel masks the ragged key tile itself.
+Hopper kernel on the card and its plain twin on the CPU. Attention routes as
+in the JAX package (``ops/attention.py``): the packed-qkv kernel where its
+gate holds, else the unpacked flash kernel on split heads. With
+``FUSED_ATTN`` (``AACLIP_FUSED_ATTN=1``) an unmasked block whose weights pass
+:func:`..ops.attn_block.ln_attn_residual_ok` runs its whole attention half
+(LayerNorm, qkv, attention, out-projection, residual) through the fused
+kernel instead. The tower is not padded: the attention kernels mask the
+ragged key tile themselves.
 """
 from __future__ import annotations
 
+import math
+import os
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..configs import TextConfig, VisionConfig
 from ..ops import attention as attn_ops
+from ..ops.attn_block import ln_attn_residual, ln_attn_residual_ok
 from ..ops.fused_mlp import (
     ln_mlp_residual,
     ln_mlp_residual_frozen,
@@ -48,6 +57,12 @@ from ..ops.layers import (
     simple_adapter,
 )
 
+# Route the whole attention residual branch (LN -> qkv -> attention ->
+# out-proj -> residual) through the fused kernel (ops/attn_block.py) instead
+# of the LN / projections / attention chain. Opt-in, as in the JAX package:
+# env AACLIP_FUSED_ATTN=1, read at import.
+FUSED_ATTN = os.environ.get("AACLIP_FUSED_ATTN", "0") == "1"
+
 
 def patchify(params, images, patch_size: int):
     """(B, 3, H, W) -> (B, L, width) via reshape + matmul (== strided conv)."""
@@ -61,17 +76,25 @@ def patchify(params, images, patch_size: int):
 def _run_block(block, x, num_heads, act, attn_mask=None, vv=False,
                valid_len=None, fused_mlp=True):
     """Pre-norm residual attention block. ``vv`` selects the CLIP-Surgery
-    value-value attention. ``fused_mlp="frozen"`` takes the fused MLP whose
-    backward is the dx-only kernel: valid only while the block's parameters
-    carry no gradient (it raises otherwise)."""
-    h = layer_norm(block["ln_1"], x)
-    if vv:
-        a = attn_ops.vv_attention(block["attn"], h, num_heads,
-                                  valid_len=valid_len)
+    value-value attention. With ``FUSED_ATTN``, no mask and a block that
+    passes ``ln_attn_residual_ok`` the attention half is one fused kernel
+    (int8 attention weights fail the gate and keep the chain).
+    ``fused_mlp="frozen"`` takes the fused MLP whose backward is the dx-only
+    kernel: valid only while the block's parameters carry no gradient (it
+    raises otherwise)."""
+    if (FUSED_ATTN and attn_mask is None
+            and ln_attn_residual_ok(x, block["attn"], num_heads)):
+        x = ln_attn_residual(block["ln_1"], block["attn"], x, num_heads, vv,
+                             valid_len)
     else:
-        a = attn_ops.mha(block["attn"], h, num_heads, attn_mask=attn_mask,
-                         valid_len=valid_len)
-    x = x + a
+        h = layer_norm(block["ln_1"], x)
+        if vv:
+            a = attn_ops.vv_attention(block["attn"], h, num_heads,
+                                      valid_len=valid_len)
+        else:
+            a = attn_ops.mha(block["attn"], h, num_heads, attn_mask=attn_mask,
+                             valid_len=valid_len)
+        x = x + a
     mlp = block["mlp"]
     if "w_q" not in mlp["c_fc"] and "w_q" not in mlp["c_proj"]:
         fn = ln_mlp_residual_frozen if fused_mlp == "frozen" else ln_mlp_residual
@@ -227,3 +250,20 @@ def text_forward(
     if final_proj == "clip":
         return linear({"w": params["text_projection"]}, pooled)
     return final_proj(pooled)
+
+
+def resize_pos_embed_np(pos_embed: np.ndarray, new_grid: int) -> np.ndarray:
+    """Bicubic-resize the (L+1, width) positional embedding to a new square
+    grid (bicubic, antialias=True, align_corners=False); the CLS row passes
+    through. Host-side numpy, at load time."""
+    from ..ops.interp import resize_grid_bicubic
+
+    tok, img = pos_embed[:1], pos_embed[1:]
+    old_grid = int(round(math.sqrt(img.shape[0])))
+    if old_grid * old_grid != img.shape[0]:
+        raise ValueError(f"pos embed length {img.shape[0]} not square")
+    if old_grid == new_grid:
+        return pos_embed
+    grid = img.reshape(old_grid, old_grid, -1)
+    resized = resize_grid_bicubic(grid, (new_grid, new_grid), antialias=True)
+    return np.concatenate([tok, resized.reshape(new_grid * new_grid, -1)], axis=0)

@@ -4,16 +4,22 @@ Counterpart of ``aa_clip_iqm_tpu/ops/attention.py``. Weight layout: packed
 qkv stored transposed for right-multiplication,
     params = {"qkv": {"w": (d, 3d), "b": (3d,)}, "out": {"w": (d, d), "b": (d,)}}
 
-Unmasked self-attention (the vision tower) goes through
-:func:`.packed_attention.flash_mha_packed`, which launches the Hopper kernel
-on a CUDA tensor and runs its plain twin on a CPU one. Masked attention (the
-text tower's 77-token causal attention) and the IQM cross-attention stay
-plain, as in the JAX package.
+Self-attention routes as the JAX package's ``use_pallas`` path does: where
+:func:`packed_ok` holds (no mask, 256 to ``ROW_KERNEL_MAX_TOKENS`` tokens,
+whole heads in 128-column panels) through
+:func:`.packed_attention.flash_mha_packed` (B1) straight off the packed
+projection, otherwise through :func:`.flash_attention.flash_mha` on split
+heads (B7 above ``ROW_KERNEL_MAX_TOKENS`` tokens or with an odd head layout;
+the plain ``sdpa`` with a mask or below 256 tokens). Each kernel wrapper runs
+its plain twin on a CPU tensor. The IQM cross-attention stays plain, as in
+the JAX package.
 """
 from __future__ import annotations
 
 import torch
 
+from . import flash_attention
+from .flash_attention import flash_mha
 from .layers import linear
 from .packed_attention import flash_mha_packed
 
@@ -45,29 +51,51 @@ def sdpa(q, k, v, scale, attn_mask=None):
     return out.to(v.dtype)
 
 
+def packed_ok(x, num_heads: int, attn_mask) -> bool:
+    """Whether the packed kernel takes this call: ``_packed_pallas_ok``
+    (attention.py:56) without its backend test. No mask, at least
+    ``2 * BLK_Q`` and at most ``ROW_KERNEL_MAX_TOKENS`` tokens, and whole
+    heads in 128-column panels."""
+    l, w = x.shape[1], x.shape[-1]
+    if (attn_mask is not None or l < 2 * flash_attention.BLK_Q
+            or l > flash_attention.ROW_KERNEL_MAX_TOKENS or w % num_heads):
+        return False
+    hd = w // num_heads
+    group = max(1, 128 // hd)
+    return (group * hd) % 128 == 0 and num_heads % group == 0
+
+
 def mha(params, x, num_heads: int, attn_mask=None, valid_len=None):
-    """Self-attention block core (torch MultiheadAttention parity). Without
-    a mask it reads q/k/v straight off the packed projection through
-    ``flash_mha_packed``; ``valid_len`` masks keys at or past it."""
+    """Self-attention block core (torch MultiheadAttention parity): the packed
+    kernel straight off the packed projection where :func:`packed_ok` holds
+    (``valid_len`` masks keys at or past it), else ``flash_mha`` on split
+    heads."""
     hd = x.shape[-1] // num_heads
     scale = hd ** -0.5
-    if attn_mask is None:
+    if packed_ok(x, num_heads, attn_mask):
         qkv = linear(params["qkv"], x)
         out = flash_mha_packed(qkv, num_heads, scale, valid_len=valid_len)
         return linear(params["out"], out)
     q, k, v = qkv_project(params, x)
     qh, kh, vh = (_split_heads(t, num_heads) for t in (q, k, v))
-    return linear(params["out"], _merge_heads(sdpa(qh, kh, vh, scale, attn_mask)))
+    out = flash_mha(qh, kh, vh, scale, attn_mask=attn_mask)
+    return linear(params["out"], _merge_heads(out))
 
 
 def vv_attention(params, x, num_heads: int, valid_len=None):
-    """CLIP-Surgery value-value attention (q = k = v) over the token axis,
-    through the packed kernel with ``vv=True``."""
-    qkv = linear(params["qkv"], x)
+    """CLIP-Surgery value-value attention (q = k = v) over the token axis:
+    the packed kernel with ``vv=True`` where :func:`packed_ok` holds, else
+    ``flash_mha`` on the split value heads."""
     hd = x.shape[-1] // num_heads
-    out = flash_mha_packed(qkv, num_heads, hd ** -0.5, vv=True,
-                           valid_len=valid_len)
-    return linear(params["out"], out)
+    scale = hd ** -0.5
+    if packed_ok(x, num_heads, None):
+        qkv = linear(params["qkv"], x)
+        out = flash_mha_packed(qkv, num_heads, scale, vv=True, valid_len=valid_len)
+        return linear(params["out"], out)
+    _, _, v = qkv_project(params, x)
+    vh = _split_heads(v, num_heads)
+    out = flash_mha(vh, vh, vh, scale)
+    return linear(params["out"], _merge_heads(out))
 
 
 def causal_mask(length: int, dtype=torch.float32, device=None):

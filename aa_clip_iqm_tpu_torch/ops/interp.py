@@ -1,8 +1,8 @@
 """Resize / blur as precomputed linear operators.
 
 Counterpart of ``aa_clip_iqm_tpu/ops/interp.py``: the numpy operator
-builders are copied as they are; :func:`apply_separable` runs the two
-products in torch. Gaussian blur (reflect padding) at patch resolution
+builders, the bicubic one for the positional-embedding resize included, are
+copied as they are; :func:`apply_separable` runs the two products in torch. Gaussian blur (reflect padding) at patch resolution
 followed by a bilinear upsample collapses into two matmuls with precomputed
 matrices: out = (U @ G) @ img @ (G.T @ U.T).
 """
@@ -122,3 +122,65 @@ def blur_and_upsample(img, dst: int, kernel_size: int, sigma: float):
         _device_operator(("blur", (src_w, dst, kernel_size, sigma)), img.device),
         img,
     )
+
+
+# --------------------------------------------------------------------------
+# Bicubic (for the positional-embedding resize at load time)
+# --------------------------------------------------------------------------
+
+def _cubic_weight(x: np.ndarray, a: float = -0.75) -> np.ndarray:
+    """Keys cubic kernel (a=-0.75 is torch's bicubic)."""
+    ax = np.abs(x)
+    w = np.zeros_like(ax)
+    m1 = ax <= 1
+    m2 = (ax > 1) & (ax < 2)
+    w[m1] = (a + 2) * ax[m1] ** 3 - (a + 3) * ax[m1] ** 2 + 1
+    w[m2] = a * ax[m2] ** 3 - 5 * a * ax[m2] ** 2 + 8 * a * ax[m2] - 4 * a
+    return w
+
+
+def bicubic_matrix(src: int, dst: int, antialias: bool = True) -> np.ndarray:
+    """(dst, src) matrix matching F.interpolate(mode='bicubic',
+    align_corners=False, antialias=antialias).
+
+    torch's two bicubic paths differ:
+      - antialias=True is the PIL-compatible separable resampler: Keys cubic
+        with a=-0.5, kernel stretched by max(scale, 1), and the tap window
+        clipped to the valid range then re-normalized (no edge replication);
+      - antialias=False is the classic a=-0.75 kernel with out-of-range taps
+        clamped to the edge (replicate).
+    """
+    M = np.zeros((dst, src), dtype=np.float64)
+    scale = src / dst
+    if antialias:
+        ss = max(scale, 1.0)
+        support = 2.0 * ss
+        for i in range(dst):
+            center = (i + 0.5) * scale
+            xmin = max(0, int(center - support + 0.5))
+            xmax = min(src, int(center + support + 0.5))
+            taps = np.arange(xmin, xmax)
+            w = _cubic_weight((taps + 0.5 - center) / ss, a=-0.5)
+            s = w.sum()
+            if s != 0:
+                w = w / s
+            M[i, xmin:xmax] = w
+    else:
+        for i in range(dst):
+            x = (i + 0.5) * scale - 0.5
+            lo = int(np.floor(x)) - 1
+            taps = np.arange(lo, lo + 4)
+            w = _cubic_weight(taps - x, a=-0.75)
+            for t, wt in zip(taps, w):
+                M[i, min(max(t, 0), src - 1)] += wt
+    return M.astype(np.float32)
+
+
+def resize_grid_bicubic(grid: np.ndarray, new_hw, antialias: bool = True) -> np.ndarray:
+    """Resize an (H, W, C) numpy grid bicubically (host side, load time)."""
+    h, w, _ = grid.shape
+    Mh = bicubic_matrix(h, new_hw[0], antialias).astype(np.float64)
+    Mw = bicubic_matrix(w, new_hw[1], antialias).astype(np.float64)
+    out = np.einsum("ph,hwc->pwc", Mh, grid.astype(np.float64))
+    out = np.einsum("qw,pwc->pqc", Mw, out)
+    return out.astype(grid.dtype)

@@ -2,15 +2,14 @@
 
 Counterpart of ``flash_mha_packed`` in
 ``aa_clip_iqm_tpu/ops/pallas_attention.py``: the forward kernel
-``_row_kernel_grouped`` and the backward kernel ``_bwd_kernel_grouped``. The
+``_row_kernel_grouped`` (B1) and the backward kernels ``_bwd_kernel_grouped``
+(B4) and, for the value-value variant, ``_vv_bwd_kernel_grouped`` (B6). The
 kernels live in ``csrc/packed_attention.cu`` and
 ``csrc/packed_attention_bwd.cu``; see their headers for the designs. On a CPU
 tensor :func:`flash_mha_packed` runs the plain twin
 :func:`flash_mha_packed_reference` and its gradient is
 :func:`flash_mha_packed_bwd_reference`; on a CUDA tensor both directions
-launch a kernel or raise. The backward of the value-value variant
-(``vv=True``) has no kernel yet: on a CUDA tensor it raises
-``NotImplementedError``, on the CPU it runs the plain version.
+launch a kernel or raise.
 
 The tower is not padded: the kernels mask the ragged key tail themselves, and
 still honour an explicit ``valid_len`` (keys at or past it are masked).
@@ -25,8 +24,10 @@ from . import _build
 
 #: Forward-kernel launches since the last reset (incremented once per launch).
 LAUNCHES = 0
-#: Backward-kernel launches since the last reset.
+#: Backward-kernel launches since the last reset (B4, ``vv=False``).
 BWD_LAUNCHES = 0
+#: Value-value backward launches since the last reset (B6, ``vv=True``).
+VV_BWD_LAUNCHES = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: The one head width the kernel is built for (ViT-L: 16 heads of 64).
@@ -34,9 +35,10 @@ HEAD_DIM = 64
 
 
 def reset_launches() -> None:
-    global LAUNCHES, BWD_LAUNCHES
+    global LAUNCHES, BWD_LAUNCHES, VV_BWD_LAUNCHES
     LAUNCHES = 0
     BWD_LAUNCHES = 0
+    VV_BWD_LAUNCHES = 0
 
 
 def flash_mha_packed_reference(qkv, num_heads: int, scale: float,
@@ -175,10 +177,10 @@ def _bwd_lib():
     lib = _build.load("packed_attention_bwd")
     fn = lib.aaclip_packed_attention_bwd
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [
+        fn.argtypes = [ctypes.c_void_p] * 6 + [
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-            ctypes.c_void_p]
+            ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -186,20 +188,13 @@ def _bwd_lib():
 def flash_mha_packed_bwd(qkv, dO, num_heads: int, scale: float,
                          vv: bool = False, valid_len=None):
     """dqkv (B, L, 3W) from qkv (B, L, 3W) and dO (B, L, W): the plain version
-    on CPU tensors, the kernel on CUDA tensors. The value-value variant has
-    no kernel yet (``_vv_bwd_kernel_grouped``, pallas_attention.py:400, is
-    still to port) and raises on a CUDA tensor."""
+    on CPU tensors, the kernels on CUDA tensors (B4, or B6 for ``vv``, whose
+    q and k columns come out zero)."""
     if qkv.device.type == "cpu":
         return flash_mha_packed_bwd_reference(qkv, dO, num_heads, scale, vv,
                                               valid_len)
     fn = "flash_mha_packed_bwd"
     b, l, w, hd, vl = _check_qkv(fn, qkv, num_heads, valid_len)
-    if vv:
-        raise NotImplementedError(
-            f"{fn}: the backward of value-value attention (vv=True) has no "
-            "CUDA kernel yet (_vv_bwd_kernel_grouped, pallas_attention.py:400,"
-            " is still to port); run it on CPU tensors or keep the surgery "
-            "tower out of the gradient")
     if dO.device != qkv.device or dO.dtype != qkv.dtype:
         raise TypeError(f"{fn}: dO is {dO.dtype} on {dO.device}, qkv "
                         f"{qkv.dtype} on {qkv.device}")
@@ -211,13 +206,21 @@ def flash_mha_packed_bwd(qkv, dO, num_heads: int, scale: float,
     # and read by the second: log-sum-exp and D = rowsum(P * dP), float32.
     stats = torch.empty((2, b, num_heads, l), dtype=torch.float32,
                         device=qkv.device)
+    # vv: the query term of dA per token, float32, from the first kernel to
+    # the second, which adds the value and key terms and rounds once.
+    qterm = (torch.empty((b, l, w), dtype=torch.float32, device=qkv.device)
+             if vv else None)
     err = _bwd_lib()(qkv.data_ptr(), dO.data_ptr(), dqkv.data_ptr(),
-                     stats[0].data_ptr(), stats[1].data_ptr(), b, l, w,
-                     num_heads, hd, vl, float(scale), _DTYPES[qkv.dtype],
-                     _build.stream_ptr(qkv.device))
+                     stats[0].data_ptr(), stats[1].data_ptr(),
+                     None if qterm is None else qterm.data_ptr(), b, l, w,
+                     num_heads, hd, vl, float(scale), int(bool(vv)),
+                     _DTYPES[qkv.dtype], _build.stream_ptr(qkv.device))
     _build.check("packed_attention_bwd", err)
-    global BWD_LAUNCHES
-    BWD_LAUNCHES += 1
+    global BWD_LAUNCHES, VV_BWD_LAUNCHES
+    if vv:
+        VV_BWD_LAUNCHES += 1
+    else:
+        BWD_LAUNCHES += 1
     return dqkv
 
 

@@ -8,7 +8,7 @@ line):
   1. device: needs CUDA; prints the card's name and power limit;
   2. build: compiles csrc/*.cu with nvcc (one process per source, in
      parallel) and prints the seconds;
-  3. kernels: each hand-written kernel (three forward, two backward) against
+  3. kernels: each hand-written kernel (five forward, three backward) against
      its plain PyTorch twin at the main path's shapes in bf16 (largest and
      RMS error in bf16 ulps, ops/compare.py), with CUDA-event times of the
      kernel, the twin and one stock PyTorch call as a yardstick, and the
@@ -18,7 +18,10 @@ line):
      scales dropped, round-half-away; for the attention backward the key
      tail unmasked and the scale on dK dropped; for the MLP dx the wrong
      activation derivative and the LayerNorm backward without its mean
-     terms) must fail the same check;
+     terms; for the unpacked flash attention the key tail unmasked; for the
+     value-value backward the key term dropped; for the fused attention
+     half-block the out bias dropped and, under vv, q read from the q
+     section) must fail the same check;
   4. main path: AnomalyDetector on ViT-L-14-336 at 518 px with seeded random
      weights (dataset MVTec, bf16): builds the text anchors, answers predict
      at batch 1 and 8 and a mixed-class predict_multi, checks shapes, finite
@@ -46,7 +49,23 @@ line):
      their plain versions (and for a planted fault that the comparison must
      catch) and with every kernel swapped; checkpointed blocks give the same
      loss; a step checkpoint restores tensors bit for bit; images/s of both
-     stages and a profile of one stage-2 step.
+     stages and a profile of one stage-2 step; then one stage-2 step with
+     the fused attention half-block (24 of it, 23 MLP dx, no attention
+     backward kernel);
+  8. fused attention (models.clip.FUSED_ATTN, AACLIP_FUSED_ATTN=1): a batch-8
+     request at 518 px (24 fused blocks per vision forward, no packed
+     attention), its map against the flag off and the twins, timings and a
+     profile; one no-grad stage-1 feature batch of 16 (43 fused blocks);
+  9. high resolution: AnomalyDetector at 1274 px (8,282 tokens, past the
+     packed kernel's 8,192): requests at batch 1 and 2 through the unpacked
+     flash kernel (24 per vision forward, no packed attention), the batch-2
+     map against the twins (and a planted fault), timings and a profile;
+ 10. surgery backward: dual_vision_features at 518 px, batch 2, full depth,
+     differentiated to a float32 image: the value-value backward once per
+     surgery block and the packed backward once per shared-prefix block; the
+     input's and every tap's gradient against the same backward with the
+     value-value kernel alone swapped for its plain version (and for a
+     planted fault).
 Launch counts are set to 0 before each driven path and read after it. The
 second-to-last line is a JSON object with one entry per kernel; the last
 line is {"ok": true, "device": {...}}.
@@ -74,8 +93,22 @@ MAP_TOL = 4e-2                           # end to end: rms(diff) / std(twin map)
 # 4e-2, B3 agreeing with its twin on all but 7e-4 of its elements. So the
 # tier's map gets twice the room of the float tier's.
 INT8_MAP_TOL = 8e-2
+# The CUDA sources (one nvcc each) and the kernels' rows: the value-value
+# backward (B6) lives in packed_attention_bwd.cu beside B4.
+SOURCES = ("packed_attention", "ln_mlp_residual", "ln_mlp_residual_int8",
+           "packed_attention_bwd", "ln_mlp_residual_dx", "flash_attention",
+           "ln_attn_residual")
 KERNELS = ("packed_attention", "ln_mlp_residual", "ln_mlp_residual_int8",
-           "packed_attention_bwd", "ln_mlp_residual_dx")
+           "packed_attention_bwd", "ln_mlp_residual_dx", "packed_attention_vv_bwd",
+           "flash_attention", "ln_attn_residual")
+HR_IMG = 1274                            # ViT-L/14 at 91 x 91 patches
+HR_TOKENS = (HR_IMG // 14) ** 2 + 1      # 8282, past the packed kernel's 8192
+# The 1274 px map against its twins', as the 518 px one: the kernels' own
+# rounding reads 2e-2 to 3e-2 at both sizes, a planted fault several times that.
+HR_MAP_TOL = 4e-2
+# The surgery backward with only B6 swapped for its plain version: the
+# forward is shared, so only B6's own rounding is left (PR 3's rule).
+SURGERY_TOL = 1e-2
 DEVICE = "cuda"                          # the training phase's device
 GRAD_TOL = 5e-2                          # per tensor: rms(diff) / rms(plain gradient)
 # The same with only the backward kernels swapped for their plain versions:
@@ -140,7 +173,7 @@ def phase_device():
 def phase_build():
     from aa_clip_iqm_tpu_torch.ops import _build
 
-    names = list(KERNELS)
+    names = list(SOURCES)
     t0 = time.perf_counter()
     seconds = _build.build(names)
     total = time.perf_counter() - t0
@@ -181,19 +214,30 @@ def planted(what, fault, ref, base=None):
 
 
 def reset_counts():
-    from aa_clip_iqm_tpu_torch.ops import fused_mlp, packed_attention as pa
+    from aa_clip_iqm_tpu_torch.ops import attn_block, flash_attention, fused_mlp
+    from aa_clip_iqm_tpu_torch.ops import packed_attention as pa
 
     pa.reset_launches()
     fused_mlp.reset_launches()
+    flash_attention.reset_launches()
+    attn_block.reset_launches()
 
 
 def read_counts():
-    from aa_clip_iqm_tpu_torch.ops import fused_mlp, packed_attention as pa
+    from aa_clip_iqm_tpu_torch.ops import attn_block, flash_attention, fused_mlp
+    from aa_clip_iqm_tpu_torch.ops import packed_attention as pa
 
     return {"packed_attention": pa.LAUNCHES, "ln_mlp_residual": fused_mlp.LAUNCHES,
             "ln_mlp_residual_int8": fused_mlp.INT8_LAUNCHES,
             "packed_attention_bwd": pa.BWD_LAUNCHES,
-            "ln_mlp_residual_dx": fused_mlp.DX_LAUNCHES}
+            "ln_mlp_residual_dx": fused_mlp.DX_LAUNCHES,
+            "packed_attention_vv_bwd": pa.VV_BWD_LAUNCHES,
+            "flash_attention": flash_attention.LAUNCHES,
+            "ln_attn_residual": attn_block.LAUNCHES}
+
+
+def diff_counts(after, before):
+    return {n: after[n] - before[n] for n in KERNELS}
 
 
 def counts_of(**launched):
@@ -277,6 +321,7 @@ def phase_kernels():
     import torch
     import torch.nn.functional as F
 
+    from aa_clip_iqm_tpu_torch.ops import attn_block as ab, flash_attention as fa
     from aa_clip_iqm_tpu_torch.ops import fused_mlp, packed_attention as pa, quant
     from aa_clip_iqm_tpu_torch.ops.layers import gelu, layer_norm, quick_gelu
 
@@ -509,7 +554,241 @@ def phase_kernels():
         "replaces": "aa_clip_iqm_tpu/ops/pallas_mlp.py:200",
         "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
         "bound_by": b_by, "library_ms": lib_ms}
+    del x, g, out, ref, mlp, xg
+
+    # --- B6: value-value attention backward at ViT-L/518, batch 8 ----------
+    qkv = torch.randn((B, TOKENS, 3 * w), generator=gen, device=dev).to(bf16)
+    d_out = torch.randn((B, TOKENS, w), generator=gen, device=dev).to(bf16)
+    worst = 0.0
+    for batch, valid_len in ((B, None), (B, 1300), (2, None)):
+        out = pa.flash_mha_packed_bwd(qkv[:batch], d_out[:batch], HEADS, scale, vv=True,
+                                      valid_len=valid_len)
+        ref = pa.flash_mha_packed_bwd_reference(qkv[:batch], d_out[:batch], HEADS, scale,
+                                                vv=True, valid_len=valid_len)
+        require(not out[..., :2 * w].any().item(), "B6 wrote to the q or k columns")
+        # Held on the value columns, dA: the q and k columns are zero in both.
+        worst = max(worst, hold(f"B6 packed_attention_vv_bwd batch={batch} "
+                                f"valid_len={valid_len} (dA)", out[..., 2 * w:],
+                                ref[..., 2 * w:]))
+        del out
+    require(torch.equal(pa.flash_mha_packed_bwd(qkv, d_out, HEADS, scale, vv=True),
+                        pa.flash_mha_packed_bwd(qkv, d_out, HEADS, scale, vv=True)),
+            "B6: two launches on the same inputs differ (the design has no atomics)")
+    ref = pa.flash_mha_packed_bwd_reference(qkv, d_out, HEADS, scale, vv=True)
+    require(torch.equal(vv_bwd_variant(qkv, d_out, HEADS, scale), ref),
+            "the plain vv backward's second transcription differs from the plain one")
+    planted("B6 key term dropped (dA)",
+            vv_bwd_variant(qkv, d_out, HEADS, scale, key_term=False)[..., 2 * w:],
+            ref[..., 2 * w:])
+    del ref
+    ms = cuda_time(lambda: pa.flash_mha_packed_bwd(qkv, d_out, HEADS, scale, vv=True), 10)
+    plain_ms = cuda_time(
+        lambda: pa.flash_mha_packed_bwd_reference(qkv, d_out, HEADS, scale, vv=True), 2)
+    a = qkv[..., 2 * w:].reshape(B, TOKENS, HEADS, HD).transpose(1, 2).detach()
+    a.requires_grad_(True)
+    attn = F.scaled_dot_product_attention(a, a, a, scale=scale)
+    g_heads = d_out.view(B, TOKENS, HEADS, HD).transpose(1, 2)
+    lib_ms = cuda_time(lambda: torch.autograd.grad(attn, a, g_heads, retain_graph=True), 10)
+    flops = 10 * B * HEADS * TOKENS * TOKENS * HD
+    # The value columns and dO read once, the whole dqkv written once.
+    nbytes = (qkv.numel() // 3 + d_out.numel() + qkv.numel()) * 2
+    b_ms, b_by = bound(flops, nbytes)
+    log(f"# B6 time: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, sdpa backward with q = k = v "
+        f"{lib_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}; {flops:.3e} FLOP, {nbytes / 1e6:.1f} MB)")
+    results["packed_attention_vv_bwd"] = {
+        "name": "packed_attention_vv_bwd", "route": "cuda",
+        "source": "aa_clip_iqm_tpu_torch/csrc/packed_attention_bwd.cu",
+        "replaces": "aa_clip_iqm_tpu/ops/pallas_attention.py:400",
+        "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+        "bound_by": b_by, "library_ms": lib_ms}
+    del qkv, d_out, a, attn, g_heads
+
+    # --- B7: unpacked flash attention on (B*H, L, 64) ----------------------
+    # The 518 px heads at batch 8 (the TPU's whole-row kernel region), then
+    # ViT-L at 1274 px, batch 1 (past ROW_KERNEL_MAX_TOKENS: its online
+    # kernel); the latter is the main path's shape and the row's timing.
+    worst, timing = 0.0, None
+    for bh, l in ((B * HEADS, TOKENS), (HEADS, HR_TOKENS)):
+        q, k, v = (torch.randn((1, bh, l, HD), generator=gen, device=dev).to(bf16)
+                   for _ in range(3))
+        out = fa.flash_mha(q, k, v, scale)
+        ref = fa.flash_mha_reference(q, k, v, scale)
+        worst = max(worst, hold(f"B7 flash_attention BH={bh} L={l}", out, ref))
+        if l == TOKENS:
+            planted("B7 key tail unmasked", flash_tail_unmasked(q, k, v, scale), ref)
+            del out, ref, q, k, v
+            continue
+        del out, ref
+        ms = cuda_time(lambda: fa.flash_mha(q, k, v, scale), 10)
+        plain_ms = cuda_time(lambda: fa.flash_mha_reference(q, k, v, scale), 2)
+        lib_ms = cuda_time(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale), 10)
+        flops = 4 * bh * l * l * HD
+        nbytes = 4 * bh * l * HD * 2
+        b_ms, b_by = bound(flops, nbytes)
+        log(f"# B7 time at BH={bh} L={l}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, sdpa "
+            f"{lib_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}; {flops:.3e} FLOP, "
+            f"{nbytes / 1e6:.1f} MB)")
+        timing = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                  "library_ms": lib_ms}
+        del q, k, v
+    results["flash_attention"] = {
+        "name": "flash_attention", "route": "cuda",
+        "source": "aa_clip_iqm_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "aa_clip_iqm_tpu/ops/pallas_attention.py:45",
+        "max_abs_err": worst, **timing}
+
+    # --- B8: fused attention half-block at ViT-L/518, batch 8 ---------------
+    d = WIDTH
+    ln = {"scale": 1.0 + 0.1 * rnd(d), "bias": 0.1 * rnd(d)}
+    attn_p = {"qkv": {"w": rnd(d, 3 * d, std=d ** -0.5).to(bf16), "b": rnd(3 * d, std=0.1)},
+              "out": {"w": rnd(d, d, std=d ** -0.5).to(bf16), "b": rnd(d, std=0.1)}}
+    x = rnd(B, TOKENS, d).to(bf16)
+    worst, refs = 0.0, {}
+    for vv in (False, True):
+        out = ab.ln_attn_residual(ln, attn_p, x, HEADS, vv)
+        refs[vv] = ab.ln_attn_residual_reference(ln, attn_p, x, HEADS, vv)
+        # Held on y - x: the residual x is the same in both.
+        worst = max(worst, hold(f"B8 ln_attn_residual B={B} L={TOKENS} vv={vv}", out,
+                                refs[vv], x))
+    worst = max(worst, hold("B8 ln_attn_residual valid_len=1300",
+                            ab.ln_attn_residual(ln, attn_p, x, HEADS, valid_len=1300),
+                            ab.ln_attn_residual_reference(ln, attn_p, x, HEADS,
+                                                          valid_len=1300), x))
+    planted("B8 out bias dropped", block_no_out_bias(ln, attn_p, x, HEADS), refs[False], x)
+    planted("B8 q read from the q section under vv", block_q_from_q_section(ln, attn_p, x, HEADS),
+            refs[True], x)
+    del out, refs
+    ms = cuda_time(lambda: ab.ln_attn_residual(ln, attn_p, x, HEADS), 10)
+    plain_ms = cuda_time(lambda: ab.ln_attn_residual_reference(ln, attn_p, x, HEADS), 3)
+    ln_w, ln_b = ln["scale"].to(bf16), ln["bias"].to(bf16)
+    b_qkv, b_o = attn_p["qkv"]["b"].to(bf16), attn_p["out"]["b"].to(bf16)
+
+    def library_block():
+        h = F.layer_norm(x, (d,), ln_w, ln_b).view(-1, d)
+        qkv_h = torch.addmm(b_qkv, h, attn_p["qkv"]["w"]).view(B, TOKENS, 3, HEADS, HD)
+        q, k, v = qkv_h.permute(2, 0, 3, 1, 4)
+        o = F.scaled_dot_product_attention(q, k, v, scale=scale).transpose(1, 2).reshape(-1, d)
+        return x + torch.addmm(b_o, o, attn_p["out"]["w"]).view_as(x)
+
+    lib_ms = cuda_time(library_block, 10)
+    flops = 8 * B * TOKENS * d * d + 4 * B * HEADS * TOKENS * TOKENS * HD
+    nbytes = 2 * x.numel() * 2 + 4 * d * d * 2 + 6 * d * 4
+    b_ms, b_by = bound(flops, nbytes)
+    log(f"# B8 time: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, layer_norm-addmm-sdpa-addmm "
+        f"{lib_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}; {flops:.3e} FLOP, "
+        f"{nbytes / 1e6:.1f} MB)")
+    results["ln_attn_residual"] = {
+        "name": "ln_attn_residual", "route": "cuda",
+        "source": "aa_clip_iqm_tpu_torch/csrc/ln_attn_residual.cu",
+        "replaces": "aa_clip_iqm_tpu/ops/pallas_attn_block.py:47",
+        "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+        "bound_by": b_by, "library_ms": lib_ms}
     return results
+
+
+def vv_bwd_variant(qkv, d_out, num_heads, scale, vv=True, valid_len=None, key_term=True):
+    """The plain value-value backward written out once more (as
+    ``flash_mha_packed_bwd_reference`` with ``vv``), with its planted fault:
+    the key term of dA dropped. Without the fault it is the plain version.
+    The signature is ``flash_mha_packed_bwd``'s, so it can stand in for it."""
+    import torch
+
+    b, l, threew = qkv.shape
+    w = threew // 3
+    hd = w // num_heads
+    dt = qkv.dtype
+
+    def heads(t):
+        return t.reshape(b, l, num_heads, hd).transpose(1, 2)
+
+    def rounded(t):
+        return t.to(dt).float()
+
+    a = heads(qkv[..., 2 * w:])
+    g = rounded(heads(d_out).float())
+    s = torch.matmul(a.float() * scale, a.float().transpose(-1, -2))
+    if valid_len is not None and valid_len < l:
+        keys = torch.arange(l, device=qkv.device)
+        s = s + torch.where(keys < valid_len, 0.0, float("-inf"))
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = p / p.sum(dim=-1, keepdim=True)
+    d_val = torch.matmul(rounded(p).transpose(-1, -2), g)
+    dp = torch.matmul(g, a.float().transpose(-1, -2))
+    d_row = (p * dp).sum(dim=-1, keepdim=True)
+    dsb = rounded(p * (dp - d_row))
+    af = a.float()
+    d_a = d_val + torch.matmul(dsb, af) * scale
+    if key_term:
+        d_a = d_a + torch.matmul(dsb.transpose(-1, -2), af) * scale
+    zeros = qkv.new_zeros((b, l, 2 * w))
+    return torch.cat([zeros, d_a.transpose(1, 2).reshape(b, l, w).to(dt)], dim=-1)
+
+
+def vv_bwd_no_key_term(qkv, d_out, num_heads, scale, vv=True, valid_len=None):
+    """Planted fault for the surgery backward: B6 without the key term."""
+    return vv_bwd_variant(qkv, d_out, num_heads, scale, vv, valid_len, key_term=False)
+
+
+def flash_tail_unmasked(q, k, v, scale):
+    """Planted fault: the B7 twin with the zero-filled rows of the ragged last
+    64-key tile counted as keys."""
+    import torch
+
+    from aa_clip_iqm_tpu_torch.ops.flash_attention import flash_mha_reference
+
+    pad = -k.shape[-2] % 64
+
+    def padded(t):
+        return torch.cat([t, t.new_zeros(t.shape[:-2] + (pad, t.shape[-1]))], dim=-2)
+
+    return flash_mha_reference(q, padded(k), padded(v), scale)
+
+
+def flash_scale_dropped(q, k, v, scale, attn_mask=None):
+    """Planted fault for the 1274 px map: the twin of flash_mha without the
+    1/sqrt(hd) scale on unmasked calls."""
+    from aa_clip_iqm_tpu_torch.ops.attention import sdpa
+
+    return sdpa(q, k, v, scale if attn_mask is not None else 1.0, attn_mask)
+
+
+def block_no_out_bias(ln, attn_p, x, num_heads, vv=False, valid_len=None, eps=1e-5):
+    """Planted fault: the B8 twin without the out-projection bias."""
+    import torch
+
+    from aa_clip_iqm_tpu_torch.ops.attn_block import ln_attn_residual_reference
+
+    no_bias = {"qkv": attn_p["qkv"], "out": {"w": attn_p["out"]["w"],
+                                             "b": torch.zeros_like(attn_p["out"]["b"])}}
+    return ln_attn_residual_reference(ln, no_bias, x, num_heads, vv, valid_len, eps)
+
+
+def block_scale_dropped(ln, attn_p, x, num_heads, vv=False, valid_len=None, eps=1e-5):
+    """Planted fault for the fused-attention map: the B8 twin without the
+    1/sqrt(hd) scale of the scores."""
+    from aa_clip_iqm_tpu_torch.ops.layers import layer_norm, linear
+    from aa_clip_iqm_tpu_torch.ops.packed_attention import flash_mha_packed_reference
+
+    qkv = linear(attn_p["qkv"], layer_norm(ln, x, eps=eps))
+    out = flash_mha_packed_reference(qkv, num_heads, 1.0, vv, valid_len)
+    return x + linear(attn_p["out"], out)
+
+
+def block_q_from_q_section(ln, attn_p, x, num_heads, eps=1e-5):
+    """Planted fault: the value-value B8 twin with q read from the q section
+    of the projection (k and v from the value section)."""
+    from aa_clip_iqm_tpu_torch.ops.attention import sdpa
+    from aa_clip_iqm_tpu_torch.ops.layers import layer_norm, linear
+
+    b, l, w = x.shape
+    hd = w // num_heads
+    q, _, v = linear(attn_p["qkv"], layer_norm(ln, x, eps=eps)).split(w, dim=-1)
+
+    def heads(t):
+        return t.reshape(b, l, num_heads, hd).transpose(1, 2)
+
+    out = sdpa(heads(q), heads(v), heads(v), hd ** -0.5).transpose(1, 2).reshape(b, l, w)
+    return x + linear(attn_p["out"], out)
 
 
 def attn_bwd_tail_unmasked(qkv, d_out, num_heads, scale):
@@ -582,19 +861,25 @@ class _Twins:
     Autograd differentiates the twins themselves, so the backward kernels
     are out of the way too."""
 
-    def __init__(self, attn=None, mlp=None, mlp_int8=None, keep_attn=False):
+    def __init__(self, attn=None, mlp=None, mlp_int8=None, flash=None, block=None,
+                 keep_attn=False):
         self._attn, self._mlp, self._mlp_int8 = attn, mlp, mlp_int8
+        self._flash, self._block = flash, block
         self._keep_attn = keep_attn          # leave B1 on its kernel
 
     def __enter__(self):
         from aa_clip_iqm_tpu_torch.models import clip
-        from aa_clip_iqm_tpu_torch.ops import attention, fused_mlp, packed_attention
+        from aa_clip_iqm_tpu_torch.ops import attention, attn_block, fused_mlp, packed_attention
 
-        self._saved = (attention.flash_mha_packed, clip.ln_mlp_residual,
-                       clip.ln_mlp_residual_int8, clip.ln_mlp_residual_frozen)
+        self._saved = (attention.flash_mha_packed, attention.flash_mha, clip.ln_attn_residual,
+                       clip.ln_mlp_residual, clip.ln_mlp_residual_int8,
+                       clip.ln_mlp_residual_frozen)
         if not self._keep_attn:
             attention.flash_mha_packed = (self._attn
                                           or packed_attention.flash_mha_packed_reference)
+        # flash_mha's plain twin, fallbacks included, is the plain sdpa.
+        attention.flash_mha = self._flash or attention.sdpa
+        clip.ln_attn_residual = self._block or attn_block.ln_attn_residual_reference
         clip.ln_mlp_residual = self._mlp or fused_mlp.ln_mlp_residual_reference
         clip.ln_mlp_residual_int8 = (self._mlp_int8
                                      or fused_mlp.ln_mlp_residual_int8_reference)
@@ -605,8 +890,9 @@ class _Twins:
         from aa_clip_iqm_tpu_torch.models import clip
         from aa_clip_iqm_tpu_torch.ops import attention
 
-        (attention.flash_mha_packed, clip.ln_mlp_residual,
-         clip.ln_mlp_residual_int8, clip.ln_mlp_residual_frozen) = self._saved
+        (attention.flash_mha_packed, attention.flash_mha, clip.ln_attn_residual,
+         clip.ln_mlp_residual, clip.ln_mlp_residual_int8,
+         clip.ln_mlp_residual_frozen) = self._saved
 
 
 class _PlainBackward:
@@ -628,6 +914,32 @@ class _PlainBackward:
         from aa_clip_iqm_tpu_torch.ops import fused_mlp, packed_attention
 
         packed_attention.flash_mha_packed_bwd, fused_mlp.ln_mlp_residual_dx = self._saved
+
+
+class _PlainVvBackward:
+    """Keep every kernel but the value-value backward (B6), which goes to its
+    plain version, or to the given stand-in."""
+
+    def __init__(self, fault=None):
+        self._fault = fault
+
+    def __enter__(self):
+        from aa_clip_iqm_tpu_torch.ops import packed_attention
+
+        kernel = self._saved = packed_attention.flash_mha_packed_bwd
+        plain = self._fault or packed_attention.flash_mha_packed_bwd_reference
+
+        def route(qkv, d_out, num_heads, scale, vv=False, valid_len=None):
+            fn = plain if vv else kernel
+            return fn(qkv, d_out, num_heads, scale, vv, valid_len)
+
+        packed_attention.flash_mha_packed_bwd = route
+        return self
+
+    def __exit__(self, *exc):
+        from aa_clip_iqm_tpu_torch.ops import packed_attention
+
+        packed_attention.flash_mha_packed_bwd = self._saved
 
 
 def phase_main_path(card):
@@ -710,7 +1022,7 @@ def phase_main_path(card):
     time_requests(det, imgs8, card, "bf16 tier")
     profile_request(det, imgs8)
     ctx = {"cfg": cfg, "frozen": frozen, "trainable": trainable, "det": det,
-           "imgs8": imgs8, "maps_bf16": maps_k, "check": check}
+           "imgs8": imgs8, "maps_bf16": maps_k, "maps_twins": maps_t, "check": check}
     return counts, ctx
 
 
@@ -1227,7 +1539,30 @@ def phase_train(card, cfg, frozen):
         f"gradients differ by at most {g_rel:.3e}; launches with remat {remat_counts}")
     require(abs(loss_r - loss_a) <= 1e-3 * abs(loss_a), "remat changes the loss")
     require(g_rel <= 1e-3, "remat changes the gradients")
-    del g_again, g_bwd, g_plain, g_fault, g_a, g_b, record, first
+
+    # The first stage-2 step with the fused attention half-block
+    # (AACLIP_FUSED_ATTN=1): 24 of it forward, its backward the plain chain
+    # (as in JAX), so no attention backward kernel; the MLP dx kernel as
+    # before. Its gradients against the kernel route with the flag off.
+    clip.FUSED_ATTN = True
+    try:
+        reset = read_counts()
+        loss_fz, g_fz = grads_through(contextlib.nullcontext(), remat=False)
+        fused_counts = diff_counts(read_counts(), reset)
+    finally:
+        clip.FUSED_ATTN = False
+    fz_rel = max(rel(a, b) for name, a, b in zip(names, g_fz, first["grads"])
+                 if name.startswith(upstream) and a is not None)
+    log(f"# training, the first stage-2 step with the fused attention half: loss {loss_fz:.5f} "
+        f"(flag off {s2[0]['loss']:.5f}), adapters of blocks 0-5 against the flag off: worst rms "
+        f"diff / rms {fz_rel:.3e} (tol {GRAD_TOL:.0e}); launches {fused_counts}")
+    require(np.isfinite(loss_fz), "the fused stage-2 loss is not finite")
+    require(fused_counts == counts_of(ln_attn_residual=layers, ln_mlp_residual=layers,
+                                      ln_mlp_residual_dx=layers - 1),
+            f"fused stage-2 step launches {fused_counts}")
+    require(fz_rel <= GRAD_TOL, f"fused stage-2 gradients differ by {fz_rel}")
+    add_counts(counts, fused_counts)
+    del g_again, g_bwd, g_plain, g_fault, g_a, g_b, g_fz, record, first
     torch.cuda.empty_cache()
 
     # Rates of both stages (cli/bench.py's train and stage1 modes: a fixed
@@ -1253,11 +1588,213 @@ def phase_train(card, cfg, frozen):
     return counts
 
 
+def phase_fused(card, ctx):
+    """The fused attention half-block on its two no-grad paths
+    (models.clip.FUSED_ATTN, as AACLIP_FUSED_ATTN=1 sets it at import): a
+    batch-8 request at 518 px and one stage-1 feature batch of 16."""
+    import numpy as np
+    import torch
+
+    from aa_clip_iqm_tpu_torch.models import clip
+    from aa_clip_iqm_tpu_torch.train import steps
+
+    cfg, frozen, det, imgs8 = ctx["cfg"], ctx["frozen"], ctx["det"], ctx["imgs8"]
+    layers = cfg.clip.vision.layers
+    vv_blocks = layers - clip.surgery_vv_from(layers, cfg.surgery_until_layer)
+    total = dict.fromkeys(KERNELS, 0)
+    clip.FUSED_ATTN = True
+    try:
+        reset_counts()
+        maps, scores = det.predict(imgs8, "screw")
+        got = read_counts()
+        log(f"# fused attention, batch-8 request: maps in [{maps.min():.4f}, {maps.max():.4f}], "
+            f"launches {got}")
+        ctx["check"](maps, scores, B, "fused attention request")
+        require(got == counts_of(ln_attn_residual=layers, ln_mlp_residual=layers),
+                f"fused attention request: launches {got}")
+        add_counts(total, got)
+        rel_twins = map_diff(maps, ctx["maps_twins"])
+        rel_off = map_diff(maps, ctx["maps_bf16"])
+        log(f"# fused attention vs the twins, batch 8 map: rms diff / std {rel_twins:.3e} "
+            f"(tol {MAP_TOL:.0e}); vs the flag off (B1 chain) {rel_off:.3e} (tol {MAP_TOL:.0e})")
+        require(rel_twins <= MAP_TOL, f"fused map differs from the twins' by {rel_twins}")
+        require(rel_off <= MAP_TOL, f"fused map differs from the flag off by {rel_off}")
+        # (The random backbone's biases are zero, so dropping one is no fault
+        # here; the kernels phase plants that one on random biases.)
+        with _Twins(block=block_scale_dropped):
+            rel_f = map_diff(det.predict(imgs8, "screw")[0], ctx["maps_twins"])
+        log(f"# planted fault, B8 without its 1/sqrt(hd) scale, batch 8 map: rms diff / std "
+            f"{rel_f:.3e}")
+        require(rel_f > MAP_TOL, "map comparison missed the planted fault in B8")
+        time_requests(det, imgs8, card, "fused attention (AACLIP_FUSED_ATTN=1)")
+        profile_request(det, imgs8)
+
+        # One stage-1 batch of 16: the no-grad dual tower, the surgery blocks
+        # included, all through the fused block.
+        rng = np.random.default_rng(31)
+        images = torch.from_numpy(rng.standard_normal((16, 3, IMG, IMG)).astype(np.float32)).cuda()
+        features = steps.make_stage1_visual_fn(cfg, compute_dtype=torch.bfloat16)
+        reset_counts()
+        t0 = time.perf_counter()
+        feats = features(frozen, images)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        got = read_counts()
+        n_fused = 2 * layers - (layers - vv_blocks)
+        log(f"# fused attention, stage-1 feature batch of 16: {len(feats)} levels in "
+            f"{seconds * 1e3:.1f} ms (first call), launches {got}")
+        require(got == counts_of(ln_attn_residual=n_fused, ln_mlp_residual=n_fused),
+                f"fused stage-1 batch: launches {got}, want {n_fused} fused blocks")
+        require(all(torch.isfinite(f).all().item() and f.shape == (16, TOKENS - 1, cfg.clip.embed_dim)
+                    for f in feats), "fused stage-1 features")
+        add_counts(total, got)
+    finally:
+        clip.FUSED_ATTN = False
+    feats_off = features(frozen, images)
+    rel = max(float((a.float() - b.float()).square().mean().sqrt()
+                    / b.float().square().mean().sqrt()) for a, b in zip(feats, feats_off))
+    log(f"# fused attention, stage-1 features vs the flag off: worst rms diff / rms {rel:.3e} "
+        f"(not held)")
+    return total
+
+
+def phase_highres(card, ctx):
+    """AnomalyDetector on ViT-L-14-336 at 1274 px: 8,282 tokens, past the
+    packed kernel's 8,192, so attention goes through the unpacked flash
+    kernel. The weights are the 518 px ones with the positional embedding
+    resized bicubically to the 91 x 91 grid, as a loader does for a cache
+    saved at another size."""
+    import numpy as np
+    import torch
+
+    from aa_clip_iqm_tpu_torch.loader import build_model_config
+    from aa_clip_iqm_tpu_torch.models.clip import resize_pos_embed_np
+    from aa_clip_iqm_tpu_torch.serving import AnomalyDetector
+
+    cfg = build_model_config("ViT-L-14-336", img_size=HR_IMG)
+    layers, text_layers = cfg.clip.vision.layers, cfg.clip.text.layers
+    vis = ctx["frozen"]["visual"]
+    pos = vis["positional_embedding"]
+    resized = resize_pos_embed_np(pos.float().cpu().numpy(), cfg.clip.vision.grid)
+    require(resized.shape == (HR_TOKENS, WIDTH), f"resized positional embedding {resized.shape}")
+    frozen = {**ctx["frozen"], "visual": {**vis, "positional_embedding":
+                                          torch.from_numpy(resized).to(pos.device, pos.dtype)}}
+    reset_counts()
+    # The default ladder (1, 8, 16, 32) would pad a batch of 2 to 8: at this
+    # size a caller passes a finer one.
+    det = AnomalyDetector(frozen, ctx["trainable"], cfg, "MVTec", img_size=HR_IMG,
+                          compute_dtype=torch.bfloat16, device="cuda",
+                          batch_buckets=(1, 2, 4, 8))
+    torch.cuda.synchronize()
+    total = read_counts()
+    require(total == counts_of(ln_mlp_residual=text_layers), f"1274 px anchors: launches {total}")
+    rng = np.random.default_rng(17)
+    for n in (1, 2):
+        imgs = rng.integers(0, 256, (n, 3, HR_IMG, HR_IMG), dtype=np.uint8)
+        before = read_counts()
+        maps, scores = det.predict(imgs, "screw")
+        got = diff_counts(read_counts(), before)
+        log(f"# 1274 px, batch {n}: maps {maps.shape} in [{maps.min():.4f}, {maps.max():.4f}], "
+            f"scores {np.round(scores, 4).tolist()}, launches {got}")
+        require(maps.shape == (n, HR_IMG, HR_IMG) and scores.shape == (n,), "1274 px shapes")
+        require(np.isfinite(maps).all() and np.isfinite(scores).all(), "1274 px: non-finite")
+        require(got == counts_of(flash_attention=layers, ln_mlp_residual=layers),
+                f"1274 px batch {n}: launches {got}")
+        add_counts(total, got)
+    with _Twins():
+        before = read_counts()
+        maps_t, _ = det.predict(imgs, "screw")
+        require(before == read_counts(), "twin run launched a kernel")
+    rel = map_diff(maps, maps_t)
+    log(f"# 1274 px, kernels vs twins, batch 2 map: rms diff / std {rel:.3e} (tol {HR_MAP_TOL:.0e})")
+    require(rel <= HR_MAP_TOL, f"1274 px map differs from the twins' by {rel}")
+    with _Twins(flash=flash_scale_dropped):
+        rel_f = map_diff(det.predict(imgs, "screw")[0], maps_t)
+    log(f"# planted fault, B7 scale dropped, 1274 px batch 2 map: rms diff / std {rel_f:.3e}")
+    require(rel_f > HR_MAP_TOL, "1274 px map comparison missed the planted fault")
+    del maps_t
+    time_requests(det, imgs, card, "1274 px", n=6)
+    profile_request(det, imgs)
+    return total
+
+
+def phase_surgery_backward(ctx):
+    """dual_vision_features at 518 px, batch 2, full depth, differentiated to a
+    float32 image through a scalar loss on the surgery taps: B6 on the
+    value-value blocks, B4 on the shared prefix. The input's and every tap's
+    gradient against the same backward with B6 alone on its plain version."""
+    import contextlib
+
+    import torch
+
+    from aa_clip_iqm_tpu_torch.models import clip
+
+    cfg, vis = ctx["cfg"], ctx["frozen"]["visual"]
+    layers = cfg.clip.vision.layers
+    vv_from = clip.surgery_vv_from(layers, cfg.surgery_until_layer)
+    n_vv = layers - vv_from
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    base = torch.randn((2, 3, IMG, IMG), generator=gen, device="cuda")
+
+    def backward(route):
+        img = base.clone().requires_grad_(True)
+        with route:
+            before = read_counts()
+            _, taps = clip.dual_vision_features(vis, cfg.clip.vision, img, cfg.adapter.levels,
+                                                vv_from, act_name=cfg.clip.act,
+                                                compute_dtype=torch.bfloat16)
+            for t in taps:
+                t.retain_grad()
+            loss = sum(t.float().square().mean() for t in taps)
+            loss.backward()
+            torch.cuda.synchronize()
+            got = diff_counts(read_counts(), before)
+        return float(loss.detach()), [img.grad] + [t.grad for t in taps], got
+
+    t0 = time.perf_counter()
+    loss_k, grads_k, got = backward(contextlib.nullcontext())
+    seconds = time.perf_counter() - t0
+    log(f"# surgery backward, batch 2: loss {loss_k:.5f} in {seconds * 1e3:.1f} ms, "
+        f"launches {got}")
+    forward = vv_from + 2 * n_vv
+    require(got == counts_of(packed_attention=forward, ln_mlp_residual=forward,
+                             packed_attention_bwd=vv_from, packed_attention_vv_bwd=n_vv),
+            f"surgery backward: launches {got}, want {n_vv} B6 and {vv_from} B4")
+    require(all(torch.isfinite(g).all().item() for g in grads_k), "surgery gradient not finite")
+    require(grads_k[0].abs().max().item() > 0, "no gradient reached the image")
+    loss_p, grads_p, got_p = backward(_PlainVvBackward())
+    require(got_p["packed_attention_vv_bwd"] == 0 and got_p["packed_attention_bwd"] == vv_from,
+            f"B6 swapped for its plain version: launches {got_p}")
+    _, grads_f, _ = backward(_PlainVvBackward(fault=vv_bwd_no_key_term))
+
+    def rel(a, b):
+        return float((a.float() - b.float()).square().mean().sqrt()
+                     / b.float().square().mean().sqrt().clamp_min(1e-30))
+
+    names = ["image"] + [f"tap {lv}" for lv in cfg.adapter.levels]
+    rels = [rel(a, b) for a, b in zip(grads_k, grads_p)]
+    faults = [rel(a, b) for a, b in zip(grads_f, grads_p)]
+    for name, r, f in zip(names, rels, faults):
+        log(f"#   grad {name}: kernels vs plain B6 {r:.3e}, planted fault vs plain B6 {f:.3e}")
+    log(f"# surgery backward: loss {loss_k:.5f} (plain B6 {loss_p:.5f}); worst rms diff / rms "
+        f"{max(rels):.3e} (tol {SURGERY_TOL:.0e}), planted fault (B6 without its key term) on "
+        f"the image gradient {faults[0]:.3e}")
+    require(max(rels) <= SURGERY_TOL, f"surgery gradients differ from the plain B6's by {max(rels)}")
+    require(faults[0] > SURGERY_TOL, "the surgery gradient check missed the planted B6 fault")
+    del grads_k, grads_p, grads_f
+    torch.cuda.empty_cache()
+    return got
+
+
 def kernel_group(name):
     """The profiler group of a device kernel, by its name."""
     low = name.lower()
     if "attention_bwd" in low:
-        return "B4 packed_attention_bwd"
+        return "B6 packed_attention_vv_bwd" if "<true>" in low else "B4 packed_attention_bwd"
+    if "flash_attention" in low:
+        return "B7 flash_attention"
+    if "ln_qkv_kernel" in low or "attn_out_kernel" in low:
+        return "B8 ln_attn_residual"
     if "packed_attention" in low:
         return "B1 packed_attention"
     if "ln_mlp_residual_dx" in low:
@@ -1319,6 +1856,9 @@ def main():
         launches, ctx = phase_main_path(card)
         add_counts(launches, phase_int8_tiers(card, ctx))
         add_counts(launches, phase_sweep(card, ctx))
+        add_counts(launches, phase_fused(card, ctx))
+        add_counts(launches, phase_highres(card, ctx))
+        add_counts(launches, phase_surgery_backward(ctx))
         cfg, frozen = ctx["cfg"], ctx["frozen"]
         del ctx
         phase_metrics_scale(card)

@@ -104,3 +104,63 @@ def test_no_graph_without_grad():
     with torch.no_grad():
         t.requires_grad_(True)
         assert pa.flash_mha_packed(t, HEADS, SCALE).grad_fn is None
+
+
+def test_bf16_vv_backward_rounds_where_the_kernel_does():
+    """The value-value plain backward in bf16 against the Pallas v-v kernel
+    (three terms in one fp32 sum, rounded once), at 2% of the largest
+    entry."""
+    qkv, g = _inputs(13, 300)
+    jq, jg = jnp.asarray(qkv, jnp.bfloat16), jnp.asarray(g, jnp.bfloat16)
+    ref = np.asarray(jpa._flash_packed_vv_bwd_kernelized(jq, jg, HEADS, SCALE, 290),
+                     np.float32)
+    out = pa.flash_mha_packed_bwd_reference(
+        torch.from_numpy(qkv).bfloat16(), torch.from_numpy(g).bfloat16(), HEADS, SCALE,
+        vv=True, valid_len=290)
+    np.testing.assert_allclose(out.float().numpy(), ref, atol=0.02 * np.abs(ref).max())
+
+
+def test_surgery_tower_gradient_matches_jax():
+    """The gradient of the whole surgery tower (``dual_vision_features``:
+    the shared prefix through B4, the value-value blocks through B6, the
+    plain branch) with respect to the input image, against ``jax.grad`` of
+    the JAX function with its Pallas kernels (interpret mode). A small ViT
+    with two 64-wide heads at 224 px (257 tokens), so that both packages take
+    the packed kernels; fp32, to 2e-5 of the largest entry."""
+    import dataclasses
+
+    import jax
+
+    from aa_clip_iqm_tpu import configs as jconfigs
+    from aa_clip_iqm_tpu.models import clip as jclip
+    from aa_clip_iqm_tpu_torch import configs as tconfigs
+    from aa_clip_iqm_tpu_torch.models import clip as tclip
+    from aa_clip_iqm_tpu_torch.models.convert import params_from_jax
+
+    def shrink(configs):
+        cfg = configs.tiny_test_config(224)
+        vision = dataclasses.replace(cfg.clip.vision, width=128, head_width=64)
+        return dataclasses.replace(cfg, clip=dataclasses.replace(cfg.clip, vision=vision))
+
+    jcfg, tcfg = shrink(jconfigs), shrink(tconfigs)
+    vcfg = jcfg.clip.vision
+    vv_from = jclip.surgery_vv_from(vcfg.layers, jcfg.surgery_until_layer)
+    levels = jcfg.adapter.levels
+    params = jclip.init_clip_params(jax.random.PRNGKey(0), jcfg.clip)
+    tparams, _ = params_from_jax(jax.tree.map(np.asarray, params), None, tcfg, device="cpu",
+                                 dtype=torch.float32)
+    images = np.random.default_rng(5).standard_normal((1, 3, 224, 224)).astype(np.float32)
+
+    def jloss(img):
+        pooled, taps = jclip.dual_vision_features(params["visual"], vcfg, img, levels, vv_from,
+                                                  use_pallas=True)
+        return jnp.sum(pooled ** 2) + sum(jnp.sum(t ** 2) for t in taps)
+
+    ref = np.asarray(jax.grad(jloss)(jnp.asarray(images)))
+    img = torch.from_numpy(images).requires_grad_(True)
+    pa.reset_launches()
+    pooled, taps = tclip.dual_vision_features(tparams["visual"], tcfg.clip.vision, img, levels,
+                                              vv_from)
+    (pooled.square().sum() + sum(t.square().sum() for t in taps)).backward()
+    assert (pa.LAUNCHES, pa.BWD_LAUNCHES, pa.VV_BWD_LAUNCHES) == (0, 0, 0)
+    np.testing.assert_allclose(img.grad.numpy(), ref, rtol=0, atol=2e-5 * np.abs(ref).max())

@@ -1,0 +1,193 @@
+"""Port's fused attention half-block (LN -> qkv -> attention -> out-proj ->
+residual) vs the JAX package's ``pallas_attn_block`` (interpret mode).
+
+The CUDA kernel itself runs only on the card (chip_smoke.py and
+tests/test_torch_cuda_kernels.py hold it against its plain twin there); on a
+CPU tensor ``ln_attn_residual`` runs the twin and launches nothing. bf16
+outputs are held to the JAX tests' 0.06, gradients to their 0.08.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from aa_clip_iqm_tpu.ops import pallas_attention as jpa
+from aa_clip_iqm_tpu.ops import pallas_attn_block as jpb
+from aa_clip_iqm_tpu_torch.ops import attn_block as tpb
+
+TOL = 0.06
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def interpret_mode():
+    jpb.INTERPRET = True
+    jpa.INTERPRET = True
+    yield
+    jpb.INTERPRET = False
+    jpa.INTERPRET = False
+
+
+def _params(seed, d):
+    """The JAX tests' parameters (tests/test_pallas_attn_block.py), as numpy."""
+    rng = np.random.default_rng(seed)
+
+    def w(*shape):
+        return (rng.standard_normal(shape) * 0.05).astype(np.float32)
+
+    ln = {"scale": 1.0 + 0.1 * w(d), "bias": 0.1 * w(d)}
+    attn = {"qkv": {"w": w(d, 3 * d), "b": 0.1 * w(3 * d)},
+            "out": {"w": w(d, d), "b": 0.1 * w(d)}}
+    return ln, attn
+
+
+def _tree(tree, fn):
+    return {k: _tree(v, fn) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
+
+
+def _jax(tree):
+    return _tree(tree, jnp.asarray)
+
+
+def _torch(tree, requires_grad=False):
+    return _tree(tree, lambda a: torch.from_numpy(a).requires_grad_(requires_grad))
+
+
+def _x(seed, b, l, d):
+    return np.random.default_rng(seed).standard_normal((b, l, d)).astype(np.float32)
+
+
+@pytest.mark.parametrize("b,l,d,heads,vv,valid", [
+    (2, 128, 128, 2, False, None),   # hd=64 -> two heads per 128-panel
+    (1, 128, 128, 2, True, None),    # v-v surgery path
+    (2, 128, 128, 2, False, 100),    # keys masked short of the length
+    (1, 256, 256, 2, False, None),   # hd=128 -> one head per panel, 2 panels
+    (1, 128, 128, 1, True, 70),      # single hd=128 head + vv + mask
+])
+def test_matches_jax_kernel(b, l, d, heads, vv, valid):
+    ln, attn = _params(l + d + heads, d)
+    x = _x(b + l, b, l, d)
+    ref = jpb.ln_attn_residual(_jax(ln), _jax(attn), jnp.asarray(x, jnp.bfloat16), heads,
+                               vv, valid)
+    tpb.reset_launches()
+    out = tpb.ln_attn_residual(_torch(ln), _torch(attn),
+                               torch.from_numpy(x).to(torch.bfloat16), heads, vv, valid)
+    assert tpb.LAUNCHES == 0 and out.dtype == torch.bfloat16
+    n = valid if valid is not None else l
+    np.testing.assert_allclose(out.float().numpy()[:, :n], np.asarray(ref, np.float32)[:, :n],
+                               rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("vv", [False, True])
+def test_ragged_length_matches_jax_chain(vv):
+    """A length that is no multiple of 128, which the JAX gate refuses (its
+    tower pre-pads) and the port takes (the kernel masks its own tail): held
+    to the JAX chain."""
+    b, l, d, heads = 1, 130, 128, 2
+    ln, attn = _params(7, d)
+    x = _x(8, b, l, d)
+    assert not jpb.ln_attn_residual_ok(jnp.asarray(x, jnp.bfloat16), _jax(attn), heads)
+    xt = torch.from_numpy(x).to(torch.bfloat16)
+    assert tpb.ln_attn_residual_ok(xt, _torch(attn), heads)
+    ref = jpb._xla_chain(_jax(ln), _jax(attn), jnp.asarray(x, jnp.bfloat16), heads, vv,
+                         None, 1e-5)
+    out = tpb.ln_attn_residual(_torch(ln), _torch(attn), xt, heads, vv)
+    np.testing.assert_allclose(out.float().numpy(), np.asarray(ref, np.float32),
+                               rtol=TOL, atol=TOL)
+
+
+def test_gate_mirrors_jax():
+    """ln_attn_residual_ok is JAX's gate without its backend test and without
+    L % 128: the same answer on every case of tests/test_pallas_attn_block.py
+    but the ragged length."""
+    _, attn = _params(1, 128)
+    ja, ta = _jax(attn), _torch(attn)
+    q = {"qkv": {"w": attn["qkv"]["w"].astype(np.int8), "b": attn["qkv"]["b"]},
+         "out": attn["out"]}
+    q8 = {"qkv": {"w_q": attn["qkv"]["w"].astype(np.int8), "scale": np.ones(384, np.float32),
+                  "b": attn["qkv"]["b"]}, "out": attn["out"]}
+    cases = [((2, 128, 128), jnp.bfloat16, attn, 2), ((2, 128, 128), jnp.float32, attn, 2),
+             ((128, 128), jnp.bfloat16, attn, 2), ((2, 128, 128), jnp.bfloat16, q, 2),
+             ((2, 128, 128), jnp.bfloat16, q8, 2), ((2, 128, 128), jnp.bfloat16, attn, 4),
+             ((2, 128, 128), jnp.bfloat16, attn, 3)]
+    tdt = {jnp.bfloat16: torch.bfloat16, jnp.float32: torch.float32}
+    for shape, dt, params, heads in cases:
+        want = jpb.ln_attn_residual_ok(jnp.zeros(shape, dt), _jax(params), heads)
+        got = tpb.ln_attn_residual_ok(torch.zeros(shape, dtype=tdt[dt]), _torch(params),
+                                      heads)
+        assert got == want, (shape, dt, heads)
+    assert jpb.ln_attn_residual_ok(jnp.zeros((2, 128, 128), jnp.bfloat16), ja, 2)
+    assert not jpb.ln_attn_residual_ok(jnp.zeros((2, 130, 128), jnp.bfloat16), ja, 2)
+    assert tpb.ln_attn_residual_ok(torch.zeros((2, 130, 128), dtype=torch.bfloat16), ta, 2)
+
+
+@pytest.mark.parametrize("vv", [False, True])
+def test_run_block_fused_matches_jax(vv, monkeypatch):
+    """_run_block with FUSED_ATTN on in both packages takes the fused branch
+    on both sides and gives JAX's block output."""
+    from aa_clip_iqm_tpu.models import clip as jclip
+    from aa_clip_iqm_tpu.ops.layers import gelu as jgelu
+    from aa_clip_iqm_tpu_torch.models import clip as tclip
+    from aa_clip_iqm_tpu_torch.ops.layers import gelu as tgelu
+
+    d, heads = 128, 2
+    ln, attn = _params(3, d)
+    rng = np.random.default_rng(4)
+    block = {"ln_1": ln, "attn": attn,
+             "ln_2": {"scale": np.ones(d, np.float32), "bias": np.zeros(d, np.float32)},
+             "mlp": {"c_fc": {"w": (0.05 * rng.standard_normal((d, 4 * d))).astype(np.float32),
+                              "b": np.zeros(4 * d, np.float32)},
+                     "c_proj": {"w": (0.05 * rng.standard_normal((4 * d, d))).astype(np.float32),
+                                "b": np.zeros(d, np.float32)}}}
+    x = _x(5, 1, 128, d)
+    monkeypatch.setattr(jclip, "FUSED_ATTN", True)
+    monkeypatch.setattr(tclip, "FUSED_ATTN", True)
+    calls = []
+    real = tclip.ln_attn_residual
+
+    def spy(*a, **k):
+        calls.append(k)
+        return real(*a, **k)
+
+    monkeypatch.setattr(tclip, "ln_attn_residual", spy)
+    ref = jclip._run_block(_jax(block), jnp.asarray(x, jnp.bfloat16), heads, jgelu,
+                           use_pallas=True, vv=vv)
+    out = tclip._run_block(_torch(block), torch.from_numpy(x).to(torch.bfloat16), heads,
+                           tgelu, vv=vv)
+    assert len(calls) == 1
+    np.testing.assert_allclose(out.float().numpy(), np.asarray(ref, np.float32),
+                               rtol=TOL, atol=TOL)
+    monkeypatch.setattr(tclip, "FUSED_ATTN", False)
+    tclip._run_block(_torch(block), torch.from_numpy(x).to(torch.bfloat16), heads, tgelu, vv=vv)
+    assert len(calls) == 1                 # the flag off keeps the chain
+
+
+def test_function_gradients_match_jax_vjp():
+    """The Function's backward (autograd through the plain chain) against
+    JAX's custom VJP (tests/test_pallas_attn_block.py:129), for x and every
+    attention parameter."""
+    ln, attn = _params(6, 128)
+    x = _x(9, 1, 128, 128)
+    jln = _jax(ln)
+
+    def loss_kernel(ap, xx):
+        return jnp.sum(jpb.ln_attn_residual(jln, ap, xx, 2, False, 100)
+                       .astype(jnp.float32)[:, :100] ** 2)
+
+    gk = jax.grad(loss_kernel, argnums=(0, 1))(_jax(attn), jnp.asarray(x, jnp.bfloat16))
+    tattn = _torch(attn, requires_grad=True)
+    xt = torch.from_numpy(x).to(torch.bfloat16).requires_grad_(True)
+    y = tpb.ln_attn_residual(_torch(ln), tattn, xt, 2, False, 100)
+    assert y.grad_fn is not None
+    (y.float()[:, :100] ** 2).sum().backward()
+    got = [tattn["out"]["b"].grad, tattn["out"]["w"].grad, tattn["qkv"]["b"].grad,
+           tattn["qkv"]["w"].grad, xt.grad]
+    want = [gk[0]["out"]["b"], gk[0]["out"]["w"], gk[0]["qkv"]["b"], gk[0]["qkv"]["w"], gk[1]]
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.float().numpy(), np.asarray(b, np.float32),
+                                   rtol=0.08, atol=0.08)

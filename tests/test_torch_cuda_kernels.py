@@ -8,7 +8,8 @@ present. On a machine with an H100 and nvcc run
 import pytest
 import torch
 
-from aa_clip_iqm_tpu_torch.ops import fused_mlp, packed_attention as pa, quant
+from aa_clip_iqm_tpu_torch.ops import attn_block, flash_attention as fa, fused_mlp, quant
+from aa_clip_iqm_tpu_torch.ops import packed_attention as pa
 from aa_clip_iqm_tpu_torch.ops.compare import BF16_MAX_ULPS, BF16_RMS_ULPS, bf16_error
 from aa_clip_iqm_tpu_torch.ops.layers import gelu, quick_gelu
 
@@ -179,21 +180,144 @@ def test_packed_attention_bwd_matches_plain(dev, dtype, batch, heads, seq_len, v
 
 
 def test_packed_attention_autograd_on_the_card(dev):
-    """The Function's backward launches the kernel, and the value-value
-    variant raises instead of returning zeros or taking the plain route."""
+    """The Function's backward launches the B4 kernel, and for the
+    value-value variant the B6 kernel."""
     gen = torch.Generator(device=dev).manual_seed(3)
     qkv = torch.randn((1, 130, 3 * 128), generator=gen, device=dev).to(torch.bfloat16)
     qkv.requires_grad_(True)
     g = torch.randn((1, 130, 128), generator=gen, device=dev).to(torch.bfloat16)
-    before = (pa.LAUNCHES, pa.BWD_LAUNCHES)
+    before = (pa.LAUNCHES, pa.BWD_LAUNCHES, pa.VV_BWD_LAUNCHES)
     out = pa.flash_mha_packed(qkv, 2, 0.125)
     assert out.grad_fn is not None
     (grad,) = torch.autograd.grad(out, qkv, g)
-    assert (pa.LAUNCHES, pa.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    assert (pa.LAUNCHES, pa.BWD_LAUNCHES, pa.VV_BWD_LAUNCHES) == (
+        before[0] + 1, before[1] + 1, before[2])
     _check(grad, pa.flash_mha_packed_bwd_reference(qkv.detach(), g, 2, 0.125))
     out = pa.flash_mha_packed(qkv, 2, 0.125, vv=True)
-    with pytest.raises(NotImplementedError, match="_vv_bwd_kernel_grouped"):
-        torch.autograd.grad(out, qkv, g)
+    (grad,) = torch.autograd.grad(out, qkv, g)
+    assert (pa.LAUNCHES, pa.BWD_LAUNCHES, pa.VV_BWD_LAUNCHES) == (
+        before[0] + 2, before[1] + 1, before[2] + 1)
+    assert not grad[..., :256].any()
+    _check(grad[..., 256:], pa.flash_mha_packed_bwd_reference(
+        qkv.detach(), g, 2, 0.125, vv=True)[..., 256:])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("batch,heads,seq_len,valid_len", [
+    (2, 16, 1370, None),              # ViT-L/518
+    (1, 16, 1370, 1300),              # keys masked short of L
+    (2, 2, 77, 70),
+    (2, 4, 17, None),                 # less than one tile
+    (1, 2, 200, 129),                 # a masked key tile and a ragged tail
+])
+def test_packed_attention_vv_bwd_matches_plain(dev, dtype, batch, heads, seq_len, valid_len):
+    """B6: dA in the value columns (value, query and key terms summed in fp32,
+    rounded once), zeros in the q and k columns, the same bits twice."""
+    hd = 64
+    gen = torch.Generator(device=dev).manual_seed(seq_len + heads + 1)
+    qkv = torch.randn((batch, seq_len, 3 * heads * hd), generator=gen, device=dev).to(dtype)
+    d_out = torch.randn((batch, seq_len, heads * hd), generator=gen, device=dev).to(dtype)
+    before = (pa.VV_BWD_LAUNCHES, pa.BWD_LAUNCHES)
+    out = pa.flash_mha_packed_bwd(qkv, d_out, heads, hd ** -0.5, vv=True, valid_len=valid_len)
+    assert (pa.VV_BWD_LAUNCHES, pa.BWD_LAUNCHES) == (before[0] + 1, before[1])
+    ref = pa.flash_mha_packed_bwd_reference(qkv, d_out, heads, hd ** -0.5, vv=True,
+                                            valid_len=valid_len)
+    w = heads * hd
+    assert not out[..., :2 * w].any()
+    _check(out[..., 2 * w:], ref[..., 2 * w:])
+    again = pa.flash_mha_packed_bwd(qkv, d_out, heads, hd ** -0.5, vv=True, valid_len=valid_len)
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("bh,seq_len", [
+    (32, 1370),                       # ViT-L/518 heads at batch 2
+    (16, 8282),                       # ViT-L/14 at 1274 px, batch 1
+    (4, 300),                         # a ragged tail
+    (3, 17),                          # less than one tile
+])
+def test_flash_attention_matches_twin(dev, dtype, bh, seq_len):
+    """B7 on (BH, L, 64), the kernel entry itself (flash_mha sends fewer than
+    256 tokens to the plain sdpa)."""
+    gen = torch.Generator(device=dev).manual_seed(bh + seq_len)
+    q, k, v = (torch.randn((bh, seq_len, 64), generator=gen, device=dev).to(dtype)
+               for _ in range(3))
+    before = fa.LAUNCHES
+    out = fa._forward(q, k, v, 0.125)
+    assert fa.LAUNCHES == before + 1
+    _check(out, fa.flash_mha_reference(q, k, v, 0.125))
+
+
+def test_flash_attention_autograd_on_the_card(dev):
+    """flash_mha on (B, H, L, hd): the forward kernel, the plain recompute's
+    gradient, and value-value (one tensor three times)."""
+    gen = torch.Generator(device=dev).manual_seed(8)
+    q, k, v = (torch.randn((2, 4, 300, 64), generator=gen, device=dev).requires_grad_(True)
+               for _ in range(3))
+    g = torch.randn((2, 4, 300, 64), generator=gen, device=dev)
+    before = fa.LAUNCHES
+    out = fa.flash_mha(q, k, v, 0.125)
+    got = torch.autograd.grad(out, (q, k, v), g)
+    assert fa.LAUNCHES == before + 1
+    want = torch.autograd.grad(fa.flash_mha_reference(q, k, v, 0.125), (q, k, v), g)
+    for a, b in zip(got, want):
+        _check(a, b)
+    (gv,) = torch.autograd.grad(fa.flash_mha(v, v, v, 0.125), v, g)
+    (wv,) = torch.autograd.grad(fa.flash_mha_reference(v, v, v, 0.125), v, g)
+    _check(gv, wv)
+    with pytest.raises(ValueError, match="head width"):
+        fa.flash_mha(*(torch.zeros((1, 1, 256, 32), device=dev) for _ in range(3)), 0.125)
+
+
+def _block_case(dev, d, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape, std=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * std
+
+    ln = {"scale": 1.0 + 0.1 * rnd(d), "bias": 0.1 * rnd(d)}
+    attn = {"qkv": {"w": rnd(d, 3 * d, std=d ** -0.5).to(torch.bfloat16), "b": rnd(3 * d, std=0.1)},
+            "out": {"w": rnd(d, d, std=d ** -0.5).to(torch.bfloat16), "b": rnd(d, std=0.1)}}
+    return ln, attn, gen
+
+
+@pytest.mark.parametrize("batch,seq_len,d,vv,valid_len", [
+    (2, 1370, 1024, False, None),     # ViT-L/518
+    (2, 1370, 1024, True, None),
+    (1, 1370, 1024, True, 1300),      # keys masked short of L
+    (3, 300, 256, False, None),       # 4 heads, a ragged tail
+    (2, 17, 768, True, None),         # ViT-B widths, less than one tile
+])
+def test_ln_attn_residual_matches_twin(dev, batch, seq_len, d, vv, valid_len):
+    """B8, held on y - x like the MLP kernels."""
+    ln, attn, gen = _block_case(dev, d, seq_len + d)
+    x = torch.randn((batch, seq_len, d), generator=gen, device=dev).to(torch.bfloat16)
+    heads = d // 64
+    assert attn_block.ln_attn_residual_ok(x, attn, heads)
+    before = attn_block.LAUNCHES
+    out = attn_block.ln_attn_residual(ln, attn, x, heads, vv, valid_len)
+    assert attn_block.LAUNCHES == before + 1
+    _check(out, attn_block.ln_attn_residual_reference(ln, attn, x, heads, vv, valid_len), x)
+
+
+def test_ln_attn_residual_autograd_on_the_card(dev):
+    """The Function's forward is the kernel; its backward differentiates the
+    plain chain, for x and the parameters."""
+    ln, attn, gen = _block_case(dev, 256, 5)
+    attn["out"]["b"].requires_grad_(True)
+    x = torch.randn((2, 300, 256), generator=gen, device=dev).to(torch.bfloat16).requires_grad_(True)
+    g = torch.randn((2, 300, 256), generator=gen, device=dev).to(torch.bfloat16)
+    before = attn_block.LAUNCHES
+    y = attn_block.ln_attn_residual(ln, attn, x, 4, True)
+    dx, db = torch.autograd.grad(y, (x, attn["out"]["b"]), g)
+    assert attn_block.LAUNCHES == before + 1
+    ref = attn_block.ln_attn_residual_reference(ln, attn, x, 4, True)
+    rdx, rdb = torch.autograd.grad(ref, (x, attn["out"]["b"]), g)
+    _check(dx, rdx, g)
+    _check(db, rdb)
+    with pytest.raises(ValueError, match="heads of 64"):
+        attn_block.ln_attn_residual(*_block_case(dev, 128, 6)[:2],
+                                    torch.zeros((1, 8, 128), device=dev, dtype=torch.bfloat16), 2)
 
 
 def _float_case(dev, dtype, m, d, h, seed):
@@ -263,7 +387,12 @@ def _stage2_step(device, dtype, patch_dropout=0.0, quantize=None, **train_kw):
     from aa_clip_iqm_tpu_torch.models.convert import tree_leaves
     from aa_clip_iqm_tpu_torch.train import optim, steps
 
-    cfg = tiny_test_config(56)
+    # 266 px: 362 tokens, and 271 after patch dropout at 0.25, enough for
+    # the packed attention kernels (the attention dispatch sends fewer than
+    # 256 to the plain sdpa).
+    img = 266
+    patches = (img // 14) ** 2
+    cfg = tiny_test_config(img)
     vision = replace(cfg.clip.vision, width=128, head_width=64, layers=3,
                      patch_dropout=patch_dropout)
     cfg = replace(cfg, clip=replace(cfg.clip, vision=vision),
@@ -279,16 +408,18 @@ def _stage2_step(device, dtype, patch_dropout=0.0, quantize=None, **train_kw):
     def on_device(a):
         return torch.from_numpy(a).to(device)
 
-    images = on_device(rng.standard_normal((n, 3, 56, 56)).astype(np.float32))
-    masks = on_device((rng.random((n, 1, 56, 56)) > 0.8).astype(np.float32))
+    images = on_device(rng.standard_normal((n, 3, img, img)).astype(np.float32))
+    masks = on_device((rng.random((n, 1, img, img)) > 0.8).astype(np.float32))
     labels = on_device(rng.integers(0, 2, n).astype(np.int64))
     anchors = on_device(rng.standard_normal((n, cfg.clip.embed_dim, 2)).astype(np.float32))
     weights = on_device(np.array([1, 1, 1, 0], np.float32))
     keep_idx = None
     if patch_dropout:
-        keep_idx = on_device(np.stack([np.sort(rng.permutation(16)[:12]) for _ in range(n)]))
+        keep = int(patches * (1 - patch_dropout))
+        keep_idx = on_device(np.stack([np.sort(rng.permutation(patches)[:keep])
+                                       for _ in range(n)]))
     step = steps.make_stage2_step(
-        cfg, TrainConfig(img_size=56, **train_kw), compute_dtype=dtype)
+        cfg, TrainConfig(img_size=img, **train_kw), compute_dtype=dtype)
     before = (pa.LAUNCHES, pa.BWD_LAUNCHES, fused_mlp.LAUNCHES, fused_mlp.DX_LAUNCHES,
               fused_mlp.INT8_LAUNCHES)
     _, _, loss = step(trainable, optim.stage2_optimizer(trainable, 5e-4, 4), frozen, images,

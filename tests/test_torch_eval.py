@@ -307,8 +307,16 @@ def test_npz_cache_and_load_frozen_backbone(tmp_path, models):
         os.chdir(cwd)
     with pytest.raises(NotImplementedError, match="only .npz"):
         tloader.load_frozen_backbone(tcfg, str(tmp_path / "ViT-L-14-336px.pt"), device="cpu")
-    with pytest.raises(NotImplementedError, match="positional embedding"):
-        tloader.load_frozen_backbone(tconfigs.tiny_test_config(70), jpath, device="cpu")
+    # A cache saved at another grid (4 x 4 here, 5 x 5 wanted) has its
+    # positional embedding resized bicubically, as the JAX loader does.
+    from aa_clip_iqm_tpu import loader as jloader
+
+    resized = tloader.load_frozen_backbone(tconfigs.tiny_test_config(70), jpath, device="cpu",
+                                           dtype=torch.float32)
+    jresized = jloader.load_frozen_backbone(jconfigs.tiny_test_config(70), jpath)
+    np.testing.assert_allclose(resized["visual"]["positional_embedding"].numpy(),
+                               np.asarray(jresized["visual"]["positional_embedding"]),
+                               rtol=1e-6, atol=1e-6)
 
 
 def test_datasets_match_jax(data):
@@ -391,13 +399,17 @@ def test_bench_helpers_and_gpu_requirement():
     for samples in ([98.0, 100.0, 101.0], [5.0], [0.0, 0.0]):
         assert tbench._median_spread(samples) == jbench._median_spread(samples)
     assert tbench.METRIC.endswith("_per_gpu")
+    from aa_clip_iqm_tpu_torch.ops import attn_block
+
     def sites():
-        return (attention.flash_mha_packed, tclip.ln_mlp_residual,
-                tclip.ln_mlp_residual_frozen, tclip.ln_mlp_residual_int8)
+        return (attention.flash_mha_packed, attention.flash_mha, tclip.ln_attn_residual,
+                tclip.ln_mlp_residual, tclip.ln_mlp_residual_frozen, tclip.ln_mlp_residual_int8)
 
     before = sites()
     with tbench.plain_twins():
         assert attention.flash_mha_packed is packed_attention.flash_mha_packed_reference
+        assert attention.flash_mha is attention.sdpa
+        assert tclip.ln_attn_residual is attn_block.ln_attn_residual_reference
         assert tclip.ln_mlp_residual is fused_mlp.ln_mlp_residual_reference
         assert tclip.ln_mlp_residual_frozen is fused_mlp.ln_mlp_residual_reference
         assert tclip.ln_mlp_residual_int8 is fused_mlp.ln_mlp_residual_int8_reference
