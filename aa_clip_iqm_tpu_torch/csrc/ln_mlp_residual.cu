@@ -9,40 +9,39 @@
 //   hid = act(xin . W_fc + b_fc) in fp32 (exact erf GELU or QuickGELU), cast
 //         to x's dtype;
 //   y   = x + hid . W_proj + b_proj in fp32, cast once.
-// W is stored (in, out). The (M, h) hidden tensor never reaches device
-// memory. GELU is the exact erff (the TPU kernel used an A&S erf polynomial
-// because Mosaic has no erf; the XLA chain it stands for is exact).
+// W is stored (in, out). GELU is the exact erff (the TPU kernel used an A&S
+// erf polynomial because Mosaic has no erf; the XLA chain it stands for is
+// exact).
 //
 // What bounds it on the H100: at ViT-L/518 batch 8 (M = 10,960, d = 1024,
 // h = 4096) a layer is 4*M*d*h = 1.84e11 FLOP (186 us at 989 TFLOP/s dense
 // bf16) against ~61 MB of x/y/weight traffic (18 us at 3.35 TB/s):
 // compute-bound.
 //
-// What the design does about it: one thread block (8 warps) owns a tile of
-// rows and keeps it for the whole chain: the LayerNorm'd tile sits in shared
-// memory, the hidden axis is walked in chunks, and each chunk is computed,
-// biased, activated and cast and at once folded into the fp32 output
-// accumulator by the second product. Two kernels:
-//   - bf16 with d a multiple of 128 up to 1024 (both CLIP towers): 32-row
-//     tiles, 256-wide hidden chunks, the fp32 accumulator in registers (each
-//     warp owns d/8 output columns), both products as mma.sync m16n8k16 on
-//     the tensor cores with operands from ldmatrix, bias and activation
-//     applied on the accumulator registers, and the weights streamed through
-//     a ring of four shared-memory slots with cp.async: three k-slices load
-//     while one multiplies, with one barrier per slice;
-//   - anything else (fp32, other widths): a generic kernel with 16-row tiles,
-//     128-wide chunks, the accumulator in shared memory and plain FMAs.
-// The register file caps the tile at 32 rows (the accumulator of 32 x 1024
-// fp32 fills half of it), so every block streams both weight matrices from
-// L2; that stream is about half of the kernel's time at ViT-L width. Not yet
-// done: sharing it across a cluster (TMA multicast), wgmma, warp
-// specialisation.
+// What the design does about it. The TPU kernel keeps a row tile's fp32
+// (rows x d) output accumulator in VMEM over the whole hidden loop; on this
+// card a 128-row tile of it would take 512 KB of registers against the SM's
+// 256 KB, and the 32-row tile that fits makes every block stream both
+// weights from L2. So the hidden layer goes through device memory and both
+// products run on the wgmma GEMM core (csrc/gemm_sm90.cuh), three launches
+// on one stream for bf16 with d % 128 == 0 and h % 256 == 0 (both CLIP
+// towers):
+//   1. the LayerNorm pass: LN(x) rounded to bf16 into the (M, d) scratch xin,
+//      the TPU kernel's xin;
+//   2. GEMM 1, xin . W_fc with epilogue (a): act(acc + b_fc) rounded to bf16
+//      into the (M, h) scratch hid, the TPU kernel's hid.astype(xin.dtype);
+//   3. GEMM 2, hid . W_proj with epilogue (b): x + (acc + b_proj), the whole
+//      K = h accumulated in fp32 before the one rounding, as the TPU
+//      kernel's acc.
+// The hidden layer's round trip (2 * M * h * 2 bytes, 180 MB at batch 8) is
+// the price; it lies under the products. Anything else (fp32, other widths):
+// a generic kernel with 16-row tiles, 128-wide chunks, the accumulator in
+// shared memory and plain FMAs.
 
 #include <math.h>
 
-#include <type_traits>
-
 #include "common.cuh"
+#include "gemm_sm90.cuh"
 
 using namespace aaclip;
 
@@ -165,205 +164,6 @@ ln_mlp_residual_kernel(const T* __restrict__ x, const float* __restrict__ ln_g,
   }
 }
 
-// ---------------------------------------------------------------------------
-// Tensor-core path: bf16, d % 128 == 0, d <= 1024.
-// ---------------------------------------------------------------------------
-
-constexpr int TC_BM = 32;              // rows per block
-constexpr int TC_CH = 256;             // hidden chunk width
-constexpr int KS1 = 64;                // W_fc k-rows per pipeline stage
-constexpr int KS2 = 16;                // W_proj k-rows per pipeline stage
-constexpr int NS2 = TC_CH / KS2;       // W_proj stages per hidden chunk
-constexpr int MAX_G = 8;               // 16-column output groups per warp
-constexpr int LDF = TC_CH + 8;         // W_fc stage row stride
-constexpr int TC_LDHT = TC_CH + 8;     // bf16 hidden chunk row stride
-constexpr int SLOTS = 4;               // weight-stage ring: 3 loads in flight
-
-struct TcSmem {
-  size_t xin, hidt, ring, slot, bytes;
-};
-
-// One ring slot holds either kind of stage: KS1 x TC_CH of W_fc or
-// KS2 x d of W_proj (bf16, rows padded by 16 bytes against bank conflicts).
-__host__ __device__ inline TcSmem tc_layout(int d) {
-  TcSmem s;
-  s.xin = 0;
-  s.hidt = s.xin + round_up(sizeof(bf16) * TC_BM * (d + 8), 128);
-  s.ring = s.hidt + round_up(sizeof(bf16) * TC_BM * TC_LDHT, 128);
-  const size_t fc = sizeof(bf16) * KS1 * LDF, proj = sizeof(bf16) * KS2 * (d + 8);
-  s.slot = round_up(fc > proj ? fc : proj, 128);
-  s.bytes = s.ring + SLOTS * s.slot;
-  return s;
-}
-
-// The weights stream as a sequence of stages per hidden chunk: d/KS1 slices
-// of W_fc[:, chunk] (k-rows), then NS2 slices of W_proj[chunk, :], through a
-// ring of SLOTS shared-memory slots: while stage t multiplies, stages t+1 ..
-// t+3 load. One barrier per stage: after it, every warp is done with stage
-// t-1, whose slot is the one refilled for stage t+3.
-template <int ACT>
-__global__ void __launch_bounds__(NTHREADS, 1)
-ln_mlp_residual_tc_kernel(const bf16* __restrict__ x,
-                          const float* __restrict__ ln_g,
-                          const float* __restrict__ ln_b,
-                          const bf16* __restrict__ w_fc,
-                          const float* __restrict__ b_fc,
-                          const bf16* __restrict__ w_proj,
-                          const float* __restrict__ b_proj,
-                          bf16* __restrict__ y, int M, int d, int h,
-                          float eps) {
-  const TcSmem lay = tc_layout(d);
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* xin = reinterpret_cast<bf16*>(smem + lay.xin);
-  bf16* hidt = reinterpret_cast<bf16*>(smem + lay.hidt);
-  const int ldx = d + 8, ldp = d + 8;
-  const int row0 = blockIdx.x * TC_BM;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4, tq = lane % 4;
-  const int ngroups = d / 128;         // this warp's 16-column output groups
-  const int col0 = warp * (d / 8);     // this warp's first output column
-  const int ns1 = d / KS1;
-  const int per_chunk = ns1 + NS2;
-  const int total = (h / TC_CH) * per_chunk;
-
-  auto slot = [&](int t) {
-    return reinterpret_cast<bf16*>(smem + lay.ring + (t % SLOTS) * lay.slot);
-  };
-  // Start loading stage t (if it exists); always commit, so that group
-  // counts stay aligned with stage numbers.
-  auto issue = [&](int t) {
-    if (t < total) {
-      const int j0 = (t / per_chunk) * TC_CH, s = t % per_chunk;
-      bf16* dst = slot(t);
-      if (s < ns1) {
-        const bf16* src = w_fc + (long)(s * KS1) * h + j0;
-        for (int i = threadIdx.x; i < KS1 * (TC_CH / 8); i += NTHREADS) {
-          const int r = i / (TC_CH / 8), c = (i % (TC_CH / 8)) * 8;
-          cp_async16(dst + r * LDF + c, src + (long)r * h + c);
-        }
-      } else {
-        const bf16* src = w_proj + (long)(j0 + (s - ns1) * KS2) * d;
-        const int vpr = d / 8;
-        for (int i = threadIdx.x; i < KS2 * vpr; i += NTHREADS) {
-          const int r = i / vpr, c = (i % vpr) * 8;
-          cp_async16(dst + r * ldp + c, src + (long)r * d + c);
-        }
-      }
-    }
-    cp_async_commit();
-  };
-
-  for (int t = 0; t < SLOTS - 1; ++t) issue(t);
-  layer_norm_tile(x, ln_g, ln_b, xin, ldx, row0, TC_BM, M, d, eps);
-
-  float acc[2][2 * MAX_G][4];          // [row tile][n8 tile][fragment]
-  float hacc[2][4][4];                 // hidden: [row tile][n8 tile][fragment]
-#pragma unroll
-  for (int rt = 0; rt < 2; ++rt)
-#pragma unroll
-    for (int n = 0; n < 2 * MAX_G; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[rt][n][i] = 0.f;
-
-  for (int t = 0; t < total; ++t) {
-    cp_async_wait<SLOTS - 2>();        // stage t has landed (this thread's part)
-    __syncthreads();                   // ... everyone's part; stage t-1 is done
-    issue(t + SLOTS - 1);              // into stage t-1's slot
-    const bf16* buf = slot(t);
-    const int j0 = (t / per_chunk) * TC_CH, s = t % per_chunk;
-    if (s < ns1) {
-      // hid[:, 32w:32w+32] += xin[:, slice] . W_fc[slice, chunk cols]
-      if (s == 0) {
-#pragma unroll
-        for (int rt = 0; rt < 2; ++rt)
-#pragma unroll
-          for (int n = 0; n < 4; ++n)
-#pragma unroll
-            for (int i = 0; i < 4; ++i) hacc[rt][n][i] = 0.f;
-      }
-#pragma unroll
-      for (int kk = 0; kk < KS1 / 16; ++kk) {
-        unsigned a[2][4], b[2][4];
-#pragma unroll
-        for (int rt = 0; rt < 2; ++rt)
-          ldsm_x4(a[rt], tile_lane_row(xin + rt * 16 * ldx + s * KS1 + kk * 16, ldx));
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          ldsm_x4_t(b[j], tile_lane_row(buf + kk * 16 * LDF + warp * 32 + j * 16, LDF));
-#pragma unroll
-        for (int rt = 0; rt < 2; ++rt)
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            mma16816(hacc[rt][2 * j], a[rt], b[j][0], b[j][1]);
-            mma16816(hacc[rt][2 * j + 1], a[rt], b[j][2], b[j][3]);
-          }
-      }
-      if (s == ns1 - 1) {
-        // Bias, activation and cast of this warp's 32 hidden columns, straight
-        // from the accumulators. The first W_proj stage reads hidt after the
-        // next barrier.
-#pragma unroll
-        for (int rt = 0; rt < 2; ++rt)
-#pragma unroll
-          for (int n = 0; n < 4; ++n) {
-            const int col = warp * 32 + n * 8 + 2 * tq;
-            const float b0 = b_fc[j0 + col], b1 = b_fc[j0 + col + 1];
-#pragma unroll
-            for (int half = 0; half < 2; ++half) {
-              const int r = rt * 16 + g + half * 8;
-              *reinterpret_cast<__nv_bfloat162*>(hidt + r * TC_LDHT + col) =
-                  __floats2bfloat162_rn(activation<ACT>(hacc[rt][n][2 * half] + b0),
-                                        activation<ACT>(hacc[rt][n][2 * half + 1] + b1));
-            }
-          }
-      }
-    } else {
-      // acc[:, this warp's columns] += hid[:, slice] . W_proj[slice, :]
-      const int s2 = s - ns1;
-      unsigned a[2][4];
-#pragma unroll
-      for (int rt = 0; rt < 2; ++rt)
-        ldsm_x4(a[rt], tile_lane_row(hidt + rt * 16 * TC_LDHT + s2 * KS2, TC_LDHT));
-#pragma unroll
-      for (int j = 0; j < MAX_G; ++j) {
-        if (j < ngroups) {
-          unsigned b[4];
-          ldsm_x4_t(b, tile_lane_row(buf + col0 + j * 16, ldp));
-#pragma unroll
-          for (int rt = 0; rt < 2; ++rt) {
-            mma16816(acc[rt][2 * j], a[rt], b[0], b[1]);
-            mma16816(acc[rt][2 * j + 1], a[rt], b[2], b[3]);
-          }
-        }
-      }
-    }
-  }
-  cp_async_wait<0>();                  // only empty groups remain
-
-  // y = x + acc + b_proj in fp32, one cast, straight from the accumulators.
-#pragma unroll
-  for (int rt = 0; rt < 2; ++rt)
-#pragma unroll
-    for (int n = 0; n < 2 * MAX_G; ++n) {
-      if (n < 2 * ngroups) {
-        const int col = col0 + n * 8 + 2 * tq;
-        const float b0 = b_proj[col], b1 = b_proj[col + 1];
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int gr = row0 + rt * 16 + g + half * 8;
-          if (gr < M) {
-            const long off = (long)gr * d + col;
-            const float2 xv = __bfloat1622float2(
-                *reinterpret_cast<const __nv_bfloat162*>(x + off));
-            *reinterpret_cast<__nv_bfloat162*>(y + off) = __floats2bfloat162_rn(
-                xv.x + acc[rt][n][2 * half] + b0, xv.y + acc[rt][n][2 * half + 1] + b1);
-          }
-        }
-      }
-    }
-}
-
 template <typename Kernel, typename... Args>
 cudaError_t launch_with_smem(Kernel kernel, size_t smem, int grid,
                              cudaStream_t stream, Args... args) {
@@ -389,12 +189,6 @@ cudaError_t launch(const void* x, const float* ln_g, const float* ln_b,
   const T* wf = static_cast<const T*>(w_fc);
   const T* wp = static_cast<const T*>(w_proj);
   T* yt = static_cast<T*>(y);
-  if constexpr (std::is_same<T, bf16>::value) {
-    if (d % 128 == 0 && d <= 128 * MAX_G && h % TC_CH == 0)
-      return launch_with_smem(ln_mlp_residual_tc_kernel<ACT>, tc_layout(d).bytes,
-                              (M + TC_BM - 1) / TC_BM, stream, xt, ln_g, ln_b,
-                              wf, b_fc, wp, b_proj, yt, M, d, h, eps);
-  }
   return launch_with_smem(ln_mlp_residual_kernel<T, ACT>,
                           smem_layout<T>(d).bytes, (M + BM - 1) / BM, stream,
                           xt, ln_g, ln_b, wf, b_fc, wp, b_proj, yt, M, d, h, eps);
@@ -414,24 +208,52 @@ cudaError_t dispatch_act(int act, const void* x, const float* ln_g,
   return cudaErrorInvalidValue;
 }
 
+// Names the stage kernels after this source, so that a profiler tells them
+// from B8's (csrc/ln_attn_residual.cu builds the same core).
+struct ln_mlp_residual_stage {};
+
+// The bf16 path: the LayerNorm pass and the two GEMMs; xin (M, d) and hid
+// (M, h) are the caller's bf16 scratch.
+cudaError_t launch_gemm_path(const bf16* x, const float* ln_g, const float* ln_b,
+                             const bf16* w_fc, const float* b_fc, const bf16* w_proj,
+                             const float* b_proj, bf16* xin, bf16* hid, bf16* y, int M, int d,
+                             int h, float eps, int act, cudaStream_t s) {
+  using Tag = ln_mlp_residual_stage;
+  cudaError_t err = gemm90::layer_norm_rows<Tag>(x, ln_g, ln_b, xin, d, M, d, eps, s);
+  if (err == cudaSuccess)
+    err = gemm90::gemm<Tag>(xin, d, w_fc, h, b_fc, nullptr, 0, hid, h, M, h, d, act, 0, s);
+  if (err == cudaSuccess)
+    err = gemm90::gemm<Tag>(hid, h, w_proj, d, b_proj, x, d, y, d, M, d, h, act, 0, s);
+  return err;
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16; act: 0 = exact GELU, 1 = QuickGELU.
 // LayerNorm scale/bias and both biases are fp32; x, y and weights share dtype.
-// Returns the launch's cudaError_t.
+// bf16 with d % 128 == 0 and h % 256 == 0 takes the GEMM path and needs the
+// bf16 scratch xin (M, d) and hid (M, h); anything else ignores them.
+// Returns the first failing launch's cudaError_t.
 extern "C" int aaclip_ln_mlp_residual(const void* x, const void* ln_g,
                                       const void* ln_b, const void* w_fc,
                                       const void* b_fc, const void* w_proj,
-                                      const void* b_proj, void* y, int M, int d,
-                                      int h, float eps, int act, int dtype,
-                                      void* stream) {
-  if (M <= 0 || d <= 0 || h <= 0 || d % 16 != 0 || h % CH != 0)
+                                      const void* b_proj, void* xin, void* hid,
+                                      void* y, int M, int d, int h, float eps,
+                                      int act, int dtype, void* stream) {
+  if (M <= 0 || d <= 0 || h <= 0 || d % 16 != 0 || h % CH != 0 || act < 0 || act > 1)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* g = static_cast<const float*>(ln_g);
   const float* b = static_cast<const float*>(ln_b);
   const float* bf = static_cast<const float*>(b_fc);
   const float* bp = static_cast<const float*>(b_proj);
+  if (dtype == 1 && d % 128 == 0 && h % 256 == 0) {
+    if (xin == nullptr || hid == nullptr) return cudaErrorInvalidValue;
+    return launch_gemm_path(static_cast<const bf16*>(x), g, b, static_cast<const bf16*>(w_fc),
+                            bf, static_cast<const bf16*>(w_proj), bp, static_cast<bf16*>(xin),
+                            static_cast<bf16*>(hid), static_cast<bf16*>(y), M, d, h, eps, act,
+                            s);
+  }
   if (dtype == 0)
     return dispatch_act<float>(act, x, g, b, w_fc, bf, w_proj, bp, y, M, d,
                                    h, eps, s);
@@ -439,6 +261,20 @@ extern "C" int aaclip_ln_mlp_residual(const void* x, const void* ln_g,
     return dispatch_act<bf16>(act, x, g, b, w_fc, bf, w_proj, bp,
                                            y, M, d, h, eps, s);
   return cudaErrorInvalidValue;
+}
+
+// One product of the GEMM core alone (csrc/gemm_sm90.cuh): out (M, N) =
+// act(a . w + bias) (act 0 GELU, 1 QuickGELU, 2 none) or, where res is
+// given, res + (a . w + bias); row strides lda, ldw, ld_res, ld_out; tile_n
+// 0 (the core's choice), 128 or 256. bf16 operands, fp32 bias.
+extern "C" int aaclip_ln_mlp_residual_gemm(const void* a, int lda, const void* w, int ldw,
+                                           const void* bias, const void* res, int ld_res,
+                                           void* out, int ld_out, int M, int N, int K, int act,
+                                           int tile_n, void* stream) {
+  return gemm90::gemm<ln_mlp_residual_stage>(
+      static_cast<const bf16*>(a), lda, static_cast<const bf16*>(w), ldw,
+      static_cast<const float*>(bias), static_cast<const bf16*>(res), ld_res,
+      static_cast<bf16*>(out), ld_out, M, N, K, act, tile_n, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* aaclip_ln_mlp_residual_error_string(int err) {

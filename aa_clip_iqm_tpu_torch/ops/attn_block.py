@@ -4,10 +4,11 @@ Counterpart of ``ln_attn_residual`` in
 ``aa_clip_iqm_tpu/ops/pallas_attn_block.py`` (TPU kernel ``_kernel``):
 ``x + out_proj(attn(qkv_proj(layer_norm(x))))``, plain or value-value
 (``vv``: q, k and v all from the value projection). The kernel lives in
-``csrc/ln_attn_residual.cu``; see its header for the design (two launches:
-LayerNorm fused into the qkv projection, then attention fused with the
-out-projection and the residual; the attention output never reaches device
-memory). On a CPU tensor :func:`ln_attn_residual` runs the plain twin
+``csrc/ln_attn_residual.cu``; see its header for the design (four launches:
+the LayerNorm pass, the qkv projection on the wgmma GEMM core of
+``ops/gemm.py``, B1's attention, the out-projection with the residual on the
+same core); :func:`ln_attn_residual_stages` is their plain version, with the
+kernel's roundings. On a CPU tensor :func:`ln_attn_residual` runs the plain twin
 :func:`ln_attn_residual_reference`; on a CUDA tensor it launches the kernel
 or raises. Its gradient is autograd through the plain chain, for x and every
 parameter, as JAX's ``_bwd`` (pallas_attn_block.py:224) is an XLA recompute.
@@ -23,10 +24,11 @@ import ctypes
 import torch
 
 from . import _build
+from .gemm import gemm_bias_act_reference, gemm_bias_residual_reference
 from .layers import layer_norm, linear
-from .packed_attention import flash_mha_packed_reference
+from .packed_attention import flash_mha_packed_reference, mha_reference
 
-#: Kernel calls since the last reset (one per call; each call is two launches).
+#: Kernel calls since the last reset (one per call; each call is four launches).
 LAUNCHES = 0
 #: The one head width the kernel is built for (ViT-L: 16 heads of 64).
 HEAD_DIM = 64
@@ -71,6 +73,23 @@ def ln_attn_residual_reference(ln_params, attn_params, x, num_heads: int,
     return x + linear(attn_params["out"], out)
 
 
+def ln_attn_residual_stages(ln_params, attn_params, x, num_heads: int, vv: bool = False,
+                            valid_len=None, eps: float = 1e-5):
+    """The plain version of the four stages the kernel runs, each rounded
+    where it rounds: LN(x), the projection (for ``vv`` only its value
+    section), the attention output, and the output once after the residual,
+    the bias and the fp32 out-projection. The first three equal the twin's
+    intermediates bit for bit; the twin rounds the out-projection before the
+    residual add."""
+    d = x.shape[-1]
+    qkv_p, out_p = attn_params["qkv"], attn_params["out"]
+    w, b = (qkv_p["w"][:, 2 * d:], qkv_p["b"][2 * d:]) if vv else (qkv_p["w"], qkv_p["b"])
+    proj = gemm_bias_act_reference(layer_norm(ln_params, x, eps=eps), w, b)
+    q, k, v = (proj,) * 3 if vv else proj.split(d, dim=-1)
+    o = mha_reference(q, k, v, num_heads, (d // num_heads) ** -0.5, valid_len)
+    return gemm_bias_residual_reference(o, out_p["w"], out_p["b"], x)
+
+
 def _lib():
     lib = _build.load("ln_attn_residual")
     fn = lib.aaclip_ln_attn_residual
@@ -110,9 +129,9 @@ def _forward(ln_params, attn_params, x, num_heads: int, vv: bool, valid_len,
         raise ValueError(f"{fn}: x must be contiguous and 16-byte aligned")
     b, l, d = x.shape
     hd = d // num_heads
-    if hd != HEAD_DIM or num_heads % 4 or d > 1024:
+    if hd != HEAD_DIM:
         raise ValueError(f"{fn}: {num_heads} heads of {hd}; the kernel takes heads of "
-                         f"{HEAD_DIM} in groups of 4, at most 1024 wide")
+                         f"{HEAD_DIM}")
     vl = l if valid_len is None else int(valid_len)
     if vl <= 0:
         raise ValueError(f"{fn}: valid_len {vl} must be positive")
@@ -124,11 +143,13 @@ def _forward(ln_params, attn_params, x, num_heads: int, vv: bool, valid_len,
            _operand(qkv_p["b"], f32, dev, "qkv bias"),
            _operand(out_p["w"], bf16, dev, "out weight"),
            _operand(out_p["b"], f32, dev, "out bias")]
-    # The one intermediate in device memory: the projection that attention
-    # reads, the packed (B*L, 3d) qkv, or for vv the (B*L, d) value section.
-    qkv = torch.empty((b * l, d if vv else 3 * d), dtype=bf16, device=dev)
+    # The intermediates in device memory, side by side in one scratch: the
+    # projection that attention reads, the packed (B*L, 3d) qkv or for vv the
+    # (B*L, d) value section, then d columns for LN(x) and, over it, the
+    # attention output.
+    scratch = torch.empty((b * l, (d if vv else 3 * d) + d), dtype=bf16, device=dev)
     y = torch.empty_like(x)
-    err = _lib()(x.data_ptr(), *(t.data_ptr() for t in ops), qkv.data_ptr(), y.data_ptr(),
+    err = _lib()(x.data_ptr(), *(t.data_ptr() for t in ops), scratch.data_ptr(), y.data_ptr(),
                  b, l, d, num_heads, vl, float(eps), float(hd ** -0.5), int(bool(vv)),
                  _build.stream_ptr(dev))
     _build.check("ln_attn_residual", err)

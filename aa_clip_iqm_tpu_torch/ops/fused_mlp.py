@@ -10,6 +10,11 @@ tensor every function here runs its plain twin
 :func:`ln_mlp_residual_dx_reference`); on a CUDA tensor it launches its
 kernel or raises. GELU, and its derivative, are exact erf in all of them.
 
+In bf16 at both CLIP towers' widths the forward kernel runs three stages on
+the wgmma GEMM core (``ops/gemm.py``): the LayerNorm pass, GEMM 1 into the
+hidden layer and GEMM 2 with the residual; :func:`ln_mlp_residual_stages` is
+their plain version, with the kernel's roundings.
+
 Gradients (each function is a ``torch.autograd.Function`` when its input
 requires one):
   - :func:`ln_mlp_residual_frozen`: dx only, from the dx kernel; the
@@ -27,6 +32,7 @@ import weakref
 import torch
 
 from . import _build
+from .gemm import gemm_bias_act_reference, gemm_bias_residual_reference
 from .layers import gelu, layer_norm, mlp_block, quick_gelu
 from .quant import int8_matmul
 
@@ -54,11 +60,25 @@ def ln_mlp_residual_reference(ln_params, mlp_params, x, act, eps: float = 1e-5):
     return x + mlp_block(mlp_params, layer_norm(ln_params, x, eps=eps), act)
 
 
+def ln_mlp_residual_stages(ln_params, mlp_params, x, act, eps: float = 1e-5):
+    """The plain version of the three stages the kernel runs in bf16, each
+    rounded where it (and the TPU kernel, pallas_mlp.py:142-157) rounds:
+    LN(x) once, the hidden layer once after the bias and the activation in
+    fp32, and the output once after the residual, the bias and the whole
+    fp32 sum over the hidden axis. In fp32 it equals
+    :func:`ln_mlp_residual_reference` bit for bit; in bf16 that chain rounds
+    the hidden layer before the activation and the MLP branch before the
+    residual add."""
+    c_fc, c_proj = mlp_params["c_fc"], mlp_params["c_proj"]
+    hid = gemm_bias_act_reference(layer_norm(ln_params, x, eps=eps), c_fc["w"], c_fc["b"], act)
+    return gemm_bias_residual_reference(hid, c_proj["w"], c_proj["b"], x)
+
+
 def _lib():
     lib = _build.load("ln_mlp_residual")
     fn = lib.aaclip_ln_mlp_residual
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 8 + [
+        fn.argtypes = [ctypes.c_void_p] * 10 + [
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
             ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -77,7 +97,7 @@ def _operand(t, dtype, device, what, fn="ln_mlp_residual"):
 
 def _forward(ln_params, mlp_params, x, act, eps: float = 1e-5):
     """x + c_proj(act(c_fc(layer_norm(x)))) without autograd: the twin on the
-    CPU, one kernel on the card.
+    CPU, the kernel on the card.
 
     x: (..., d), bf16 or fp32, contiguous. The matmul weights must share x's
     dtype and layout (in, out); LayerNorm scale/bias and the biases are fp32.
@@ -109,9 +129,17 @@ def _forward(ln_params, mlp_params, x, act, eps: float = 1e-5):
         _operand(c_proj["w"], x.dtype, dev, "c_proj weight"),
         _operand(c_proj["b"], f32, dev, "c_proj bias"),
     ]
+    # The GEMM path's scratch (the C entry takes that path for bf16 with d a
+    # multiple of 128 and h of 256): LN(x) and the hidden layer (M, h), 90 MB
+    # at ViT-L/518 batch 8.
+    xin = hid = None
+    if x.dtype == torch.bfloat16 and d % 128 == 0 and h % 256 == 0:
+        xin = torch.empty((m, d), dtype=x.dtype, device=dev)
+        hid = torch.empty((m, h), dtype=x.dtype, device=dev)
     y = torch.empty_like(x)
-    err = _lib()(*ptrs, y.data_ptr(), m, d, h, float(eps), _ACTS[act],
-                 _DTYPES[x.dtype], _build.stream_ptr(dev))
+    err = _lib()(*ptrs, xin if xin is None else xin.data_ptr(),
+                 hid if hid is None else hid.data_ptr(), y.data_ptr(), m, d, h, float(eps),
+                 _ACTS[act], _DTYPES[x.dtype], _build.stream_ptr(dev))
     _build.check("ln_mlp_residual", err)
     global LAUNCHES
     LAUNCHES += 1

@@ -186,13 +186,14 @@ def rank_metrics_host(scores, labels):
 
 
 def metrics_eval_raw(pixel_label, image_label, pixel_preds, image_preds,
-                     domain: str, use_device: bool = True, device="cpu"):
+                     domain: str, use_device: bool = True, device="cuda"):
     """(pixel AUROC, pixel AP, image AUROC, image AP) of one class as plain
     floats in [0, 1], parity with forward_utils.py:233-308.
 
     pixel_label: (N,1,H,W) or (N,H,W); image_label: (N,); pixel_preds:
     (N,H,W) or (N,1,H,W); image_preds: (N,). With ``use_device`` the ranking
-    runs through :func:`auroc_ap` on ``device``; without, through
+    runs through :func:`auroc_ap` on ``device`` (the card unless the caller
+    passes ``"cpu"``, as JAX's ranks on its default device); without, through
     :func:`rank_metrics_host`. A class with one image label scores 0.0 at
     image level, as in the reference.
     """
@@ -230,7 +231,7 @@ def metrics_eval_raw(pixel_label, image_label, pixel_preds, image_preds,
 
 def metrics_eval(pixel_label, image_label, pixel_preds, image_preds,
                  class_name: str, domain: str, use_device: bool = True,
-                 device="cpu"):
+                 device="cuda"):
     """Per-class metric dict: :func:`metrics_eval_raw` in the reference's
     round(x, 4) * 100 report format."""
     values = metrics_eval_raw(pixel_label, image_label, pixel_preds,

@@ -45,21 +45,26 @@ def flash_mha_packed_reference(qkv, num_heads: int, scale: float,
                                vv: bool = False, valid_len=None):
     """Plain PyTorch twin: a transcription of ``_packed_reference``
     (pallas_attention.py:615). qkv (B, L, 3W) -> (B, L, W)."""
-    from .attention import sdpa  # here: attention imports this module
-
-    b, l, threew = qkv.shape
-    w = threew // 3
-    hd = w // num_heads
-    q, k, v = qkv.split(w, dim=-1)
+    q, k, v = qkv.split(qkv.shape[-1] // 3, dim=-1)
     if vv:
         q = k = v
+    return mha_reference(q, k, v, num_heads, scale, valid_len)
+
+
+def mha_reference(q, k, v, num_heads: int, scale: float, valid_len=None):
+    """Plain multi-head attention on merged-head q, k, v (B, L, W) ->
+    (B, L, W): ``sdpa`` per head, keys at or past ``valid_len`` masked."""
+    from .attention import sdpa  # here: attention imports this module
+
+    b, l, w = q.shape
+    hd = w // num_heads
 
     def split(t):
         return t.reshape(b, l, num_heads, hd).transpose(1, 2)
 
     mask = None
     if valid_len is not None and valid_len < l:
-        keys = torch.arange(l, device=qkv.device)
+        keys = torch.arange(l, device=q.device)
         mask = torch.where(keys < valid_len, 0.0, float("-inf"))[None, :]
     out = sdpa(split(q), split(k), split(v), scale, mask)
     return out.transpose(1, 2).reshape(b, l, w)

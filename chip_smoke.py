@@ -7,13 +7,19 @@ Phases (each prints its lines; any failure exits nonzero before the last
 line):
   1. device: needs CUDA; prints the card's name and power limit;
   2. build: compiles csrc/*.cu with nvcc (one process per source, in
-     parallel) and prints the seconds;
+     parallel) and prints the seconds, each kernel's registers and spills,
+     and the HGMMA (wgmma) and UTMALDG (TMA load) instructions in the SASS
+     of the two sources on the GEMM core, which must not be zero;
   3. kernels: each hand-written kernel (five forward, three backward) against
      its plain PyTorch twin at the main path's shapes in bf16 (largest and
      RMS error in bf16 ulps, ops/compare.py), with CUDA-event times of the
      kernel, the twin and one stock PyTorch call as a yardstick, and the
-     bound from bytes and operations. Planted faults (a twin with its key
-     tail unmasked, its biases dropped, the wrong activation; for the int8
+     bound from bytes and operations; B2 and B8 also against the plain
+     version of their stages, at ragged row counts, with each stage's
+     device time (torch.profiler), and B2's two GEMMs at both tile widths.
+     Planted faults (a twin with its key tail unmasked, its biases dropped,
+     the wrong activation, the last k-slice of B2's hidden layer dropped,
+     B2's rows past 1,280 left at zero; for the int8
      MLP one hidden scale per row instead of per chunk, the c_fc weight
      scales dropped, round-half-away; for the attention backward the key
      tail unmasked and the scale on dK dropped; for the MLP dx the wrong
@@ -72,6 +78,7 @@ line is {"ok": true, "device": {...}}.
 """
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -98,6 +105,8 @@ INT8_MAP_TOL = 8e-2
 SOURCES = ("packed_attention", "ln_mlp_residual", "ln_mlp_residual_int8",
            "packed_attention_bwd", "ln_mlp_residual_dx", "flash_attention",
            "ln_attn_residual")
+# The two sources built on the wgmma GEMM core (csrc/gemm_sm90.cuh).
+GEMM_SOURCES = ("ln_mlp_residual", "ln_attn_residual")
 KERNELS = ("packed_attention", "ln_mlp_residual", "ln_mlp_residual_int8",
            "packed_attention_bwd", "ln_mlp_residual_dx", "packed_attention_vv_bwd",
            "flash_attention", "ln_attn_residual")
@@ -148,6 +157,68 @@ def cuda_time(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def stage_times(what, fn, stages, reps=5):
+    """Device ms per call of each stage kernel of ``fn`` (torch.profiler
+    over ``reps`` calls), found by a part of its name; ``stages`` maps that
+    part to (label, "flop" or "bytes", the amount one call does), from which
+    the stage's rate is printed."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ms = dict.fromkeys(stages, 0.0)
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            for part in stages:
+                if part in evt.key:
+                    ms[part] += evt.self_device_time_total / 1e3 / reps
+    parts = []
+    for part, (label, kind, amount) in stages.items():
+        require(ms[part] > 0, f"{what}: the profiler saw no {part} kernel")
+        rate = (f"{amount / ms[part] / 1e9:.1f} TFLOP/s" if kind == "flop"
+                else f"{amount / ms[part] / 1e6:.1f} GB/s")
+        parts.append(f"{label} {ms[part]:.4f} ms ({rate})")
+    log(f"# {what} stages (device ms a call, torch.profiler over {reps} calls): "
+        f"{'; '.join(parts)}; sum {sum(ms.values()):.4f} ms")
+    return ms
+
+
+def gemm_tiles(ln, mlp, x):
+    """B2's two GEMMs through the core alone at both tile widths, in turns
+    (128, 256, 256, 128): the measurement behind the core's choice of 256
+    where N allows it."""
+    import torch
+
+    from aa_clip_iqm_tpu_torch.ops import gemm
+    from aa_clip_iqm_tpu_torch.ops.layers import gelu, layer_norm
+
+    c_fc, c_proj = mlp["c_fc"], mlp["c_proj"]
+    xin = layer_norm(ln, x)
+    hid = gemm.gemm_bias_act(xin, c_fc["w"], c_fc["b"], gelu)
+    m, d = x.shape
+    flop = 2 * m * d * hid.shape[-1]
+    times = {1: {128: [], 256: []}, 2: {128: [], 256: []}}
+    for tile in (128, 256, 256, 128):
+        times[1][tile].append(cuda_time(
+            lambda: gemm.gemm_bias_act(xin, c_fc["w"], c_fc["b"], gelu, tile), 10))
+        times[2][tile].append(cuda_time(
+            lambda: gemm.gemm_bias_residual(hid, c_proj["w"], c_proj["b"], x, tile), 10))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for which, (n, k) in ((1, (hid.shape[-1], d)), (2, (d, hid.shape[-1]))):
+        cells = []
+        for tile in (128, 256):
+            ms = sum(times[which][tile]) / 2
+            tiles = -(-m // 128) * (n // tile)
+            cells.append(f"{tile} wide {ms:.4f} ms ({flop / ms / 1e9:.1f} TFLOP/s, {tiles} tiles "
+                         f"= {tiles / sms:.2f} waves on {sms} SMs)")
+        log(f"# GEMM core, B2's GEMM {which} (M={m}, N={n}, K={k}): {'; '.join(cells)}")
+
+
 def bound(flops, nbytes, peak_ops=PEAK_BF16_FLOPS):
     t_ops, t_bytes = flops / peak_ops, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
@@ -179,9 +250,44 @@ def phase_build():
     total = time.perf_counter() - t0
     log(f"# build: {total:.1f} s wall ({', '.join(f'{n} {s:.1f} s' for n, s in seconds.items())})")
     for name in names:
-        for line in _build.BUILD_LOGS.get(name, "").splitlines():
-            if "Used" in line or "spill" in line:
-                log(f"#   {name}: {line.strip()}")
+        for entry, regs, spill in ptxas_entries(_build.BUILD_LOGS.get(name, "")):
+            log(f"#   {name}: {entry}: {regs}; {spill}")
+    # The two kernels on the GEMM core must really run on wgmma fed by TMA.
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    for name in GEMM_SOURCES:
+        sass = subprocess.run([cuobjdump, "-sass", _build._paths(name)[1]], capture_output=True,
+                              text=True, check=True).stdout
+        counts = {op: sum(op in line for line in sass.splitlines())
+                  for op in ("HGMMA", "UTMALDG")}
+        log(f"# SASS of {name}: {counts['HGMMA']} HGMMA, {counts['UTMALDG']} UTMALDG")
+        require(counts["HGMMA"] > 0 and counts["UTMALDG"] > 0,
+                f"{name}: no wgmma or no TMA load in its SASS")
+
+
+def ptxas_entries(build_log):
+    """(kernel, registers, spills) per entry function in nvcc's -Xptxas -v
+    output, the kernel's name demangled by cu++filt where the toolkit has
+    it."""
+    import re
+
+    entries, entry, spill = [], None, ""
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = m.group(1)
+        elif "spill stores" in line:
+            spill = line.strip()
+        elif "Used" in line and entry:
+            entries.append((entry, line.split(":", 1)[-1].strip(), spill))
+            entry, spill = None, ""
+    filt = shutil.which("cu++filt") or "/usr/local/cuda/bin/cu++filt"
+    names = [e[0] for e in entries]
+    if names and os.path.isfile(filt):
+        out = subprocess.run([filt], input="\n".join(names), capture_output=True, text=True)
+        if out.returncode == 0 and len(out.stdout.splitlines()) == len(names):
+            names = [re.sub(r"\(\w+\)|<unnamed>::|\(anonymous namespace\)::|^void ", "", n)
+                     .split("(")[0] for n in out.stdout.splitlines()]
+    return [(n[:100], regs, spill) for n, (_, regs, spill) in zip(names, entries)]
 
 
 def hold(what, out, ref, base=None):
@@ -362,9 +468,14 @@ def phase_kernels():
 
     # --- B2: fused LN -> MLP -> residual ---------------------------------
     worst, timing = 0.0, None
-    # (rows, d, h): the vision tower at batch 8, then the text tower over
-    # MVTec's 240 prompt sentences of 77 tokens.
-    for m, d, h in ((B * TOKENS, WIDTH, 4 * WIDTH), (240 * 77, 768, 3072)):
+    # (rows, d, h): the vision tower at batch 8, the text tower over MVTec's
+    # 240 prompt sentences of 77 tokens, then ragged row counts at the vision
+    # widths: one row, one sentence, one 518 px image (10 x 128 + 90 rows),
+    # two 1274 px images.
+    shapes = ((B * TOKENS, WIDTH, 4 * WIDTH), (240 * 77, 768, 3072), (1, WIDTH, 4 * WIDTH),
+              (77, WIDTH, 4 * WIDTH), (TOKENS, WIDTH, 4 * WIDTH),
+              (2 * HR_TOKENS, WIDTH, 4 * WIDTH))
+    for m, d, h in shapes:
         def rnd(*shape, std=1.0):
             return torch.randn(shape, generator=gen, device=dev) * std
         ln = {"scale": 1.0 + 0.1 * rnd(d), "bias": 0.1 * rnd(d)}
@@ -375,12 +486,21 @@ def phase_kernels():
         ref = fused_mlp.ln_mlp_residual_reference(ln, mlp, x, gelu)
         # Held on the MLP branch y - x: the residual x is the same in both.
         worst = max(worst, hold(f"B2 ln_mlp_residual M={m} d={d} h={h}", out, ref, x))
+        hold(f"B2 against the plain version of its stages M={m}", out,
+             fused_mlp.ln_mlp_residual_stages(ln, mlp, x, gelu), x)
+        if m == TOKENS:
+            fault = ref.clone()
+            fault[1280:] = 0
+            planted("B2 ragged tail rows past 1,280 left at zero (M=1370)", fault, ref, x)
+            del fault
         if timing is None:
             no_bias = {n: {"w": p["w"], "b": torch.zeros_like(p["b"])} for n, p in mlp.items()}
             planted("B2 biases dropped",
                     fused_mlp.ln_mlp_residual_reference(ln, no_bias, x, gelu), ref, x)
             planted("B2 QuickGELU for exact GELU",
                     fused_mlp.ln_mlp_residual_reference(ln, mlp, x, quick_gelu), ref, x)
+            planted("B2 last 64-wide k-slice of the hidden layer dropped",
+                    mlp_lost_stage(ln, mlp, x, gelu), ref, x)
             ms = cuda_time(lambda: fused_mlp.ln_mlp_residual(ln, mlp, x, gelu), 20)
             plain_ms = cuda_time(
                 lambda: fused_mlp.ln_mlp_residual_reference(ln, mlp, x, gelu), 5)
@@ -395,14 +515,20 @@ def phase_kernels():
             log(f"# B2 time: kernel {ms:.3f} ms, twin {plain_ms:.3f} ms, "
                 f"addmm-gelu-addmm {lib_ms:.3f} ms, bound {b_ms:.4f} ms "
                 f"({b_by}; {flops:.3e} FLOP, {nbytes / 1e6:.1f} MB)")
+            stage_times("B2", lambda: fused_mlp.ln_mlp_residual(ln, mlp, x, gelu),
+                        {"layer_norm_rows": ("LayerNorm pass", "bytes", 2 * m * d * 2),
+                         "gemm_bias_act": ("GEMM 1 (+ b_fc, GELU)", "flop", 2 * m * d * h),
+                         "gemm_bias_residual": ("GEMM 2 (+ b_proj, x)", "flop", 2 * m * d * h)})
+            gemm_tiles(ln, mlp, x)
             timing = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                       "bound_by": b_by, "library_ms": lib_ms}
+            del xn
+        del x, out, ref, mlp
     results["ln_mlp_residual"] = {
         "name": "ln_mlp_residual", "route": "cuda",
         "source": "aa_clip_iqm_tpu_torch/csrc/ln_mlp_residual.cu",
         "replaces": "aa_clip_iqm_tpu/ops/pallas_mlp.py:142",
         "max_abs_err": worst, **timing}
-    del x, out, ref, mlp, xn
 
     # --- B3: fused LN -> int8 MLP -> residual at ViT-L/518, batch 8 --------
     m, d, h = B * TOKENS, WIDTH, 4 * WIDTH
@@ -616,7 +742,15 @@ def phase_kernels():
         worst = max(worst, hold(f"B7 flash_attention BH={bh} L={l}", out, ref))
         if l == TOKENS:
             planted("B7 key tail unmasked", flash_tail_unmasked(q, k, v, scale), ref)
-            del out, ref, q, k, v
+            del out, ref
+            # The TPU's whole-row region (B7a): timed here, held above.
+            ms = cuda_time(lambda: fa.flash_mha(q, k, v, scale), 10)
+            plain_ms = cuda_time(lambda: fa.flash_mha_reference(q, k, v, scale), 2)
+            lib_ms = cuda_time(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale), 10)
+            b_ms, b_by = bound(4 * bh * l * l * HD, 4 * bh * l * HD * 2)
+            log(f"# B7a time at BH={bh} L={l}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+                f"sdpa {lib_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+            del q, k, v
             continue
         del out, ref
         ms = cuda_time(lambda: fa.flash_mha(q, k, v, scale), 10)
@@ -642,24 +776,36 @@ def phase_kernels():
     ln = {"scale": 1.0 + 0.1 * rnd(d), "bias": 0.1 * rnd(d)}
     attn_p = {"qkv": {"w": rnd(d, 3 * d, std=d ** -0.5).to(bf16), "b": rnd(3 * d, std=0.1)},
               "out": {"w": rnd(d, d, std=d ** -0.5).to(bf16), "b": rnd(d, std=0.1)}}
-    x = rnd(B, TOKENS, d).to(bf16)
     worst, refs = 0.0, {}
-    for vv in (False, True):
-        out = ab.ln_attn_residual(ln, attn_p, x, HEADS, vv)
-        refs[vv] = ab.ln_attn_residual_reference(ln, attn_p, x, HEADS, vv)
-        # Held on y - x: the residual x is the same in both.
-        worst = max(worst, hold(f"B8 ln_attn_residual B={B} L={TOKENS} vv={vv}", out,
-                                refs[vv], x))
-    worst = max(worst, hold("B8 ln_attn_residual valid_len=1300",
-                            ab.ln_attn_residual(ln, attn_p, x, HEADS, valid_len=1300),
-                            ab.ln_attn_residual_reference(ln, attn_p, x, HEADS,
-                                                          valid_len=1300), x))
+    for batch in (1, B):
+        x = rnd(batch, TOKENS, d).to(bf16)
+        for vv in (False, True):
+            for valid_len in (None, 1360):
+                out = ab.ln_attn_residual(ln, attn_p, x, HEADS, vv, valid_len)
+                ref = ab.ln_attn_residual_reference(ln, attn_p, x, HEADS, vv, valid_len)
+                # Held on y - x: the residual x is the same in both.
+                worst = max(worst, hold(f"B8 ln_attn_residual B={batch} L={TOKENS} vv={vv} "
+                                        f"valid_len={valid_len}", out, ref, x))
+                hold(f"B8 against the plain version of its stages B={batch} vv={vv} "
+                     f"valid_len={valid_len}", out,
+                     ab.ln_attn_residual_stages(ln, attn_p, x, HEADS, vv, valid_len), x)
+                if valid_len is None:
+                    refs[vv] = ref
+                del out, ref
     planted("B8 out bias dropped", block_no_out_bias(ln, attn_p, x, HEADS), refs[False], x)
     planted("B8 q read from the q section under vv", block_q_from_q_section(ln, attn_p, x, HEADS),
             refs[True], x)
-    del out, refs
+    del refs
     ms = cuda_time(lambda: ab.ln_attn_residual(ln, attn_p, x, HEADS), 10)
     plain_ms = cuda_time(lambda: ab.ln_attn_residual_reference(ln, attn_p, x, HEADS), 3)
+    m = B * TOKENS
+    stage_times("B8", lambda: ab.ln_attn_residual(ln, attn_p, x, HEADS),
+                {"layer_norm_rows": ("LayerNorm pass", "bytes", 2 * m * d * 2),
+                 "gemm_bias_act": ("qkv GEMM (+ b_qkv)", "flop", 2 * m * d * 3 * d),
+                 "attention_mma_kernel": ("attention (B1's loop)", "flop",
+                                          4 * B * HEADS * TOKENS * TOKENS * HD),
+                 "gemm_bias_residual": ("out-projection GEMM (+ b_out, x)", "flop",
+                                        2 * m * d * d)})
     ln_w, ln_b = ln["scale"].to(bf16), ln["bias"].to(bf16)
     b_qkv, b_o = attn_p["qkv"]["b"].to(bf16), attn_p["out"]["b"].to(bf16)
 
@@ -845,6 +991,19 @@ def attn_tail_unmasked(qkv, num_heads, scale, vv=False, valid_len=None):
     padded = qkv.new_zeros((b, -(-l // 64) * 64, c))
     padded[:, :l] = qkv
     return flash_mha_packed_reference(padded, num_heads, scale, vv, valid_len)[:, :l]
+
+
+def mlp_lost_stage(ln, mlp, x, act, eps=1e-5):
+    """Planted fault: the plain version of B2's stages with the last 64-wide
+    k-slice of the hidden layer dropped from GEMM 2, as a pipeline that
+    loses its last stage would."""
+    from aa_clip_iqm_tpu_torch.ops.gemm import gemm_bias_act_reference, gemm_bias_residual_reference
+    from aa_clip_iqm_tpu_torch.ops.layers import layer_norm
+
+    c_fc, c_proj = mlp["c_fc"], mlp["c_proj"]
+    hid = gemm_bias_act_reference(layer_norm(ln, x, eps=eps), c_fc["w"], c_fc["b"], act)
+    hid[..., -64:] = 0
+    return gemm_bias_residual_reference(hid, c_proj["w"], c_proj["b"], x)
 
 
 def mlp_quick_gelu(ln, mlp, x, act, eps=1e-5):
@@ -1793,7 +1952,7 @@ def kernel_group(name):
         return "B6 packed_attention_vv_bwd" if "<true>" in low else "B4 packed_attention_bwd"
     if "flash_attention" in low:
         return "B7 flash_attention"
-    if "ln_qkv_kernel" in low or "attn_out_kernel" in low:
+    if "ln_attn_residual" in low:
         return "B8 ln_attn_residual"
     if "packed_attention" in low:
         return "B1 packed_attention"

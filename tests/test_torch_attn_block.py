@@ -1,5 +1,6 @@
 """Port's fused attention half-block (LN -> qkv -> attention -> out-proj ->
-residual) vs the JAX package's ``pallas_attn_block`` (interpret mode).
+residual) vs the JAX package's ``pallas_attn_block`` (interpret mode); the
+plain versions of the four stages the kernel runs, against both.
 
 The CUDA kernel itself runs only on the card (chip_smoke.py and
 tests/test_torch_cuda_kernels.py hold it against its plain twin there); on a
@@ -15,6 +16,10 @@ import torch
 from aa_clip_iqm_tpu.ops import pallas_attention as jpa
 from aa_clip_iqm_tpu.ops import pallas_attn_block as jpb
 from aa_clip_iqm_tpu_torch.ops import attn_block as tpb
+from aa_clip_iqm_tpu_torch.ops import gemm as tgemm
+from aa_clip_iqm_tpu_torch.ops import layers as tlayers
+from aa_clip_iqm_tpu_torch.ops import packed_attention as tpa
+from aa_clip_iqm_tpu_torch.ops.compare import bf16_close, bf16_error
 
 TOL = 0.06
 
@@ -191,3 +196,69 @@ def test_function_gradients_match_jax_vjp():
     for a, b in zip(got, want):
         np.testing.assert_allclose(a.float().numpy(), np.asarray(b, np.float32),
                                    rtol=0.08, atol=0.08)
+
+
+# The four stages the kernel runs on the card (the LayerNorm pass, the qkv
+# projection, attention, the out-projection with the residual), each through
+# its plain version.
+STAGE_CASES = [
+    (2, 128, 128, 2, False, None),
+    (1, 128, 128, 2, True, None),
+    (2, 128, 128, 2, False, 100),    # keys masked short of the length
+    (1, 130, 128, 2, True, 70),      # ragged length, vv and a mask
+]
+
+
+def _stages(ln, attn, x, heads, vv, valid):
+    d = x.shape[-1]
+    w, b = attn["qkv"]["w"], attn["qkv"]["b"]
+    if vv:
+        w, b = w[:, 2 * d:], b[2 * d:]
+    xn = tlayers.layer_norm(ln, x)
+    proj = tgemm.gemm_bias_act_reference(xn, w, b)
+    q, k, v = (proj,) * 3 if vv else proj.split(d, dim=-1)
+    o = tpa.mha_reference(q, k, v, heads, (d // heads) ** -0.5, valid)
+    return xn, proj, o, tgemm.gemm_bias_residual_reference(o, attn["out"]["w"],
+                                                           attn["out"]["b"], x)
+
+
+@pytest.mark.parametrize("b,l,d,heads,vv,valid", STAGE_CASES)
+def test_stages_equal_twin_fp32(b, l, d, heads, vv, valid):
+    """In fp32 the stages compose to the twin bit for bit (and
+    ln_attn_residual_stages is that composition)."""
+    ln, attn = (_torch(t) for t in _params(l + heads, d))
+    x = torch.from_numpy(_x(b + d, b, l, d))
+    out = _stages(ln, attn, x, heads, vv, valid)[3]
+    assert torch.equal(out, tpb.ln_attn_residual_reference(ln, attn, x, heads, vv, valid))
+    assert torch.equal(out, tpb.ln_attn_residual_stages(ln, attn, x, heads, vv, valid))
+
+
+@pytest.mark.parametrize("b,l,d,heads,vv,valid", STAGE_CASES)
+def test_stages_bf16_match_twin_and_jax(b, l, d, heads, vv, valid):
+    """In bf16 the first three stages are the twin's intermediates bit for
+    bit (for vv the projection's value section alone equals the value
+    columns of the twin's whole projection); the composition, which rounds
+    the output once after the residual, is held to the twin in bf16 ulps as
+    the kernel is on the card, and to JAX's kernel (its chain where the
+    length is ragged) at the file's tolerance."""
+    ln_n, attn_n = _params(l + d + heads, d)
+    x = _x(l + b, b, l, d)
+    ln, attn = _torch(ln_n), _torch(attn_n)
+    xt = torch.from_numpy(x).to(torch.bfloat16)
+    xn, proj, o, out = _stages(ln, attn, xt, heads, vv, valid)
+    assert torch.equal(out, tpb.ln_attn_residual_stages(ln, attn, xt, heads, vv, valid))
+    assert torch.equal(xn, tlayers.layer_norm(ln, xt))
+    qkv = tlayers.linear(attn["qkv"], xn)
+    assert torch.equal(proj, qkv[..., 2 * d:] if vv else qkv)
+    assert torch.equal(o, tpa.flash_mha_packed_reference(qkv, heads, (d // heads) ** -0.5, vv,
+                                                         valid))
+    twin = tpb.ln_attn_residual_reference(ln, attn, xt, heads, vv, valid)
+    assert bf16_close(out, twin, xt), bf16_error(out, twin, xt)
+    xj = jnp.asarray(x, jnp.bfloat16)
+    if l % 128:
+        ref = jpb._xla_chain(_jax(ln_n), _jax(attn_n), xj, heads, vv, valid, 1e-5)
+    else:
+        ref = jpb.ln_attn_residual(_jax(ln_n), _jax(attn_n), xj, heads, vv, valid)
+    n = valid if valid is not None else l
+    np.testing.assert_allclose(out.float().numpy()[:, :n], np.asarray(ref, np.float32)[:, :n],
+                               rtol=TOL, atol=TOL)

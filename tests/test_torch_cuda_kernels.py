@@ -8,7 +8,7 @@ present. On a machine with an H100 and nvcc run
 import pytest
 import torch
 
-from aa_clip_iqm_tpu_torch.ops import attn_block, flash_attention as fa, fused_mlp, quant
+from aa_clip_iqm_tpu_torch.ops import attn_block, flash_attention as fa, fused_mlp, gemm, quant
 from aa_clip_iqm_tpu_torch.ops import packed_attention as pa
 from aa_clip_iqm_tpu_torch.ops.compare import BF16_MAX_ULPS, BF16_RMS_ULPS, bf16_error
 from aa_clip_iqm_tpu_torch.ops.layers import gelu, quick_gelu
@@ -61,6 +61,10 @@ def test_packed_attention_matches_twin(dev, dtype, heads, hd, seq_len, vv, valid
     (1000, 1024, 4096, gelu),
     (1000, 768, 3072, quick_gelu),
     (33, 64, 256, gelu),
+    (1, 1024, 4096, gelu),            # ragged M: one row of a 128-row tile
+    (77, 1024, 4096, quick_gelu),     # one text sequence
+    (1370, 1024, 4096, gelu),         # 10 x 128 + 90
+    (300, 128, 384, gelu),            # h % 256 != 0: the generic kernel for bf16 too
 ])
 def test_ln_mlp_residual_matches_twin(dev, dtype, m, d, h, act):
     gen = torch.Generator(device=dev).manual_seed(m + d)
@@ -76,6 +80,39 @@ def test_ln_mlp_residual_matches_twin(dev, dtype, m, d, h, act):
     out = fused_mlp.ln_mlp_residual(ln, mlp, x, act)
     assert fused_mlp.LAUNCHES == before + 1
     _check(out, fused_mlp.ln_mlp_residual_reference(ln, mlp, x, act), x)
+    if dtype == torch.bfloat16:
+        # The stages' plain version rounds where the kernel does.
+        _check(out, fused_mlp.ln_mlp_residual_stages(ln, mlp, x, act), x)
+
+
+@pytest.mark.parametrize("m,n,k,tile_n", [
+    (128, 128, 64, 128),              # one tile, one k-slice
+    (1, 256, 64, 256),                # one row
+    (200, 384, 128, 128),             # ragged M, three 128-wide tiles
+    (1370, 1024, 1024, 256),          # 10 x 128 + 90 rows
+    (1370, 1024, 1024, 128),
+    (777, 3072, 768, 0),              # the text tower's GEMM 1
+    (333, 768, 3072, 0),              # ... and GEMM 2 (N % 256 == 0: 256 wide)
+])
+def test_gemm_core_matches_plain(dev, m, n, k, tile_n):
+    """The wgmma GEMM core alone, both epilogues and every activation,
+    against its plain versions (ops/gemm.py) in bf16 ulps."""
+    gen = torch.Generator(device=dev).manual_seed(m + n + k)
+
+    def rnd(*shape, std=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * std
+
+    a = rnd(m, k).to(torch.bfloat16)
+    w = rnd(k, n, std=k ** -0.5).to(torch.bfloat16)
+    b, res = rnd(n, std=0.1), rnd(m, n).to(torch.bfloat16)
+    before = gemm.LAUNCHES
+    for act in (None, gelu, quick_gelu):
+        _check(gemm.gemm_bias_act(a, w, b, act, tile_n), gemm.gemm_bias_act_reference(a, w, b, act))
+    _check(gemm.gemm_bias_residual(a, w, b, res, tile_n),
+           gemm.gemm_bias_residual_reference(a, w, b, res), res)
+    assert gemm.LAUNCHES == before + 4
+    with pytest.raises(ValueError, match="not supported"):
+        gemm.gemm_bias_act(a[:, :k - 8].contiguous(), w[:k - 8].contiguous(), b)
 
 
 def _int8_case(dev, m, d, h, seed):
@@ -287,6 +324,9 @@ def _block_case(dev, d, seed):
     (1, 1370, 1024, True, 1300),      # keys masked short of L
     (3, 300, 256, False, None),       # 4 heads, a ragged tail
     (2, 17, 768, True, None),         # ViT-B widths, less than one tile
+    (8, 1370, 1024, False, 1360),     # batch 8, keys masked
+    (1, 1370, 1024, False, None),     # batch 1: 11 row tiles, 10 full
+    (1, 200, 384, True, None),        # 6 heads: no longer a multiple of 4
 ])
 def test_ln_attn_residual_matches_twin(dev, batch, seq_len, d, vv, valid_len):
     """B8, held on y - x like the MLP kernels."""
@@ -298,6 +338,7 @@ def test_ln_attn_residual_matches_twin(dev, batch, seq_len, d, vv, valid_len):
     out = attn_block.ln_attn_residual(ln, attn, x, heads, vv, valid_len)
     assert attn_block.LAUNCHES == before + 1
     _check(out, attn_block.ln_attn_residual_reference(ln, attn, x, heads, vv, valid_len), x)
+    _check(out, attn_block.ln_attn_residual_stages(ln, attn, x, heads, vv, valid_len), x)
 
 
 def test_ln_attn_residual_autograd_on_the_card(dev):
@@ -316,8 +357,8 @@ def test_ln_attn_residual_autograd_on_the_card(dev):
     _check(dx, rdx, g)
     _check(db, rdb)
     with pytest.raises(ValueError, match="heads of 64"):
-        attn_block.ln_attn_residual(*_block_case(dev, 128, 6)[:2],
-                                    torch.zeros((1, 8, 128), device=dev, dtype=torch.bfloat16), 2)
+        attn_block.ln_attn_residual(*_block_case(dev, 256, 6)[:2],
+                                    torch.zeros((1, 8, 256), device=dev, dtype=torch.bfloat16), 2)
 
 
 def _float_case(dev, dtype, m, d, h, seed):

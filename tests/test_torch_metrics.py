@@ -126,12 +126,12 @@ def test_metrics_eval_matches_jax(domain, use_device):
                                 maps, image_preds, "widget", domain)
     out = tmetrics.metrics_eval(masks[:, None].astype(np.float32), image_label,
                                 maps, image_preds, "widget", domain,
-                                use_device=use_device)
+                                use_device=use_device, device="cpu")
     assert out["class name"] == "widget" and list(out) == list(ref)
     for k in tpredict.METRIC_KEYS:
         assert abs(out[k] - ref[k]) <= 0.0101, (k, out[k], ref[k])   # one rounding step
     single = tmetrics.metrics_eval(masks, np.ones(9, np.int64), maps, image_preds,
-                                   "widget", domain, use_device=use_device)
+                                   "widget", domain, use_device=use_device, device="cpu")
     assert single["image AUC"] == 0.0 and single["image AP"] == 0.0
 
 
@@ -152,7 +152,7 @@ def test_class_metrics_device_matches_jax(domain, n, pad_multiple):
     row = tpredict.class_metrics_device(preds, "widget", domain,
                                         pad_multiple=pad_multiple, chunk=1000)
     host = tmetrics.metrics_eval(masks, labels, maps, scores, "widget", domain,
-                                 use_device=False)
+                                 use_device=False, device="cpu")
     for k in tpredict.METRIC_KEYS:
         assert abs(row[k] - jrow[k]) <= 0.0101, (k, row[k], jrow[k])
         assert abs(row[k] - host[k]) <= 0.0101, (k, row[k], host[k])
