@@ -33,14 +33,27 @@ def build_parser():
     parser = argparse.ArgumentParser(description="Evaluation")
     parser.add_argument("--model_name", type=str, default="ViT-L-14-336")
     parser.add_argument("--img_size", type=int, default=518)
+    parser.add_argument("--relu", action="store_true")
     parser.add_argument("--backbone", type=str, default=None,
                         help="converted .npz weight cache")
     parser.add_argument("--random_backbone", action="store_true")
     parser.add_argument("--dataset", type=str, default="MVTec")
+    parser.add_argument("--batch_size", type=int, default=32,
+                        help="accepted for reference-CLI compatibility; the "
+                        "eval loader uses --image_batch_size (the reference's "
+                        "test_last.py has the same pair and likewise only "
+                        "uses image_batch_size)")
     parser.add_argument("--image_batch_size", type=int, default=32)
     parser.add_argument("--seed", type=int, default=111)
     parser.add_argument("--save_path", type=str, default="ckpt/baseline")
     parser.add_argument("--metadata_root", type=str, default=None)
+    parser.add_argument("--text_adapt_weight", type=float, default=0.1)
+    parser.add_argument("--image_adapt_weight", type=float, default=0.1)
+    parser.add_argument("--text_adapt_until", type=int, default=3)
+    parser.add_argument("--image_adapt_until", type=int, default=6)
+    parser.add_argument("--iqm_hidden_size", type=int, default=512)
+    parser.add_argument("--iqm_num_layers", type=int, default=2)
+    parser.add_argument("--iqm_num_heads", type=int, default=8)
     parser.add_argument("--iqm_weight", type=float, default=0.4)
     parser.add_argument("--text_weight", type=float, default=0.6)
     parser.add_argument("--image_score_mode", type=str, default="fixed",
@@ -65,6 +78,21 @@ def build_parser():
     return parser
 
 
+def model_config(args):
+    """The model configuration that the parsed flags describe: the adapter
+    and IQM flags a checkpoint was trained with change the model it is
+    scored with, as in the JAX CLI."""
+    return build_model_config(
+        model_name=args.model_name, img_size=args.img_size, relu=args.relu,
+        text_adapt_weight=args.text_adapt_weight,
+        image_adapt_weight=args.image_adapt_weight,
+        text_adapt_until=args.text_adapt_until,
+        image_adapt_until=args.image_adapt_until,
+        iqm_hidden_size=args.iqm_hidden_size,
+        iqm_num_layers=args.iqm_num_layers,
+        iqm_num_heads=args.iqm_num_heads)
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
     setup_seed(args.seed)
@@ -73,8 +101,7 @@ def main(argv=None):
 
     dtype = {"bfloat16": torch.bfloat16, "float32": torch.float32}[
         args.compute_dtype]
-    model_cfg = build_model_config(model_name=args.model_name,
-                                   img_size=args.img_size)
+    model_cfg = model_config(args)
     frozen = load_frozen_backbone(model_cfg, args.backbone,
                                   allow_random=args.random_backbone,
                                   device=args.device, dtype=dtype)

@@ -8,7 +8,9 @@
 // What it computes, per (batch b = blockIdx.z, head h = blockIdx.y):
 //   S = scale * Q K^T in fp32, keys >= n_keys masked to -inf,
 //   O = softmax(S) V, with the probabilities rounded to V's dtype before the
-//   P.V product and fp32 accumulation.
+//   P.V product and fp32 accumulation; where the caller gives an lse buffer
+//   (B, H, L) fp32, also each row's log-sum-exp m + log(l) of the scaled
+//   scores, which the backward (B4/B6) rebuilds P from. B7 and B8 pass null.
 //
 // The design: the (L, L) score matrix never leaves the SM. One thread block
 // (4 warps) owns a 64-row query tile of one head and walks the keys in 64-key
@@ -87,8 +89,8 @@ __device__ __forceinline__ void load_panel(bf16* dst, const bf16* src, int row_s
 template <class Tag>
 __global__ void __launch_bounds__(NTHREADS)
 attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, bf16* __restrict__ out, Layout lay, int L,
-                     int n_keys, float scale) {
+                     const bf16* __restrict__ v, bf16* __restrict__ out,
+                     float* __restrict__ lse, Layout lay, int L, int n_keys, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);
   auto kbuf = [&](int i) { return reinterpret_cast<bf16*>(smem + (1 + i) * TILE); };
@@ -221,6 +223,8 @@ attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
     const int row = q0 + warp * 16 + g + r * 8;
     if (row >= L) continue;
+    if (lse != nullptr && tq == 0)
+      lse[((long)blockIdx.z * gridDim.y + blockIdx.y) * L + row] = m_run[r] + logf(l_run[r]);
     const float inv = 1.f / l_run[r];
     bf16* dst = dst_base + (long)row * lay.out_ld + 2 * tq;
 #pragma unroll
@@ -261,8 +265,8 @@ __device__ __forceinline__ void load_tile_f32(float* dst, const float* src, int 
 template <class Tag>
 __global__ void __launch_bounds__(NTHREADS)
 attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ out, Layout lay, int L,
-                     int n_keys, float scale) {
+                     const float* __restrict__ v, float* __restrict__ out,
+                     float* __restrict__ lse, Layout lay, int L, int n_keys, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
   float* Qs = reinterpret_cast<float*>(smem + F_Q);
   float* Ks = reinterpret_cast<float*>(smem + F_K);
@@ -335,6 +339,8 @@ attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   float* dst_base = out + out_offset(lay);
+  if (lse != nullptr && half == 0 && q0 + my_row < L)
+    lse[((long)blockIdx.z * gridDim.y + blockIdx.y) * L + q0 + my_row] = m_row + logf(l_row);
 #pragma unroll
   for (int i = 0; i < ROWS_PER_WARP; ++i) {
     const float inv = 1.f / __shfl_sync(0xffffffffu, l_row, 2 * i);
@@ -346,11 +352,12 @@ attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // Launch the kernel for `dtype` (0 = float32, 1 = bfloat16) over a grid of
-// 64-row query tiles x heads x batch items. Returns the launch's error.
+// 64-row query tiles x heads x batch items; lse (batch, heads, L) fp32 or
+// null. Returns the launch's error.
 template <class Tag>
 cudaError_t launch(int dtype, const void* q, const void* k, const void* v, void* out,
-                          const Layout& lay, int L, int heads, int batch, int n_keys,
-                          float scale, cudaStream_t stream) {
+                   float* lse, const Layout& lay, int L, int heads, int batch, int n_keys,
+                   float scale, cudaStream_t stream) {
   const dim3 grid((L + BQ - 1) / BQ, heads, batch);
   cudaError_t err;
   if (dtype == 1) {
@@ -359,7 +366,7 @@ cudaError_t launch(int dtype, const void* q, const void* k, const void* v, void*
     if (err != cudaSuccess) return err;
     attention_mma_kernel<Tag><<<grid, NTHREADS, MMA_SMEM, stream>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<bf16*>(out), lay, L, n_keys, scale);
+        static_cast<bf16*>(out), lse, lay, L, n_keys, scale);
     return cudaGetLastError();
   }
   if (dtype == 0) {
@@ -368,7 +375,7 @@ cudaError_t launch(int dtype, const void* q, const void* k, const void* v, void*
     if (err != cudaSuccess) return err;
     attention_f32_kernel<Tag><<<grid, NTHREADS, F32_SMEM, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(out), lay, L, n_keys, scale);
+        static_cast<const float*>(v), static_cast<float*>(out), lse, lay, L, n_keys, scale);
     return cudaGetLastError();
   }
   return cudaErrorInvalidValue;

@@ -39,7 +39,7 @@ extern "C" int aaclip_flash_attention(const void* q, const void* k, const void* 
   // Head width 64 only: the one width on the port's path (ViT-L's 16 heads).
   if (BH <= 0 || L <= 0 || BH > 65535 || head_dim != attn_fwd::HD) return cudaErrorInvalidValue;
   const attn_fwd::Layout lay{0, (long)L * head_dim, head_dim, 0, (long)L * head_dim, head_dim};
-  return attn_fwd::launch<flash_attention>(dtype, q, k, v, out, lay, L, BH, 1, L, scale,
+  return attn_fwd::launch<flash_attention>(dtype, q, k, v, out, nullptr, lay, L, BH, 1, L, scale,
                                            static_cast<cudaStream_t>(stream));
 }
 

@@ -90,8 +90,8 @@ extern "C" int aaclip_ln_attn_residual(const void* x, const void* ln_g, const vo
   // (all at 0 for vv); O at the xn columns.
   const attn_fwd::Layout lay{(long)L * ld, HD, ld, (long)L * ld, HD, ld};
   const int n_keys = valid_len < L ? valid_len : L;
-  err = attn_fwd::launch<Tag>(1, proj, proj + (vv ? 0 : d), proj + (vv ? 0 : 2 * d), xn_o, lay,
-                              L, num_heads, B, n_keys, scale, s);
+  err = attn_fwd::launch<Tag>(1, proj, proj + (vv ? 0 : d), proj + (vv ? 0 : 2 * d), xn_o,
+                              nullptr, lay, L, num_heads, B, n_keys, scale, s);
   if (err != cudaSuccess) return err;
 
   return gemm90::gemm<Tag>(xn_o, ld, static_cast<const bf16*>(w_out), d,

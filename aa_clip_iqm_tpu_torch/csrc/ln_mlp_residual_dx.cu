@@ -9,11 +9,11 @@
 // What it computes, per row of x and g (M, d), for y = x + c_proj(act(c_fc(
 // LN(x)))) with g = dL/dy:
 //   mean, rstd, xn = (x - mean) rstd in fp32; xin = xn * ln_g + ln_b cast to
-//   x's dtype; per hidden chunk
-//     hid = xin . W_fc + b_fc           (fp32, recomputed: never stored)
+//   x's dtype;
+//     hid = xin . W_fc + b_fc           (fp32, recomputed: never rounded)
 //     da  = g . W_proj^T                (fp32)
 //     dh  = da * act'(hid)              cast to x's dtype
-//     du += dh . W_fc^T                 (fp32)
+//     du  = dh . W_fc^T                 (fp32, never rounded)
 //   then the closed-form LayerNorm backward and the residual:
 //     t = du * ln_g;  dx = (t - mean(t) - xn * mean(t * xn)) rstd + g.
 // act' is the exact derivative: Phi(v) + v phi(v) with erff for GELU (the TPU
@@ -25,32 +25,30 @@
 // TFLOP/s dense bf16) against ~84 MB of x/g/dx/weight traffic (25 us at 3.35
 // TB/s): compute-bound.
 //
-// What the design does about it: one thread block (8 warps) owns a tile of
-// rows for the whole chain; neither the hidden tensor nor du reaches device
-// memory. Two kernels:
-//   - bf16 with d a multiple of 256 up to 1024 and h a multiple of 256: 32-row
-//     tiles; the LayerNorm'd tile and the g tile sit in shared memory as A
-//     operands; the fp32 du accumulator (32 x d) lives in registers for the
-//     whole hidden loop; all three products are mma.sync m16n8k16 with
-//     operands from ldmatrix. The weights stream through a ring of four
-//     shared-memory slots with cp.async, 32 k-values a stage, in the
-//     orientation each product needs and straight from the (in, out)
-//     matrices: W_fc[k][cols] for hid (k-major stage, transposed ldmatrix),
-//     W_proj[cols][k] for da and W_fc[cols][k] for du (n-major stages, plain
-//     ldmatrix). In every stage a warp owns 32 of the stage's 256 output
-//     columns, so du's columns are interleaved over the warps;
-//   - anything else (fp32, other widths): 16-row tiles, 128-wide chunks, du in
-//     shared memory and plain FMAs.
-// Two resident A tiles leave room for 32-k stages only, and each block streams
-// three weight passes (24 MB at ViT-L width) from L2 for 32 rows: about
-// 8.2 GB a call. Not yet done: wgmma, TMA, sharing the stream across a
-// cluster.
+// What the design does about it. The TPU kernel keeps a row tile's fp32 du
+// (rows x d) in VMEM across the hidden loop; on this card a 128-row tile of
+// it is 512 KB against the SM's 256 KB of registers, and the 32-row tiles
+// that fit made every block stream all three weight passes from L2 (about
+// 8.2 GB a call). So dh and du go through device memory and the products run
+// on the wgmma GEMM core (csrc/gemm_sm90.cuh), four launches on one stream
+// for bf16 with d and h multiples of 128 (both CLIP towers):
+//   1. the core's LayerNorm pass: xin (M, d) bf16, the TPU kernel's xin;
+//   2. the dual mode over (M, h) tiles of 128 x 128: two fp32 accumulators
+//      over K = d, xin . W_fc (W_fc read N-major) and g . W_proj^T (W_proj
+//      (h, d) read K-major), and the epilogue dh = da * act'(hid + b_fc)
+//      rounded once into the (M, h) scratch dh: hid is never rounded;
+//   3. du = dh . W_fc^T over K = h (W_fc read K-major), stored as t = du *
+//      ln_g in fp32 into the (M, d) scratch t: du is never rounded;
+//   4. a row pass: mean and rstd of x again, the two row means of t and
+//      t * xn, and dx, rounded once.
+// The scratch round trips (dh 180 MB, t 90 MB at batch 8) lie under the
+// products. Anything else (fp32, other widths): a generic kernel with 16-row
+// tiles, 128-wide chunks, du in shared memory and plain FMAs.
 
 #include <math.h>
 
-#include <type_traits>
-
 #include "common.cuh"
+#include "gemm_sm90.cuh"
 
 using namespace aaclip;
 
@@ -58,16 +56,6 @@ namespace {
 
 constexpr int NWARPS = 8;
 constexpr int NTHREADS = NWARPS * 32;
-
-// Derivative of the activation. 0: exact (erf) GELU; 1: QuickGELU.
-template <int ACT>
-__device__ __forceinline__ float dactivation(float v) {
-  if (ACT == 0)
-    return 0.5f * (1.f + erff(v * 0.70710678118654752f)) +
-           v * 0.39894228040143268f * expf(-0.5f * v * v);
-  const float s = 1.f / (1.f + expf(-1.702f * v));
-  return s + v * 1.702f * s * (1.f - s);
-}
 
 // fp32 LayerNorm of rows [row0, row0 + rows) into shared memory (stride ld),
 // cast to T, with the row's mean and rstd into stats[2r], stats[2r+1]; the g
@@ -173,7 +161,7 @@ ln_mlp_residual_dx_kernel(const T* __restrict__ x, const T* __restrict__ g,
         s = fmaf(to_float(xin[r * ldx + k]), to_float(w_fc[(long)k * h + j0 + col]), s);
         a = fmaf(to_float(gs[r * ldx + k]), to_float(w_proj[(long)(j0 + col) * d + k]), a);
       }
-      dh[r * LDH + col] = from_float<T>(a * dactivation<ACT>(s + b_fc[j0 + col]));
+      dh[r * LDH + col] = from_float<T>(a * gemm90::dactivation<ACT>(s + b_fc[j0 + col]));
     }
     __syncthreads();
     // du += dh . W_fc[:, chunk]^T
@@ -211,300 +199,100 @@ ln_mlp_residual_dx_kernel(const T* __restrict__ x, const T* __restrict__ g,
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core path: bf16, d % 256 == 0, d <= 1024, h % 256 == 0.
+// The bf16 path on the GEMM core.
 // ---------------------------------------------------------------------------
 
-constexpr int TC_BM = 32;              // rows per block
-constexpr int TC_CH = 256;             // hidden chunk width, and columns per stage
-constexpr int KS = 32;                 // k-values per pipeline stage
-constexpr int MAX_Q = 4;               // 256-column groups of d
-constexpr int LDKN = TC_CH + 8;        // k-major stage row stride ([k][256 cols])
-constexpr int LDNK = KS + 8;           // n-major stage row stride ([256 cols][k])
-constexpr int TC_LDH = TC_CH + 8;      // bf16 dh chunk row stride
-constexpr int SLOTS = 4;               // weight-stage ring: 3 loads in flight
-constexpr int KSUB = TC_CH / KS;       // du stages per column group and chunk
+// Names the stage kernels after this source, so that a profiler tells them
+// from B2's and B8's (the same core).
+struct ln_mlp_residual_dx_stage {};
 
-struct TcSmem {
-  size_t xin, gs, dh, ring, slot, stats, bytes;
-};
-
-__host__ __device__ inline TcSmem tc_layout(int d) {
-  TcSmem s;
-  s.xin = 0;
-  s.gs = s.xin + round_up(sizeof(bf16) * TC_BM * (d + 8), 128);
-  s.dh = s.gs + round_up(sizeof(bf16) * TC_BM * (d + 8), 128);
-  s.ring = s.dh + round_up(sizeof(bf16) * TC_BM * TC_LDH, 128);
-  const size_t kn = sizeof(bf16) * KS * LDKN, nk = sizeof(bf16) * TC_CH * LDNK;
-  s.slot = round_up(kn > nk ? kn : nk, 128);
-  s.stats = s.ring + SLOTS * s.slot;
-  s.bytes = s.stats + round_up(sizeof(float) * TC_BM * 2, 128);
-  return s;
-}
-
-// acc (32 rows x this warp's 32 columns) += A[:, 0:32] . stage, for a k-major
-// stage [k][256 columns]: its transposed 8x8 matrices are the B operands.
-__device__ __forceinline__ void mma_stage_kn(float (&acc)[2][4][4], const bf16* A,
-                                             int lda, const bf16* buf, int warp) {
+// Row r: mean and rstd of x (two passes, as the LayerNorm pass), then
+// dx = (t - mean(t) - xn mean(t xn)) rstd + g rounded once, t = du * ln_g
+// the fp32 scratch. One warp per row, 8 columns a lane at a time; d % 8 == 0.
+template <class Tag>
+__global__ void __launch_bounds__(gemm90::LN_WARPS * 32)
+ln_dx_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ t,
+                  const bf16* __restrict__ g, bf16* __restrict__ dx, int M, int d, float eps) {
+  const int row = blockIdx.x * gemm90::LN_WARPS + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (row >= M) return;
+  const bf16* xr = x + (long)row * d;
+  const float* tr = t + (long)row * d;
+  auto load8 = [](const bf16* p, float (&f)[8]) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(p);
+    const __nv_bfloat162* v = reinterpret_cast<const __nv_bfloat162*>(&raw);
 #pragma unroll
-  for (int kk = 0; kk < KS / 16; ++kk) {
-    unsigned a[2][4], b[2][4];
-#pragma unroll
-    for (int rt = 0; rt < 2; ++rt)
-      ldsm_x4(a[rt], tile_lane_row(A + rt * 16 * lda + kk * 16, lda));
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      ldsm_x4_t(b[j], tile_lane_row(buf + kk * 16 * LDKN + warp * 32 + j * 16, LDKN));
-#pragma unroll
-    for (int rt = 0; rt < 2; ++rt)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        mma16816(acc[rt][2 * j], a[rt], b[j][0], b[j][1]);
-        mma16816(acc[rt][2 * j + 1], a[rt], b[j][2], b[j][3]);
-      }
-  }
-}
-
-// The same for an n-major stage [256 columns][k]: its plain 8x8 matrices are
-// the B operands; lane l addresses column (l % 8) + 8 (l / 16), k block
-// (l / 8) % 2.
-__device__ __forceinline__ void mma_stage_nk(float (&acc)[2][4][4], const bf16* A,
-                                             int lda, const bf16* buf, int warp,
-                                             int lane) {
-#pragma unroll
-  for (int kk = 0; kk < KS / 16; ++kk) {
-    unsigned a[2][4], b[2][4];
-#pragma unroll
-    for (int rt = 0; rt < 2; ++rt)
-      ldsm_x4(a[rt], tile_lane_row(A + rt * 16 * lda + kk * 16, lda));
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      ldsm_x4(b[j], buf + (warp * 32 + j * 16 + lane % 8 + (lane / 16) * 8) * LDNK +
-                        kk * 16 + ((lane / 8) % 2) * 8);
-#pragma unroll
-    for (int rt = 0; rt < 2; ++rt)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        mma16816(acc[rt][2 * j], a[rt], b[j][0], b[j][1]);
-        mma16816(acc[rt][2 * j + 1], a[rt], b[j][2], b[j][3]);
-      }
-  }
-}
-
-// Per hidden chunk the weights stream as d/32 stages of W_proj (for da), d/32
-// stages of W_fc (for hid), then (d/256) * 8 stages of W_fc in the other
-// orientation (for du), through a ring of SLOTS slots: while stage t
-// multiplies, stages t+1 .. t+3 load. One barrier per stage: after it, every
-// warp is done with stage t-1, whose slot is the one refilled for stage t+3.
-template <int ACT>
-__global__ void __launch_bounds__(NTHREADS, 1)
-ln_mlp_residual_dx_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
-                             const float* __restrict__ ln_g,
-                             const float* __restrict__ ln_b,
-                             const bf16* __restrict__ w_fc,
-                             const float* __restrict__ b_fc,
-                             const bf16* __restrict__ w_proj, bf16* __restrict__ dx,
-                             int M, int d, int h, float eps) {
-  const TcSmem lay = tc_layout(d);
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* xin = reinterpret_cast<bf16*>(smem + lay.xin);
-  bf16* gs = reinterpret_cast<bf16*>(smem + lay.gs);
-  bf16* dh = reinterpret_cast<bf16*>(smem + lay.dh);
-  float* stats = reinterpret_cast<float*>(smem + lay.stats);
-  const int ldx = d + 8;
-  const int row0 = blockIdx.x * TC_BM;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int gq = lane / 4, tq = lane % 4;
-  const int ns = d / KS;               // stages of da, and of hid, per chunk
-  const int nq = d / TC_CH;            // 256-column groups of du
-  const int per_chunk = 2 * ns + nq * KSUB;
-  const int total = (h / TC_CH) * per_chunk;
-
-  auto slot = [&](int t) {
-    return reinterpret_cast<bf16*>(smem + lay.ring + (t % SLOTS) * lay.slot);
-  };
-  // Copy a [256 columns][32 k] block of a row-major matrix (n-major stage).
-  auto load_nk = [&](bf16* dst, const bf16* src, long ld) {
-    for (int i = threadIdx.x; i < TC_CH * (KS / 8); i += NTHREADS) {
-      const int r = i / (KS / 8), c = (i % (KS / 8)) * 8;
-      cp_async16(dst + r * LDNK + c, src + (long)r * ld + c);
+    for (int e = 0; e < 4; ++e) {
+      const float2 p2 = __bfloat1622float2(v[e]);
+      f[2 * e] = p2.x;
+      f[2 * e + 1] = p2.y;
     }
   };
-  // Start loading stage t (if it exists); always commit, so that group
-  // counts stay aligned with stage numbers.
-  auto prefetch = [&](int t) {
-    if (t < total) {
-      const int j0 = (t / per_chunk) * TC_CH, s = t % per_chunk;
-      bf16* dst = slot(t);
-      if (s < ns) {
-        // da: W_proj[j0 + col][s*32 + k]
-        load_nk(dst, w_proj + (long)j0 * d + s * KS, d);
-      } else if (s < 2 * ns) {
-        // hid: W_fc[(s-ns)*32 + k][j0 + col]
-        const bf16* src = w_fc + (long)((s - ns) * KS) * h + j0;
-        for (int i = threadIdx.x; i < KS * (TC_CH / 8); i += NTHREADS) {
-          const int r = i / (TC_CH / 8), c = (i % (TC_CH / 8)) * 8;
-          cp_async16(dst + r * LDKN + c, src + (long)r * h + c);
-        }
-      } else {
-        // du: W_fc[q*256 + col][j0 + ks*32 + k]
-        const int u = s - 2 * ns, q = u / KSUB, ks = u % KSUB;
-        load_nk(dst, w_fc + (long)(q * TC_CH) * h + j0 + ks * KS, h);
-      }
-    }
-    cp_async_commit();
-  };
-
-  for (int t = 0; t < SLOTS - 1; ++t) prefetch(t);
-  prepare_tiles(x, g, ln_g, ln_b, xin, gs, stats, ldx, row0, TC_BM, M, d, eps);
-
-  float du[MAX_Q][2][4][4];            // [column group][row tile][n8 tile][fragment]
-  float hacc[2][4][4], dacc[2][4][4];  // hid and da: [row tile][n8 tile][fragment]
+  float s = 0.f;
+  for (int c = lane * 8; c < d; c += 256) {
+    float f[8];
+    load8(xr + c, f);
 #pragma unroll
-  for (int q = 0; q < MAX_Q; ++q)
+    for (int e = 0; e < 8; ++e) s += f[e];
+  }
+  const float mean = warp_sum(s) / d;
+  float q = 0.f;
+  for (int c = lane * 8; c < d; c += 256) {
+    float f[8];
+    load8(xr + c, f);
 #pragma unroll
-    for (int rt = 0; rt < 2; ++rt)
+    for (int e = 0; e < 8; ++e) q += (f[e] - mean) * (f[e] - mean);
+  }
+  const float rstd = rsqrtf(warp_sum(q) / d + eps);
+  float s1 = 0.f, s2 = 0.f;
+  for (int c = lane * 8; c < d; c += 256) {
+    float f[8];
+    load8(xr + c, f);
+    const float4 t0 = *reinterpret_cast<const float4*>(tr + c);
+    const float4 t1 = *reinterpret_cast<const float4*>(tr + c + 4);
+    const float tv[8] = {t0.x, t0.y, t0.z, t0.w, t1.x, t1.y, t1.z, t1.w};
 #pragma unroll
-      for (int n = 0; n < 4; ++n)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) du[q][rt][n][i] = 0.f;
-
-  for (int t = 0; t < total; ++t) {
-    cp_async_wait<SLOTS - 2>();        // stage t has landed (this thread's part)
-    __syncthreads();                   // ... everyone's part; stage t-1 is done
-    prefetch(t + SLOTS - 1);             // into stage t-1's slot
-    const bf16* buf = slot(t);
-    const int j0 = (t / per_chunk) * TC_CH, s = t % per_chunk;
-    if (s < ns) {
-      if (s == 0) {
-#pragma unroll
-        for (int rt = 0; rt < 2; ++rt)
-#pragma unroll
-          for (int n = 0; n < 4; ++n)
-#pragma unroll
-            for (int i = 0; i < 4; ++i) dacc[rt][n][i] = hacc[rt][n][i] = 0.f;
-      }
-      mma_stage_nk(dacc, gs + s * KS, ldx, buf, warp, lane);
-    } else if (s < 2 * ns) {
-      mma_stage_kn(hacc, xin + (s - ns) * KS, ldx, buf, warp);
-      if (s == 2 * ns - 1) {
-        // dh = da * act'(hid + b_fc), cast, for this warp's 32 hidden columns,
-        // straight from the accumulators. The first du stage reads dh after
-        // the next barrier.
-#pragma unroll
-        for (int rt = 0; rt < 2; ++rt)
-#pragma unroll
-          for (int n = 0; n < 4; ++n) {
-            const int col = warp * 32 + n * 8 + 2 * tq;
-            const float b0 = b_fc[j0 + col], b1 = b_fc[j0 + col + 1];
-#pragma unroll
-            for (int half = 0; half < 2; ++half) {
-              const int r = rt * 16 + gq + half * 8;
-              *reinterpret_cast<__nv_bfloat162*>(dh + r * TC_LDH + col) =
-                  __floats2bfloat162_rn(
-                      dacc[rt][n][2 * half] * dactivation<ACT>(hacc[rt][n][2 * half] + b0),
-                      dacc[rt][n][2 * half + 1] *
-                          dactivation<ACT>(hacc[rt][n][2 * half + 1] + b1));
-            }
-          }
-      }
-    } else {
-      const int u = s - 2 * ns, q = u / KSUB, ks = u % KSUB;
-#pragma unroll
-      for (int qq = 0; qq < MAX_Q; ++qq)
-        if (qq == q) mma_stage_nk(du[qq], dh + ks * KS, TC_LDH, buf, warp, lane);
+    for (int e = 0; e < 8; ++e) {
+      s1 += tv[e];
+      s2 += tv[e] * ((f[e] - mean) * rstd);
     }
   }
-  cp_async_wait<0>();                  // only empty groups remain
-  __syncthreads();                     // the ring is free: reuse it for the row sums
+  const float m1 = warp_sum(s1) / d, m2 = warp_sum(s2) / d;
+  for (int c = lane * 8; c < d; c += 256) {
+    float f[8], gv[8];
+    load8(xr + c, f);
+    load8(g + (long)row * d + c, gv);
+    const float4 t0 = *reinterpret_cast<const float4*>(tr + c);
+    const float4 t1 = *reinterpret_cast<const float4*>(tr + c + 4);
+    const float tv[8] = {t0.x, t0.y, t0.z, t0.w, t1.x, t1.y, t1.z, t1.w};
+    uint4 packed;
+    unsigned* pw = reinterpret_cast<unsigned*>(&packed);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float xn0 = (f[2 * e] - mean) * rstd, xn1 = (f[2 * e + 1] - mean) * rstd;
+      pw[e] = pack_bf16x2((tv[2 * e] - m1 - xn0 * m2) * rstd + gv[2 * e],
+                          (tv[2 * e + 1] - m1 - xn1 * m2) * rstd + gv[2 * e + 1]);
+    }
+    *reinterpret_cast<uint4*>(dx + (long)row * d + c) = packed;
+  }
+}
 
-  // LayerNorm backward. This thread holds, for rows rt*16 + gq + half*8,
-  // columns q*256 + warp*32 + n*8 + 2tq (+1) of du.
-  float* red = reinterpret_cast<float*>(smem + lay.ring);   // [warp][row][2]
-  float s1[4] = {0.f, 0.f, 0.f, 0.f}, s2[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-  for (int q = 0; q < MAX_Q; ++q) {
-    if (q < nq) {
-#pragma unroll
-      for (int rt = 0; rt < 2; ++rt)
-#pragma unroll
-        for (int n = 0; n < 4; ++n) {
-          const int col = q * TC_CH + warp * 32 + n * 8 + 2 * tq;
-          const float g0 = ln_g[col], g1 = ln_g[col + 1];
-#pragma unroll
-          for (int half = 0; half < 2; ++half) {
-            const int r = rt * 16 + gq + half * 8, gr = row0 + r;
-            const float t0 = du[q][rt][n][2 * half] * g0;
-            const float t1 = du[q][rt][n][2 * half + 1] * g1;
-            du[q][rt][n][2 * half] = t0;
-            du[q][rt][n][2 * half + 1] = t1;
-            float2 xv = make_float2(0.f, 0.f);
-            if (gr < M)
-              xv = __bfloat1622float2(
-                  *reinterpret_cast<const __nv_bfloat162*>(x + (long)gr * d + col));
-            const float mean = stats[2 * r], rstd = stats[2 * r + 1];
-            s1[rt * 2 + half] += t0 + t1;
-            s2[rt * 2 + half] += t0 * ((xv.x - mean) * rstd) + t1 * ((xv.y - mean) * rstd);
-          }
-        }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    s1[i] += __shfl_xor_sync(0xffffffffu, s1[i], 1);
-    s1[i] += __shfl_xor_sync(0xffffffffu, s1[i], 2);
-    s2[i] += __shfl_xor_sync(0xffffffffu, s2[i], 1);
-    s2[i] += __shfl_xor_sync(0xffffffffu, s2[i], 2);
-    if (tq == 0) {
-      const int r = (i / 2) * 16 + gq + (i % 2) * 8;
-      red[(warp * TC_BM + r) * 2] = s1[i];
-      red[(warp * TC_BM + r) * 2 + 1] = s2[i];
-    }
-  }
-  __syncthreads();
-  float m1[4], m2[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = (i / 2) * 16 + gq + (i % 2) * 8;
-    float a = 0.f, b = 0.f;
-#pragma unroll
-    for (int w = 0; w < NWARPS; ++w) {
-      a += red[(w * TC_BM + r) * 2];
-      b += red[(w * TC_BM + r) * 2 + 1];
-    }
-    m1[i] = a / d;
-    m2[i] = b / d;
-  }
-
-  // dx = (t - m1 - xn * m2) * rstd + g in fp32, one cast.
-#pragma unroll
-  for (int q = 0; q < MAX_Q; ++q) {
-    if (q < nq) {
-#pragma unroll
-      for (int rt = 0; rt < 2; ++rt)
-#pragma unroll
-        for (int n = 0; n < 4; ++n) {
-          const int col = q * TC_CH + warp * 32 + n * 8 + 2 * tq;
-#pragma unroll
-          for (int half = 0; half < 2; ++half) {
-            const int r = rt * 16 + gq + half * 8, gr = row0 + r;
-            if (gr < M) {
-              const long off = (long)gr * d + col;
-              const float mean = stats[2 * r], rstd = stats[2 * r + 1];
-              const float2 xv = __bfloat1622float2(
-                  *reinterpret_cast<const __nv_bfloat162*>(x + off));
-              const float2 gv = __bfloat1622float2(
-                  *reinterpret_cast<const __nv_bfloat162*>(gs + r * ldx + col));
-              const int i = rt * 2 + half;
-              const float xn0 = (xv.x - mean) * rstd, xn1 = (xv.y - mean) * rstd;
-              *reinterpret_cast<__nv_bfloat162*>(dx + off) = __floats2bfloat162_rn(
-                  (du[q][rt][n][2 * half] - m1[i] - xn0 * m2[i]) * rstd + gv.x,
-                  (du[q][rt][n][2 * half + 1] - m1[i] - xn1 * m2[i]) * rstd + gv.y);
-            }
-          }
-        }
-    }
-  }
+// The four stages; xin (M, d) bf16, dh (M, h) bf16 and t (M, d) fp32 are the
+// caller's scratch.
+cudaError_t launch_gemm_path(const bf16* x, const bf16* g, const float* ln_g, const float* ln_b,
+                             const bf16* w_fc, const float* b_fc, const bf16* w_proj, bf16* xin,
+                             bf16* dh, float* t, bf16* dx, int M, int d, int h, float eps,
+                             int act, cudaStream_t s) {
+  using Tag = ln_mlp_residual_dx_stage;
+  cudaError_t err = gemm90::layer_norm_rows<Tag>(x, ln_g, ln_b, xin, d, M, d, eps, s);
+  if (err == cudaSuccess)
+    err = gemm90::gemm_dual_dact<Tag>(xin, d, w_fc, h, b_fc, g, d, w_proj, d, dh, h, M, h, d,
+                                      act, s);
+  if (err == cudaSuccess)
+    err = gemm90::gemm_f32<Tag>(dh, h, w_fc, h, 1, ln_g, t, d, M, d, h, 0, s);
+  if (err != cudaSuccess) return err;
+  ln_dx_rows_kernel<Tag><<<(M + gemm90::LN_WARPS - 1) / gemm90::LN_WARPS, gemm90::LN_WARPS * 32, 0,
+                      s>>>(x, t, g, dx, M, d, eps);
+  return cudaGetLastError();
 }
 
 template <typename Kernel, typename... Args>
@@ -527,20 +315,11 @@ template <typename T, int ACT>
 cudaError_t launch(const void* x, const void* g, const float* ln_g, const float* ln_b,
                    const void* w_fc, const float* b_fc, const void* w_proj, void* dx,
                    int M, int d, int h, float eps, cudaStream_t stream) {
-  const T* xt = static_cast<const T*>(x);
-  const T* gt = static_cast<const T*>(g);
-  const T* wf = static_cast<const T*>(w_fc);
-  const T* wp = static_cast<const T*>(w_proj);
-  T* out = static_cast<T*>(dx);
-  if constexpr (std::is_same<T, bf16>::value) {
-    if (d % TC_CH == 0 && d <= TC_CH * MAX_Q && h % TC_CH == 0)
-      return launch_with_smem(ln_mlp_residual_dx_tc_kernel<ACT>, tc_layout(d).bytes,
-                              (M + TC_BM - 1) / TC_BM, stream, xt, gt, ln_g, ln_b, wf,
-                              b_fc, wp, out, M, d, h, eps);
-  }
   return launch_with_smem(ln_mlp_residual_dx_kernel<T, ACT>, smem_layout<T>(d).bytes,
-                          (M + BM - 1) / BM, stream, xt, gt, ln_g, ln_b, wf, b_fc, wp,
-                          out, M, d, h, eps);
+                          (M + BM - 1) / BM, stream, static_cast<const T*>(x),
+                          static_cast<const T*>(g), ln_g, ln_b, static_cast<const T*>(w_fc),
+                          b_fc, static_cast<const T*>(w_proj), static_cast<T*>(dx), M, d, h,
+                          eps);
 }
 
 template <typename T>
@@ -559,23 +338,59 @@ cudaError_t dispatch_act(int act, const void* x, const void* g, const float* ln_
 
 // dtype: 0 = float32, 1 = bfloat16; act: 0 = exact GELU, 1 = QuickGELU.
 // LayerNorm scale/bias and b_fc are fp32; x, g, dx and the weights share
-// dtype. Returns the launch's cudaError_t.
+// dtype. bf16 with d and h multiples of 128 takes the GEMM path and needs
+// the scratch xin (M, d) bf16, dh (M, h) bf16 and t (M, d) fp32; anything
+// else ignores them. Returns the first failing launch's cudaError_t.
 extern "C" int aaclip_ln_mlp_residual_dx(const void* x, const void* g, const void* ln_g,
                                          const void* ln_b, const void* w_fc,
-                                         const void* b_fc, const void* w_proj, void* dx,
-                                         int M, int d, int h, float eps, int act,
-                                         int dtype, void* stream) {
-  if (M <= 0 || d <= 0 || h <= 0 || d % 16 != 0 || h % CH != 0)
+                                         const void* b_fc, const void* w_proj, void* xin,
+                                         void* dh, void* t, void* dx, int M, int d, int h,
+                                         float eps, int act, int dtype, void* stream) {
+  if (M <= 0 || d <= 0 || h <= 0 || d % 16 != 0 || h % CH != 0 || act < 0 || act > 1)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* lg = static_cast<const float*>(ln_g);
   const float* lb = static_cast<const float*>(ln_b);
   const float* bf = static_cast<const float*>(b_fc);
+  if (dtype == 1 && d % 128 == 0 && h % 128 == 0) {
+    if (xin == nullptr || dh == nullptr || t == nullptr) return cudaErrorInvalidValue;
+    return launch_gemm_path(static_cast<const bf16*>(x), static_cast<const bf16*>(g), lg, lb,
+                            static_cast<const bf16*>(w_fc), bf, static_cast<const bf16*>(w_proj),
+                            static_cast<bf16*>(xin), static_cast<bf16*>(dh),
+                            static_cast<float*>(t), static_cast<bf16*>(dx), M, d, h, eps, act, s);
+  }
   if (dtype == 0)
     return dispatch_act<float>(act, x, g, lg, lb, w_fc, bf, w_proj, dx, M, d, h, eps, s);
   if (dtype == 1)
     return dispatch_act<bf16>(act, x, g, lg, lb, w_fc, bf, w_proj, dx, M, d, h, eps, s);
   return cudaErrorInvalidValue;
+}
+
+// The core's two modes that B5 adds, alone (csrc/gemm_sm90.cuh), bf16
+// operands: out32 (M, N) fp32 = (a . W) * scale (scale may be null), W = w
+// (K, N) or with w_kmajor w (N, K); tile_n 0, 128 or 256.
+extern "C" int aaclip_ln_mlp_residual_dx_gemm_f32(const void* a, int lda, const void* w, int ldw,
+                                                  int w_kmajor, const void* scale, void* out32,
+                                                  int ld_out, int M, int N, int K, int tile_n,
+                                                  void* stream) {
+  return gemm90::gemm_f32<ln_mlp_residual_dx_stage>(
+      static_cast<const bf16*>(a), lda, static_cast<const bf16*>(w), ldw, w_kmajor,
+      static_cast<const float*>(scale), static_cast<float*>(out32), ld_out, M, N, K, tile_n,
+      static_cast<cudaStream_t>(stream));
+}
+
+// ... and the dual mode: out (M, N) bf16 = (a2 . w2^T) * act'(a . w + bias),
+// w (K, N), w2 (N, K); act 0 GELU, 1 QuickGELU.
+extern "C" int aaclip_ln_mlp_residual_dx_gemm_dual(const void* a, int lda, const void* w,
+                                                   int ldw, const void* bias, const void* a2,
+                                                   int lda2, const void* w2, int ldw2, void* out,
+                                                   int ld_out, int M, int N, int K, int act,
+                                                   void* stream) {
+  return gemm90::gemm_dual_dact<ln_mlp_residual_dx_stage>(
+      static_cast<const bf16*>(a), lda, static_cast<const bf16*>(w), ldw,
+      static_cast<const float*>(bias), static_cast<const bf16*>(a2), lda2,
+      static_cast<const bf16*>(w2), ldw2, static_cast<bf16*>(out), ld_out, M, N, K, act,
+      static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* aaclip_ln_mlp_residual_dx_error_string(int err) {

@@ -5,7 +5,8 @@
 // 128-lane panels of the packed (B, L, 3W) qkv projection).
 //
 // What it computes, per (batch b, head h): softmax(scale * Q K^T) V with keys
-// >= valid_len masked, written in merged-head (B, L, W) layout. q, k, v are
+// >= valid_len masked, written in merged-head (B, L, W) layout, and where
+// asked each row's log-sum-exp (B, H, L) fp32 for the backward (B4, B6). q, k, v are
 // read strided straight out of the packed tensor at column offset
 // sec*W + h*hd, sec = (0, 1, 2), or (2, 2, 2) for the CLIP-Surgery
 // value-value variant, so no head split or merge copies exist.
@@ -28,10 +29,11 @@ using namespace aaclip;
 // The kernels' tag: their names read attention_mma_kernel<packed_attention>.
 struct packed_attention;
 
-// dtype: 0 = float32, 1 = bfloat16. Returns the launch's cudaError_t.
-extern "C" int aaclip_packed_attention(const void* qkv, void* out, int B, int L, int W,
-                                       int num_heads, int head_dim, int valid_len, float scale,
-                                       int vv, int dtype, void* stream) {
+// dtype: 0 = float32, 1 = bfloat16. lse: (B, H, L) fp32, written only when
+// non-null. Returns the launch's cudaError_t.
+extern "C" int aaclip_packed_attention(const void* qkv, void* out, void* lse, int B, int L,
+                                       int W, int num_heads, int head_dim, int valid_len,
+                                       float scale, int vv, int dtype, void* stream) {
   // Head width 64 only: the one width on the port's path (ViT-L's 16 heads).
   if (B <= 0 || L <= 0 || num_heads <= 0 || head_dim * num_heads != W || valid_len <= 0 ||
       (W % 8) != 0 || head_dim != attn_fwd::HD)
@@ -42,8 +44,9 @@ extern "C" int aaclip_packed_attention(const void* qkv, void* out, int B, int L,
   auto section = [&](int sec) { return base + (size_t)sec * W * elem; };
   const attn_fwd::Layout lay{(long)L * 3 * W, head_dim, 3 * W, (long)L * W, head_dim, W};
   return attn_fwd::launch<packed_attention>(dtype, section(vv ? 2 : 0), section(vv ? 2 : 1),
-                                            section(2), out, lay, L, num_heads, B, n_keys,
-                                            scale, static_cast<cudaStream_t>(stream));
+                                            section(2), out, static_cast<float*>(lse), lay, L,
+                                            num_heads, B, n_keys, scale,
+                                            static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* aaclip_packed_attention_error_string(int err) {

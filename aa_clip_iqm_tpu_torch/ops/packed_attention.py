@@ -9,7 +9,11 @@ kernels live in ``csrc/packed_attention.cu`` and
 tensor :func:`flash_mha_packed` runs the plain twin
 :func:`flash_mha_packed_reference` and its gradient is
 :func:`flash_mha_packed_bwd_reference`; on a CUDA tensor both directions
-launch a kernel or raise.
+launch a kernel or raise. When qkv needs a gradient the forward also returns
+each row's log-sum-exp (:func:`packed_lse_reference` is its plain version),
+and the backward kernels rebuild P from it instead of sweeping the keys for
+the softmax statistics; :func:`flash_mha_packed_bwd_stages` is the plain
+version of that backward, rounding where the kernels round.
 
 The tower is not padded: the kernels mask the ragged key tail themselves, and
 still honour an explicit ``valid_len`` (keys at or past it are masked).
@@ -70,13 +74,41 @@ def mha_reference(q, k, v, num_heads: int, scale: float, valid_len=None):
     return out.transpose(1, 2).reshape(b, l, w)
 
 
+def _scores(qkv, num_heads: int, scale: float, vv: bool, valid_len):
+    """fp32 scale * Q K^T per head (B, H, L, L), keys at or past
+    ``valid_len`` at -inf; and K and V per head (B, H, L, hd)."""
+    b, l, threew = qkv.shape
+    w = threew // 3
+    hd = w // num_heads
+
+    def heads(t):
+        return t.reshape(b, l, num_heads, hd).transpose(1, 2)
+
+    q, k, v = (heads(t) for t in qkv.split(w, dim=-1))
+    if vv:
+        q = k = v
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if valid_len is not None and valid_len < l:
+        keys = torch.arange(l, device=qkv.device)
+        s = s + torch.where(keys < valid_len, 0.0, float("-inf"))
+    return s, k, v
+
+
+def packed_lse_reference(qkv, num_heads: int, scale: float, vv: bool = False,
+                         valid_len=None):
+    """Plain log-sum-exp of each row of the masked scaled scores, what the
+    forward kernel writes for the backward: qkv (B, L, 3W) -> (B, H, L)
+    fp32."""
+    return torch.logsumexp(_scores(qkv, num_heads, scale, vv, valid_len)[0], dim=-1)
+
+
 def _lib():
     lib = _build.load("packed_attention")
     fn = lib.aaclip_packed_attention
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
                        ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
@@ -109,19 +141,26 @@ def _check_qkv(fn: str, qkv, num_heads: int, valid_len):
     return b, l, w, hd, vl
 
 
-def _forward(qkv, num_heads: int, scale: float, vv: bool, valid_len):
-    """The forward without autograd: twin on the CPU, kernel on the card."""
+def _forward(qkv, num_heads: int, scale: float, vv: bool, valid_len,
+             with_lse: bool = False):
+    """The forward without autograd: twin on the CPU, kernel on the card.
+    With ``with_lse`` it returns (out, lse), lse (B, H, L) fp32."""
     if qkv.device.type == "cpu":
-        return flash_mha_packed_reference(qkv, num_heads, scale, vv, valid_len)
+        out = flash_mha_packed_reference(qkv, num_heads, scale, vv, valid_len)
+        if with_lse:
+            return out, packed_lse_reference(qkv, num_heads, scale, vv, valid_len)
+        return out
     b, l, w, hd, vl = _check_qkv("flash_mha_packed", qkv, num_heads, valid_len)
     out = torch.empty((b, l, w), dtype=qkv.dtype, device=qkv.device)
-    err = _lib()(qkv.data_ptr(), out.data_ptr(), b, l, w, num_heads, hd, vl,
-                 float(scale), int(bool(vv)), _DTYPES[qkv.dtype],
-                 _build.stream_ptr(qkv.device))
+    lse = (torch.empty((b, num_heads, l), dtype=torch.float32, device=qkv.device)
+           if with_lse else None)
+    err = _lib()(qkv.data_ptr(), out.data_ptr(), None if lse is None else lse.data_ptr(),
+                 b, l, w, num_heads, hd, vl, float(scale), int(bool(vv)),
+                 _DTYPES[qkv.dtype], _build.stream_ptr(qkv.device))
     _build.check("packed_attention", err)
     global LAUNCHES
     LAUNCHES += 1
-    return out
+    return (out, lse) if with_lse else out
 
 
 # --------------------------------------------------------------------------
@@ -178,6 +217,46 @@ def flash_mha_packed_bwd_reference(qkv, dO, num_heads: int, scale: float,
     return torch.cat([merge(d_q), merge(d_k), merge(d_val)], dim=-1)
 
 
+def flash_mha_packed_bwd_stages(qkv, dO, num_heads: int, scale: float, vv: bool = False,
+                                valid_len=None, lse=None):
+    """The plain version of the backward kernels' stages, rounding where
+    they round: P = exp(scale Q K^T - lse) from the forward's log-sum-exp
+    (B, H, L), D = rowsum(P * dP) in fp32, P and dS rounded to the input
+    dtype before their products, the scale applied to the fp32 products (S,
+    dQ, dK); for ``vv`` the three terms of dA summed in fp32 and rounded
+    once, zeros in the q and k columns. qkv (B, L, 3W), dO (B, L, W) ->
+    (B, L, 3W)."""
+    b, l, threew = qkv.shape
+    w = threew // 3
+    hd = w // num_heads
+    dt = qkv.dtype
+
+    def heads(t):
+        return t.reshape(b, l, num_heads, hd).transpose(1, 2)
+
+    def merge(t):
+        return t.transpose(1, 2).reshape(b, l, w).to(dt)
+
+    def rounded(t):
+        return t.to(dt).float()
+
+    s, k, v = _scores(qkv, num_heads, scale, vv, valid_len)
+    q = v if vv else heads(qkv[..., :w])
+    g = heads(dO.to(dt)).float()
+    p = torch.exp(s - lse.float()[..., None])
+    d_val = torch.matmul(rounded(p).transpose(-1, -2), g)
+    dp = torch.matmul(g, v.float().transpose(-1, -2))
+    dsb = rounded(p * (dp - (p * dp).sum(dim=-1, keepdim=True)))
+    if vv:
+        a = v.float()
+        d_a = (d_val + torch.matmul(dsb, a) * scale
+               + torch.matmul(dsb.transpose(-1, -2), a) * scale)
+        return torch.cat([qkv.new_zeros((b, l, 2 * w)), merge(d_a)], dim=-1)
+    d_q = torch.matmul(dsb, k.float()) * scale
+    d_k = torch.matmul(dsb.transpose(-1, -2), q.float()) * scale
+    return torch.cat([merge(d_q), merge(d_k), merge(d_val)], dim=-1)
+
+
 def _bwd_lib():
     lib = _build.load("packed_attention_bwd")
     fn = lib.aaclip_packed_attention_bwd
@@ -190,34 +269,39 @@ def _bwd_lib():
     return fn
 
 
-def flash_mha_packed_bwd(qkv, dO, num_heads: int, scale: float,
-                         vv: bool = False, valid_len=None):
-    """dqkv (B, L, 3W) from qkv (B, L, 3W) and dO (B, L, W): the plain version
-    on CPU tensors, the kernels on CUDA tensors (B4, or B6 for ``vv``, whose
-    q and k columns come out zero)."""
+def flash_mha_packed_bwd(qkv, dO, num_heads: int, scale: float, vv: bool = False,
+                         valid_len=None, lse=None):
+    """dqkv (B, L, 3W) from qkv (B, L, 3W) and dO (B, L, W): the plain
+    version on CPU tensors (``lse`` unread), the kernels on CUDA tensors (B4,
+    or B6 for ``vv``, whose q and k columns come out zero), which need the
+    forward's log-sum-exp ``lse`` (B, H, L) fp32: they launch no forward of
+    their own."""
     if qkv.device.type == "cpu":
         return flash_mha_packed_bwd_reference(qkv, dO, num_heads, scale, vv,
                                               valid_len)
     fn = "flash_mha_packed_bwd"
     b, l, w, hd, vl = _check_qkv(fn, qkv, num_heads, valid_len)
-    if dO.device != qkv.device or dO.dtype != qkv.dtype:
-        raise TypeError(f"{fn}: dO is {dO.dtype} on {dO.device}, qkv "
-                        f"{qkv.dtype} on {qkv.device}")
-    if tuple(dO.shape) != (b, l, w) or not dO.is_contiguous() or dO.data_ptr() % 16:
-        raise ValueError(f"{fn}: dO must be a contiguous, 16-byte aligned "
-                         f"{(b, l, w)} tensor, got {tuple(dO.shape)}")
+    if lse is None:
+        raise ValueError(f"{fn}: the kernels need the forward's lse")
+    for name, t, dtype, shape in (("dO", dO, qkv.dtype, (b, l, w)),
+                                  ("lse", lse, torch.float32, (b, num_heads, l))):
+        if t.device != qkv.device or t.dtype != dtype:
+            raise TypeError(f"{fn}: {name} is {t.dtype} on {t.device}, want {dtype} "
+                            f"on {qkv.device}")
+        if tuple(t.shape) != shape or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{fn}: {name} must be a contiguous, 16-byte aligned "
+                             f"{shape} tensor, got {tuple(t.shape)}")
     dqkv = torch.empty_like(qkv)
-    # Row statistics of the recomputed softmax, written by the first kernel
-    # and read by the second: log-sum-exp and D = rowsum(P * dP), float32.
-    stats = torch.empty((2, b, num_heads, l), dtype=torch.float32,
+    # Each query's {lse log2 e, D}, from the dq kernel to the dk/dv kernel,
+    # over L rounded up to 64 (past L: {inf, 0}).
+    stats = torch.empty((b, num_heads, -(-l // 64) * 64, 2), dtype=torch.float32,
                         device=qkv.device)
-    # vv: the query term of dA per token, float32, from the first kernel to
-    # the second, which adds the value and key terms and rounds once.
+    # vv: the query term of dA per token, float32, from the dq kernel to the
+    # dk/dv kernel, which adds the value and key terms and rounds once.
     qterm = (torch.empty((b, l, w), dtype=torch.float32, device=qkv.device)
              if vv else None)
-    err = _bwd_lib()(qkv.data_ptr(), dO.data_ptr(), dqkv.data_ptr(),
-                     stats[0].data_ptr(), stats[1].data_ptr(),
-                     None if qterm is None else qterm.data_ptr(), b, l, w,
+    err = _bwd_lib()(qkv.data_ptr(), dO.data_ptr(), lse.data_ptr(), dqkv.data_ptr(),
+                     stats.data_ptr(), None if qterm is None else qterm.data_ptr(), b, l, w,
                      num_heads, hd, vl, float(scale), int(bool(vv)),
                      _DTYPES[qkv.dtype], _build.stream_ptr(qkv.device))
     _build.check("packed_attention_bwd", err)
@@ -230,19 +314,20 @@ def flash_mha_packed_bwd(qkv, dO, num_heads: int, scale: float,
 
 
 class _FlashMhaPacked(torch.autograd.Function):
-    """Forward: the packed-attention kernel (twin on the CPU), saving qkv.
-    Backward: :func:`flash_mha_packed_bwd`."""
+    """Forward: the packed-attention kernel (twin on the CPU), saving qkv and
+    the rows' log-sum-exp. Backward: :func:`flash_mha_packed_bwd`."""
 
     @staticmethod
     def forward(ctx, qkv, num_heads, scale, vv, valid_len):
-        ctx.save_for_backward(qkv)
+        out, lse = _forward(qkv, num_heads, scale, vv, valid_len, with_lse=True)
+        ctx.save_for_backward(qkv, lse)
         ctx.args = (num_heads, scale, vv, valid_len)
-        return _forward(qkv, num_heads, scale, vv, valid_len)
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        (qkv,) = ctx.saved_tensors
-        return (flash_mha_packed_bwd(qkv, g.contiguous(), *ctx.args),
+        qkv, lse = ctx.saved_tensors
+        return (flash_mha_packed_bwd(qkv, g.contiguous(), *ctx.args, lse=lse),
                 None, None, None, None)
 
 

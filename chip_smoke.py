@@ -9,25 +9,31 @@ line):
   2. build: compiles csrc/*.cu with nvcc (one process per source, in
      parallel) and prints the seconds, each kernel's registers and spills,
      and the HGMMA (wgmma) and UTMALDG (TMA load) instructions in the SASS
-     of the two sources on the GEMM core, which must not be zero;
+     of the four sources on wgmma (B2, B8 and B5 on the GEMM core, B4/B6),
+     which must not be zero;
   3. kernels: each hand-written kernel (five forward, three backward) against
      its plain PyTorch twin at the main path's shapes in bf16 (largest and
      RMS error in bf16 ulps, ops/compare.py), with CUDA-event times of the
      kernel, the twin and one stock PyTorch call as a yardstick, and the
-     bound from bytes and operations; B2 and B8 also against the plain
-     version of their stages, at ragged row counts, with each stage's
-     device time (torch.profiler), and B2's two GEMMs at both tile widths.
+     bound from bytes and operations; B1's optional log-sum-exp against the
+     plain logsumexp (1e-5 relative); B2, B8, B5 and B4/B6 also against the
+     plain version of their stages, B2 and B5 at ragged row counts, B4/B6 at
+     batch 8 and 1 (B6: 2) with valid_len None and 1300, fed the forward's
+     log-sum-exp, with each stage's device time
+     (torch.profiler), and B2's two GEMMs at both tile widths.
      Planted faults (a twin with its key tail unmasked, its biases dropped,
      the wrong activation, the last k-slice of B2's hidden layer dropped,
      B2's rows past 1,280 left at zero; for the int8
      MLP one hidden scale per row instead of per chunk, the c_fc weight
      scales dropped, round-half-away; for the attention backward the key
-     tail unmasked and the scale on dK dropped; for the MLP dx the wrong
-     activation derivative and the LayerNorm backward without its mean
-     terms; for the unpacked flash attention the key tail unmasked; for the
-     value-value backward the key term dropped; for the fused attention
-     half-block the out bias dropped and, under vv, q read from the q
-     section) must fail the same check;
+     tail unmasked, the scale on dK dropped, D = 0 and the log-sum-exp taken
+     over the keys that valid_len masks; for the MLP dx the wrong activation
+     derivative, the LayerNorm backward without its mean terms, act' taken
+     without b_fc and GEMM 3 without its last 64-deep k-slice; for the
+     unpacked flash attention the key tail unmasked; for the value-value
+     backward the key term dropped; for the fused attention half-block the
+     out bias dropped and, under vv, q read from the q section) must fail
+     the same check;
   4. main path: AnomalyDetector on ViT-L-14-336 at 518 px with seeded random
      weights (dataset MVTec, bf16): builds the text anchors, answers predict
      at batch 1 and 8 and a mixed-class predict_multi, checks shapes, finite
@@ -105,8 +111,10 @@ INT8_MAP_TOL = 8e-2
 SOURCES = ("packed_attention", "ln_mlp_residual", "ln_mlp_residual_int8",
            "packed_attention_bwd", "ln_mlp_residual_dx", "flash_attention",
            "ln_attn_residual")
-# The two sources built on the wgmma GEMM core (csrc/gemm_sm90.cuh).
-GEMM_SOURCES = ("ln_mlp_residual", "ln_attn_residual")
+# The sources whose kernels run on wgmma fed by TMA (csrc/gemm_sm90.cuh):
+# the GEMM core's B2, B8 and B5, and B4/B6's tile kernels.
+GEMM_SOURCES = ("ln_mlp_residual", "ln_attn_residual", "ln_mlp_residual_dx",
+                "packed_attention_bwd")
 KERNELS = ("packed_attention", "ln_mlp_residual", "ln_mlp_residual_int8",
            "packed_attention_bwd", "ln_mlp_residual_dx", "packed_attention_vv_bwd",
            "flash_attention", "ln_attn_residual")
@@ -126,6 +134,9 @@ GRAD_TOL = 5e-2                          # per tensor: rms(diff) / rms(plain gra
 # random backbone, whose MLP branch is small beside the residual) stands out.
 GRAD_BWD_TOL = 1e-2
 METRIC_TOL = 1e-4                        # device vs host AUROC / AP, in [0, 1]
+# B1's log-sum-exp against the plain logsumexp of the masked scaled scores,
+# relative: both are fp32 sums of the same exponentials in other orders.
+LSE_TOL = 1e-5
 
 
 class Failure(RuntimeError):
@@ -252,7 +263,8 @@ def phase_build():
     for name in names:
         for entry, regs, spill in ptxas_entries(_build.BUILD_LOGS.get(name, "")):
             log(f"#   {name}: {entry}: {regs}; {spill}")
-    # The two kernels on the GEMM core must really run on wgmma fed by TMA.
+    # The kernels on the GEMM core and B4/B6 must really run on wgmma fed by
+    # TMA.
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     for name in GEMM_SOURCES:
         sass = subprocess.run([cuobjdump, "-sass", _build._paths(name)[1]], capture_output=True,
@@ -429,6 +441,7 @@ def phase_kernels():
 
     from aa_clip_iqm_tpu_torch.ops import attn_block as ab, flash_attention as fa
     from aa_clip_iqm_tpu_torch.ops import fused_mlp, packed_attention as pa, quant
+    from aa_clip_iqm_tpu_torch.ops.compare import bf16_error
     from aa_clip_iqm_tpu_torch.ops.layers import gelu, layer_norm, quick_gelu
 
     dev = torch.device("cuda")
@@ -447,17 +460,29 @@ def phase_kernels():
                                                 valid_len=valid_len)
             worst = max(worst, hold(f"B1 packed_attention vv={vv} valid_len={valid_len}",
                                     out, ref))
+            # The log-sum-exp that the backward reads, asked for on the same
+            # launch, against the plain logsumexp; the output must not move.
+            out_l, lse = pa._forward(qkv, HEADS, scale, vv, valid_len, with_lse=True)
+            want = pa.packed_lse_reference(qkv, HEADS, scale, vv, valid_len)
+            rel = ((lse - want).abs() / want.abs()).max().item()
+            log(f"# B1 log-sum-exp vv={vv} valid_len={valid_len}: max relative error "
+                f"{rel:.3e} (tol {LSE_TOL:.0e})")
+            require(rel <= LSE_TOL, f"B1 log-sum-exp off by {rel}")
+            require(torch.equal(out_l, out), "B1's output moved with the log-sum-exp on")
+            del out_l, lse, want
     planted("B1 key tail unmasked", attn_tail_unmasked(qkv, HEADS, scale),
             pa.flash_mha_packed_reference(qkv, HEADS, scale))
     ms = cuda_time(lambda: pa.flash_mha_packed(qkv, HEADS, scale), 20)
+    lse_ms = cuda_time(lambda: pa._forward(qkv, HEADS, scale, False, None, with_lse=True), 20)
     plain_ms = cuda_time(lambda: pa.flash_mha_packed_reference(qkv, HEADS, scale), 3)
     q, k, v = qkv.view(B, TOKENS, 3, HEADS, HD).permute(2, 0, 3, 1, 4)
     lib_ms = cuda_time(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale), 20)
     flops = 4 * B * HEADS * TOKENS * TOKENS * HD
     nbytes = qkv.numel() * 2 + B * TOKENS * WIDTH * 2
     b_ms, b_by = bound(flops, nbytes)
-    log(f"# B1 time: kernel {ms:.3f} ms, twin {plain_ms:.3f} ms, sdpa {lib_ms:.3f} ms, "
-        f"bound {b_ms:.4f} ms ({b_by}; {flops:.3e} FLOP, {nbytes / 1e6:.1f} MB)")
+    log(f"# B1 time: kernel {ms:.3f} ms (with the log-sum-exp written {lse_ms:.3f} ms), twin "
+        f"{plain_ms:.3f} ms, sdpa {lib_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}; {flops:.3e} "
+        f"FLOP, {nbytes / 1e6:.1f} MB)")
     results["packed_attention"] = {
         "name": "packed_attention", "route": "cuda",
         "source": "aa_clip_iqm_tpu_torch/csrc/packed_attention.cu",
@@ -583,6 +608,8 @@ def phase_kernels():
     del x, out, ref, mlp, xn
 
     # --- B4: packed attention backward at ViT-L/518, batch 8 --------------
+    # The kernels take the forward's log-sum-exp (B1 with it on), as the
+    # autograd Function hands it over.
     w = WIDTH
     qkv = torch.randn((B, TOKENS, 3 * w), generator=gen, device=dev).to(bf16)
     d_out = torch.randn((B, TOKENS, w), generator=gen, device=dev).to(bf16)
@@ -592,20 +619,49 @@ def phase_kernels():
         return max(hold(f"{what} {name}", out[..., i * w:(i + 1) * w],
                         ref[..., i * w:(i + 1) * w]) for i, name in enumerate(("dq", "dk", "dv")))
 
+    def saved_lse(qkv, batch, vv, valid_len):
+        return pa._forward(qkv[:batch], HEADS, scale, vv, valid_len, with_lse=True)[1]
+
     worst = 0.0
     ref_full = None
-    for batch, valid_len in ((B, None), (B, 1300), (1, None)):
+    for batch, valid_len in ((B, None), (B, 1300), (1, None), (1, 1300)):
+        lse = saved_lse(qkv, batch, False, valid_len)
         out = pa.flash_mha_packed_bwd(qkv[:batch], d_out[:batch], HEADS, scale,
-                                      valid_len=valid_len)
+                                      valid_len=valid_len, lse=lse)
         ref = pa.flash_mha_packed_bwd_reference(qkv[:batch], d_out[:batch], HEADS, scale,
                                                 valid_len=valid_len)
-        worst = max(worst, hold_sections(
-            f"B4 packed_attention_bwd batch={batch} valid_len={valid_len}", out, ref))
+        what = f"B4 packed_attention_bwd batch={batch} valid_len={valid_len}"
+        worst = max(worst, hold_sections(what, out, ref))
+        stages = pa.flash_mha_packed_bwd_stages(qkv[:batch], d_out[:batch], HEADS, scale, False,
+                                                valid_len, lse)
+        hold_sections(f"{what} against the plain version of its stages", out, stages)
         if ref_full is None:
             ref_full = ref
-        del out, ref
-    require(torch.equal(pa.flash_mha_packed_bwd(qkv, d_out, HEADS, scale),
-                        pa.flash_mha_packed_bwd(qkv, d_out, HEADS, scale)),
+        if batch == B and valid_len == 1300:
+            require(torch.equal(attn_bwd_stages_variant(qkv, d_out, HEADS, scale, 1300, lse),
+                                stages),
+                    "the plain stages' second transcription differs from the plain stages")
+            planted("B4 with D = 0 (dq)", attn_bwd_stages_variant(
+                qkv, d_out, HEADS, scale, 1300, lse, zero_d=True)[..., :w], ref[..., :w])
+            planted("B4 log-sum-exp over the unmasked keys at valid_len 1300 (dv)",
+                    attn_bwd_stages_variant(qkv, d_out, HEADS, scale, 1300,
+                                            pa.packed_lse_reference(qkv, HEADS, scale))
+                    [..., 2 * w:], ref[..., 2 * w:])
+            # Why D is summed from P * dP: the stages with D = rowsum(dO * O)
+            # from the forward's bf16 output instead, against the plain
+            # backward (not held).
+            o = pa.flash_mha_packed(qkv, HEADS, scale, valid_len=1300)
+            via_o = attn_bwd_stages_variant(qkv, d_out, HEADS, scale, 1300, lse, out=o)
+            log("# B4's stages with D = rowsum(dO * O) from the bf16 O, against the plain "
+                "backward (not held): " + "; ".join(
+                    f"{name} ulps max {u[0]:.2f}, rms {u[1]:.3f}" for name, u in
+                    (("dq", bf16_error(via_o[..., :w], ref[..., :w])),
+                     ("dk", bf16_error(via_o[..., w:2 * w], ref[..., w:2 * w])))))
+            del o, via_o
+        del out, ref, stages, lse
+    lse = saved_lse(qkv, B, False, None)
+    require(torch.equal(pa.flash_mha_packed_bwd(qkv, d_out, HEADS, scale, lse=lse),
+                        pa.flash_mha_packed_bwd(qkv, d_out, HEADS, scale, lse=lse)),
             "B4: two launches on the same inputs differ (the design has no atomics)")
     fault = attn_bwd_tail_unmasked(qkv, d_out, HEADS, scale)
     planted("B4 key tail unmasked (dv)", fault[..., 2 * w:], ref_full[..., 2 * w:])
@@ -613,41 +669,55 @@ def phase_kernels():
     fault[..., w:2 * w] = (ref_full[..., w:2 * w].float() / scale).to(bf16)
     planted("B4 scale on dK dropped (dk)", fault[..., w:2 * w], ref_full[..., w:2 * w])
     del fault, ref_full
-    ms = cuda_time(lambda: pa.flash_mha_packed_bwd(qkv, d_out, HEADS, scale), 10)
+    ms = cuda_time(lambda: pa.flash_mha_packed_bwd(qkv, d_out, HEADS, scale, lse=lse), 10)
     plain_ms = cuda_time(
         lambda: pa.flash_mha_packed_bwd_reference(qkv, d_out, HEADS, scale), 2)
+    n = B * HEADS * TOKENS * TOKENS * HD
+    stage_times("B4", lambda: pa.flash_mha_packed_bwd(qkv, d_out, HEADS, scale, lse=lse),
+                {"attention_bwd_dq_kernel": ("dq (D pass: S, dP; then S, dP, dQ)", "flop", 10 * n),
+                 "attention_bwd_dkv_kernel": ("dk/dv (S^T, dP^T, dV, dK)", "flop", 8 * n)})
     q, k, v = (t.detach().requires_grad_(True)
                for t in qkv.view(B, TOKENS, 3, HEADS, HD).permute(2, 0, 3, 1, 4))
     attn = F.scaled_dot_product_attention(q, k, v, scale=scale)
     g_heads = d_out.view(B, TOKENS, HEADS, HD).transpose(1, 2)
     lib_ms = cuda_time(
         lambda: torch.autograd.grad(attn, (q, k, v), g_heads, retain_graph=True), 10)
-    flops = 10 * B * HEADS * TOKENS * TOKENS * HD
-    nbytes = (2 * qkv.numel() + d_out.numel()) * 2
+    flops = 10 * n
+    # qkv, dO and the log-sum-exp read once, dqkv written once.
+    nbytes = (2 * qkv.numel() + d_out.numel()) * 2 + lse.numel() * 4
     b_ms, b_by = bound(flops, nbytes)
     log(f"# B4 time: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, sdpa backward {lib_ms:.3f} ms, "
-        f"bound {b_ms:.4f} ms ({b_by}; {flops:.3e} FLOP, {nbytes / 1e6:.1f} MB)")
+        f"bound {b_ms:.4f} ms ({b_by}; {flops:.3e} FLOP, {nbytes / 1e6:.1f} MB); its nine "
+        f"products at the peak {9 * 2 * n / PEAK_BF16_FLOPS * 1e3:.4f} ms")
     results["packed_attention_bwd"] = {
         "name": "packed_attention_bwd", "route": "cuda",
         "source": "aa_clip_iqm_tpu_torch/csrc/packed_attention_bwd.cu",
         "replaces": "aa_clip_iqm_tpu/ops/pallas_attention.py:332",
         "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
         "bound_by": b_by, "library_ms": lib_ms}
-    del qkv, d_out, q, k, v, attn, g_heads
+    del qkv, d_out, q, k, v, attn, g_heads, lse
 
     # --- B5: dx of the fused LN -> MLP -> residual, frozen parameters ------
-    m, d, h = B * TOKENS, WIDTH, 4 * WIDTH
+    # The stage-2 shape for both activations, then ragged row counts: one
+    # row, one sentence, one and two 518 px images.
+    d, h = WIDTH, 4 * WIDTH
     ln = {"scale": 1.0 + 0.1 * rnd(d), "bias": 0.1 * rnd(d)}
     mlp = {"c_fc": {"w": rnd(d, h, std=d ** -0.5).to(bf16), "b": rnd(h, std=0.02)},
            "c_proj": {"w": rnd(h, d, std=h ** -0.5).to(bf16), "b": rnd(d, std=0.02)}}
-    x, g = rnd(m, d).to(bf16), rnd(m, d).to(bf16)
     worst = 0.0
-    for act in (gelu, quick_gelu):
+    for m, act in ((B * TOKENS, gelu), (B * TOKENS, quick_gelu), (1, gelu), (77, quick_gelu),
+                   (TOKENS, gelu), (2 * TOKENS, quick_gelu)):
+        x, g = rnd(m, d).to(bf16), rnd(m, d).to(bf16)
         out = fused_mlp.ln_mlp_residual_dx(ln, mlp, x, g, act)
         ref = fused_mlp.ln_mlp_residual_dx_reference(ln, mlp, x, g, act)
         # Held on dx - g: the residual cotangent g is the same in both.
         worst = max(worst, hold(f"B5 ln_mlp_residual_dx M={m} d={d} h={h} {act.__name__}",
                                 out, ref, g))
+        hold(f"B5 against the plain version of its stages M={m}", out,
+             fused_mlp.ln_mlp_residual_dx_stages(ln, mlp, x, g, act), g)
+        del out, ref
+    x, g = rnd(B * TOKENS, d).to(bf16), rnd(B * TOKENS, d).to(bf16)
+    m = B * TOKENS
     ref = fused_mlp.ln_mlp_residual_dx_reference(ln, mlp, x, g, gelu)
     require(torch.equal(dx_variant(ln, mlp, x, g, gelu), ref),
             "the plain dx's second transcription differs from the plain dx")
@@ -655,9 +725,18 @@ def phase_kernels():
             fused_mlp.ln_mlp_residual_dx_reference(ln, mlp, x, g, quick_gelu), ref, g)
     planted("B5 LayerNorm backward without its mean terms",
             dx_variant(ln, mlp, x, g, gelu, ln_means=False), ref, g)
+    planted("B5 act' taken without b_fc", dx_variant(ln, mlp, x, g, gelu, b_fc=False), ref, g)
+    planted("B5 GEMM 3 without its last 64-deep k-slice",
+            dx_variant(ln, mlp, x, g, gelu, drop_last_slice=True), ref, g)
+    del ref
     ms = cuda_time(lambda: fused_mlp.ln_mlp_residual_dx(ln, mlp, x, g, gelu), 10)
     plain_ms = cuda_time(
         lambda: fused_mlp.ln_mlp_residual_dx_reference(ln, mlp, x, g, gelu), 3)
+    stage_times("B5", lambda: fused_mlp.ln_mlp_residual_dx(ln, mlp, x, g, gelu),
+                {"layer_norm_rows": ("LayerNorm pass", "bytes", 2 * m * d * 2),
+                 "gemm_dual_dact": ("dual GEMM (hid, da, act')", "flop", 4 * m * d * h),
+                 "gemm_f32": ("GEMM 3 (du * ln_g)", "flop", 2 * m * d * h),
+                 "ln_dx_rows": ("row pass", "bytes", 3 * m * d * 2 + m * d * 4 + m * d * 2)})
     xg = x.detach().requires_grad_(True)
     ln_w, ln_b = ln["scale"].to(bf16), ln["bias"].to(bf16)
     b_fc, b_proj = mlp["c_fc"]["b"].to(bf16), mlp["c_proj"]["b"].to(bf16)
@@ -680,25 +759,29 @@ def phase_kernels():
         "replaces": "aa_clip_iqm_tpu/ops/pallas_mlp.py:200",
         "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
         "bound_by": b_by, "library_ms": lib_ms}
-    del x, g, out, ref, mlp, xg
+    del x, g, mlp, xg
 
     # --- B6: value-value attention backward at ViT-L/518, batch 8 ----------
     qkv = torch.randn((B, TOKENS, 3 * w), generator=gen, device=dev).to(bf16)
     d_out = torch.randn((B, TOKENS, w), generator=gen, device=dev).to(bf16)
     worst = 0.0
-    for batch, valid_len in ((B, None), (B, 1300), (2, None)):
+    for batch, valid_len in ((B, None), (B, 1300), (2, None), (2, 1300)):
+        lse = saved_lse(qkv, batch, True, valid_len)
         out = pa.flash_mha_packed_bwd(qkv[:batch], d_out[:batch], HEADS, scale, vv=True,
-                                      valid_len=valid_len)
+                                      valid_len=valid_len, lse=lse)
         ref = pa.flash_mha_packed_bwd_reference(qkv[:batch], d_out[:batch], HEADS, scale,
                                                 vv=True, valid_len=valid_len)
         require(not out[..., :2 * w].any().item(), "B6 wrote to the q or k columns")
         # Held on the value columns, dA: the q and k columns are zero in both.
-        worst = max(worst, hold(f"B6 packed_attention_vv_bwd batch={batch} "
-                                f"valid_len={valid_len} (dA)", out[..., 2 * w:],
-                                ref[..., 2 * w:]))
-        del out
-    require(torch.equal(pa.flash_mha_packed_bwd(qkv, d_out, HEADS, scale, vv=True),
-                        pa.flash_mha_packed_bwd(qkv, d_out, HEADS, scale, vv=True)),
+        what = f"B6 packed_attention_vv_bwd batch={batch} valid_len={valid_len} (dA)"
+        worst = max(worst, hold(what, out[..., 2 * w:], ref[..., 2 * w:]))
+        hold(f"{what} against the plain version of its stages", out[..., 2 * w:],
+             pa.flash_mha_packed_bwd_stages(qkv[:batch], d_out[:batch], HEADS, scale, True,
+                                            valid_len, lse)[..., 2 * w:])
+        del out, ref, lse
+    lse = saved_lse(qkv, B, True, None)
+    require(torch.equal(pa.flash_mha_packed_bwd(qkv, d_out, HEADS, scale, True, lse=lse),
+                        pa.flash_mha_packed_bwd(qkv, d_out, HEADS, scale, True, lse=lse)),
             "B6: two launches on the same inputs differ (the design has no atomics)")
     ref = pa.flash_mha_packed_bwd_reference(qkv, d_out, HEADS, scale, vv=True)
     require(torch.equal(vv_bwd_variant(qkv, d_out, HEADS, scale), ref),
@@ -707,17 +790,21 @@ def phase_kernels():
             vv_bwd_variant(qkv, d_out, HEADS, scale, key_term=False)[..., 2 * w:],
             ref[..., 2 * w:])
     del ref
-    ms = cuda_time(lambda: pa.flash_mha_packed_bwd(qkv, d_out, HEADS, scale, vv=True), 10)
+    ms = cuda_time(lambda: pa.flash_mha_packed_bwd(qkv, d_out, HEADS, scale, True, lse=lse), 10)
     plain_ms = cuda_time(
         lambda: pa.flash_mha_packed_bwd_reference(qkv, d_out, HEADS, scale, vv=True), 2)
+    stage_times("B6", lambda: pa.flash_mha_packed_bwd(qkv, d_out, HEADS, scale, True, lse=lse),
+                {"attention_bwd_dq_kernel": ("dq (D pass: S, dP; then S, dP, dQ)", "flop", 10 * n),
+                 "attention_bwd_dkv_kernel": ("dk/dv (S^T, dP^T, dV, dK)", "flop", 8 * n)})
     a = qkv[..., 2 * w:].reshape(B, TOKENS, HEADS, HD).transpose(1, 2).detach()
     a.requires_grad_(True)
     attn = F.scaled_dot_product_attention(a, a, a, scale=scale)
     g_heads = d_out.view(B, TOKENS, HEADS, HD).transpose(1, 2)
     lib_ms = cuda_time(lambda: torch.autograd.grad(attn, a, g_heads, retain_graph=True), 10)
-    flops = 10 * B * HEADS * TOKENS * TOKENS * HD
-    # The value columns and dO read once, the whole dqkv written once.
-    nbytes = (qkv.numel() // 3 + d_out.numel() + qkv.numel()) * 2
+    flops = 10 * n
+    # The value columns, dO and the log-sum-exp read once, the whole dqkv
+    # written once.
+    nbytes = (qkv.numel() // 3 + d_out.numel() + qkv.numel()) * 2 + lse.numel() * 4
     b_ms, b_by = bound(flops, nbytes)
     log(f"# B6 time: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, sdpa backward with q = k = v "
         f"{lib_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}; {flops:.3e} FLOP, {nbytes / 1e6:.1f} MB)")
@@ -727,7 +814,7 @@ def phase_kernels():
         "replaces": "aa_clip_iqm_tpu/ops/pallas_attention.py:400",
         "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
         "bound_by": b_by, "library_ms": lib_ms}
-    del qkv, d_out, a, attn, g_heads
+    del qkv, d_out, a, attn, g_heads, lse
 
     # --- B7: unpacked flash attention on (B*H, L, 64) ----------------------
     # The 518 px heads at batch 8 (the TPU's whole-row kernel region), then
@@ -949,27 +1036,69 @@ def attn_bwd_tail_unmasked(qkv, d_out, num_heads, scale):
     return flash_mha_packed_bwd_reference(padded, g, num_heads, scale)[:, :l]
 
 
-def dx_variant(ln, mlp, x, g, act, ln_means=True, eps=1e-5):
-    """The plain dx written out once more, with its planted fault: the
-    LayerNorm backward without its two mean terms. Without the fault it is
-    the plain dx."""
+def attn_bwd_stages_variant(qkv, d_out, num_heads, scale, valid_len, lse, zero_d=False,
+                            out=None):
+    """The plain stages of B4 written out once more (as
+    ``flash_mha_packed_bwd_stages`` without vv), with a planted fault: D
+    taken as zero; or, given the forward's output ``out``, D = rowsum(dO *
+    O) in place of rowsum(P * dP). Without either it is the plain stages."""
+    import torch
+
+    from aa_clip_iqm_tpu_torch.ops.packed_attention import _scores
+
+    b, l, threew = qkv.shape
+    w = threew // 3
+    hd = w // num_heads
+    dt = qkv.dtype
+
+    def heads(t):
+        return t.reshape(b, l, num_heads, hd).transpose(1, 2)
+
+    def merge(t):
+        return t.transpose(1, 2).reshape(b, l, w).to(dt)
+
+    s, k, v = _scores(qkv, num_heads, scale, False, valid_len)
+    g = heads(d_out).float()
+    p = torch.exp(s - lse.float()[..., None])
+    d_val = torch.matmul(p.to(dt).float().transpose(-1, -2), g)
+    dp = torch.matmul(g, v.float().transpose(-1, -2))
+    d_row = (0.0 if zero_d else (p * dp).sum(dim=-1, keepdim=True) if out is None
+             else (g * heads(out).float()).sum(dim=-1, keepdim=True))
+    dsb = (p * (dp - d_row)).to(dt).float()
+    d_q = torch.matmul(dsb, k.float()) * scale
+    d_k = torch.matmul(dsb.transpose(-1, -2), heads(qkv[..., :w]).float()) * scale
+    return torch.cat([merge(d_q), merge(d_k), merge(d_val)], dim=-1)
+
+
+def dx_variant(ln, mlp, x, g, act, ln_means=True, b_fc=True, drop_last_slice=False,
+               eps=1e-5):
+    """The plain dx written out once more, with its planted faults: the
+    LayerNorm backward without its two mean terms; act' taken without b_fc;
+    GEMM 3 (du = dh W_fc^T) without its last 64-deep k-slice, as a pipeline
+    that loses its last stage would. Without a fault it is the plain dx."""
     import torch
 
     from aa_clip_iqm_tpu_torch.ops import fused_mlp
+    from aa_clip_iqm_tpu_torch.ops.gemm import DACTS
 
-    dact = fused_mlp._DACTS[act]
+    dact = DACTS[act]
     dt, d = x.dtype, x.shape[-1]
     w_fc, w_proj = mlp["c_fc"]["w"].float(), mlp["c_proj"]["w"].float()
-    ch = fused_mlp.hidden_chunk(w_fc.shape[-1])
+    h = w_fc.shape[-1]
+    ch = fused_mlp.hidden_chunk(h)
     x32, g32 = x.reshape(-1, d).float(), g.reshape(-1, d).float()
     mu = x32.mean(dim=-1, keepdim=True)
     rstd = torch.rsqrt((x32 - mu).square().mean(dim=-1, keepdim=True) + eps)
     xn = (x32 - mu) * rstd
     xin = (xn * ln["scale"] + ln["bias"]).to(dt).float()
     du = torch.zeros_like(x32)
-    for j in range(0, w_fc.shape[-1], ch):
-        hid = xin @ w_fc[:, j:j + ch] + mlp["c_fc"]["b"][j:j + ch]
+    for j in range(0, h, ch):
+        hid = xin @ w_fc[:, j:j + ch]
+        if b_fc:
+            hid = hid + mlp["c_fc"]["b"][j:j + ch]
         dh = ((g32 @ w_proj[j:j + ch].t()) * dact(hid)).to(dt).float()
+        if drop_last_slice and j + ch == h:
+            dh[:, -64:] = 0
         du = du + dh @ w_fc[:, j:j + ch].t()
     dxh = du * ln["scale"]
     if ln_means:
@@ -1054,6 +1183,14 @@ class _Twins:
          clip.ln_mlp_residual_frozen) = self._saved
 
 
+def plain_attention_bwd(qkv, d_out, num_heads, scale, vv=False, valid_len=None, lse=None):
+    """The plain attention backward with the kernels' signature: it recomputes
+    the softmax and does not read the forward's log-sum-exp."""
+    from aa_clip_iqm_tpu_torch.ops.packed_attention import flash_mha_packed_bwd_reference
+
+    return flash_mha_packed_bwd_reference(qkv, d_out, num_heads, scale, vv, valid_len)
+
+
 class _PlainBackward:
     """Keep the forward kernels and route the two backward kernels' call
     sites to their plain versions, or to the given stand-in."""
@@ -1065,7 +1202,7 @@ class _PlainBackward:
         from aa_clip_iqm_tpu_torch.ops import fused_mlp, packed_attention
 
         self._saved = (packed_attention.flash_mha_packed_bwd, fused_mlp.ln_mlp_residual_dx)
-        packed_attention.flash_mha_packed_bwd = packed_attention.flash_mha_packed_bwd_reference
+        packed_attention.flash_mha_packed_bwd = plain_attention_bwd
         fused_mlp.ln_mlp_residual_dx = self._mlp_dx or fused_mlp.ln_mlp_residual_dx_reference
         return self
 
@@ -1088,9 +1225,10 @@ class _PlainVvBackward:
         kernel = self._saved = packed_attention.flash_mha_packed_bwd
         plain = self._fault or packed_attention.flash_mha_packed_bwd_reference
 
-        def route(qkv, d_out, num_heads, scale, vv=False, valid_len=None):
-            fn = plain if vv else kernel
-            return fn(qkv, d_out, num_heads, scale, vv, valid_len)
+        def route(qkv, d_out, num_heads, scale, vv=False, valid_len=None, lse=None):
+            if vv:
+                return plain(qkv, d_out, num_heads, scale, vv, valid_len)
+            return kernel(qkv, d_out, num_heads, scale, vv, valid_len, lse)
 
         packed_attention.flash_mha_packed_bwd = route
         return self

@@ -120,6 +120,99 @@ def test_bf16_vv_backward_rounds_where_the_kernel_does():
     np.testing.assert_allclose(out.float().numpy(), ref, atol=0.02 * np.abs(ref).max())
 
 
+def _lse(qkv, vv, valid_len):
+    """What the forward saves for the backward kernels: each row's
+    log-sum-exp (the plain version, as the CPU Function saves it)."""
+    t = torch.from_numpy(qkv) if isinstance(qkv, np.ndarray) else qkv
+    return pa.packed_lse_reference(t, HEADS, SCALE, vv, valid_len)
+
+
+@pytest.mark.parametrize("vv", [False, True])
+@pytest.mark.parametrize("seq_len,valid_len", [(256, None), (300, 290)])
+def test_stages_match_pallas_kernel(vv, seq_len, valid_len):
+    """The plain version of the backward kernels' stages (P from the saved
+    log-sum-exp, D summed from P dP) against the JAX Pallas backward kernels,
+    fp32: the tolerance of two summation orders."""
+    qkv, g = _inputs(seq_len + 2 * vv, seq_len)
+    kernel = jpa._flash_packed_vv_bwd_kernelized if vv else jpa._flash_packed_bwd_kernelized
+    ref = kernel(jnp.asarray(qkv), jnp.asarray(g), HEADS, SCALE, valid_len)
+    got = pa.flash_mha_packed_bwd_stages(torch.from_numpy(qkv), torch.from_numpy(g), HEADS,
+                                         SCALE, vv, valid_len, _lse(qkv, vv, valid_len))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("vv", [False, True])
+@pytest.mark.parametrize("seq_len,valid_len", [(256, None), (300, 290), (77, 1)])
+def test_stages_match_plain_backward(vv, seq_len, valid_len):
+    """The stages against the unchanged TPU-faithful plain backward: fp32 to
+    the tolerance of two summation orders; bf16 within the card's gate
+    (ops/compare.py: 6 ulps, RMS 1), each of dq, dk, dv on its own scale."""
+    from aa_clip_iqm_tpu_torch.ops.compare import BF16_MAX_ULPS, BF16_RMS_ULPS, bf16_error
+
+    qkv, g = _inputs(seq_len + 3, seq_len, batch=2)
+    w = HEADS * HD
+    for dtype in (torch.float32, torch.bfloat16):
+        tq, tg = torch.from_numpy(qkv).to(dtype), torch.from_numpy(g).to(dtype)
+        got = pa.flash_mha_packed_bwd_stages(tq, tg, HEADS, SCALE, vv, valid_len,
+                                             _lse(tq, vv, valid_len))
+        ref = pa.flash_mha_packed_bwd_reference(tq, tg, HEADS, SCALE, vv, valid_len)
+        assert got.dtype == dtype and got.shape == ref.shape
+        if dtype == torch.float32:
+            np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=RTOL, atol=ATOL)
+            continue
+        for sec in range(2 if vv else 0, 3):
+            max_ulps, rms_ulps = bf16_error(got[..., sec * w:(sec + 1) * w],
+                                            ref[..., sec * w:(sec + 1) * w])
+            assert max_ulps <= BF16_MAX_ULPS and rms_ulps <= BF16_RMS_ULPS, (sec, max_ulps)
+        if vv:
+            assert not got[..., :2 * w].any()
+
+
+@pytest.mark.parametrize("vv", [False, True])
+@pytest.mark.parametrize("seq_len,valid_len", [(256, None), (300, 290), (17, 3)])
+def test_lse_matches_jax(vv, seq_len, valid_len):
+    """The plain log-sum-exp that the forward kernel writes: logsumexp of the
+    masked scaled scores per (batch, head, query), against JAX's, fp32, 1e-6
+    relative."""
+    import jax
+
+    qkv, _ = _inputs(seq_len + 4, seq_len, batch=2)
+    b, l, _ = qkv.shape
+
+    def heads(t):
+        return t.reshape(b, l, HEADS, HD).transpose(0, 2, 1, 3)
+
+    q, k, v = (heads(jnp.asarray(t)) for t in np.split(qkv, 3, axis=-1))
+    if vv:
+        q = k = v
+    s = jnp.einsum("bhqd,bhkd->bhqk", q, k) * SCALE
+    if valid_len is not None:
+        s = s + jnp.where(jnp.arange(l) < valid_len, 0.0, -jnp.inf)
+    want = np.asarray(jax.nn.logsumexp(s, axis=-1))
+    got = pa.packed_lse_reference(torch.from_numpy(qkv), HEADS, SCALE, vv, valid_len)
+    assert got.shape == (b, HEADS, l) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("vv", [False, True])
+def test_function_saves_lse(vv):
+    """On the CPU the Function saves qkv and the rows' log-sum-exp, the
+    backward kernels' input, and its gradient is the one it gave before (the
+    plain backward), bit for bit; no kernel launches."""
+    qkv, g = _inputs(21, 130, batch=2)
+    t = torch.from_numpy(qkv).requires_grad_(True)
+    pa.reset_launches()
+    out = pa.flash_mha_packed(t, HEADS, SCALE, vv=vv, valid_len=100)
+    saved = out.grad_fn.saved_tensors
+    assert len(saved) == 2 and torch.equal(saved[0], t.detach())
+    assert torch.equal(saved[1], pa.packed_lse_reference(t.detach(), HEADS, SCALE, vv, 100))
+    (got,) = torch.autograd.grad(out, t, torch.from_numpy(g))
+    want = pa.flash_mha_packed_bwd_reference(t.detach(), torch.from_numpy(g), HEADS, SCALE,
+                                             vv, 100)
+    assert torch.equal(got, want)
+    assert (pa.LAUNCHES, pa.BWD_LAUNCHES, pa.VV_BWD_LAUNCHES) == (0, 0, 0)
+
+
 def test_surgery_tower_gradient_matches_jax():
     """The gradient of the whole surgery tower (``dual_vision_features``:
     the shared prefix through B4, the value-value blocks through B6, the

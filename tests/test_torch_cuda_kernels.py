@@ -57,6 +57,26 @@ def test_packed_attention_matches_twin(dev, dtype, heads, hd, seq_len, vv, valid
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("seq_len,vv,valid_len", [
+    (1370, False, None),
+    (1370, True, 1300),
+    (77, False, 70),
+    (17, True, None),
+])
+def test_packed_attention_lse_matches_plain(dev, dtype, seq_len, vv, valid_len):
+    """B1's optional log-sum-exp, against the plain logsumexp of the masked
+    scaled scores to 1e-5 relative; the output is the same with it on."""
+    gen = torch.Generator(device=dev).manual_seed(seq_len + 5)
+    qkv = torch.randn((2, seq_len, 3 * 4 * 64), generator=gen, device=dev).to(dtype)
+    out, lse = pa._forward(qkv, 4, 0.125, vv, valid_len, with_lse=True)
+    want = pa.packed_lse_reference(qkv, 4, 0.125, vv, valid_len)
+    torch.cuda.synchronize()
+    assert lse.shape == (2, 4, seq_len) and lse.dtype == torch.float32
+    assert ((lse - want).abs() <= 1e-5 * want.abs()).all()
+    assert torch.equal(out, pa._forward(qkv, 4, 0.125, vv, valid_len))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("m,d,h,act", [
     (1000, 1024, 4096, gelu),
     (1000, 768, 3072, quick_gelu),
@@ -206,14 +226,57 @@ def test_packed_attention_bwd_matches_plain(dev, dtype, batch, heads, seq_len, v
     gen = torch.Generator(device=dev).manual_seed(seq_len + heads)
     qkv = torch.randn((batch, seq_len, 3 * heads * hd), generator=gen, device=dev).to(dtype)
     d_out = torch.randn((batch, seq_len, heads * hd), generator=gen, device=dev).to(dtype)
+    _, lse = pa._forward(qkv, heads, hd ** -0.5, False, valid_len, with_lse=True)
+    with pytest.raises(ValueError, match="lse"):
+        pa.flash_mha_packed_bwd(qkv, d_out, heads, hd ** -0.5, valid_len=valid_len)
     before = (pa.BWD_LAUNCHES, pa.LAUNCHES)
-    out = pa.flash_mha_packed_bwd(qkv, d_out, heads, hd ** -0.5, valid_len=valid_len)
+    out = pa.flash_mha_packed_bwd(qkv, d_out, heads, hd ** -0.5, valid_len=valid_len, lse=lse)
     assert (pa.BWD_LAUNCHES, pa.LAUNCHES) == (before[0] + 1, before[1])
     ref = pa.flash_mha_packed_bwd_reference(qkv, d_out, heads, hd ** -0.5,
                                             valid_len=valid_len)
+    stages = pa.flash_mha_packed_bwd_stages(qkv, d_out, heads, hd ** -0.5, False, valid_len, lse)
     w = heads * hd
     for sec in range(3):              # dq, dk, dv each on its own scale
         _check(out[..., sec * w:(sec + 1) * w], ref[..., sec * w:(sec + 1) * w])
+        # With one key P is 1 within an fp32 rounding, so dS = P (dP - P dP)
+        # is rounding noise in the kernel and in the stages alike and exactly
+        # zero in the plain backward: only the latter is held there.
+        if valid_len != 1:
+            _check(out[..., sec * w:(sec + 1) * w], stages[..., sec * w:(sec + 1) * w])
+    assert torch.equal(out, pa.flash_mha_packed_bwd(qkv, d_out, heads, hd ** -0.5,
+                                                    valid_len=valid_len, lse=lse))
+
+
+def test_tensor_map_kernels_as_a_thread_s_first_call(dev):
+    """The kernels that encode TMA tensor maps work as the first CUDA call
+    of a new thread (an autograd worker's, say), where no context has been
+    made current yet: B4's backward and the GEMM core alone."""
+    import threading
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    qkv = torch.randn((1, 130, 3 * 128), generator=gen, device=dev).to(torch.bfloat16)
+    g = torch.randn((1, 130, 128), generator=gen, device=dev).to(torch.bfloat16)
+    _, lse = pa._forward(qkv, 2, 0.125, False, None, with_lse=True)
+    a = torch.randn((200, 256), generator=gen, device=dev).to(torch.bfloat16)
+    w = torch.randn((256, 384), generator=gen, device=dev).to(torch.bfloat16)
+    calls = {"bwd": lambda: pa.flash_mha_packed_bwd(qkv, g, 2, 0.125, lse=lse),
+             "gemm_f32": lambda: gemm.gemm_f32(a, w)}
+    got = {}
+
+    def run(name):
+        try:
+            got[name] = calls[name]()
+            torch.cuda.synchronize()
+        except RuntimeError as exc:
+            got[name] = exc
+
+    for name in calls:
+        t = threading.Thread(target=run, args=(name,))
+        t.start()
+        t.join()
+        assert not isinstance(got[name], Exception), got[name]
+    _check(got["bwd"], pa.flash_mha_packed_bwd(qkv, g, 2, 0.125, lse=lse))
+    _check(got["gemm_f32"], gemm.gemm_f32_reference(a, w))
 
 
 def test_packed_attention_autograd_on_the_card(dev):
@@ -254,15 +317,20 @@ def test_packed_attention_vv_bwd_matches_plain(dev, dtype, batch, heads, seq_len
     gen = torch.Generator(device=dev).manual_seed(seq_len + heads + 1)
     qkv = torch.randn((batch, seq_len, 3 * heads * hd), generator=gen, device=dev).to(dtype)
     d_out = torch.randn((batch, seq_len, heads * hd), generator=gen, device=dev).to(dtype)
+    _, lse = pa._forward(qkv, heads, hd ** -0.5, True, valid_len, with_lse=True)
     before = (pa.VV_BWD_LAUNCHES, pa.BWD_LAUNCHES)
-    out = pa.flash_mha_packed_bwd(qkv, d_out, heads, hd ** -0.5, vv=True, valid_len=valid_len)
+    out = pa.flash_mha_packed_bwd(qkv, d_out, heads, hd ** -0.5, vv=True, valid_len=valid_len,
+                                  lse=lse)
     assert (pa.VV_BWD_LAUNCHES, pa.BWD_LAUNCHES) == (before[0] + 1, before[1])
     ref = pa.flash_mha_packed_bwd_reference(qkv, d_out, heads, hd ** -0.5, vv=True,
                                             valid_len=valid_len)
     w = heads * hd
     assert not out[..., :2 * w].any()
     _check(out[..., 2 * w:], ref[..., 2 * w:])
-    again = pa.flash_mha_packed_bwd(qkv, d_out, heads, hd ** -0.5, vv=True, valid_len=valid_len)
+    _check(out[..., 2 * w:], pa.flash_mha_packed_bwd_stages(
+        qkv, d_out, heads, hd ** -0.5, True, valid_len, lse)[..., 2 * w:])
+    again = pa.flash_mha_packed_bwd(qkv, d_out, heads, hd ** -0.5, vv=True, valid_len=valid_len,
+                                    lse=lse)
     assert torch.equal(out, again)
 
 
@@ -380,6 +448,8 @@ def _float_case(dev, dtype, m, d, h, seed):
     (77, 256, 512, gelu),             # an odd row count
     (33, 64, 256, gelu),              # the generic kernel for bf16 too
     (5, 128, 384, quick_gelu),
+    (1, 1024, 4096, gelu),            # ragged M: one row of a 128-row tile
+    (1370, 1024, 4096, quick_gelu),   # 10 x 128 + 90
 ])
 def test_ln_mlp_residual_dx_matches_plain(dev, dtype, m, d, h, act):
     ln, mlp, x, g = _float_case(dev, dtype, m, d, h, m + d)
@@ -388,6 +458,43 @@ def test_ln_mlp_residual_dx_matches_plain(dev, dtype, m, d, h, act):
     assert (fused_mlp.DX_LAUNCHES, fused_mlp.LAUNCHES) == (before[0] + 1, before[1])
     # Held on dx - g: the residual cotangent g is the same in both.
     _check(out, fused_mlp.ln_mlp_residual_dx_reference(ln, mlp, x, g, act), g)
+    if dtype == torch.bfloat16:
+        # The stages' plain version rounds where the kernel does.
+        _check(out, fused_mlp.ln_mlp_residual_dx_stages(ln, mlp, x, g, act), g)
+
+
+@pytest.mark.parametrize("m,n,k", [
+    (128, 128, 64),                   # one tile, one k-slice
+    (1, 256, 128),                    # one row
+    (200, 384, 128),                  # ragged M, three 128-wide tiles
+    (1370, 1024, 4096),               # B5's GEMM 3 at one 518 px image
+    (777, 3072, 768),                 # the text tower's dual GEMM
+])
+def test_gemm_core_new_modes_match_plain(dev, m, n, k):
+    """The core's modes that B5 adds, alone, against their plain versions
+    (ops/gemm.py): the fp32-store epilogue with W read N-major and K-major
+    (fp32: max abs error <= 1e-4 of the largest entry, sums in another
+    order), and the dual mode with the act' epilogue (bf16 ulps)."""
+    gen = torch.Generator(device=dev).manual_seed(m + n + k + 1)
+
+    def rnd(*shape, std=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * std
+
+    a, a2 = rnd(m, k).to(torch.bfloat16), rnd(m, k).to(torch.bfloat16)
+    w = rnd(k, n, std=k ** -0.5).to(torch.bfloat16)
+    w2t = rnd(n, k, std=k ** -0.5).to(torch.bfloat16)
+    scale, b = 1.0 + 0.1 * rnd(n), rnd(n, std=0.1)
+    before = gemm.LAUNCHES
+    for tile_n in (0, 128):
+        _check(gemm.gemm_f32(a, w, scale, tile_n=tile_n), gemm.gemm_f32_reference(a, w, scale))
+        _check(gemm.gemm_f32(a, w2t, None, w_kmajor=True, tile_n=tile_n),
+               gemm.gemm_f32_reference(a, w2t, None, w_kmajor=True))
+    for act in (gelu, quick_gelu):
+        _check(gemm.gemm_dual_dact(a, w, b, a2, w2t, act),
+               gemm.gemm_dual_dact_reference(a, w, b, a2, w2t, act))
+    assert gemm.LAUNCHES == before + 6
+    with pytest.raises(ValueError, match="not supported"):
+        gemm.gemm_f32(a[:, :k - 8].contiguous(), w[:k - 8].contiguous())
 
 
 def test_fused_mlp_autograd_on_the_card(dev):

@@ -389,6 +389,47 @@ def test_cli_evaluate_end_to_end(data, tmp_path, capsys, tier):
         tcli.main(args + ["--quantize_backbone", "int8-attn"])
 
 
+# argv fragments for the model-config flags: each sets some of them away
+# from their defaults (a real model name: only configs are built).
+CONFIG_ARGVS = {
+    "defaults": [],
+    "relu": ["--relu"],
+    "adapt_weights": ["--text_adapt_weight", "0.3", "--image_adapt_weight", "0.05"],
+    "adapt_untils": ["--text_adapt_until", "2", "--image_adapt_until", "4"],
+    "iqm_sizes": ["--iqm_hidden_size", "256", "--iqm_num_layers", "3",
+                  "--iqm_num_heads", "4"],
+    "all_at_336": ["--img_size", "336", "--relu", "--text_adapt_weight", "0.2",
+                   "--image_adapt_weight", "0.15", "--text_adapt_until", "1",
+                   "--image_adapt_until", "5", "--iqm_hidden_size", "384",
+                   "--iqm_num_layers", "1", "--iqm_num_heads", "6", "--batch_size", "4"],
+}
+
+
+@pytest.mark.parametrize("argv", CONFIG_ARGVS.values(), ids=CONFIG_ARGVS.keys())
+def test_cli_evaluate_model_config_matches_jax(argv):
+    """For the same argv the port's evaluate builds the ModelConfig that the
+    JAX CLI's main builds (aa_clip_iqm_tpu/cli/evaluate.py:94-103), and both
+    parsers accept --batch_size."""
+    from aa_clip_iqm_tpu import loader as jloader
+    from aa_clip_iqm_tpu.cli import evaluate as jcli
+
+    argv = ["--model_name", "ViT-L-14-336", "--dataset", "MVTec", "--batch_size", "16", *argv]
+    jargs = jcli.build_parser().parse_args(argv)
+    targs = tcli.build_parser().parse_args(argv)
+    want = jloader.build_model_config(
+        model_name=jargs.model_name, img_size=jargs.img_size, relu=jargs.relu,
+        text_adapt_weight=jargs.text_adapt_weight,
+        image_adapt_weight=jargs.image_adapt_weight,
+        text_adapt_until=jargs.text_adapt_until,
+        image_adapt_until=jargs.image_adapt_until,
+        iqm_hidden_size=jargs.iqm_hidden_size,
+        iqm_num_layers=jargs.iqm_num_layers,
+        iqm_num_heads=jargs.iqm_num_heads)
+    got = tcli.model_config(targs)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert targs.batch_size == jargs.batch_size
+
+
 def test_bench_helpers_and_gpu_requirement():
     """The port's bench: median and spread as the JAX bench computes them, the
     twins switch restores the kernels' call sites, and without a GPU it

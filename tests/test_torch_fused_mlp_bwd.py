@@ -180,3 +180,82 @@ def test_int8_function_straight_through_gradients_match_jax():
         ref = np.asarray(ref, np.float32).reshape(got.shape)
         np.testing.assert_allclose(got.float().numpy(), ref,
                                    atol=0.02 * np.abs(ref).max())
+
+
+# --------------------------------------------------------------------------
+# The dx kernel's four stages on the GEMM core, and the core's new modes
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("act", ACTS)
+@pytest.mark.parametrize("m,d,h", [(1, 128, 256), (77, 128, 384), (130, 256, 512)])
+def test_dx_stages_compose_to_plain_dx_fp32(act, m, d, h):
+    """fp32: the stages (LN pass, dual GEMM, GEMM 3 times ln_g, row pass)
+    give the plain dx up to summation order: 1e-5 of the largest entry."""
+    ln, mlp, x, g = _case(4, m, d, h)
+    args = (_to_torch(ln), _to_torch(mlp), torch.from_numpy(x), torch.from_numpy(g),
+            tlayers.ACTIVATIONS[act])
+    ref = fused_mlp.ln_mlp_residual_dx_reference(*args).numpy()
+    out = fused_mlp.ln_mlp_residual_dx_stages(*args).numpy()
+    np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-5 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("act", ACTS)
+@pytest.mark.parametrize("m,d,h", [(77, 128, 384), (130, 256, 512)])
+def test_dx_stages_round_as_plain_dx_bf16(act, m, d, h):
+    """bf16: the stages round where the plain dx rounds (xin and dh once, du
+    never), so they agree within the card's gate (ops/compare.py: 6 ulps,
+    RMS 1), held on dx - g; and both stay within 0.05 of JAX's Pallas dx
+    kernel (interpret mode), its own test's tolerance."""
+    from aa_clip_iqm_tpu_torch.ops.compare import BF16_MAX_ULPS, BF16_RMS_ULPS, bf16_error
+
+    ln, mlp, x, g = _case(5, m, d, h)
+    tx, tg = torch.from_numpy(x).bfloat16(), torch.from_numpy(g).bfloat16()
+    args = (_to_torch(ln), _torch_mlp(mlp, torch.bfloat16), tx, tg, tlayers.ACTIVATIONS[act])
+    ref = fused_mlp.ln_mlp_residual_dx_reference(*args)
+    out = fused_mlp.ln_mlp_residual_dx_stages(*args)
+    assert out.dtype == torch.bfloat16 and out.shape == tx.shape
+    max_ulps, rms_ulps = bf16_error(out, ref, tg)
+    assert max_ulps <= BF16_MAX_ULPS and rms_ulps <= BF16_RMS_ULPS, (max_ulps, rms_ulps)
+    _, vjp = jax.vjp(lambda xx: pm.ln_mlp_residual_frozen(
+        _to_jax(ln), _to_jax(mlp), xx, jlayers.ACTIVATIONS[act]), jnp.asarray(x, jnp.bfloat16))
+    (jref,) = vjp(jnp.asarray(g, jnp.bfloat16))
+    np.testing.assert_allclose(out.float().numpy(), np.asarray(jref, np.float32),
+                               rtol=0.05, atol=0.05)
+
+
+@pytest.mark.parametrize("act", ACTS)
+def test_core_new_modes_plain_versions(act):
+    """The plain versions of the core's modes that B5 adds, on the CPU: the
+    K-major product equals the N-major one on the transposed weight bit for
+    bit, the fp32 epilogue keeps the scaled sum unrounded, the dual mode is
+    (a2 W2^T) * act'(a W + b) rounded once; the wrappers take the plain
+    versions on CPU tensors and launch nothing."""
+    from aa_clip_iqm_tpu_torch.ops import gemm
+
+    rng = np.random.default_rng(6)
+    a, a2 = (torch.from_numpy(rng.standard_normal((33, 128)).astype(np.float32))
+             for _ in range(2))
+    w = torch.from_numpy((rng.standard_normal((128, 256)) * 0.1).astype(np.float32))
+    w2t = torch.from_numpy((rng.standard_normal((256, 128)) * 0.1).astype(np.float32))
+    b, scale = (torch.from_numpy(rng.standard_normal(256).astype(np.float32)) for _ in range(2))
+    assert torch.equal(gemm.gemm_f32_reference(a, w2t, scale, w_kmajor=True),
+                       gemm.gemm_f32_reference(a, w2t.t().contiguous(), scale))
+    f32 = gemm.gemm_f32_reference(a, w, scale)
+    assert f32.dtype == torch.float32
+    np.testing.assert_allclose(f32.numpy(), (a.double() @ w.double() * scale.double()).numpy(),
+                               rtol=1e-5, atol=1e-5)
+    dact = gemm.DACTS[tlayers.ACTIVATIONS[act]]
+    want = (a2.double() @ w2t.double().t()) * dact((a.double() @ w.double()) + b.double())
+    ab, a2b, wb, w2b = (t.bfloat16() for t in (a, a2, w, w2t))
+    dual = gemm.gemm_dual_dact_reference(ab, wb, b, a2b, w2b, tlayers.ACTIVATIONS[act])
+    assert dual.dtype == torch.bfloat16
+    np.testing.assert_allclose(dual.float().numpy(), (
+        (a2b.double() @ w2b.double().t()) * dact(ab.double() @ wb.double() + b.double())
+    ).to(torch.bfloat16).float().numpy(), rtol=8e-3, atol=1e-6)
+    fp32 = gemm.gemm_dual_dact_reference(a, w, b, a2, w2t, tlayers.ACTIVATIONS[act])
+    np.testing.assert_allclose(fp32.numpy(), want.numpy(), rtol=1e-5, atol=1e-5)
+    gemm.reset_launches()
+    assert torch.equal(gemm.gemm_f32(a, w2t, scale, w_kmajor=True),
+                       gemm.gemm_f32_reference(a, w2t, scale, w_kmajor=True))
+    assert torch.equal(gemm.gemm_dual_dact(ab, wb, b, a2b, w2b, tlayers.ACTIVATIONS[act]), dual)
+    assert gemm.LAUNCHES == 0
