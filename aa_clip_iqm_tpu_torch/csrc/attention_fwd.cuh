@@ -1,56 +1,78 @@
 // The attention forward tile walk shared by the packed-qkv kernel (B1,
-// csrc/packed_attention.cu) and the unpacked flash kernel (B7,
-// csrc/flash_attention.cu): the two differ only in where a block's q, k, v
-// rows and output rows live, which a Layout of strides says. Each source
-// instantiates the kernels with a tag type named after itself, so that a
-// profiler tells the two apart by the kernel's name.
+// csrc/packed_attention.cu), the unpacked flash kernel (B7,
+// csrc/flash_attention.cu) and the attention stage of the fused half-block
+// (B8, csrc/ln_attn_residual.cu): the three differ only in where a block's
+// q, k, v rows and output rows live, which a Layout of strides says. Each
+// source instantiates the kernels with a tag type named after itself, so
+// that a profiler tells them apart by the kernel's name.
 //
 // What it computes, per (batch b = blockIdx.z, head h = blockIdx.y):
 //   S = scale * Q K^T in fp32, keys >= n_keys masked to -inf,
 //   O = softmax(S) V, with the probabilities rounded to V's dtype before the
-//   P.V product and fp32 accumulation; where the caller gives an lse buffer
-//   (B, H, L) fp32, also each row's log-sum-exp m + log(l) of the scaled
-//   scores, which the backward (B4/B6) rebuilds P from. B7 and B8 pass null.
+//   P.V product and fp32 accumulation, O rounded once; where the caller
+//   gives an lse buffer (B, H, L) fp32, also each row's natural-log
+//   log-sum-exp m + log(l) of the scaled scores, which the backward (B4/B6)
+//   rebuilds P from. B7 and B8 pass null.
 //
-// The design: the (L, L) score matrix never leaves the SM. One thread block
-// (4 warps) owns a 64-row query tile of one head and walks the keys in 64-key
-// tiles with an online softmax (fp32 running max, sum and accumulator), so
-// device memory sees one read of q/k/v per tile and one write of the output.
-// Two paths:
-//   - bf16: the FlashAttention-2 layout. Each warp keeps its 16 query rows'
-//     Q operands, scores, probabilities and output accumulator in registers;
-//     both products are mma.sync m16n8k16 with operands from ldmatrix; row
-//     statistics need two quad shuffles; the next K/V tile loads by cp.async
-//     while this one multiplies;
-//   - fp32: plain FMAs over shared-memory tiles, so it keeps full fp32
-//     precision.
-// The ragged last key tile and keys >= n_keys are masked; rows past L are
-// zero-filled on load and never written, so no caller pads. Head width 64
-// only (ViT-L's 16 heads). Not yet done: TMA, wgmma, warp specialisation.
+// What bounds it on the H100: 4 L^2 hd FLOP per (batch, head) against
+// 4 L hd elements of traffic, compute-bound at every length on the path
+// (at ViT-L/518 batch 8, 6.15e10 FLOP: 62 us at 989 TFLOP/s dense bf16,
+// against 27 us of traffic). At hd = 64 the softmax's exponentials are as
+// many per tile as the products' multiply-adds are per 64 lanes: a
+// 128 x 128 tile's 16,384 exponentials take the SM's 16 MUFU lanes about
+// 1,024 cycles, as long as its two products take the tensor cores. So the
+// exponentials have to run under the products.
+//
+// What the design does about it. Two paths:
+//   - bf16: one block of three warpgroups owns 128 query rows of one head
+//     and walks the keys in 128-key tiles (the TPU online kernel's blk_k,
+//     pallas_attention.py:157) with an online softmax. A producer warp
+//     loads the block's Q box once and streams K and V boxes through a
+//     4-stage mbarrier ring by TMA (3-D tensor maps over (planes, L,
+//     columns), 128-byte swizzle, so rows past L read as zero and no caller
+//     pads; tiles wholly past n_keys are never loaded). Two consumer
+//     warpgroups own 64 query rows each: S = Q K^T is wgmma m64n128k16 with
+//     both operands in shared memory (K read K-major), 64 fp32 registers a
+//     thread; P is converted in registers into the A fragments of
+//     O += P V, wgmma m64n64k16 with V read N-major through the transpose
+//     bit, O 32 fp32 registers a thread. Each warpgroup pipelines its own
+//     tiles: the scores of tile t are issued together with P(t-1) V(t-1),
+//     so tile t's exponentials (ex2.approx of one FMA, scale log2 e folded
+//     in) run while the tensor cores do P(t-1) V(t-1); and the two
+//     warpgroups take turns to issue their products (ping-pong on two
+//     named barriers), so that one's softmax also runs under the other's
+//     products. The row max and sum are quad shuffles; only the last key
+//     tile is masked (a copy of the step of its own, so that no branch sits
+//     between a register-operand wgmma's issue and its wait);
+//   - fp32: one 128-thread block per 64-row query tile, 64-key tiles, plain
+//     FMAs over shared-memory tiles, so it keeps full fp32 precision.
+// Rows past L are never written, nor their log-sum-exp. Head width 64 only
+// (ViT-L's 16 heads).
 //
 // Online softmax differs from the TPU kernels' whole-row softmax only by fp32
 // rounding of the running rescale, plus the bf16 rounding of P (taken against
-// the running instead of the final row max).
+// the running instead of the final row max); over 128-key tiles it is the
+// TPU online kernel's own (_flash_kernel, pallas_attention.py:45), block for
+// block.
 #pragma once
 
 #include <math.h>
 
+#include <type_traits>
+
 #include "common.cuh"
+#include "gemm_sm90.cuh"
 
 namespace aaclip {
 namespace attn_fwd {
 namespace {  // each source that includes this is a library of its own
 
 constexpr int HD = 64;                 // head width
-constexpr int BQ = 64;                 // query rows per block
-constexpr int BK = 64;                 // keys per tile
-constexpr int NWARPS = 4;              // each warp owns 16 query rows
-constexpr int NTHREADS = NWARPS * 32;
-constexpr int ROWS_PER_WARP = BQ / NWARPS;
 
 // Where block (head blockIdx.y, batch blockIdx.z) finds its rows: row r of q
 // (k, v alike) at q + z * batch + y * head + r * ld, row r of the output at
-// out + z * out_batch + y * out_head + r * out_ld (elements).
+// out + z * out_batch + y * out_head + r * out_ld (elements). Heads lie
+// side by side in a row (head < ld: B1, B8) or one plane each (B7).
 struct Layout {
   long batch, head;
   int ld;
@@ -66,177 +88,256 @@ __device__ __forceinline__ long out_offset(const Layout& lay) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 path: FlashAttention-2 register layout.
+// bf16 path: wgmma fed by TMA, warp-specialised.
 // ---------------------------------------------------------------------------
 
-constexpr int LD = HD + 8;             // tile row stride (16-byte padding)
-constexpr size_t TILE = round_up(sizeof(bf16) * 64 * LD, 128);
-constexpr size_t MMA_SMEM = 5 * TILE;  // Q, then K[2], then V[2]
+constexpr int TQ = 128;                // query rows per block: two warpgroups of 64
+constexpr int TK = 128;                // keys per tile
+constexpr int WG_THREADS = 384;        // consumer warpgroups 0 and 1, producer 2
+constexpr int STAGES = 4;
+constexpr int BOX = TQ * HD * 2;       // bytes of one 128-row box of Q, K or V
+constexpr int RING = BOX;              // the ring follows the Q box
+constexpr int BARS = RING + STAGES * 2 * BOX;
+constexpr int WG_SMEM = BARS + (2 * STAGES + 1) * 8 + 1024;   // + 1 KB to align
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.69314718055994531f;
 
-// Start copying rows [r0, r0 + 64) of one head's (L, HD) panel into shared
-// memory; rows at or past L are zero-filled.
-__device__ __forceinline__ void load_panel(bf16* dst, const bf16* src, int row_stride, int r0,
-                                           int L) {
-  constexpr int VPR = HD / 8;          // 16-byte vectors per row
-  for (int i = threadIdx.x; i < 64 * VPR; i += NTHREADS) {
-    const int r = i / VPR, c = (i % VPR) * 8;
-    const bool real = r0 + r < L;
-    cp_async16(dst + r * LD + c, real ? src + (long)(r0 + r) * row_stride + c : src,
-               real ? 16 : 0);
-  }
+// The tensor maps of q, k and v, each over (planes, L, columns) in 128 x 64
+// boxes, and where block (h, b)'s boxes are: columns from h * col_step,
+// plane b * zstep + h * ystep.
+struct Maps {
+  CUtensorMap q, k, v;
+  int col_step, ystep, zstep;
+};
+
+// 2^x in one MUFU instruction (ex2.approx, relative error about 2^-22,
+// subnormal results flushed to zero): P is rounded to bf16 before it is
+// used, and keeps it by far.
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 template <class Tag>
-__global__ void __launch_bounds__(NTHREADS)
-attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, bf16* __restrict__ out,
-                     float* __restrict__ lse, Layout lay, int L, int n_keys, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  auto kbuf = [&](int i) { return reinterpret_cast<bf16*>(smem + (1 + i) * TILE); };
-  auto vbuf = [&](int i) { return reinterpret_cast<bf16*>(smem + (3 + i) * TILE); };
+__global__ void __launch_bounds__(WG_THREADS, 1)
+attention_wgmma_kernel(const __grid_constant__ Maps maps, bf16* __restrict__ out,
+                       float* __restrict__ lse, Layout lay, int L, int n_keys, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  // The boxes start on 1024-byte swizzle atoms (TMA writes, wgmma reads).
+  unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  auto kbox = [&](int s) { return smem + RING + s * 2 * BOX; };
+  auto vbox = [&](int s) { return smem + RING + s * 2 * BOX + BOX; };
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + BARS);
+  uint64_t* empty = full + STAGES;
+  uint64_t* q_full = empty + STAGES;
+  const int q0 = blockIdx.x * TQ;
+  const int wg = threadIdx.x / 128;
+  const int ntiles = (n_keys + TK - 1) / TK;
 
-  const int q0 = blockIdx.x * BQ;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4, tq = lane % 4;
-  const long in_off = in_offset(lay);
-  const bf16* ksrc = k + in_off;
-  const bf16* vsrc = v + in_off;
-  const int ntiles = (n_keys + BK - 1) / BK;
-
-  load_panel(Qs, q + in_off, lay.ld, q0, L);
-  load_panel(kbuf(0), ksrc, lay.ld, 0, L);
-  load_panel(vbuf(0), vsrc, lay.ld, 0, L);
-  cp_async_commit();
-
-  unsigned qa[HD / 16][4];             // this warp's Q rows as A operands
-  float o[HD / 8][4];                  // output accumulator, n8 tiles over hd
-#pragma unroll
-  for (int n = 0; n < HD / 8; ++n)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) o[n][i] = 0.f;
-  // Running max and (per-lane partial) sum of rows g and g + 8.
-  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
-
-  for (int kt = 0; kt < ntiles; ++kt) {
-    if (kt + 1 < ntiles) {
-      load_panel(kbuf((kt + 1) & 1), ksrc, lay.ld, (kt + 1) * BK, L);
-      load_panel(vbuf((kt + 1) & 1), vsrc, lay.ld, (kt + 1) * BK, L);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      gemm90::mbar_init(&full[s], 1);
+      gemm90::mbar_init(&empty[s], 2);  // one arrival per consumer warpgroup
     }
-    __syncthreads();
-    if (kt == 0) {
-#pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk)
-        ldsm_x4(qa[kk], tile_lane_row(Qs + warp * 16 * LD + kk * 16, LD));
-    }
-    const bf16* Kt = kbuf(kt & 1);
-    const bf16* Vt = vbuf(kt & 1);
+    gemm90::mbar_init(q_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-    // S = Q K^T: 8 n8 tiles of keys. K is [key][d], so its plain 8x8
-    // matrices are B operands; lane l addresses key (l % 8) + 8 (l / 16),
-    // column block (l / 8) % 2.
-    float sc[BK / 8][4];
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) sc[n][i] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-#pragma unroll
-      for (int j = 0; j < BK / 16; ++j) {
-        unsigned kb[4];
-        ldsm_x4(kb, Kt + (j * 16 + lane % 8 + (lane / 16) * 8) * LD + kk * 16 +
-                        ((lane / 8) % 2) * 8);
-        mma16816(sc[2 * j], qa[kk], kb[0], kb[1]);
-        mma16816(sc[2 * j + 1], qa[kk], kb[2], kb[3]);
+  if (wg == 2) {
+    // Producer: the Q box, then tile t's K and V boxes into stage t % STAGES
+    // once the consumers have released its use t - STAGES.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 256) {
+      const int col = blockIdx.y * maps.col_step;
+      const int plane = blockIdx.z * maps.zstep + blockIdx.y * maps.ystep;
+      gemm90::mbar_expect_tx(q_full, BOX);
+      gemm90::tma_load_3d(smem, maps.q, q_full, col, q0, plane);
+      for (int t = 0; t < ntiles; ++t) {
+        const int s = t % STAGES;
+        gemm90::mbar_wait(&empty[s], ((t / STAGES) & 1) ^ 1);
+        gemm90::mbar_expect_tx(&full[s], 2 * BOX);
+        gemm90::tma_load_3d(kbox(s), maps.k, &full[s], col, t * TK, plane);
+        gemm90::tma_load_3d(vbox(s), maps.v, &full[s], col, t * TK, plane);
       }
     }
+    return;
+  }
 
-    // Scale, mask, online softmax. The lane holds columns 2tq, 2tq+1 of each
-    // n8 tile for rows g (i = 0, 1) and g + 8 (i = 2, 3); a row lives in a quad.
-    const int k0 = kt * BK;
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int lane = threadIdx.x % 32, tq = lane % 4;
+  // This thread's rows: row0 (h = 0) and row0 + 8 (h = 1). Accumulator
+  // register 4i + 2h + e holds column 8i + 2 tq + e of row row0 + 8h.
+  const int row0 = q0 + wg * 64 + (threadIdx.x % 128 / 32) * 16 + lane / 4;
+  const float scale2 = scale * LOG2E;
+  const unsigned char* qa = smem + wg * 64 * 128;   // this warpgroup's Q rows
+  float o[32], sc[64];
+  unsigned pa[8][4];                   // P of the previous tile, as A fragments
+  // Running max of S scale log2 e and this lane's part of the running sum.
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  gemm90::fence_regs(o);
+
+  auto fence_p = [&]() {
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) gemm90::fence_regs(pa[kk]);
+  };
+  // S = Q K^T of the tile in stage s, issued as one commit group.
+  auto issue_scores = [&](int s) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) sc[i] = 0.f;
+    gemm90::fence_regs(sc);
+    gemm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      gemm90::wgmma_bf16<128, 0>(sc, gemm90::smem_desc(qa + kk * 32, 16, 1024),
+                                 gemm90::smem_desc(kbox(s) + kk * 32, 16, 1024));
+    gemm90::wgmma_commit();
+  };
+  // O += P V of the tile in stage s, issued as one commit group; pa is read
+  // until the group has been waited for.
+  auto issue_pv = [&](int s) {
+    gemm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < TK / 16; ++kk)
+      gemm90::wgmma_bf16_rs<1>(o, pa[kk], gemm90::smem_desc(vbox(s) + kk * 16 * 128, BOX, 1024));
+    fence_p();
+    gemm90::wgmma_commit();
+  };
+  // The online softmax of the scores in sc (keys from k0): the new running
+  // max m of S scale log2 e, alpha = 2^(m_old - m_new) per row, the sum
+  // rescaled and P = 2^(S scale log2 e - m_new) (one FMA and one ex2) in
+  // place of the scores. MASKED: the last tile, where keys >= n_keys (past
+  // L: zero-filled rows) are masked.
+  auto softmax = [&](int k0, float (&alpha)[2], auto masked) {
+    if constexpr (decltype(masked)::value) {
+#pragma unroll
+      for (int i = 0; i < 64; ++i)
+        if (k0 + 8 * (i / 4) + 2 * tq + (i & 1) >= n_keys) sc[i] = -INFINITY;
+    }
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int n = 0; n < BK / 8; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int key = k0 + n * 8 + 2 * tq + (i & 1);
-        const float s = key < n_keys ? sc[n][i] * scale : -INFINITY;
-        sc[n][i] = s;
-        mx[i / 2] = fmaxf(mx[i / 2], s);
-      }
-    float alpha[2];
+    for (int i = 0; i < 64; ++i) mx[(i / 2) & 1] = fmaxf(mx[(i / 2) & 1], sc[i]);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
       // k0 < n_keys, so key k0 is real and the row max is finite.
-      const float m_new = fmaxf(m_run[r], mx[r]);
-      alpha[r] = expf(m_run[r] - m_new);
+      const float m_new = fmaxf(m_run[r], mx[r] * scale2);
+      alpha[r] = fast_exp2(m_run[r] - m_new);
       m_run[r] = m_new;
       l_run[r] *= alpha[r];
     }
-    // P = exp(S - m), rounded to bf16 as the A operands of P.V: key group
-    // kk2 takes n8 tiles 2kk2 (registers 0, 1) and 2kk2 + 1 (registers 2, 3).
-    unsigned pa[BK / 16][4];
 #pragma unroll
-    for (int n = 0; n < BK / 8; ++n) {
-      const float p0 = expf(sc[n][0] - m_run[0]), p1 = expf(sc[n][1] - m_run[0]);
-      const float p2 = expf(sc[n][2] - m_run[1]), p3 = expf(sc[n][3] - m_run[1]);
-      l_run[0] += p0 + p1;
-      l_run[1] += p2 + p3;
-      pa[n / 2][(n % 2) * 2] = pack_bf16x2(p0, p1);
-      pa[n / 2][(n % 2) * 2 + 1] = pack_bf16x2(p2, p3);
+    for (int i = 0; i < 64; ++i) {
+      sc[i] = fast_exp2(fmaf(sc[i], scale2, -m_run[(i / 2) & 1]));
+      l_run[(i / 2) & 1] += sc[i];
     }
+  };
+  // P rounded to bf16 as the A fragments of the k-steps over the tile's
+  // keys: k-step kk takes column groups 2kk and 2kk + 1.
+  auto to_fragments = [&]() {
 #pragma unroll
-    for (int n = 0; n < HD / 8; ++n) {
-      o[n][0] *= alpha[0];
-      o[n][1] *= alpha[0];
-      o[n][2] *= alpha[1];
-      o[n][3] *= alpha[1];
-    }
+    for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) pa[kk][j] = pack_bf16x2(sc[8 * kk + 2 * j], sc[8 * kk + 2 * j + 1]);
+  };
+  // Every row, moved or not (alpha = 1 exactly where the max stayed put):
+  // a warp that skipped the rescale where no row's max moved measured
+  // slower.
+  auto rescale = [&](const float (&alpha)[2]) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[i] *= alpha[(i / 2) & 1];
+  };
+  // Ping-pong: the two consumer warpgroups take turns to issue their
+  // products (named barrier 1 + wg: this warpgroup's 128 threads wait and
+  // the other's 128 arrive), so that one warpgroup's softmax runs while the
+  // other's products do. Warpgroup 0 takes the first turn.
+  auto my_turn = [&]() { asm volatile("bar.sync %0, 256;\n" ::"r"(1 + wg)); };
+  auto your_turn = [&]() { asm volatile("bar.arrive %0, 256;\n" ::"r"(2 - wg)); };
+  auto release = [&](int s) {
+    if (threadIdx.x % 128 == 0) gemm90::mbar_arrive(&empty[s]);
+  };
+  // Step t >= 1: S(t) and P(t-1) V(t-1) issued together; tile t's softmax
+  // while P(t-1) V(t-1) runs; then O rescaled to tile t's max and P(t) made
+  // the next step's operand.
+  auto step = [&](int t, auto masked) {
+    const int s = t % STAGES, prev = (t - 1) % STAGES;
+    gemm90::mbar_wait(&full[s], (t / STAGES) & 1);
+    my_turn();
+    issue_scores(s);
+    issue_pv(prev);
+    your_turn();
+    gemm90::wgmma_wait<1>();
+    gemm90::fence_regs(sc);
+    float alpha[2];
+    softmax(t * TK, alpha, masked);
+    gemm90::wgmma_wait<0>();
+    gemm90::fence_regs(o);
+    fence_p();
+    release(prev);
+    rescale(alpha);
+    to_fragments();
+  };
 
-    // O += P V: V is [key][d], its transposed 8x8 matrices are B operands.
-#pragma unroll
-    for (int kk2 = 0; kk2 < BK / 16; ++kk2) {
-#pragma unroll
-      for (int j = 0; j < HD / 16; ++j) {
-        unsigned vb[4];
-        ldsm_x4_t(vb, tile_lane_row(Vt + kk2 * 16 * LD + j * 16, LD));
-        mma16816(o[2 * j], pa[kk2], vb[0], vb[1]);
-        mma16816(o[2 * j + 1], pa[kk2], vb[2], vb[3]);
-      }
-    }
-    __syncthreads();  // this tile's buffers are refilled next iteration
+  using Plain = std::integral_constant<bool, false>;
+  using Masked = std::integral_constant<bool, true>;
+  gemm90::mbar_wait(q_full, 0);
+  if (wg == 1) your_turn();
+  {
+    gemm90::mbar_wait(&full[0], 0);
+    my_turn();
+    issue_scores(0);
+    your_turn();
+    gemm90::wgmma_wait<0>();
+    gemm90::fence_regs(sc);
+    float alpha[2];                    // O is zero: nothing to rescale
+    if (ntiles == 1)
+      softmax(0, alpha, Masked{});
+    else
+      softmax(0, alpha, Plain{});
+    to_fragments();
   }
+  for (int t = 1; t < ntiles - 1; ++t) step(t, Plain{});
+  if (ntiles > 1) step(ntiles - 1, Masked{});
+  my_turn();
+  issue_pv((ntiles - 1) % STAGES);
+  your_turn();
+  gemm90::wgmma_wait<0>();
+  gemm90::fence_regs(o);
+  fence_p();
+  release((ntiles - 1) % STAGES);
 
-  // Normalise and write rows g and g + 8.
+  // Normalise and write rows row0 and row0 + 8 straight from registers.
   bf16* dst_base = out + out_offset(lay);
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
     l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
-    const int row = q0 + warp * 16 + g + r * 8;
+    const int row = row0 + 8 * r;
     if (row >= L) continue;
     if (lse != nullptr && tq == 0)
-      lse[((long)blockIdx.z * gridDim.y + blockIdx.y) * L + row] = m_run[r] + logf(l_run[r]);
+      lse[((long)blockIdx.z * gridDim.y + blockIdx.y) * L + row] = m_run[r] * LN2 + logf(l_run[r]);
     const float inv = 1.f / l_run[r];
     bf16* dst = dst_base + (long)row * lay.out_ld + 2 * tq;
 #pragma unroll
-    for (int n = 0; n < HD / 8; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(dst + n * 8) =
-          __floats2bfloat162_rn(o[n][2 * r] * inv, o[n][2 * r + 1] * inv);
+    for (int i = 0; i < HD / 8; ++i)
+      *reinterpret_cast<__nv_bfloat162*>(dst + i * 8) =
+          __floats2bfloat162_rn(o[4 * i + 2 * r] * inv, o[4 * i + 2 * r + 1] * inv);
   }
 }
 
 // ---------------------------------------------------------------------------
 // fp32 path: shared-memory tiles and plain FMAs.
 // ---------------------------------------------------------------------------
+
+constexpr int BQ = 64;                 // query rows per block
+constexpr int BK = 64;                 // keys per tile
+constexpr int NWARPS = 4;              // each warp owns 16 query rows
+constexpr int NTHREADS = NWARPS * 32;
+constexpr int ROWS_PER_WARP = BQ / NWARPS;
 
 constexpr int LDT = HD + 4;            // q/k/v tile and accumulator row stride
 constexpr int LDS = BK + 4;            // score / probability row stride
@@ -351,28 +452,52 @@ attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// The three tensor maps of a bf16 call, each over (planes, L, columns):
+// with heads side by side in a row (lay.head < lay.ld) a plane is a batch item
+// and block (h, b) reads columns from h * HD of plane b; with one plane per
+// head (B7: batch 1, or planes heads apart) it reads plane b * heads + h.
+// Row strides and pointers must suit TMA: 16-byte multiples.
+inline cudaError_t make_maps(Maps* maps, const bf16* q, const bf16* k, const bf16* v,
+                             const Layout& lay, int L, int heads, int batch) {
+  const bool cols = lay.head < lay.ld;
+  if (lay.ld % 8 || (!cols && batch > 1 && lay.batch != heads * lay.head) ||
+      gemm90::misaligned(q) || gemm90::misaligned(k) || gemm90::misaligned(v))
+    return cudaErrorInvalidValue;
+  const int dim0 = cols ? heads * HD : HD, planes = cols ? batch : heads * batch;
+  const long ld2 = cols ? lay.batch : lay.head;
+  cudaError_t err = gemm90::tensor_map_3d(&maps->q, q, dim0, L, planes, lay.ld, ld2, TQ);
+  if (err == cudaSuccess) err = gemm90::tensor_map_3d(&maps->k, k, dim0, L, planes, lay.ld, ld2, TK);
+  if (err == cudaSuccess) err = gemm90::tensor_map_3d(&maps->v, v, dim0, L, planes, lay.ld, ld2, TK);
+  maps->col_step = cols ? HD : 0;
+  maps->ystep = cols ? 0 : 1;
+  maps->zstep = cols ? 1 : heads;
+  return err;
+}
+
 // Launch the kernel for `dtype` (0 = float32, 1 = bfloat16) over a grid of
-// 64-row query tiles x heads x batch items; lse (batch, heads, L) fp32 or
-// null. Returns the launch's error.
+// query tiles (128 rows for bf16, 64 for fp32) x heads x batch items; lse
+// (batch, heads, L) fp32 or null. Returns the launch's error.
 template <class Tag>
 cudaError_t launch(int dtype, const void* q, const void* k, const void* v, void* out,
                    float* lse, const Layout& lay, int L, int heads, int batch, int n_keys,
                    float scale, cudaStream_t stream) {
-  const dim3 grid((L + BQ - 1) / BQ, heads, batch);
   cudaError_t err;
   if (dtype == 1) {
-    err = cudaFuncSetAttribute(attention_mma_kernel<Tag>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)MMA_SMEM);
+    Maps maps;
+    err = make_maps(&maps, static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                    static_cast<const bf16*>(v), lay, L, heads, batch);
+    if (err == cudaSuccess) err = gemm90::set_smem(attention_wgmma_kernel<Tag>, WG_SMEM);
     if (err != cudaSuccess) return err;
-    attention_mma_kernel<Tag><<<grid, NTHREADS, MMA_SMEM, stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<bf16*>(out), lse, lay, L, n_keys, scale);
+    const dim3 grid((L + TQ - 1) / TQ, heads, batch);
+    attention_wgmma_kernel<Tag><<<grid, WG_THREADS, WG_SMEM, stream>>>(
+        maps, static_cast<bf16*>(out), lse, lay, L, n_keys, scale);
     return cudaGetLastError();
   }
   if (dtype == 0) {
     err = cudaFuncSetAttribute(attention_f32_kernel<Tag>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)F32_SMEM);
     if (err != cudaSuccess) return err;
+    const dim3 grid((L + BQ - 1) / BQ, heads, batch);
     attention_f32_kernel<Tag><<<grid, NTHREADS, F32_SMEM, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(out), lse, lay, L, n_keys, scale);

@@ -16,11 +16,13 @@
 // 3.35 TB/s); at 518 px (BH = 128, L = 1370) 6.15e10 FLOP (62 us) against
 // 90 MB (27 us): compute-bound at both.
 //
-// What the design does about it: the online-softmax tile walk of
-// attention_fwd.cuh, B1's (csrc/packed_attention.cu) own, on the plain
-// layout: row stride hd, one (batch, head) per grid row. The (L, L) scores
-// never leave the SM; the ragged key tail is masked in the kernel, so the
-// caller pads nothing.
+// What the design does about it: the tile walk of attention_fwd.cuh, B1's
+// (csrc/packed_attention.cu) own, on the plain layout: one plane of rows
+// (stride hd) per (batch, head). For bf16, 128-query blocks walk 128-key
+// tiles (the TPU online kernel's blk_k) on wgmma, fed by a TMA ring under a
+// producer warp, with the exponentials of one tile run under the previous
+// tile's P.V; the (L, L) scores never leave the SM, and TMA's zero fill and
+// the kernel's mask of the last tile stand in for padding.
 
 #include <stdint.h>
 
@@ -28,7 +30,7 @@
 
 using namespace aaclip;
 
-// The kernels' tag: their names read attention_mma_kernel<flash_attention>.
+// The kernels' tag: their names read attention_wgmma_kernel<flash_attention>.
 struct flash_attention;
 
 // q, k, v, out: contiguous (BH, L, head_dim). dtype: 0 = float32,

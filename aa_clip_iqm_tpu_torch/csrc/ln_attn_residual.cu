@@ -34,8 +34,9 @@
 //      ncols columns; for vv only the value section, a tensor map over
 //      W_qkv[:, 2d:3d] with row stride 3d;
 //   3. attention with B1's tile walk (csrc/attention_fwd.cuh: one block per
-//      64-query tile and head, online softmax over 64-key tiles, keys >=
-//      valid_len masked): O, rounded to bf16, over xn, which launch 2 has read;
+//      128-query tile and head on wgmma, online softmax over 128-key tiles
+//      streamed by TMA, keys >= valid_len masked): O, rounded to bf16, over
+//      xn, which launch 2 has read;
 //   4. the out-projection GEMM with epilogue (b): x + (O . W_out + b_out).
 // Head width 64 only (ViT-L: 16 heads of 64), d a multiple of 128.
 

@@ -15,10 +15,13 @@
 // a layer is 4*B*H*L^2*hd = 6.2e10 FLOP (62 us at 989 TFLOP/s dense bf16)
 // against ~90 MB of qkv/out traffic (27 us at 3.35 TB/s): compute-bound.
 //
-// What the design does about it: the online-softmax tile walk of
-// attention_fwd.cuh (shared with the unpacked kernel, csrc/flash_attention.cu)
-// keeps the (L, L) scores on the SM, with mma.sync for bf16 and FMAs for
-// fp32; here the layout is the packed one: row stride 3W, head stride hd.
+// What the design does about it: the tile walk of attention_fwd.cuh
+// (shared with the unpacked kernel, csrc/flash_attention.cu, and B8's
+// attention stage) keeps the (L, L) scores on the SM: for bf16, 128-query
+// blocks on wgmma walk 128-key tiles streamed by TMA (3-D tensor maps over
+// (B, L, W) from each section's first column, so a head is a 64-column box),
+// for fp32 plain FMAs; here the layout is the packed one: row stride 3W,
+// head stride hd.
 
 #include <stdint.h>
 
@@ -26,7 +29,7 @@
 
 using namespace aaclip;
 
-// The kernels' tag: their names read attention_mma_kernel<packed_attention>.
+// The kernels' tag: their names read attention_wgmma_kernel<packed_attention>.
 struct packed_attention;
 
 // dtype: 0 = float32, 1 = bfloat16. lse: (B, H, L) fp32, written only when

@@ -26,7 +26,8 @@ import torch
 from . import _build
 from .gemm import gemm_bias_act_reference, gemm_bias_residual_reference
 from .layers import layer_norm, linear
-from .packed_attention import flash_mha_packed_reference, mha_reference
+from .packed_attention import (flash_mha_packed_reference, flash_mha_packed_stages,
+                               mha_reference)
 
 #: Kernel calls since the last reset (one per call; each call is four launches).
 LAUNCHES = 0
@@ -74,19 +75,27 @@ def ln_attn_residual_reference(ln_params, attn_params, x, num_heads: int,
 
 
 def ln_attn_residual_stages(ln_params, attn_params, x, num_heads: int, vv: bool = False,
-                            valid_len=None, eps: float = 1e-5):
+                            valid_len=None, eps: float = 1e-5, walk: bool = False):
     """The plain version of the four stages the kernel runs, each rounded
     where it rounds: LN(x), the projection (for ``vv`` only its value
     section), the attention output, and the output once after the residual,
     the bias and the fp32 out-projection. The first three equal the twin's
     intermediates bit for bit; the twin rounds the out-projection before the
-    residual add."""
+    residual add. With ``walk`` the attention output is that of the plain
+    version of the attention kernel's tile walk
+    (:func:`.packed_attention.flash_mha_packed_stages`), as the kernel's
+    third launch computes it."""
     d = x.shape[-1]
     qkv_p, out_p = attn_params["qkv"], attn_params["out"]
     w, b = (qkv_p["w"][:, 2 * d:], qkv_p["b"][2 * d:]) if vv else (qkv_p["w"], qkv_p["b"])
     proj = gemm_bias_act_reference(layer_norm(ln_params, x, eps=eps), w, b)
     q, k, v = (proj,) * 3 if vv else proj.split(d, dim=-1)
-    o = mha_reference(q, k, v, num_heads, (d // num_heads) ** -0.5, valid_len)
+    scale = (d // num_heads) ** -0.5
+    if walk:
+        o = flash_mha_packed_stages(torch.cat([q, k, v], dim=-1), num_heads, scale, False,
+                                    valid_len)
+    else:
+        o = mha_reference(q, k, v, num_heads, scale, valid_len)
     return gemm_bias_residual_reference(o, out_p["w"], out_p["b"], x)
 
 

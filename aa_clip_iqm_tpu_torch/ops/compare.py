@@ -23,6 +23,11 @@ import torch
 #: Tolerances for a bf16 kernel against its bf16 twin.
 BF16_MAX_ULPS = 6.0
 BF16_RMS_ULPS = 1.0
+#: The attention forward against the plain version of its own tile walk
+#: (``flash_attention.attention_fwd_stages``), which rounds P against the
+#: same running max: the largest error allowed there, a tighter hold that a
+#: wrong rescale fails.
+WALK_MAX_ULPS = 2.0
 
 
 def bf16_ulp(t):

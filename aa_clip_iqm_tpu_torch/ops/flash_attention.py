@@ -19,6 +19,7 @@ there is no backward kernel to port.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -33,6 +34,10 @@ BLK_Q = 128
 ROW_KERNEL_MAX_TOKENS = 8192
 #: The one head width the kernel is built for (ViT-L: 16 heads of 64).
 HEAD_DIM = 64
+#: Keys per tile of the bf16 walk (``csrc/attention_fwd.cuh``): the TPU
+#: online kernel's ``blk_k`` (pallas_attention.py:157).
+TILE_KEYS = 128
+LOG2E = 1.4426950408889634
 
 #: Kernel launches since the last reset (incremented once per launch).
 LAUNCHES = 0
@@ -51,6 +56,40 @@ def flash_mha_reference(q, k, v, scale: float):
     from .attention import sdpa  # here: attention imports this module
 
     return sdpa(q, k, v, scale)
+
+
+def attention_fwd_stages(q, k, v, scale: float, n_keys=None, with_lse: bool = False):
+    """The plain version of the kernel's tile walk (``csrc/attention_fwd.cuh``,
+    the bf16 path shared by B1, B7 and B8's attention stage), rounding where
+    it rounds: over tiles of ``TILE_KEYS`` keys, S = Q K^T in fp32 with keys
+    at or past ``n_keys`` masked, the running max m of S scale log2 e,
+    alpha = 2^(m_old - m_new), P = 2^(S scale log2 e - m_new) summed in fp32 and
+    rounded to the input dtype before P V (fp32 accumulation, O rescaled by
+    alpha), and O times 1 / l rounded once. q, k, v (BH, L, hd) -> (BH, L,
+    hd); with ``with_lse`` also each row's natural-log log-sum-exp m ln 2 +
+    log(l), (BH, L) fp32."""
+    bh, l, hd = q.shape
+    n = l if n_keys is None else min(int(n_keys), l)
+    dt = q.dtype
+    qf, kf, vf = q.float(), k.float(), v.float()
+    m = torch.full((bh, l, 1), float("-inf"), device=q.device)
+    lsum = torch.zeros((bh, l, 1), device=q.device)
+    acc = torch.zeros((bh, l, hd), device=q.device)
+    for k0 in range(0, n, TILE_KEYS):
+        k1 = min(k0 + TILE_KEYS, l)   # the kernel's rows past L are masked keys
+        s = torch.matmul(qf, kf[:, k0:k1].transpose(-1, -2))
+        if k1 > n:
+            s[..., n - k0:] = float("-inf")
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True) * (scale * LOG2E))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s * (scale * LOG2E) - m_new)
+        lsum = lsum * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + torch.matmul(p.to(dt).float(), vf[:, k0:k1])
+        m = m_new
+    out = (acc * (1.0 / lsum)).to(dt)
+    if with_lse:
+        return out, (m * math.log(2.0) + torch.log(lsum)).squeeze(-1)
+    return out
 
 
 def _lib():

@@ -12,8 +12,9 @@ tensor :func:`flash_mha_packed` runs the plain twin
 launch a kernel or raise. When qkv needs a gradient the forward also returns
 each row's log-sum-exp (:func:`packed_lse_reference` is its plain version),
 and the backward kernels rebuild P from it instead of sweeping the keys for
-the softmax statistics; :func:`flash_mha_packed_bwd_stages` is the plain
-version of that backward, rounding where the kernels round.
+the softmax statistics. :func:`flash_mha_packed_stages` and
+:func:`flash_mha_packed_bwd_stages` are the plain versions of the forward's
+tile walk and of the backward, rounding where the kernels round.
 
 The tower is not padded: the kernels mask the ragged key tail themselves, and
 still honour an explicit ``valid_len`` (keys at or past it are masked).
@@ -25,6 +26,7 @@ import ctypes
 import torch
 
 from . import _build
+from .flash_attention import attention_fwd_stages
 
 #: Forward-kernel launches since the last reset (incremented once per launch).
 LAUNCHES = 0
@@ -100,6 +102,27 @@ def packed_lse_reference(qkv, num_heads: int, scale: float, vv: bool = False,
     forward kernel writes for the backward: qkv (B, L, 3W) -> (B, H, L)
     fp32."""
     return torch.logsumexp(_scores(qkv, num_heads, scale, vv, valid_len)[0], dim=-1)
+
+
+def flash_mha_packed_stages(qkv, num_heads: int, scale: float, vv: bool = False,
+                            valid_len=None, with_lse: bool = False):
+    """The plain version of the forward kernel's tile walk on the packed
+    layout (:func:`..flash_attention.attention_fwd_stages` per head, keys at
+    or past ``valid_len`` masked): qkv (B, L, 3W) -> (B, L, W); with
+    ``with_lse`` also the rows' log-sum-exp (B, H, L) fp32."""
+    b, l, threew = qkv.shape
+    w = threew // 3
+    hd = w // num_heads
+
+    def heads(t):
+        return t.reshape(b, l, num_heads, hd).transpose(1, 2).reshape(b * num_heads, l, hd)
+
+    q, k, v = (heads(t) for t in qkv.split(w, dim=-1))
+    if vv:
+        q = k = v
+    out, lse = attention_fwd_stages(q, k, v, scale, valid_len, with_lse=True)
+    out = out.reshape(b, num_heads, l, hd).transpose(1, 2).reshape(b, l, w)
+    return (out, lse.reshape(b, num_heads, l)) if with_lse else out
 
 
 def _lib():

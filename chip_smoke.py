@@ -9,14 +9,18 @@ line):
   2. build: compiles csrc/*.cu with nvcc (one process per source, in
      parallel) and prints the seconds, each kernel's registers and spills,
      and the HGMMA (wgmma) and UTMALDG (TMA load) instructions in the SASS
-     of the four sources on wgmma (B2, B8 and B5 on the GEMM core, B4/B6),
-     which must not be zero;
+     of the six sources on wgmma (B2, B8 and B5 on the GEMM core, B4/B6, and
+     B1 and B7 on the attention walk), which must not be zero;
   3. kernels: each hand-written kernel (five forward, three backward) against
      its plain PyTorch twin at the main path's shapes in bf16 (largest and
      RMS error in bf16 ulps, ops/compare.py), with CUDA-event times of the
      kernel, the twin and one stock PyTorch call as a yardstick, and the
-     bound from bytes and operations; B1's optional log-sum-exp against the
-     plain logsumexp (1e-5 relative); B2, B8, B5 and B4/B6 also against the
+     bound from bytes and operations (with TFLOP/s for the attention
+     kernels); B1's optional log-sum-exp against the plain logsumexp (1e-5
+     relative to max(|lse|, 1)); B1, B7 and B8 also against the plain
+     version of the attention walk (within 2 ulps), at valid_len None, 1300
+     and 1 and at lengths about its 128-row and 128-key tiles (1, 63, 64,
+     127, 129, 1370, 8282); B2, B8, B5 and B4/B6 also against the
      plain version of their stages, B2 and B5 at ragged row counts, B4/B6 at
      batch 8 and 1 (B6: 2) with valid_len None and 1300, fed the forward's
      log-sum-exp, with each stage's device time
@@ -30,7 +34,9 @@ line):
      over the keys that valid_len masks; for the MLP dx the wrong activation
      derivative, the LayerNorm backward without its mean terms, act' taken
      without b_fc and GEMM 3 without its last 64-deep k-slice; for the
-     unpacked flash attention the key tail unmasked; for the value-value
+     unpacked flash attention the key tail unmasked; for the attention
+     walk the running rescale skipped and the ragged key tile left unmasked
+     past valid_len 1300; for the value-value
      backward the key term dropped; for the fused attention half-block the
      out bias dropped and, under vv, q read from the q section) must fail
      the same check;
@@ -112,9 +118,10 @@ SOURCES = ("packed_attention", "ln_mlp_residual", "ln_mlp_residual_int8",
            "packed_attention_bwd", "ln_mlp_residual_dx", "flash_attention",
            "ln_attn_residual")
 # The sources whose kernels run on wgmma fed by TMA (csrc/gemm_sm90.cuh):
-# the GEMM core's B2, B8 and B5, and B4/B6's tile kernels.
+# the GEMM core's B2, B8 and B5, B4/B6's tile kernels, and the attention
+# forward walk of B1 and B7 (csrc/attention_fwd.cuh, B8's attention stage).
 GEMM_SOURCES = ("ln_mlp_residual", "ln_attn_residual", "ln_mlp_residual_dx",
-                "packed_attention_bwd")
+                "packed_attention_bwd", "packed_attention", "flash_attention")
 KERNELS = ("packed_attention", "ln_mlp_residual", "ln_mlp_residual_int8",
            "packed_attention_bwd", "ln_mlp_residual_dx", "packed_attention_vv_bwd",
            "flash_attention", "ln_attn_residual")
@@ -302,22 +309,48 @@ def ptxas_entries(build_log):
     return [(n[:100], regs, spill) for n, (_, regs, spill) in zip(names, entries)]
 
 
-def hold(what, out, ref, base=None):
-    """Hold a bf16 kernel output to its twin's (ops/compare.py); returns the
-    max abs error."""
+def hold(what, out, ref, base=None, max_tol=None):
+    """Hold a bf16 kernel output to its twin's (ops/compare.py), the largest
+    error to ``max_tol`` ulps where given; returns the max abs error."""
     import torch
 
     from aa_clip_iqm_tpu_torch.ops.compare import BF16_MAX_ULPS, BF16_RMS_ULPS, bf16_error
 
+    max_tol = BF16_MAX_ULPS if max_tol is None else max_tol
     torch.cuda.synchronize()
     max_ulps, rms_ulps = bf16_error(out, ref, base)
     err = (out.float() - ref.float()).abs().max().item()
-    log(f"# {what}: max_abs_err {err:.3e}; ulps max {max_ulps:.2f} (tol {BF16_MAX_ULPS}), "
+    log(f"# {what}: max_abs_err {err:.3e}; ulps max {max_ulps:.2f} (tol {max_tol}), "
         f"rms {rms_ulps:.3f} (tol {BF16_RMS_ULPS})")
     require(torch.isfinite(out).all().item(), f"{what}: output not finite")
-    require(max_ulps <= BF16_MAX_ULPS and rms_ulps <= BF16_RMS_ULPS,
+    require(max_ulps <= max_tol and rms_ulps <= BF16_RMS_ULPS,
             f"{what}: kernel disagrees with twin")
     return err
+
+
+def hold_walk(what, out, stages, base=None):
+    """Hold an attention forward to the plain version of its tile walk
+    (flash_attention.attention_fwd_stages), within WALK_MAX_ULPS."""
+    from aa_clip_iqm_tpu_torch.ops.compare import WALK_MAX_ULPS
+
+    return hold(what, out, stages, base, WALK_MAX_ULPS)
+
+
+def hold_lse(what, lse, want):
+    """B1's log-sum-exp against the plain logsumexp, to LSE_TOL relative to
+    max(|want|, 1): a row whose only key is real (valid_len 1) has the one
+    scaled score as its log-sum-exp, which can lie near 0, and the tensor
+    cores' fp32 sum of its 64 products is exact only to the products' scale."""
+    import torch
+
+    torch.cuda.synchronize()
+    rel = ((lse - want).abs() / want.abs().clamp_min(1.0)).max().item()
+    log(f"# {what}: max error relative to max(|lse|, 1) {rel:.3e} (tol {LSE_TOL:.0e})")
+    require(torch.isfinite(lse).all().item() and rel <= LSE_TOL, f"{what}: off by {rel}")
+
+
+def tflops(flops, ms):
+    return f"{flops / ms / 1e9:.1f} TFLOP/s"
 
 
 def planted(what, fault, ref, base=None):
@@ -454,24 +487,45 @@ def phase_kernels():
     scale = HD ** -0.5
     worst = 0.0
     for vv in (False, True):
-        for valid_len in (None, 1360):
+        for valid_len in (None, 1300, 1):
+            what = f"B1 packed_attention vv={vv} valid_len={valid_len}"
             out = pa.flash_mha_packed(qkv, HEADS, scale, vv=vv, valid_len=valid_len)
             ref = pa.flash_mha_packed_reference(qkv, HEADS, scale, vv=vv,
                                                 valid_len=valid_len)
-            worst = max(worst, hold(f"B1 packed_attention vv={vv} valid_len={valid_len}",
-                                    out, ref))
+            worst = max(worst, hold(what, out, ref))
             # The log-sum-exp that the backward reads, asked for on the same
-            # launch, against the plain logsumexp; the output must not move.
+            # launch, against the plain logsumexp, and the output against
+            # the plain version of the tile walk; the output must not move
+            # with the log-sum-exp on.
             out_l, lse = pa._forward(qkv, HEADS, scale, vv, valid_len, with_lse=True)
-            want = pa.packed_lse_reference(qkv, HEADS, scale, vv, valid_len)
-            rel = ((lse - want).abs() / want.abs()).max().item()
-            log(f"# B1 log-sum-exp vv={vv} valid_len={valid_len}: max relative error "
-                f"{rel:.3e} (tol {LSE_TOL:.0e})")
-            require(rel <= LSE_TOL, f"B1 log-sum-exp off by {rel}")
+            stages = pa.flash_mha_packed_stages(qkv, HEADS, scale, vv, valid_len)
+            hold_walk(f"{what} against the plain version of its walk", out, stages)
+            hold_lse(f"B1 log-sum-exp vv={vv} valid_len={valid_len}", lse,
+                     pa.packed_lse_reference(qkv, HEADS, scale, vv, valid_len))
             require(torch.equal(out_l, out), "B1's output moved with the log-sum-exp on")
-            del out_l, lse, want
+            if not vv and valid_len == 1300:
+                require(torch.equal(walk_variant(qkv, HEADS, scale, False, 1300), stages),
+                        "the walk's second transcription differs from the plain walk")
+                planted("B1 running rescale skipped (alpha taken as 1)",
+                        walk_variant(qkv, HEADS, scale, False, 1300, skip_rescale=True), stages)
+                planted("B1 ragged key tile left unmasked past valid_len 1300",
+                        walk_variant(qkv, HEADS, scale, False, 1300, unmask_ragged=True), stages)
+            del out_l, lse, stages
     planted("B1 key tail unmasked", attn_tail_unmasked(qkv, HEADS, scale),
             pa.flash_mha_packed_reference(qkv, HEADS, scale))
+    # Lengths about the walk's 128-row query and 128-key tiles, one item of
+    # 16 heads each, up to the 1274 px tower's.
+    for l, vv, valid_len in ((1, False, None), (63, True, 1), (64, False, None),
+                             (127, True, None), (129, False, 1), (8282, True, 1300)):
+        x = torch.randn((1, l, 3 * WIDTH), generator=gen, device=dev).to(bf16)
+        what = f"B1 packed_attention L={l} vv={vv} valid_len={valid_len}"
+        out, lse = pa._forward(x, HEADS, scale, vv, valid_len, with_lse=True)
+        hold(what, out, pa.flash_mha_packed_reference(x, HEADS, scale, vv, valid_len))
+        hold_walk(f"{what} against the plain version of its walk", out,
+                  pa.flash_mha_packed_stages(x, HEADS, scale, vv, valid_len))
+        hold_lse(f"B1 log-sum-exp L={l}", lse,
+                 pa.packed_lse_reference(x, HEADS, scale, vv, valid_len))
+        del x, out, lse
     ms = cuda_time(lambda: pa.flash_mha_packed(qkv, HEADS, scale), 20)
     lse_ms = cuda_time(lambda: pa._forward(qkv, HEADS, scale, False, None, with_lse=True), 20)
     plain_ms = cuda_time(lambda: pa.flash_mha_packed_reference(qkv, HEADS, scale), 3)
@@ -480,16 +534,17 @@ def phase_kernels():
     flops = 4 * B * HEADS * TOKENS * TOKENS * HD
     nbytes = qkv.numel() * 2 + B * TOKENS * WIDTH * 2
     b_ms, b_by = bound(flops, nbytes)
-    log(f"# B1 time: kernel {ms:.3f} ms (with the log-sum-exp written {lse_ms:.3f} ms), twin "
-        f"{plain_ms:.3f} ms, sdpa {lib_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}; {flops:.3e} "
-        f"FLOP, {nbytes / 1e6:.1f} MB)")
+    log(f"# B1 time: kernel {ms:.3f} ms ({tflops(flops, ms)}; with the log-sum-exp written "
+        f"{lse_ms:.3f} ms), twin {plain_ms:.3f} ms, sdpa {lib_ms:.3f} ms "
+        f"({tflops(flops, lib_ms)}), bound {b_ms:.4f} ms ({b_by}; {flops:.3e} FLOP, "
+        f"{nbytes / 1e6:.1f} MB)")
     results["packed_attention"] = {
         "name": "packed_attention", "route": "cuda",
         "source": "aa_clip_iqm_tpu_torch/csrc/packed_attention.cu",
         "replaces": "aa_clip_iqm_tpu/ops/pallas_attention.py:88",
         "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
         "bound_by": b_by, "library_ms": lib_ms}
-    del qkv, q, k, v, out, ref
+    del qkv, q, k, v, ref
 
     # --- B2: fused LN -> MLP -> residual ---------------------------------
     worst, timing = 0.0, None
@@ -820,37 +875,40 @@ def phase_kernels():
     # The 518 px heads at batch 8 (the TPU's whole-row kernel region), then
     # ViT-L at 1274 px, batch 1 (past ROW_KERNEL_MAX_TOKENS: its online
     # kernel); the latter is the main path's shape and the row's timing.
+    # Then lengths about the walk's 128-row and 128-key tiles, through the
+    # kernel entry (flash_mha sends fewer than 256 tokens to the plain sdpa).
     worst, timing = 0.0, None
-    for bh, l in ((B * HEADS, TOKENS), (HEADS, HR_TOKENS)):
+    for bh, l in ((B * HEADS, TOKENS), (HEADS, HR_TOKENS), (HEADS, 1), (HEADS, 63), (HEADS, 64),
+                  (HEADS, 127), (HEADS, 129)):
         q, k, v = (torch.randn((1, bh, l, HD), generator=gen, device=dev).to(bf16)
                    for _ in range(3))
-        out = fa.flash_mha(q, k, v, scale)
+        what = f"B7 flash_attention BH={bh} L={l}"
+        out = fa.flash_mha(q, k, v, scale) if l >= 2 * fa.BLK_Q else fa._forward(
+            q[0], k[0], v[0], scale)[None]
         ref = fa.flash_mha_reference(q, k, v, scale)
-        worst = max(worst, hold(f"B7 flash_attention BH={bh} L={l}", out, ref))
+        worst = max(worst, hold(what, out, ref))
+        hold_walk(f"{what} against the plain version of its walk", out,
+                  fa.attention_fwd_stages(q[0], k[0], v[0], scale)[None])
         if l == TOKENS:
             planted("B7 key tail unmasked", flash_tail_unmasked(q, k, v, scale), ref)
-            del out, ref
-            # The TPU's whole-row region (B7a): timed here, held above.
-            ms = cuda_time(lambda: fa.flash_mha(q, k, v, scale), 10)
-            plain_ms = cuda_time(lambda: fa.flash_mha_reference(q, k, v, scale), 2)
-            lib_ms = cuda_time(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale), 10)
-            b_ms, b_by = bound(4 * bh * l * l * HD, 4 * bh * l * HD * 2)
-            log(f"# B7a time at BH={bh} L={l}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-                f"sdpa {lib_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+        del out, ref
+        if l < TOKENS:
             del q, k, v
             continue
-        del out, ref
         ms = cuda_time(lambda: fa.flash_mha(q, k, v, scale), 10)
         plain_ms = cuda_time(lambda: fa.flash_mha_reference(q, k, v, scale), 2)
         lib_ms = cuda_time(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale), 10)
         flops = 4 * bh * l * l * HD
         nbytes = 4 * bh * l * HD * 2
         b_ms, b_by = bound(flops, nbytes)
-        log(f"# B7 time at BH={bh} L={l}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, sdpa "
-            f"{lib_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}; {flops:.3e} FLOP, "
+        log(f"# {'B7a' if l == TOKENS else 'B7b'} time at BH={bh} L={l}: kernel {ms:.3f} ms "
+            f"({tflops(flops, ms)}), plain {plain_ms:.3f} ms, sdpa {lib_ms:.3f} ms "
+            f"({tflops(flops, lib_ms)}), bound {b_ms:.4f} ms ({b_by}; {flops:.3e} FLOP, "
             f"{nbytes / 1e6:.1f} MB)")
-        timing = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                  "library_ms": lib_ms}
+        if l == HR_TOKENS:
+            # The TPU's online region (B7b), the main path's: the row's timing.
+            timing = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                      "library_ms": lib_ms}
         del q, k, v
     results["flash_attention"] = {
         "name": "flash_attention", "route": "cuda",
@@ -876,9 +934,23 @@ def phase_kernels():
                 hold(f"B8 against the plain version of its stages B={batch} vv={vv} "
                      f"valid_len={valid_len}", out,
                      ab.ln_attn_residual_stages(ln, attn_p, x, HEADS, vv, valid_len), x)
+                hold_walk(f"B8 against its stages with the attention walk B={batch} vv={vv} "
+                          f"valid_len={valid_len}", out,
+                          ab.ln_attn_residual_stages(ln, attn_p, x, HEADS, vv, valid_len,
+                                                     walk=True), x)
                 if valid_len is None:
                     refs[vv] = ref
                 del out, ref
+    # Lengths about the walk's 128-row and 128-key tiles.
+    for l, vv, valid_len in ((1, False, None), (63, True, None), (64, False, 1), (127, True, 1),
+                             (129, False, None)):
+        xr = rnd(2, l, d).to(bf16)
+        out = ab.ln_attn_residual(ln, attn_p, xr, HEADS, vv, valid_len)
+        what = f"B8 ln_attn_residual B=2 L={l} vv={vv} valid_len={valid_len}"
+        hold(what, out, ab.ln_attn_residual_reference(ln, attn_p, xr, HEADS, vv, valid_len), xr)
+        hold_walk(f"{what} against its stages with the attention walk", out,
+                  ab.ln_attn_residual_stages(ln, attn_p, xr, HEADS, vv, valid_len, walk=True), xr)
+        del xr, out
     planted("B8 out bias dropped", block_no_out_bias(ln, attn_p, x, HEADS), refs[False], x)
     planted("B8 q read from the q section under vv", block_q_from_q_section(ln, attn_p, x, HEADS),
             refs[True], x)
@@ -889,7 +961,7 @@ def phase_kernels():
     stage_times("B8", lambda: ab.ln_attn_residual(ln, attn_p, x, HEADS),
                 {"layer_norm_rows": ("LayerNorm pass", "bytes", 2 * m * d * 2),
                  "gemm_bias_act": ("qkv GEMM (+ b_qkv)", "flop", 2 * m * d * 3 * d),
-                 "attention_mma_kernel": ("attention (B1's loop)", "flop",
+                 "attention_wgmma_kernel": ("attention (B1's walk)", "flop",
                                           4 * B * HEADS * TOKENS * TOKENS * HD),
                  "gemm_bias_residual": ("out-projection GEMM (+ b_out, x)", "flop",
                                         2 * m * d * d)})
@@ -907,9 +979,9 @@ def phase_kernels():
     flops = 8 * B * TOKENS * d * d + 4 * B * HEADS * TOKENS * TOKENS * HD
     nbytes = 2 * x.numel() * 2 + 4 * d * d * 2 + 6 * d * 4
     b_ms, b_by = bound(flops, nbytes)
-    log(f"# B8 time: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, layer_norm-addmm-sdpa-addmm "
-        f"{lib_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}; {flops:.3e} FLOP, "
-        f"{nbytes / 1e6:.1f} MB)")
+    log(f"# B8 time: kernel {ms:.3f} ms ({tflops(flops, ms)}), plain {plain_ms:.3f} ms, "
+        f"layer_norm-addmm-sdpa-addmm {lib_ms:.3f} ms ({tflops(flops, lib_ms)}), bound "
+        f"{b_ms:.4f} ms ({b_by}; {flops:.3e} FLOP, {nbytes / 1e6:.1f} MB)")
     results["ln_attn_residual"] = {
         "name": "ln_attn_residual", "route": "cuda",
         "source": "aa_clip_iqm_tpu_torch/csrc/ln_attn_residual.cu",
@@ -1109,6 +1181,52 @@ def dx_variant(ln, mlp, x, g, act, ln_means=True, b_fc=True, drop_last_slice=Fal
 def dx_no_ln_means(ln, mlp, x, g, act, eps=1e-5):
     """Planted fault for the end-to-end gradient check."""
     return dx_variant(ln, mlp, x, g, act, ln_means=False, eps=eps)
+
+
+def walk_variant(qkv, num_heads, scale, vv=False, valid_len=None, skip_rescale=False,
+                 unmask_ragged=False):
+    """The plain version of the attention walk (``flash_mha_packed_stages``)
+    written out once more, with its planted faults: the running rescale
+    skipped (alpha taken as 1), or the ragged last key tile left unmasked
+    (keys past valid_len, and past L the zero rows the kernel reads there,
+    counted as keys). Without a fault it is the plain walk."""
+    import torch
+
+    from aa_clip_iqm_tpu_torch.ops.flash_attention import LOG2E, TILE_KEYS
+
+    b, l, threew = qkv.shape
+    w = threew // 3
+    hd = w // num_heads
+    bh = b * num_heads
+    dt = qkv.dtype
+
+    def heads(t):
+        return t.reshape(b, l, num_heads, hd).transpose(1, 2).reshape(bh, l, hd)
+
+    q, k, v = (heads(t) for t in qkv.split(w, dim=-1))
+    if vv:
+        q = k = v
+    qf, kf, vf = q.float(), k.float(), v.float()
+    if unmask_ragged:
+        pad = kf.new_zeros((bh, -l % TILE_KEYS, hd))
+        kf, vf = torch.cat([kf, pad], dim=1), torch.cat([vf, pad], dim=1)
+    n = l if valid_len is None else min(valid_len, l)
+    m = torch.full((bh, l, 1), float("-inf"), device=qkv.device)
+    lsum = torch.zeros((bh, l, 1), device=qkv.device)
+    acc = torch.zeros((bh, l, hd), device=qkv.device)
+    for k0 in range(0, n, TILE_KEYS):
+        k1 = min(k0 + TILE_KEYS, kf.shape[1])
+        s = torch.matmul(qf, kf[:, k0:k1].transpose(-1, -2))
+        if k1 > n and not unmask_ragged:
+            s[..., n - k0:] = float("-inf")
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True) * (scale * LOG2E))
+        alpha = torch.ones_like(m) if skip_rescale else torch.exp2(m - m_new)
+        p = torch.exp2(s * (scale * LOG2E) - m_new)
+        lsum = lsum * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + torch.matmul(p.to(dt).float(), vf[:, k0:k1])
+        m = m_new
+    out = (acc * (1.0 / lsum)).to(dt)
+    return out.reshape(b, num_heads, l, hd).transpose(1, 2).reshape(b, l, w)
 
 
 def attn_tail_unmasked(qkv, num_heads, scale, vv=False, valid_len=None):

@@ -262,3 +262,22 @@ def test_stages_bf16_match_twin_and_jax(b, l, d, heads, vv, valid):
     n = valid if valid is not None else l
     np.testing.assert_allclose(out.float().numpy()[:, :n], np.asarray(ref, np.float32)[:, :n],
                                rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("b,l,d,heads,vv,valid", STAGE_CASES)
+def test_stages_with_the_walk_match_twin(b, l, d, heads, vv, valid):
+    """With ``walk`` the attention stage is the plain version of the
+    attention kernel's tile walk: in bf16 its output is held to the twin
+    within the kernels' gate, and its attention output equals the packed
+    walk's on the projection."""
+    ln_n, attn_n = _params(l + d + heads + 1, d)
+    ln, attn = _torch(ln_n), _torch(attn_n)
+    xt = torch.from_numpy(_x(l + b + 1, b, l, d)).to(torch.bfloat16)
+    out = tpb.ln_attn_residual_stages(ln, attn, xt, heads, vv, valid, walk=True)
+    twin = tpb.ln_attn_residual_reference(ln, attn, xt, heads, vv, valid)
+    assert out.dtype == torch.bfloat16 and bf16_close(out, twin, xt), bf16_error(out, twin, xt)
+    xn, proj, _, _ = _stages(ln, attn, xt, heads, vv, valid)
+    o = tpa.flash_mha_packed_stages(torch.cat([proj] * 3, dim=-1) if vv else proj, heads,
+                                    (d // heads) ** -0.5, False, valid)
+    want = tgemm.gemm_bias_residual_reference(o, attn["out"]["w"], attn["out"]["b"], xt)
+    assert torch.equal(out, want)

@@ -10,7 +10,8 @@ import torch
 
 from aa_clip_iqm_tpu_torch.ops import attn_block, flash_attention as fa, fused_mlp, gemm, quant
 from aa_clip_iqm_tpu_torch.ops import packed_attention as pa
-from aa_clip_iqm_tpu_torch.ops.compare import BF16_MAX_ULPS, BF16_RMS_ULPS, bf16_error
+from aa_clip_iqm_tpu_torch.ops.compare import (BF16_MAX_ULPS, BF16_RMS_ULPS, WALK_MAX_ULPS,
+                                                bf16_error)
 from aa_clip_iqm_tpu_torch.ops.layers import gelu, quick_gelu
 
 pytestmark = pytest.mark.cuda
@@ -27,14 +28,21 @@ def dev():
     return torch.device("cuda")
 
 
-def _check(out, ref, base=None):
+def _check(out, ref, base=None, max_ulps_tol=BF16_MAX_ULPS):
     torch.cuda.synchronize()
     if ref.dtype == torch.bfloat16:
         max_ulps, rms_ulps = bf16_error(out, ref, base)
-        assert max_ulps <= BF16_MAX_ULPS and rms_ulps <= BF16_RMS_ULPS, (max_ulps, rms_ulps)
+        assert max_ulps <= max_ulps_tol and rms_ulps <= BF16_RMS_ULPS, (max_ulps, rms_ulps)
     else:
         err = (out.float() - ref.float()).abs().max().item()
         assert err <= F32_TOL * max(1.0, ref.float().abs().max().item()), err
+
+
+def _check_walk(out, stages, base=None):
+    """The attention forward against the plain version of its tile walk
+    (ops/flash_attention.attention_fwd_stages): in bf16 within 2 ulps, a
+    tighter hold than the twin's that a wrong rescale fails."""
+    _check(out, stages, base, max_ulps_tol=WALK_MAX_ULPS)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -45,6 +53,15 @@ def _check(out, ref, base=None):
     (4, 64, 17, False, None),
     (2, 64, 200, True, None),
     (4, 64, 65, False, 1),
+    # Ragged lengths about the 128-row query and 128-key tiles of the walk.
+    (4, 64, 1, False, None),
+    (4, 64, 63, True, None),
+    (4, 64, 64, False, 1),
+    (4, 64, 127, False, None),
+    (4, 64, 129, True, 1),
+    (16, 64, 1370, False, 1300),
+    (2, 64, 8282, False, None),
+    (2, 64, 8282, True, 1300),
 ])
 def test_packed_attention_matches_twin(dev, dtype, heads, hd, seq_len, vv, valid_len):
     gen = torch.Generator(device=dev).manual_seed(seq_len + hd)
@@ -54,6 +71,7 @@ def test_packed_attention_matches_twin(dev, dtype, heads, hd, seq_len, vv, valid
     assert pa.LAUNCHES == before + 1
     _check(out, pa.flash_mha_packed_reference(qkv, heads, hd ** -0.5, vv=vv,
                                               valid_len=valid_len))
+    _check_walk(out, pa.flash_mha_packed_stages(qkv, heads, hd ** -0.5, vv, valid_len))
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -62,17 +80,27 @@ def test_packed_attention_matches_twin(dev, dtype, heads, hd, seq_len, vv, valid
     (1370, True, 1300),
     (77, False, 70),
     (17, True, None),
+    (1, False, None),
+    (63, False, 1),
+    (64, True, None),
+    (127, False, None),
+    (129, True, 1),
+    (1370, False, 1300),
+    (8282, False, None),
 ])
 def test_packed_attention_lse_matches_plain(dev, dtype, seq_len, vv, valid_len):
     """B1's optional log-sum-exp, against the plain logsumexp of the masked
-    scaled scores to 1e-5 relative; the output is the same with it on."""
+    scaled scores to 1e-5 relative to max(|lse|, 1); the output is the same
+    with it on. (With valid_len 1 a row's log-sum-exp is its one scaled
+    score, which may lie near 0, and the tensor cores' fp32 sum of its 64
+    products is exact only to the products' scale: about 7e-7 here.)"""
     gen = torch.Generator(device=dev).manual_seed(seq_len + 5)
     qkv = torch.randn((2, seq_len, 3 * 4 * 64), generator=gen, device=dev).to(dtype)
     out, lse = pa._forward(qkv, 4, 0.125, vv, valid_len, with_lse=True)
     want = pa.packed_lse_reference(qkv, 4, 0.125, vv, valid_len)
     torch.cuda.synchronize()
     assert lse.shape == (2, 4, seq_len) and lse.dtype == torch.float32
-    assert ((lse - want).abs() <= 1e-5 * want.abs()).all()
+    assert ((lse - want).abs() <= 1e-5 * want.abs().clamp_min(1.0)).all()
     assert torch.equal(out, pa._forward(qkv, 4, 0.125, vv, valid_len))
 
 
@@ -279,6 +307,33 @@ def test_tensor_map_kernels_as_a_thread_s_first_call(dev):
     _check(got["gemm_f32"], gemm.gemm_f32_reference(a, w))
 
 
+def test_packed_attention_as_a_thread_s_first_call(dev):
+    """B1, whose bf16 walk encodes TMA tensor maps, as the first CUDA call of
+    a new thread: stage 2 recomputes it under remat on autograd's worker
+    thread, where no context need be current yet."""
+    import threading
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    qkv = torch.randn((2, 300, 3 * 128), generator=gen, device=dev).to(torch.bfloat16)
+    got = {}
+
+    def run():
+        try:
+            got["out"] = pa._forward(qkv, 2, 0.125, False, None, with_lse=True)
+            torch.cuda.synchronize()
+        except RuntimeError as exc:
+            got["out"] = exc
+
+    t = threading.Thread(target=run)
+    t.start()
+    t.join()
+    assert not isinstance(got["out"], Exception), got["out"]
+    out, lse = got["out"]
+    _check(out, pa.flash_mha_packed_reference(qkv, 2, 0.125))
+    want = pa.packed_lse_reference(qkv, 2, 0.125)
+    assert ((lse - want).abs() <= 1e-5 * want.abs()).all()
+
+
 def test_packed_attention_autograd_on_the_card(dev):
     """The Function's backward launches the B4 kernel, and for the
     value-value variant the B6 kernel."""
@@ -340,10 +395,17 @@ def test_packed_attention_vv_bwd_matches_plain(dev, dtype, batch, heads, seq_len
     (16, 8282),                       # ViT-L/14 at 1274 px, batch 1
     (4, 300),                         # a ragged tail
     (3, 17),                          # less than one tile
+    (4, 1),                           # ragged about the 128-row and 128-key tiles
+    (4, 63),
+    (4, 64),
+    (4, 127),
+    (4, 129),
+    (128, 1370),                      # ViT-L/518 heads at batch 8
 ])
 def test_flash_attention_matches_twin(dev, dtype, bh, seq_len):
     """B7 on (BH, L, 64), the kernel entry itself (flash_mha sends fewer than
-    256 tokens to the plain sdpa)."""
+    256 tokens to the plain sdpa), against the twin and the plain version of
+    the tile walk."""
     gen = torch.Generator(device=dev).manual_seed(bh + seq_len)
     q, k, v = (torch.randn((bh, seq_len, 64), generator=gen, device=dev).to(dtype)
                for _ in range(3))
@@ -351,6 +413,7 @@ def test_flash_attention_matches_twin(dev, dtype, bh, seq_len):
     out = fa._forward(q, k, v, 0.125)
     assert fa.LAUNCHES == before + 1
     _check(out, fa.flash_mha_reference(q, k, v, 0.125))
+    _check_walk(out, fa.attention_fwd_stages(q, k, v, 0.125))
 
 
 def test_flash_attention_autograd_on_the_card(dev):
@@ -395,9 +458,17 @@ def _block_case(dev, d, seed):
     (8, 1370, 1024, False, 1360),     # batch 8, keys masked
     (1, 1370, 1024, False, None),     # batch 1: 11 row tiles, 10 full
     (1, 200, 384, True, None),        # 6 heads: no longer a multiple of 4
+    (2, 1, 1024, False, None),        # ragged about the walk's 128-row and 128-key tiles
+    (2, 63, 1024, True, None),
+    (2, 64, 1024, False, 1),
+    (2, 127, 1024, True, 1),
+    (2, 129, 1024, False, None),
+    (2, 1370, 1024, False, 1300),
 ])
 def test_ln_attn_residual_matches_twin(dev, batch, seq_len, d, vv, valid_len):
-    """B8, held on y - x like the MLP kernels."""
+    """B8, held on y - x like the MLP kernels, against the twin, the plain
+    version of its stages and the same with the attention stage's tile walk
+    (within 2 ulps)."""
     ln, attn, gen = _block_case(dev, d, seq_len + d)
     x = torch.randn((batch, seq_len, d), generator=gen, device=dev).to(torch.bfloat16)
     heads = d // 64
@@ -407,6 +478,8 @@ def test_ln_attn_residual_matches_twin(dev, batch, seq_len, d, vv, valid_len):
     assert attn_block.LAUNCHES == before + 1
     _check(out, attn_block.ln_attn_residual_reference(ln, attn, x, heads, vv, valid_len), x)
     _check(out, attn_block.ln_attn_residual_stages(ln, attn, x, heads, vv, valid_len), x)
+    _check_walk(out, attn_block.ln_attn_residual_stages(ln, attn, x, heads, vv, valid_len,
+                                                        walk=True), x)
 
 
 def test_ln_attn_residual_autograd_on_the_card(dev):

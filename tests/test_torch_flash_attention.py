@@ -6,6 +6,8 @@ tests/test_torch_cuda_kernels.py hold it against its plain twin there); on a
 CPU tensor ``flash_mha`` runs the twin and launches nothing. fp32 is held to
 the JAX tests' rtol 2e-4 / atol 2e-5, bf16 to their 2e-2, gradients to 2e-5.
 """
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -14,8 +16,11 @@ import torch
 
 from aa_clip_iqm_tpu.ops import attention as jattn
 from aa_clip_iqm_tpu.ops import pallas_attention as jpa
+from aa_clip_iqm_tpu_torch.cli import attn_variants
+from aa_clip_iqm_tpu_torch.ops import _build
 from aa_clip_iqm_tpu_torch.ops import attention as tattn
 from aa_clip_iqm_tpu_torch.ops import flash_attention as tfa
+from aa_clip_iqm_tpu_torch.ops.compare import bf16_close, bf16_error
 
 RTOL, ATOL = 2e-4, 2e-5
 
@@ -160,3 +165,57 @@ def test_packed_gate_mirrors_jax():
         xj = jnp.zeros((1, l, d), jnp.float32)
         xt = torch.zeros((1, l, d))
         assert tattn.packed_ok(xt, heads, mask) == jattn._packed_pallas_ok(xj, heads, mask)
+
+
+# The plain version of the kernel's tile walk (csrc/attention_fwd.cuh, 128-key
+# tiles), at lengths that leave a ragged last tile of 1, 72, 44 and 90 keys.
+WALK_LENGTHS = [129, 200, 300, 1370]
+
+
+@pytest.mark.parametrize("dtype", [np.float32, jnp.bfloat16])
+@pytest.mark.parametrize("seq_len", WALK_LENGTHS)
+def test_walk_stages_match_jax_online_kernel(seq_len, dtype, monkeypatch):
+    """The walk's plain stages against JAX's online kernel ``_flash_kernel``
+    (``ROW_KERNEL_MAX_TOKENS`` lowered to 0): both walk 128-key blocks, so
+    their online softmax is the same block for block. fp32 to the file's
+    tolerance, bf16 within 2 ulps (ops/compare.py's measure)."""
+    monkeypatch.setattr(jpa, "ROW_KERNEL_MAX_TOKENS", 0)
+    q, k, v = (t.reshape(2, seq_len, 64) for t in _heads(seq_len + 1, 1, 2, seq_len, 64))
+    scale = 64 ** -0.5
+    ref = np.asarray(jpa._flash_forward(*(jnp.asarray(t, dtype) for t in (q, k, v)), scale),
+                     np.float32)
+    ts = [torch.from_numpy(t) for t in (q, k, v)]
+    if dtype == np.float32:
+        out = tfa.attention_fwd_stages(*ts, scale)
+        np.testing.assert_allclose(out.numpy(), ref, rtol=RTOL, atol=ATOL)
+    else:
+        out = tfa.attention_fwd_stages(*(t.to(torch.bfloat16) for t in ts), scale)
+        assert out.dtype == torch.bfloat16
+        max_ulps, _ = bf16_error(out, torch.from_numpy(ref))
+        assert max_ulps <= 2.0, max_ulps
+
+
+@pytest.mark.parametrize("seq_len", WALK_LENGTHS)
+def test_walk_stages_match_twin_and_logsumexp(seq_len):
+    """bf16: the walk's stages against the whole-row twin within the kernels'
+    gate (6 ulps, RMS 1), and their log-sum-exp against the plain logsumexp
+    of the scaled scores to 1e-5 relative."""
+    q, k, v = (torch.from_numpy(t.reshape(2, seq_len, 64)).to(torch.bfloat16)
+               for t in _heads(seq_len + 2, 1, 2, seq_len, 64))
+    scale = 64 ** -0.5
+    out, lse = tfa.attention_fwd_stages(q, k, v, scale, with_lse=True)
+    assert bf16_close(out, tfa.flash_mha_reference(q, k, v, scale)), bf16_error(
+        out, tfa.flash_mha_reference(q, k, v, scale))
+    want = torch.logsumexp(torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale, dim=-1)
+    assert lse.shape == (2, seq_len) and lse.dtype == torch.float32
+    assert ((lse - want).abs() <= 1e-5 * want.abs()).all()
+
+
+@pytest.mark.parametrize("name", list(attn_variants.VARIANTS))
+def test_walk_variants_apply_to_the_kernel_header(name):
+    """Each variant that ``cli.attn_variants`` times on the card is a set of
+    edits of the kept ``csrc/attention_fwd.cuh``: each edit applies once,
+    and only the kept variant leaves the header as it is."""
+    with open(os.path.join(_build.CSRC_DIR, attn_variants.HEADER)) as f:
+        header = f.read()
+    assert (attn_variants.variant_source(name, header) == header) == (name == "kept")

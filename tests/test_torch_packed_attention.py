@@ -11,6 +11,7 @@ import torch
 
 from aa_clip_iqm_tpu.ops import pallas_attention as pa
 from aa_clip_iqm_tpu_torch.ops import packed_attention as tpa
+from aa_clip_iqm_tpu_torch.ops.compare import bf16_close, bf16_error
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -67,3 +68,29 @@ def test_wrapper_refuses_other_devices():
     qkv = torch.empty((1, 8, 3 * 64), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         tpa.flash_mha_packed(qkv, 1, 0.125)
+
+
+@pytest.mark.parametrize("valid", [None, "one", "short"])
+@pytest.mark.parametrize("vv", [False, True])
+@pytest.mark.parametrize("seq_len", [129, 200, 300, 1370])
+def test_walk_stages_match_jax_kernel_twin_and_lse(seq_len, vv, valid):
+    """The plain version of the forward kernel's tile walk on the packed
+    layout: in fp32 against JAX's packed kernel (``_row_kernel_grouped``,
+    interpret mode) at rtol 2e-4 / atol 2e-5; in bf16 against the twin within
+    the kernels' gate (6 ulps, RMS 1), and its log-sum-exp against
+    ``packed_lse_reference`` to 1e-5 relative. ``valid``: keys at or past 1
+    or L - 70 masked."""
+    b, heads, hd = 2, 2, 64
+    valid_len = {None: None, "one": 1, "short": seq_len - 70}[valid]
+    qkv = _qkv(seq_len + 3 * vv + 7, b, seq_len, heads * hd)
+    scale = hd ** -0.5
+    ref = np.asarray(pa.flash_mha_packed(jnp.asarray(qkv), heads, scale, vv, valid_len))
+    out = tpa.flash_mha_packed_stages(torch.from_numpy(qkv), heads, scale, vv, valid_len)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=2e-4, atol=2e-5)
+    qb = torch.from_numpy(qkv).to(torch.bfloat16)
+    out, lse = tpa.flash_mha_packed_stages(qb, heads, scale, vv, valid_len, with_lse=True)
+    twin = tpa.flash_mha_packed_reference(qb, heads, scale, vv, valid_len)
+    assert out.dtype == torch.bfloat16 and bf16_close(out, twin), bf16_error(out, twin)
+    want = tpa.packed_lse_reference(qb, heads, scale, vv, valid_len)
+    assert lse.shape == (b, heads, seq_len)
+    assert ((lse - want).abs() <= 1e-5 * want.abs()).all()
