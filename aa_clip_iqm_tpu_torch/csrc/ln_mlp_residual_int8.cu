@@ -15,57 +15,85 @@
 //     acc += float(int32(h_q . Wp_q[j, :])) * sh;
 //   y = x + acc * s_proj + b_proj in fp32, cast once to bf16.
 // The chunk width is part of the numerics (one hidden scale per row and
-// chunk). rint is round-half-to-even, the scales divide (no reciprocal), and
-// every fp32 epilogue multiplies and adds in separate roundings, in the order
-// of the plain PyTorch twin, so that the two differ only by the order of the
-// LayerNorm's fp32 sums. GELU is the exact erff.
+// chunk). rint is round-half-to-even, the scales divide (the correctly
+// rounded quotient, from the row's reciprocal and two fma corrections:
+// gemm90::div_rn), and every fp32 epilogue multiplies and adds in separate
+// roundings, in the order of the plain PyTorch twin, so that the two differ
+// only by the order of the LayerNorm's fp32 sums. GELU is the exact erff.
 //
 // What bounds it on the H100: at ViT-L/518 batch 8 (M = 10,960, d = 1024,
 // h = 4096) a layer is 4*M*d*h = 1.84e11 int8 operations (93 us at
 // 1979 TOP/s dense int8) against ~53 MB of x/y/weight traffic (16 us at
-// 3.35 TB/s): operation-bound.
+// 3.35 TB/s): operation-bound, so the products must run on int8 wgmma.
 //
-// What the design does about it: one thread block (8 warps) owns 16 rows for
-// the whole chain. The quantized LayerNorm tile sits in shared memory as
-// int8. A hidden chunk is produced 256 columns at a time by
-// mma.sync.m16n8k32 (int8, int32 accumulators in registers), scaled, biased
-// and activated on the accumulator registers and written to shared memory
-// as fp32 (16 x CH x 4 bytes): its row maximum is needed before any of it
-// can be quantized. Then a warp per row takes the maximum and quantizes the
-// row in place (the int8 row overwrites the start of its own fp32 row), and
-// the second product runs over the chunk with an int32 accumulator in
-// registers, folded into the fp32 output accumulator (also registers, each
-// warp owns d/8 output columns) once per chunk, exactly as the twin does.
-// Two accumulators of that footprint cap the tile at 16 rows. The weights
-// are read transposed (k contiguous, the layout the int8 tensor-core
-// product wants for its B operand; the wrapper lays them out once per weight
-// tensor) and stream through a ring of four 32 KB shared-memory slots with
-// cp.async, xor-swizzled so that ldmatrix reads them without bank conflicts.
-// Every block streams both matrices from L2 (8 MB at ViT-L width): that
-// stream, not the tensor cores, is what the time goes to. Not yet done:
-// 32-row tiles (needs the output accumulator out of the register budget),
-// wgmma, TMA multicast across a cluster.
+// What the design does about it. The TPU kernel keeps a row tile's whole
+// chain in VMEM; on this card a tile that holds its fp32 output accumulator
+// in registers is 16 rows, and every such tile streams both weights from L2
+// (2.4 ms a call at ViT-L/518 batch 8 on an H100, 26 times the bound). So
+// the chain runs as three stages on the int8 form of the wgmma GEMM core
+// (csrc/gemm_sm90.cuh: persistent blocks, a producer warp feeding a TMA
+// ring, consumer warpgroups on wgmma m64nNk32 s8), with the quantized
+// operands in device memory:
+//   1. ln_quant_rows: xin, sx and x_q (M, d) int8; it also zeroes the chunk
+//      maxima amax (M, h / CH) and GEMM 1's counters. xin is recomputed from
+//      the row (in L1) between the sweep that takes its maximum and the
+//      sweep that quantizes, with one explicit fma, so both see the same
+//      values and no register array caps d;
+//   2. GEMM 1 (hidden_epilogue): x_q . Wfc^T in 192 x 128 tiles on three
+//      consumer warpgroups, hid = act(u) on the s32 accumulator, and h_q (M,
+//      h) int8 with sh (M, h / CH). A chunk spans CH / 128 tiles that
+//      different blocks own, and h_q needs the chunk's maximum: the tiles
+//      exchange their row maxima through amax and a counter per (row block,
+//      chunk) in one cooperative launch (see hidden_epilogue), hid waiting
+//      in the accumulator's registers. On an H100 this one pass beat two
+//      launches (the maxima, then the products again and h_q; PERF.md);
+//      spilling hid in fp32 instead would move 180 MB at batch 8
+//      (about 107 us at 3.35 TB/s) through a buffer of that size;
+//   3. GEMM 2 (proj_epilogue): h_q . Wp^T over K = h, 128 x 128 tiles on two
+//      consumer warpgroups. After each chunk's k-slices the s32 accumulator
+//      is folded into an fp32 one, f = f + float(acc) * sh[row, chunk] (sh
+//      loaded a chunk ahead), and the next chunk restarts it with scale-d =
+//      0; then y = (x + f * s_proj) + b_proj, one rounding. The two
+//      accumulators take 64 registers each.
+// |acc| <= 1024 * 127^2 < 2^24 within a chunk, so float(acc) is exact there.
+// The weights are read K-major, (out, in): the wrapper lays them out once
+// per weight tensor. What holds it now: GEMM 1's epilogue (the exact-erf
+// activation and the quantizer on 45M elements a call, on the consumer warps
+// while the tensor cores wait) and its wait for the chunk's slowest tile.
+// Not yet done: the next tile's products under that wait (a second
+// accumulator), ping-pong consumers, TMA multicast of the shared operand.
 
 #include <math.h>
 #include <stdint.h>
 
 #include "common.cuh"
+#include "gemm_sm90.cuh"
 
 using namespace aaclip;
+using gemm90::INV127;
+using gemm90::quantize_s8;
 
 namespace {
 
-constexpr int NWARPS = 8;
-constexpr int NTHREADS = NWARPS * 32;
-constexpr int BM = 16;                 // rows per block
-constexpr int MAX_D = 1024;            // widest model dimension
-constexpr int MAX_CH = 1024;           // widest hidden chunk
-constexpr int MAX_G = MAX_D / 128;     // 16-column output groups per warp
-constexpr int KS1 = 128;               // c_fc k-bytes per pipeline stage
-constexpr int KS2 = 32;                // c_proj k-bytes per pipeline stage
-constexpr int SLOT_BYTES = 32768;      // 256 x KS1 or MAX_D x KS2
-constexpr int SLOTS = 4;               // weight-stage ring: 3 loads in flight
-constexpr float INV127 = 0.007874015748031496f;
+// Names the stage kernels after this source, so that a profiler tells them
+// from B2's, which build the same core.
+struct ln_mlp_residual_int8_stage {};
+
+// What the stages read and write.
+struct Int8Params {
+  const float* sx;                     // (M) row scales of x_q
+  const float* s_fc;                   // (h) c_fc weight scales
+  const float* b_fc;                   // (h)
+  float* amax;                         // (M, nch) chunk maxima of |hid|
+  float* sh;                           // (M, nch) hidden scales
+  int* count;                          // (m-tiles of GEMM 1, nch) warps done with a chunk
+  int8_t* h_q;                         // (M, h)
+  const float* s_proj;                 // (d) c_proj weight scales
+  const float* b_proj;                 // (d)
+  const bf16* x;                       // (M, d), the residual
+  bf16* y;                             // (M, d)
+  int h, d, ch, nch;
+};
 
 // 0: exact (erf) GELU; 1: QuickGELU x * sigmoid(1.702 x), the sigmoid as
 // 1 / (1 + exp(-t)).
@@ -75,346 +103,284 @@ __device__ __forceinline__ float activation(float v) {
   return v * (1.f / (1.f + expf(-(1.702f * v))));
 }
 
-// clip(rint(v / s), +-127), round-half-to-even, a true division.
-__device__ __forceinline__ int quantize(float v, float s) {
-  return (int)fminf(fmaxf(rintf(__fdiv_rn(v, s)), -127.f), 127.f);
+__device__ __forceinline__ void load8(float (&out)[8], const float* src) {
+  const float4 a = *reinterpret_cast<const float4*>(src);
+  const float4 b = *reinterpret_cast<const float4*>(src + 4);
+  out[0] = a.x, out[1] = a.y, out[2] = a.z, out[3] = a.w;
+  out[4] = b.x, out[5] = b.y, out[6] = b.z, out[7] = b.w;
 }
 
-struct Smem {
-  size_t xq, hid, sx, sh, ring, bytes;
+// GEMM 1's epilogue on the s32 accumulator of a BN-wide tile (which lies in
+// one chunk): hid = act(u), u = float(acc) * (sx * s_fc) + b_fc. preact
+// gives the u of the eight columns col .. col + 7 (col = n0 + 32 j + 8 (lane
+// % 4)) of row row0 + 8 hh that the lane holds after its quad's exchange.
+template <int BN>
+__device__ __forceinline__ void preact(const int (&acc)[BN / 2], int j, int hh, float sx,
+                                       const float (&sf)[8], const float (&bf)[8],
+                                       float (&u)[8]) {
+  float2 v[4];
+#pragma unroll
+  for (int t = 0; t < 4; ++t)
+    v[t] = make_float2((float)acc[4 * (4 * j + t) + 2 * hh],
+                       (float)acc[4 * (4 * j + t) + 2 * hh + 1]);
+  gemm90::quad_transpose(v);
+  const float a[8] = {v[0].x, v[0].y, v[1].x, v[1].y, v[2].x, v[2].y, v[3].x, v[3].y};
+#pragma unroll
+  for (int e = 0; e < 8; ++e) u[e] = __fadd_rn(__fmul_rn(a[e], __fmul_rn(sx, sf[e])), bf[e]);
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ float ld_acquire(const float* p) {
+  float v;
+  asm volatile("ld.acquire.gpu.global.f32 %0, [%1];\n" : "=f"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// GEMM 1 in one pass. A chunk's CH / 128 tiles of a row block belong to
+// consecutive tile numbers, so different blocks of one round of the
+// persistent grid hold them at the same time (the launch is cooperative:
+// all blocks resident). Each tile computes hid = act(u) into its
+// accumulator's registers, takes each row's maximum of |hid| over its
+// columns into amax[row, chunk] (atomicMax on the fp32 bits, non-negative so
+// an unsigned compare orders them), and counts its warps as done on the
+// chunk's counter; it then waits for the counter to reach every warp of the
+// chunk's tiles, reads the chunk's maxima, and quantizes its hid from the
+// registers: h_q = clip(rint(hid / sh), +-127), sh = max(amax, 1e-6) / 127,
+// which the chunk's first tile also writes. A tile waits only on tiles of
+// its own chunk, which are numbered no later than one round on, so the
+// lowest chunk not yet done always completes. A wait that outlasts 2^26
+// polls (far beyond any tile) traps rather than hang.
+template <int BN, int ACT>
+struct hidden_epilogue {
+  using Params = Int8Params;
+  static constexpr int F = 1;
+
+  static __device__ __forceinline__ void fold(int (&)[BN / 2], float (&)[F], const Params&, int,
+                                              int, int, int) {}
+
+  static __device__ __forceinline__ void begin(float (&)[F], const Params&, int, int, int) {}
+
+  static __device__ __forceinline__ void finish(int (&acc)[BN / 2], float (&)[F], const Params& p,
+                                                int row0, int n0, int M) {
+    const int q = threadIdx.x % 4, lane = threadIdx.x % 32;
+    const int chunk = n0 / p.ch;
+    float sx[2], amax[2] = {0.f, 0.f};
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) sx[hh] = row0 + 8 * hh < M ? p.sx[row0 + 8 * hh] : 0.f;
+    // hid in place of the accumulator: register 4 (4j + t) + 2hh + e now
+    // holds column n0 + 32j + 8q + 2t + e of row row0 + 8hh.
+#pragma unroll
+    for (int j = 0; j < BN / 32; ++j) {
+      float sf[8], bf[8];
+      load8(sf, p.s_fc + n0 + 32 * j + 8 * q);
+      load8(bf, p.b_fc + n0 + 32 * j + 8 * q);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        float u[8];
+        preact<BN>(acc, j, hh, sx[hh], sf, bf, u);
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          const float h0 = activation<ACT>(u[2 * t]), h1 = activation<ACT>(u[2 * t + 1]);
+          amax[hh] = fmaxf(amax[hh], fmaxf(fabsf(h0), fabsf(h1)));
+          acc[4 * (4 * j + t) + 2 * hh] = __float_as_int(h0);
+          acc[4 * (4 * j + t) + 2 * hh + 1] = __float_as_int(h1);
+        }
+      }
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const float a = quad_max(amax[hh]);
+      const int row = row0 + 8 * hh;
+      if (q == 0 && row < M)
+        atomicMax(reinterpret_cast<unsigned*>(p.amax) + (long)row * p.nch + chunk,
+                  __float_as_uint(a));
+    }
+    // This warp's maxima are out: count it, then wait for the chunk's other
+    // warps (consumer warps per tile: (blockDim.x - 128) / 32).
+    const int bm = (blockDim.x - 128) / 2;
+    int* count = p.count + (long)(row0 / bm) * p.nch + chunk;
+    const int target = p.ch / BN * ((blockDim.x - 128) / 32);
+    __threadfence();
+    __syncwarp();
+    if (lane == 0) {
+      __threadfence();
+      atomicAdd(count, 1);
+      for (int polls = 0; ld_acquire(count) < target; ++polls) {
+        if (polls == (1 << 26)) __trap();
+        __nanosleep(32);
+      }
+    }
+    __syncwarp();
+    float sh[2], inv[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = row0 + 8 * hh;
+      sh[hh] = row < M ? fmaxf(ld_acquire(p.amax + (long)row * p.nch + chunk), 1e-6f) * INV127
+                       : 1.f;
+      inv[hh] = __frcp_rn(sh[hh]);
+    }
+#pragma unroll
+    for (int j = 0; j < BN / 32; ++j) {
+      const int col = n0 + 32 * j + 8 * q;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int row = row0 + 8 * hh;
+        int r[8];
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          r[2 * t] = quantize_s8(__int_as_float(acc[4 * (4 * j + t) + 2 * hh]), sh[hh], inv[hh]);
+          r[2 * t + 1] =
+              quantize_s8(__int_as_float(acc[4 * (4 * j + t) + 2 * hh + 1]), sh[hh], inv[hh]);
+        }
+        if (row < M)
+          *reinterpret_cast<uint2*>(p.h_q + (long)row * p.h + col) =
+              make_uint2(gemm90::pack_s8x4(r[0], r[1], r[2], r[3]),
+                         gemm90::pack_s8x4(r[4], r[5], r[6], r[7]));
+      }
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      if (q == 0 && row0 + 8 * hh < M && n0 % p.ch == 0)
+        p.sh[(long)(row0 + 8 * hh) * p.nch + chunk] = sh[hh];
+  }
 };
 
-// xq: int8 LayerNorm tile, rows padded by 16 bytes. hid: the fp32 hidden
-// chunk, rows padded by 8 floats; after quantization the first CH bytes of
-// each row hold its int8 values. sx, sh: the per-row scales.
-__host__ __device__ inline Smem smem_layout(int d, int ch) {
-  Smem s;
-  s.xq = 0;
-  s.hid = round_up((size_t)BM * (d + 16), 128);
-  s.sx = s.hid + round_up(sizeof(float) * BM * (ch + 8), 128);
-  s.sh = s.sx + 128;
-  s.ring = s.sh + 128;
-  s.bytes = s.ring + (size_t)SLOTS * SLOT_BYTES;
-  return s;
-}
+// GEMM 2's epilogue: the chunk fold into f, then the residual.
+template <int BN>
+struct proj_epilogue {
+  using Params = Int8Params;
+  // f, then the sh of both rows for the chunk to fold next, loaded one chunk
+  // ahead so that a fold never waits for it.
+  static constexpr int F = BN / 2 + 2;
 
-// The weights stream as a sequence of stages per hidden chunk. First, for
-// each sub-chunk of `sub` hidden units (256, or 128 when CH is 128), d/KS1
-// slices of Wfc^T: `sub` rows (hidden units) x KS1 k-bytes, a row at
-// r * 128 with its 16-byte segment s stored at s ^ (r & 7). Then CH/KS2
-// slices of Wp^T: d rows (output columns) x KS2 k-bytes, a row at r * 32
-// with segment s stored at s ^ ((r >> 2) & 1). While stage t multiplies,
-// stages t+1 .. t+3 load; one barrier per stage.
-template <int ACT>
-__global__ void __launch_bounds__(NTHREADS, 1)
-ln_mlp_residual_int8_kernel(const bf16* __restrict__ x,
-                            const float* __restrict__ ln_g,
-                            const float* __restrict__ ln_b,
-                            const int8_t* __restrict__ wfc_t,
-                            const float* __restrict__ s_fc,
-                            const float* __restrict__ b_fc,
-                            const int8_t* __restrict__ wp_t,
-                            const float* __restrict__ s_proj,
-                            const float* __restrict__ b_proj,
-                            bf16* __restrict__ y, int M, int d, int h, int ch,
-                            float eps) {
-  const Smem lay = smem_layout(d, ch);
-  extern __shared__ __align__(128) unsigned char smem[];
-  int8_t* xq = reinterpret_cast<int8_t*>(smem + lay.xq);
-  unsigned char* hid = smem + lay.hid;
-  float* sxs = reinterpret_cast<float*>(smem + lay.sx);
-  float* shs = reinterpret_cast<float*>(smem + lay.sh);
-  const int ldx = d + 16;              // bytes per xq row
-  const int ldh = (ch + 8) * 4;        // bytes per hidden row
-  const int row0 = blockIdx.x * BM;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4, tq = lane % 4;
-  const int sub = (ch % 256 == 0) ? 256 : 128;
-  const int nt1 = sub / 64;            // this warp's n8 tiles of a sub-chunk
-  const int nk1 = d / KS1;
-  const int nfc = (ch / sub) * nk1;    // c_fc stages per chunk
-  const int np = ch / KS2;             // c_proj stages per chunk
-  const int per_chunk = nfc + np;
-  const int total = (h / ch) * per_chunk;
-  const int ngroups = d / 128;         // this warp's 16-column output groups
-  const int col0 = warp * (d / 8);     // this warp's first output column
-
-  auto slot = [&](int t) { return smem + lay.ring + (size_t)(t % SLOTS) * SLOT_BYTES; };
-  // Start loading stage t (if it exists); always commit, so that group
-  // counts stay aligned with stage numbers.
-  auto fetch = [&](int t) {
-    if (t < total) {
-      const int j = t / per_chunk, s = t % per_chunk;
-      unsigned char* dst = slot(t);
-      if (s < nfc) {
-        const int8_t* src = wfc_t + (long)(j * ch + (s / nk1) * sub) * d + (s % nk1) * KS1;
-        for (int i = threadIdx.x; i < sub * 8; i += NTHREADS) {
-          const int r = i >> 3, sg = i & 7;
-          cp_async16(dst + r * 128 + ((sg ^ (r & 7)) << 4), src + (long)r * d + sg * 16);
-        }
-      } else {
-        const int8_t* src = wp_t + j * ch + (s - nfc) * KS2;
-        for (int i = threadIdx.x; i < d * 2; i += NTHREADS) {
-          const int r = i >> 1, sg = i & 1;
-          cp_async16(dst + r * 32 + ((sg ^ ((r >> 2) & 1)) << 4), src + (long)r * h + sg * 16);
-        }
-      }
-    }
-    cp_async_commit();
-  };
-
-  for (int t = 0; t < SLOTS - 1; ++t) fetch(t);
-
-  // LayerNorm in fp32, the row's scale, and the int8 tile. One warp per row;
-  // rows past M are zero.
-  for (int r = warp; r < BM; r += NWARPS) {
-    const int gr = row0 + r;
-    int8_t* dst = xq + r * ldx;
-    if (gr < M) {
-      const bf16* src = x + (long)gr * d;
-      float v[MAX_D / 32];
-      float s = 0.f;
-#pragma unroll
-      for (int i = 0; i < MAX_D / 32; ++i) {
-        const int c = i * 32 + lane;
-        v[i] = c < d ? to_float(src[c]) : 0.f;
-        s += v[i];
-      }
-      const float mean = warp_sum(s) / d;
-      float q = 0.f;
-#pragma unroll
-      for (int i = 0; i < MAX_D / 32; ++i) {
-        const float t = (i * 32 + lane < d) ? v[i] - mean : 0.f;
-        q += t * t;
-      }
-      const float rstd = 1.f / sqrtf(warp_sum(q) / d + eps);
-      float amax = 0.f;
-#pragma unroll
-      for (int i = 0; i < MAX_D / 32; ++i) {
-        const int c = i * 32 + lane;
-        if (c < d) {
-          v[i] = (v[i] - mean) * rstd * ln_g[c] + ln_b[c];
-          amax = fmaxf(amax, fabsf(v[i]));
-        }
-      }
-      const float sx = fmaxf(warp_max(amax), 1e-6f) * INV127;
-#pragma unroll
-      for (int i = 0; i < MAX_D / 32; ++i) {
-        const int c = i * 32 + lane;
-        if (c < d) dst[c] = (int8_t)quantize(v[i], sx);
-      }
-      if (lane == 0) sxs[r] = sx;
-    } else {
-      for (int c = lane; c < d; c += 32) dst[c] = 0;
-      if (lane == 0) sxs[r] = 0.f;
-    }
+  static __device__ __forceinline__ void load_sh(float (&f)[F], const Params& p, int row0,
+                                                 int chunk, int M) {
+    f[BN / 2] = row0 < M ? p.sh[(long)row0 * p.nch + chunk] : 0.f;
+    f[BN / 2 + 1] = row0 + 8 < M ? p.sh[(long)(row0 + 8) * p.nch + chunk] : 0.f;
   }
 
-  float acc[2 * MAX_G][4];             // output: [n8 tile][fragment], fp32
-  int iacc[2 * MAX_G][4];              // the chunk's second product, int32
-  int hacc[4][4];                      // hidden sub-chunk: [n8 tile][fragment]
+  // Chunk 0's sh; the lines of s_proj and b_proj towards L1 and the tile's
+  // rows of x (BN / 64 lines each) towards L2.
+  static __device__ __forceinline__ void begin(float (&f)[F], const Params& p, int row0, int n0,
+                                               int M) {
+    load_sh(f, p, row0, 0, M);
+    const int i = threadIdx.x % 128, q = threadIdx.x % 4;
+    if (i < BN / 32) gemm90::prefetch_l1(p.s_proj + n0 + 32 * i);
+    else if (i < BN / 16) gemm90::prefetch_l1(p.b_proj + n0 + 32 * (i - BN / 32));
 #pragma unroll
-  for (int n = 0; n < 2 * MAX_G; ++n)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      acc[n][i] = 0.f;
-      iacc[n][i] = 0;
-    }
+    for (int hh = 0; hh < 2; ++hh)
+      if (q < BN / 64 && row0 + 8 * hh < M)
+        gemm90::prefetch_l2(p.x + (long)(row0 + 8 * hh) * p.d + n0 + 64 * q);
+  }
 
-  for (int t = 0; t < total; ++t) {
-    cp_async_wait<SLOTS - 2>();        // stage t has landed (this thread's part)
-    __syncthreads();                   // ... everyone's part; stage t-1 is done
-    fetch(t + SLOTS - 1);              // into stage t-1's slot
-    const unsigned char* buf = slot(t);
-    const int j = t / per_chunk, s = t % per_chunk;
-    if (s < nfc) {
-      // hid[:, this warp's sub/8 columns] += x_q[:, slice] . Wfc_q[slice, sub-chunk]
-      const int sb = s / nk1, ks = s % nk1;
-      if (ks == 0) {
+  static __device__ __forceinline__ void fold(int (&acc)[BN / 2], float (&f)[F], const Params& p,
+                                              int row0, int n0, int chunk, int M) {
+    const float sh0 = f[BN / 2], sh1 = f[BN / 2 + 1];
 #pragma unroll
-        for (int n = 0; n < 4; ++n)
+    for (int i = 0; i < BN / 2; ++i)
+      f[i] = __fadd_rn(f[i], __fmul_rn((float)acc[i], i & 2 ? sh1 : sh0));
+    if (chunk + 1 < p.nch) load_sh(f, p, row0, chunk + 1, M);
+  }
+
+  static __device__ __forceinline__ void finish(int (&)[BN / 2], float (&f)[F], const Params& p,
+                                                int row0, int n0, int M) {
+    const int q = threadIdx.x % 4;
 #pragma unroll
-          for (int i = 0; i < 4; ++i) hacc[n][i] = 0;
-      }
+    for (int j = 0; j < BN / 32; ++j) {
+      const int col = n0 + 32 * j + 8 * q;
+      float sp[8], bp[8];
+      load8(sp, p.s_proj + col);
+      load8(bp, p.b_proj + col);
 #pragma unroll
-      for (int kk = 0; kk < KS1 / 32; ++kk) {
-        unsigned a[4];
-        ldsm_x4_b8(a, xq + (lane % 16) * ldx + ks * KS1 + kk * 32 + (lane / 16) * 16);
+      for (int hh = 0; hh < 2; ++hh) {
+        float2 v[4];
 #pragma unroll
-        for (int jb = 0; jb < 2; ++jb) {
-          if (2 * jb < nt1) {
-            const int r = warp * (sub / 8) + jb * 16 + (lane % 8) + (lane / 16) * 8;
-            const int sg = kk * 2 + ((lane / 8) & 1);
-            unsigned b[4];
-            ldsm_x4_b8(b, buf + r * 128 + ((sg ^ (r & 7)) << 4));
-            mma16832_s8(hacc[2 * jb], a, b[0], b[1]);
-            mma16832_s8(hacc[2 * jb + 1], a, b[2], b[3]);
-          }
+        for (int t = 0; t < 4; ++t)
+          v[t] = make_float2(f[4 * (4 * j + t) + 2 * hh], f[4 * (4 * j + t) + 2 * hh + 1]);
+        gemm90::quad_transpose(v);
+        const int row = row0 + 8 * hh;
+        if (row >= M) continue;
+        const float acc[8] = {v[0].x, v[0].y, v[1].x, v[1].y, v[2].x, v[2].y, v[3].x, v[3].y};
+        const long off = (long)row * p.d + col;
+        const uint4 xr = *reinterpret_cast<const uint4*>(p.x + off);
+        const __nv_bfloat162* xv = reinterpret_cast<const __nv_bfloat162*>(&xr);
+        uint4 packed;
+        unsigned* pw = reinterpret_cast<unsigned*>(&packed);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 xf = __bfloat1622float2(xv[e]);
+          pw[e] = pack_bf16x2(
+              __fadd_rn(__fadd_rn(xf.x, __fmul_rn(acc[2 * e], sp[2 * e])), bp[2 * e]),
+              __fadd_rn(__fadd_rn(xf.y, __fmul_rn(acc[2 * e + 1], sp[2 * e + 1])), bp[2 * e + 1]));
         }
-      }
-      if (ks == nk1 - 1) {
-        // Dequantize, bias and activate this warp's hidden columns straight
-        // from the accumulators, into the fp32 chunk.
-        const float sx0 = sxs[g], sx1 = sxs[g + 8];
-#pragma unroll
-        for (int n = 0; n < 4; ++n) {
-          if (n < nt1) {
-            const int col = sb * sub + warp * (sub / 8) + n * 8 + 2 * tq;
-            const int hc = j * ch + col;
-            const float f0 = s_fc[hc], f1 = s_fc[hc + 1];
-            const float c0 = b_fc[hc], c1 = b_fc[hc + 1];
-#pragma unroll
-            for (int half = 0; half < 2; ++half) {
-              const float sx = half ? sx1 : sx0;
-              const float v0 = activation<ACT>(__fadd_rn(
-                  __fmul_rn((float)hacc[n][2 * half], __fmul_rn(sx, f0)), c0));
-              const float v1 = activation<ACT>(__fadd_rn(
-                  __fmul_rn((float)hacc[n][2 * half + 1], __fmul_rn(sx, f1)), c1));
-              *reinterpret_cast<float2*>(hid + (g + half * 8) * ldh + col * 4) =
-                  make_float2(v0, v1);
-            }
-          }
-        }
-      }
-    } else {
-      const int p = s - nfc;
-      if (p == 0) {
-        // The chunk is complete: per row, its scale, then int8 in place.
-        // The whole row is in registers before any of it is overwritten.
-        for (int r = warp; r < BM; r += NWARPS) {
-          unsigned char* rowp = hid + r * ldh;
-          float4 v[MAX_CH / 128];
-          float amax = 0.f;
-#pragma unroll
-          for (int i = 0; i < MAX_CH / 128; ++i) {
-            if (i * 128 < ch) {
-              v[i] = *reinterpret_cast<const float4*>(rowp + (i * 128 + lane * 4) * 4);
-              amax = fmaxf(fmaxf(amax, fmaxf(fabsf(v[i].x), fabsf(v[i].y))),
-                           fmaxf(fabsf(v[i].z), fabsf(v[i].w)));
-            }
-          }
-          const float sh = fmaxf(warp_max(amax), 1e-6f) * INV127;
-          __syncwarp();
-#pragma unroll
-          for (int i = 0; i < MAX_CH / 128; ++i) {
-            if (i * 128 < ch) {
-              const unsigned packed =
-                  (unsigned)(quantize(v[i].x, sh) & 0xff) |
-                  ((unsigned)(quantize(v[i].y, sh) & 0xff) << 8) |
-                  ((unsigned)(quantize(v[i].z, sh) & 0xff) << 16) |
-                  ((unsigned)(quantize(v[i].w, sh) & 0xff) << 24);
-              *reinterpret_cast<unsigned*>(rowp + i * 128 + lane * 4) = packed;
-            }
-          }
-          if (lane == 0) shs[r] = sh;
-        }
-        __syncthreads();
-      }
-      // iacc[:, this warp's columns] += h_q[:, slice] . Wp_q[slice, :]
-      unsigned a[4];
-      ldsm_x4_b8(a, hid + (lane % 16) * ldh + p * KS2 + (lane / 16) * 16);
-#pragma unroll
-      for (int jg = 0; jg < MAX_G; ++jg) {
-        if (jg < ngroups) {
-          const int r = col0 + jg * 16 + (lane % 8) + (lane / 16) * 8;
-          const int sg = (lane / 8) & 1;
-          unsigned b[4];
-          ldsm_x4_b8(b, buf + r * 32 + ((sg ^ ((r >> 2) & 1)) << 4));
-          mma16832_s8(iacc[2 * jg], a, b[0], b[1]);
-          mma16832_s8(iacc[2 * jg + 1], a, b[2], b[3]);
-        }
-      }
-      if (p == np - 1) {
-        // acc += float(chunk's int32 product) * sh, then start the next chunk.
-        const float sh0 = shs[g], sh1 = shs[g + 8];
-#pragma unroll
-        for (int n = 0; n < 2 * MAX_G; ++n)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            acc[n][i] = __fadd_rn(acc[n][i],
-                                  __fmul_rn((float)iacc[n][i], i < 2 ? sh0 : sh1));
-            iacc[n][i] = 0;
-          }
+        *reinterpret_cast<uint4*>(p.y + off) = packed;
       }
     }
   }
-  cp_async_wait<0>();                  // only empty groups remain
+};
 
-  // y = x + acc * s_proj + b_proj in fp32, one cast, from the accumulators.
-#pragma unroll
-  for (int n = 0; n < 2 * MAX_G; ++n) {
-    if (n < 2 * ngroups) {
-      const int col = col0 + n * 8 + 2 * tq;
-      const float p0 = s_proj[col], p1 = s_proj[col + 1];
-      const float b0 = b_proj[col], b1 = b_proj[col + 1];
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int gr = row0 + g + half * 8;
-        if (gr < M) {
-          const long off = (long)gr * d + col;
-          const float2 xv = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(x + off));
-          *reinterpret_cast<__nv_bfloat162*>(y + off) = __floats2bfloat162_rn(
-              __fadd_rn(__fadd_rn(xv.x, __fmul_rn(acc[n][2 * half], p0)), b0),
-              __fadd_rn(__fadd_rn(xv.y, __fmul_rn(acc[n][2 * half + 1], p1)), b1));
-        }
-      }
-    }
-  }
-}
+using Tag = ln_mlp_residual_int8_stage;
+
+// GEMM 1: 192 x 128 tiles on three consumer warpgroups (its epilogue, not
+// the products, takes most of the time, and three warpgroups holding half
+// the accumulator of two at 128 x 256 get through it faster), in one
+// cooperative launch of whole chunks of tiles.
+constexpr int FC_BM = 192;
 
 template <int ACT>
-cudaError_t launch(const void* x, const float* ln_g, const float* ln_b,
-                   const void* wfc_t, const float* s_fc, const float* b_fc,
-                   const void* wp_t, const float* s_proj, const float* b_proj,
-                   void* y, int M, int d, int h, int ch, float eps,
-                   cudaStream_t stream) {
-  const size_t smem = smem_layout(d, ch).bytes;
-  int dev = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return err;
-  if (smem > (size_t)optin) return cudaErrorInvalidValue;
-  err = cudaFuncSetAttribute(ln_mlp_residual_int8_kernel<ACT>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  ln_mlp_residual_int8_kernel<ACT><<<(M + BM - 1) / BM, NTHREADS, smem, stream>>>(
-      static_cast<const bf16*>(x), ln_g, ln_b, static_cast<const int8_t*>(wfc_t),
-      s_fc, b_fc, static_cast<const int8_t*>(wp_t), s_proj, b_proj,
-      static_cast<bf16*>(y), M, d, h, ch, eps);
-  return cudaGetLastError();
+cudaError_t hidden_pass(const int8_t* xq, const int8_t* wfc_t, const Int8Params& p, int M,
+                        cudaStream_t s) {
+  return gemm90::launch_gemm_s8<Tag, 128, FC_BM / 64, hidden_epilogue<128, ACT>>(
+      xq, p.d, wfc_t, p.d, p, M, p.h, p.d, p.d / gemm90::BK8, s, p.ch / 128);
 }
 
 }  // namespace
 
 // x, y: (M, d) bf16. wfc_t: (h, d) int8, the c_fc weight transposed; wp_t:
 // (d, h) int8, the c_proj weight transposed. LayerNorm scale/bias, the
-// per-output-channel weight scales and both biases are fp32. ch: the hidden
-// chunk width (128, 256, 512 or 1024, dividing h). act: 0 = exact GELU,
-// 1 = QuickGELU. d must be a multiple of 128, at most 1024. Returns the
-// launch's cudaError_t.
+// per-output-channel weight scales and both biases are fp32. The caller's
+// scratch: xq (M, d) int8, sx (M) fp32, amax and sh (M, h / ch) fp32, count
+// (ceil(M / 192), h / ch) int32, hq (M, h) int8. ch: the hidden chunk width (128, 256, 512 or 1024, dividing
+// h). act: 0 = exact GELU, 1 = QuickGELU. d must be a multiple of 128; every
+// pointer 16-byte aligned. Returns the first failing launch's cudaError_t.
 extern "C" int aaclip_ln_mlp_residual_int8(
-    const void* x, const void* ln_g, const void* ln_b, const void* wfc_t,
-    const void* s_fc, const void* b_fc, const void* wp_t, const void* s_proj,
-    const void* b_proj, void* y, int M, int d, int h, int ch, float eps, int act,
-    void* stream) {
-  if (M <= 0 || d <= 0 || d % 128 != 0 || d > MAX_D) return cudaErrorInvalidValue;
+    const void* x, const void* ln_g, const void* ln_b, const void* wfc_t, const void* s_fc,
+    const void* b_fc, const void* wp_t, const void* s_proj, const void* b_proj, void* xq,
+    void* sx, void* amax, void* sh, void* count, void* hq, void* y, int M, int d, int h, int ch,
+    float eps, int act, void* stream) {
+  if (M <= 0 || d <= 0 || d % 128 != 0 || act < 0 || act > 1) return cudaErrorInvalidValue;
   if ((ch != 128 && ch != 256 && ch != 512 && ch != 1024) || h <= 0 || h % ch != 0)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* g = static_cast<const float*>(ln_g);
-  const float* b = static_cast<const float*>(ln_b);
-  const float* sf = static_cast<const float*>(s_fc);
-  const float* bf = static_cast<const float*>(b_fc);
-  const float* sp = static_cast<const float*>(s_proj);
-  const float* bp = static_cast<const float*>(b_proj);
-  if (act == 0)
-    return launch<0>(x, g, b, wfc_t, sf, bf, wp_t, sp, bp, y, M, d, h, ch, eps, s);
-  if (act == 1)
-    return launch<1>(x, g, b, wfc_t, sf, bf, wp_t, sp, bp, y, M, d, h, ch, eps, s);
-  return cudaErrorInvalidValue;
+  const Int8Params p{static_cast<const float*>(sx),     static_cast<const float*>(s_fc),
+                     static_cast<const float*>(b_fc),   static_cast<float*>(amax),
+                     static_cast<float*>(sh),           static_cast<int*>(count),
+                     static_cast<int8_t*>(hq),          static_cast<const float*>(s_proj),
+                     static_cast<const float*>(b_proj), static_cast<const bf16*>(x),
+                     static_cast<bf16*>(y),             h, d, ch, h / ch};
+  const int8_t* xq8 = static_cast<const int8_t*>(xq);
+  const int8_t* wf = static_cast<const int8_t*>(wfc_t);
+  cudaError_t err = gemm90::ln_quant_rows<Tag>(
+      static_cast<const bf16*>(x), static_cast<const float*>(ln_g),
+      static_cast<const float*>(ln_b), static_cast<int8_t*>(xq), static_cast<float*>(sx),
+      static_cast<float*>(amax), h / ch, static_cast<int*>(count),
+      (M + FC_BM - 1) / FC_BM * (h / ch), M, d, eps, s);
+  if (err == cudaSuccess)
+    err = act == 0 ? hidden_pass<0>(xq8, wf, p, M, s) : hidden_pass<1>(xq8, wf, p, M, s);
+  if (err == cudaSuccess)
+    err = gemm90::launch_gemm_s8<Tag, 128, 2, proj_epilogue<128>>(
+        static_cast<const int8_t*>(hq), h, static_cast<const int8_t*>(wp_t), h, p, M, d, h,
+        ch / gemm90::BK8, s);
+  return err;
 }
 
 extern "C" const char* aaclip_ln_mlp_residual_int8_error_string(int err) {

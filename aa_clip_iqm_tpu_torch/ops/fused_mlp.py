@@ -15,7 +15,11 @@ the wgmma GEMM core (``ops/gemm.py``): the LayerNorm pass, GEMM 1 into the
 hidden layer and GEMM 2 with the residual; :func:`ln_mlp_residual_stages` is
 their plain version, with the kernel's roundings. The dx kernel runs four:
 the LayerNorm pass, the dual GEMM into dh, GEMM 3 into du * ln_g and a row
-pass; :func:`ln_mlp_residual_dx_stages` is their plain version.
+pass; :func:`ln_mlp_residual_dx_stages` is their plain version. The int8
+kernel runs three on the core's int8 form: the row pass into x_q, GEMM 1
+(whose tiles exchange the hidden chunks' maxima, then write h_q) and GEMM 2
+with the chunk fold and the residual; :func:`ln_mlp_residual_int8_stages`
+is their plain version, GEMM 1 in its two steps.
 
 Gradients (each function is a ``torch.autograd.Function`` when its input
 requires one):
@@ -40,6 +44,11 @@ from .gemm import (
     gemm_bias_residual_reference,
     gemm_dual_dact_reference,
     gemm_f32_reference,
+    gemm_s8_amax_reference,
+    gemm_s8_proj_reference,
+    gemm_s8_quant_reference,
+    ln_quant_rows_reference,
+    quantize_rows,
 )
 from .layers import gelu, layer_norm, mlp_block, quick_gelu
 from .quant import int8_matmul
@@ -182,12 +191,6 @@ def ln_mlp_residual_int8_ok(x, mlp_params, act) -> bool:
     return d % 128 == 0 and hidden_chunk(h) != 0
 
 
-def _quantize_rows(t):
-    """Dynamic per-row symmetric int8: (int8 values, fp32 scale (rows, 1))."""
-    scale = t.abs().amax(dim=-1, keepdim=True).clamp_min(1e-6) * (1.0 / 127.0)
-    return torch.clamp(torch.round(t / scale), -127, 127).to(torch.int8), scale
-
-
 def ln_mlp_residual_int8_reference(ln_params, mlp_params, x, act,
                                    eps: float = 1e-5):
     """Plain PyTorch twin of the int8 kernel, step by step as
@@ -199,22 +202,41 @@ def ln_mlp_residual_int8_reference(ln_params, mlp_params, x, act,
     d, h = x.shape[-1], c_fc["w_q"].shape[-1]
     ch = hidden_chunk(h)
     x32 = x.reshape(-1, d).float()
-    x_q, sx = _quantize_rows(layer_norm(ln_params, x32, eps=eps))
+    x_q, sx = quantize_rows(layer_norm(ln_params, x32, eps=eps))
     s_fc, s_proj = c_fc["scale"].reshape(h).float(), c_proj["scale"].reshape(d).float()
     b_fc = c_fc["b"].float()
     acc = torch.zeros_like(x32)
     for j in range(0, h, ch):
         hid = int8_matmul(x_q, c_fc["w_q"][:, j:j + ch].contiguous()).float()
         hid = act(hid * (sx * s_fc[j:j + ch]) + b_fc[j:j + ch])
-        h_q, sh = _quantize_rows(hid)
+        h_q, sh = quantize_rows(hid)
         acc = acc + int8_matmul(h_q, c_proj["w_q"][j:j + ch]).float() * sh
     y = x32 + acc * s_proj + c_proj["b"].float()
     return y.to(x.dtype).reshape(x.shape)
 
 
-# Weights as the kernel reads them: transposed, k contiguous. Laid out once
-# per weight tensor (the backbone is frozen, so a weight is never updated in
-# place) and dropped with it.
+def ln_mlp_residual_int8_stages(ln_params, mlp_params, x, act, eps: float = 1e-5):
+    """The plain version of the stages the int8 kernel runs (``ops/gemm.py``'s
+    int8 modes): the row pass (x_q, sx), GEMM 1's chunk maxima (amax, (M, h /
+    ch)) and its h_q and sh, and GEMM 2 (y, x's shape). Returns them in a
+    dict under those names. It rounds where
+    :func:`ln_mlp_residual_int8_reference` rounds, so its y equals the
+    twin's bit for bit."""
+    c_fc, c_proj = mlp_params["c_fc"], mlp_params["c_proj"]
+    d, h = x.shape[-1], c_fc["w_q"].shape[-1]
+    ch = hidden_chunk(h)
+    x2 = x.reshape(-1, d)
+    x_q, sx = ln_quant_rows_reference(ln_params, x2, eps)
+    fc = (c_fc["w_q"], sx, c_fc["scale"], c_fc["b"], act)
+    amax = gemm_s8_amax_reference(x_q, *fc, ch)
+    h_q, sh = gemm_s8_quant_reference(x_q, *fc, amax, ch)
+    y = gemm_s8_proj_reference(h_q, c_proj["w_q"], sh, c_proj["scale"], c_proj["b"], x2, ch)
+    return {"x_q": x_q, "sx": sx, "amax": amax, "h_q": h_q, "sh": sh, "y": y.reshape(x.shape)}
+
+
+# Weights as the kernel reads them: transposed, (out, in), k contiguous. Laid
+# out once per weight tensor (the backbone is frozen, so a weight is never
+# updated in place) and dropped with it.
 _TRANSPOSED = {}
 
 
@@ -232,23 +254,27 @@ def _int8_lib():
     lib = _build.load("ln_mlp_residual_int8")
     fn = lib.aaclip_ln_mlp_residual_int8
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 10 + [
+        fn.argtypes = [ctypes.c_void_p] * 16 + [
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def _int8_forward(ln_params, mlp_params, x, act, eps: float = 1e-5):
-    """The int8 forward without autograd: the twin on the CPU, one kernel on
-    the card.
+def _int8_forward(ln_params, mlp_params, x, act, eps: float = 1e-5, stages: bool = False):
+    """The int8 forward without autograd: the twin on the CPU, the kernel's
+    four stages on the card. With ``stages`` it returns the dict of
+    :func:`ln_mlp_residual_int8_stages` (on the card, the kernel's own
+    scratch: x_q, sx, amax, h_q, sh) instead of y.
 
-    x: (..., d) bf16, contiguous, d a multiple of 128 up to 1024. ``w_q`` is
-    int8 (in, out), ``scale`` fp32 with ``out`` elements, LayerNorm
-    parameters and biases fp32.
+    x: (..., d) bf16, contiguous, d a multiple of 128. ``w_q`` is int8 (in,
+    out), ``scale`` fp32 with ``out`` elements, LayerNorm parameters and
+    biases fp32.
     """
     fn = "ln_mlp_residual_int8"
     if x.device.type == "cpu":
+        if stages:
+            return ln_mlp_residual_int8_stages(ln_params, mlp_params, x, act, eps)
         return ln_mlp_residual_int8_reference(ln_params, mlp_params, x, act, eps)
     if x.device.type != "cuda":
         raise ValueError(f"{fn}: unsupported device {x.device}")
@@ -266,9 +292,8 @@ def _int8_forward(ln_params, mlp_params, x, act, eps: float = 1e-5):
         raise ValueError(f"{fn}: weight shapes do not match x")
     if c_fc["scale"].numel() != h or c_proj["scale"].numel() != d:
         raise ValueError(f"{fn}: scale shapes do not match the weights")
-    if d % 128 or d > 1024 or not ch:
-        raise ValueError(f"{fn}: d={d}, h={h} not supported (d a multiple of "
-                         "128 up to 1024, h a multiple of 128)")
+    if d % 128 or not ch:
+        raise ValueError(f"{fn}: d={d}, h={h} not supported (d and h multiples of 128)")
     m = x.numel() // d
     dev, f32, i8 = x.device, torch.float32, torch.int8
     # Checked as given, before the transposed copies are made.
@@ -285,13 +310,30 @@ def _int8_forward(ln_params, mlp_params, x, act, eps: float = 1e-5):
         _operand(c_proj["scale"], f32, dev, "c_proj scale", fn),
         _operand(c_proj["b"], f32, dev, "c_proj bias", fn),
     ]
+    # The stages' scratch: 56 MB at ViT-L/518 batch 8, most of it h_q; and
+    # GEMM 1's counters of the warps done with each (192-row block, chunk).
+    scratch = {"x_q": torch.empty((m, d), dtype=i8, device=dev),
+               "sx": torch.empty(m, dtype=f32, device=dev),
+               "amax": torch.empty((m, h // ch), dtype=f32, device=dev),
+               "sh": torch.empty((m, h // ch), dtype=f32, device=dev),
+               "count": torch.empty((-(-m // 192), h // ch), dtype=torch.int32, device=dev),
+               "h_q": torch.empty((m, h), dtype=i8, device=dev)}
     y = torch.empty_like(x)
-    err = _int8_lib()(*ptrs, y.data_ptr(), m, d, h, ch, float(eps), _ACTS[act],
-                      _build.stream_ptr(dev))
-    _build.check("ln_mlp_residual_int8", err)
+    err = _int8_lib()(*ptrs, *(scratch[k].data_ptr()
+                               for k in ("x_q", "sx", "amax", "sh", "count", "h_q")),
+                      y.data_ptr(), m, d, h, ch, float(eps), _ACTS[act], _build.stream_ptr(dev))
+    del scratch["count"]
+    _build.check(fn, err)
     global INT8_LAUNCHES
     INT8_LAUNCHES += 1
-    return y
+    return dict(scratch, y=y) if stages else y
+
+
+def ln_mlp_residual_int8_with_stages(ln_params, mlp_params, x, act, eps: float = 1e-5):
+    """One call of the int8 forward (the kernel on the card) that also
+    returns its intermediates: the dict of :func:`ln_mlp_residual_int8_stages`,
+    on the card the kernel's own x_q, sx, amax, h_q and sh. No autograd."""
+    return _int8_forward(ln_params, mlp_params, x, act, eps, stages=True)
 
 
 # --------------------------------------------------------------------------
@@ -547,9 +589,9 @@ def ln_mlp_residual_int8(ln_params, mlp_params, x, act, eps: float = 1e-5):
     through estimator on the dequantized plain chain: x, the LayerNorm
     parameters and the biases get real gradients, ``w_q`` and ``scale`` none.
 
-    x: (..., d) bf16, contiguous, d a multiple of 128 up to 1024. ``w_q`` is
-    int8 (in, out), ``scale`` fp32 with ``out`` elements, LayerNorm
-    parameters and biases fp32.
+    x: (..., d) bf16, contiguous, d a multiple of 128. ``w_q`` is int8 (in,
+    out), ``scale`` fp32 with ``out`` elements, LayerNorm parameters and
+    biases fp32.
     """
     floats = (ln_params["scale"], ln_params["bias"], mlp_params["c_fc"]["b"],
               mlp_params["c_proj"]["b"])

@@ -18,6 +18,22 @@ roundings:
 - epilogue (d), :func:`gemm_f32_reference`: ``(a @ w) * scale`` kept in fp32,
   with ``w`` stored (in, out) or, K-major, (out, in).
 
+The int8 form (B3, ``csrc/ln_mlp_residual_int8.cu``) has its own row pass
+and three epilogues on the s32 accumulator, each with a plain version that
+follows the twin ``fused_mlp.ln_mlp_residual_int8_reference`` step by step
+(exact int32 products, one fp32 rounding per multiply and add):
+
+- the row pass, :func:`ln_quant_rows_reference`: LayerNorm in fp32,
+  quantized per row (x_q, sx);
+- GEMM 1's two steps: :func:`gemm_s8_amax_reference`, the hidden layer's
+  maximum of |hid| per row and hidden chunk, which the kernel's tiles of a
+  chunk exchange; :func:`gemm_s8_quant_reference`, h_q and sh from it;
+- GEMM 2, :func:`gemm_s8_proj_reference`: the chunk products folded with
+  sh, then the residual.
+
+Their weights are the model's, int8 (in, out); the kernels read them
+transposed.
+
 The product is computed as :func:`.layers.linear` computes it before its
 rounding, so that without an activation stage (a) equals ``linear`` bit for
 bit. :func:`gemm_bias_act`, :func:`gemm_bias_residual`, :func:`gemm_f32` and
@@ -32,7 +48,8 @@ import ctypes
 import torch
 
 from . import _build
-from .layers import gelu, quick_gelu
+from .layers import gelu, layer_norm, quick_gelu
+from .quant import int8_matmul
 
 #: Launches of the core alone since the last reset (B2 and B8 count their own).
 LAUNCHES = 0
@@ -110,6 +127,62 @@ def gemm_f32_reference(a, w, scale=None, w_kmajor: bool = False):
     if scale is not None:
         y = y * scale.float()
     return y.reshape(*a.shape[:-1], wt.shape[-1])
+
+
+def quantize_rows(t):
+    """Dynamic per-row symmetric int8 of fp32 ``t``: ``clip(rint(t / s),
+    +-127)`` with ``s = max(amax |t|, 1e-6) / 127`` per row, a true division
+    and round-half-to-even: (int8 values, fp32 scale (rows, 1))."""
+    scale = t.abs().amax(dim=-1, keepdim=True).clamp_min(1e-6) * (1.0 / 127.0)
+    return torch.clamp(torch.round(t / scale), -127, 127).to(torch.int8), scale
+
+
+def ln_quant_rows_reference(ln_params, x, eps: float = 1e-5):
+    """The int8 row pass: LayerNorm of x (M, d) in fp32, kept in fp32 and
+    quantized per row: (x_q (M, d) int8, sx (M,) fp32)."""
+    x_q, sx = quantize_rows(layer_norm(ln_params, x.float(), eps=eps))
+    return x_q, sx.reshape(-1)
+
+
+def _hidden_chunks(x_q, w_q, sx, s_fc, b_fc, act, ch):
+    """GEMM 1's fp32 epilogue, one hidden chunk of ``ch`` columns at a time:
+    ``act(float(x_q @ w_q[:, j]) * (sx * s_fc[j]) + b_fc[j])``."""
+    n = w_q.shape[-1]
+    sx, s_fc, b_fc = sx.reshape(-1, 1).float(), s_fc.reshape(n).float(), b_fc.float()
+    for j in range(0, n, ch):
+        hid = int8_matmul(x_q, w_q[:, j:j + ch].contiguous()).float()
+        yield act(hid * (sx * s_fc[j:j + ch]) + b_fc[j:j + ch])
+
+
+def gemm_s8_amax_reference(x_q, w_q, sx, s_fc, b_fc, act, ch):
+    """GEMM 1's first step: the maximum of |hid| per row and ``ch``-wide hidden
+    chunk, (M, N / ch) fp32. x_q (M, K) int8, w_q (K, N) int8, sx (M,), s_fc
+    and b_fc (N,)."""
+    return torch.stack([hid.abs().amax(dim=-1)
+                        for hid in _hidden_chunks(x_q, w_q, sx, s_fc, b_fc, act, ch)], dim=-1)
+
+
+def gemm_s8_quant_reference(x_q, w_q, sx, s_fc, b_fc, act, amax, ch):
+    """GEMM 1's second step: ``sh = max(amax, 1e-6) / 127`` per (row, chunk) and
+    ``h_q = clip(rint(hid / sh), +-127)``: (h_q (M, N) int8, sh (M, N / ch)
+    fp32)."""
+    sh = amax.clamp_min(1e-6) * (1.0 / 127.0)
+    h_q = [torch.clamp(torch.round(hid / sh[:, i:i + 1]), -127, 127).to(torch.int8)
+           for i, hid in enumerate(_hidden_chunks(x_q, w_q, sx, s_fc, b_fc, act, ch))]
+    return torch.cat(h_q, dim=-1), sh
+
+
+def gemm_s8_proj_reference(h_q, w_q, sh, s_proj, b_proj, x, ch):
+    """GEMM 2: ``f = f + float(h_q[:, j] @ w_q[j]) * sh[:, j]`` over the
+    ``ch``-wide chunks j from f = 0, then ``y = (x + f * s_proj) + b_proj``
+    in fp32, rounded once to x's dtype. h_q (M, K) int8, w_q (K, N) int8,
+    x (M, N)."""
+    k, n = w_q.shape
+    x32 = x.float()
+    f = torch.zeros_like(x32)
+    for i, j in enumerate(range(0, k, ch)):
+        f = f + int8_matmul(h_q[:, j:j + ch].contiguous(), w_q[j:j + ch]).float() * sh[:, i:i + 1]
+    return (x32 + f * s_proj.reshape(n).float() + b_proj.float()).to(x.dtype)
 
 
 def _lib():

@@ -8,9 +8,10 @@ line):
   1. device: needs CUDA; prints the card's name and power limit;
   2. build: compiles csrc/*.cu with nvcc (one process per source, in
      parallel) and prints the seconds, each kernel's registers and spills,
-     and the HGMMA (wgmma) and UTMALDG (TMA load) instructions in the SASS
-     of the six sources on wgmma (B2, B8 and B5 on the GEMM core, B4/B6, and
-     B1 and B7 on the attention walk), which must not be zero;
+     and the wgmma (HGMMA; IGMMA for int8) and UTMALDG (TMA load)
+     instructions in the SASS of the seven sources on wgmma (B2, B8 and B5
+     on the GEMM core, B3 on its int8 form, B4/B6, and B1 and B7 on the
+     attention walk), which must not be zero;
   3. kernels: each hand-written kernel (five forward, three backward) against
      its plain PyTorch twin at the main path's shapes in bf16 (largest and
      RMS error in bf16 ulps, ops/compare.py), with CUDA-event times of the
@@ -20,8 +21,9 @@ line):
      relative to max(|lse|, 1)); B1, B7 and B8 also against the plain
      version of the attention walk (within 2 ulps), at valid_len None, 1300
      and 1 and at lengths about its 128-row and 128-key tiles (1, 63, 64,
-     127, 129, 1370, 8282); B2, B8, B5 and B4/B6 also against the
-     plain version of their stages, B2 and B5 at ragged row counts, B4/B6 at
+     127, 129, 1370, 8282); B2, B3, B8, B5 and B4/B6 also against the
+     plain version of their stages (B3's x_q and h_q within one step of
+     its), B2 and B5 at ragged row counts, B4/B6 at
      batch 8 and 1 (B6: 2) with valid_len None and 1300, fed the forward's
      log-sum-exp, with each stage's device time
      (torch.profiler), and B2's two GEMMs at both tile widths.
@@ -29,7 +31,9 @@ line):
      the wrong activation, the last k-slice of B2's hidden layer dropped,
      B2's rows past 1,280 left at zero; for the int8
      MLP one hidden scale per row instead of per chunk, the c_fc weight
-     scales dropped, round-half-away; for the attention backward the key
+     scales dropped, round-half-away, the hidden maximum taken over GEMM 1's
+     128-wide tile instead of the chunk, the s32 accumulator carried across
+     a chunk boundary unscaled; for the attention backward the key
      tail unmasked, the scale on dK dropped, D = 0 and the log-sum-exp taken
      over the keys that valid_len masks; for the MLP dx the wrong activation
      derivative, the LayerNorm backward without its mean terms, act' taken
@@ -118,10 +122,14 @@ SOURCES = ("packed_attention", "ln_mlp_residual", "ln_mlp_residual_int8",
            "packed_attention_bwd", "ln_mlp_residual_dx", "flash_attention",
            "ln_attn_residual")
 # The sources whose kernels run on wgmma fed by TMA (csrc/gemm_sm90.cuh):
-# the GEMM core's B2, B8 and B5, B4/B6's tile kernels, and the attention
-# forward walk of B1 and B7 (csrc/attention_fwd.cuh, B8's attention stage).
+# the GEMM core's B2, B8 and B5 and its int8 form's B3, B4/B6's tile
+# kernels, and the attention forward walk of B1 and B7
+# (csrc/attention_fwd.cuh, B8's attention stage).
 GEMM_SOURCES = ("ln_mlp_residual", "ln_attn_residual", "ln_mlp_residual_dx",
-                "packed_attention_bwd", "packed_attention", "flash_attention")
+                "packed_attention_bwd", "packed_attention", "flash_attention",
+                "ln_mlp_residual_int8")
+# B3 runs on the core's int8 form: its SASS shows wgmma as IGMMA.
+GMMA_FORM = {"ln_mlp_residual_int8": "IGMMA"}
 KERNELS = ("packed_attention", "ln_mlp_residual", "ln_mlp_residual_int8",
            "packed_attention_bwd", "ln_mlp_residual_dx", "packed_attention_vv_bwd",
            "flash_attention", "ln_attn_residual")
@@ -178,8 +186,8 @@ def cuda_time(fn, reps):
 def stage_times(what, fn, stages, reps=5):
     """Device ms per call of each stage kernel of ``fn`` (torch.profiler
     over ``reps`` calls), found by a part of its name; ``stages`` maps that
-    part to (label, "flop" or "bytes", the amount one call does), from which
-    the stage's rate is printed."""
+    part to (label, "flop", "ops" (int8) or "bytes", the amount one call
+    does), from which the stage's rate is printed."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -198,8 +206,9 @@ def stage_times(what, fn, stages, reps=5):
     parts = []
     for part, (label, kind, amount) in stages.items():
         require(ms[part] > 0, f"{what}: the profiler saw no {part} kernel")
-        rate = (f"{amount / ms[part] / 1e9:.1f} TFLOP/s" if kind == "flop"
-                else f"{amount / ms[part] / 1e6:.1f} GB/s")
+        rate = {"flop": f"{amount / ms[part] / 1e9:.1f} TFLOP/s",
+                "ops": f"{amount / ms[part] / 1e9:.1f} TOP/s",
+                "bytes": f"{amount / ms[part] / 1e6:.1f} GB/s"}[kind]
         parts.append(f"{label} {ms[part]:.4f} ms ({rate})")
     log(f"# {what} stages (device ms a call, torch.profiler over {reps} calls): "
         f"{'; '.join(parts)}; sum {sum(ms.values()):.4f} ms")
@@ -271,16 +280,19 @@ def phase_build():
         for entry, regs, spill in ptxas_entries(_build.BUILD_LOGS.get(name, "")):
             log(f"#   {name}: {entry}: {regs}; {spill}")
     # The kernels on the GEMM core and B4/B6 must really run on wgmma fed by
-    # TMA.
+    # TMA: the bf16 form of the tensor-core instruction (HGMMA), or for B3
+    # the integer one (IGMMA).
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     for name in GEMM_SOURCES:
         sass = subprocess.run([cuobjdump, "-sass", _build._paths(name)[1]], capture_output=True,
                               text=True, check=True).stdout
+        gmma = GMMA_FORM.get(name, "HGMMA")
         counts = {op: sum(op in line for line in sass.splitlines())
-                  for op in ("HGMMA", "UTMALDG")}
-        log(f"# SASS of {name}: {counts['HGMMA']} HGMMA, {counts['UTMALDG']} UTMALDG")
-        require(counts["HGMMA"] > 0 and counts["UTMALDG"] > 0,
-                f"{name}: no wgmma or no TMA load in its SASS")
+                  for op in (gmma, "GMMA", "UTMALDG")}
+        log(f"# SASS of {name}: {counts[gmma]} {gmma} ({counts['GMMA']} of any GMMA form), "
+            f"{counts['UTMALDG']} UTMALDG")
+        require(counts[gmma] > 0 and counts["UTMALDG"] > 0,
+                f"{name}: no {gmma} (wgmma) or no TMA load in its SASS")
 
 
 def ptxas_entries(build_log):
@@ -432,6 +444,29 @@ def int8_twin_variant(ln, mlp, x, act, chunk=None, drop_fc_scale=False,
         h_q, sh = quantize_rows(act(hid * (sx * s_fc[j:j + ch]) + c_fc["b"][j:j + ch]))
         acc = acc + int8_matmul(h_q, c_proj["w_q"][j:j + ch]).float() * sh
     y = x32 + acc * c_proj["scale"].reshape(d) + c_proj["b"]
+    return y.to(x.dtype).reshape(x.shape)
+
+
+def int8_stages_carry(ln, mlp, x, act, eps=1e-5):
+    """Planted fault for B3's GEMM 2: the plain stages with the s32
+    accumulator carried from chunk to chunk instead of restarted, so each
+    chunk's fold scales the products of every chunk before it by its sh."""
+    import torch
+
+    from aa_clip_iqm_tpu_torch.ops.fused_mlp import hidden_chunk, ln_mlp_residual_int8_stages
+    from aa_clip_iqm_tpu_torch.ops.quant import int8_matmul
+
+    st = ln_mlp_residual_int8_stages(ln, mlp, x, act, eps)
+    c_proj = mlp["c_proj"]
+    d, h = x.shape[-1], mlp["c_fc"]["w_q"].shape[-1]
+    ch = hidden_chunk(h)
+    x32 = x.reshape(-1, d).float()
+    f = torch.zeros_like(x32)
+    carried = torch.zeros(x32.shape, dtype=torch.int32, device=x.device)
+    for i, j in enumerate(range(0, h, ch)):
+        carried = carried + int8_matmul(st["h_q"][:, j:j + ch].contiguous(), c_proj["w_q"][j:j + ch])
+        f = f + carried.float() * st["sh"][:, i:i + 1]
+    y = x32 + f * c_proj["scale"].reshape(d) + c_proj["b"]
     return y.to(x.dtype).reshape(x.shape)
 
 
@@ -616,10 +651,23 @@ def phase_kernels():
     def rnd(*shape, std=1.0):
         return torch.randn(shape, generator=gen, device=dev) * std
 
-    ln = {"scale": 1.0 + 0.1 * rnd(d), "bias": 0.1 * rnd(d)}
-    mlp = {n: quant.quantize_linear_params(p) for n, p in (
-        ("c_fc", {"w": rnd(d, h, std=d ** -0.5), "b": rnd(h, std=0.02)}),
-        ("c_proj", {"w": rnd(h, d, std=h ** -0.5), "b": rnd(d, std=0.02)}))}
+    def int8_case(d, h):
+        ln = {"scale": 1.0 + 0.1 * rnd(d), "bias": 0.1 * rnd(d)}
+        mlp = {n: quant.quantize_linear_params(p) for n, p in (
+            ("c_fc", {"w": rnd(d, h, std=d ** -0.5), "b": rnd(h, std=0.02)}),
+            ("c_proj", {"w": rnd(h, d, std=h ** -0.5), "b": rnd(d, std=0.02)}))}
+        return ln, mlp
+
+    # Ragged row counts (one row, one 518 px image: 10 x 128 + 90 rows) and
+    # a width past ViT-L's (1280, 1024-wide chunks), held to the twin.
+    for rows, dr, hr in ((1, WIDTH, 4 * WIDTH), (TOKENS, WIDTH, 4 * WIDTH), (77, 1280, 5120)):
+        ln_r, mlp_r = int8_case(dr, hr)
+        xr = rnd(rows, dr).to(bf16)
+        hold(f"B3 ln_mlp_residual_int8 M={rows} d={dr} h={hr} quick_gelu",
+             fused_mlp.ln_mlp_residual_int8(ln_r, mlp_r, xr, quick_gelu),
+             fused_mlp.ln_mlp_residual_int8_reference(ln_r, mlp_r, xr, quick_gelu), xr)
+        del ln_r, mlp_r, xr
+    ln, mlp = int8_case(d, h)
     x = rnd(m, d).to(bf16)
     worst = 0.0
     for act in (gelu, quick_gelu):
@@ -629,6 +677,26 @@ def phase_kernels():
         differing = (out != ref).float().mean().item()
         worst = max(worst, hold(f"B3 ln_mlp_residual_int8 M={m} d={d} h={h} {act.__name__} "
                                 f"({differing:.2e} of the elements differ)", out, ref, x))
+        # The plain version of the stages, and the kernel's own intermediates
+        # against its: x_q and h_q may differ by one step where the
+        # LayerNorm's fp32 sums, taken in another order, move a value across
+        # a rounding boundary.
+        got = fused_mlp.ln_mlp_residual_int8_with_stages(ln, mlp, x, act)
+        st = fused_mlp.ln_mlp_residual_int8_stages(ln, mlp, x, act)
+        require(torch.equal(got["y"], out), "B3: two launches on the same inputs differ")
+        hold(f"B3 against the plain version of its stages {act.__name__}", out, st["y"], x)
+        steps = []
+        for name in ("x_q", "h_q"):
+            diff = (got[name].int() - st[name].int()).abs()
+            steps.append(f"{name} {(diff > 0).float().mean().item():.3e} of the elements differ, "
+                         f"by at most {diff.max().item()} step")
+            require(diff.max().item() <= 1, f"B3 {name} off by more than one step")
+        for name in ("sx", "amax", "sh"):
+            rel = ((got[name] - st[name]).abs() / st[name].abs().clamp_min(1e-30)).max().item()
+            steps.append(f"{name} max relative difference {rel:.2e}")
+        log(f"# B3 intermediates against the stages' ({act.__name__}): {'; '.join(steps)}; "
+            f"the stages' y equals the twin's: {torch.equal(st['y'], ref)}")
+        del got, st
     ref = fused_mlp.ln_mlp_residual_int8_reference(ln, mlp, x, gelu)
     require(torch.equal(int8_twin_variant(ln, mlp, x, gelu), ref),
             "the B3 twin's second transcription differs from the twin")
@@ -636,6 +704,10 @@ def phase_kernels():
             int8_twin_variant(ln, mlp, x, gelu, chunk=h), ref, x)
     planted("B3 c_fc weight scales dropped",
             int8_twin_variant(ln, mlp, x, gelu, drop_fc_scale=True), ref, x)
+    planted("B3 hidden maximum over a 128-wide GEMM 1 tile for the 1024-wide chunk",
+            int8_twin_variant(ln, mlp, x, gelu, chunk=128), ref, x)
+    planted("B3 s32 accumulator carried across a chunk boundary unscaled",
+            int8_stages_carry(ln, mlp, x, gelu), ref, x)
     probe = rounding_probe(ln, x)
     ref_p = fused_mlp.ln_mlp_residual_int8_reference(probe, mlp, x, gelu)
     hold("B3 on the rounding probe (every input a tie)",
@@ -645,22 +717,32 @@ def phase_kernels():
     ms = cuda_time(lambda: fused_mlp.ln_mlp_residual_int8(ln, mlp, x, gelu), 20)
     plain_ms = cuda_time(
         lambda: fused_mlp.ln_mlp_residual_int8_reference(ln, mlp, x, gelu), 3)
+    stage_times("B3", lambda: fused_mlp.ln_mlp_residual_int8(ln, mlp, x, gelu),
+                {"ln_quant_rows": ("LN + row quantize", "bytes", m * d * 2 + m * d + m * 4),
+                 "hidden_epilogue": ("GEMM 1 (hid, chunk maxima exchanged, h_q)", "ops",
+                                     2 * m * d * h),
+                 "proj_epilogue": ("GEMM 2 (chunk fold, x)", "ops", 2 * m * d * h)})
     xn = layer_norm(ln, x)
     lib_ms = cuda_time(lambda: quant.int8_linear(
         mlp["c_proj"], gelu(quant.int8_linear(mlp["c_fc"], xn))), 10)
+    st = fused_mlp.ln_mlp_residual_int8_stages(ln, mlp, x, gelu)
+    w_fc, w_p = mlp["c_fc"]["w_q"], mlp["c_proj"]["w_q"]
+    int_mm_ms = cuda_time(lambda: (torch._int_mm(st["x_q"], w_fc), torch._int_mm(st["h_q"], w_p)),
+                          10)
     ops = 4 * m * d * h
     nbytes = 2 * m * d * 2 + 2 * d * h + (h + d) * 4 + (3 * d + h) * 4
     b_ms, b_by = bound(ops, nbytes, PEAK_INT8_OPS)
-    log(f"# B3 time: kernel {ms:.3f} ms, twin {plain_ms:.3f} ms, unfused int8_linear-gelu-"
-        f"int8_linear on torch._int_mm {lib_ms:.3f} ms, bound {b_ms:.4f} ms "
-        f"({b_by}; {ops:.3e} int8 operations, {nbytes / 1e6:.1f} MB)")
+    log(f"# B3 time: kernel {ms:.3f} ms ({ops / ms / 1e9:.1f} TOP/s), twin {plain_ms:.3f} ms, "
+        f"unfused int8_linear-gelu-int8_linear on torch._int_mm {lib_ms:.3f} ms, the two bare "
+        f"products on torch._int_mm {int_mm_ms:.3f} ms ({ops / int_mm_ms / 1e9:.1f} TOP/s), "
+        f"bound {b_ms:.4f} ms ({b_by}; {ops:.3e} int8 operations, {nbytes / 1e6:.1f} MB)")
     results["ln_mlp_residual_int8"] = {
         "name": "ln_mlp_residual_int8", "route": "cuda",
         "source": "aa_clip_iqm_tpu_torch/csrc/ln_mlp_residual_int8.cu",
         "replaces": "aa_clip_iqm_tpu/ops/pallas_mlp.py:161",
         "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
         "bound_by": b_by, "library_ms": lib_ms}
-    del x, out, ref, mlp, xn
+    del x, out, ref, mlp, xn, st, w_fc, w_p
 
     # --- B4: packed attention backward at ViT-L/518, batch 8 --------------
     # The kernels take the forward's log-sum-exp (B1 with it on), as the

@@ -178,16 +178,24 @@ def _int8_case(dev, m, d, h, seed):
 
 @pytest.mark.parametrize("m,d,h,act", [
     (10960, 1024, 4096, gelu),        # ViT-L/518, batch 8
-    (1370, 1024, 4096, quick_gelu),   # batch 1
+    (10960, 1024, 4096, quick_gelu),
+    (1370, 1024, 4096, quick_gelu),   # batch 1: 10 x 128 + 90 rows
+    (130, 1024, 4096, gelu),          # one full tile and two rows
+    (1, 1024, 4096, gelu),            # one row of a 128-row tile
     (1000, 768, 3072, gelu),          # the text tower's widths
     (77, 128, 384, quick_gelu),       # an odd row count, 128-wide chunks
+    (64, 128, 768, quick_gelu),       # 256-wide chunks
     (333, 256, 1024, gelu),
+    (130, 256, 512, quick_gelu),      # 512-wide chunks
     (5, 128, 512, gelu),              # fewer rows than a tile
+    (130, 1280, 5120, gelu),          # wider than ViT-L: no cap on d
 ])
 def test_ln_mlp_residual_int8_matches_twin(dev, m, d, h, act):
     """Integer products are exact, so kernel and twin differ only where a
     float32 sum of the LayerNorm, taken in another order, flips a rounding:
-    held on y - x in bf16 ulps like the float kernel."""
+    held on y - x in bf16 ulps like the float kernel, to the twin and to the
+    plain version of the kernel's stages, whose x_q and h_q the kernel's
+    own may differ from by one step at most."""
     ln, qmlp, x = _int8_case(dev, m, d, h, m + h)
     assert fused_mlp.ln_mlp_residual_int8_ok(x, qmlp, act)
     before = (fused_mlp.INT8_LAUNCHES, fused_mlp.LAUNCHES)
@@ -196,6 +204,12 @@ def test_ln_mlp_residual_int8_matches_twin(dev, m, d, h, act):
     _check(out, fused_mlp.ln_mlp_residual_int8_reference(ln, qmlp, x, act), x)
     batched = fused_mlp.ln_mlp_residual_int8(ln, qmlp, x.reshape(1, m, d), act)
     assert torch.equal(batched.reshape(m, d), out)
+    got = fused_mlp.ln_mlp_residual_int8_with_stages(ln, qmlp, x, act)
+    st = fused_mlp.ln_mlp_residual_int8_stages(ln, qmlp, x, act)
+    assert torch.equal(got["y"], out)
+    _check(out, st["y"], x)
+    for name in ("x_q", "h_q"):
+        assert (got[name].int() - st[name].int()).abs().max().item() <= 1, name
 
 
 def test_int8_wrapper_refuses_bad_inputs(dev):
@@ -220,9 +234,9 @@ def test_int8_wrapper_refuses_bad_inputs(dev):
         fused_mlp.ln_mlp_residual_int8(dict(ln, bias=ln["bias"].cpu()), qmlp, x, gelu)
     with pytest.raises(ValueError, match="activation"):
         fused_mlp.ln_mlp_residual_int8(ln, qmlp, x, torch.relu)
-    wide_ln, wide, wide_x = _int8_case(dev, 8, 1280, 512, 2)
+    odd_ln, odd, odd_x = _int8_case(dev, 8, 192, 512, 2)   # d not a multiple of 128
     with pytest.raises(ValueError, match="not supported"):
-        fused_mlp.ln_mlp_residual_int8(wide_ln, wide, wide_x, gelu)
+        fused_mlp.ln_mlp_residual_int8(odd_ln, odd, odd_x, gelu)
 
 
 def test_wrappers_refuse_bad_inputs(dev):
@@ -305,6 +319,30 @@ def test_tensor_map_kernels_as_a_thread_s_first_call(dev):
         assert not isinstance(got[name], Exception), got[name]
     _check(got["bwd"], pa.flash_mha_packed_bwd(qkv, g, 2, 0.125, lse=lse))
     _check(got["gemm_f32"], gemm.gemm_f32_reference(a, w))
+
+
+def test_ln_mlp_residual_int8_as_a_thread_s_first_call(dev):
+    """B3, whose stages encode TMA tensor maps, as the first CUDA call of a
+    new thread: under remat the int8 forward can run on autograd's worker
+    thread, where no context need be current yet."""
+    import threading
+
+    ln, qmlp, x = _int8_case(dev, 300, 256, 1024, 8)
+    got = {}
+
+    def run():
+        try:
+            got["out"] = fused_mlp.ln_mlp_residual_int8(ln, qmlp, x, gelu)
+            torch.cuda.synchronize()
+        except RuntimeError as exc:
+            got["out"] = exc
+
+    t = threading.Thread(target=run)
+    t.start()
+    t.join()
+    assert not isinstance(got["out"], Exception), got["out"]
+    assert torch.equal(got["out"], fused_mlp.ln_mlp_residual_int8(ln, qmlp, x, gelu))
+    _check(got["out"], fused_mlp.ln_mlp_residual_int8_reference(ln, qmlp, x, gelu), x)
 
 
 def test_packed_attention_as_a_thread_s_first_call(dev):
