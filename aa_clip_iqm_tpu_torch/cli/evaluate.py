@@ -9,10 +9,14 @@ Counterpart of ``aa_clip_iqm_tpu/cli/evaluate.py``. It runs on ``cuda``
 unless ``--device cpu`` is given, and restores the adapters that
 ``cli.train`` left under ``--save_path`` (the stage-1 text adapter if there
 is one, then the newest stage-2 checkpoint); ``--no_adapters`` evaluates
-untrained adapters instead. Visualization, reference-checkpoint import,
-data-parallel evaluation and profiling are not ported yet.
+untrained adapters instead, and ``--import_reference`` reads the PyTorch
+reference's ``text_adapter.pth`` / ``image_adapter_{N}.pth`` from
+``--save_path``. ``--visualize`` writes heatmaps under
+``<save_path>/visualization/``. Data-parallel evaluation and profiling are
+not ported yet.
 """
 import argparse
+import os
 
 import torch
 
@@ -20,6 +24,7 @@ from ..configs import EvalConfig
 from ..data.datasets import get_dataset
 from ..evaluation.predict import evaluate_dataset, results_table
 from ..loader import build_model_config, init_trainable, load_frozen_backbone
+from ..models.convert import import_reference_checkpoints
 from ..ops.quant import quantize_backbone_auto
 from ..prompts import compute_frozen_anchors
 from ..train.checkpoint import restore_adapters
@@ -35,7 +40,7 @@ def build_parser():
     parser.add_argument("--img_size", type=int, default=518)
     parser.add_argument("--relu", action="store_true")
     parser.add_argument("--backbone", type=str, default=None,
-                        help="converted .npz weight cache")
+                        help="OpenAI .pt checkpoint or converted .npz")
     parser.add_argument("--random_backbone", action="store_true")
     parser.add_argument("--dataset", type=str, default="MVTec")
     parser.add_argument("--batch_size", type=int, default=32,
@@ -47,6 +52,9 @@ def build_parser():
     parser.add_argument("--seed", type=int, default=111)
     parser.add_argument("--save_path", type=str, default="ckpt/baseline")
     parser.add_argument("--metadata_root", type=str, default=None)
+    parser.add_argument("--visualize", action="store_true",
+                        help="write each test image's heatmaps under "
+                        "<save_path>/visualization/")
     parser.add_argument("--text_adapt_weight", type=float, default=0.1)
     parser.add_argument("--image_adapt_weight", type=float, default=0.1)
     parser.add_argument("--text_adapt_until", type=int, default=3)
@@ -68,6 +76,10 @@ def build_parser():
     parser.add_argument("--no_adapters", action="store_true",
                         help="evaluate without any trained checkpoint "
                         "(zero-shot plumbing check)")
+    parser.add_argument("--import_reference", action="store_true",
+                        help="treat --save_path as a PyTorch-reference "
+                        "checkpoint dir (text_adapter.pth / "
+                        "image_adapter_N.pth) and import the adapters")
     parser.add_argument("--quantize_backbone", type=str, default=None,
                         choices=TIERS,
                         help="int8 frozen-backbone inference tier; "
@@ -114,7 +126,13 @@ def main(argv=None):
                     args.quantize_backbone)
 
     adapted_text = False
-    if not args.no_adapters:
+    if args.import_reference:
+        trainable = import_reference_checkpoints(args.save_path, trainable,
+                                                 relu=args.relu)
+        adapted_text = os.path.isfile(os.path.join(args.save_path,
+                                                   "text_adapter.pth"))
+        logger.info("imported reference adapters from %s", args.save_path)
+    elif not args.no_adapters:
         trainable, adapted_text, epoch = restore_adapters(args.save_path, trainable)
         logger.info("restored adapters from %s (epoch %s, adapted text: %s)",
                     args.save_path, epoch, adapted_text)
@@ -132,7 +150,8 @@ def main(argv=None):
         text_weight=args.text_weight, compute_dtype=args.compute_dtype,
         image_score_mode=args.image_score_mode)
     rows = evaluate_dataset(frozen, trainable, model_cfg, eval_cfg, datasets,
-                            anchors, logger=logger, compute_dtype=dtype)
+                            anchors, logger=logger, compute_dtype=dtype,
+                            visualize_dir=args.save_path if args.visualize else None)
     table = results_table(rows)
     logger.info("final results:\n%s", table)
     print(table)

@@ -3,7 +3,7 @@
 
     python -m aa_clip_iqm_tpu_torch.cli.train --dataset VisA \\
         --training_mode full_shot --save_path ckpt/baseline \\
-        --backbone /path/to/ViT-L-14-336.npz
+        --backbone /path/to/ViT-L-14-336px.pt
 
 Counterpart of ``aa_clip_iqm_tpu/cli/train.py``. It runs on ``cuda`` unless
 ``--device cpu`` is given: the frozen backbone in the compute dtype, the
@@ -31,7 +31,7 @@ def build_parser():
     parser.add_argument("--relu", action="store_true",
                         help="use relu after projection")
     parser.add_argument("--backbone", type=str, default=None,
-                        help="converted .npz weight cache")
+                        help="OpenAI .pt checkpoint or converted .npz")
     parser.add_argument("--random_backbone", action="store_true",
                         help="random-init backbone (smoke runs only)")
     # training

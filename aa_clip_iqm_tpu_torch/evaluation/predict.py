@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import math
 import re
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -253,7 +253,8 @@ def class_metrics_device(preds, class_name: str, domain: str,
 def evaluate_dataset(frozen, trainable, model_cfg: ModelConfig,
                      eval_cfg: EvalConfig, datasets: Dict, anchors: Dict,
                      logger=None, use_iqm: bool = True,
-                     compute_dtype=torch.float32, device_resident: bool = True):
+                     compute_dtype=torch.float32, device_resident: bool = True,
+                     visualize_dir: Optional[str] = None):
     """Per-class sweep producing a results table (list of metric dicts plus
     an Average row), parity with test_last.py:273-327.
 
@@ -261,7 +262,10 @@ def evaluate_dataset(frozen, trainable, model_cfg: ModelConfig,
     ``device_resident`` (the default) maps and metrics stay there and each
     class's four scalars are fetched one class late; without it the maps
     come to the host and :func:`..ops.metrics.metrics_eval` ranks them.
+    ``visualize_dir`` writes each class's heatmaps there
+    (:func:`.visualize.dump_heatmaps`), which takes the host path.
     """
+    device_resident = device_resident and not visualize_dir
     domain = DOMAINS[eval_cfg.dataset]
     predict_fn = make_predict_fn(
         model_cfg, eval_cfg.img_size, domain, use_iqm=use_iqm,
@@ -287,6 +291,11 @@ def evaluate_dataset(frozen, trainable, model_cfg: ModelConfig,
         if device_resident:
             row = class_metrics_device(preds, class_name, domain, defer=True)
         else:
+            if visualize_dir:
+                from .visualize import dump_heatmaps
+
+                dump_heatmaps(preds["masks"], preds["maps"], preds["file_names"],
+                              visualize_dir, eval_cfg.dataset, class_name)
             row = metrics_eval(
                 preds["masks"], preds["labels"], preds["maps"],
                 preds["image_scores"], class_name, domain,

@@ -1,14 +1,15 @@
 """Model assembly: config + backbone weights + adapter init.
 
 Counterpart of ``aa_clip_iqm_tpu/loader.py``: :func:`build_model_config`,
-:func:`load_frozen_backbone` (a converted ``.npz`` weight cache, or with
-``allow_random`` a seeded random backbone, the ``--random_backbone`` of the
-CLIs; a cache saved at another grid has its positional embedding resized
-bicubically) and :func:`init_trainable`. Converting OpenAI ``.pt`` weights
-is not ported yet: convert them to ``.npz`` with the JAX package.
+:func:`load_frozen_backbone` (an OpenAI ``.pt`` checkpoint, converted on
+the CPU and cached beside it as ``<stem>.<image_size>.npz``; a converted
+``.npz`` weight cache, whose positional embedding is resized bicubically if
+it was saved at another grid; or with ``allow_random`` a seeded random
+backbone, the ``--random_backbone`` of the CLIs) and :func:`init_trainable`.
 """
 from __future__ import annotations
 
+import os
 from dataclasses import replace
 from typing import Optional
 
@@ -27,8 +28,10 @@ from .models.convert import (
     find_backbone,
     init_adapter_params_np,
     init_clip_params_np,
+    load_openai_checkpoint,
     load_params_npz,
     params_from_jax,
+    save_params_npz,
     tree_leaves,
 )
 
@@ -85,32 +88,53 @@ def random_backbone(cfg: ModelConfig, seed: int = 0, device="cuda",
     return frozen
 
 
+def _openai_params(cfg: ModelConfig, path: str, cache_npz: bool):
+    """An OpenAI ``.pt`` -> numpy params, through the per-resolution cache
+    ``<stem>.<image_size>.npz`` beside it. The cache holds the converted
+    params with the positional embedding already resized, in the JAX key
+    layout (blocks stacked), so either package reads the other's. It is
+    trusted only when it is at least as new as the ``.pt``;
+    ``cache_npz=False`` neither reads nor writes it, and a cache that cannot
+    be written is skipped."""
+    cache = f"{os.path.splitext(path)[0]}.{cfg.clip.vision.image_size}.npz"
+    if (cache_npz and os.path.isfile(cache)
+            and os.path.getmtime(cache) >= os.path.getmtime(path)):
+        return load_params_npz(cache)
+    params = load_openai_checkpoint(path, cfg.clip)
+    if cache_npz:
+        try:
+            save_params_npz(params, cache)
+        except OSError:
+            pass
+    return params
+
+
 def load_frozen_backbone(cfg: ModelConfig, backbone_path: Optional[str] = None,
                          allow_random: bool = False, seed: int = 0,
-                         device="cuda", dtype=torch.bfloat16):
+                         device="cuda", dtype=torch.bfloat16,
+                         cache_npz: bool = True):
     """Load (or randomly init) the frozen CLIP params for cfg.clip, onto
-    ``device`` with the matmul weights in ``dtype``."""
+    ``device`` with the matmul weights in ``dtype``: from an ``.npz`` weight
+    cache, or from an OpenAI ``.pt`` through its per-resolution cache (see
+    :func:`_openai_params`)."""
     path = backbone_path or find_backbone()
     if path is None:
         if not allow_random:
             raise FileNotFoundError(
                 "No CLIP backbone checkpoint found. Provide --backbone "
-                "pointing to a converted .npz of the OpenAI "
-                "ViT-L-14-336px weights, or pass allow_random for an "
-                "untrained backbone.")
+                "pointing to the OpenAI ViT-L-14-336px.pt (or a converted "
+                ".npz), or pass allow_random for an untrained backbone.")
         return random_backbone(cfg, seed=seed, device=device, dtype=dtype)
-    if not path.endswith(".npz"):
-        raise NotImplementedError(
-            f"{path}: only .npz weight caches are read so far; converting "
-            "an OpenAI .pt checkpoint is not ported yet (convert it with "
-            "aa_clip_iqm_tpu.models.convert and save_params_npz)")
-    params = load_params_npz(path)
-    # An .npz cache may hold another grid's positional embedding (the
-    # checkpoint's native one): resize it bicubically to the config's.
-    pos = np.asarray(params["visual"]["positional_embedding"])
-    if pos.shape[0] != cfg.clip.vision.grid ** 2 + 1:
-        params["visual"]["positional_embedding"] = resize_pos_embed_np(
-            pos, cfg.clip.vision.grid)
+    if path.endswith(".npz"):
+        params = load_params_npz(path)
+        # An .npz cache may hold another grid's positional embedding (the
+        # checkpoint's native one): resize it bicubically to the config's.
+        pos = np.asarray(params["visual"]["positional_embedding"])
+        if pos.shape[0] != cfg.clip.vision.grid ** 2 + 1:
+            params["visual"]["positional_embedding"] = resize_pos_embed_np(
+                pos, cfg.clip.vision.grid)
+    else:
+        params = _openai_params(cfg, path, cache_npz)
     frozen, _ = params_from_jax(params, None, cfg, device=device, dtype=dtype)
     return frozen
 

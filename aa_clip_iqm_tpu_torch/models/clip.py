@@ -39,7 +39,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..configs import TextConfig, VisionConfig
+from ..configs import CLIPConfig, TextConfig, VisionConfig
 from ..ops import attention as attn_ops
 from ..ops.attn_block import ln_attn_residual, ln_attn_residual_ok
 from ..ops.fused_mlp import (
@@ -187,6 +187,18 @@ def vision_forward(
     pooled = layer_norm(params["ln_post"], x[:, 0])
     pooled = linear({"w": params["proj"]}, pooled)
     return pooled, taps, x
+
+
+def encode_image(params, cfg: CLIPConfig, images, compute_dtype=torch.float32):
+    """CLIP.encode_image: the pooled image embedding of the ViT tower.
+    ModifiedResNet towers are not ported (ROADMAP A13)."""
+    if not isinstance(cfg.vision, VisionConfig):
+        raise NotImplementedError(
+            "encode_image runs the ViT tower only; ModifiedResNet towers "
+            "are not ported (ROADMAP A13)")
+    pooled, _, _ = vision_forward(params["visual"], cfg.vision, images,
+                                  act_name=cfg.act, compute_dtype=compute_dtype)
+    return pooled
 
 
 def dual_vision_features(params, cfg: VisionConfig, images,

@@ -1,6 +1,5 @@
 """Carry weights into the port's parameter dicts.
 
-Two parts:
   - :func:`params_from_jax` turns parameter pytrees in the JAX package's
     layout (nested dicts/lists of numpy arrays, weights ``(in, out)``, block
     leaves stacked on a leading layer axis; ``aa_clip_iqm_tpu/models/clip.py``
@@ -25,6 +24,13 @@ scales.
 :func:`save_params_npz` / :func:`load_params_npz` are the flat ``.npz``
 weight cache of the JAX package (same key scheme, so either package reads
 the other's file).
+
+:func:`load_openai_checkpoint` reads an OpenAI ``.pt`` and
+:func:`torch_state_dict_to_params` maps its state dict into the JAX layout
+(numpy, blocks stacked, the positional embedding resized to the config's
+grid), ready for :func:`params_from_jax` or the ``.npz`` cache. The
+``import_reference_*`` functions load the PyTorch reference's adapter
+checkpoints into a trainable dict.
 """
 from __future__ import annotations
 
@@ -190,6 +196,190 @@ def load_params_npz(path: str):
     return listify(root)
 
 
+# --------------------------------------------------------------------------
+# OpenAI CLIP checkpoint -> numpy pytree in the JAX layout
+# --------------------------------------------------------------------------
+#
+# Weight layout (torch -> here): an nn.Linear weight (out, in) becomes w
+# (in, out), transposed; MultiheadAttention's in_proj_weight (3d, d) becomes
+# qkv.w (d, 3d), the q/k/v order kept by the transpose; conv1's weight
+# (width, 3, p, p) becomes patch_embed.w (3*p*p, width), whose flattened
+# (c, ph, pw) order is patchify's token layout.
+
+def _t(x):
+    return np.ascontiguousarray(np.asarray(x, dtype=np.float32).T)
+
+
+def _f32(x):
+    return np.asarray(x, np.float32)
+
+
+def _ln(sd, prefix):
+    return {"scale": _f32(sd[prefix + ".weight"]),
+            "bias": _f32(sd[prefix + ".bias"])}
+
+
+def _block(sd, prefix):
+    return {
+        "ln_1": _ln(sd, prefix + ".ln_1"),
+        "attn": {
+            "qkv": {"w": _t(sd[prefix + ".attn.in_proj_weight"]),
+                    "b": _f32(sd[prefix + ".attn.in_proj_bias"])},
+            "out": {"w": _t(sd[prefix + ".attn.out_proj.weight"]),
+                    "b": _f32(sd[prefix + ".attn.out_proj.bias"])},
+        },
+        "ln_2": _ln(sd, prefix + ".ln_2"),
+        "mlp": {
+            "c_fc": {"w": _t(sd[prefix + ".mlp.c_fc.weight"]),
+                     "b": _f32(sd[prefix + ".mlp.c_fc.bias"])},
+            "c_proj": {"w": _t(sd[prefix + ".mlp.c_proj.weight"]),
+                       "b": _f32(sd[prefix + ".mlp.c_proj.bias"])},
+        },
+    }
+
+
+def _stack_np(blocks):
+    """A list of per-layer block trees -> one tree whose leaves carry a
+    leading layer axis (the JAX layout)."""
+    return tree_map(lambda *xs: np.stack(xs, axis=0), blocks[0], *blocks[1:])
+
+
+def _text_tree(sd, cfg):
+    return {
+        "token_embedding": _f32(sd["token_embedding.weight"]),
+        "positional_embedding": _f32(sd["positional_embedding"]),
+        "blocks": _stack_np([_block(sd, f"transformer.resblocks.{i}")
+                             for i in range(cfg.text.layers)]),
+        "ln_final": _ln(sd, "ln_final"),
+        "text_projection": _f32(sd["text_projection"]),
+    }
+
+
+def torch_state_dict_to_params(sd, cfg):
+    """An OpenAI ViT CLIP state dict (numpy-valued) -> the numpy pytree of
+    the JAX layout, blocks stacked, with the visual positional embedding
+    resized bicubically to ``cfg.vision``'s grid. ``cfg`` is a
+    ``CLIPConfig``. :func:`params_from_jax` carries the result onto a
+    device. ModifiedResNet towers are not ported (ROADMAP A13)."""
+    from ..configs import VisionConfig
+    from .clip import resize_pos_embed_np
+
+    if not isinstance(cfg.vision, VisionConfig):
+        raise NotImplementedError(
+            "only ViT CLIP checkpoints convert; ModifiedResNet towers are "
+            "not ported (ROADMAP A13)")
+    if not all(isinstance(v, np.ndarray) for v in sd.values()):
+        sd = {k: np.asarray(v) for k, v in sd.items()}
+    conv_w = _f32(sd["visual.conv1.weight"])
+    visual = {
+        "patch_embed": {"w": np.ascontiguousarray(
+            conv_w.reshape(conv_w.shape[0], -1).T)},
+        "class_embedding": _f32(sd["visual.class_embedding"]),
+        "positional_embedding": resize_pos_embed_np(
+            _f32(sd["visual.positional_embedding"]), cfg.vision.grid),
+        "ln_pre": _ln(sd, "visual.ln_pre"),
+        "blocks": _stack_np([_block(sd, f"visual.transformer.resblocks.{i}")
+                             for i in range(cfg.vision.layers)]),
+        "ln_post": _ln(sd, "visual.ln_post"),
+        "proj": _f32(sd["visual.proj"]),
+    }
+    return {"visual": visual, "text": _text_tree(sd, cfg),
+            "logit_scale": _f32(sd.get("logit_scale", np.log(1 / 0.07)))}
+
+
+def _np(v):
+    """A tensor (any float dtype) or array -> float32 numpy."""
+    return v.float().numpy() if isinstance(v, torch.Tensor) else _f32(v)
+
+
+def load_openai_checkpoint(path: str, cfg):
+    """Load an OpenAI ``.pt`` checkpoint (a TorchScript archive, a
+    ``{"state_dict": ...}`` dict or a plain state dict) on the CPU and
+    convert it with :func:`torch_state_dict_to_params`. fp16 tensors are
+    cast to float32 first; the metadata entries ``input_resolution``,
+    ``context_length`` and ``vocab_size`` are dropped."""
+    # A TorchScript archive is no plain tensor file: weights_only=False.
+    obj = torch.load(path, map_location="cpu", weights_only=False)
+    if hasattr(obj, "state_dict"):
+        sd = obj.state_dict()
+    elif isinstance(obj, dict) and "state_dict" in obj:
+        sd = obj["state_dict"]
+    else:
+        sd = obj
+    del obj
+    sd = {k: _np(sd[k]) for k in list(sd)}
+    for key in ("input_resolution", "context_length", "vocab_size"):
+        sd.pop(key, None)
+    return torch_state_dict_to_params(sd, cfg)
+
+
+# --------------------------------------------------------------------------
+# Adapter checkpoints of the PyTorch reference (text_adapter.pth,
+# image_adapter_{N}.pth) -> the trainable dict
+# --------------------------------------------------------------------------
+
+def _clone(trainable):
+    return tree_map(lambda t: t.detach().clone(), trainable)
+
+
+def _put(slot, key, weight):
+    """Replace ``slot[key]`` by the transposed torch Linear ``weight``, in
+    the dtype and on the device of the tensor it replaces."""
+    old = slot[key]
+    slot[key] = torch.tensor(_t(_np(weight)), dtype=old.dtype, device=old.device)
+
+
+def import_reference_text_adapter(sd, trainable):
+    """A reference ``text_adapter`` state dict (an nn.ModuleList of
+    SimpleAdapters, then a SimpleProj: keys ``{i}.fc.0.weight``) -> an
+    updated copy of ``trainable``."""
+    out = _clone(trainable)
+    ta = out["text_adapter"]
+    n = len(ta["layers"])
+    for i in range(n):
+        _put(ta["layers"][i], "w", sd[f"{i}.fc.0.weight"])
+    _put(ta["proj"], "w", sd[f"{n}.fc.0.weight"])
+    return out
+
+
+def import_reference_image_adapter(sd, trainable, relu: bool = False):
+    """A reference ``image_adapter`` state dict (the ModuleDict
+    {layer_adapters, seg_proj, det_proj}) -> an updated copy of
+    ``trainable``. A SimpleProj's Linear is ``fc.0`` with the LeakyReLU of
+    ``--relu`` and ``fc`` without it."""
+    out = _clone(trainable)
+    ia = out["image_adapter"]
+    for i, layer in enumerate(ia["layer_adapters"]):
+        _put(layer, "w", sd[f"layer_adapters.{i}.fc.0.weight"])
+    proj_key = "fc.0.weight" if relu else "fc.weight"
+    for i, seg in enumerate(ia["seg_proj"]):
+        _put(seg, "w", sd[f"seg_proj.{i}.{proj_key}"])
+    _put(ia["det_proj"], "w", sd[f"det_proj.{proj_key}"])
+    return out
+
+
+def import_reference_checkpoints(save_path: str, trainable, relu: bool = False):
+    """The reference's ``text_adapter.pth`` and its newest
+    ``image_adapter_{N}.pth`` (by N) from a directory -> an updated copy of
+    ``trainable``. The IQM family keeps its initialization: the reference
+    never saves it."""
+    import glob
+    import re
+
+    text = os.path.join(save_path, "text_adapter.pth")
+    if os.path.isfile(text):
+        ckpt = torch.load(text, map_location="cpu", weights_only=False)
+        trainable = import_reference_text_adapter(ckpt["text_adapter"], trainable)
+    images = glob.glob(os.path.join(save_path, "image_adapter_*.pth"))
+    numbered = [(int(m.group(1)), p) for p in images
+                if (m := re.search(r"_(\d+)\.pth$", p))]
+    if numbered:
+        ckpt = torch.load(max(numbered)[1], map_location="cpu", weights_only=False)
+        trainable = import_reference_image_adapter(ckpt["image_adapter"],
+                                                   trainable, relu=relu)
+    return trainable
+
+
 def find_backbone(model_name: str = "ViT-L-14-336",
                   search_dirs=(".", "weights", os.path.expanduser("~"))):
     """Locate a usable backbone checkpoint (.npz cache preferred, else .pt)."""
@@ -211,7 +401,7 @@ def _normal(rng, shape, std):
     return rng.standard_normal(shape, dtype=np.float32) * np.float32(std)
 
 
-def _ln(n, dim):
+def _ln_init(n, dim):
     lead = (n,) if n else ()
     return {"scale": np.ones(lead + (dim,), np.float32),
             "bias": np.zeros(lead + (dim,), np.float32)}
@@ -223,9 +413,9 @@ def _blocks(rng, n, width, hidden):
         return {"w": _normal(rng, (n, d_in, d_out), d_in ** -0.5),
                 "b": np.zeros((n, d_out), np.float32)}
 
-    return {"ln_1": _ln(n, width),
+    return {"ln_1": _ln_init(n, width),
             "attn": {"qkv": lin(width, 3 * width), "out": lin(width, width)},
-            "ln_2": _ln(n, width),
+            "ln_2": _ln_init(n, width),
             "mlp": {"c_fc": lin(width, hidden), "c_proj": lin(hidden, width)}}
 
 
@@ -238,16 +428,16 @@ def init_clip_params_np(cfg: ModelConfig, seed: int = 0):
         "patch_embed": {"w": _normal(rng, (3 * v.patch_size ** 2, v.width), scale)},
         "class_embedding": _normal(rng, (v.width,), scale),
         "positional_embedding": _normal(rng, (v.num_patches + 1, v.width), scale),
-        "ln_pre": _ln(0, v.width),
+        "ln_pre": _ln_init(0, v.width),
         "blocks": _blocks(rng, v.layers, v.width, int(v.width * v.mlp_ratio)),
-        "ln_post": _ln(0, v.width),
+        "ln_post": _ln_init(0, v.width),
         "proj": _normal(rng, (v.width, v.output_dim), scale),
     }
     text = {
         "token_embedding": _normal(rng, (t.vocab_size, t.width), 0.02),
         "positional_embedding": _normal(rng, (t.context_length, t.width), 0.01),
         "blocks": _blocks(rng, t.layers, t.width, 4 * t.width),
-        "ln_final": _ln(0, t.width),
+        "ln_final": _ln_init(0, t.width),
         "text_projection": _normal(rng, (t.width, t.output_dim), t.width ** -0.5),
     }
     return {"visual": visual, "text": text,
@@ -270,7 +460,7 @@ def _iqm_np(rng, cfg):
     def attention(kv_dim):
         return {"q": _xavier(rng, h, h), "k": _xavier(rng, kv_dim, h),
                 "v": _xavier(rng, kv_dim, h), "out_dense": _xavier(rng, h, h),
-                "out_ln": _ln(0, h)}
+                "out_ln": _ln_init(0, h)}
 
     layers = []
     for i in range(cfg.num_hidden_layers):
@@ -280,9 +470,9 @@ def _iqm_np(rng, cfg):
             layer["text_cross"] = attention(cfg.text_encoder_hidden_size)
         layer["ffn_q"] = {"intermediate": _xavier(rng, h, cfg.intermediate_size),
                           "output": _xavier(rng, cfg.intermediate_size, h),
-                          "ln": _ln(0, h)}
+                          "ln": _ln_init(0, h)}
         layers.append(layer)
-    return {"layernorm": _ln(0, h), "layers": layers}
+    return {"layernorm": _ln_init(0, h), "layers": layers}
 
 
 def init_adapter_params_np(cfg: ModelConfig, seed: int = 111):
@@ -315,5 +505,5 @@ def init_adapter_params_np(cfg: ModelConfig, seed: int = 111):
         "text_feature_proj": _xavier(rng, cfg.iqm.text_encoder_hidden_size,
                                      cfg.iqm.text_encoder_hidden_size),
         "query_proj": _xavier(rng, hidden, out_dim),
-        "iqm_layer_norm": _ln(0, hidden),
+        "iqm_layer_norm": _ln_init(0, hidden),
     }

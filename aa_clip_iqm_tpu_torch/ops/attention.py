@@ -98,6 +98,23 @@ def vv_attention(params, x, num_heads: int, valid_len=None):
     return linear(params["out"], _merge_heads(out))
 
 
+def vv_attention_batch_axis(params, x, num_heads: int):
+    """The executed reference's surgery attention: at every token index,
+    each sample's value heads attend over the samples of the batch (the
+    reference's custom attention unpacks B, N, C from an (L, N, C) input).
+    It depends on the batch's composition, so the shipped pipeline never
+    uses it; it is here to reproduce the reference's stage-1 features. Plain
+    PyTorch on every device: B1 attends over the token axis, which is not
+    this."""
+    _, _, v = qkv_project(params, x)                     # (B, L, d)
+    hd = x.shape[-1] // num_heads
+    vh = _split_heads(v, num_heads).float()              # (B, H, L, hd)
+    logits = torch.einsum("bhld,chld->lhbc", vh, vh) * hd ** -0.5
+    attn = torch.softmax(logits, dim=-1)                 # (L, H, B, B)
+    out = torch.einsum("lhbc,chld->bhld", attn, vh).to(v.dtype)
+    return linear(params["out"], _merge_heads(out))
+
+
 def causal_mask(length: int, dtype=torch.float32, device=None):
     """Additive causal mask (upper-triangular -inf)."""
     mask = torch.full((length, length), float("-inf"), dtype=dtype, device=device)

@@ -9,7 +9,7 @@ anchor pair.
 """
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Callable, Dict, List
 
 import numpy as np
 import torch
@@ -37,6 +37,32 @@ def class_prompt_sentences(dataset_name: str, class_name: str) -> List[List[str]
          for state in states for template in PROMPTS["templates"]]
         for states in (PROMPTS["normal"], PROMPTS["abnormal"])
     ]
+
+
+def class_prompt_tokens(dataset_name: str, class_name: str, device="cuda"):
+    """The tokenized prompt groups of one class: [normal, abnormal], each an
+    (n_sentences, 77) int64 tensor on ``device``."""
+    return [torch.from_numpy(np.asarray(tokenize(g), np.int64)).to(device)
+            for g in class_prompt_sentences(dataset_name, class_name)]
+
+
+def anchors_from_embeddings(normal_emb, abnormal_emb):
+    """The mean of the L2-normalized embeddings of each state, normalized
+    again, stacked (dim, 2) float32."""
+    cols = []
+    for emb in (normal_emb, abnormal_emb):
+        mean = l2_normalize(emb.float()).mean(dim=0)
+        cols.append(mean / torch.linalg.vector_norm(mean))
+    return torch.stack(cols, dim=1)
+
+
+def compute_class_anchor(encode_fn: Callable, dataset_name: str,
+                         class_name: str, device="cuda"):
+    """One class's (dim, 2) anchor. ``encode_fn`` maps (N, 77) int64 tokens
+    on ``device`` to (N, dim) embeddings; ``class_name`` "object" takes the
+    generic prompts."""
+    normal, abnormal = class_prompt_tokens(dataset_name, class_name, device)
+    return anchors_from_embeddings(encode_fn(normal), encode_fn(abnormal))
 
 
 def batched_prompt_tokens(dataset_name: str):

@@ -31,7 +31,7 @@ from typing import Optional
 
 import torch
 
-from ..models.convert import tree_leaves, tree_map
+from ..models.convert import tree_map
 from .optim import OptState
 
 FILE = "checkpoint.pt"
@@ -59,10 +59,10 @@ def _load(directory: str) -> Optional[dict]:
 
 
 def _restore(state, params, opt_state: Optional[OptState]):
-    """Copy a loaded state into ``params`` (in place) and ``opt_state``."""
+    """Copy a loaded state into ``params`` (in place, matched by key, so
+    that the two trees' key orders need not agree) and ``opt_state``."""
     with torch.no_grad():
-        for dst, src in zip(tree_leaves(params), tree_leaves(state["params"])):
-            dst.copy_(src)
+        tree_map(lambda dst, src: dst.copy_(src), params, state["params"])
     out = {"epoch": int(state["epoch"]), "params": params, "opt_state": None}
     if opt_state is not None and state.get("opt") is not None:
         opt_state.load_state_dict(state["opt"])

@@ -87,7 +87,24 @@ line):
      surgery block and the packed backward once per shared-prefix block; the
      input's and every tap's gradient against the same backward with the
      value-value kernel alone swapped for its plain version (and for a
-     planted fault).
+     planted fault);
+ 11. serve: the main path's seeded ViT-L-14-336 weights at their native
+     336 px grid written as an OpenAI-layout fp16 .pt, and seeded adapters
+     written by the trainer's checkpoint writer and as the reference's
+     text_adapter.pth / image_adapter_3.pth (imported back bit for bit);
+     AnomalyDetector.from_checkpoint at 518 px twice, the first converting
+     the .pt and writing <stem>.518.npz, the second reading it (both bit for
+     bit the seeded weights rounded fp16 -> fp32 -> bf16, the positional
+     embedding resized, and the saved adapters); predict_paths on 8 PNGs
+     against predict on their decoded uint8 arrays, bit for bit; the HTTP
+     server (cli.serve.make_server) over MicroBatchingService(max_batch=32,
+     max_latency_ms=5) under 32 client threads of 2 requests each over 3
+     classes, half .npy and half JSON with a base64 PNG, and one
+     /v1/predict_batch of 8, every map against predict_multi; requests/s,
+     p50 and p99 latency, the device batches (B1 launches / 24) and their
+     mean size, and the idle share of the same traffic under the profiler;
+     cli.single_image zero-shot (B1 in value-value mode) and from the
+     checkpoint, each saved map against the same computation done directly.
 Launch counts are set to 0 before each driven path and read after it. The
 second-to-last line is a JSON object with one entry per kernel; the last
 line is {"ok": true, "device": {...}}.
@@ -152,6 +169,14 @@ METRIC_TOL = 1e-4                        # device vs host AUROC / AP, in [0, 1]
 # B1's log-sum-exp against the plain logsumexp of the masked scaled scores,
 # relative: both are fp32 sums of the same exponentials in other orders.
 LSE_TOL = 1e-5
+# The serve phase: the OpenAI checkpoint's own grid (24 x 24 patches, 577
+# positional rows) that the loader resizes to 518 px; 32 HTTP clients of 2
+# requests each over three classes; every HTTP call and future waits at most
+# SERVE_TIMEOUT seconds.
+SERVE_MODEL, NATIVE_IMG = "ViT-L-14-336", 336
+SERVE_CLASSES = ("bottle", "screw", "carpet")
+SERVE_CLIENTS, SERVE_REQUESTS = 32, 2
+SERVE_TIMEOUT = 300
 
 
 class Failure(RuntimeError):
@@ -2283,6 +2308,380 @@ def phase_surgery_backward(ctx):
     return got
 
 
+def openai_state_dict(params, cfg):
+    """The OpenAI CLIP state dict of a numpy params tree in the JAX layout
+    (blocks stacked), in fp16 as OpenAI ships it, with its three metadata
+    entries: the inverse of models/convert.torch_state_dict_to_params, which
+    the package itself never needs."""
+    import numpy as np
+    import torch
+
+    def half(x, transpose=False):
+        x = np.asarray(x, np.float32)
+        return torch.from_numpy(np.ascontiguousarray(x.T if transpose else x)).half()
+
+    sd = {}
+
+    def ln(name, p, i=None):
+        sd[f"{name}.weight"] = half(p["scale"] if i is None else p["scale"][i])
+        sd[f"{name}.bias"] = half(p["bias"] if i is None else p["bias"][i])
+
+    def blocks(prefix, b, n):
+        for i in range(n):
+            p = f"{prefix}.{i}"
+            ln(f"{p}.ln_1", b["ln_1"], i)
+            sd[f"{p}.attn.in_proj_weight"] = half(b["attn"]["qkv"]["w"][i], True)
+            sd[f"{p}.attn.in_proj_bias"] = half(b["attn"]["qkv"]["b"][i])
+            sd[f"{p}.attn.out_proj.weight"] = half(b["attn"]["out"]["w"][i], True)
+            sd[f"{p}.attn.out_proj.bias"] = half(b["attn"]["out"]["b"][i])
+            ln(f"{p}.ln_2", b["ln_2"], i)
+            for name in ("c_fc", "c_proj"):
+                sd[f"{p}.mlp.{name}.weight"] = half(b["mlp"][name]["w"][i], True)
+                sd[f"{p}.mlp.{name}.bias"] = half(b["mlp"][name]["b"][i])
+
+    v, t, p = params["visual"], params["text"], cfg.clip.vision.patch_size
+    conv = np.asarray(v["patch_embed"]["w"], np.float32).T
+    sd["visual.conv1.weight"] = half(conv.reshape(conv.shape[0], 3, p, p))
+    sd["visual.class_embedding"] = half(v["class_embedding"])
+    sd["visual.positional_embedding"] = half(v["positional_embedding"])
+    ln("visual.ln_pre", v["ln_pre"])
+    blocks("visual.transformer.resblocks", v["blocks"], cfg.clip.vision.layers)
+    ln("visual.ln_post", v["ln_post"])
+    sd["visual.proj"] = half(v["proj"])
+    sd["token_embedding.weight"] = half(t["token_embedding"])
+    sd["positional_embedding"] = half(t["positional_embedding"])
+    blocks("transformer.resblocks", t["blocks"], cfg.clip.text.layers)
+    ln("ln_final", t["ln_final"])
+    sd["text_projection"] = half(t["text_projection"])
+    sd["logit_scale"] = half(params["logit_scale"])
+    sd.update(input_resolution=torch.tensor(cfg.clip.vision.image_size),
+              context_length=torch.tensor(cfg.clip.text.context_length),
+              vocab_size=torch.tensor(cfg.clip.text.vocab_size))
+    return sd
+
+
+def reference_adapters(trainable):
+    """The PyTorch reference's text_adapter and image_adapter state dicts
+    (without --relu) of a trainable dict: torch Linear weights (out, in)."""
+    ta, ia = trainable["text_adapter"], trainable["image_adapter"]
+    n = len(ta["layers"])
+    text = {f"{i}.fc.0.weight": ta["layers"][i]["w"].T.contiguous() for i in range(n)}
+    text[f"{n}.fc.0.weight"] = ta["proj"]["w"].T.contiguous()
+    image = {f"layer_adapters.{i}.fc.0.weight": a["w"].T.contiguous()
+             for i, a in enumerate(ia["layer_adapters"])}
+    image.update({f"seg_proj.{i}.fc.weight": s["w"].T.contiguous()
+                  for i, s in enumerate(ia["seg_proj"])})
+    image["det_proj.fc.weight"] = ia["det_proj"]["w"].T.contiguous()
+    return text, image
+
+
+def same_trees(a, b):
+    """Whether two trees of tensors hold the same names, dtypes and values."""
+    import torch
+
+    la, lb = dict(named_leaves(a)), dict(named_leaves(b))
+    return la.keys() == lb.keys() and all(
+        la[k].dtype == lb[k].dtype and torch.equal(la[k], lb[k].to(la[k].device)) for k in la)
+
+
+def http_window(base, payloads):
+    """POST the /v1/predict payloads from SERVE_CLIENTS threads at once,
+    SERVE_REQUESTS each. Returns (wall seconds, latencies, replies)."""
+    import json
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+
+    def client(k):
+        out = []
+        for i in range(k * SERVE_REQUESTS, (k + 1) * SERVE_REQUESTS):
+            query, body, ctype = payloads[i]
+            req = urllib.request.Request(f"{base}/v1/predict?{query}", data=body,
+                                         headers={"Content-Type": ctype})
+            t = time.perf_counter()
+            with urllib.request.urlopen(req, timeout=SERVE_TIMEOUT) as r:
+                out.append((i, time.perf_counter() - t, r.status, json.loads(r.read())))
+        return out
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=SERVE_CLIENTS) as ex:
+        done = [x for got in ex.map(client, range(SERVE_CLIENTS), timeout=4 * SERVE_TIMEOUT)
+                for x in got]
+    wall = time.perf_counter() - t0
+    done.sort(key=lambda x: x[0])
+    return wall, [x[1] for x in done], [(x[2], x[3]) for x in done]
+
+
+def phase_serve(card):
+    """Serving from checkpoints at full ViT-L-14-336 width and depth: an
+    OpenAI-layout fp16 .pt at its native 336 px grid, converted, cached and
+    reloaded by AnomalyDetector.from_checkpoint at 518 px with adapters saved
+    by the trainer's writer (and in the reference's .pth layout, imported);
+    predict_paths; the HTTP server over the micro-batching service under 32
+    concurrent clients; cli.single_image on both its routes."""
+    import base64
+    import io
+    import json
+    import tempfile
+    import urllib.request
+
+    import numpy as np
+    import torch
+    from PIL import Image
+    from torch.profiler import ProfilerActivity, profile
+
+    from aa_clip_iqm_tpu_torch import loader
+    from aa_clip_iqm_tpu_torch.cli import single_image
+    from aa_clip_iqm_tpu_torch.cli.serve import make_server, serve_forever_in_thread
+    from aa_clip_iqm_tpu_torch.data.datasets import _load_image, _load_image_u8, normalize_clip
+    from aa_clip_iqm_tpu_torch.evaluation.scoring import similarity_map_test
+    from aa_clip_iqm_tpu_torch.models import adapters, clip
+    from aa_clip_iqm_tpu_torch.models.convert import (
+        import_reference_checkpoints,
+        init_adapter_params_np,
+        init_clip_params_np,
+        params_from_jax,
+        tree_map,
+    )
+    from aa_clip_iqm_tpu_torch.ops import fused_mlp, packed_attention as pa
+    from aa_clip_iqm_tpu_torch.prompts import compute_class_anchor
+    from aa_clip_iqm_tpu_torch.serving import AnomalyDetector, MicroBatchingService
+    from aa_clip_iqm_tpu_torch.train import checkpoint as ckpt
+    from aa_clip_iqm_tpu_torch.train.steps import make_stage1_visual_fn
+
+    reset_counts()
+    cfg = loader.build_model_config(SERVE_MODEL, img_size=IMG)
+    native = loader.build_model_config(SERVE_MODEL, img_size=NATIVE_IMG)
+    layers, text_layers = cfg.clip.vision.layers, cfg.clip.text.layers
+    rng = np.random.default_rng(17)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as root:
+        # 1. The main path's seeded weights at the native grid, saved as
+        # OpenAI's fp16 .pt; what the loader must give back: the same
+        # weights rounded fp16 -> fp32 -> bf16, the positional embedding
+        # resized from 24 x 24 to 37 x 37 patches.
+        params = init_clip_params_np(native, seed=0)
+        rows = params["visual"]["positional_embedding"].shape[0]
+        require(rows == native.clip.vision.grid ** 2 + 1 != cfg.clip.vision.grid ** 2 + 1,
+                f"the native grid's positional embedding has {rows} rows")
+        pt = os.path.join(root, "ViT-L-14-336px.pt")
+        t0 = time.perf_counter()
+        torch.save(openai_state_dict(params, native), pt)
+        log(f"# serve: OpenAI-layout fp16 .pt of {os.path.getsize(pt) / 1e9:.2f} GB written "
+            f"in {time.perf_counter() - t0:.1f} s")
+        rounded = tree_map(lambda x: np.asarray(x, np.float32).astype(np.float16)
+                           .astype(np.float32), params)
+        del params
+        rounded["visual"]["positional_embedding"] = clip.resize_pos_embed_np(
+            rounded["visual"]["positional_embedding"], cfg.clip.vision.grid)
+        want, _ = params_from_jax(rounded, None, cfg, device=DEVICE, dtype=torch.bfloat16)
+        del rounded
+
+        # 2. Seeded adapters, saved by the trainer's writer and in the
+        # reference's .pth layout; the import gives them back.
+        _, seeded = params_from_jax(None, init_adapter_params_np(cfg, seed=5), cfg,
+                                    device="cpu", dtype=torch.float32)
+        # As a bf16 detector holds them: matrices in bf16, the rest float32.
+        _, seeded_bf16 = params_from_jax(None, init_adapter_params_np(cfg, seed=5), cfg,
+                                         device=DEVICE, dtype=torch.bfloat16)
+        ck = os.path.join(root, "ckpt")
+        ckpt.save_stage1(ck, 1, seeded["text_adapter"], None)
+        ckpt.save_stage2(ck, 2, seeded, None)
+        ref = os.path.join(root, "reference")
+        os.makedirs(ref)
+        text_sd, image_sd = reference_adapters(seeded)
+        torch.save({"text_adapter": text_sd}, os.path.join(ref, "text_adapter.pth"))
+        torch.save({"image_adapter": image_sd}, os.path.join(ref, "image_adapter_3.pth"))
+        init = loader.init_trainable(cfg, device="cpu", dtype=torch.float32)
+        imported = import_reference_checkpoints(ref, init)
+        for key in init:
+            source = seeded if key in ("text_adapter", "image_adapter") else init
+            require(same_trees(imported[key], source[key]),
+                    f"import_reference_checkpoints: {key} is not what was saved")
+
+        # 3. Two loads: the first converts the .pt and writes <stem>.518.npz;
+        # the second must read that cache (the converter fails meanwhile).
+        cache = os.path.join(root, f"ViT-L-14-336px.{IMG}.npz")
+        seconds, dets = [], []
+        convert = loader.load_openai_checkpoint
+        for attempt in range(2):
+            if attempt:
+                loader.load_openai_checkpoint = lambda *a, **k: require(
+                    False, "the second load converted the .pt instead of reading its cache")
+            try:
+                t0 = time.perf_counter()
+                dets.append(AnomalyDetector.from_checkpoint(
+                    ck, "MVTec", img_size=IMG, backbone=pt, model_name=SERVE_MODEL,
+                    compute_dtype=torch.bfloat16, device=DEVICE))
+                torch.cuda.synchronize()
+                seconds.append(time.perf_counter() - t0)
+            finally:
+                loader.load_openai_checkpoint = convert
+            require(os.path.isfile(cache), f"no cache {cache} after a load")
+        det, again = dets
+        log(f"# serve: from_checkpoint at {IMG} px: {seconds[0]:.1f} s converting the .pt and "
+            f"writing the cache ({os.path.getsize(cache) / 1e9:.2f} GB), {seconds[1]:.1f} s "
+            f"from the cache, anchors of {len(det.class_names())} classes included, on {card}")
+        require(same_trees(det.frozen, again.frozen), "the cached load differs from the converted one")
+        require(same_trees(det.frozen, want),
+                "the loaded backbone is not the seeded weights rounded fp16 -> fp32 -> bf16")
+        require(same_trees(det.trainable, seeded_bf16),
+                "the restored adapters are not the saved ones")
+        require(all(torch.equal(det.anchors[c], again.anchors[c]) for c in det.class_names()),
+                "the two loads' anchors differ")
+        del again, dets, want, seeded_bf16
+        torch.cuda.empty_cache()
+        log(f"# serve: both loads hold the seeded backbone rounded fp16 -> fp32 -> bf16 (the "
+            f"positional embedding resized from {rows} to {cfg.clip.vision.grid ** 2 + 1} rows) "
+            "and the saved adapters, bit for bit; the reference .pth import gives back the "
+            "seeded adapters bit for bit")
+
+        # 4. predict_paths on 8 PNGs of assorted sizes, against predict on
+        # their decoded uint8 arrays: the same call at the same bucket.
+        paths = []
+        for i in range(B):
+            side = (IMG, 600, 448, 700)[i % 4]
+            paths.append(os.path.join(root, f"img{i}.png"))
+            Image.fromarray(rng.integers(0, 256, (side, side, 3), dtype=np.uint8)).save(paths[-1])
+        maps_p, scores_p = det.predict_paths(paths, "bottle")
+        maps_u, scores_u = det.predict(np.stack([_load_image_u8(p, IMG) for p in paths]),
+                                       "bottle")
+        require(maps_p.shape == (B, IMG, IMG) and np.isfinite(maps_p).all(),
+                f"predict_paths: maps {maps_p.shape}, finite {np.isfinite(maps_p).all()}")
+        require(np.array_equal(maps_p, maps_u) and np.array_equal(scores_p, scores_u),
+                "predict_paths differs from predict on the same decoded images")
+        log(f"# serve: predict_paths of {B} PNGs equals predict on their uint8 arrays bit for bit")
+
+        # 5. HTTP: 32 clients x 2 /v1/predict over 3 classes, half .npy and
+        # half JSON with a base64 PNG (of another size: the server resizes),
+        # then one /v1/predict_batch of 8; every map against predict_multi
+        # on the same preprocessed images.
+        n = SERVE_CLIENTS * SERVE_REQUESTS
+        names = [SERVE_CLASSES[i % len(SERVE_CLASSES)] for i in range(n + B)]
+        payloads, images, batch_entries = [], [], []
+        for i in range(n + B):
+            u8 = rng.integers(0, 256, (3, IMG, IMG), dtype=np.uint8)
+            buf = io.BytesIO()
+            if i % 2 == 0:
+                image = normalize_clip(u8.astype(np.float32) / 255.0).astype(np.float32)
+                np.save(buf, image)
+                entry = {"npy_b64": base64.b64encode(buf.getvalue()).decode()}
+                body, ctype = buf.getvalue(), "application/octet-stream"
+            else:
+                side = (600, 448)[i % 4 // 2]
+                Image.fromarray(np.ascontiguousarray(u8.transpose(1, 2, 0))).resize(
+                    (side, side)).save(buf, format="PNG")
+                image = normalize_clip(_load_image(io.BytesIO(buf.getvalue()), IMG))
+                entry = {"image_b64": base64.b64encode(buf.getvalue()).decode()}
+                body = json.dumps({"class_name": names[i], **entry}).encode()
+                ctype = "application/json"
+            images.append(np.asarray(image, np.float32))
+            if i < n:
+                payloads.append((f"class_name={names[i]}&map=npy", body, ctype))
+            else:
+                batch_entries.append({"class_name": names[i], **entry})
+        ref_maps, ref_scores = det.predict_multi(np.stack(images), names)
+
+        def check(replies, offset, what):
+            worst = score_diff = 0.0
+            for j, (status, body) in enumerate(replies):
+                require(status == 200, f"{what}: HTTP {status}")
+                amap = np.load(io.BytesIO(base64.b64decode(body["map"]["b64"])),
+                               allow_pickle=False)
+                require(amap.shape == (IMG, IMG) and np.isfinite(amap).all(),
+                        f"{what}: map {amap.shape}")
+                worst = max(worst, map_diff(amap, ref_maps[offset + j]))
+                score_diff = max(score_diff, abs(body["score"] - float(ref_scores[offset + j])))
+            require(worst <= MAP_TOL, f"{what}: a map differs from predict_multi's by {worst}")
+            return worst, score_diff
+
+        svc = MicroBatchingService(det, max_batch=32, max_latency_ms=5)
+        server = make_server(svc, IMG, {"dataset": "MVTec", "classes": det.class_names()},
+                             host="127.0.0.1", port=0, request_timeout=SERVE_TIMEOUT)
+        thread = serve_forever_in_thread(server)
+        try:
+            base = "http://%s:%d" % server.server_address
+            before = (pa.LAUNCHES, fused_mlp.LAUNCHES)
+            wall, lat, replies = http_window(base, payloads)
+            b1, b2 = pa.LAUNCHES - before[0], fused_mlp.LAUNCHES - before[1]
+            worst, score_diff = check(replies, 0, "HTTP /v1/predict")
+            require(b1 == b2 and b1 % layers == 0 and b1 > 0,
+                    f"HTTP window: {b1} B1 and {b2} B2 launches, want equal multiples of {layers}")
+            batches = max(b1 // layers, 1)
+            p50, p99 = (float(np.percentile(lat, q)) * 1e3 for q in (50, 99))
+            log(f"# serve: HTTP, {SERVE_CLIENTS} clients x {SERVE_REQUESTS} requests at {IMG} px: "
+                f"{n / wall:.2f} requests/s, p50 {p50:.1f} ms, p99 {p99:.1f} ms, {batches} device "
+                f"batches ({b1} B1 launches / {layers}), mean size {n / batches:.2f}, on {card}")
+            log(f"# serve: HTTP maps against predict_multi: worst rms diff / std {worst:.3e} "
+                f"(tol {MAP_TOL:.0e}), largest score difference {score_diff:.3e}")
+            req = urllib.request.Request(f"{base}/v1/predict_batch?map=npy",
+                                         data=json.dumps({"requests": batch_entries}).encode(),
+                                         headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=SERVE_TIMEOUT) as r:
+                results = json.loads(r.read())["results"]
+            require(len(results) == B, f"predict_batch: {len(results)} results")
+            worst_b, diff_b = check([(200, res) for res in results], n, "HTTP /v1/predict_batch")
+            log(f"# serve: /v1/predict_batch of {B}: worst rms diff / std {worst_b:.3e}, "
+                f"largest score difference {diff_b:.3e}")
+            # The same traffic again under the profiler, for the device's
+            # idle share of the window.
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                wall_p, _, replies_p = http_window(base, payloads)
+                torch.cuda.synchronize()
+            check(replies_p, 0, "HTTP /v1/predict under the profiler")
+            busy = sum(e.self_device_time_total for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA) / 1e6
+            require(busy > 0, "the profiler saw no device time in the HTTP window")
+            log(f"# serve: the same window under the profiler: wall {wall_p:.2f} s, device busy "
+                f"{busy:.2f} s, idle share {1 - busy / wall_p:.3f}, on {card}")
+        finally:
+            server.shutdown()
+            server.server_close()
+            svc.close()
+            thread.join(timeout=SERVE_TIMEOUT)
+
+        # 6. cli.single_image in this process, zero-shot and from the
+        # checkpoint, against the same computation done directly.
+        path = paths[1]
+        image = torch.from_numpy(np.asarray(normalize_clip(_load_image(path, IMG))[None],
+                                            np.float32)).to(DEVICE)
+        vv_from = clip.surgery_vv_from(layers, cfg.surgery_until_layer)
+        with torch.inference_mode():
+            anchor = compute_class_anchor(
+                lambda tok: adapters.encode_text_frozen(det.frozen, cfg, tok,
+                                                        compute_dtype=torch.bfloat16),
+                "MVTec", "bottle", device=DEVICE)
+            feats = make_stage1_visual_fn(cfg, compute_dtype=torch.bfloat16)(det.frozen, image)
+            direct_zs = sum(similarity_map_test(f, anchor[None], IMG, "Industrial")
+                            for f in feats)[0].float().cpu().numpy()
+        direct_ck = det.predict(image.cpu().numpy(), "bottle")[0][0]
+        for route, extra, direct, want_b1 in (
+                ("zero-shot", [], direct_zs, vv_from + 2 * (layers - vv_from)),
+                ("checkpoint", ["--save_path", ck], direct_ck, layers)):
+            out = os.path.join(root, f"single_{route}.png")
+            before = read_counts()
+            t0 = time.perf_counter()
+            amap, score = single_image.main(
+                ["--model_name", SERVE_MODEL, "--img_size", str(IMG), "--image_path", path,
+                 "--class_name", "bottle", "--dataset", "MVTec", "--backbone", pt,
+                 "--device", DEVICE, "--out", out] + extra)
+            seconds = time.perf_counter() - t0
+            got = diff_counts(read_counts(), before)
+            saved = np.load(os.path.splitext(out)[0] + ".npy")
+            rel = map_diff(saved, direct)
+            log(f"# serve: cli.single_image {route}: score {score:.4f}, map against the direct "
+                f"computation rms diff / std {rel:.3e} (tol {MAP_TOL:.0e}), {seconds:.1f} s, "
+                f"launches B1 {got['packed_attention']} B2 {got['ln_mlp_residual']}, on {card}")
+            require(saved.shape == (IMG, IMG) and np.isfinite(saved).all()
+                    and np.array_equal(saved, amap), f"single_image {route}: saved map")
+            require(rel <= MAP_TOL, f"single_image {route}: map differs by {rel}")
+            require(got == counts_of(packed_attention=want_b1,
+                                     ln_mlp_residual=want_b1 + 2 * text_layers),
+                    f"single_image {route}: launches {got}")
+    counts = read_counts()
+    del det
+    torch.cuda.empty_cache()
+    return counts
+
+
 def kernel_group(name):
     """The profiler group of a device kernel, by its name."""
     low = name.lower()
@@ -2360,6 +2759,8 @@ def main():
         del ctx
         phase_metrics_scale(card)
         add_counts(launches, phase_train(card, cfg, frozen))
+        del frozen
+        add_counts(launches, phase_serve(card))
         for name in KERNELS:
             require(launches[name] > 0, f"the driven paths never launched {name}")
     except (Failure, ImportError, RuntimeError, subprocess.CalledProcessError) as exc:

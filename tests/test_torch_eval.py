@@ -305,7 +305,9 @@ def test_npz_cache_and_load_frozen_backbone(tmp_path, models):
             assert rnd["visual"]["proj"].shape == (64, 32)
     finally:
         os.chdir(cwd)
-    with pytest.raises(NotImplementedError, match="only .npz"):
+    # A .pt goes to the OpenAI converter (tests/test_torch_convert.py); a
+    # missing one fails to open.
+    with pytest.raises(FileNotFoundError):
         tloader.load_frozen_backbone(tcfg, str(tmp_path / "ViT-L-14-336px.pt"), device="cpu")
     # A cache saved at another grid (4 x 4 here, 5 x 5 wanted) has its
     # positional embedding resized bicubically, as the JAX loader does.

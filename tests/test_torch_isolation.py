@@ -1,6 +1,6 @@
 """The port and chip_smoke.py import neither JAX nor the JAX package, and
-importing them needs neither PIL, pandas nor sklearn (the machine with the
-card is promised none of the three)."""
+importing them needs neither PIL, cv2, pandas nor sklearn (the machine with
+the card is promised none of them)."""
 import ast
 import os
 import subprocess
@@ -50,7 +50,8 @@ def test_new_modules_are_covered():
                 "cli/evaluate.py", "cli/bench.py", "utils/misc.py",
                 "ops/losses.py", "ops/packed_attention.py", "train/optim.py",
                 "train/steps.py", "train/checkpoint.py", "train/driver.py",
-                "cli/train.py"):
+                "cli/train.py", "cli/serve.py", "cli/single_image.py",
+                "evaluation/visualize.py", "serving.py", "models/convert.py"):
         assert rel in covered, rel
 
 
@@ -69,7 +70,7 @@ def test_import_leaves_jax_unloaded():
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'aa_clip_iqm_tpu', 'PIL', 'pandas', 'sklearn')]\n"
+        "('jax', 'jaxlib', 'aa_clip_iqm_tpu', 'PIL', 'cv2', 'pandas', 'sklearn')]\n"
         "assert not bad, bad\n"
         "print('clean')\n"
     )
