@@ -4,13 +4,17 @@ stack.
 
     python -m aa_clip_iqm_tpu_torch.cli.serve --backbone ViT-L-14-336px.pt \\
         --save_path ckpt/ --dataset MVTec --port 8000
+    python -m aa_clip_iqm_tpu_torch.cli.serve --exported exported/ --port 8000
 
 Counterpart of ``aa_clip_iqm_tpu/cli/serve.py``. Every request thread
 submits its image to one :class:`..serving.MicroBatchingService` and waits
 on the future, so concurrent requests, of any classes, coalesce into one
 bucketed device batch per latency window; all device work runs on the
 service's worker thread. It runs on ``cuda`` unless ``--device cpu`` is
-given. Serving exported artifacts (``--exported``) is not ported yet.
+given. The model is either assembled from a backbone and a ``cli.train``
+save path, or read from ``--exported`` artifacts
+(``aa_clip_iqm_tpu_torch.tools.export_model``), served through
+:class:`..serving.ExportedPredictor` on the device they were exported for.
 
 Endpoints (JSON responses):
   GET  /v1/health         {"status", "dataset", "img_size", "classes", ...}
@@ -291,7 +295,10 @@ def serve_forever_in_thread(server) -> threading.Thread:
 
 def build_parser():
     parser = argparse.ArgumentParser(description="HTTP anomaly-detection server")
-    src = parser.add_argument_group("model")
+    src = parser.add_argument_group("model source (exported OR checkpoint)")
+    src.add_argument("--exported", type=str, default=None,
+                     help="torch.export artifact dir (tools/export_model.py); "
+                     "mutually exclusive with --save_path")
     src.add_argument("--save_path", type=str, default=None,
                      help="cli.train checkpoint dir (omit for zero-shot)")
     src.add_argument("--dataset", type=str, default="MVTec",
@@ -307,7 +314,9 @@ def build_parser():
                      help="int8 backbone tier (ops/quant.py)")
     src.add_argument("--compute_dtype", type=str, default="bfloat16",
                      choices=["bfloat16", "float32"])
-    src.add_argument("--device", type=str, default="cuda")
+    src.add_argument("--device", type=str, default="cuda",
+                     help="cuda, or cpu; with --exported it must be of the type "
+                     "the artifacts were exported for")
     net = parser.add_argument_group("server")
     net.add_argument("--host", type=str, default="127.0.0.1")
     net.add_argument("--port", type=int, default=8000)
@@ -320,31 +329,53 @@ def build_parser():
     return parser
 
 
-def main(argv=None):
-    args = build_parser().parse_args(argv)
-    logging.basicConfig(level=logging.INFO)
-
+def load_model(args):
+    """The model source the parsed ``args`` name: (predictor, the /v1/health
+    metadata, img_size). ``--exported`` gives an
+    :class:`..serving.ExportedPredictor`, else an
+    :class:`..serving.AnomalyDetector` from the backbone and save path."""
     import torch
 
-    from ..serving import AnomalyDetector, MicroBatchingService
+    from ..serving import AnomalyDetector, ExportedPredictor
 
-    dtype = {"bfloat16": torch.bfloat16, "float32": torch.float32}[args.compute_dtype]
-    det = AnomalyDetector.from_checkpoint(
-        args.save_path, args.dataset, img_size=args.img_size,
-        backbone=args.backbone, allow_random_backbone=args.random_backbone,
-        model_name=args.model_name, compute_dtype=dtype, device=args.device,
-        quantize=args.quantize_backbone)
-    meta = {"source": "checkpoint", "dataset": args.dataset,
-            "classes": det.class_names(),
-            "checkpoint": args.save_path or "(zero-shot)"}
+    if args.exported:
+        det = ExportedPredictor(args.exported, device=args.device)
+        meta = {"source": "exported", "dataset": det.manifest["dataset"],
+                "classes": det.class_names(),
+                "batch_sizes": det.manifest["batch_sizes"]}
+        img_size = det.img_size
+    else:
+        dtype = {"bfloat16": torch.bfloat16, "float32": torch.float32}[args.compute_dtype]
+        det = AnomalyDetector.from_checkpoint(
+            args.save_path, args.dataset, img_size=args.img_size,
+            backbone=args.backbone, allow_random_backbone=args.random_backbone,
+            model_name=args.model_name, compute_dtype=dtype,
+            device=args.device, quantize=args.quantize_backbone)
+        meta = {"source": "checkpoint", "dataset": args.dataset,
+                "classes": det.class_names(),
+                "checkpoint": args.save_path or "(zero-shot)"}
+        img_size = args.img_size
+    return det, meta, img_size
+
+
+def main(argv=None):
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    logging.basicConfig(level=logging.INFO)
+
+    from ..serving import MicroBatchingService
+
+    if args.exported and args.save_path:
+        parser.error("--exported and --save_path are mutually exclusive")
+    det, meta, img_size = load_model(args)
     if args.warmup:
-        det.predict(np.zeros((1, 3, args.img_size, args.img_size), np.float32),
+        det.predict(np.zeros((1, 3, img_size, img_size), np.float32),
                     meta["classes"][0])
         logger.info("warmup done")
 
     svc = MicroBatchingService(det, max_batch=args.max_batch,
                                max_latency_ms=args.max_latency_ms)
-    server = make_server(svc, args.img_size, meta, host=args.host,
+    server = make_server(svc, img_size, meta, host=args.host,
                          port=args.port, request_timeout=args.request_timeout_s)
     logger.info("serving %s on http://%s:%d (classes: %s)",
                 meta["dataset"], *server.server_address, len(meta["classes"]))

@@ -22,6 +22,7 @@ import torch
 from ..configs import EvalConfig, ModelConfig
 from ..data.registry import DOMAINS, IMAGE_MEAN, IMAGE_STD
 from ..models import adapters as adapters_mod
+from ..ops.interp import device_constant
 from ..ops.metrics import (
     DEFAULT_CHUNK,
     _rank_metrics,
@@ -39,8 +40,11 @@ def _device_normalize(images_u8):
     order of the host normalization ((u8/255 - mean)/std in fp32), so the
     result is bit-identical to host-normalized float32 input."""
     dev = images_u8.device
-    mean = torch.tensor(IMAGE_MEAN, dtype=torch.float32, device=dev).reshape(1, 3, 1, 1)
-    std = torch.tensor(IMAGE_STD, dtype=torch.float32, device=dev).reshape(1, 3, 1, 1)
+    # Device constants, built once outside any trace or graph capture.
+    mean = device_constant("image_mean", dev,
+                           lambda: np.asarray(IMAGE_MEAN, np.float32).reshape(1, 3, 1, 1))
+    std = device_constant("image_std", dev,
+                          lambda: np.asarray(IMAGE_STD, np.float32).reshape(1, 3, 1, 1))
     return (images_u8.float() / 255.0 - mean) / std
 
 

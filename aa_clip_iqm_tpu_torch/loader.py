@@ -82,8 +82,10 @@ def build_model_config(model_name: str = "ViT-L-14-336", img_size: int = 518,
 
 def random_backbone(cfg: ModelConfig, seed: int = 0, device="cuda",
                     dtype=torch.bfloat16):
-    """Seeded random frozen CLIP params at the config's full width."""
-    frozen, _ = params_from_jax(init_clip_params_np(cfg, seed), None, cfg,
+    """Seeded random frozen CLIP params at the config's full width. On the
+    meta device only their shapes are made, and no memory is taken."""
+    meta = torch.device(device).type == "meta"
+    frozen, _ = params_from_jax(init_clip_params_np(cfg, seed, shapes_only=meta), None, cfg,
                                 device=device, dtype=dtype)
     return frozen
 
@@ -147,8 +149,9 @@ def init_trainable(cfg: ModelConfig, seed: int = 111, device="cuda",
     casts them to the compute dtype at each call, which autograd
     differentiates), while the frozen backbone stays bf16 and never requires
     grad."""
-    _, trainable = params_from_jax(None, init_adapter_params_np(cfg, seed), cfg,
-                                   device=device, dtype=dtype)
+    meta = torch.device(device).type == "meta"
+    _, trainable = params_from_jax(None, init_adapter_params_np(cfg, seed, shapes_only=meta),
+                                   cfg, device=device, dtype=dtype)
     if requires_grad:
         for t in tree_leaves(trainable):
             t.requires_grad_(True)

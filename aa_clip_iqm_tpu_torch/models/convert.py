@@ -78,8 +78,10 @@ def _convert(tree, device, dtype, key=None):
         return torch.tensor(np.asarray(tree, dtype=np.int8), device=device)
     arr = np.asarray(tree, dtype=np.float32)
     is_matrix = (key == "w" and arr.ndim >= 2) or key in _MATRIX_KEYS
-    return torch.tensor(arr, device=device,
-                        dtype=dtype if is_matrix else torch.float32)
+    out_dtype = dtype if is_matrix else torch.float32
+    if torch.device(device).type == "meta":    # shapes only, no copy
+        return torch.empty(arr.shape, dtype=out_dtype, device=device)
+    return torch.tensor(arr, device=device, dtype=out_dtype)
 
 
 def params_from_jax(frozen_np, trainable_np, cfg: ModelConfig, device="cuda",
@@ -397,8 +399,25 @@ def find_backbone(model_name: str = "ViT-L-14-336",
 # Seeded random initialization (numpy), JAX initializer shapes
 # --------------------------------------------------------------------------
 
+class _ShapesOnly:
+    """Stands in for a numpy Generator where only the shapes count (weights
+    on the meta device): each draw is a zero-stride array of zeros, so a
+    ViT-L tree costs no memory."""
+
+    def standard_normal(self, shape, dtype=np.float64):
+        return np.broadcast_to(np.zeros((), dtype), shape)
+
+    def uniform(self, low, high, size):
+        return np.broadcast_to(np.zeros((), np.float32), size)
+
+
+def _rng(seed: int, shapes_only: bool):
+    return _ShapesOnly() if shapes_only else np.random.default_rng(seed)
+
+
 def _normal(rng, shape, std):
-    return rng.standard_normal(shape, dtype=np.float32) * np.float32(std)
+    x = rng.standard_normal(shape, dtype=np.float32)
+    return x if isinstance(rng, _ShapesOnly) else x * np.float32(std)
 
 
 def _ln_init(n, dim):
@@ -419,9 +438,11 @@ def _blocks(rng, n, width, hidden):
             "mlp": {"c_fc": lin(width, hidden), "c_proj": lin(hidden, width)}}
 
 
-def init_clip_params_np(cfg: ModelConfig, seed: int = 0):
-    """Random frozen CLIP params (JAX layout, numpy float32)."""
-    rng = np.random.default_rng(seed)
+def init_clip_params_np(cfg: ModelConfig, seed: int = 0, shapes_only: bool = False):
+    """Random frozen CLIP params (JAX layout, numpy float32). With
+    ``shapes_only`` every matrix is a zero-stride array of zeros (for
+    :func:`params_from_jax` onto the meta device)."""
+    rng = _rng(seed, shapes_only)
     v, t = cfg.clip.vision, cfg.clip.text
     scale = v.width ** -0.5
     visual = {
@@ -447,10 +468,10 @@ def init_clip_params_np(cfg: ModelConfig, seed: int = 0):
 def _xavier(rng, d_in, d_out, bias=True, n=0):
     a = math.sqrt(6.0 / (d_in + d_out))
     lead = (n,) if n else ()
-    p = {"w": rng.uniform(-a, a, lead + (d_in, d_out)).astype(np.float32)}
+    p = {"w": rng.uniform(-a, a, lead + (d_in, d_out)).astype(np.float32, copy=False)}
     if bias:
         bound = 1.0 / math.sqrt(d_in)
-        p["b"] = rng.uniform(-bound, bound, lead + (d_out,)).astype(np.float32)
+        p["b"] = rng.uniform(-bound, bound, lead + (d_out,)).astype(np.float32, copy=False)
     return p
 
 
@@ -475,12 +496,13 @@ def _iqm_np(rng, cfg):
     return {"layernorm": _ln_init(0, h), "layers": layers}
 
 
-def init_adapter_params_np(cfg: ModelConfig, seed: int = 111):
+def init_adapter_params_np(cfg: ModelConfig, seed: int = 111, shapes_only: bool = False):
     """Random trainable params (JAX layout, numpy float32; xavier-uniform
-    weights and torch-default uniform biases, as init_adapter_params)."""
+    weights and torch-default uniform biases, as init_adapter_params);
+    ``shapes_only`` as in :func:`init_clip_params_np`."""
     from .iqm import sinusoidal_positions
 
-    rng = np.random.default_rng(seed)
+    rng = _rng(seed, shapes_only)
     a = cfg.adapter
     vw, tw = cfg.clip.vision.width, cfg.clip.text.width
     out_dim, hidden = cfg.clip.embed_dim, cfg.iqm.hidden_size

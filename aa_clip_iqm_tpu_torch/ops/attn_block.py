@@ -10,7 +10,9 @@ the LayerNorm pass, the qkv projection on the wgmma GEMM core of
 same core); :func:`ln_attn_residual_stages` is their plain version, with the
 kernel's roundings. On a CPU tensor :func:`ln_attn_residual` runs the plain twin
 :func:`ln_attn_residual_reference`; on a CUDA tensor it launches the kernel
-or raises. Its gradient is autograd through the plain chain, for x and every
+or raises, through the custom op ``aaclip::ln_attn_residual``
+(``ops/custom_ops.py``; its CUDA implementation is :func:`_launch`). Its
+gradient is autograd through the plain chain, for x and every
 parameter, as JAX's ``_bwd`` (pallas_attn_block.py:224) is an XLA recompute.
 
 The gate :func:`ln_attn_residual_ok` is JAX's without its backend test and
@@ -23,7 +25,7 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import _build, custom_ops
 from .gemm import gemm_bias_act_reference, gemm_bias_residual_reference
 from .layers import layer_norm, linear
 from .packed_attention import (flash_mha_packed_reference, flash_mha_packed_stages,
@@ -123,11 +125,18 @@ def _operand(t, dtype, device, what):
 
 def _forward(ln_params, attn_params, x, num_heads: int, vv: bool, valid_len,
              eps: float):
-    """The fused branch without autograd: the twin on the CPU, the kernel on
-    the card."""
-    if x.device.type == "cpu":
-        return ln_attn_residual_reference(ln_params, attn_params, x, num_heads, vv,
-                                          valid_len, eps)
+    """The fused branch without autograd, through ``aaclip::ln_attn_residual``:
+    the twin on the CPU, the kernel on the card."""
+    custom_ops.check_device("ln_attn_residual", x)
+    qkv_p, out_p = attn_params["qkv"], attn_params["out"]
+    return custom_ops.ln_attn_residual(
+        x, ln_params["scale"], ln_params["bias"], qkv_p["w"], qkv_p["b"], out_p["w"],
+        out_p["b"], int(num_heads), bool(vv), None if valid_len is None else int(valid_len),
+        float(eps))
+
+
+def _launch(ln_params, attn_params, x, num_heads: int, vv: bool, valid_len, eps: float):
+    """The kernel on a CUDA x (the CUDA implementation of the op)."""
     fn = "ln_attn_residual"
     if x.device.type != "cuda":
         raise ValueError(f"{fn}: unsupported device {x.device}")

@@ -11,7 +11,8 @@ on both sides as the JAX tests do); it selects nothing here.
 
 On a CPU tensor :func:`flash_mha` runs the plain twin
 :func:`flash_mha_reference`; on a CUDA tensor it launches the kernel or
-raises. As in JAX, an additive mask or fewer than ``2 * BLK_Q`` tokens take
+raises, through the custom op ``aaclip::flash_mha`` (``ops/custom_ops.py``;
+its CUDA implementation is :func:`_launch`). As in JAX, an additive mask or fewer than ``2 * BLK_Q`` tokens take
 the plain ``sdpa`` on any device. The gradient is autograd through the plain
 recompute, as JAX's ``_bwd`` (pallas_attention.py:215) is an XLA recompute:
 there is no backward kernel to port.
@@ -23,7 +24,7 @@ import math
 
 import torch
 
-from . import _build
+from . import _build, custom_ops
 
 #: Query rows of one TPU program; below 2 * BLK_Q tokens ``flash_mha`` takes
 #: the plain ``sdpa``, as in JAX.
@@ -104,10 +105,14 @@ def _lib():
 
 
 def _forward(q, k, v, scale: float):
-    """(BH, L, hd) attention without autograd: the twin on the CPU, the
-    kernel on the card."""
-    if q.device.type == "cpu":
-        return flash_mha_reference(q, k, v, scale)
+    """(BH, L, hd) attention without autograd, through ``aaclip::flash_mha``:
+    the twin on the CPU, the kernel on the card."""
+    custom_ops.check_device("flash_mha", q)
+    return custom_ops.flash_mha(q, k, v, float(scale))
+
+
+def _launch(q, k, v, scale: float):
+    """The kernel on CUDA q, k, v (the CUDA implementation of the op)."""
     fn = "flash_mha"
     if q.device.type != "cuda":
         raise ValueError(f"{fn}: unsupported device {q.device}")

@@ -8,7 +8,11 @@ Counterpart of ``ln_mlp_residual``, ``ln_mlp_residual_int8`` and
 tensor every function here runs its plain twin
 (:func:`ln_mlp_residual_reference`, :func:`ln_mlp_residual_int8_reference`,
 :func:`ln_mlp_residual_dx_reference`); on a CUDA tensor it launches its
-kernel or raises. GELU, and its derivative, are exact erf in all of them.
+kernel or raises. The two forwards go through the custom ops
+``aaclip::ln_mlp_residual`` and ``aaclip::ln_mlp_residual_int8``
+(``ops/custom_ops.py``; their CUDA implementations are :func:`_launch` and
+:func:`_int8_launch`); the dx kernel is launched directly. GELU, and its
+derivative, are exact erf in all of them.
 
 In bf16 at both CLIP towers' widths the forward kernel runs three stages on
 the wgmma GEMM core (``ops/gemm.py``): the LayerNorm pass, GEMM 1 into the
@@ -37,7 +41,7 @@ import weakref
 
 import torch
 
-from . import _build
+from . import _build, custom_ops
 from .gemm import (
     DACTS,
     gemm_bias_act_reference,
@@ -62,6 +66,7 @@ DX_LAUNCHES = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ACTS = {gelu: 0, quick_gelu: 1}
+_ACT_NAMES = {gelu: "gelu", quick_gelu: "quick_gelu"}
 
 
 def reset_launches() -> None:
@@ -113,14 +118,25 @@ def _operand(t, dtype, device, what, fn="ln_mlp_residual"):
 
 
 def _forward(ln_params, mlp_params, x, act, eps: float = 1e-5):
-    """x + c_proj(act(c_fc(layer_norm(x)))) without autograd: the twin on the
-    CPU, the kernel on the card.
+    """x + c_proj(act(c_fc(layer_norm(x)))) without autograd, through
+    ``aaclip::ln_mlp_residual``: the twin on the CPU, the kernel on the card.
 
     x: (..., d), bf16 or fp32, contiguous. The matmul weights must share x's
     dtype and layout (in, out); LayerNorm scale/bias and the biases are fp32.
     """
-    if x.device.type == "cpu":
-        return ln_mlp_residual_reference(ln_params, mlp_params, x, act, eps)
+    custom_ops.check_device("ln_mlp_residual", x)
+    name = _ACT_NAMES.get(act)
+    if name is None:
+        if x.device.type == "cpu":      # any activation has a plain version
+            return ln_mlp_residual_reference(ln_params, mlp_params, x, act, eps)
+        raise ValueError(f"ln_mlp_residual: unsupported activation {act!r}")
+    c_fc, c_proj = mlp_params["c_fc"], mlp_params["c_proj"]
+    return custom_ops.ln_mlp_residual(x, ln_params["scale"], ln_params["bias"], c_fc["w"],
+                                      c_fc["b"], c_proj["w"], c_proj["b"], name, float(eps))
+
+
+def _launch(ln_params, mlp_params, x, act, eps: float = 1e-5):
+    """The kernel on a CUDA x (the CUDA implementation of the op)."""
     if x.device.type != "cuda":
         raise ValueError(f"ln_mlp_residual: unsupported device {x.device}")
     if x.dtype not in _DTYPES:
@@ -262,20 +278,36 @@ def _int8_lib():
 
 
 def _int8_forward(ln_params, mlp_params, x, act, eps: float = 1e-5, stages: bool = False):
-    """The int8 forward without autograd: the twin on the CPU, the kernel's
-    four stages on the card. With ``stages`` it returns the dict of
+    """The int8 forward without autograd, through
+    ``aaclip::ln_mlp_residual_int8``: the twin on the CPU, the kernel's
+    stages on the card. With ``stages`` it returns the dict of
     :func:`ln_mlp_residual_int8_stages` (on the card, the kernel's own
-    scratch: x_q, sx, amax, h_q, sh) instead of y.
+    scratch: x_q, sx, amax, h_q, sh) instead of y, from one direct launch.
 
     x: (..., d) bf16, contiguous, d a multiple of 128. ``w_q`` is int8 (in,
     out), ``scale`` fp32 with ``out`` elements, LayerNorm parameters and
     biases fp32.
     """
     fn = "ln_mlp_residual_int8"
-    if x.device.type == "cpu":
+    custom_ops.check_device(fn, x)
+    name = _ACT_NAMES.get(act)
+    if x.device.type == "cpu" and (stages or name is None):
         if stages:
             return ln_mlp_residual_int8_stages(ln_params, mlp_params, x, act, eps)
         return ln_mlp_residual_int8_reference(ln_params, mlp_params, x, act, eps)
+    if stages:
+        return _int8_launch(ln_params, mlp_params, x, act, eps, stages=True)
+    if name is None:
+        raise ValueError(f"{fn}: unsupported activation {act!r}")
+    c_fc, c_proj = mlp_params["c_fc"], mlp_params["c_proj"]
+    return custom_ops.ln_mlp_residual_int8(
+        x, ln_params["scale"], ln_params["bias"], c_fc["w_q"], c_fc["scale"], c_fc["b"],
+        c_proj["w_q"], c_proj["scale"], c_proj["b"], name, float(eps))
+
+
+def _int8_launch(ln_params, mlp_params, x, act, eps: float = 1e-5, stages: bool = False):
+    """The kernel's stages on a CUDA x (the CUDA implementation of the op)."""
+    fn = "ln_mlp_residual_int8"
     if x.device.type != "cuda":
         raise ValueError(f"{fn}: unsupported device {x.device}")
     if x.dtype != torch.bfloat16:

@@ -8,8 +8,6 @@ matrices: out = (U @ G) @ img @ (G.T @ U.T).
 """
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
 
@@ -76,15 +74,57 @@ def upsample_operator(src: int, dst: int, align_corners: bool):
     return bilinear_matrix(src, dst, align_corners)
 
 
-@functools.lru_cache(maxsize=64)
+#: Device constants built so far, by (key, device): real tensors only.
+_DEVICE_CONSTANTS: dict = {}
+
+
+def device_constant(key, device, build):
+    """``torch.from_numpy(build())`` on ``device``, built once per (key,
+    device) and kept. Built outside inference mode, whoever asks first: a
+    training step saves the cached tensor for its backward, which an
+    inference tensor refuses.
+
+    Only a tensor that holds data is kept: one made under a tracer (a fake
+    or functional tensor during ``torch.export``, or any meta tensor) is
+    returned and forgotten, so a trace never leaves a stand-in behind for
+    the eager calls after it. The first build is a copy from pageable host
+    memory, which a CUDA graph capture forbids: it must come before the
+    capture (the detector's warm-up run), and during a capture a missing
+    constant raises."""
+    from torch._subclasses.fake_tensor import is_fake
+
+    device = torch.device(device)
+    hit = _DEVICE_CONSTANTS.get((key, device))
+    if hit is not None:
+        return hit
+    if (device.type == "cuda" and torch.cuda.is_available()
+            and torch.cuda.is_current_stream_capturing()):
+        raise RuntimeError(f"device constant {key!r} is first built during a CUDA graph "
+                           "capture; run the program once before capturing it")
+    with torch.inference_mode(False):
+        t = torch.from_numpy(np.ascontiguousarray(build())).to(device)
+    if device.type != "meta" and not is_fake(t):
+        _DEVICE_CONSTANTS[(key, device)] = t
+    return t
+
+
+def device_constants():
+    """Every device constant built so far: what a CUDA graph whose program
+    read some of them keeps alive, since the capture recorded their
+    addresses."""
+    return tuple(_DEVICE_CONSTANTS.values())
+
+
 def _device_operator(op_key, device):
-    """The operator as a float32 tensor on ``device``, built once. Built
-    outside inference mode, whoever asks first: a training step saves the
-    cached tensor for its backward, which an inference tensor refuses."""
+    """The operator as a float32 tensor on ``device``, built once
+    (:func:`device_constant`)."""
     kind, args = op_key
     fn = blur_upsample_operator if kind == "blur" else upsample_operator
-    with torch.inference_mode(False):
-        return torch.from_numpy(fn(*args)).to(device)
+    return device_constant(("interp",) + op_key, device, lambda: fn(*args))
+
+
+# Empties every device constant, as the ``functools.lru_cache`` this replaced did.
+_device_operator.cache_clear = _DEVICE_CONSTANTS.clear
 
 
 def apply_separable(op_h, op_w, img):

@@ -11,6 +11,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from . import custom_ops
+
 
 def layer_norm(params, x, eps: float = 1e-5):
     """LayerNorm over the last axis in float32 (statistics and the float32
@@ -79,6 +81,9 @@ def linear(params, x):
         if torch.is_grad_enabled() and (x2.requires_grad or w.requires_grad
                                         or b.requires_grad):
             y = _AddmmF32Bias.apply(b, x2, w)
+        elif custom_ops.is_traced(x2):
+            # The same call as one op of the trace (custom_ops.addmm_f32).
+            y = custom_ops.addmm_f32(b.float(), x2, w).to(x.dtype)
         else:
             y = torch.addmm(b.float(), x2, w, out_dtype=torch.float32).to(x.dtype)
     else:

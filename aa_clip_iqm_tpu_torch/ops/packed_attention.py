@@ -9,7 +9,10 @@ kernels live in ``csrc/packed_attention.cu`` and
 tensor :func:`flash_mha_packed` runs the plain twin
 :func:`flash_mha_packed_reference` and its gradient is
 :func:`flash_mha_packed_bwd_reference`; on a CUDA tensor both directions
-launch a kernel or raise. When qkv needs a gradient the forward also returns
+launch a kernel or raise. The forward goes through the custom ops
+``aaclip::flash_mha_packed`` and ``aaclip::flash_mha_packed_lse``
+(``ops/custom_ops.py``), whose CUDA implementation is :func:`_launch`. When
+qkv needs a gradient the forward also returns
 each row's log-sum-exp (:func:`packed_lse_reference` is its plain version),
 and the backward kernels rebuild P from it instead of sweeping the keys for
 the softmax statistics. :func:`flash_mha_packed_stages` and
@@ -25,7 +28,7 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import _build, custom_ops
 from .flash_attention import attention_fwd_stages
 
 #: Forward-kernel launches since the last reset (incremented once per launch).
@@ -166,13 +169,19 @@ def _check_qkv(fn: str, qkv, num_heads: int, valid_len):
 
 def _forward(qkv, num_heads: int, scale: float, vv: bool, valid_len,
              with_lse: bool = False):
-    """The forward without autograd: twin on the CPU, kernel on the card.
-    With ``with_lse`` it returns (out, lse), lse (B, H, L) fp32."""
-    if qkv.device.type == "cpu":
-        out = flash_mha_packed_reference(qkv, num_heads, scale, vv, valid_len)
-        if with_lse:
-            return out, packed_lse_reference(qkv, num_heads, scale, vv, valid_len)
-        return out
+    """The forward without autograd, through ``aaclip::flash_mha_packed``
+    (``aaclip::flash_mha_packed_lse`` with ``with_lse``): the twin on the
+    CPU, the kernel on the card. With ``with_lse`` it returns (out, lse),
+    lse (B, H, L) fp32."""
+    custom_ops.check_device("flash_mha_packed", qkv)
+    op = custom_ops.flash_mha_packed_lse if with_lse else custom_ops.flash_mha_packed
+    return op(qkv, int(num_heads), float(scale), bool(vv),
+              None if valid_len is None else int(valid_len))
+
+
+def _launch(qkv, num_heads: int, scale: float, vv: bool, valid_len,
+            with_lse: bool = False):
+    """The kernel on a CUDA qkv (the CUDA implementation of the two ops)."""
     b, l, w, hd, vl = _check_qkv("flash_mha_packed", qkv, num_heads, valid_len)
     out = torch.empty((b, l, w), dtype=qkv.dtype, device=qkv.device)
     lse = (torch.empty((b, num_heads, l), dtype=torch.float32, device=qkv.device)

@@ -1,7 +1,7 @@
 """Serving API: one object from checkpoint to anomaly maps.
 
-Counterpart of ``aa_clip_iqm_tpu/serving.py``'s ``AnomalyDetector`` and
-``MicroBatchingService``:
+Counterpart of ``aa_clip_iqm_tpu/serving.py``'s ``AnomalyDetector``,
+``MicroBatchingService``, ``export_predictor`` and ``ExportedPredictor``:
 
     det = AnomalyDetector.from_checkpoint("ckpt/baseline", "MVTec",
                                           backbone="ViT-L-14-336px.pt")
@@ -11,16 +11,34 @@ Counterpart of ``aa_clip_iqm_tpu/serving.py``'s ``AnomalyDetector`` and
     svc = MicroBatchingService(det, max_batch=32, max_latency_ms=5)
     amap, score = svc.submit(image, "bottle").result(timeout=60)
 
+    export_predictor(det, "exported/", batch_sizes=(1, 8, 16))
+    maps, scores = ExportedPredictor("exported/").predict(images, "bottle")
+
 Everything runs on ``cuda`` unless ``device="cpu"`` is passed. Anchors are
 computed once per dataset and kept on the device. Caller batches are padded
 up to the smallest fitting bucket and larger ones split into largest-bucket
 chunks, as in the JAX package. ``quantize=`` selects an int8 backbone tier
-(``ops/quant.py``). Not ported yet: ``export_predictor`` /
-``ExportedPredictor`` (a ``torch.export`` path) and CUDA graphs for the
-bucketed predict program.
+(``ops/quant.py``).
+
+On the card a detector runs each bucket as a CUDA graph, the counterpart of
+the JAX package compiling its predict program once per bucket: the first
+request of a (bucket, input dtype, ``models.clip.FUSED_ATTN``) runs the
+eager program once (a warm-up that builds the kernels' libraries, sets
+their launch attributes, fills the device constants and the int8 kernel's
+transposed weights), then captures it; every later request copies its
+batch into the graph's input buffers, replays, and copies the outputs out.
+A CPU detector runs eagerly. ``det._predict`` is the eager program itself.
+
+``export_predictor`` writes one ``torch.export`` program per bucket, whose
+kernels are the ``aaclip::`` custom ops (``ops/custom_ops.py``), and
+``ExportedPredictor`` serves them with no model code.
 """
 from __future__ import annotations
 
+import json
+import os
+import threading
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -31,6 +49,9 @@ from .data.datasets import _load_image_u8
 from .data.registry import DOMAINS
 from .evaluation.predict import make_predict_fn
 from .loader import build_model_config, init_trainable, load_frozen_backbone
+from .models import clip as clip_mod
+from .ops import custom_ops  # noqa: F401  (registers the aaclip:: ops the programs call)
+from .ops import interp
 from .prompts import compute_frozen_anchors
 from .train.checkpoint import restore_adapters
 
@@ -59,6 +80,15 @@ def _bucketed(images, buckets, split, run):
             [images, np.zeros((bucket - n,) + tuple(images.shape[1:]),
                               images.dtype)], axis=0)
     return run(images, bucket, n)
+
+
+class _BucketGraph:
+    """One captured predict program: its static input and output buffers,
+    what it must keep alive, and its replays."""
+
+    def __init__(self, **fields):
+        self.replays = 0
+        self.__dict__.update(fields)
 
 
 class AnomalyDetector:
@@ -104,6 +134,9 @@ class AnomalyDetector:
         self.anchors: Dict[str, torch.Tensor] = compute_frozen_anchors(
             frozen, trainable, model_cfg, dataset, adapted=adapted_text,
             compute_dtype=compute_dtype)
+        self._graphs: Dict[tuple, _BucketGraph] = {}
+        self._graph_lock = threading.Lock()
+        self._graph_pool = None
 
     @classmethod
     def from_checkpoint(cls, save_path: Optional[str], dataset: str,
@@ -134,10 +167,93 @@ class AnomalyDetector:
         return list(self.anchors.keys())
 
     def _run(self, padded, anchors_b, n):
+        """One padded bucket through the program: a graph replay on the
+        card, the eager program on the CPU."""
+        if self.device.type == "cuda":
+            return self._run_graph(padded, anchors_b, n)
+        return self._run_eager(padded, anchors_b, n)
+
+    def _run_eager(self, padded, anchors_b, n):
         images = torch.from_numpy(np.ascontiguousarray(padded)).to(self.device)
         maps, scores = self._predict(self.frozen, self.trainable, images,
                                      anchors_b)
         return maps[:n].cpu().numpy(), scores[:n].cpu().numpy()
+
+    def _run_graph(self, padded, anchors_b, n):
+        """Copy in, replay, copy out. The graphs' buffers are shared by every
+        replay (and their intermediates by every bucket, through one memory
+        pool), so one lock serialises the three steps."""
+        images = torch.from_numpy(np.ascontiguousarray(padded))
+        key = (images.shape[0], images.dtype, clip_mod.FUSED_ATTN)
+        with self._graph_lock:
+            g = self._graphs.get(key)
+            if g is None or g.frozen is not self.frozen or g.trainable is not self.trainable:
+                g = self._graphs[key] = self._capture(images, anchors_b)
+            g.images.copy_(images)
+            g.anchors.copy_(anchors_b)
+            g.graph.replay()
+            g.replays += 1
+            return g.maps[:n].cpu().numpy(), g.scores[:n].cpu().numpy()
+
+    def _capture(self, images, anchors_b) -> "_BucketGraph":
+        """Warm up, then capture the predict program on static buffers.
+
+        The capture runs on the calling thread: under
+        :class:`MicroBatchingService` that is its worker, while the HTTP
+        threads go on with their own work. ``capture_error_mode=
+        "thread_local"`` confines the capture's ban on unsafe CUDA calls to
+        this thread, so another thread's synchronising call neither fails
+        nor invalidates the capture (``"global"``, the default, would do
+        both). The TMA tensor maps are encoded on the host at each launch and
+        passed by value: the capture freezes them with the addresses of that
+        launch, which holds because the input buffers, the weights (the
+        graph keeps the trees, and with them the int8 kernel's transposed
+        copies, which live as long as their weights), the device constants
+        (the graph keeps those built so far, which include every one its
+        program reads) and the pool's intermediates never move between
+        replays."""
+        dev = self.device
+        t0 = time.perf_counter()
+        pool0 = self.graph_memory()
+        static_images = images.to(dev)
+        static_anchors = anchors_b.contiguous().clone()
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self._predict(self.frozen, self.trainable, static_images, static_anchors)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self._graph_pool, capture_error_mode="thread_local"):
+            maps, scores = self._predict(self.frozen, self.trainable, static_images,
+                                         static_anchors)
+        torch.cuda.synchronize(dev)
+        return _BucketGraph(
+            graph=graph, images=static_images, anchors=static_anchors, maps=maps,
+            scores=scores, frozen=self.frozen, trainable=self.trainable,
+            constants=interp.device_constants(), capture_s=time.perf_counter() - t0,
+            pool_bytes=self.graph_memory() - pool0)
+
+    def graph_memory(self) -> int:
+        """Bytes of device memory in the segments of the graphs' shared pool
+        (what the graphs hold beyond their inputs and the weights)."""
+        if self._graph_pool is None:
+            return 0
+        pool = tuple(self._graph_pool)
+        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                   if tuple(seg.get("segment_pool_id", ())) == pool)
+
+    def graph_stats(self) -> List[dict]:
+        """One entry per captured graph: its bucket, input dtype and
+        ``FUSED_ATTN``, its replays (the device batches it ran), the seconds
+        of its warm-up and capture, and how much its capture grew the
+        graphs' pool."""
+        with self._graph_lock:
+            return [{"bucket": b, "dtype": str(dt).replace("torch.", ""), "fused_attn": fa,
+                     "replays": g.replays, "capture_s": g.capture_s,
+                     "pool_bytes": g.pool_bytes}
+                    for (b, dt, fa), g in self._graphs.items()]
 
     def predict(self, images: np.ndarray,
                 class_name: str) -> Tuple[np.ndarray, np.ndarray]:
@@ -189,6 +305,264 @@ class AnomalyDetector:
         to host normalization, for a quarter of the transfer."""
         images = np.stack([_load_image_u8(p, self.img_size) for p in paths])
         return self.predict(images, class_name)
+
+
+def _flatten_tree(tree, prefix=""):
+    """Dict/list tree -> {'a/#0/c': leaf}, the JAX package's flat key scheme
+    (``aa_clip_iqm_tpu/serving.py``): list positions get '#<i>' segments so
+    the structure round-trips."""
+    out = {}
+    items = (tree.items() if isinstance(tree, dict)
+             else ((f"#{i}", v) for i, v in enumerate(tree)))
+    for k, v in items:
+        key = f"{prefix}{k}"
+        if isinstance(v, (dict, list, tuple)):
+            out.update(_flatten_tree(v, key + "/"))
+        else:
+            out[key] = v
+    return out
+
+
+def _unflatten_tree(flat):
+    out: dict = {}
+    for key, v in flat.items():
+        parts = key.split("/")
+        node = out
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = v
+
+    def listify(node):
+        if not isinstance(node, dict):
+            return node
+        node = {k: listify(v) for k, v in node.items()}
+        if node and all(k.startswith("#") for k in node):
+            return [node[f"#{i}"] for i in range(len(node))]
+        return node
+
+    return listify(out)
+
+
+class _ExternalWeights(torch.nn.Module):
+    """The predict program with the weight trees as inputs."""
+
+    def __init__(self, predict):
+        super().__init__()
+        self.predict = predict
+
+    def forward(self, frozen, trainable, images, anchors):
+        return self.predict(frozen, trainable, images, anchors)
+
+
+class _BakedWeights(torch.nn.Module):
+    """The predict program with the weights as the module's buffers, so the
+    exported program carries them."""
+
+    def __init__(self, predict, frozen, trainable):
+        super().__init__()
+        self.predict = predict
+        flat = _flatten_tree({"frozen": frozen, "trainable": trainable})
+        self.keys = list(flat)
+        for i, k in enumerate(self.keys):
+            self.register_buffer(f"w{i}", flat[k])
+
+    def forward(self, images, anchors):
+        tree = _unflatten_tree({k: getattr(self, f"w{i}") for i, k in enumerate(self.keys)})
+        return self.predict(tree["frozen"], tree["trainable"], images, anchors)
+
+
+def export_predictor(detector: AnomalyDetector, out_dir: str,
+                     batch_sizes: Sequence[int] = (1, 8, 16),
+                     weights: str = "external") -> Dict[int, float]:
+    """Write the predict program as deployable artifacts, the layout of the
+    JAX package's ``export_predictor``: per batch bucket one
+    ``torch.export`` program ``predict_b{b}.pt2`` (shape-specialised, its
+    kernels the ``aaclip::`` ops), the per-class anchors ``anchors.npz`` and
+    ``manifest.json``. :class:`ExportedPredictor` loads them with no model
+    code, config registry or checkpoint layout.
+
+    ``weights="external"`` (default): each program takes ``(frozen,
+    trainable, images, anchors)``, the weight trees as inputs, and they ship
+    in ``weights.npz`` under the flat keys of :func:`_flatten_tree`
+    (bfloat16 leaves stored as float32 and listed in the manifest's
+    ``bf16_keys``). ``weights="baked"``: the weights are constants of each
+    program, which takes ``(images, anchors)``.
+
+    The programs hold the device they were traced on, so export on the
+    device you serve on: the manifest records it (``device``, the card's
+    name in ``device_name``) with ``fused_attn`` (``AACLIP_FUSED_ATTN``,
+    which picks the attention path at trace time). Returns the seconds each
+    bucket's export and save took."""
+    if weights not in ("external", "baked"):
+        raise ValueError(f"weights must be 'external' or 'baked', got {weights!r}")
+    if not batch_sizes or any(int(b) <= 0 for b in batch_sizes):
+        raise ValueError(
+            f"batch_sizes must be non-empty positive ints, got {batch_sizes!r}")
+    os.makedirs(out_dir, exist_ok=True)
+    dev = detector.device
+    img, e = detector.img_size, detector.cfg.clip.embed_dim
+    bf16_keys: list = []
+    if weights == "external":
+        module = _ExternalWeights(detector._predict)
+        flat = {**_flatten_tree({"frozen": detector.frozen}),
+                **_flatten_tree({"trainable": detector.trainable})}
+        bf16_keys = [k for k, v in flat.items() if v.dtype == torch.bfloat16]
+        np.savez(os.path.join(out_dir, "weights.npz"),
+                 **{k: (v.detach().float() if v.dtype == torch.bfloat16 else v.detach())
+                    .cpu().numpy() for k, v in flat.items()})
+
+        def args(b):
+            return (detector.frozen, detector.trainable) + example(b)
+    else:
+        module = _BakedWeights(detector._predict, detector.frozen, detector.trainable)
+
+        def args(b):
+            return example(b)
+
+    def example(b):
+        return (torch.zeros((b, 3, img, img), dtype=torch.float32, device=dev),
+                torch.zeros((b, e, 2), dtype=torch.float32, device=dev))
+
+    seconds = {}
+    for b in sorted(int(b) for b in batch_sizes):
+        t0 = time.perf_counter()
+        program = torch.export.export(module, args(b), strict=False)
+        # The example inputs would be saved too: with external weights, the
+        # whole weight trees in every program.
+        program.example_inputs = None
+        torch.export.save(program, os.path.join(out_dir, f"predict_b{b}.pt2"))
+        seconds[b] = time.perf_counter() - t0
+    np.savez(os.path.join(out_dir, "anchors.npz"),
+             **{k: v.float().cpu().numpy() for k, v in detector.anchors.items()})
+    with open(os.path.join(out_dir, "manifest.json"), "w") as f:
+        json.dump({
+            "img_size": img,
+            "embed_dim": e,
+            "dataset": detector.dataset,
+            "domain": detector.domain,
+            "batch_sizes": sorted(int(b) for b in batch_sizes),
+            "classes": detector.class_names(),
+            "device": dev.type,
+            "device_name": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                            else dev.type),
+            "fused_attn": bool(clip_mod.FUSED_ATTN),
+            "weights": weights,
+            "bf16_keys": bf16_keys,
+        }, f, indent=1)
+    return seconds
+
+
+class ExportedPredictor:
+    """Serve anomaly maps from :func:`export_predictor` artifacts, with the
+    contract of :meth:`AnomalyDetector.predict` (numpy in and out, bucketed
+    batches): it needs only the artifact directory and the port's
+    ``aaclip::`` ops, registered by importing this module.
+
+        pred = ExportedPredictor("exported/")
+        maps, scores = pred.predict(images, "bottle")
+
+    The programs run on the device type they were exported on (the
+    manifest's ``device``); ``device`` picks which one of that type, and
+    another type is refused, as the JAX package's artifacts are checked
+    against their platform."""
+
+    def __init__(self, path: str, device=None):
+        with open(os.path.join(path, "manifest.json")) as f:
+            self.manifest = json.load(f)
+        exported_on = self.manifest["device"]
+        self.device = torch.device(exported_on if device is None else device)
+        if self.device.type != exported_on:
+            raise ValueError(
+                f"{path} was exported for {exported_on} "
+                f"({self.manifest.get('device_name', exported_on)}) and runs there only, "
+                f"not on {self.device}: export again on the device you serve on")
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"{path} was exported for cuda, and this process sees no "
+                               "CUDA device")
+        self.img_size = self.manifest["img_size"]
+        self.domain = self.manifest["domain"]
+        self.anchors = {k: torch.from_numpy(v).to(self.device) for k, v in
+                        np.load(os.path.join(path, "anchors.npz")).items()}
+        self._path = path
+        self._programs: Dict[int, object] = {}
+        self._weights = None
+        if self.manifest.get("weights", "baked") == "external":
+            bf16 = set(self.manifest.get("bf16_keys", []))
+            flat = {k: torch.from_numpy(v).to(self.device,
+                                              torch.bfloat16 if k in bf16 else None)
+                    for k, v in np.load(os.path.join(path, "weights.npz")).items()}
+            tree = _unflatten_tree(flat)
+            self._weights = (tree["frozen"], tree["trainable"])
+
+    def class_names(self) -> List[str]:
+        return list(self.manifest["classes"])
+
+    def _program(self, bucket: int):
+        if bucket not in self._programs:
+            program = torch.export.load(os.path.join(self._path, f"predict_b{bucket}.pt2"))
+            self._programs[bucket] = program.module()
+        return self._programs[bucket]
+
+    def _check_images(self, images):
+        img = self.img_size
+        if images.ndim != 4 or images.shape[1:] != (3, img, img):
+            raise ValueError(
+                f"expected (B, 3, {img}, {img}) images (the exported "
+                f"programs are shape-specialized), got {images.shape}")
+
+    def predict(self, images: np.ndarray,
+                class_name: str) -> Tuple[np.ndarray, np.ndarray]:
+        """images: (B, 3, H, W) float32 CLIP-normalized -> (maps, scores)."""
+        if class_name not in self.anchors:
+            raise KeyError(
+                f"unknown class {class_name!r}; available: {self.class_names()}")
+        self._check_images(images)
+
+        def run(padded, bucket, n):
+            anchor = self.anchors[class_name]
+            anchors_b = anchor[None].expand((bucket,) + tuple(anchor.shape))
+            return self._call(padded, anchors_b, n)
+
+        return _bucketed(images, self.manifest["batch_sizes"],
+                         lambda i, j: self.predict(images[i:j], class_name),
+                         run)
+
+    def predict_multi(self, images: np.ndarray,
+                      class_names: Sequence[str]
+                      ) -> Tuple[np.ndarray, np.ndarray]:
+        """Mixed-class batch over the exported programs (per-sample anchors;
+        the contract of :meth:`AnomalyDetector.predict_multi`)."""
+        n = images.shape[0]
+        if len(class_names) != n:
+            raise ValueError(
+                f"{n} images but {len(class_names)} class names")
+        unknown = [c for c in class_names if c not in self.anchors]
+        if unknown:
+            raise KeyError(
+                f"unknown class {unknown[0]!r}; available: "
+                f"{self.class_names()}")
+        self._check_images(images)
+
+        def run(padded, bucket, n):
+            pad_names = list(class_names) + [class_names[-1]] * (bucket - n)
+            anchors_b = torch.stack([self.anchors[c] for c in pad_names], dim=0)
+            return self._call(padded, anchors_b, n)
+
+        return _bucketed(images, self.manifest["batch_sizes"],
+                         lambda i, j: self.predict_multi(images[i:j],
+                                                         class_names[i:j]),
+                         run)
+
+    def _call(self, images, anchors_b, n):
+        program = self._program(anchors_b.shape[0])
+        x = torch.from_numpy(np.ascontiguousarray(images, np.float32)).to(self.device)
+        anchors_b = anchors_b.contiguous()
+        with torch.no_grad():
+            if self._weights is not None:
+                maps, scores = program(*self._weights, x, anchors_b)
+            else:
+                maps, scores = program(x, anchors_b)
+        return maps[:n].cpu().numpy(), scores[:n].cpu().numpy()
 
 
 class MicroBatchingService:

@@ -88,7 +88,21 @@ line):
      input's and every tap's gradient against the same backward with the
      value-value kernel alone swapped for its plain version (and for a
      planted fault);
- 11. serve: the main path's seeded ViT-L-14-336 weights at their native
+ 11. deploy: AnomalyDetector's per-bucket CUDA graphs against its eager
+     program (det._predict) on the same padded input, bit for bit expected
+     and held to 4e-2 (8e-2 for the int8 tiers): 518 px at batch 1, 8 and
+     a mixed-class 5, the fused attention half at batch 8, 1274 px at batch
+     2 and each int8 tier at batch 8, with the launches each replay runs; a
+     planted fault (a replay whose copy-in is skipped) must fail; graph and
+     eager images/s, p50 and idle share at batch 1 and 8; captures,
+     replays and the graphs' memory. Then export_predictor for bf16 at
+     buckets (1, 8) and the int8 tier at (8), each artifact loaded by
+     ExportedPredictor in a fresh python3 (this script with
+     --exported-child), held to the detector and counted launching the
+     aaclip:: ops' CUDA implementations, with a planted fault (two classes'
+     anchors swapped) that must fail; and a short HTTP window of
+     cli.serve --exported (8 clients x 2 requests) against predict_multi;
+ 12. serve: the main path's seeded ViT-L-14-336 weights at their native
      336 px grid written as an OpenAI-layout fp16 .pt, and seeded adapters
      written by the trainer's checkpoint writer and as the reference's
      text_adapter.pth / image_adapter_3.pth (imported back bit for bit);
@@ -96,25 +110,40 @@ line):
      the .pt and writing <stem>.518.npz, the second reading it (both bit for
      bit the seeded weights rounded fp16 -> fp32 -> bf16, the positional
      embedding resized, and the saved adapters); predict_paths on 8 PNGs
-     against predict on their decoded uint8 arrays, bit for bit; the HTTP
-     server (cli.serve.make_server) over MicroBatchingService(max_batch=32,
-     max_latency_ms=5) under 32 client threads of 2 requests each over 3
-     classes, half .npy and half JSON with a base64 PNG, and one
-     /v1/predict_batch of 8, every map against predict_multi; requests/s,
-     p50 and p99 latency, the device batches (B1 launches / 24) and their
-     mean size, and the idle share of the same traffic under the profiler;
+     against predict on their decoded uint8 arrays, bit for bit; every
+     bucket's graph captured; the HTTP server (cli.serve.make_server) over
+     MicroBatchingService(max_batch=32, max_latency_ms=5) under 32 client
+     threads of 2 requests each over 3 classes, half .npy and half JSON with
+     a base64 PNG, and one /v1/predict_batch of 8, every map against
+     predict_multi; requests/s, p50 and p99 latency, the device batches (the
+     B1 launches their graph replays ran / 24) and their mean size, the same
+     window on the eager program, and the idle share of the same traffic
+     under the profiler;
      cli.single_image zero-shot (B1 in value-value mode) and from the
      checkpoint, each saved map against the same computation done directly.
-Launch counts are set to 0 before each driven path and read after it. The
-second-to-last line is a JSON object with one entry per kernel; the last
-line is {"ok": true, "device": {...}}.
+On the card every AnomalyDetector request replays the CUDA graph of its
+bucket (captured at the bucket's first request, after a warm-up run). The
+kernels' counters count a launch where a wrapper launches its kernel, so a
+bucket's warm-up and capture count and a replay does not. What a replay
+runs is measured instead, once per graph: one replay under the profiler
+must run the port's device kernels that the eager program runs on the
+graph's buffers, as many times each, and the counters count the eager
+run's launches (replay_launches); a request's launches are then its
+graphs' replays times that (graph_request). Comparisons with the plain
+twins run the eager program. Launch counts are set to 0 before each driven
+path and read after it; the kernels' "launches" are the counters' totals,
+replays not included. The second-to-last line is a JSON object with one
+entry per kernel; the last line is {"ok": true, "device": {...}}.
 """
+import base64
+import io
 import json
 import os
 import shutil
 import subprocess
 import sys
 import time
+import weakref
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -436,6 +465,105 @@ def counts_of(**launched):
 def add_counts(total, got):
     for name in KERNELS:
         total[name] += got[name]
+
+
+def port_kernels(fn):
+    """Run ``fn`` under torch.profiler; return the port's device kernels it
+    ran (those kernel_group files under a kernel), as {name: times}."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {evt.key: evt.count for evt in prof.key_averages()
+            if evt.device_type == torch.autograd.DeviceType.CUDA
+            and kernel_group(evt.key).split()[-1] in KERNELS}
+
+
+# Launches per replay, measured once per captured graph.
+_PER_REPLAY = weakref.WeakKeyDictionary()
+
+
+def replay_launches(det, key):
+    """The kernel launches that one replay of ``det``'s graph ``key`` runs,
+    measured: the graph replayed under the profiler must run the port's
+    device kernels that the eager program runs on the graph's own buffers,
+    each as many times, and the counters count the eager run's launches (a
+    replay moves no counter)."""
+    from aa_clip_iqm_tpu_torch.models import clip as clip_mod
+
+    g = det._graphs[key]
+    if g in _PER_REPLAY:
+        return _PER_REPLAY[g]
+    require(key[2] == clip_mod.FUSED_ATTN, f"graph {key}: FUSED_ATTN has changed")
+    # The profiler now and then loses a few kernel records of a run, so a
+    # disagreement is measured again, up to three times in all.
+    for attempt in range(3):
+        with det._graph_lock:
+            replayed = port_kernels(g.graph.replay)
+        before = read_counts()
+        eager = port_kernels(lambda: det._predict(det.frozen, det.trainable, g.images, g.anchors))
+        launched = diff_counts(read_counts(), before)
+        if replayed and replayed == eager:
+            _PER_REPLAY[g] = launched
+            return launched
+        log(f"# graph {key}, measurement {attempt + 1}: a replay ran the port's kernels "
+            f"{sorted(replayed.values())} times, the eager program "
+            f"{sorted(eager.values())}")
+    raise Failure(f"graph {key}: a replay ran the port's kernels {replayed}, the eager "
+                  f"program {eager}")
+
+
+def graph_request(det, fn):
+    """Run ``fn`` (requests to ``det``; each a graph replay, the first of a
+    bucket after its warm-up and capture) and return (its result, the kernel
+    launches its replays ran): each graph's replays in the call times its
+    launches per replay (replay_launches)."""
+    def replays():
+        with det._graph_lock:
+            return {key: g.replays for key, g in det._graphs.items()}
+
+    before = replays()
+    out = fn()
+    ran = counts_of()
+    for key, n in replays().items():
+        n -= before.get(key, 0)
+        if n:
+            add_counts(ran, {k: v * n for k, v in replay_launches(det, key).items()})
+    return out, ran
+
+
+def log_graphs(det, what):
+    """Captures, replays and launches per replay of each of ``det``'s graphs,
+    and the device memory of their shared pool."""
+    stats = det.graph_stats()
+    for key, g in zip(list(det._graphs), stats):      # graph_stats() keeps their order
+        per = {k: v for k, v in replay_launches(det, key).items() if v}
+        log(f"# graphs, {what}: bucket {g['bucket']} {g['dtype']} fused_attn "
+            f"{g['fused_attn']}: 1 capture ({g['capture_s']:.2f} s with its warm-up, the "
+            f"pool grown by {g['pool_bytes'] / 1e9:.3f} GB), {g['replays']} replays, "
+            f"launches per replay {per} (measured)")
+    log(f"# graphs, {what}: {len(stats)} graphs holding {det.graph_memory() / 1e9:.3f} GB "
+        "of device memory in their pool")
+    return stats
+
+
+class _Eager:
+    """Run AnomalyDetector requests through the eager program instead of
+    the bucket's graph (the detector's ``_run_eager``)."""
+
+    def __enter__(self):
+        from aa_clip_iqm_tpu_torch.serving import AnomalyDetector
+
+        self._saved = AnomalyDetector._run
+        AnomalyDetector._run = AnomalyDetector._run_eager
+        return self
+
+    def __exit__(self, *exc):
+        from aa_clip_iqm_tpu_torch.serving import AnomalyDetector
+
+        AnomalyDetector._run = self._saved
 
 
 def int8_twin_variant(ln, mlp, x, act, chunk=None, drop_fc_scale=False,
@@ -1379,11 +1507,13 @@ class _Twins:
         self._attn, self._mlp, self._mlp_int8 = attn, mlp, mlp_int8
         self._flash, self._block = flash, block
         self._keep_attn = keep_attn          # leave B1 on its kernel
+        self._eager = _Eager()               # a graph replay would keep the kernels
 
     def __enter__(self):
         from aa_clip_iqm_tpu_torch.models import clip
         from aa_clip_iqm_tpu_torch.ops import attention, attn_block, fused_mlp, packed_attention
 
+        self._eager.__enter__()
         self._saved = (attention.flash_mha_packed, attention.flash_mha, clip.ln_attn_residual,
                        clip.ln_mlp_residual, clip.ln_mlp_residual_int8,
                        clip.ln_mlp_residual_frozen)
@@ -1406,6 +1536,7 @@ class _Twins:
         (attention.flash_mha_packed, attention.flash_mha, clip.ln_attn_residual,
          clip.ln_mlp_residual, clip.ln_mlp_residual_int8,
          clip.ln_mlp_residual_frozen) = self._saved
+        self._eager.__exit__(*exc)
 
 
 def plain_attention_bwd(qkv, d_out, num_heads, scale, vv=False, valid_len=None, lse=None):
@@ -1504,20 +1635,21 @@ def phase_main_path(card):
     requests = [("predict b1", images(1), ["bottle"]),
                 ("predict b8", images(B), ["screw"] * B),
                 ("predict_multi b5", images(5), [classes[i % len(classes)] for i in range(5)])]
+    # Each request is a graph replay (the first of a bucket warms up and
+    # captures first): its launches are those its replays ran.
     for what, imgs, names in requests:
-        before = (pa.LAUNCHES, fused_mlp.LAUNCHES)
         if len(set(names)) == 1:
-            maps, scores = det.predict(imgs, names[0])
+            (maps, scores), ran = graph_request(det, lambda: det.predict(imgs, names[0]))
         else:
-            maps, scores = det.predict_multi(imgs, names)
-        got = (pa.LAUNCHES - before[0], fused_mlp.LAUNCHES - before[1])
+            (maps, scores), ran = graph_request(det, lambda: det.predict_multi(imgs, names))
+        got = (ran["packed_attention"], ran["ln_mlp_residual"])
         log(f"# {what}: maps {maps.shape} in [{maps.min():.4f}, {maps.max():.4f}], "
-            f"scores {np.round(scores, 4).tolist()}, launches B1 {got[0]} B2 {got[1]}")
+            f"scores {np.round(scores, 4).tolist()}, launches B1 {got[0]} B2 {got[1]} "
+            "(graph replay)")
         check(maps, scores, len(imgs), what)
-        require(got == (layers, layers), f"{what}: launches {got}, want {layers} each")
-        counts["packed_attention"] += got[0]
-        counts["ln_mlp_residual"] += got[1]
-    require(counts == read_counts(), "launch counts drifted")
+        require(ran == counts_of(packed_attention=layers, ln_mlp_residual=layers),
+                f"{what}: launches {ran}, want {layers} each of B1 and B2")
+    counts = read_counts()
 
     # The same batch-8 request through the twins, on the card; then through
     # twins with a planted fault, which the comparison must catch.
@@ -1587,14 +1719,14 @@ def phase_int8_tiers(card, ctx):
         got = read_counts()
         require(got == counts_of(ln_mlp_residual=text_layers),
                 f"{tier}: anchor build launches {got} (the text tower is never quantized)")
-        maps, scores = det.predict(imgs8, "screw")
-        got = read_counts()
+        (maps, scores), ran = graph_request(det, lambda: det.predict(imgs8, "screw"))
         log(f"# tier {tier}: quantized and anchors built in {time.perf_counter() - t0:.1f} s; "
-            f"batch-8 maps in [{maps.min():.4f}, {maps.max():.4f}], launches {got}")
+            f"batch-8 maps in [{maps.min():.4f}, {maps.max():.4f}], launches {ran} "
+            "(graph replay)")
         ctx["check"](maps, scores, B, f"tier {tier}")
-        require(got == counts_of(packed_attention=b1, ln_mlp_residual=text_layers + b2,
-                                 ln_mlp_residual_int8=b3), f"tier {tier}: launches {got}")
-        add_counts(total, got)
+        require(ran == counts_of(packed_attention=b1, ln_mlp_residual=b2,
+                                 ln_mlp_residual_int8=b3), f"tier {tier}: launches {ran}")
+        add_counts(total, read_counts())
         rel_bf16 = map_diff(maps, ctx["maps_bf16"])
         log(f"# tier {tier} vs the bf16 tier, batch 8 map: rms diff / std {rel_bf16:.3e} "
             f"(random weights: a plumbing number, not an accuracy one)")
@@ -1627,8 +1759,7 @@ def phase_int8_tiers(card, ctx):
         time_requests(det, imgs8, card, f"tier {tier}")
         if tier == "int8":
             profile_request(det, imgs8)
-        else:
-            del det
+        ctx.setdefault("det_tiers", {})[tier] = det
     return total
 
 
@@ -2127,14 +2258,13 @@ def phase_fused(card, ctx):
     clip.FUSED_ATTN = True
     try:
         reset_counts()
-        maps, scores = det.predict(imgs8, "screw")
-        got = read_counts()
+        (maps, scores), ran = graph_request(det, lambda: det.predict(imgs8, "screw"))
         log(f"# fused attention, batch-8 request: maps in [{maps.min():.4f}, {maps.max():.4f}], "
-            f"launches {got}")
+            f"launches {ran} (graph replay)")
         ctx["check"](maps, scores, B, "fused attention request")
-        require(got == counts_of(ln_attn_residual=layers, ln_mlp_residual=layers),
-                f"fused attention request: launches {got}")
-        add_counts(total, got)
+        require(ran == counts_of(ln_attn_residual=layers, ln_mlp_residual=layers),
+                f"fused attention request: launches {ran}")
+        add_counts(total, read_counts())
         rel_twins = map_diff(maps, ctx["maps_twins"])
         rel_off = map_diff(maps, ctx["maps_bf16"])
         log(f"# fused attention vs the twins, batch 8 map: rms diff / std {rel_twins:.3e} "
@@ -2213,16 +2343,14 @@ def phase_highres(card, ctx):
     rng = np.random.default_rng(17)
     for n in (1, 2):
         imgs = rng.integers(0, 256, (n, 3, HR_IMG, HR_IMG), dtype=np.uint8)
-        before = read_counts()
-        maps, scores = det.predict(imgs, "screw")
-        got = diff_counts(read_counts(), before)
+        (maps, scores), ran = graph_request(det, lambda: det.predict(imgs, "screw"))
         log(f"# 1274 px, batch {n}: maps {maps.shape} in [{maps.min():.4f}, {maps.max():.4f}], "
-            f"scores {np.round(scores, 4).tolist()}, launches {got}")
+            f"scores {np.round(scores, 4).tolist()}, launches {ran} (graph replay)")
         require(maps.shape == (n, HR_IMG, HR_IMG) and scores.shape == (n,), "1274 px shapes")
         require(np.isfinite(maps).all() and np.isfinite(scores).all(), "1274 px: non-finite")
-        require(got == counts_of(flash_attention=layers, ln_mlp_residual=layers),
-                f"1274 px batch {n}: launches {got}")
-        add_counts(total, got)
+        require(ran == counts_of(flash_attention=layers, ln_mlp_residual=layers),
+                f"1274 px batch {n}: launches {ran}")
+    total = read_counts()
     with _Twins():
         before = read_counts()
         maps_t, _ = det.predict(imgs, "screw")
@@ -2237,6 +2365,7 @@ def phase_highres(card, ctx):
     del maps_t
     time_requests(det, imgs, card, "1274 px", n=6)
     profile_request(det, imgs)
+    ctx["det_hr"], ctx["imgs_hr"] = det, imgs
     return total
 
 
@@ -2384,16 +2513,16 @@ def same_trees(a, b):
         la[k].dtype == lb[k].dtype and torch.equal(la[k], lb[k].to(la[k].device)) for k in la)
 
 
-def http_window(base, payloads):
-    """POST the /v1/predict payloads from SERVE_CLIENTS threads at once,
-    SERVE_REQUESTS each. Returns (wall seconds, latencies, replies)."""
+def http_window(base, payloads, clients=SERVE_CLIENTS, requests=SERVE_REQUESTS):
+    """POST the /v1/predict payloads from ``clients`` threads at once,
+    ``requests`` each. Returns (wall seconds, latencies, replies)."""
     import json
     import urllib.request
     from concurrent.futures import ThreadPoolExecutor
 
     def client(k):
         out = []
-        for i in range(k * SERVE_REQUESTS, (k + 1) * SERVE_REQUESTS):
+        for i in range(k * requests, (k + 1) * requests):
             query, body, ctype = payloads[i]
             req = urllib.request.Request(f"{base}/v1/predict?{query}", data=body,
                                          headers={"Content-Type": ctype})
@@ -2403,8 +2532,8 @@ def http_window(base, payloads):
         return out
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=SERVE_CLIENTS) as ex:
-        done = [x for got in ex.map(client, range(SERVE_CLIENTS), timeout=4 * SERVE_TIMEOUT)
+    with ThreadPoolExecutor(max_workers=clients) as ex:
+        done = [x for got in ex.map(client, range(clients), timeout=4 * SERVE_TIMEOUT)
                 for x in got]
     wall = time.perf_counter() - t0
     done.sort(key=lambda x: x[0])
@@ -2442,7 +2571,6 @@ def phase_serve(card):
         params_from_jax,
         tree_map,
     )
-    from aa_clip_iqm_tpu_torch.ops import fused_mlp, packed_attention as pa
     from aa_clip_iqm_tpu_torch.prompts import compute_class_anchor
     from aa_clip_iqm_tpu_torch.serving import AnomalyDetector, MicroBatchingService
     from aa_clip_iqm_tpu_torch.train import checkpoint as ckpt
@@ -2593,15 +2721,19 @@ def phase_serve(card):
             require(worst <= MAP_TOL, f"{what}: a map differs from predict_multi's by {worst}")
             return worst, score_diff
 
+        # Every bucket the window may take, captured before it (float32: what
+        # the service stacks), as the JAX server's --warmup compiles first.
+        for bucket in det._buckets:
+            det.predict(np.zeros((bucket, 3, IMG, IMG), np.float32), "bottle")
+        log_graphs(det, "serve detector before the HTTP window")
         svc = MicroBatchingService(det, max_batch=32, max_latency_ms=5)
         server = make_server(svc, IMG, {"dataset": "MVTec", "classes": det.class_names()},
                              host="127.0.0.1", port=0, request_timeout=SERVE_TIMEOUT)
         thread = serve_forever_in_thread(server)
         try:
             base = "http://%s:%d" % server.server_address
-            before = (pa.LAUNCHES, fused_mlp.LAUNCHES)
-            wall, lat, replies = http_window(base, payloads)
-            b1, b2 = pa.LAUNCHES - before[0], fused_mlp.LAUNCHES - before[1]
+            (wall, lat, replies), ran = graph_request(det, lambda: http_window(base, payloads))
+            b1, b2 = ran["packed_attention"], ran["ln_mlp_residual"]
             worst, score_diff = check(replies, 0, "HTTP /v1/predict")
             require(b1 == b2 and b1 % layers == 0 and b1 > 0,
                     f"HTTP window: {b1} B1 and {b2} B2 launches, want equal multiples of {layers}")
@@ -2609,9 +2741,18 @@ def phase_serve(card):
             p50, p99 = (float(np.percentile(lat, q)) * 1e3 for q in (50, 99))
             log(f"# serve: HTTP, {SERVE_CLIENTS} clients x {SERVE_REQUESTS} requests at {IMG} px: "
                 f"{n / wall:.2f} requests/s, p50 {p50:.1f} ms, p99 {p99:.1f} ms, {batches} device "
-                f"batches ({b1} B1 launches / {layers}), mean size {n / batches:.2f}, on {card}")
+                f"batches ({b1} B1 launches in graph replays / {layers}), mean size "
+                f"{n / batches:.2f}, on {card}")
             log(f"# serve: HTTP maps against predict_multi: worst rms diff / std {worst:.3e} "
                 f"(tol {MAP_TOL:.0e}), largest score difference {score_diff:.3e}")
+            # The same window with the detector's eager program, for a paired
+            # reading of what the graphs change end to end.
+            with _Eager():
+                wall_e, lat_e, replies_e = http_window(base, payloads)
+            check(replies_e, 0, "HTTP /v1/predict, eager")
+            log(f"# serve: the same window on the eager program: {n / wall_e:.2f} requests/s, "
+                f"p50 {np.percentile(lat_e, 50) * 1e3:.1f} ms, p99 "
+                f"{np.percentile(lat_e, 99) * 1e3:.1f} ms, on {card}")
             req = urllib.request.Request(f"{base}/v1/predict_batch?map=npy",
                                          data=json.dumps({"requests": batch_entries}).encode(),
                                          headers={"Content-Type": "application/json"})
@@ -2679,6 +2820,338 @@ def phase_serve(card):
     counts = read_counts()
     del det
     torch.cuda.empty_cache()
+    return counts
+
+
+class _NoCopy:
+    """Stands in for a graph's input buffer so that a request's copy-in is
+    skipped: the replay then reads the previous request's images."""
+
+    def copy_(self, src):
+        return self
+
+
+def request(det, imgs, names):
+    """One request: predict for a single class, predict_multi for several."""
+    if len(set(names)) == 1:
+        return det.predict(imgs, names[0])
+    return det.predict_multi(imgs, names)
+
+
+def graph_vs_eager(det, imgs, names, what, tol):
+    """A request as a graph replay against the same request through the
+    detector's eager program (``det._predict`` on the same padded input).
+    Returns the replay's maps and launches."""
+    import numpy as np
+
+    (maps_g, scores_g), ran = graph_request(det, lambda: request(det, imgs, names))
+    with _Eager():
+        maps_e, scores_e = request(det, imgs, names)
+    rel = map_diff(maps_g, maps_e)
+    same = np.array_equal(maps_g, maps_e) and np.array_equal(scores_g, scores_e)
+    log(f"# deploy, {what}: graph replay vs eager, map rms diff / std {rel:.3e} (tol "
+        f"{tol:.0e}), bit for bit {same}; launches per replay "
+        f"{ {k: v for k, v in ran.items() if v} }")
+    require(np.isfinite(maps_g).all() and maps_g.shape == (len(imgs),) + imgs.shape[-2:],
+            f"deploy, {what}: maps {maps_g.shape}")
+    require(rel <= tol, f"deploy, {what}: the graph's map differs from eager by {rel}")
+    return maps_g, ran
+
+
+def exported_child(artifact, inputs, out):
+    """Run in a fresh python3: load an exported artifact through
+    ExportedPredictor, predict the saved inputs (a mixed-class batch, and
+    its first image alone), save the outputs and print the aaclip:: kernel
+    launches they took as one JSON line."""
+    import numpy as np
+
+    sys.path.insert(0, ROOT)
+    from aa_clip_iqm_tpu_torch.serving import ExportedPredictor
+
+    data = np.load(inputs)
+    images, names = data["images"], [str(c) for c in data["names"]]
+    t0 = time.perf_counter()
+    pred = ExportedPredictor(artifact)
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pred._program(len(images))
+    program_s = time.perf_counter() - t0
+    before = read_counts()
+    t0 = time.perf_counter()
+    maps, scores = pred.predict_multi(images, names)
+    first_s = time.perf_counter() - t0
+    maps1, scores1 = pred.predict(images[:1], names[0])
+    after = read_counts()
+    lat = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        pred.predict_multi(images, names)
+        lat.append(time.perf_counter() - t0)
+    # One call under the profiler: the device time of each kernel group.
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pred.predict_multi(images, names)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    groups = {}
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            group = kernel_group(evt.key)
+            groups[group] = groups.get(group, 0.0) + evt.self_device_time_total / 1e3
+    np.savez(out, maps=maps, scores=scores, maps1=maps1, scores1=scores1)
+    print(json.dumps({"launches": {k: after[k] - before[k] for k in after},
+                      "load_s": load_s, "program_s": program_s, "first_s": first_s,
+                      "p50_s": float(np.median(lat)), "wall_ms": wall_ms,
+                      "groups_ms": groups}), flush=True)
+    return 0
+
+
+def phase_deploy(card, ctx):
+    """Deploying the port: per-bucket CUDA graphs against the eager program
+    (518 px at batch 1, 8 and a mixed-class 5, the fused attention half at
+    batch 8, 1274 px at batch 2, each int8 tier at batch 8), with a planted
+    fault (a replay whose copy-in is skipped); graph and eager timed and
+    profiled at batch 1 and 8; the bf16 program exported at buckets (1, 8)
+    and the int8 tier's at (8), each artifact loaded in a fresh python3
+    through ExportedPredictor and held to the detector (a planted fault: two
+    classes' anchors swapped); a short HTTP window of cli.serve --exported."""
+    import tempfile
+    import urllib.request
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from aa_clip_iqm_tpu_torch.cli import serve as serve_cli
+    from aa_clip_iqm_tpu_torch.data.datasets import normalize_clip
+    from aa_clip_iqm_tpu_torch.models import clip
+    from aa_clip_iqm_tpu_torch.serving import (AnomalyDetector, MicroBatchingService,
+                                               export_predictor)
+
+    t_phase = time.perf_counter()
+    cfg = ctx["cfg"]
+    layers = cfg.clip.vision.layers
+    rng = np.random.default_rng(41)
+
+    def u8(n):
+        return rng.integers(0, 256, (n, 3, IMG, IMG), dtype=np.uint8)
+
+    reset_counts()
+    det = AnomalyDetector(ctx["frozen"], ctx["trainable"], cfg, "MVTec", img_size=IMG,
+                          compute_dtype=torch.bfloat16, device="cuda")
+    classes = det.class_names()
+    imgs8 = u8(B)
+
+    # 1. Graph replays against the eager program.
+    per_replay = {}
+    graph_vs_eager(det, u8(1), ["bottle"], "518 px batch 1", MAP_TOL)
+    _, per_replay["bf16"] = graph_vs_eager(det, imgs8, ["screw"] * B, "518 px batch 8",
+                                           MAP_TOL)
+    graph_vs_eager(det, u8(5), [classes[i % 3] for i in range(5)],
+                   "518 px mixed-class batch 5 (bucket 8)", MAP_TOL)
+    clip.FUSED_ATTN = True
+    try:
+        _, per_replay["fused"] = graph_vs_eager(det, imgs8, ["screw"] * B,
+                                                "518 px batch 8, AACLIP_FUSED_ATTN=1", MAP_TOL)
+    finally:
+        clip.FUSED_ATTN = False
+    _, per_replay["1274px"] = graph_vs_eager(ctx["det_hr"], ctx["imgs_hr"], ["screw"] * 2,
+                                             "1274 px batch 2", MAP_TOL)
+    for tier, tdet in ctx["det_tiers"].items():
+        _, per_replay[tier] = graph_vs_eager(tdet, imgs8, ["screw"] * B,
+                                             f"tier {tier} batch 8", INT8_MAP_TOL)
+    want = {"bf16": counts_of(packed_attention=layers, ln_mlp_residual=layers),
+            "fused": counts_of(ln_attn_residual=layers, ln_mlp_residual=layers),
+            "1274px": counts_of(flash_attention=layers, ln_mlp_residual=layers),
+            "int8": counts_of(packed_attention=layers, ln_mlp_residual_int8=layers),
+            "int8_attn": counts_of(packed_attention=layers, ln_mlp_residual=layers),
+            "int8_mlp": counts_of(packed_attention=layers, ln_mlp_residual_int8=layers)}
+    for key, got in per_replay.items():
+        require(got == want[key], f"deploy, {key}: launches per replay {got}, want {want[key]}")
+
+    # The planted fault: the batch-8 graph replayed on the previous
+    # request's images.
+    graph = det._graphs[(B, torch.uint8, False)]
+    other = u8(B)
+    det.predict(imgs8, "screw")
+    real, graph.images = graph.images, _NoCopy()
+    try:
+        stale, _ = det.predict(other, "screw")
+    finally:
+        graph.images = real
+    with _Eager():
+        fresh, _ = det.predict(other, "screw")
+    rel_f = map_diff(stale, fresh)
+    log(f"# planted fault, a replay with its copy-in skipped (the previous request's images), "
+        f"batch 8 map: rms diff / std {rel_f:.3e}")
+    require(rel_f > MAP_TOL, "the graph comparison missed a replay on stale inputs")
+
+    # Graph against eager: images/s, p50 and the idle share at batch 1 and 8.
+    for n in (1, B):
+        imgs = u8(n)
+        time_requests(det, imgs, card, f"deploy, graph replay")
+        profile_request(det, imgs)
+        with _Eager():
+            time_requests(det, imgs, card, f"deploy, eager")
+            profile_request(det, imgs)
+    for what, d in (("518 px bf16", det), ("1274 px", ctx["det_hr"]),
+                    *((f"tier {t}", d) for t, d in ctx["det_tiers"].items())):
+        log_graphs(d, what)
+    log(f"# graphs: device memory reserved now {torch.cuda.memory_reserved() / 1e9:.2f} GB, "
+        f"allocated {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    counts = read_counts()
+
+    # 2. Export, and a fresh process per artifact.
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_deploy_") as root:
+        dirs = {"bf16": os.path.join(root, "bf16"), "int8": os.path.join(root, "int8")}
+        for key, d, buckets in (("bf16", det, (1, B)), ("int8", ctx["det_tiers"]["int8"], (B,))):
+            t0 = time.perf_counter()
+            seconds = export_predictor(d, dirs[key], batch_sizes=buckets)
+            size = sum(os.path.getsize(os.path.join(dirs[key], f))
+                       for f in os.listdir(dirs[key]))
+            log(f"# export, {key}: buckets {list(buckets)} in {time.perf_counter() - t0:.1f} s ("
+                + ", ".join(f"b{b} {t:.1f} s" for b, t in seconds.items())
+                + f", weights included), {size / 1e9:.2f} GB of artifacts")
+        # The planted fault: the bf16 artifact with two classes' anchors
+        # swapped.
+        dirs["swapped"] = os.path.join(root, "swapped")
+        os.makedirs(dirs["swapped"])
+        for f in os.listdir(dirs["bf16"]):
+            if f != "anchors.npz":
+                os.symlink(os.path.join(dirs["bf16"], f), os.path.join(dirs["swapped"], f))
+        anchors = dict(np.load(os.path.join(dirs["bf16"], "anchors.npz")))
+        anchors["screw"], anchors["bottle"] = anchors["bottle"], anchors["screw"]
+        np.savez(os.path.join(dirs["swapped"], "anchors.npz"), **anchors)
+
+        names = [("screw", "bottle", "carpet")[i % 3] for i in range(B)]
+        images = normalize_clip(u8(B).astype(np.float32) / 255.0).astype(np.float32)
+        inputs = os.path.join(root, "inputs.npz")
+        np.savez(inputs, images=images, names=np.array(names))
+        ref = {"bf16": det.predict_multi(images, names),
+               "int8": ctx["det_tiers"]["int8"].predict_multi(images, names)}
+        ref1 = {"bf16": det.predict(images[:1], names[0]),
+                "int8": ctx["det_tiers"]["int8"].predict(images[:1], names[0])}
+        # One child at a time, so that each one's times are its own.
+        for key, d in dirs.items():
+            out = os.path.join(root, f"out_{key}.npz")
+            proc = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--exported-child", d, inputs, out],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT)
+            try:
+                stdout, stderr = proc.communicate(timeout=SERVE_TIMEOUT)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.communicate()
+                raise Failure(f"the exported {key} child did not finish in {SERVE_TIMEOUT} s")
+            require(proc.returncode == 0, f"the exported {key} child failed:\n{stderr[-3000:]}")
+            report = json.loads(stdout.strip().splitlines()[-1])
+            got = np.load(out)
+            base = "bf16" if key == "swapped" else key
+            tol = INT8_MAP_TOL if key == "int8" else MAP_TOL
+            rel = map_diff(got["maps"], ref[base][0])
+            rel1 = map_diff(got["maps1"], ref1[base][0])
+            score_diff = float(np.abs(got["scores"] - ref[base][1]).max())
+            log(f"# export, {key} artifact in a fresh python3: manifest, anchors and weights "
+                f"loaded in {report['load_s']:.1f} s, the batch-8 program in "
+                f"{report['program_s']:.1f} s, its first call {report['first_s']:.2f} s, then "
+                f"p50 {report['p50_s'] * 1e3:.1f} ms ({B / report['p50_s']:.2f} images/s, "
+                f"eager, no graph); vs the detector, batch-8 "
+                f"mixed-class map rms diff / std {rel:.3e}, batch-1 {rel1:.3e} (tol {tol:.0e}), "
+                f"largest score difference {score_diff:.3e}; aaclip:: launches "
+                f"{ {k: v for k, v in report['launches'].items() if v} }")
+            groups, busy = report["groups_ms"], sum(report["groups_ms"].values())
+            log(f"# export, {key} artifact, one batch-8 call under the profiler: wall "
+                f"{report['wall_ms']:.1f} ms, device busy {busy:.1f} ms, idle share "
+                f"{1 - busy / report['wall_ms']:.3f}; per launch "
+                + ", ".join(f"{g.split()[0]} {ms / layers:.3f} ms" for g, ms in sorted(groups.items())
+                            if g.startswith("B"))
+                + "; by group " + ", ".join(f"{g} {ms:.2f} ms" for g, ms in sorted(
+                    groups.items(), key=lambda kv: -kv[1])))
+            b3 = key == "int8"
+            require(report["launches"] == counts_of(
+                packed_attention=2 * layers, ln_mlp_residual=0 if b3 else 2 * layers,
+                ln_mlp_residual_int8=2 * layers if b3 else 0),
+                f"exported {key}: the CUDA kernels were not all launched")
+            if key == "swapped":
+                require(rel > tol, "the export comparison missed the swapped anchors")
+            else:
+                require(rel <= tol and rel1 <= tol, f"exported {key}: maps differ by {rel}, {rel1}")
+
+        # 3. cli.serve --exported: 8 clients x 2 requests, every map against
+        # the detector's predict_multi on the same images.
+        args = serve_cli.build_parser().parse_args(["--exported", dirs["bf16"]])
+        exported, meta, img_size = serve_cli.load_model(args)
+        require(meta["source"] == "exported" and meta["dataset"] == "MVTec" and img_size == IMG,
+                f"cli.serve --exported: {meta}")
+        clients, requests = 8, 2
+        n = clients * requests
+        imgs = normalize_clip(u8(n).astype(np.float32) / 255.0).astype(np.float32)
+        names = [("bottle", "screw", "carpet")[i % 3] for i in range(n)]
+        payloads = []
+        for i in range(n):
+            buf = io.BytesIO()
+            np.save(buf, imgs[i])
+            payloads.append((f"class_name={names[i]}&map=npy", buf.getvalue(),
+                             "application/octet-stream"))
+        ref_maps, _ = det.predict_multi(imgs, names)
+        svc = MicroBatchingService(exported, max_batch=args.max_batch,
+                                   max_latency_ms=args.max_latency_ms)
+        server = serve_cli.make_server(svc, img_size, meta, host="127.0.0.1", port=0,
+                                       request_timeout=SERVE_TIMEOUT)
+        thread = serve_cli.serve_forever_in_thread(server)
+        try:
+            base = "http://%s:%d" % server.server_address
+            with urllib.request.urlopen(f"{base}/v1/health", timeout=SERVE_TIMEOUT) as r:
+                health = json.loads(r.read())
+            require(health["source"] == "exported", f"/v1/health: {health}")
+            # Every bucket's program loaded and called once before the
+            # window, as the JAX server's --warmup compiles first.
+            t0 = time.perf_counter()
+            for bucket in meta["batch_sizes"]:
+                exported.predict(imgs[:bucket], names[0])
+            log(f"# deploy: cli.serve --exported, the buckets' programs {meta['batch_sizes']} "
+                f"loaded and called once in {time.perf_counter() - t0:.1f} s")
+            results = []
+            for profiled in (False, True):
+                if profiled:
+                    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                        wall, lat, replies = http_window(base, payloads, clients, requests)
+                        torch.cuda.synchronize()
+                else:
+                    wall, lat, replies = http_window(base, payloads, clients, requests)
+                worst = 0.0
+                for j, (status, body) in enumerate(replies):
+                    require(status == 200, f"cli.serve --exported: HTTP {status}")
+                    amap = np.load(io.BytesIO(base64.b64decode(body["map"]["b64"])),
+                                   allow_pickle=False)
+                    worst = max(worst, map_diff(amap, ref_maps[j]))
+                require(worst <= MAP_TOL, f"cli.serve --exported: a map differs by {worst}")
+                results.append((wall, lat, worst))
+            busy = sum(e.self_device_time_total for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA) / 1e6
+            require(busy > 0, "the profiler saw no device time in the exported HTTP window")
+            wall, lat, worst = results[0]
+            p50, p99 = (float(np.percentile(lat, q)) * 1e3 for q in (50, 99))
+            log(f"# deploy: cli.serve --exported, {clients} clients x {requests} requests at "
+                f"{IMG} px: {n / wall:.2f} requests/s, p50 {p50:.1f} ms, p99 {p99:.1f} ms; "
+                f"maps against predict_multi worst rms diff / std {worst:.3e} (tol {MAP_TOL:.0e}); "
+                f"under the profiler wall {results[1][0]:.2f} s, device busy {busy:.2f} s, idle "
+                f"share {1 - busy / results[1][0]:.3f}, on {card}")
+        finally:
+            server.shutdown()
+            server.server_close()
+            svc.close()
+            thread.join(timeout=SERVE_TIMEOUT)
+        del exported
+    del det
+    ctx.pop("det_hr")
+    ctx.pop("det_tiers")
+    ctx.pop("det_int8")
+    torch.cuda.empty_cache()
+    log(f"# deploy phase: {time.perf_counter() - t_phase:.1f} s")
     return counts
 
 
@@ -2755,6 +3228,7 @@ def main():
         add_counts(launches, phase_fused(card, ctx))
         add_counts(launches, phase_highres(card, ctx))
         add_counts(launches, phase_surgery_backward(ctx))
+        add_counts(launches, phase_deploy(card, ctx))
         cfg, frozen = ctx["cfg"], ctx["frozen"]
         del ctx
         phase_metrics_scale(card)
@@ -2782,4 +3256,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--exported-child"]:
+        sys.exit(exported_child(*sys.argv[2:5]))
     sys.exit(main())

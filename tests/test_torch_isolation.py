@@ -51,8 +51,27 @@ def test_new_modules_are_covered():
                 "ops/losses.py", "ops/packed_attention.py", "train/optim.py",
                 "train/steps.py", "train/checkpoint.py", "train/driver.py",
                 "cli/train.py", "cli/serve.py", "cli/single_image.py",
-                "evaluation/visualize.py", "serving.py", "models/convert.py"):
+                "evaluation/visualize.py", "serving.py", "models/convert.py",
+                "ops/custom_ops.py", "tools/export_model.py", "tools/aot_smoke.py"):
         assert rel in covered, rel
+
+
+def test_only_the_orbax_bridge_imports_both_packages():
+    """Outside tests/, tools/orbax_to_torch.py alone imports the JAX package
+    (or JAX) and the port together."""
+    both = []
+    for dirpath, dirs, files in os.walk(ROOT):
+        dirs[:] = [d for d in dirs if d not in ("tests", ".git", "build", "chiprun_out")
+                   and not d.startswith(".")]
+        for name in files:
+            if not name.endswith(".py"):
+                continue
+            path = os.path.join(dirpath, name)
+            mods = list(_imports(path))
+            if (any(_forbidden(m) for m in mods)
+                    and any(m.split(".")[0] == "aa_clip_iqm_tpu_torch" for m in mods)):
+                both.append(os.path.relpath(path, ROOT))
+    assert both == [os.path.join("tools", "orbax_to_torch.py")]
 
 
 def test_forbidden_names():

@@ -23,6 +23,7 @@ from aa_clip_iqm_tpu.models import adapters as jadapters
 from aa_clip_iqm_tpu.train import checkpoint as jckpt
 from aa_clip_iqm_tpu_torch import configs as tconfigs
 from aa_clip_iqm_tpu_torch.cli import evaluate as tcli_eval
+from aa_clip_iqm_tpu_torch.cli import serve as tcli_serve
 from aa_clip_iqm_tpu_torch.cli import single_image as tcli_single
 from aa_clip_iqm_tpu_torch.cli.serve import build_parser, make_server, serve_forever_in_thread
 from aa_clip_iqm_tpu_torch.evaluation.predict import METRIC_KEYS
@@ -265,12 +266,104 @@ def test_error_closes_keepalive_connection(server_stack):
 
 
 def test_serve_parser_defaults():
-    """The server runs on the card unless told otherwise; export is not a
-    flag of the port's server."""
+    """The server runs on the card unless told otherwise; --exported is a
+    model source of its own, exclusive of --save_path, as in the JAX CLI."""
     args = build_parser().parse_args([])
     assert args.device == "cuda" and args.max_batch == 32 and args.port == 8000
+    assert args.exported is None
+    assert build_parser().parse_args(["--exported", "x"]).exported == "x"
     with pytest.raises(SystemExit):
-        build_parser().parse_args(["--exported", "x"])
+        tcli_serve.main(["--exported", "x", "--save_path", "y"])
+
+
+# --------------------------------------------------------------------------
+# cli.serve --exported against the JAX CLI's
+# --------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def exported_stack(tmp_path_factory, data):  # noqa: F811
+    """One .pt's zero-shot detectors of both packages (buckets 1 and 4),
+    each exported by its own package; the port's cli.serve model source for
+    --exported behind a live HTTP server on an ephemeral port."""
+    import jax.numpy as jnp
+
+    from aa_clip_iqm_tpu import serving as jserving
+    from aa_clip_iqm_tpu_torch import loader
+    from aa_clip_iqm_tpu_torch.serving import export_predictor
+
+    tmp = tmp_path_factory.mktemp("exported")
+    tpt, _ = write_pt(str(tmp / "port"))
+    jpt, _ = write_pt(str(tmp / "jax"))
+    cfg = tconfigs.tiny_test_config(IMG)
+    det = AnomalyDetector(loader.load_frozen_backbone(cfg, tpt, device="cpu",
+                                                      dtype=torch.float32),
+                          bridged_trainable(), cfg, "Synth", img_size=IMG, adapted_text=False,
+                          compute_dtype=torch.float32, batch_buckets=(1, 4), device="cpu")
+    jdet = jserving.AnomalyDetector.from_checkpoint(
+        None, "Synth", img_size=IMG, backbone=jpt, model_name="tiny-test",
+        compute_dtype=jnp.float32, use_pallas=False, batch_buckets=(1, 4))
+    tout, jout = str(tmp / "port_exported"), str(tmp / "jax_exported")
+    export_predictor(det, tout, batch_sizes=(1, 4))
+    jserving.export_predictor(jdet, jout, batch_sizes=(1, 4))
+    args = build_parser().parse_args(["--exported", tout, "--device", "cpu"])
+    pred, meta, img_size = tcli_serve.load_model(args)
+    svc = MicroBatchingService(pred, max_batch=4, max_latency_ms=50.0)
+    server = make_server(svc, img_size, meta, host="127.0.0.1", port=0,
+                         request_timeout=TIMEOUT)
+    thread = serve_forever_in_thread(server)
+    try:
+        yield ("http://%s:%d" % server.server_address, pred, meta,
+               jserving.ExportedPredictor(jout), tout)
+    finally:
+        server.shutdown()
+        server.server_close()
+        svc.close()
+        thread.join(timeout=TIMEOUT)
+
+
+def test_serve_exported_health_matches_jax_cli(exported_stack):
+    """/v1/health reports what the JAX CLI's does for --exported: the
+    source, the manifest's dataset and buckets, the artifact's classes."""
+    base, pred, meta, jpred, _ = exported_stack
+    assert meta == {"source": "exported", "dataset": jpred.manifest["dataset"],
+                    "classes": jpred.class_names(),
+                    "batch_sizes": jpred.manifest["batch_sizes"]}
+    status, body = _get(base + "/v1/health")
+    assert status == 200 and body == {"status": "ok", **meta, "img_size": IMG}
+
+
+def test_serve_exported_predict_matches_jax_artifact(exported_stack):
+    """Concurrent .npy requests of two classes through the port's server
+    over its artifact give the JAX artifact's maps and scores."""
+    base, _, _, jpred, _ = exported_stack
+    images = [_image(20 + i) for i in range(3)]
+    names = ["widget", "gizmo", "widget"]
+    with ThreadPoolExecutor(max_workers=3) as ex:
+        replies = list(ex.map(
+            lambda i: _post(f"{base}/v1/predict?class_name={names[i]}",
+                            _npy_bytes(images[i]), "application/octet-stream"),
+            range(3), timeout=TIMEOUT))
+    ref_maps, ref_scores = jpred.predict_multi(np.stack(images), names)
+    for (status, body), amap, score in zip(replies, ref_maps, ref_scores):
+        assert status == 200
+        close_rel(_decode_map(body["map"]), amap)
+        close_rel(body["score"], score)
+    status, body = _post(f"{base}/v1/predict?class_name=nope", _npy_bytes(images[0]),
+                         "application/octet-stream")
+    assert status == 404 and "unknown class" in body["error"]
+
+
+def test_serve_exported_refuses_what_the_jax_cli_refuses(exported_stack):
+    """--exported with --save_path is a usage error in both CLIs; an
+    artifact for the CPU does not load on another device type."""
+    from aa_clip_iqm_tpu.cli import serve as jcli_serve
+
+    *_, tout = exported_stack
+    for main in (jcli_serve.main, tcli_serve.main):
+        with pytest.raises(SystemExit):
+            main(["--exported", tout, "--save_path", "y"])
+    with pytest.raises(ValueError, match="exported for cpu"):
+        tcli_serve.load_model(build_parser().parse_args(["--exported", tout]))
 
 
 # --------------------------------------------------------------------------
