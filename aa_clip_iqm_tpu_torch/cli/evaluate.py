@@ -12,8 +12,11 @@ is one, then the newest stage-2 checkpoint); ``--no_adapters`` evaluates
 untrained adapters instead, and ``--import_reference`` reads the PyTorch
 reference's ``text_adapter.pth`` / ``image_adapter_{N}.pth`` from
 ``--save_path``. ``--visualize`` writes heatmaps under
-``<save_path>/visualization/``. Data-parallel evaluation and profiling are
-not ported yet.
+``<save_path>/visualization/``. ``--profile_dir`` writes a ``torch.profiler``
+trace of the sweep there, and ``--debug_nans`` raises ``FloatingPointError``
+at the first op that makes a NaN. ``--use_pallas`` is accepted and changes
+nothing: the port always runs its kernels. Data-parallel evaluation is not
+ported yet.
 """
 import argparse
 import os
@@ -26,9 +29,11 @@ from ..evaluation.predict import evaluate_dataset, results_table
 from ..loader import build_model_config, init_trainable, load_frozen_backbone
 from ..models.convert import import_reference_checkpoints
 from ..ops.quant import quantize_backbone_auto
+from ..platform import default_device
 from ..prompts import compute_frozen_anchors
 from ..train.checkpoint import restore_adapters
 from ..utils.misc import setup_logger, setup_seed
+from ..utils.profiling import enable_nan_checks, trace
 
 TIERS = ["int8", "int8_attn", "int8_mlp", "int8+smooth", "int8_attn+smooth",
          "int8_mlp+smooth"]
@@ -86,7 +91,16 @@ def build_parser():
                         "'int8_attn' quantizes only the attention "
                         "projections and keeps the fused float MLP kernel, "
                         "'int8_mlp' only the MLP (fused int8 kernel)")
-    parser.add_argument("--device", type=str, default="cuda")
+    parser.add_argument("--device", type=str, default=default_device(),
+                        help="cuda (default) or cpu; AACLIP_PLATFORM=cpu sets cpu")
+    parser.add_argument("--use_pallas", action="store_true",
+                        help="accepted for the JAX CLI's flag surface: the port always runs its "
+                        "kernels (JAX's default, without this flag, is its XLA route)")
+    parser.add_argument("--profile_dir", type=str, default=None,
+                        help="write a torch.profiler trace of the sweep here")
+    parser.add_argument("--debug_nans", action="store_true",
+                        help="raise FloatingPointError at the first op that "
+                        "makes a NaN (slow: it synchronises at every op)")
     return parser
 
 
@@ -125,33 +139,40 @@ def main(argv=None):
         logger.info("frozen backbone quantized (tier=%s)",
                     args.quantize_backbone)
 
-    adapted_text = False
-    if args.import_reference:
-        trainable = import_reference_checkpoints(args.save_path, trainable,
-                                                 relu=args.relu)
-        adapted_text = os.path.isfile(os.path.join(args.save_path,
-                                                   "text_adapter.pth"))
-        logger.info("imported reference adapters from %s", args.save_path)
-    elif not args.no_adapters:
-        trainable, adapted_text, epoch = restore_adapters(args.save_path, trainable)
-        logger.info("restored adapters from %s (epoch %s, adapted text: %s)",
-                    args.save_path, epoch, adapted_text)
+    if args.debug_nans:
+        enable_nan_checks(True)
+    try:
+        adapted_text = False
+        if args.import_reference:
+            trainable = import_reference_checkpoints(args.save_path, trainable,
+                                                     relu=args.relu)
+            adapted_text = os.path.isfile(os.path.join(args.save_path,
+                                                       "text_adapter.pth"))
+            logger.info("imported reference adapters from %s", args.save_path)
+        elif not args.no_adapters:
+            trainable, adapted_text, epoch = restore_adapters(args.save_path, trainable)
+            logger.info("restored adapters from %s (epoch %s, adapted text: %s)",
+                        args.save_path, epoch, adapted_text)
 
-    anchors = compute_frozen_anchors(frozen, trainable, model_cfg,
-                                     args.dataset, adapted=adapted_text,
-                                     compute_dtype=dtype)
-    datasets = get_dataset(args.dataset, args.img_size, "test", logger=logger,
-                           metadata_root=args.metadata_root,
-                           device_normalize=True)
-    eval_cfg = EvalConfig(
-        dataset=args.dataset, img_size=args.img_size,
-        batch_size=args.image_batch_size, seed=args.seed,
-        save_path=args.save_path, iqm_weight=args.iqm_weight,
-        text_weight=args.text_weight, compute_dtype=args.compute_dtype,
-        image_score_mode=args.image_score_mode)
-    rows = evaluate_dataset(frozen, trainable, model_cfg, eval_cfg, datasets,
-                            anchors, logger=logger, compute_dtype=dtype,
-                            visualize_dir=args.save_path if args.visualize else None)
+        anchors = compute_frozen_anchors(frozen, trainable, model_cfg,
+                                         args.dataset, adapted=adapted_text,
+                                         compute_dtype=dtype)
+        datasets = get_dataset(args.dataset, args.img_size, None, -1, "test",
+                               logger=logger, metadata_root=args.metadata_root,
+                               device_normalize=True)
+        eval_cfg = EvalConfig(
+            dataset=args.dataset, img_size=args.img_size,
+            batch_size=args.image_batch_size, seed=args.seed,
+            save_path=args.save_path, iqm_weight=args.iqm_weight,
+            text_weight=args.text_weight, compute_dtype=args.compute_dtype,
+            image_score_mode=args.image_score_mode)
+        with trace(args.profile_dir):
+            rows = evaluate_dataset(frozen, trainable, model_cfg, eval_cfg, datasets,
+                                    anchors, logger=logger, compute_dtype=dtype,
+                                    visualize_dir=args.save_path if args.visualize else None)
+    finally:
+        if args.debug_nans:
+            enable_nan_checks(False)
     table = results_table(rows)
     logger.info("final results:\n%s", table)
     print(table)

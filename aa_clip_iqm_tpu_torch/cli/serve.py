@@ -11,8 +11,10 @@ submits its image to one :class:`..serving.MicroBatchingService` and waits
 on the future, so concurrent requests, of any classes, coalesce into one
 bucketed device batch per latency window; all device work runs on the
 service's worker thread. It runs on ``cuda`` unless ``--device cpu`` is
-given. The model is either assembled from a backbone and a ``cli.train``
-save path, or read from ``--exported`` artifacts
+given, through the port's kernels unless ``--no_pallas`` is given (the
+stock PyTorch route: SDPA and the cuBLAS chain). The model is either
+assembled from a backbone and a ``cli.train`` save path, or read from
+``--exported`` artifacts
 (``aa_clip_iqm_tpu_torch.tools.export_model``), served through
 :class:`..serving.ExportedPredictor` on the device they were exported for.
 
@@ -52,6 +54,8 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs, urlsplit
 
 import numpy as np
+
+from ..platform import default_device
 
 logger = logging.getLogger("aa_clip_iqm_tpu_torch.serve")
 
@@ -312,10 +316,14 @@ def build_parser():
                      choices=["int8", "int8_attn", "int8_mlp", "int8+smooth",
                               "int8_attn+smooth", "int8_mlp+smooth"],
                      help="int8 backbone tier (ops/quant.py)")
+    src.add_argument("--no_pallas", action="store_true",
+                     help="serve the checkpoint on the stock PyTorch route (SDPA "
+                     "and the cuBLAS chain) instead of the kernels; an --exported "
+                     "program keeps the route it was exported with")
     src.add_argument("--compute_dtype", type=str, default="bfloat16",
                      choices=["bfloat16", "float32"])
-    src.add_argument("--device", type=str, default="cuda",
-                     help="cuda, or cpu; with --exported it must be of the type "
+    src.add_argument("--device", type=str, default=default_device(),
+                     help="cuda, or cpu (AACLIP_PLATFORM=cpu sets cpu); with --exported it must be of the type "
                      "the artifacts were exported for")
     net = parser.add_argument_group("server")
     net.add_argument("--host", type=str, default="127.0.0.1")
@@ -350,7 +358,8 @@ def load_model(args):
             args.save_path, args.dataset, img_size=args.img_size,
             backbone=args.backbone, allow_random_backbone=args.random_backbone,
             model_name=args.model_name, compute_dtype=dtype,
-            device=args.device, quantize=args.quantize_backbone)
+            device=args.device, quantize=args.quantize_backbone,
+            use_pallas=not args.no_pallas)
         meta = {"source": "checkpoint", "dataset": args.dataset,
                 "classes": det.class_names(),
                 "checkpoint": args.save_path or "(zero-shot)"}

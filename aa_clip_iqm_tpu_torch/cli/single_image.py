@@ -10,7 +10,8 @@ program runs; without one, a zero-shot map comes from the surgery tower's
 features against the frozen text anchors (stage 1's feature path), summed
 over the levels. It writes the map as ``<out stem>.npy``, or with
 ``--visualize`` a JET overlay PNG to ``--out``. It runs on ``cuda`` unless
-``--device cpu`` is given.
+``--device cpu`` is given. ``--use_pallas`` is accepted and changes nothing:
+the port always runs its kernels.
 """
 import argparse
 import os
@@ -24,6 +25,7 @@ from ..evaluation.predict import make_predict_fn
 from ..evaluation.scoring import similarity_map_test
 from ..loader import build_model_config, init_trainable, load_frozen_backbone
 from ..models import adapters as adapters_mod
+from ..platform import default_device
 from ..prompts import compute_class_anchor
 from ..train import checkpoint as ckpt
 from ..train.steps import make_stage1_visual_fn
@@ -58,7 +60,11 @@ def build_parser():
     parser.add_argument("--seed", type=int, default=111)
     parser.add_argument("--compute_dtype", type=str, default="bfloat16",
                         choices=["bfloat16", "float32"])
-    parser.add_argument("--device", type=str, default="cuda")
+    parser.add_argument("--device", type=str, default=default_device(),
+                        help="cuda (default) or cpu; AACLIP_PLATFORM=cpu sets cpu")
+    parser.add_argument("--use_pallas", action="store_true",
+                        help="accepted for the JAX CLI's flag surface: the port always runs its "
+                        "kernels (JAX's default, without this flag, is its XLA route)")
     return parser
 
 

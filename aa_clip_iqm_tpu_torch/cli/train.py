@@ -7,8 +7,12 @@
 
 Counterpart of ``aa_clip_iqm_tpu/cli/train.py``. It runs on ``cuda`` unless
 ``--device cpu`` is given: the frozen backbone in the compute dtype, the
-trainable adapters as float32 master weights. Data-parallel training,
-profiling and NaN checks are not ported yet.
+trainable adapters as float32 master weights. ``--profile_dir`` writes a
+``torch.profiler`` trace of the whole run there (``tools/trace_summary.py``
+reads it), and ``--debug_nans`` raises ``FloatingPointError`` at the first op
+that makes a NaN (``utils/profiling.enable_nan_checks``). ``--use_pallas`` is
+accepted and changes nothing: the port always runs its kernels. Data-parallel
+training is not ported yet.
 """
 import argparse
 
@@ -17,8 +21,10 @@ import torch
 from ..configs import TrainConfig
 from ..loader import build_model_config, init_trainable, load_frozen_backbone
 from ..ops.quant import quantize_backbone_auto
+from ..platform import default_device
 from ..train.driver import run_training
 from ..utils.misc import setup_logger, setup_seed
+from ..utils.profiling import enable_nan_checks, trace
 from .evaluate import TIERS
 
 
@@ -76,7 +82,8 @@ def build_parser():
     # device
     parser.add_argument("--compute_dtype", type=str, default="bfloat16",
                         choices=["bfloat16", "float32"])
-    parser.add_argument("--device", type=str, default="cuda")
+    parser.add_argument("--device", type=str, default=default_device(),
+                        help="cuda (default) or cpu; AACLIP_PLATFORM=cpu sets cpu")
     parser.add_argument("--clip_grad_norm", type=float, default=None,
                         help="global-norm gradient clip for stage 2. Default "
                         "off = the executed reference (its clip runs before "
@@ -100,6 +107,14 @@ def build_parser():
                         help="int8-forward training experiment: quantize the "
                         "frozen backbone (straight-through backward); "
                         "'int8_attn' quantizes only the attention projections")
+    parser.add_argument("--use_pallas", action="store_true",
+                        help="accepted for the JAX CLI's flag surface: the port always runs its "
+                        "kernels (JAX's default, without this flag, is its XLA route)")
+    parser.add_argument("--profile_dir", type=str, default=None,
+                        help="write a torch.profiler trace of the run here")
+    parser.add_argument("--debug_nans", action="store_true",
+                        help="raise FloatingPointError at the first op that "
+                        "makes a NaN (slow: it synchronises at every op)")
     return parser
 
 
@@ -140,6 +155,8 @@ def main(argv=None):
     )
     dtype = {"bfloat16": torch.bfloat16, "float32": torch.float32}[
         args.compute_dtype]
+    if args.debug_nans:
+        enable_nan_checks(True)
     frozen = load_frozen_backbone(model_cfg, args.backbone,
                                   allow_random=args.random_backbone,
                                   device=args.device, dtype=dtype)
@@ -151,8 +168,13 @@ def main(argv=None):
     # float32 master weights, whatever the compute dtype.
     trainable = init_trainable(model_cfg, seed=args.seed, device=args.device,
                                dtype=torch.float32, requires_grad=True)
-    return run_training(frozen, trainable, model_cfg, train_cfg, logger,
-                        metadata_root=args.metadata_root)
+    try:
+        with trace(args.profile_dir):
+            return run_training(frozen, trainable, model_cfg, train_cfg, logger,
+                                metadata_root=args.metadata_root)
+    finally:
+        if args.debug_nans:
+            enable_nan_checks(False)
 
 
 if __name__ == "__main__":

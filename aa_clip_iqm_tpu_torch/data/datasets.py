@@ -11,14 +11,17 @@ collation and a background prefetcher. Images are decoded with PIL, imported
 only inside the functions that decode a file, so that importing this module
 needs numpy alone. The random draws are numpy ``default_rng`` streams seeded
 as in the JAX package, so a training batch equals that package's for the
-same (seed, epoch). The JAX package's C++ transform pipeline is not ported:
-the nearest-neighbour warp here is a numpy transcription of it, and resizes
-go through PIL.
+same (seed, epoch). Samples decode on a thread pool of
+``AACLIP_DATA_WORKERS`` threads (default 1, serial), with the JAX package's
+random-stream contract. ``get_dataset`` has the JAX package's signature. The
+JAX package's C++ transform pipeline is not ported: the nearest-neighbour
+warp here is a numpy transcription of it, and resizes go through PIL.
 """
 from __future__ import annotations
 
 import json
 import os
+import threading
 from typing import List, Optional
 
 import numpy as np
@@ -27,6 +30,48 @@ from .registry import CLASS_NAMES, DATA_PATH, IMAGE_MEAN, IMAGE_STD, metadata_pa
 
 _MEAN = np.asarray(IMAGE_MEAN, np.float32).reshape(3, 1, 1)
 _STD = np.asarray(IMAGE_STD, np.float32).reshape(3, 1, 1)
+
+
+def _data_workers() -> int:
+    """Per-sample decode parallelism, ``AACLIP_DATA_WORKERS`` (default 1, the
+    serial path). Threads, not processes: PIL's decode and resize release
+    the interpreter lock, so threads scale on a multi-core host with no
+    serialisation cost."""
+    try:
+        n = int(os.environ.get("AACLIP_DATA_WORKERS", "1"))
+    except ValueError:
+        return 1
+    return max(1, n)
+
+
+_EXECUTOR = None
+_EXECUTOR_WORKERS = 0
+_EXECUTOR_LOCK = threading.Lock()
+
+
+def _executor(workers: int):
+    """The process-wide decode pool, made on first use and remade when the
+    worker count changes."""
+    global _EXECUTOR, _EXECUTOR_WORKERS
+    with _EXECUTOR_LOCK:
+        if _EXECUTOR is None or _EXECUTOR_WORKERS != workers:
+            if _EXECUTOR is not None:
+                _EXECUTOR.shutdown(wait=False)
+            from concurrent.futures import ThreadPoolExecutor
+
+            _EXECUTOR = ThreadPoolExecutor(max_workers=workers,
+                                           thread_name_prefix="aaclip-data")
+            _EXECUTOR_WORKERS = workers
+        return _EXECUTOR
+
+
+def _map(fn, jobs):
+    """``[fn(job) for job in jobs]``, on the decode pool when
+    ``AACLIP_DATA_WORKERS`` > 1, in order either way."""
+    workers = _data_workers()
+    if workers > 1:
+        return list(_executor(workers).map(fn, jobs))
+    return [fn(job) for job in jobs]
 
 
 def load_metadata(meta_path: str, class_name: Optional[str] = None) -> List[dict]:
@@ -186,9 +231,15 @@ class TrainDataset:
         self.text = text
         self.meta = load_metadata(meta_path)
         self.seed = seed
+        self.rng = np.random.default_rng(seed)
+        self._draws = 0  # per-sample stream counter of the pooled batches()
 
     def __len__(self):
         return len(self.meta)
+
+    def __getitem__(self, idx: int) -> dict:
+        """One augmented sample, drawn from the dataset's sequential stream."""
+        return self._get(idx, self.rng)
 
     def _get(self, idx: int, rng: np.random.Generator) -> dict:
         from PIL import Image
@@ -221,7 +272,9 @@ class TrainDataset:
         augmentation stream from (seed, epoch, position in the epoch), so
         the stream is a pure function of (dataset seed, epoch). A run
         resumed mid-epoch skips ``start_batch`` batches, without decoding
-        them, and continues with bit-identical data."""
+        them, and continues with bit-identical data. The samples decode on
+        the ``AACLIP_DATA_WORKERS`` pool, and the stream is the same for any
+        number of workers."""
         order = np.arange(len(self.meta))
         np.random.default_rng((self.seed, epoch)).shuffle(order)
         for b, start in enumerate(range(0, len(order), batch_size)):
@@ -230,9 +283,34 @@ class TrainDataset:
                 break
             if b < start_batch:
                 continue
-            yield collate([
-                self._get(int(i), np.random.default_rng((self.seed, epoch, start + j)))
-                for j, i in enumerate(idxs)])
+            jobs = [(int(i), np.random.default_rng((self.seed, epoch, start + j)))
+                    for j, i in enumerate(idxs)]
+            yield collate(_map(lambda job: self._get(*job), jobs))
+
+    def batches(self, batch_size: int, shuffle: bool = True, drop_last: bool = False):
+        """Batches in a shuffled (or metadata) order drawn from the dataset's
+        own generator. With ``AACLIP_DATA_WORKERS`` = 1 every sample draws
+        from that one sequential stream, as ``self[i]`` does. With more
+        workers the samples decode on the pool, each from a stream of its
+        own seeded by (seed, draw counter): deterministic whatever the
+        threads' interleaving, but another stream than the serial one (the
+        trade a PyTorch DataLoader's workers make)."""
+        order = np.arange(len(self.meta))
+        if shuffle:
+            self.rng.shuffle(order)
+        workers = _data_workers()
+        for start in range(0, len(order), batch_size):
+            idxs = order[start:start + batch_size]
+            if drop_last and len(idxs) < batch_size:
+                break
+            if workers > 1:
+                jobs = [(int(i), np.random.default_rng((self.seed, self._draws + j)))
+                        for j, i in enumerate(idxs)]
+                self._draws += len(idxs)
+                items = _map(lambda job: self._get(*job), jobs)
+            else:
+                items = [self[int(i)] for i in idxs]
+            yield collate(items)
 
 
 class SingleClassTestDataset:
@@ -278,12 +356,23 @@ class SingleClassTestDataset:
             "class_name": meta["class_name"],
         }
 
-    def batches(self, batch_size: int):
-        """Sequential batches; each carries its count as ``n_valid``."""
+    def batches(self, batch_size: int, pad_to_batch: bool = False):
+        """Sequential batches; each carries its count as ``n_valid``. With
+        ``pad_to_batch`` the tail batch is zero-padded to ``batch_size``
+        (images, masks and labels). The decode draws nothing at random, so
+        on the ``AACLIP_DATA_WORKERS`` pool it gives the serial output, in
+        order."""
         for start in range(0, len(self), batch_size):
-            items = [self[i] for i in range(start, min(start + batch_size, len(self)))]
+            items = _map(self.__getitem__,
+                         range(start, min(start + batch_size, len(self))))
             batch = collate(items)
-            batch["n_valid"] = len(items)
+            n = len(items)
+            if pad_to_batch and n < batch_size:
+                for key in ("image", "mask", "label"):
+                    pad = np.zeros((batch_size - n,) + batch[key].shape[1:],
+                                   batch[key].dtype)
+                    batch[key] = np.concatenate([batch[key], pad], axis=0)
+            batch["n_valid"] = n
             yield batch
 
 
@@ -359,16 +448,21 @@ def collate(items: List[dict]) -> dict:
     }
 
 
-def get_dataset(dataset_name: str, img_size: int, stage: str = "test",
-                logger=None, metadata_root: Optional[str] = None,
-                device_normalize: bool = False,
-                training_mode: Optional[str] = None, shot: int = -1,
-                seed: int = 111):
-    """``stage="test"``: {class: SingleClassTestDataset} for the test split,
-    in the dataset's class order; classes without samples (a partial
-    download) are skipped. ``stage="train"``: (text_dataset, image_dataset),
-    the stage-1 and stage-2 :class:`TrainDataset` over the ``shot``-shot
-    metadata (``training_mode="few_shot"``) or the full one."""
+def get_dataset(dataset_name: str, img_size: int, training_mode: Optional[str],
+                shot: int = -1, stage: str = "train", logger=None,
+                metadata_root: Optional[str] = None, seed: int = 111,
+                device_normalize: bool = False):
+    """The JAX package's dispatcher, with its signature, argument order and
+    defaults (reference dataset/__init__.py:211-270).
+
+    ``stage="train"``: (text_dataset, image_dataset), the stage-1 and stage-2
+    :class:`TrainDataset` over the ``shot``-shot metadata
+    (``training_mode="few_shot"``) or the full one. ``stage="test"``:
+    {class: SingleClassTestDataset} for the test split, in the dataset's
+    class order; classes without samples (a partial download) are skipped.
+    ``stage="visualize"``: the same split without the logger's per-class
+    lines. ``device_normalize`` (test and visualize): uint8 images for the
+    device-side CLIP normalisation."""
     if dataset_name not in DATA_PATH:
         raise KeyError(
             f"Dataset {dataset_name!r} not found; available: "
@@ -382,13 +476,14 @@ def get_dataset(dataset_name: str, img_size: int, stage: str = "test",
         data_path = DATA_PATH[dataset_name.split("-")[0]]
         return (TrainDataset(data_path, meta, img_size, text=True, seed=seed),
                 TrainDataset(data_path, meta, img_size, text=False, seed=seed + 1))
-    if stage != "test":
-        raise ValueError(f"stage {stage!r} not found; available: train, test")
+    if stage not in ("test", "visualize"):
+        raise ValueError(f"stage {stage} not found; available: train, test, visualize")
     meta = metadata_path(dataset_name, -1, metadata_root)
     datasets = {}
     for c in CLASS_NAMES[dataset_name]:
         ds = SingleClassTestDataset(
-            DATA_PATH[dataset_name], meta, img_size, c, logger=logger,
+            DATA_PATH[dataset_name], meta, img_size, c,
+            logger=logger if stage == "test" else None,
             device_normalize=device_normalize)
         if len(ds) == 0:
             if logger:

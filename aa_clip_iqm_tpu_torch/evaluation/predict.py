@@ -51,7 +51,7 @@ def _device_normalize(images_u8):
 def make_predict_fn(cfg: ModelConfig, img_size: int, domain: str,
                     use_iqm: bool = True, compute_dtype=torch.float32,
                     text_weight: float = 0.6, iqm_weight: float = 0.4,
-                    image_score_mode: str = "fixed"):
+                    image_score_mode: str = "fixed", use_pallas: bool = True):
     """Build predict(frozen, trainable, images, anchors) ->
     (final_map (B, H, W) fp32, image_logit (B,) fp32).
 
@@ -60,6 +60,9 @@ def make_predict_fn(cfg: ModelConfig, img_size: int, domain: str,
     image_score_mode: "fixed" (per-sample abnormal logit, default) or
     "reference_eval" (the executed reference's eval transcription; needs
     batch >= 2 and depends on the batch's composition, like the reference).
+    use_pallas: True (the port's default; JAX's is False) runs the
+    hand-written kernels; False the stock PyTorch route with none
+    (``models.clip``), JAX's XLA chain.
     """
     if image_score_mode not in ("fixed", "reference_eval"):
         raise ValueError(f"unknown image_score_mode {image_score_mode!r}")
@@ -73,7 +76,7 @@ def make_predict_fn(cfg: ModelConfig, img_size: int, domain: str,
             out = adapters_mod.encode_image_adapted(
                 frozen, trainable, cfg, images,
                 text_anchors=anchors if use_iqm else None,
-                compute_dtype=compute_dtype)
+                compute_dtype=compute_dtype, use_pallas=use_pallas)
             img_logit = logit_fn(out.det_token, anchors)
             text_maps = [
                 scoring.similarity_map_test(s, anchors, img_size, domain)
@@ -258,7 +261,7 @@ def evaluate_dataset(frozen, trainable, model_cfg: ModelConfig,
                      eval_cfg: EvalConfig, datasets: Dict, anchors: Dict,
                      logger=None, use_iqm: bool = True,
                      compute_dtype=torch.float32, device_resident: bool = True,
-                     visualize_dir: Optional[str] = None):
+                     visualize_dir: Optional[str] = None, use_pallas: bool = True):
     """Per-class sweep producing a results table (list of metric dicts plus
     an Average row), parity with test_last.py:273-327.
 
@@ -268,6 +271,8 @@ def evaluate_dataset(frozen, trainable, model_cfg: ModelConfig,
     come to the host and :func:`..ops.metrics.metrics_eval` ranks them.
     ``visualize_dir`` writes each class's heatmaps there
     (:func:`.visualize.dump_heatmaps`), which takes the host path.
+    ``use_pallas``: as in :func:`make_predict_fn` (the port's default True,
+    JAX's False).
     """
     device_resident = device_resident and not visualize_dir
     domain = DOMAINS[eval_cfg.dataset]
@@ -275,7 +280,7 @@ def evaluate_dataset(frozen, trainable, model_cfg: ModelConfig,
         model_cfg, eval_cfg.img_size, domain, use_iqm=use_iqm,
         compute_dtype=compute_dtype, text_weight=eval_cfg.text_weight,
         iqm_weight=eval_cfg.iqm_weight,
-        image_score_mode=eval_cfg.image_score_mode)
+        image_score_mode=eval_cfg.image_score_mode, use_pallas=use_pallas)
     rows = []
 
     def _settle(row):

@@ -47,14 +47,16 @@ class AdaptedOutputs:
 def encode_image_adapted(frozen, trainable, cfg: ModelConfig, images,
                          text_anchors=None, compute_dtype=torch.float32,
                          remat: bool = False, patch_drop_rng=None,
-                         fused_mlp=True) -> AdaptedOutputs:
+                         fused_mlp=True, use_pallas=True) -> AdaptedOutputs:
     """AdaptedCLIP.forward. text_anchors: (B, embed_dim, 2) per-sample
     anchors, or None to skip IQM. remat: checkpoint the tower's blocks in
     the backward. patch_drop_rng: a ``torch.Generator`` that switches patch
     dropout on at the configured rate (``cfg.clip.vision.patch_dropout``),
     or a ready (B, K) index tensor; seg_tokens then carry K < L tokens and
     ``keep_idx`` maps them back to grid cells. fused_mlp: True, or "frozen"
-    for the dx-only backward through the frozen backbone's MLPs."""
+    for the dx-only backward through the frozen backbone's MLPs.
+    use_pallas: False for the stock PyTorch route with no hand-written
+    kernel (``models.clip``; the port's default is True, JAX's False)."""
     a = cfg.adapter
     vis = frozen["visual"]
     ia = trainable["image_adapter"]
@@ -74,7 +76,7 @@ def encode_image_adapted(frozen, trainable, cfg: ModelConfig, images,
         act_name=cfg.clip.act, adapters=ia["layer_adapters"],
         adapter_weight=a.image_adapt_weight, adapt_until=a.image_adapt_until,
         compute_dtype=compute_dtype, remat=remat, keep_idx=keep_idx,
-        fused_mlp=fused_mlp,
+        fused_mlp=fused_mlp, use_pallas=use_pallas,
     )
 
     # Patch tokens (CLS dropped) -> frozen ln_post.
@@ -128,7 +130,7 @@ def project_queries(trainable, queries):
 
 
 def encode_text_adapted(frozen, trainable, cfg: ModelConfig, tokens,
-                        compute_dtype=torch.float32):
+                        compute_dtype=torch.float32, use_pallas=True):
     """AdaptedCLIP.encode_text: adapters with the norm-preserving blend on the
     first text_adapt_until layers; SimpleProj(relu=True) replaces CLIP's
     text_projection."""
@@ -142,14 +144,14 @@ def encode_text_adapted(frozen, trainable, cfg: ModelConfig, tokens,
         frozen["text"], cfg.clip.text, tokens, act_name=cfg.clip.act,
         adapters=ta["layers"], adapter_weight=a.text_adapt_weight,
         adapt_until=a.text_adapt_until, final_proj=final_proj,
-        compute_dtype=compute_dtype,
+        compute_dtype=compute_dtype, use_pallas=use_pallas,
     )
 
 
 def encode_text_frozen(frozen, cfg: ModelConfig, tokens,
-                       compute_dtype=torch.float32):
+                       compute_dtype=torch.float32, use_pallas=True):
     """Raw CLIP text encoding."""
     return clip_model.text_forward(
         frozen["text"], cfg.clip.text, tokens, act_name=cfg.clip.act,
-        compute_dtype=compute_dtype,
+        compute_dtype=compute_dtype, use_pallas=use_pallas,
     )

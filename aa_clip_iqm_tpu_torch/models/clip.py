@@ -28,6 +28,15 @@ gate holds, else the unpacked flash kernel on split heads. With
 (LayerNorm, qkv, attention, out-projection, residual) through the fused
 kernel instead. The tower is not padded: the attention kernels mask the
 ragged key tile themselves.
+
+``use_pallas=False`` (every function here takes it) is the JAX package's XLA
+chain on stock PyTorch calls and launches no hand-written kernel: the
+attention through ``ops.attention.library_sdpa`` after the cuBLAS
+projections, the MLP as ``x + mlp_block(layer_norm(x))`` (JAX's
+``_xla_chain``; int8 weights keep ``int8_linear``, without B3), the
+``fused_mlp`` and ``FUSED_ATTN`` switches ignored. It is reached only when a
+caller passes it. The port's default is ``True``, where JAX's is ``False``:
+the port's main path runs its kernels.
 """
 from __future__ import annotations
 
@@ -74,14 +83,23 @@ def patchify(params, images, patch_size: int):
 
 
 def _run_block(block, x, num_heads, act, attn_mask=None, vv=False,
-               valid_len=None, fused_mlp=True):
+               valid_len=None, fused_mlp=True, use_pallas=True):
     """Pre-norm residual attention block. ``vv`` selects the CLIP-Surgery
     value-value attention. With ``FUSED_ATTN``, no mask and a block that
     passes ``ln_attn_residual_ok`` the attention half is one fused kernel
     (int8 attention weights fail the gate and keep the chain).
     ``fused_mlp="frozen"`` takes the fused MLP whose backward is the dx-only
     kernel: valid only while the block's parameters carry no gradient (it
-    raises otherwise)."""
+    raises otherwise). ``use_pallas=False``: the stock PyTorch chain (module
+    docstring)."""
+    if not use_pallas:
+        h = layer_norm(block["ln_1"], x)
+        if vv:
+            x = x + attn_ops.vv_attention(block["attn"], h, num_heads, use_pallas=False)
+        else:
+            x = x + attn_ops.mha(block["attn"], h, num_heads, attn_mask=attn_mask,
+                                 use_pallas=False)
+        return x + mlp_block(block["mlp"], layer_norm(block["ln_2"], x), act)
     if (FUSED_ATTN and attn_mask is None
             and ln_attn_residual_ok(x, block["attn"], num_heads)):
         x = ln_attn_residual(block["ln_1"], block["attn"], x, num_heads, vv,
@@ -124,7 +142,7 @@ def embed_patches(params, cfg: VisionConfig, images, compute_dtype,
 def run_blocks(blocks, x, num_heads: int, act, attn_mask=None, vv_from=None,
                adapters=None, adapter_weight: float = 0.0, adapt_until: int = 0,
                out_layers: Sequence[int] = (), start: int = 0, stop=None,
-               remat: bool = False, fused_mlp=True):
+               remat: bool = False, fused_mlp=True, use_pallas=True):
     """Run blocks [start, stop) in order (all by default). Blocks
     [0, adapt_until) are each followed by their SimpleAdapter and the
     norm-preserving blend; blocks at index >= ``vv_from`` use value-value
@@ -138,7 +156,7 @@ def run_blocks(blocks, x, num_heads: int, act, attn_mask=None, vv_from=None,
         def body(x, i=i):
             y = _run_block(blocks[i], x, num_heads, act, attn_mask=attn_mask,
                            vv=vv_from is not None and i >= vv_from,
-                           fused_mlp=fused_mlp)
+                           fused_mlp=fused_mlp, use_pallas=use_pallas)
             if i < adapt_until:
                 y = norm_preserving_blend(y, simple_adapter(adapters[i], y),
                                           adapter_weight)
@@ -167,6 +185,7 @@ def vision_forward(
     remat: bool = False,
     keep_idx=None,
     fused_mlp=True,
+    use_pallas=True,
 ):
     """ViT forward with multi-depth taps.
 
@@ -175,7 +194,8 @@ def vision_forward(
     of SimpleAdapter params applied after blocks [0, adapt_until). remat:
     checkpoint each block in the backward. keep_idx: (B, K) patch-dropout
     kept-token indices; the taps then carry K+1 tokens. fused_mlp: True, or
-    "frozen" for the dx-only backward (see :func:`_run_block`).
+    "frozen" for the dx-only backward (see :func:`_run_block`). use_pallas:
+    False for the stock PyTorch route (module docstring).
 
     Returns: (pooled (B, output_dim), taps list of (B, L+1, width), final x).
     """
@@ -183,7 +203,8 @@ def vision_forward(
     x, taps = run_blocks(params["blocks"], x, cfg.heads, ACTIVATIONS[act_name],
                          vv_from=vv_from, adapters=adapters,
                          adapter_weight=adapter_weight, adapt_until=adapt_until,
-                         out_layers=out_layers, remat=remat, fused_mlp=fused_mlp)
+                         out_layers=out_layers, remat=remat, fused_mlp=fused_mlp,
+                         use_pallas=use_pallas)
     pooled = layer_norm(params["ln_post"], x[:, 0])
     pooled = linear({"w": params["proj"]}, pooled)
     return pooled, taps, x
@@ -203,7 +224,8 @@ def encode_image(params, cfg: CLIPConfig, images, compute_dtype=torch.float32):
 
 def dual_vision_features(params, cfg: VisionConfig, images,
                          out_layers: Sequence[int], vv_from: int,
-                         act_name: str = "gelu", compute_dtype=torch.float32):
+                         act_name: str = "gelu", compute_dtype=torch.float32,
+                         use_pallas=True):
     """Stage-1 visual features: surgery taps + plain CLS, shared prefix.
 
     The reference runs two complete CLIP copies per stage-1 batch, a
@@ -218,10 +240,10 @@ def dual_vision_features(params, cfg: VisionConfig, images,
     blocks = params["blocks"]
     x = embed_patches(params, cfg, images, compute_dtype)
     x, taps = run_blocks(blocks, x, cfg.heads, act, out_layers=out_layers,
-                         stop=vv_from)
+                         stop=vv_from, use_pallas=use_pallas)
     _, vv_taps = run_blocks(blocks, x, cfg.heads, act, vv_from=vv_from,
-                            out_layers=out_layers, start=vv_from)
-    xp, _ = run_blocks(blocks, x, cfg.heads, act, start=vv_from)
+                            out_layers=out_layers, start=vv_from, use_pallas=use_pallas)
+    xp, _ = run_blocks(blocks, x, cfg.heads, act, start=vv_from, use_pallas=use_pallas)
     pooled = layer_norm(params["ln_post"], xp[:, 0])
     pooled = linear({"w": params["proj"]}, pooled)
     return pooled, taps + vv_taps
@@ -243,6 +265,7 @@ def text_forward(
     adapt_until: int = 0,
     final_proj="clip",
     compute_dtype=torch.float32,
+    use_pallas=True,
 ):
     """Text transformer, parity with CLIP.encode_text.
 
@@ -255,7 +278,8 @@ def text_forward(
     mask = attn_ops.causal_mask(cfg.context_length, device=x.device)
     x, _ = run_blocks(params["blocks"], x, cfg.heads, ACTIVATIONS[act_name],
                       attn_mask=mask, adapters=adapters,
-                      adapter_weight=adapter_weight, adapt_until=adapt_until)
+                      adapter_weight=adapter_weight, adapt_until=adapt_until,
+                      use_pallas=use_pallas)
     x = layer_norm(params["ln_final"], x)
     eot = torch.argmax(tokens, dim=-1)
     pooled = x[torch.arange(x.shape[0], device=x.device), eot]

@@ -13,10 +13,17 @@ heads (B7 above ``ROW_KERNEL_MAX_TOKENS`` tokens or with an odd head layout;
 the plain ``sdpa`` with a mask or below 256 tokens). Each kernel wrapper runs
 its plain twin on a CPU tensor. The IQM cross-attention stays plain, as in
 the JAX package.
+
+``use_pallas=False`` is the JAX package's XLA route on stock PyTorch calls:
+the projections on cuBLAS and :func:`library_sdpa` (PyTorch's
+``scaled_dot_product_attention`` on the card, :func:`sdpa` on the CPU), no
+hand-written kernel. The port's default is ``True``, where JAX's is
+``False``: the port's main path runs its kernels.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from . import flash_attention
 from .flash_attention import flash_mha
@@ -51,6 +58,17 @@ def sdpa(q, k, v, scale, attn_mask=None):
     return out.to(v.dtype)
 
 
+def library_sdpa(q, k, v, scale, attn_mask=None):
+    """The stock attention call of the ``use_pallas=False`` route: PyTorch's
+    ``scaled_dot_product_attention`` on a CUDA tensor (the additive mask cast
+    to q's dtype), the plain :func:`sdpa` elsewhere."""
+    if not q.is_cuda:
+        return sdpa(q, k, v, scale, attn_mask)
+    if attn_mask is not None:
+        attn_mask = attn_mask.to(q.dtype)
+    return F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask, scale=scale)
+
+
 def packed_ok(x, num_heads: int, attn_mask) -> bool:
     """Whether the packed kernel takes this call: ``_packed_pallas_ok``
     (attention.py:56) without its backend test. No mask, at least
@@ -65,36 +83,41 @@ def packed_ok(x, num_heads: int, attn_mask) -> bool:
     return (group * hd) % 128 == 0 and num_heads % group == 0
 
 
-def mha(params, x, num_heads: int, attn_mask=None, valid_len=None):
+def mha(params, x, num_heads: int, attn_mask=None, valid_len=None,
+        use_pallas: bool = True):
     """Self-attention block core (torch MultiheadAttention parity): the packed
     kernel straight off the packed projection where :func:`packed_ok` holds
     (``valid_len`` masks keys at or past it), else ``flash_mha`` on split
-    heads."""
+    heads. ``use_pallas=False``: :func:`library_sdpa` on split heads, as
+    JAX's XLA route (which, like JAX's, takes no ``valid_len``)."""
     hd = x.shape[-1] // num_heads
     scale = hd ** -0.5
-    if packed_ok(x, num_heads, attn_mask):
+    if use_pallas and packed_ok(x, num_heads, attn_mask):
         qkv = linear(params["qkv"], x)
         out = flash_mha_packed(qkv, num_heads, scale, valid_len=valid_len)
         return linear(params["out"], out)
     q, k, v = qkv_project(params, x)
     qh, kh, vh = (_split_heads(t, num_heads) for t in (q, k, v))
-    out = flash_mha(qh, kh, vh, scale, attn_mask=attn_mask)
+    attend = flash_mha if use_pallas else library_sdpa
+    out = attend(qh, kh, vh, scale, attn_mask=attn_mask)
     return linear(params["out"], _merge_heads(out))
 
 
-def vv_attention(params, x, num_heads: int, valid_len=None):
+def vv_attention(params, x, num_heads: int, valid_len=None, use_pallas: bool = True):
     """CLIP-Surgery value-value attention (q = k = v) over the token axis:
     the packed kernel with ``vv=True`` where :func:`packed_ok` holds, else
-    ``flash_mha`` on the split value heads."""
+    ``flash_mha`` on the split value heads (:func:`library_sdpa` with
+    ``use_pallas=False``)."""
     hd = x.shape[-1] // num_heads
     scale = hd ** -0.5
-    if packed_ok(x, num_heads, None):
+    if use_pallas and packed_ok(x, num_heads, None):
         qkv = linear(params["qkv"], x)
         out = flash_mha_packed(qkv, num_heads, scale, vv=True, valid_len=valid_len)
         return linear(params["out"], out)
     _, _, v = qkv_project(params, x)
     vh = _split_heads(v, num_heads)
-    out = flash_mha(vh, vh, vh, scale)
+    attend = flash_mha if use_pallas else library_sdpa
+    out = attend(vh, vh, vh, scale)
     return linear(params["out"], _merge_heads(out))
 
 

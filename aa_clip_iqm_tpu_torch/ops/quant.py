@@ -130,11 +130,13 @@ def _quantize_block_tree(blocks, scope: str = "all"):
 
 def calibrate_ln_amax(visual, vision_cfg, images, act_name: str = "gelu",
                       adapters=None, adapter_weight: float = 0.0,
-                      adapt_until: int = 0, compute_dtype=torch.float32):
+                      adapt_until: int = 0, compute_dtype=torch.float32,
+                      use_pallas: bool = True):
     """Per-layer, per-channel amax of the post-LN activations (the inputs of
     qkv after ln_1 and of c_fc after ln_2) over a calibration batch, on the
     plain tower the predict pipeline runs (no surgery; residual adapters
-    included when given).
+    included when given). ``use_pallas=False`` runs its attention on the
+    stock PyTorch call (``ops.attention.library_sdpa``).
 
     Returns {"qkv": (layers, width), "c_fc": (layers, width)} float32 numpy.
     """
@@ -157,7 +159,8 @@ def calibrate_ln_amax(visual, vision_cfg, images, act_name: str = "gelu",
         for i, block in enumerate(visual["blocks"]):
             h1 = layer_norm(block["ln_1"], x)
             s1s.append(h1.float().abs().amax(dim=(0, 1)))
-            x = x + attn_ops.mha(block["attn"], h1, vision_cfg.heads)
+            x = x + attn_ops.mha(block["attn"], h1, vision_cfg.heads,
+                                 use_pallas=use_pallas)
             h2 = layer_norm(block["ln_2"], x)
             s2s.append(h2.float().abs().amax(dim=(0, 1)))
             x = x + mlp_block(block["mlp"], h2, act)
@@ -248,12 +251,14 @@ def quantize_backbone_tier(frozen, tier, smooth_stats=None,
 
 
 def quantize_backbone_auto(frozen, tier, cfg=None, calib_images=None,
-                           trainable=None, smooth_alpha: float = 0.5):
+                           trainable=None, smooth_alpha: float = 0.5,
+                           use_pallas: bool = True):
     """Tier wrapper that resolves '+smooth' calibration: runs
     :func:`calibrate_ln_amax` on ``calib_images`` ((B, 3, H, W),
     CLIP-normalized), or on a seeded random batch when none are given.
     ``cfg`` (ModelConfig) is required for '+smooth' tiers; ``trainable``
-    threads the residual adapters into the calibration forward."""
+    threads the residual adapters into the calibration forward, and
+    ``use_pallas`` picks its attention route (:func:`calibrate_ln_amax`)."""
     if not (tier and tier.endswith("+smooth")):
         return quantize_backbone_tier(frozen, tier)
     if cfg is None:
@@ -270,7 +275,7 @@ def quantize_backbone_auto(frozen, tier, cfg=None, calib_images=None,
                       adapter_weight=cfg.adapter.image_adapt_weight,
                       adapt_until=cfg.adapter.image_adapt_until)
     stats = calibrate_ln_amax(frozen["visual"], v, calib_images,
-                              act_name=cfg.clip.act, **kwargs)
+                              act_name=cfg.clip.act, use_pallas=use_pallas, **kwargs)
     return quantize_backbone_tier(frozen, tier, smooth_stats=stats,
                                   smooth_alpha=smooth_alpha)
 

@@ -93,22 +93,26 @@ def anchors_from_flat_embeddings(emb, n_classes: int, n_normal: int,
 
 def compute_frozen_anchors(frozen, trainable, model_cfg: ModelConfig,
                            dataset_name: str, adapted: bool,
-                           compute_dtype=torch.float32) -> Dict[str, torch.Tensor]:
+                           compute_dtype=torch.float32,
+                           use_pallas: bool = True) -> Dict[str, torch.Tensor]:
     """Per-class anchors (dim, 2) from the adapted (or raw) text encoder; all
     classes' sentences go through one batched encoder call, on the device
     that holds the text tower. Built under ``no_grad`` with inference mode
     off, so that stage 2's loss can save the anchors for its backward (an
     inference tensor cannot be saved), even when the caller is in inference
-    mode itself."""
+    mode itself. ``use_pallas=False``: the text tower on stock PyTorch
+    calls, no hand-written kernel (``models.clip``)."""
     classes, tokens, n_norm, n_abn = batched_prompt_tokens(dataset_name)
     device = frozen["text"]["token_embedding"].device
     tokens = torch.from_numpy(np.asarray(tokens, np.int64)).to(device)
     with torch.inference_mode(False), torch.no_grad():
         if adapted:
             emb = adapters_mod.encode_text_adapted(
-                frozen, trainable, model_cfg, tokens, compute_dtype=compute_dtype)
+                frozen, trainable, model_cfg, tokens, compute_dtype=compute_dtype,
+                use_pallas=use_pallas)
         else:
             emb = adapters_mod.encode_text_frozen(
-                frozen, model_cfg, tokens, compute_dtype=compute_dtype)
+                frozen, model_cfg, tokens, compute_dtype=compute_dtype,
+                use_pallas=use_pallas)
         anchors = anchors_from_flat_embeddings(emb, len(classes), n_norm, n_abn)
     return {c: anchors[i] for i, c in enumerate(classes)}

@@ -14,7 +14,10 @@ Counterpart of ``aa_clip_iqm_tpu/serving.py``'s ``AnomalyDetector``,
     export_predictor(det, "exported/", batch_sizes=(1, 8, 16))
     maps, scores = ExportedPredictor("exported/").predict(images, "bottle")
 
-Everything runs on ``cuda`` unless ``device="cpu"`` is passed. Anchors are
+Everything runs on ``cuda`` unless ``device="cpu"`` is passed, through the
+hand-written kernels unless ``use_pallas=False`` is passed (the stock
+PyTorch route of ``models.clip``: SDPA and the cuBLAS chain, no kernel of
+the port; the JAX package's XLA route). Anchors are
 computed once per dataset and kept on the device. Caller batches are padded
 up to the smallest fitting bucket and larger ones split into largest-bucket
 chunks, as in the JAX package. ``quantize=`` selects an int8 backbone tier
@@ -27,7 +30,9 @@ eager program once (a warm-up that builds the kernels' libraries, sets
 their launch attributes, fills the device constants and the int8 kernel's
 transposed weights), then captures it; every later request copies its
 batch into the graph's input buffers, replays, and copies the outputs out.
-A CPU detector runs eagerly. ``det._predict`` is the eager program itself.
+A CPU detector runs eagerly, and so does any detector while
+``utils.profiling.enable_nan_checks`` is on: its checks synchronise at every
+op, which a capture forbids. ``det._predict`` is the eager program itself.
 
 ``export_predictor`` writes one ``torch.export`` program per bucket, whose
 kernels are the ``aaclip::`` custom ops (``ops/custom_ops.py``), and
@@ -54,6 +59,7 @@ from .ops import custom_ops  # noqa: F401  (registers the aaclip:: ops the progr
 from .ops import interp
 from .prompts import compute_frozen_anchors
 from .train.checkpoint import restore_adapters
+from .utils.profiling import nan_checks_enabled
 
 #: Default batch buckets (as the JAX package's compile-once ladder).
 DEFAULT_BATCH_BUCKETS = (1, 8, 16, 32)
@@ -96,15 +102,23 @@ class AnomalyDetector:
 
     ``frozen`` and ``trainable`` are the port's parameter dicts, already on
     ``device`` (``"cuda"`` by default; pass ``"cpu"`` explicitly to run the
-    plain twins on the CPU)."""
+    plain twins on the CPU). ``use_pallas`` (default True; the JAX
+    package's default too) picks the hand-written kernels, False the stock
+    PyTorch route, for the anchors, the predict program and a ``+smooth``
+    calibration. On the card each bucket runs as a CUDA graph, except while
+    ``utils.profiling.enable_nan_checks`` is on: its checks synchronise at
+    every op, which a capture cannot hold, so requests then run the eager
+    program (``_run_eager``)."""
 
     def __init__(self, frozen, trainable, model_cfg: ModelConfig,
                  dataset: str, img_size: int = 518, adapted_text: bool = True,
                  compute_dtype=torch.bfloat16, text_weight: float = 0.6,
                  iqm_weight: float = 0.4,
                  batch_buckets: Sequence[int] = DEFAULT_BATCH_BUCKETS,
-                 quantize: Optional[str] = None, device="cuda"):
+                 quantize: Optional[str] = None, device="cuda",
+                 use_pallas: bool = True):
         self.device = torch.device(device)
+        self.use_pallas = use_pallas
         if quantize is not None:
             # Serve-time int8 backbone tier: "int8" (all block matmuls),
             # "int8_attn" (qkv/out only, the MLP keeps the fused float
@@ -116,7 +130,8 @@ class AnomalyDetector:
             from .ops.quant import quantize_backbone_auto
 
             frozen = quantize_backbone_auto(frozen, quantize, cfg=model_cfg,
-                                            trainable=trainable)
+                                            trainable=trainable,
+                                            use_pallas=use_pallas)
         self.frozen = frozen
         self.trainable = trainable
         self.cfg = model_cfg
@@ -128,12 +143,12 @@ class AnomalyDetector:
                 f"batch_buckets must be non-empty positive ints, "
                 f"got {batch_buckets!r}")
         self._buckets = tuple(sorted(set(int(b) for b in batch_buckets)))
-        self._predict = make_predict_fn(
-            model_cfg, img_size, self.domain, compute_dtype=compute_dtype,
-            text_weight=text_weight, iqm_weight=iqm_weight)
+        self._predict_kwargs = dict(compute_dtype=compute_dtype,
+                                    text_weight=text_weight, iqm_weight=iqm_weight)
+        self._predict = self.predict_fn(use_pallas)
         self.anchors: Dict[str, torch.Tensor] = compute_frozen_anchors(
             frozen, trainable, model_cfg, dataset, adapted=adapted_text,
-            compute_dtype=compute_dtype)
+            compute_dtype=compute_dtype, use_pallas=use_pallas)
         self._graphs: Dict[tuple, _BucketGraph] = {}
         self._graph_lock = threading.Lock()
         self._graph_pool = None
@@ -163,13 +178,19 @@ class AnomalyDetector:
                    adapted_text=adapted_text, compute_dtype=compute_dtype,
                    device=device, **kwargs)
 
+    def predict_fn(self, use_pallas: bool):
+        """This detector's eager predict program on the kernels' route
+        (``use_pallas=True``) or the stock PyTorch one."""
+        return make_predict_fn(self.cfg, self.img_size, self.domain,
+                               use_pallas=use_pallas, **self._predict_kwargs)
+
     def class_names(self) -> List[str]:
         return list(self.anchors.keys())
 
     def _run(self, padded, anchors_b, n):
         """One padded bucket through the program: a graph replay on the
-        card, the eager program on the CPU."""
-        if self.device.type == "cuda":
+        card, the eager program on the CPU or with NaN checks on."""
+        if self.device.type == "cuda" and not nan_checks_enabled():
             return self._run_graph(padded, anchors_b, n)
         return self._run_eager(padded, anchors_b, n)
 
@@ -373,7 +394,8 @@ class _BakedWeights(torch.nn.Module):
 
 def export_predictor(detector: AnomalyDetector, out_dir: str,
                      batch_sizes: Sequence[int] = (1, 8, 16),
-                     weights: str = "external") -> Dict[int, float]:
+                     weights: str = "external",
+                     use_pallas: Optional[bool] = None) -> Dict[int, float]:
     """Write the predict program as deployable artifacts, the layout of the
     JAX package's ``export_predictor``: per batch bucket one
     ``torch.export`` program ``predict_b{b}.pt2`` (shape-specialised, its
@@ -386,7 +408,9 @@ def export_predictor(detector: AnomalyDetector, out_dir: str,
     in ``weights.npz`` under the flat keys of :func:`_flatten_tree`
     (bfloat16 leaves stored as float32 and listed in the manifest's
     ``bf16_keys``). ``weights="baked"``: the weights are constants of each
-    program, which takes ``(images, anchors)``.
+    program, which takes ``(images, anchors)``. ``use_pallas``: the route of
+    the exported program, the detector's by default; ``False`` exports the
+    stock PyTorch route, a program with no ``aaclip::`` node.
 
     The programs hold the device they were traced on, so export on the
     device you serve on: the manifest records it (``device``, the card's
@@ -399,11 +423,15 @@ def export_predictor(detector: AnomalyDetector, out_dir: str,
         raise ValueError(
             f"batch_sizes must be non-empty positive ints, got {batch_sizes!r}")
     os.makedirs(out_dir, exist_ok=True)
+    if use_pallas is None:
+        use_pallas = detector.use_pallas
+    predict = (detector._predict if use_pallas == detector.use_pallas
+               else detector.predict_fn(use_pallas))
     dev = detector.device
     img, e = detector.img_size, detector.cfg.clip.embed_dim
     bf16_keys: list = []
     if weights == "external":
-        module = _ExternalWeights(detector._predict)
+        module = _ExternalWeights(predict)
         flat = {**_flatten_tree({"frozen": detector.frozen}),
                 **_flatten_tree({"trainable": detector.trainable})}
         bf16_keys = [k for k, v in flat.items() if v.dtype == torch.bfloat16]
@@ -414,7 +442,7 @@ def export_predictor(detector: AnomalyDetector, out_dir: str,
         def args(b):
             return (detector.frozen, detector.trainable) + example(b)
     else:
-        module = _BakedWeights(detector._predict, detector.frozen, detector.trainable)
+        module = _BakedWeights(predict, detector.frozen, detector.trainable)
 
         def args(b):
             return example(b)
@@ -446,6 +474,7 @@ def export_predictor(detector: AnomalyDetector, out_dir: str,
             "device_name": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                             else dev.type),
             "fused_attn": bool(clip_mod.FUSED_ATTN),
+            "use_pallas": bool(use_pallas),
             "weights": weights,
             "bf16_keys": bf16_keys,
         }, f, indent=1)

@@ -16,8 +16,9 @@ needs only :class:`..serving.ExportedPredictor` and the artifact directory
 
 It exports on ``cuda`` unless ``--device cpu`` is given: the programs hold
 the device they were traced on, so export on the kind of device you serve
-on. The JAX tool's ``--no_pallas`` has no counterpart (the card always runs
-its kernels) and is refused as an unknown flag.
+on. ``--no_pallas`` exports the stock PyTorch route (SDPA and the cuBLAS
+chain; ``models.clip``), a program with no ``aaclip::`` node, as the JAX
+tool's flag exports its XLA route.
 """
 from __future__ import annotations
 
@@ -25,6 +26,8 @@ import argparse
 import time
 
 import numpy as np
+
+from ..platform import default_device
 
 
 def build_parser():
@@ -47,9 +50,12 @@ def build_parser():
                         "the default external weights.npz")
     p.add_argument("--check", action="store_true",
                    help="reload the artifacts and run one batch")
-    p.add_argument("--device", type=str, default="cuda")
+    p.add_argument("--device", type=str, default=default_device(),
+                   help="cuda (default) or cpu; AACLIP_PLATFORM=cpu sets cpu")
     p.add_argument("--compute_dtype", type=str, default="bfloat16",
                    choices=("bfloat16", "float32"))
+    p.add_argument("--no_pallas", action="store_true",
+                   help="export the stock PyTorch route instead of the kernels")
     return p
 
 
@@ -65,7 +71,7 @@ def main(argv=None):
         args.save_path, args.dataset, img_size=args.img_size,
         backbone=args.backbone, allow_random_backbone=args.random_backbone,
         model_name=args.model_name, compute_dtype=dtype, device=args.device,
-        quantize=args.quantize_backbone)
+        quantize=args.quantize_backbone, use_pallas=not args.no_pallas)
     t0 = time.perf_counter()
     seconds = export_predictor(det, args.out, batch_sizes=tuple(args.batches),
                                weights="baked" if args.baked else "external")

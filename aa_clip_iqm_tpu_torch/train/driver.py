@@ -336,9 +336,9 @@ def run_training(frozen, trainable, model_cfg: ModelConfig, train_cfg: TrainConf
                  logger, metadata_root: Optional[str] = None):
     """The full two-stage pipeline. Returns (trainable, anchors)."""
     text_ds, image_ds = get_dataset(
-        train_cfg.dataset, train_cfg.img_size, "train", logger,
-        metadata_root=metadata_root, training_mode=train_cfg.training_mode,
-        shot=train_cfg.shot, seed=train_cfg.seed)
+        train_cfg.dataset, train_cfg.img_size, train_cfg.training_mode,
+        train_cfg.shot, "train", logger, metadata_root=metadata_root,
+        seed=train_cfg.seed)
 
     if train_cfg.text_epoch > 0:
         trainable = run_stage1(frozen, trainable, model_cfg, train_cfg, text_ds,

@@ -102,7 +102,22 @@ line):
      aaclip:: ops' CUDA implementations, with a planted fault (two classes'
      anchors swapped) that must fail; and a short HTTP window of
      cli.serve --exported (8 clients x 2 requests) against predict_multi;
- 12. serve: the main path's seeded ViT-L-14-336 weights at their native
+ 12. tools: the measuring and inspecting entry points on the main path's
+     weights, in the process: the bench's latency mode (cli/bench.py
+     measure_latency) at batch 1 and 8 on a detector's graphs, p50 and p95,
+     each replay 24 B1 + 24 B2 (replay_launches), and the same detector
+     under NaN checks running its eager program; the eval mode (eval_sweeps:
+     anchors and evaluate_dataset over 48 synthetic PNGs, one timed sweep),
+     metrics finite and in [0, 1]; the batch x route grid at batch 8, the
+     stock PyTorch route (use_pallas=False: SDPA and the cuBLAS chain)
+     moving no kernel counter and its map within MAP_TOL of the kernels',
+     images/s of both; --profile_dir around an inference block, read back
+     by the port's tools/trace_summary --device (each kernel of B1 and B2
+     once a block a call; a directory without a trace must fail it); a
+     train block at --accum 2 with finite losses; a stage-2 step under
+     utils.profiling.enable_nan_checks, which must pass on a clean batch
+     and raise FloatingPointError with one NaN pixel;
+ 13. serve: the main path's seeded ViT-L-14-336 weights at their native
      336 px grid written as an OpenAI-layout fp16 .pt, and seeded adapters
      written by the trainer's checkpoint writer and as the reference's
      text_adapter.pth / image_adapter_3.pth (imported back bit for bit);
@@ -472,6 +487,8 @@ def port_kernels(fn):
     ran (those kernel_group files under a kernel), as {name: times}."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from aa_clip_iqm_tpu_torch.tools.trace_summary import kernel_group
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
@@ -2222,7 +2239,8 @@ def phase_train(card, cfg, frozen):
     # device-resident batch, MVTec's prompt ensemble, CUDA events) and where
     # a stage-2 step's time goes.
     for mode, batch in (("stage1", 16), ("train", B)):
-        samples = bench._measure_train(mode, cfg, frozen, batch, IMG, None, iters=3, repeats=2)
+        samples, _ = bench._measure_train(mode, cfg, frozen, batch, IMG, None, iters=3,
+                                          repeats=2)
         ips = float(np.median(samples))
         log(f"# training, {bench.TRAIN_METRICS[mode]}: {ips:.2f} images/s, "
             f"{batch / ips * 1e3:.1f} ms per step of {batch} on {card} "
@@ -2891,6 +2909,8 @@ def exported_child(artifact, inputs, out):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from aa_clip_iqm_tpu_torch.tools.trace_summary import kernel_group
+
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         pred.predict_multi(images, names)
@@ -3155,28 +3175,196 @@ def phase_deploy(card, ctx):
     return counts
 
 
-def kernel_group(name):
-    """The profiler group of a device kernel, by its name."""
-    low = name.lower()
-    if "attention_bwd" in low:
-        return "B6 packed_attention_vv_bwd" if "<true>" in low else "B4 packed_attention_bwd"
-    if "flash_attention" in low:
-        return "B7 flash_attention"
-    if "ln_attn_residual" in low:
-        return "B8 ln_attn_residual"
-    if "packed_attention" in low:
-        return "B1 packed_attention"
-    if "ln_mlp_residual_dx" in low:
-        return "B5 ln_mlp_residual_dx"
-    if "ln_mlp_residual_int8" in low:
-        return "B3 ln_mlp_residual_int8"
-    if "ln_mlp_residual" in low:
-        return "B2 ln_mlp_residual"
-    if "memcpy" in low or "memset" in low:
-        return "memcpy"
-    if any(k in low for k in ("gemm", "nvjet", "sm90_xmma", "cutlass", "imma", "i8816")):
-        return "GEMM (cuBLAS)"
-    return "other"
+def phase_tools(card, ctx):
+    """The measuring and inspecting entry points on the main path's ViT-L
+    weights: the bench's latency mode at batch 1 and 8 on the detector's
+    graphs (24 B1 + 24 B2 a replay), its eval mode (one timed sweep), the
+    batch x route grid at batch 8 (the stock PyTorch route against the
+    kernels: its map within MAP_TOL, no kernel counter moved), a profile of
+    an inference block read by the port's trace_summary --device (and an
+    empty directory, which must fail it), a train block at --accum 2, and
+    NaN checks on a stage-2 step (a NaN pixel must raise
+    FloatingPointError, the clean batch must pass, and a detector under the
+    checks runs eagerly)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from aa_clip_iqm_tpu_torch.cli import bench
+    from aa_clip_iqm_tpu_torch.configs import TrainConfig
+    from aa_clip_iqm_tpu_torch.evaluation.predict import make_predict_fn
+    from aa_clip_iqm_tpu_torch.loader import init_trainable
+    from aa_clip_iqm_tpu_torch.models import clip as clip_mod
+    from aa_clip_iqm_tpu_torch.serving import AnomalyDetector
+    from aa_clip_iqm_tpu_torch.tools import trace_summary
+    from aa_clip_iqm_tpu_torch.train import optim, steps
+    from aa_clip_iqm_tpu_torch.utils import profiling
+
+    t_phase = time.perf_counter()
+    cfg, frozen, trainable = ctx["cfg"], ctx["frozen"], ctx["trainable"]
+    layers = cfg.clip.vision.layers
+    per_forward = counts_of(packed_attention=layers, ln_mlp_residual=layers)
+    total = counts_of()
+    rng = np.random.default_rng(11)
+
+    # Latency: the bench's measure_latency on a detector of buckets 1 and 8.
+    reset_counts()
+    det = AnomalyDetector(frozen, trainable, cfg, "MVTec", img_size=IMG, adapted_text=False,
+                          batch_buckets=(1, B), compute_dtype=torch.bfloat16, device=DEVICE)
+    for b in (1, B):
+        images = [rng.standard_normal((b, 3, IMG, IMG)).astype(np.float32) for _ in range(4)]
+        lat, ran = graph_request(det, lambda: bench.measure_latency(det, images, "screw"))
+        per = replay_launches(det, (b, torch.float32, clip_mod.FUSED_ATTN))
+        require(per == per_forward, f"latency b{b}: a replay launched {per}, want {per_forward}")
+        replays = ran["packed_attention"] // layers
+        require(replays == bench.LATENCY_CALLS + 1, f"latency b{b}: {replays} replays")
+        p50, p95 = float(np.percentile(lat, 50)), float(np.percentile(lat, 95))
+        require(np.isfinite(lat).all() and p50 > 0, f"latency b{b}: {lat}")
+        log(f"# tools, bench latency b{b}: p50 {p50:.2f} ms, p95 {p95:.2f} ms, min "
+            f"{min(lat):.2f}, max {max(lat):.2f} ({len(lat)} float32 requests, each a graph "
+            f"replay of 24 B1 + 24 B2 with the host copies) on {card}")
+    # NaN checks on: the same detector runs its eager program, no replay.
+    before = {k: g.replays for k, g in det._graphs.items()}
+    profiling.enable_nan_checks(True)
+    try:
+        maps, _ = det.predict(images[0][:1], "screw")
+    finally:
+        profiling.enable_nan_checks(False)
+    require({k: g.replays for k, g in det._graphs.items()} == before,
+            "a detector under NaN checks replayed a graph")
+    require(np.isfinite(maps).all(), "a detector under NaN checks: non-finite map")
+    add_counts(total, read_counts())
+    del det
+
+    # Eval: the bench's sweep (anchors + evaluate_dataset over PNGs on disk).
+    reset_counts()
+    samples, rows, n = bench.eval_sweeps(frozen, trainable, cfg, IMG, 16, 1)
+    got = read_counts()
+    add_counts(total, got)
+    vals = [r[k] / 100 for r in rows for k in ("pixel AUC", "pixel AP", "image AUC",
+                                                "image AP")]
+    require(np.isfinite(vals).all() and min(vals) >= 0 and max(vals) <= 1,
+            f"eval sweep metrics {rows}")
+    log(f"# tools, bench eval: {n} images a sweep, {samples[0]:.2f} images/s end to end "
+        f"(anchors, PNG decode, predict, device metrics), Average pixel AUC "
+        f"{rows[-1]['pixel AUC']:.2f}, launches {got} on {card}")
+
+    # The batch x route grid at batch 8: the stock PyTorch route moves no
+    # kernel counter, and its map lies within MAP_TOL of the kernels'.
+    imgs = torch.from_numpy(rng.integers(0, 256, (B, 3, IMG, IMG),
+                                         dtype=np.uint8)).to(DEVICE)
+    anchors = torch.from_numpy(rng.standard_normal((B, cfg.clip.embed_dim, 2))
+                               .astype(np.float32)).to(DEVICE)
+    anchors = anchors / anchors.norm(dim=1, keepdim=True)
+    speed, maps = {}, {}
+    for use_pallas in (False, True):
+        predict = make_predict_fn(cfg, IMG, "Industrial", compute_dtype=torch.bfloat16,
+                                  use_pallas=use_pallas)
+        reset_counts()
+        samples = bench._measure(predict, frozen, trainable, B, IMG, cfg.clip.embed_dim,
+                                 iters=5, repeats=3)
+        maps[use_pallas] = predict(frozen, trainable, imgs, anchors)[0].cpu().numpy()
+        got = read_counts()
+        calls = 1 + 5 * 3 + 1
+        want = counts_of() if not use_pallas else counts_of(
+            packed_attention=layers * calls, ln_mlp_residual=layers * calls)
+        require(got == want, f"grid, use_pallas={use_pallas}: launches {got}, want {want}")
+        add_counts(total, got)
+        speed[use_pallas] = bench._median_spread(samples)
+    rel = map_diff(maps[False], maps[True])
+    log(f"# tools, bench grid at batch {B}: kernels {speed[True][0]:.2f} images/s (spread "
+        f"{speed[True][1]:.1f}%), library route (SDPA + cuBLAS, no kernel launched) "
+        f"{speed[False][0]:.2f} (spread {speed[False][1]:.1f}%), ratio "
+        f"{speed[True][0] / speed[False][0]:.3f}; library map against the kernels' rms "
+        f"diff / std {rel:.3e} (tol {MAP_TOL:.0e}) on {card}")
+    require(rel <= MAP_TOL, f"the library route's map differs from the kernels' by {rel}")
+
+    # Profile: --profile_dir around an inference block, read back by the
+    # port's trace summary; a directory without a trace must fail it.
+    predict = make_predict_fn(cfg, IMG, "Industrial", compute_dtype=torch.bfloat16)
+    with tempfile.TemporaryDirectory() as prof_dir:
+        empty = os.path.join(prof_dir, "empty")
+        os.makedirs(empty)
+        try:
+            trace_summary.main([empty, "--device"])
+            failed = False
+        except SystemExit as exc:
+            failed = exc.code not in (None, 0)
+        require(failed, "trace_summary --device passed a directory without a trace")
+        for attempt in range(3):
+            run_dir = os.path.join(prof_dir, f"run{attempt}")
+            bench._measure(predict, frozen, trainable, B, IMG, cfg.clip.embed_dim,
+                           iters=2, repeats=1, profile_dir=run_dir)
+            groups = trace_summary.device_summary(
+                trace_summary.load_events(trace_summary.find_trace(run_dir)))
+            # Each device kernel of the group (B2: its LayerNorm pass and
+            # two GEMMs) once a block a call.
+            got = {g: sorted({n for n, _ in groups.get(g, {"kernels": {}})["kernels"].values()})
+                   for g in ("B1 packed_attention", "B2 ln_mlp_residual")}
+            if got == dict.fromkeys(got, [2 * layers]):
+                break
+            log(f"# tools, profile measurement {attempt + 1}: the groups' kernels ran {got} "
+                "times")
+        require(got == dict.fromkeys(got, [2 * layers]),
+                f"profile: the groups' kernels ran {got} times, want {2 * layers} each")
+        require(trace_summary.main([run_dir, "--device", "--top", "4"]) == 0,
+                "trace_summary --device failed")
+        busy = sum(g["ms"] for g in groups.values())
+        log(f"# tools, profile of 2 batch-{B} predict calls (trace_summary --device): busy "
+            f"{busy / 2:.2f} ms a call; " + "; ".join(
+                f"{name} {g['ms'] / 2:.2f} ms a call ({g['launches']} kernel events, "
+                f"{len(g['kernels'])} kernels)"
+                for name, g in sorted(groups.items(), key=lambda kv: -kv[1]["ms"])))
+
+    # A train block at --accum 2: finite losses.
+    reset_counts()
+    samples, losses = bench._measure_train("train", cfg, frozen, B, IMG, None, iters=2,
+                                           repeats=1, accum=2)
+    got = read_counts()
+    add_counts(total, got)
+    losses = [float(v) for v in losses]
+    require(np.isfinite(losses).all(), f"accum 2: losses {losses}")
+    log(f"# tools, bench train --accum 2 at batch {B}: {samples[0]:.2f} images/s, losses "
+        f"{np.round(losses, 4).tolist()}, launches {got} on {card}")
+
+    # NaN checks: one NaN pixel must raise FloatingPointError in a stage-2
+    # step; the same step on the clean batch must pass.
+    tr = init_trainable(cfg, seed=5, device=DEVICE, dtype=torch.float32, requires_grad=True)
+    train_cfg = TrainConfig(img_size=IMG, compute_dtype="bfloat16")
+    step = steps.make_stage2_step(cfg, train_cfg, compute_dtype=torch.bfloat16)
+    opt = optim.stage2_optimizer(tr, train_cfg.image_lr, 10)
+    images = torch.from_numpy(rng.standard_normal((2, 3, IMG, IMG))
+                              .astype(np.float32)).to(DEVICE)
+    masks = (torch.rand(2, 1, IMG, IMG, device=DEVICE) > 0.9).float()
+    labels = torch.tensor([0, 1], device=DEVICE)
+    weights = torch.ones(2, device=DEVICE)
+    anchors2 = anchors[:2].contiguous()
+    planted = images.clone()
+    planted[1, 0, IMG // 2, IMG // 3] = float("nan")
+    reset_counts()
+    step(tr, opt, frozen, images, masks, labels, anchors2, weights)   # without checks
+    raised = None
+    t0 = time.perf_counter()
+    profiling.enable_nan_checks(True)
+    try:
+        loss = step(tr, opt, frozen, images, masks, labels, anchors2, weights)[-1]
+        clean_s = time.perf_counter() - t0
+        try:
+            step(tr, opt, frozen, planted, masks, labels, anchors2, weights)
+        except FloatingPointError as exc:
+            raised = str(exc)
+    finally:
+        profiling.enable_nan_checks(False)
+    add_counts(total, read_counts())
+    require(torch.isfinite(loss).item(), f"NaN checks: the clean step's loss {loss}")
+    require(raised is not None, "NaN checks: a NaN pixel did not raise FloatingPointError")
+    log(f"# tools, NaN checks: the clean stage-2 step (batch 2) passed in {clean_s:.1f} s "
+        f"under the checks; the planted NaN raised: {raised}")
+    del tr, opt
+    torch.cuda.empty_cache()
+    log(f"# tools phase: {time.perf_counter() - t_phase:.1f} s, launches {total}")
+    return total
 
 
 def profile_call(fn, what):
@@ -3184,6 +3372,8 @@ def profile_call(fn, what):
     where the time goes, and the device's idle share of the call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from aa_clip_iqm_tpu_torch.tools.trace_summary import kernel_group
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
@@ -3229,6 +3419,7 @@ def main():
         add_counts(launches, phase_highres(card, ctx))
         add_counts(launches, phase_surgery_backward(ctx))
         add_counts(launches, phase_deploy(card, ctx))
+        add_counts(launches, phase_tools(card, ctx))
         cfg, frozen = ctx["cfg"], ctx["frozen"]
         del ctx
         phase_metrics_scale(card)

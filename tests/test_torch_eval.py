@@ -101,7 +101,7 @@ def _sweep(models, data, width, tier, dtype, monkeypatch, fused=False):
     tf = tquant.quantize_backbone_auto(tf, tier, cfg=tcfg)
     tanchors = compute_frozen_anchors(tf, tt, tcfg, "Synth", adapted=False,
                                       compute_dtype=tdt)
-    tsets = tdatasets.get_dataset("Synth", IMG, "test", metadata_root=meta_root,
+    tsets = tdatasets.get_dataset("Synth", IMG, None, -1, "test", metadata_root=meta_root,
                                   device_normalize=True)
     ecfg = tconfigs.EvalConfig(dataset="Synth", img_size=IMG, batch_size=BATCH)
     trows = tpredict.evaluate_dataset(tf, tt, tcfg, ecfg, tsets, tanchors,
@@ -178,7 +178,7 @@ def test_tail_buckets_and_predict_class_modes(models, data):
     tf, tt = params_from_jax(frozen_np, trainable_np, tcfg, device="cpu",
                              dtype=torch.float32)
     anchors = compute_frozen_anchors(tf, tt, tcfg, "Synth", adapted=False)
-    ds = tdatasets.get_dataset("Synth", IMG, "test", metadata_root=data[1],
+    ds = tdatasets.get_dataset("Synth", IMG, None, stage="test", metadata_root=data[1],
                                device_normalize=True)["gadget"]
     seen = []
     inner = tpredict.make_predict_fn(tcfg, IMG, "Industrial")
@@ -202,7 +202,7 @@ def test_tail_buckets_and_predict_class_modes(models, data):
     assert seen == [(8, 3, IMG, IMG)] * 2
     # Host metrics and device metrics of one sweep agree.
     ecfg = tconfigs.EvalConfig(dataset="Synth", img_size=IMG, batch_size=BATCH)
-    sets = tdatasets.get_dataset("Synth", IMG, "test", metadata_root=data[1],
+    sets = tdatasets.get_dataset("Synth", IMG, None, stage="test", metadata_root=data[1],
                                  device_normalize=True)
     rows_d = tpredict.evaluate_dataset(tf, tt, tcfg, ecfg, sets, anchors)
     rows_h = tpredict.evaluate_dataset(tf, tt, tcfg, ecfg, sets, anchors,
@@ -230,7 +230,7 @@ def test_reference_eval_mode(models, data):
     tf, tt = params_from_jax(frozen_np, trainable_np, tcfg, device="cpu",
                              dtype=torch.float32)
     anchors = compute_frozen_anchors(tf, tt, tcfg, "Synth", adapted=False)
-    ds = tdatasets.get_dataset("Synth", IMG, "test", metadata_root=data[1],
+    ds = tdatasets.get_dataset("Synth", IMG, None, stage="test", metadata_root=data[1],
                                device_normalize=True)["widget"]
     fn = tpredict.make_predict_fn(tcfg, IMG, "Industrial", image_score_mode="reference_eval")
     preds = tpredict.predict_class(fn, tf, tt, ds, anchors["widget"], 4,
@@ -326,7 +326,7 @@ def test_datasets_match_jax(data):
     for normalize in (True, False):
         jsets = jdatasets.get_dataset("Synth", IMG, None, -1, "test",
                                       metadata_root=meta_root, device_normalize=normalize)
-        tsets = tdatasets.get_dataset("Synth", IMG, "test", metadata_root=meta_root,
+        tsets = tdatasets.get_dataset("Synth", IMG, None, -1, "test", metadata_root=meta_root,
                                       device_normalize=normalize)
         assert list(tsets) == list(jsets) == list(CLASSES)
         for c in CLASSES:
@@ -338,12 +338,16 @@ def test_datasets_match_jax(data):
                     np.testing.assert_array_equal(tb[k], jb[k])
     assert len(tdatasets.load_metadata(os.path.join(meta_root, "Synth", "full-shot.jsonl"))) == 22
     with pytest.raises(KeyError, match="not found"):
-        tdatasets.get_dataset("Nope", IMG)
+        tdatasets.get_dataset("Nope", IMG, None)
     with pytest.raises(ValueError, match="not found"):
-        tdatasets.get_dataset("Synth", IMG, stage="visualize")
-    text_ds, image_ds = tdatasets.get_dataset("Synth", IMG, stage="train",
-                                              metadata_root=meta_root,
-                                              training_mode="full_shot")
+        tdatasets.get_dataset("Synth", IMG, None, stage="val")
+    # "visualize" is the test split without the logger's lines, as in JAX.
+    shown = tdatasets.get_dataset("Synth", IMG, None, stage="visualize",
+                                  metadata_root=meta_root)
+    assert list(shown) == list(CLASSES)
+    assert [len(d) for d in shown.values()] == [len(d) for d in tsets.values()]
+    text_ds, image_ds = tdatasets.get_dataset("Synth", IMG, "full_shot",
+                                              metadata_root=meta_root)
     assert len(text_ds) == len(image_ds) == 22 and text_ds.text and not image_ds.text
     # Resizing decode (PIL bicubic / nearest) keeps shapes and binary masks.
     item = tdatasets.SingleClassTestDataset(os.path.join(root, "Synth"),

@@ -80,8 +80,8 @@ def test_train_dataset_batches_equal_jax(data, text):
     _, meta_root = data
     jds = jdatasets.get_dataset("Synth", IMG, "full_shot", -1, "train", None,
                                 metadata_root=meta_root, seed=5)[0 if text else 1]
-    tds = tdatasets.get_dataset("Synth", IMG, "train", metadata_root=meta_root,
-                                training_mode="full_shot", seed=5)[0 if text else 1]
+    tds = tdatasets.get_dataset("Synth", IMG, "full_shot", -1, "train", None,
+                                metadata_root=meta_root, seed=5)[0 if text else 1]
     assert len(tds) == len(jds) == 16 and tds.text == text
     moved = False
     for epoch in (0, 1):
@@ -105,8 +105,8 @@ def test_train_dataset_batches_equal_jax(data, text):
 
 def test_few_shot_needs_a_shot(data):
     with pytest.raises(ValueError, match="shot should be positive"):
-        tdatasets.get_dataset("Synth", IMG, "train", metadata_root=data[1],
-                              training_mode="few_shot", shot=-1)
+        tdatasets.get_dataset("Synth", IMG, "few_shot", -1, "train",
+                              metadata_root=data[1])
 
 
 def test_run_training_writes_checkpoints_and_scalars(data, tmp_path):
@@ -165,8 +165,8 @@ class InterruptAfter:
 
 
 def _datasets(data, seed=111):
-    return tdatasets.get_dataset("Synth", IMG, "train", metadata_root=data[1],
-                                 training_mode="full_shot", seed=seed)
+    return tdatasets.get_dataset("Synth", IMG, "full_shot", metadata_root=data[1],
+                                 seed=seed)
 
 
 @pytest.mark.parametrize("use_async", [True, False], ids=["async", "sync"])
