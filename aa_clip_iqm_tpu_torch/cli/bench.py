@@ -35,8 +35,10 @@ the anchors (``compute_frozen_anchors``) and ``evaluate_dataset`` over a
 synthetic dataset on disk (2 classes x 24 images at 518 px, PNG decode
 included; ``--batch`` default 16, so a full batch and a tail bucket of 8 a
 class), after one warm-up sweep, wall clock ending in a synchronise. The
-Average pixel AUC goes on a ``#`` line. The port's sweep still runs eagerly
-(its compiled programs are ROADMAP A16).
+Average pixel AUC goes on a ``#`` line. The sweep's predict calls replay one
+CUDA graph per bucket (``train/graphs.py``), captured in the warm-up sweep,
+as ``cli.evaluate``'s do; its images go through the data layer's default
+transforms (the native pipeline).
 
 ``--mode train`` times the stage-2 step (adapted forward, the five losses,
 backward through the attention-backward and dx kernels, AdamW) on a fixed
@@ -44,7 +46,13 @@ device-resident batch of ``--batch`` (default 8): float32 master adapters,
 bf16 compute; ``--accum K`` runs it at ``grad_accum_steps=K`` (the batch
 must divide by K). ``--mode stage1`` times the stage-1 batch (no-grad
 dual-tower visual features, then the text-adapter step through MVTec's
-prompt ensemble); its default batch is 16.
+prompt ensemble); its default batch is 16. Both run as ``cli.train`` runs
+them on the card: the steps (and stage 1's feature program) replayed as CUDA
+graphs, captured in the warm-up call, with graphable optimizers.
+
+Every JSON line has a ``"route"``: ``"graphs"`` where the timed program is a
+graph replay (latency, eval, train, stage1), ``"eager"`` for the inference
+mode, which times the predict program itself.
 
 ``--twins`` routes every hand-written kernel to its plain PyTorch twin.
 ``--profile_dir`` writes a ``torch.profiler`` trace of the timed blocks
@@ -176,13 +184,14 @@ def _measure(predict, frozen, trainable, batch, img, embed_dim, iters, repeats,
 def _measure_train(mode, cfg, frozen, batch, img, quant, iters, repeats,
                    accum=1, profile_dir=None):
     """The stage-2 step (``train``, at ``grad_accum_steps=accum``) or the
-    stage-1 batch (``stage1``) on a fixed batch on the weights' device.
+    stage-1 batch (``stage1``) on a fixed batch on the weights' device, as
+    the training driver runs them there (graph replays on the card).
     Returns (images/s samples, the losses of the last block)."""
     from ..configs import TrainConfig
     from ..loader import init_trainable
     from ..ops.quant import quantize_backbone_auto
     from ..prompts import batched_prompt_tokens
-    from ..train import optim, steps
+    from ..train import graphs, optim, steps
 
     if batch % accum:
         raise ValueError(f"--batch {batch} must divide by --accum {accum}")
@@ -197,10 +206,15 @@ def _measure_train(mode, cfg, frozen, batch, img, quant, iters, repeats,
         (rng.random((batch, 1, img, img)) > 0.9).astype(np.float32)).to(dev)
     weights = torch.ones(batch, device=dev)
     losses = []
+    graphed = graphs.enabled(dev)
+    cache = graphs.GraphCache()
     if mode == "train":
         frozen = quantize_backbone_auto(frozen, quant, cfg=cfg)
-        opt_state = optim.stage2_optimizer(trainable, train_cfg.image_lr, 100)
+        opt_state = optim.stage2_optimizer(trainable, train_cfg.image_lr, 100,
+                                           graphable=graphed)
         step = steps.make_stage2_step(cfg, train_cfg, compute_dtype=torch.bfloat16)
+        if graphed:
+            step = graphs.GraphedStep(step, cache, "stage2 step")
         labels = torch.from_numpy(rng.integers(0, 2, batch).astype(np.int64)).to(dev)
         anchors = torch.from_numpy(rng.standard_normal(
             (batch, cfg.clip.embed_dim, 2)).astype(np.float32)).to(dev)
@@ -215,10 +229,14 @@ def _measure_train(mode, cfg, frozen, batch, img, quant, iters, repeats,
         classes, tokens, n_norm, n_abn = batched_prompt_tokens("MVTec")
         tokens = torch.from_numpy(np.asarray(tokens, np.int64)).to(dev)
         text_params = trainable["text_adapter"]
-        opt_state = optim.stage1_optimizer(text_params, train_cfg.text_lr)
+        opt_state = optim.stage1_optimizer(text_params, train_cfg.text_lr,
+                                           graphable=graphed)
         visual_fn = steps.make_stage1_visual_fn(cfg, compute_dtype=torch.bfloat16)
         step = steps.make_stage1_step(cfg, train_cfg, tokens, len(classes), n_norm,
                                       n_abn, compute_dtype=torch.bfloat16)
+        if graphed:
+            visual_fn = graphs.GraphedFn(visual_fn, cache, "stage1 features")
+            step = graphs.GraphedStep(step, cache, "stage1 step")
         class_idx = torch.from_numpy(rng.integers(0, len(classes), batch)).to(dev)
 
         def one_batch():
@@ -259,6 +277,7 @@ def eval_sweeps(frozen, trainable, cfg, img, batch, repeats, use_pallas=True,
     from ..data.synthetic import generate, register_synthetic
     from ..evaluation.predict import evaluate_dataset
     from ..prompts import compute_frozen_anchors
+    from ..train.graphs import GraphCache
     from ..utils.profiling import trace
 
     root = tempfile.mkdtemp(prefix="aaclip_bench_eval_")
@@ -271,6 +290,7 @@ def eval_sweeps(frozen, trainable, cfg, img, batch, repeats, use_pallas=True,
         n_images = sum(len(d) for d in datasets.values())
         eval_cfg = EvalConfig(dataset="Synth", img_size=img, batch_size=batch,
                               compute_dtype="bfloat16")
+        graphs = GraphCache()   # the warm-up sweep captures, the timed ones replay
 
         def sweep():
             anchors = compute_frozen_anchors(frozen, trainable, cfg, "Synth",
@@ -278,7 +298,8 @@ def eval_sweeps(frozen, trainable, cfg, img, batch, repeats, use_pallas=True,
                                              use_pallas=use_pallas)
             # The rows' metrics are fetched: the sweep's device work is done.
             return evaluate_dataset(frozen, trainable, cfg, eval_cfg, datasets, anchors,
-                                    compute_dtype=torch.bfloat16, use_pallas=use_pallas)
+                                    compute_dtype=torch.bfloat16, use_pallas=use_pallas,
+                                    graphs=graphs)
 
         sweep()
         samples, rows = [], None
@@ -350,6 +371,7 @@ def main(argv=None):
     from ..evaluation.predict import make_predict_fn
     from ..loader import build_model_config, init_trainable, load_frozen_backbone
     from ..ops.quant import quantize_backbone_auto
+    from ..train import graphs
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -357,6 +379,7 @@ def main(argv=None):
     cfg = build_model_config(args.model_name, img_size=args.img_size)
     frozen = load_frozen_backbone(cfg, allow_random=True)
     batch, use_pallas, extra = args.batch, bool(args.pallas), {}
+    route = "graphs" if graphs.enabled(_device(frozen)) else "eager"
     with plain_twins() if args.twins else contextlib.nullcontext():
         if args.mode == "inference":
             trainable = init_trainable(cfg)
@@ -376,6 +399,7 @@ def main(argv=None):
                     best = (med, spread, batch, use_pallas)
             med, spread, batch, use_pallas = best
             metric, value, unit = METRIC, med, "images/sec"
+            route = "eager"
         elif args.mode == "latency":
             from ..serving import AnomalyDetector
 
@@ -418,6 +442,7 @@ def main(argv=None):
         "unit": unit,
         "spread_pct": round(spread, 1),
         **extra,
+        "route": route,
         "batch": batch,
         "img_size": args.img_size,
         "quant": args.quant,

@@ -13,9 +13,11 @@ needs numpy alone. The random draws are numpy ``default_rng`` streams seeded
 as in the JAX package, so a training batch equals that package's for the
 same (seed, epoch). Samples decode on a thread pool of
 ``AACLIP_DATA_WORKERS`` threads (default 1, serial), with the JAX package's
-random-stream contract. ``get_dataset`` has the JAX package's signature. The
-JAX package's C++ transform pipeline is not ported: the nearest-neighbour
-warp here is a numpy transcription of it, and resizes go through PIL.
+random-stream contract. ``get_dataset`` has the JAX package's signature.
+The image resize, the mask resize and the augmentation warp go through the
+C++ transform pipeline (``data/native.py``) unless ``AACLIP_NATIVE=0``, as in
+the JAX package; where it cannot be built they take the PIL / numpy path
+(PIL's resizes, a numpy transcription of the nearest-neighbour warp).
 """
 from __future__ import annotations
 
@@ -26,17 +28,26 @@ from typing import List, Optional
 
 import numpy as np
 
+from . import native as native_pipeline
 from .registry import CLASS_NAMES, DATA_PATH, IMAGE_MEAN, IMAGE_STD, metadata_path
 
 _MEAN = np.asarray(IMAGE_MEAN, np.float32).reshape(3, 1, 1)
 _STD = np.asarray(IMAGE_STD, np.float32).reshape(3, 1, 1)
 
 
+def _use_native() -> bool:
+    """The C++ pipeline is the default transform backend; ``AACLIP_NATIVE=0``
+    forces the PIL / numpy path, which is also taken where the library
+    cannot be built."""
+    return (os.environ.get("AACLIP_NATIVE", "1") != "0"
+            and native_pipeline.available())
+
+
 def _data_workers() -> int:
     """Per-sample decode parallelism, ``AACLIP_DATA_WORKERS`` (default 1, the
-    serial path). Threads, not processes: PIL's decode and resize release
-    the interpreter lock, so threads scale on a multi-core host with no
-    serialisation cost."""
+    serial path). Threads, not processes: PIL's decode and the native
+    transforms release the interpreter lock, so threads scale on a
+    multi-core host with no serialisation cost."""
     try:
         n = int(os.environ.get("AACLIP_DATA_WORKERS", "1"))
     except ValueError:
@@ -88,13 +99,11 @@ def load_metadata(meta_path: str, class_name: Optional[str] = None) -> List[dict
 
 
 def _load_image(path: str, img_size: int) -> np.ndarray:
-    """RGB bicubic resize -> CHW float32 in [0, 1]."""
+    """RGB bicubic resize -> CHW float32 in [0, 1] (:func:`_resize_bicubic_u8`)."""
     from PIL import Image
 
-    img = Image.open(path).convert("RGB")
-    if img.size != (img_size, img_size):
-        img = img.resize((img_size, img_size), Image.BICUBIC)
-    return np.asarray(img, np.float32).transpose(2, 0, 1) / 255.0
+    img = np.asarray(Image.open(path).convert("RGB"), np.uint8)
+    return _resize_bicubic_u8(img, img_size)
 
 
 def _load_mask(path: str, img_size: int) -> np.ndarray:
@@ -102,6 +111,8 @@ def _load_mask(path: str, img_size: int) -> np.ndarray:
     from PIL import Image
 
     m = Image.open(path).convert("L")
+    if _use_native():
+        return native_pipeline.resize_nearest_mask(np.asarray(m), img_size)[None]
     arr = (np.asarray(m.resize((img_size, img_size), Image.NEAREST)) != 0
            ).astype(np.float32)
     return arr[None]
@@ -112,7 +123,7 @@ def normalize_clip(img01: np.ndarray) -> np.ndarray:
 
 
 def _load_image_u8(path: str, img_size: int) -> np.ndarray:
-    """RGB bicubic resize -> CHW uint8 (PIL's resize output is uint8, so
+    """RGB bicubic resize -> CHW uint8 (both resizes round to uint8, so
     this is lossless). The transfer format for device-side normalization:
     a quarter of the host-to-device bytes of normalized float32."""
     img01 = _load_image(path, img_size)  # CHW float32, values k/255 exactly
@@ -160,10 +171,13 @@ def _color_jitter(rng: np.random.Generator, img_u8: np.ndarray,
 
 
 def _resize_bicubic_u8(u8_hwc: np.ndarray, img_size: int) -> np.ndarray:
-    """(H, W, 3) uint8 -> [0, 1] CHW float32 through PIL's bicubic resize (no
-    resize when the size is already right)."""
+    """(H, W, 3) uint8 -> [0, 1] CHW float32 through the native bicubic
+    resize, or PIL's (no resize when the size is already right). The two
+    agree within one level."""
     if u8_hwc.shape[:2] == (img_size, img_size):
         return u8_hwc.astype(np.float32).transpose(2, 0, 1) / 255.0
+    if _use_native():
+        return native_pipeline.resize_bicubic_rgb(u8_hwc, img_size)
     from PIL import Image
 
     arr = np.asarray(Image.fromarray(u8_hwc).resize((img_size, img_size),
@@ -194,8 +208,10 @@ def _joint_geometric(rng: np.random.Generator, stacked: np.ndarray) -> np.ndarra
     """Rotation +-30 deg (p=0.5), translation +-0.15 (p=0.5) and H/V flips
     (p=0.5 each), applied identically to all channels of ``stacked``
     (C, H, W): the image channels and the mask channel. Nearest-neighbour
-    warps keep the mask exactly binary."""
+    warps keep the mask exactly binary: the native warp, or its numpy
+    transcription."""
     _, h, w = stacked.shape
+    warp = (native_pipeline.warp_affine_chw if _use_native() else _warp_nearest)
 
     def rotation_matrix(angle_deg):
         # cv2.getRotationMatrix2D about the pixel-centre of the image.
@@ -207,11 +223,11 @@ def _joint_geometric(rng: np.random.Generator, stacked: np.ndarray) -> np.ndarra
 
     img = stacked
     if rng.random() < 0.5:
-        img = _warp_nearest(img, rotation_matrix(rng.uniform(-30.0, 30.0)))
+        img = warp(img, rotation_matrix(rng.uniform(-30.0, 30.0)))
     if rng.random() < 0.5:
         tx = rng.uniform(-0.15, 0.15) * w
         ty = rng.uniform(-0.15, 0.15) * h
-        img = _warp_nearest(img, np.array([[1, 0, tx], [0, 1, ty]], np.float64))
+        img = warp(img, np.array([[1, 0, tx], [0, 1, ty]], np.float64))
     if rng.random() < 0.5:
         img = img[:, :, ::-1]
     if rng.random() < 0.5:

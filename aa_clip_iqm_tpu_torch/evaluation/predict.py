@@ -5,10 +5,12 @@ Counterpart of ``aa_clip_iqm_tpu/evaluation/predict.py``: the scoring path
 blur/upsample as matmuls, fusion and the image logit) as ``make_predict_fn``,
 and the per-class loop around it: ``predict_class``,
 ``class_metrics_device``, ``evaluate_dataset`` and ``results_table``.
-PyTorch runs eagerly, so the returned predict function is the program
-itself, and nothing needs shape buckets to avoid recompiles; the tail-batch
-ladder and the metric bucket are kept so that both packages run the same
-batches. Data-parallel evaluation over several cards is not ported yet.
+The returned predict function is the eager program; on a CUDA device
+``evaluate_dataset`` replays it as one CUDA graph per bucket of the tail
+ladder (``train/graphs.py``), where the JAX package jits it, and the ladder
+bounds the captures as it bounds JAX's compiles. The metric program stays
+eager: each of its shapes runs once per class. Data-parallel evaluation over
+several cards is not ported yet.
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ from ..ops.metrics import (
     metrics_eval,
     pixel_metrics_device,
 )
+from ..train import graphs as graphs_mod
 from . import scoring
 
 METRIC_KEYS = ("pixel AUC", "pixel AP", "image AUC", "image AP")
@@ -261,7 +264,8 @@ def evaluate_dataset(frozen, trainable, model_cfg: ModelConfig,
                      eval_cfg: EvalConfig, datasets: Dict, anchors: Dict,
                      logger=None, use_iqm: bool = True,
                      compute_dtype=torch.float32, device_resident: bool = True,
-                     visualize_dir: Optional[str] = None, use_pallas: bool = True):
+                     visualize_dir: Optional[str] = None, use_pallas: bool = True,
+                     graphs=None):
     """Per-class sweep producing a results table (list of metric dicts plus
     an Average row), parity with test_last.py:273-327.
 
@@ -273,6 +277,13 @@ def evaluate_dataset(frozen, trainable, model_cfg: ModelConfig,
     (:func:`.visualize.dump_heatmaps`), which takes the host path.
     ``use_pallas``: as in :func:`make_predict_fn` (the port's default True,
     JAX's False).
+
+    On a CUDA device (without NaN checks) the predict calls replay CUDA
+    graphs, one per bucket, captured at its first batch; each batch's maps
+    and logits are copied out before the next replay. ``graphs``: a
+    ``train.graphs.GraphCache`` to capture into and replay from, so that a
+    caller that sweeps again (a benchmark) replays what an earlier call
+    captured on the same weights; None makes one for this call.
     """
     device_resident = device_resident and not visualize_dir
     domain = DOMAINS[eval_cfg.dataset]
@@ -281,6 +292,14 @@ def evaluate_dataset(frozen, trainable, model_cfg: ModelConfig,
         compute_dtype=compute_dtype, text_weight=eval_cfg.text_weight,
         iqm_weight=eval_cfg.iqm_weight,
         image_score_mode=eval_cfg.image_score_mode, use_pallas=use_pallas)
+    if anchors and graphs_mod.enabled(next(iter(anchors.values())).device):
+        cache = graphs if graphs is not None else graphs_mod.GraphCache()
+        eager_fn = predict_fn
+        predict_fn = cache.program(
+            ("predict", model_cfg, eval_cfg.img_size, domain, use_iqm, compute_dtype,
+             eval_cfg.text_weight, eval_cfg.iqm_weight, eval_cfg.image_score_mode,
+             use_pallas),
+            lambda: graphs_mod.GraphedFn(eager_fn, cache, "predict"))
     rows = []
 
     def _settle(row):

@@ -58,6 +58,7 @@ from .models import clip as clip_mod
 from .ops import custom_ops  # noqa: F401  (registers the aaclip:: ops the programs call)
 from .ops import interp
 from .prompts import compute_frozen_anchors
+from .train import graphs
 from .train.checkpoint import restore_adapters
 from .utils.profiling import nan_checks_enabled
 
@@ -219,9 +220,9 @@ class AnomalyDetector:
     def _capture(self, images, anchors_b) -> "_BucketGraph":
         """Warm up, then capture the predict program on static buffers.
 
-        The capture runs on the calling thread: under
-        :class:`MicroBatchingService` that is its worker, while the HTTP
-        threads go on with their own work. ``capture_error_mode=
+        The capture (``train.graphs.capture``) runs on the calling thread:
+        under :class:`MicroBatchingService` that is its worker, while the
+        HTTP threads go on with their own work. ``capture_error_mode=
         "thread_local"`` confines the capture's ban on unsafe CUDA calls to
         this thread, so another thread's synchronising call neither fails
         nor invalidates the capture (``"global"``, the default, would do
@@ -238,17 +239,12 @@ class AnomalyDetector:
         pool0 = self.graph_memory()
         static_images = images.to(dev)
         static_anchors = anchors_b.contiguous().clone()
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            self._predict(self.frozen, self.trainable, static_images, static_anchors)
-        torch.cuda.current_stream(dev).wait_stream(side)
         if self._graph_pool is None:
             self._graph_pool = torch.cuda.graph_pool_handle()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self._graph_pool, capture_error_mode="thread_local"):
-            maps, scores = self._predict(self.frozen, self.trainable, static_images,
-                                         static_anchors)
+        graph, (maps, scores) = graphs.capture(
+            lambda: self._predict(self.frozen, self.trainable, static_images,
+                                  static_anchors),
+            self._graph_pool, dev)
         torch.cuda.synchronize(dev)
         return _BucketGraph(
             graph=graph, images=static_images, anchors=static_anchors, maps=maps,
@@ -259,11 +255,7 @@ class AnomalyDetector:
     def graph_memory(self) -> int:
         """Bytes of device memory in the segments of the graphs' shared pool
         (what the graphs hold beyond their inputs and the weights)."""
-        if self._graph_pool is None:
-            return 0
-        pool = tuple(self._graph_pool)
-        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
-                   if tuple(seg.get("segment_pool_id", ())) == pool)
+        return graphs.pool_memory(self._graph_pool)
 
     def graph_stats(self) -> List[dict]:
         """One entry per captured graph: its bucket, input dtype and

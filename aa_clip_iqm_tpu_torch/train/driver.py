@@ -19,6 +19,12 @@ epoch's batch stream is a pure function of (dataset seed, epoch)
 seeded from (seed, epoch, step): no sequential random state survives an
 interruption.
 
+Programs: on a CUDA device the stage-1 feature program and both steps run as
+CUDA graphs (``train/graphs.py``: one capture per batch shape, the tail
+batch's included, after any checkpoint load), with graphable optimizers;
+on the CPU, and under NaN checks, they run eagerly as before. The two routes
+take the same steps on the same data.
+
 Observability: per-step {stage, epoch, step, loss, lr, wall_ms} rows are
 appended to {save_path}/scalars.jsonl at each epoch end. Losses stay on the
 device during the epoch and are fetched in one transfer: the step loop never
@@ -41,7 +47,7 @@ from ..data.datasets import get_dataset, prefetch
 from ..models.convert import tree_map
 from ..prompts import batched_prompt_tokens, compute_frozen_anchors
 from . import checkpoint as ckpt
-from . import optim, steps
+from . import graphs, optim, steps
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -180,7 +186,9 @@ def run_stage1(frozen, trainable, model_cfg: ModelConfig, train_cfg: TrainConfig
     prompt_toks = torch.from_numpy(np.asarray(prompt_toks, np.int64)).to(device)
 
     text_params = trainable["text_adapter"]
-    opt_state = optim.stage1_optimizer(text_params, train_cfg.text_lr)
+    graphed = graphs.enabled(device)
+    opt_state = optim.stage1_optimizer(text_params, train_cfg.text_lr,
+                                       graphable=graphed)
     start_epoch = 0
     restored = ckpt.load_stage1(train_cfg.save_path, text_params, opt_state)
     if restored is not None:
@@ -193,6 +201,10 @@ def run_stage1(frozen, trainable, model_cfg: ModelConfig, train_cfg: TrainConfig
     step_fn = steps.make_stage1_step(model_cfg, train_cfg, prompt_toks,
                                      len(classes), n_norm, n_abn,
                                      compute_dtype=dtype)
+    if graphed:   # captured after the resume above has loaded the state
+        cache = graphs.GraphCache()
+        visual_fn = graphs.GraphedFn(visual_fn, cache, "stage1 features")
+        step_fn = graphs.GraphedStep(step_fn, cache, "stage1 step")
     every = train_cfg.checkpoint_every_steps
     saver = _StepSaver(train_cfg.async_step_checkpoint)
     try:
@@ -257,11 +269,12 @@ def run_stage2(frozen, trainable, model_cfg: ModelConfig, train_cfg: TrainConfig
     steps_per_epoch = max(1, -(-len(image_dataset) // train_cfg.image_batch_size))
     total_steps = steps_per_epoch * train_cfg.image_epoch
     quirk = train_cfg.image_epoch if train_cfg.torch_lr_quirk else None
+    graphed = graphs.enabled(device)
     opt_state = optim.stage2_optimizer(
         trainable, train_cfg.image_lr, total_steps,
         iqm_lr_scale=train_cfg.iqm_lr_scale,
         image_wd=train_cfg.image_weight_decay, iqm_wd=train_cfg.iqm_weight_decay,
-        torch_quirk_period_steps=quirk)
+        torch_quirk_period_steps=quirk, graphable=graphed)
     start_epoch = 0
     restored = ckpt.load_stage2(train_cfg.save_path, trainable, opt_state)
     if restored is not None:
@@ -276,6 +289,8 @@ def run_stage2(frozen, trainable, model_cfg: ModelConfig, train_cfg: TrainConfig
 
     step_fn = steps.make_stage2_step(model_cfg, train_cfg, compute_dtype=dtype,
                                      clip_grad_norm=train_cfg.clip_grad_norm)
+    if graphed:   # captured after the resume above has loaded the state
+        step_fn = graphs.GraphedStep(step_fn, graphs.GraphCache(), "stage2 step")
     patch_drop = model_cfg.clip.vision.patch_dropout > 0.0
     every = train_cfg.checkpoint_every_steps
     saver = _StepSaver(train_cfg.async_step_checkpoint)
@@ -297,7 +312,8 @@ def run_stage2(frozen, trainable, model_cfg: ModelConfig, train_cfg: TrainConfig
                 rng = None
                 if patch_drop:
                     # One generator per (seed, epoch, step): a mid-epoch
-                    # resume draws the masks the uninterrupted run drew.
+                    # resume draws the masks the uninterrupted run drew. A
+                    # captured step draws from it outside its graph.
                     rng = torch.Generator(device=device)
                     rng.manual_seed(int(np.random.SeedSequence(
                         (train_cfg.seed, epoch, step)).generate_state(1)[0]))

@@ -17,6 +17,15 @@ optax's ``adamw`` applies ``lr * (adam_update + wd * p)`` with the schedule
 evaluated at the 0-based step count; torch's ``AdamW`` (``p *= 1 - lr * wd``,
 then ``p -= lr * adam_update``) with a ``LambdaLR`` stepped after the
 optimizer gives the same numbers.
+
+For a captured step (``train/graphs.py``) the optimizers are built
+``graphable``, the default where the parameters lie on a CUDA device: every
+group's learning rate is a 0-dim tensor on that device, which the scheduler
+fills in place outside the graph (a float would be frozen into the capture),
+and Adam / AdamW are ``capturable``, so that the step counters stay on the
+device too. PyTorch refuses ``capturable`` on the CPU, where a graphable
+optimizer keeps the tensor learning rate alone (in float64: the step reads it
+as a Python float, so the updates are bit for bit the float rate's).
 """
 from __future__ import annotations
 
@@ -54,17 +63,44 @@ def cosine_annealing(base_lr: float, total_steps: int, eta_min: float = 1e-6,
     return schedule
 
 
+def _graphable(params, graphable: Optional[bool]) -> bool:
+    if graphable is None:
+        return any(p.device.type == "cuda" for p in params)
+    return graphable
+
+
+def _lr(value, params, graphable: bool):
+    """A group's learning rate: the float, or for a graphable optimizer a
+    0-dim tensor on the parameters' device (float32 beside the capturable
+    step's float32 counters on the card, float64 on the CPU)."""
+    if not graphable:
+        return value
+    device = params[0].device
+    dtype = torch.float32 if device.type == "cuda" else torch.float64
+    return torch.tensor(float(value), dtype=dtype, device=device)
+
+
 class OptState:
     """An optimizer with its (optional) scheduler: what the steps update and
     the checkpoints save. ``step()`` applies the gradients that the
-    parameters hold and advances the schedule."""
+    parameters hold and advances the schedule; a captured step runs
+    ``optimizer.step()`` in its graph and ``advance()`` after the replay.
+    ``version`` counts the loads: a load replaces the optimizer's state
+    tensors, so a step captured before it is stale."""
 
-    def __init__(self, optimizer, scheduler=None):
+    def __init__(self, optimizer, scheduler=None, graphable: bool = False):
         self.optimizer = optimizer
         self.scheduler = scheduler
+        self.graphable = graphable
+        self.version = 0
 
     def step(self):
         self.optimizer.step()
+        self.advance()
+
+    def advance(self):
+        """Advance the schedule: on a graphable optimizer it fills the
+        learning-rate tensors in place."""
         if self.scheduler is not None:
             self.scheduler.step()
 
@@ -77,11 +113,42 @@ class OptState:
         self.optimizer.load_state_dict(state["optimizer"])
         if self.scheduler is not None and state["scheduler"] is not None:
             self.scheduler.load_state_dict(state["scheduler"])
+        self._settle_groups()
+        self.version += 1
+
+    def _settle_groups(self):
+        """After a load, which takes the groups' settings and learning rates
+        from the saved state (a float rate and ``capturable=False`` from a
+        CPU run, CPU tensors from any checkpoint of a graphable one): each
+        group's rate in this optimizer's form (:func:`_lr`), ``capturable``
+        on the card when graphable, and the step counters where the step
+        reads them (on the device when capturable, else on the CPU)."""
+        for group in self.optimizer.param_groups:
+            params = group["params"]
+            lr = group["lr"]
+            group["lr"] = _lr(lr.item() if isinstance(lr, torch.Tensor) else lr,
+                              params, self.graphable)
+            capturable = self.graphable and params[0].device.type == "cuda"
+            group["capturable"] = capturable
+            for p in params:
+                state = self.optimizer.state.get(p, {})
+                step = state.get("step")
+                if isinstance(step, torch.Tensor):
+                    where = p.device if capturable else torch.device("cpu")
+                    state["step"] = step.to(device=where, dtype=torch.float32)
 
 
-def stage1_optimizer(text_params, text_lr: float = 1e-5) -> OptState:
-    return OptState(torch.optim.Adam(list(tree_leaves(text_params)), lr=text_lr,
-                                     betas=(0.5, 0.999), eps=1e-8))
+def stage1_optimizer(text_params, text_lr: float = 1e-5,
+                     graphable: Optional[bool] = None) -> OptState:
+    """Adam over the text adapter. ``graphable``: None decides by the
+    parameters' device (the module docstring)."""
+    params = list(tree_leaves(text_params))
+    graphable = _graphable(params, graphable)
+    capturable = graphable and params[0].device.type == "cuda"
+    return OptState(torch.optim.Adam(params, lr=_lr(text_lr, params, graphable),
+                                     betas=(0.5, 0.999), eps=1e-8,
+                                     capturable=capturable),
+                    graphable=graphable)
 
 
 IQM_FAMILY_KEYS = (
@@ -121,21 +188,29 @@ def _labelled(trainable, label):
 def stage2_optimizer(trainable, image_lr: float, total_steps: int,
                      iqm_lr_scale: float = 0.1, image_wd: float = 1e-4,
                      iqm_wd: float = 1e-3, eta_min: float = 1e-6,
-                     torch_quirk_period_steps: Optional[int] = None) -> OptState:
+                     torch_quirk_period_steps: Optional[int] = None,
+                     graphable: Optional[bool] = None) -> OptState:
+    """AdamW over the image and IQM groups on their cosine schedules.
+    ``graphable``: None decides by the parameters' device (the module
+    docstring)."""
+    image = _labelled(trainable, "image")
+    iqm = _labelled(trainable, "iqm")
+    graphable = _graphable(image + iqm, graphable)
+    capturable = graphable and image[0].device.type == "cuda"
     image_sched = cosine_annealing(image_lr, total_steps, eta_min,
                                    torch_quirk_period_steps)
     iqm_sched = cosine_annealing(image_lr * iqm_lr_scale, total_steps, eta_min,
                                  torch_quirk_period_steps)
     optimizer = torch.optim.AdamW(
-        [{"params": _labelled(trainable, "image"), "lr": image_lr,
+        [{"params": image, "lr": _lr(image_lr, image, graphable),
           "weight_decay": image_wd},
-         {"params": _labelled(trainable, "iqm"), "lr": image_lr * iqm_lr_scale,
+         {"params": iqm, "lr": _lr(image_lr * iqm_lr_scale, iqm, graphable),
           "weight_decay": iqm_wd}],
-        betas=(0.9, 0.999), eps=1e-8)
+        betas=(0.9, 0.999), eps=1e-8, capturable=capturable)
     scheduler = torch.optim.lr_scheduler.LambdaLR(
         optimizer, [lambda step: image_sched(step) / image_lr,
                     lambda step: iqm_sched(step) / (image_lr * iqm_lr_scale)])
-    return OptState(optimizer, scheduler)
+    return OptState(optimizer, scheduler, graphable=graphable)
 
 
 def clip_stage2_grads(trainable, max_norm: float):

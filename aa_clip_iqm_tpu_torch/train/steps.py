@@ -17,7 +17,11 @@ run with ``fused_mlp="frozen"``: forward through the fused kernel, backward
 through the dx-only kernel, valid because only the adapters train.
 
 A step updates the trainable tensors in place and returns
-``(trainable, opt_state, loss)`` with the loss left on the device.
+``(trainable, opt_state, loss)`` with the loss left on the device. Each step
+function carries its ``update``: the same step without the schedule's
+advance (gradients, clipping, the optimizer's update; returns the loss),
+which is what ``train/graphs.py`` captures. Nothing in an update reads a
+value on the host or has a shape that depends on the data.
 """
 from __future__ import annotations
 
@@ -30,7 +34,7 @@ from ..evaluation import scoring
 from ..models import adapters as adapters_mod
 from ..models import clip as clip_mod
 from ..models.convert import tree_leaves
-from ..ops.layers import l2_normalize, layer_norm, linear
+from ..ops.layers import l2_normalize, layer_norm, linear, patch_dropout_indices
 from ..ops.losses import cross_entropy_logits, seg_loss, seg_loss_tokens
 from ..prompts import anchors_from_flat_embeddings
 from .optim import OptState, clip_stage2_grads
@@ -105,15 +109,23 @@ def make_stage1_step(cfg: ModelConfig, train_cfg: TrainConfig, prompt_tokens,
         total = losses[-1] if last_only else sum(losses)
         return total + ortho * norm_w
 
-    def step(text_params, opt_state: OptState, frozen, patch_feats, masks,
-             class_idx, weights):
+    def update(text_params, opt_state: OptState, frozen, patch_feats, masks,
+               class_idx, weights):
         _zero_grads(text_params)
         loss = loss_fn(text_params, frozen, patch_feats, masks, class_idx, weights)
         loss.backward()
-        opt_state.step()
-        return text_params, opt_state, loss.detach()
+        opt_state.optimizer.step()
+        return loss.detach()
+
+    def step(text_params, opt_state: OptState, frozen, patch_feats, masks,
+             class_idx, weights):
+        loss = update(text_params, opt_state, frozen, patch_feats, masks,
+                      class_idx, weights)
+        opt_state.advance()
+        return text_params, opt_state, loss
 
     step.loss_fn = loss_fn
+    step.update = update
     return step
 
 
@@ -131,6 +143,8 @@ def make_stage2_step(cfg: ModelConfig, train_cfg: TrainConfig,
     ``rng`` (a ``torch.Generator``, or a ready (B, K) tensor of kept-token
     indices) and trains on the kept tokens only: the seg losses then run at
     token resolution against per-cell mask fractions (``seg_loss_tokens``).
+    From a generator the step draws ``step.keep_indices(rng, B, device)``
+    first: one draw per microbatch, in order.
 
     Gradient accumulation (``train_cfg.grad_accum_steps`` > 1): the batch is
     split into that many microbatches run one after another, so peak
@@ -147,6 +161,19 @@ def make_stage2_step(cfg: ModelConfig, train_cfg: TrainConfig,
     grad_accum = max(1, int(train_cfg.grad_accum_steps))
     remat = train_cfg.remat
     patch_size = cfg.clip.vision.patch_size
+    drop_rate = cfg.clip.vision.patch_dropout
+
+    def keep_indices(generator, batch: int, device):
+        """The (batch, K) kept-token indices drawn from ``generator``, one
+        draw of each microbatch's rows after another; None without patch
+        dropout."""
+        if drop_rate <= 0.0:
+            return None
+        micro = batch // grad_accum
+        return torch.cat([patch_dropout_indices(generator, micro,
+                                                cfg.clip.vision.num_patches,
+                                                drop_rate, device=device)
+                          for _ in range(grad_accum)])
 
     def loss_fn(trainable, frozen, images, masks, labels, anchors, weights, rng):
         out = adapters_mod.encode_image_adapted(
@@ -193,7 +220,7 @@ def make_stage2_step(cfg: ModelConfig, train_cfg: TrainConfig,
         num = w_tot = 0.0
         for k in range(grad_accum):
             sl = slice(k * micro, (k + 1) * micro)
-            rng_k = rng[sl] if isinstance(rng, torch.Tensor) else rng
+            rng_k = None if rng is None else rng[sl]
             w_sum = weights[sl].float().sum()
             num_k = loss_fn(trainable, frozen, images[sl], masks[sl], labels[sl],
                             anchors[sl], weights[sl], rng_k) * w_sum
@@ -206,8 +233,10 @@ def make_stage2_step(cfg: ModelConfig, train_cfg: TrainConfig,
                 t.grad.div_(denom)
         return num / denom
 
-    def step(trainable, opt_state: OptState, frozen, images, masks, labels,
-             anchors, weights, rng=None):
+    def update(trainable, opt_state: OptState, frozen, images, masks, labels,
+               anchors, weights, rng=None):
+        if isinstance(rng, torch.Generator):
+            rng = keep_indices(rng, images.shape[0], images.device)
         _zero_grads(trainable)
         if grad_accum > 1:
             loss = accumulate(trainable, frozen, images, masks, labels, anchors,
@@ -219,8 +248,17 @@ def make_stage2_step(cfg: ModelConfig, train_cfg: TrainConfig,
             loss = loss.detach()
         if clip_grad_norm is not None:
             clip_stage2_grads(trainable, clip_grad_norm)
-        opt_state.step()
+        opt_state.optimizer.step()
+        return loss
+
+    def step(trainable, opt_state: OptState, frozen, images, masks, labels,
+             anchors, weights, rng=None):
+        loss = update(trainable, opt_state, frozen, images, masks, labels,
+                      anchors, weights, rng)
+        opt_state.advance()
         return trainable, opt_state, loss
 
     step.loss_fn = loss_fn
+    step.update = update
+    step.keep_indices = keep_indices
     return step

@@ -11,7 +11,11 @@ line):
      and the wgmma (HGMMA; IGMMA for int8) and UTMALDG (TMA load)
      instructions in the SASS of the seven sources on wgmma (B2, B8 and B5
      on the GEMM core, B3 on its int8 form, B4/B6, and B1 and B7 on the
-     attention walk), which must not be zero;
+     attention walk), which must not be zero; then the native transform
+     pipeline (data/native.py, g++ on the port's copy of the C++ source),
+     which must build, against PIL at sizes that resize (the bicubic resize
+     within one level, masks and the nearest warp exactly) and on 4
+     threads against 1;
   3. kernels: each hand-written kernel (five forward, three backward) against
      its plain PyTorch twin at the main path's shapes in bf16 (largest and
      RMS error in bf16 ulps, ops/compare.py), with CUDA-event times of the
@@ -26,7 +30,8 @@ line):
      its), B2 and B5 at ragged row counts, B4/B6 at
      batch 8 and 1 (B6: 2) with valid_len None and 1300, fed the forward's
      log-sum-exp, with each stage's device time
-     (torch.profiler), and B2's two GEMMs at both tile widths.
+     (torch.profiler; a stage read at 0 ms is measured again, up to three
+     times), and B2's two GEMMs at both tile widths.
      Planted faults (a twin with its key tail unmasked, its biases dropped,
      the wrong activation, the last k-slice of B2's hidden layer dropped,
      B2's rows past 1,280 left at zero; for the int8
@@ -57,23 +62,41 @@ line):
      float one where it is not), the int8 map against the twins' and against
      the bf16 tier's, and batch-8 timings;
   6. sweep: evaluate_dataset at 518 px over an in-memory synthetic dataset of
-     two classes, for the bf16 and the int8 tier; the device metrics must
-     equal the host's on the fetched maps. Then the pixel metrics alone on
-     random maps of the largest shipped class (3,714 images), for their time
-     and peak memory;
-  7. training: run_training on an in-memory synthetic dataset of two MVTec
-     classes, ViT-L-14-336 at 518 px, full depth, bf16 compute with float32
-     adapters: stage 1 for 2 steps at batch 16, the anchors, stage 2 for 3
-     steps at batch 8. Finite losses; the backward kernels launched 23 times
-     each per stage-2 step and never in stage 1; every trained tensor moved
-     and every frozen one did not; the first stage-2 step's gradients from
-     the kernels against the same step with the backward kernels swapped for
-     their plain versions (and for a planted fault that the comparison must
-     catch) and with every kernel swapped; checkpointed blocks give the same
-     loss; a step checkpoint restores tensors bit for bit; images/s of both
-     stages and a profile of one stage-2 step; then one stage-2 step with
-     the fused attention half-block (24 of it, 23 MLP dx, no attention
-     backward kernel);
+     two classes, for the bf16 and the int8 tier, its predict calls replayed
+     as one CUDA graph a bucket (train/graphs.py): each replay's launches
+     (24 B1 and 24 of the tier's MLP), the replays by bucket, the metrics of
+     two sweeps on graphs against the eager sweep's to 1e-4, images/s of
+     both; the device metrics must equal the host's on the fetched maps.
+     Then the sweep over 48 PNGs at 600 px that the data layer resizes, on
+     graphs, with the native transforms on and off at 1 and 4 decode
+     threads. Then the pixel metrics alone on random maps of the largest
+     shipped class (3,714 images), for their time and peak memory;
+  7. training: run_training on a synthetic dataset of two classes written
+     at 600 px (resized to 518 by the native transforms), ViT-L-14-336 at
+     518 px, full depth, bf16 compute with float32 adapters: stage 1 for 2
+     steps at batch 16, the anchors, stage 2 for 3 steps at batch 8, every
+     feature batch and step a CUDA graph replay. Finite losses; each
+     graph's replay measured launching 43 B1 + 43 B2 (stage-1 features), 12
+     B2 (stage-1 step), 24 B1 + 24 B2 + 23 B4 + 23 B5 (stage-2 step); the
+     replays and the optimizers' step counters are the steps taken; every
+     trained tensor moved and every frozen one did not; a step checkpoint
+     of the graphed run restores bit for bit, and a resume from the one
+     after stage-2 step 1 captures anew and ends on the uninterrupted run's
+     adapters; the first stage-2 step's gradients from the replay against
+     the eager step, against the same step with the backward kernels
+     swapped for their plain versions (and for a planted fault that the
+     comparison must catch) and with every kernel swapped; checkpointed
+     blocks give the same loss; one stage-2 step with the fused attention
+     half-block (24 of it, 23 MLP dx, no attention backward kernel). Then,
+     from one snapshot of the trained adapters and optimizer, 3 replays of
+     a captured stage-2 step against 3 eager steps of the capturable
+     optimizer at accum 1 and 2, with patch dropout and on the fused route
+     (bit for bit where two eager runs agree bit for bit, else within
+     1e-3), replays on stale inputs that must fail that gate, the
+     capturable optimizer's update against the other's, and the same for
+     stage 1 at batch 16 (features, losses, text adapter, moments);
+     images/s of both stages on graphs and eagerly, and profiles of a
+     replayed and an eager step (idle share, pool size, peak memory);
   8. fused attention (models.clip.FUSED_ATTN, AACLIP_FUSED_ATTN=1): a batch-8
      request at 518 px (24 fused blocks per vision forward, no packed
      attention), its map against the flag off and the twins, timings and a
@@ -137,7 +160,9 @@ line):
      cli.single_image zero-shot (B1 in value-value mode) and from the
      checkpoint, each saved map against the same computation done directly.
 On the card every AnomalyDetector request replays the CUDA graph of its
-bucket (captured at the bucket's first request, after a warm-up run). The
+bucket (captured at the bucket's first request, after a warm-up run), and
+the training steps and the sweep's predict calls replay theirs
+(train/graphs.py). The
 kernels' counters count a launch where a wrapper launches its kernel, so a
 bucket's warm-up and capture count and a replay does not. What a replay
 runs is measured instead, once per graph: one replay under the profiler
@@ -151,6 +176,8 @@ replays not included. The second-to-last line is a JSON object with one
 entry per kernel; the last line is {"ok": true, "device": {...}}.
 """
 import base64
+import contextlib
+import copy
 import io
 import json
 import os
@@ -209,6 +236,15 @@ GRAD_TOL = 5e-2                          # per tensor: rms(diff) / rms(plain gra
 # (a few 1e-3), and a planted fault in the MLP dx (3e-2 to 4e-2 on this
 # random backbone, whose MLP branch is small beside the residual) stands out.
 GRAD_BWD_TOL = 1e-2
+# Graph replays against eager steps where two eager runs do not agree bit for
+# bit: rms(diff) / rms per tensor (losses, updated tensors, optimizer state).
+REPLAY_TOL = 1e-3
+# The capturable optimizer's update against that of the one that is not,
+# per element, relative to the update, beyond two float32 roundings of the
+# parameter: the capturable step computes its bias corrections in float32
+# on the device (about 1e-5 relative at the steps run here), the other in
+# float64 on the host.
+UPDATE_TOL = 1e-4
 METRIC_TOL = 1e-4                        # device vs host AUROC / AP, in [0, 1]
 # B1's log-sum-exp against the plain logsumexp of the masked scaled scores,
 # relative: both are fp32 sums of the same exponentials in other orders.
@@ -252,6 +288,10 @@ def cuda_time(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+# The stage profiles measured again after lost records (stage_times).
+STAGE_RETRIES = []
+
+
 def stage_times(what, fn, stages, reps=5):
     """Device ms per call of each stage kernel of ``fn`` (torch.profiler
     over ``reps`` calls), found by a part of its name; ``stages`` maps that
@@ -262,19 +302,28 @@ def stage_times(what, fn, stages, reps=5):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    ms = dict.fromkeys(stages, 0.0)
-    for evt in prof.key_averages():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
-            for part in stages:
-                if part in evt.key:
-                    ms[part] += evt.self_device_time_total / 1e3 / reps
+    # The profiler now and then loses a stage's records, so a stage read at
+    # 0 ms is measured again, up to three times in all (as replay_launches).
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ms = dict.fromkeys(stages, 0.0)
+        for evt in prof.key_averages():
+            if evt.device_type == torch.autograd.DeviceType.CUDA:
+                for part in stages:
+                    if part in evt.key:
+                        ms[part] += evt.self_device_time_total / 1e3 / reps
+        missing = [part for part in stages if ms[part] <= 0]
+        if not missing:
+            break
+        STAGE_RETRIES.append(what)
+        log(f"# {what} stages, measurement {attempt + 1}: the profiler saw no "
+            f"{', '.join(missing)} kernel")
     parts = []
     for part, (label, kind, amount) in stages.items():
-        require(ms[part] > 0, f"{what}: the profiler saw no {part} kernel")
+        require(ms[part] > 0, f"{what}: the profiler saw no {part} kernel in 3 measurements")
         rate = {"flop": f"{amount / ms[part] / 1e9:.1f} TFLOP/s",
                 "ops": f"{amount / ms[part] / 1e9:.1f} TOP/s",
                 "bytes": f"{amount / ms[part] / 1e6:.1f} GB/s"}[kind]
@@ -1818,60 +1867,151 @@ class MemoryDataset:
                    "class_name": [self.class_name] * len(part), "n_valid": len(part)}
 
 
+def phase_native(card):
+    """The native transform pipeline (data/native.py) built from the port's
+    C++ source with g++, against PIL at sizes that resize: the bicubic
+    resize within one level; the mask resize exactly the nearest rule
+    floor((i + 0.5) * src / dst), and exactly PIL's except where that
+    coordinate is an exact tie, which PIL's accumulated float coordinate
+    rounds down (the JAX package's native resize, which the port copies,
+    does the same); the nearest warp exactly the numpy one of the PIL path;
+    and a batch of resizes on 4 threads against 1 (a ctypes call releases
+    the interpreter lock)."""
+    import concurrent.futures
+
+    import numpy as np
+    from PIL import Image
+
+    from aa_clip_iqm_tpu_torch.data import datasets, native
+
+    t0 = time.perf_counter()
+    require(native.available(), f"the native pipeline did not build:\n{native.BUILD_LOG}")
+    log(f"# native: {native.LIB_PATH} loaded in {time.perf_counter() - t0:.1f} s (g++ "
+        f"{' '.join(native.CXX_FLAGS)} when stale)")
+    rng = np.random.default_rng(3)
+    for (h, w), size in (((97, 123), 56), ((700, 900), IMG)):
+        img = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        out = native.resize_bicubic_rgb(img, size)
+        pil = np.asarray(Image.fromarray(img).resize((size, size), Image.BICUBIC),
+                         np.float32).transpose(2, 0, 1) / 255.0
+        lsb = float(np.abs(out - pil).max()) * 255.0
+        differ = float(np.mean(out != pil))
+        mask = (rng.random((h, w)) > 0.5).astype(np.uint8) * 255
+        m_native = native.resize_nearest_mask(mask, size)
+        m_pil = (np.asarray(Image.fromarray(mask, "L").resize((size, size), Image.NEAREST))
+                 != 0).astype(np.float32)
+        i = np.arange(size)
+        rule = (mask[((2 * i + 1) * h) // (2 * size)][:, ((2 * i + 1) * w) // (2 * size)]
+                != 0).astype(np.float32)
+        tie_rows = ((2 * i + 1) * h) % (2 * size) == 0
+        tie_cols = ((2 * i + 1) * w) % (2 * size) == 0
+        tie = tie_rows[:, None] | tie_cols[None, :]
+        pil_off = m_native != m_pil
+        stack = np.concatenate([out, m_native[None]])
+        a = np.deg2rad(17.0)
+        c = size / 2 - 0.5
+        M = np.array([[np.cos(a), np.sin(a), (1 - np.cos(a)) * c - np.sin(a) * c],
+                      [-np.sin(a), np.cos(a), np.sin(a) * c + (1 - np.cos(a)) * c]])
+        warp_equal = np.array_equal(native.warp_affine_chw(stack, M),
+                                    datasets._warp_nearest(stack, M))
+        log(f"# native against PIL, {h}x{w} -> {size}: bicubic within {lsb:.2f} levels "
+            f"({differ:.2%} of values differ; tol 1), masks "
+            f"{'equal' if np.array_equal(m_native, rule) else 'DIFFER'} to the nearest rule "
+            f"and to PIL's but at {int(pil_off.sum())} pixels ({pil_off.mean():.2%}), all on "
+            f"the exact ties ({int(tie_rows.sum())} rows, {int(tie_cols.sum())} columns): "
+            f"{'yes' if not (pil_off & ~tie).any() else 'NO'}; nearest warp "
+            f"{'equal' if warp_equal else 'DIFFERS'} to the numpy one")
+        require(lsb <= 1.01, f"native bicubic resize {lsb} levels from PIL's")
+        require(np.array_equal(m_native, rule), "native mask resize breaks the nearest rule")
+        require(not (pil_off & ~tie).any(), "native mask resize differs from PIL's off the ties")
+        require(warp_equal, "native warp differs from the numpy warp")
+    imgs = [rng.integers(0, 256, (900, 900, 3), dtype=np.uint8) for _ in range(32)]
+    seconds = {}
+    for workers in (1, 4):
+        with concurrent.futures.ThreadPoolExecutor(workers) as pool:
+            t0 = time.perf_counter()
+            list(pool.map(lambda im: native.resize_bicubic_rgb(im, IMG), imgs))
+            seconds[workers] = time.perf_counter() - t0
+    log(f"# native: 32 bicubic resizes 900 -> {IMG} px in {seconds[1] * 1e3:.1f} ms on 1 "
+        f"thread, {seconds[4] * 1e3:.1f} ms on 4 ({seconds[1] / seconds[4]:.2f}x; "
+        f"{os.cpu_count()} cores on this host)")
+
+
 def phase_sweep(card, ctx):
     """evaluate_dataset over an in-memory synthetic dataset, for the bf16 and
-    the int8 tier; device metrics against the host's on the fetched maps."""
+    the int8 tier, its predict calls replayed (one CUDA graph a bucket):
+    what each replay launches, the metrics against the eager sweep's and
+    device metrics against the host's; then the sweep over PNGs on disk
+    that the data layer resizes, with the native transforms on and off, at
+    1 and 4 decode threads."""
     import numpy as np
     import torch
 
     from aa_clip_iqm_tpu_torch.configs import EvalConfig
     from aa_clip_iqm_tpu_torch.evaluation import predict as ev
     from aa_clip_iqm_tpu_torch.ops.metrics import metrics_eval_raw
+    from aa_clip_iqm_tpu_torch.train import graphs
 
     cfg = ctx["cfg"]
     layers = cfg.clip.vision.layers
     sizes = {"bottle": 24, "screw": 19}      # 19 = 8 + 8 + a tail of 3 (bucket 4)
     datasets = {c: MemoryDataset(c, n, IMG, seed=i) for i, (c, n) in enumerate(sizes.items())}
     n_images = sum(sizes.values())
-    batches = sum(-(-n // B) for n in sizes.values())
     eval_cfg = EvalConfig(dataset="MVTec", img_size=IMG, batch_size=B)
+    keys = ev.METRIC_KEYS
     total = dict.fromkeys(KERNELS, 0)
     for tier, det in (("none", ctx["det"]), ("int8", ctx["det_int8"])):
-        shapes = []
-        inner = ev.make_predict_fn
+        cache = graphs.GraphCache()
 
-        def spying(*a, **k):
-            fn = inner(*a, **k)
-
-            def predict(frozen, trainable, images, anchors):
-                shapes.append(images.shape[0])
-                return fn(frozen, trainable, images, anchors)
-
-            return predict
-
-        reset_counts()
-        ev.make_predict_fn = spying
-        try:
+        def sweep(graph_cache=cache):
             t0 = time.perf_counter()
             rows = ev.evaluate_dataset(det.frozen, det.trainable, cfg, eval_cfg, datasets,
-                                       det.anchors, compute_dtype=torch.bfloat16)
+                                       det.anchors, compute_dtype=torch.bfloat16,
+                                       graphs=graph_cache)
             torch.cuda.synchronize()
-            seconds = time.perf_counter() - t0
-        finally:
-            ev.make_predict_fn = inner
+            return rows, time.perf_counter() - t0
+
+        reset_counts()
+        rows, first_s = sweep()              # captures the buckets' graphs
         got = read_counts()
-        log(f"# sweep, tier {tier}: {n_images} images in {seconds:.2f} s = "
-            f"{n_images / seconds:.2f} images/s on {card} (decode, predict and device "
-            f"metrics), batches {shapes}, launches {got}")
-        require(shapes == [8, 8, 8, 8, 8, 4], f"sweep batches {shapes}: tail bucket not used")
+        with eager_programs():
+            rows_eager, _ = sweep(None)      # the eager program's first run
+        # Timed in turns: graphs, eager, eager, graphs.
+        timed = {"graphs": [], "eager": []}
+        for route in ("graphs", "eager", "eager", "graphs"):
+            with eager_programs() if route == "eager" else contextlib.nullcontext():
+                out, sec = sweep(cache if route == "graphs" else None)
+            timed[route].append(sec)
+            if route == "graphs":
+                rows_again = out
+        seconds, eager_s = (sum(timed[r]) / 2 for r in ("graphs", "eager"))
         mlp = "ln_mlp_residual_int8" if tier == "int8" else "ln_mlp_residual"
-        want = dict.fromkeys(KERNELS, 0)
-        want.update({"packed_attention": batches * layers, mlp: batches * layers})
-        require(got == want, f"sweep tier {tier}: launches {got}, want {want}")
-        add_counts(total, got)
+        per_forward = counts_of(packed_attention=layers, **{mlp: layers})
+        buckets, captured, ran = {}, dict.fromkeys(KERNELS, 0), dict.fromkeys(KERNELS, 0)
+        for cap in cache.captures:
+            bucket = cap.inputs[0].shape[0]
+            per = graph_launches(cap, f"sweep, tier {tier}, bucket {bucket}")
+            require(per == per_forward, f"sweep tier {tier}, bucket {bucket}: a replay "
+                    f"launched {per}, want {per_forward}")
+            buckets[bucket] = cap.replays
+            for name in KERNELS:
+                captured[name] += 2 * per[name]
+                ran[name] += cap.replays * per[name]
+        log(f"# sweep, tier {tier}: {n_images} images, {n_images / seconds:.2f} images/s on "
+            f"graphs ({n_images / first_s:.2f} with the captures), {n_images / eager_s:.2f} "
+            f"eager, on {card} (predict and device metrics; two sweeps each, in turns); "
+            f"replays by bucket {buckets} over three sweeps, launches in replays {ran}, "
+            f"counters (warm-ups and captures) {got}")
+        require(buckets == {8: 15, 4: 3}, f"sweep buckets {buckets}: tail bucket not used")
+        require(got == captured, f"sweep tier {tier}: counters {got}, want {captured}")
         for line in ev.results_table(rows).splitlines():
             log(f"#   {line}")
         require([r["class name"] for r in rows] == list(sizes) + ["Average"], "sweep rows")
+        worst = max(abs(r[k] - e[k]) / 100 for rs in (rows, rows_again)
+                    for r, e in zip(rs, rows_eager) for k in keys)
+        log(f"#   graphs against eager: metrics within {worst:.2e} (tol {METRIC_TOL:.0e})")
+        require(worst <= METRIC_TOL + 1e-12, f"sweep tier {tier}: graph metrics differ from "
+                f"eager by {worst}")
         predict_fn = ev.make_predict_fn(cfg, IMG, "Industrial", compute_dtype=torch.bfloat16)
         for row, (name, ds) in zip(rows, datasets.items()):
             preds = ev.predict_class(predict_fn, det.frozen, det.trainable, ds,
@@ -1888,10 +2028,81 @@ def phase_sweep(card, ctx):
             require(np.isfinite(dev).all() and ((dev >= 0) & (dev <= 1)).all(),
                     f"sweep {name}: metrics {dev}")
             require(diff <= METRIC_TOL, f"sweep {name}: device and host metrics differ by {diff}")
-            for key, v in zip(ev.METRIC_KEYS, dev):
+            for key, v in zip(keys, dev):
                 require(abs(row[key] - round(float(v), 4) * 100) < 1e-9,
                         f"sweep {name}: row {key} {row[key]} is not the device metric {v}")
+        add_counts(total, read_counts())
+        del cache
+    add_counts(total, sweep_disk(card, ctx))
     return total
+
+
+def sweep_disk(card, ctx):
+    """The sweep a user of cli.evaluate runs: anchors, then evaluate_dataset
+    over PNGs on disk (2 classes x 24 at 600 px, resized to 518 by the data
+    layer, uint8 to the device), on graphs, with the native transforms on
+    and off, at AACLIP_DATA_WORKERS 1 and 4, after a warm-up sweep that
+    captures."""
+    import tempfile
+
+    import torch
+
+    from aa_clip_iqm_tpu_torch.configs import EvalConfig
+    from aa_clip_iqm_tpu_torch.data import datasets as data
+    from aa_clip_iqm_tpu_torch.data import synthetic
+    from aa_clip_iqm_tpu_torch.evaluation.predict import evaluate_dataset
+    from aa_clip_iqm_tpu_torch.prompts import compute_frozen_anchors
+    from aa_clip_iqm_tpu_torch.train import graphs
+
+    cfg, det = ctx["cfg"], ctx["det"]
+    classes = ("widget", "gadget")
+    saved = {k: os.environ.get(k) for k in ("AACLIP_NATIVE", "AACLIP_DATA_WORKERS")}
+    reset_counts()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sweep_") as root:
+        synthetic.generate(root, n_normal=12, n_anomalous=12, size=IMG + 82,
+                           class_names=classes, seed=3, dataset_name="Synth")
+        meta_root = synthetic.register_synthetic(root, class_names=classes)
+        sets = data.get_dataset("Synth", IMG, None, -1, "test", metadata_root=meta_root,
+                                device_normalize=True)
+        n_images = sum(len(d) for d in sets.values())
+        eval_cfg = EvalConfig(dataset="Synth", img_size=IMG, batch_size=16,
+                              compute_dtype="bfloat16")
+        cache = graphs.GraphCache()
+        rates, pixel_auc = {}, {}
+        try:
+            # A warm-up sweep that captures, then the four settings in turns
+            # (native and PIL at one thread twice each).
+            for i, (native, workers) in enumerate((("1", 1), ("1", 1), ("0", 1), ("0", 4),
+                                                   ("1", 4), ("1", 1), ("0", 1))):
+                os.environ["AACLIP_NATIVE"], os.environ["AACLIP_DATA_WORKERS"] = (
+                    native, str(workers))
+                t0 = time.perf_counter()
+                anchors = compute_frozen_anchors(det.frozen, det.trainable, cfg, "Synth",
+                                                 adapted=False, compute_dtype=torch.bfloat16)
+                rows = evaluate_dataset(det.frozen, det.trainable, cfg, eval_cfg, sets, anchors,
+                                        compute_dtype=torch.bfloat16, graphs=cache)
+                backend = "native" if data._use_native() else "PIL"
+                if i:
+                    rates.setdefault((backend, workers), []).append(
+                        n_images / (time.perf_counter() - t0))
+                pixel_auc[(backend, workers)] = rows[-1]["pixel AUC"]
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+    require(("native", 1) in rates and ("PIL", 1) in rates, f"sweep backends {list(rates)}")
+    require(sorted(c.replays for c in cache.captures) == [14, 14],
+            f"disk sweep replays {[c.replays for c in cache.captures]}")
+    log(f"# sweep over {n_images} PNGs at {IMG + 82} px resized to {IMG} (anchors, decode, "
+        "transforms, predict on graphs, device metrics; after a warm-up sweep that "
+        "captured, in turns): "
+        + ", ".join(f"{b} transforms, {w} decode thread{'s' * (w > 1)}: "
+                    f"{' and '.join(f'{r:.2f}' for r in rs)} images/s "
+                    f"(Average pixel AUC {pixel_auc[(b, w)]:.2f})"
+                    for (b, w), rs in rates.items()) + f" on {card}")
+    return read_counts()
 
 
 def phase_metrics_scale(card):
@@ -1948,28 +2159,241 @@ def named_leaves(tree, prefix=""):
         yield prefix[:-1], tree
 
 
+@contextlib.contextmanager
+def eager_programs():
+    """Inside, the training and evaluation programs run eagerly
+    (``train.graphs.enabled`` answers False): the route that replays are
+    held to and timed against."""
+    from aa_clip_iqm_tpu_torch.train import graphs
+
+    enabled = graphs.enabled
+    graphs.enabled = lambda device: False
+    try:
+        yield
+    finally:
+        graphs.enabled = enabled
+
+
+def graph_launches(cap, what, restore=contextlib.nullcontext):
+    """The kernel launches that one replay of capture ``cap``
+    (``train.graphs``) runs, measured as replay_launches measures a
+    detector's: a replay under the profiler must run the port's device
+    kernels that the eager program on the graph's own buffers (``cap.run``)
+    runs, each as many times, and the counters count the eager run's
+    launches. ``restore()`` undoes what a replay and the eager run do to a
+    training state. Measured again, up to three times in all, when the
+    profiler loses records."""
+    for attempt in range(3):
+        with restore():
+            replayed = port_kernels(cap.graph.replay)
+        with restore():
+            before = read_counts()
+            eager = port_kernels(cap.run)
+            launched = diff_counts(read_counts(), before)
+        if replayed and replayed == eager:
+            return launched
+        log(f"# {what}, measurement {attempt + 1}: a replay ran the port's kernels "
+            f"{sorted(replayed.values())} times, the eager program {sorted(eager.values())}")
+    raise Failure(f"{what}: a replay ran the port's kernels {replayed}, the eager program "
+                  f"{eager}")
+
+
+def rel_err(a, b):
+    """RMS of a - b over the RMS of b (0 where both are zero)."""
+    a, b = a.detach().float(), b.detach().float()
+    return float((a - b).square().mean().sqrt() / b.square().mean().sqrt().clamp_min(1e-30))
+
+
+def hold_replays(what, replayed, eager, again, fault=None):
+    """Graph replays against eager steps, each a list of tensors (losses,
+    features, updated tensors, optimizer state): bit for bit wherever two
+    eager runs (``eager``, ``again``) agree bit for bit, else within
+    REPLAY_TOL of them. ``fault``: replays on stale inputs, which must fail
+    the same gate. Returns whether the two eager runs agreed bit for bit."""
+    import torch
+
+    require(len(replayed) == len(eager) == len(again), f"{what}: tensor lists differ")
+    again_equal = all(torch.equal(a, b) for a, b in zip(again, eager))
+    again_rel = max(rel_err(a, b) for a, b in zip(again, eager))
+    equal = all(torch.equal(a, b) for a, b in zip(replayed, eager))
+    worst = max(rel_err(a, b) for a, b in zip(replayed, eager))
+    if again_equal:
+        held = "bit for bit (two eager runs agree bit for bit)"
+        require(equal, f"{what}: replays differ from the eager steps by {worst:.3e}, where two "
+                "eager runs agree bit for bit")
+    else:
+        held = (f"within {REPLAY_TOL:.0e}: worst rms diff / rms {worst:.3e} (two eager runs "
+                f"differ by {again_rel:.3e})")
+        require(worst <= REPLAY_TOL, f"{what}: replays differ from the eager steps by {worst}")
+    msg = f"# {what}: {len(eager)} tensors, replays against eager steps held {held}"
+    if fault is not None:
+        caught = (not all(torch.equal(a, b) for a, b in zip(fault, eager))
+                  and max(rel_err(a, b) for a, b in zip(fault, eager)) > REPLAY_TOL)
+        msg += (f"; planted fault (replays on the previous batch's images): worst "
+                f"{max(rel_err(a, b) for a, b in zip(fault, eager)):.3e}, "
+                f"{'caught' if caught else 'passed (NOT caught)'}")
+        require(caught, f"{what}: the gate missed replays on stale inputs")
+    log(msg)
+    return again_equal
+
+
+def update_err(a, b, before):
+    """Two optimizers' results ``a`` and ``b`` from the parameters
+    ``before``: the largest |a - b| beyond two float32 roundings of the
+    operands (2 eps max(|before|, |a|, |b|)), relative to the update
+    b - before, per element (0 where within the roundings)."""
+    import torch
+
+    eps = torch.finfo(torch.float32).eps
+    a, b, before = (t.detach().float() for t in (a, b, before))
+    floor = 2 * eps * torch.maximum(before.abs(), torch.maximum(a.abs(), b.abs()))
+    excess = ((a - b).abs() - floor).clamp_min(0.0)
+    update = (b - before).abs()
+    err = torch.where(excess == 0, torch.zeros_like(excess),
+                      excess / update.clamp_min(torch.finfo(torch.float32).tiny))
+    return float(err.max())
+
+
+def optimizer_tensors(opt_state):
+    """The optimizer's state tensors (moments, step counters), in order."""
+    import torch
+
+    return [v for st in opt_state.optimizer.state.values() for _, v in sorted(st.items())
+            if isinstance(v, torch.Tensor)]
+
+
+def stage2_batches(cfg, anchors, n=3, seed=21):
+    """``n`` seeded stage-2 batches of B on the card: images, masks, labels,
+    the anchors of alternating classes and weights."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    names = [list(anchors)[j % len(anchors)] for j in range(B)]
+    out = []
+    for _ in range(n):
+        out.append((
+            torch.from_numpy(rng.standard_normal((B, 3, IMG, IMG)).astype(np.float32)).to(DEVICE),
+            torch.from_numpy((rng.random((B, 1, IMG, IMG)) > 0.9).astype(np.float32)).to(DEVICE),
+            torch.from_numpy(rng.integers(0, 2, B)).to(DEVICE),
+            torch.stack([anchors[c] for c in names]),
+            torch.ones(B, device=DEVICE)))
+    return out
+
+
+def stage2_block(cfg, frozen, snap, batches, route, accum=1, n=3, stale=False):
+    """``n`` stage-2 steps at batch B from the snapshot ``snap`` (the
+    adapters and the optimizer's state): ``route`` "eager" (the capturable
+    optimizer, run eagerly), "plain" (the optimizer that is not capturable,
+    with float learning rates) or "graph" (replays of a GraphedStep;
+    ``stale`` skips the copy-in after the first step, a planted fault).
+    Returns (losses + updated tensors + optimizer state as one list, the
+    step, its optimizer, the parameters)."""
+    import copy
+
+    import torch
+
+    from aa_clip_iqm_tpu_torch.configs import TrainConfig
+    from aa_clip_iqm_tpu_torch.loader import init_trainable
+    from aa_clip_iqm_tpu_torch.models.convert import tree_leaves
+    from aa_clip_iqm_tpu_torch.train import graphs, optim, steps
+
+    params = init_trainable(cfg, seed=111, device=DEVICE, dtype=torch.float32,
+                            requires_grad=True)
+    with torch.no_grad():
+        for dst, src in zip(tree_leaves(params), snap["params"]):
+            dst.copy_(src)
+    opt = optim.stage2_optimizer(params, 5e-4, 3, graphable=route != "plain")
+    opt.load_state_dict(copy.deepcopy(snap["opt"]))
+    train_cfg = TrainConfig(img_size=IMG, compute_dtype="bfloat16", grad_accum_steps=accum)
+    step = steps.make_stage2_step(cfg, train_cfg, compute_dtype=torch.bfloat16)
+    if route == "graph":
+        step = graphs.GraphedStep(step, graphs.GraphCache(), "stage2 step")
+    drop = cfg.clip.vision.patch_dropout > 0
+    losses = []
+    for i in range(n):
+        rng = torch.Generator(device=DEVICE).manual_seed(1000 + i) if drop else None
+        if stale and i > 0:
+            (g,) = step.graphs.values()
+            for t, grad in zip(tree_leaves(params), g.grads):
+                t.grad = grad
+            g.graph.replay()
+            opt.advance()
+            losses.append(g.outputs.clone())
+        else:
+            losses.append(step(params, opt, frozen, *batches[i], rng)[2])
+    torch.cuda.synchronize()
+    return ([*losses, *(t.detach().clone() for t in tree_leaves(params)),
+             *(t.clone() for t in optimizer_tensors(opt))], step, opt, params)
+
+
+def stage1_block(cfg, frozen, snap, batches, prompts, route):
+    """The stage-1 batches from the snapshot ``snap`` (the text adapter and
+    its optimizer's state): the feature program and the step, eagerly with
+    the capturable optimizer (``route`` "eager") or as graph replays
+    ("graph"). Returns (features + losses + text adapter + optimizer state
+    as one list, the feature program, the step, the optimizer, the text
+    adapter)."""
+    import copy
+
+    import torch
+
+    from aa_clip_iqm_tpu_torch.configs import TrainConfig
+    from aa_clip_iqm_tpu_torch.loader import init_trainable
+    from aa_clip_iqm_tpu_torch.models.convert import tree_leaves
+    from aa_clip_iqm_tpu_torch.train import graphs, optim, steps
+
+    text = init_trainable(cfg, seed=111, device=DEVICE, dtype=torch.float32,
+                          requires_grad=True)["text_adapter"]
+    with torch.no_grad():
+        for dst, src in zip(tree_leaves(text), snap["params"]):
+            dst.copy_(src)
+    opt = optim.stage1_optimizer(text, 1e-5, graphable=True)
+    opt.load_state_dict(copy.deepcopy(snap["opt"]))
+    visual = steps.make_stage1_visual_fn(cfg, compute_dtype=torch.bfloat16)
+    step = steps.make_stage1_step(cfg, TrainConfig(img_size=IMG, dataset="Synth"), *prompts,
+                                  compute_dtype=torch.bfloat16)
+    if route == "graph":
+        cache = graphs.GraphCache()
+        visual = graphs.GraphedFn(visual, cache, "stage1 features")
+        step = graphs.GraphedStep(step, cache, "stage1 step")
+    out = []
+    for images, masks, class_idx, weights in batches:
+        feats = visual(frozen, images)
+        out.extend(f.clone() for f in feats)
+        out.append(step(text, opt, frozen, feats, masks, class_idx, weights)[2])
+    torch.cuda.synchronize()
+    return ([*out, *(t.detach().clone() for t in tree_leaves(text)),
+             *(t.clone() for t in optimizer_tensors(opt))], visual, step, opt, text)
+
+
 def phase_train(card, cfg, frozen):
     """run_training on a synthetic two-class dataset written to a temporary
-    directory: ViT-L-14-336 at 518 px, full depth, bf16 compute, float32
-    adapters; stage 1 for 2 steps, the anchors, stage 2 for 3 steps."""
-    import contextlib
+    directory at a size that the data layer resizes: ViT-L-14-336 at 518
+    px, full depth, bf16 compute, float32 adapters; stage 1 for 2 steps,
+    the anchors, stage 2 for 3 steps, every program a CUDA graph replay.
+    Then the replays against eager steps, the launches a replay runs, the
+    checkpoints and a resume, the gradients, and the rates of both routes."""
     import logging
     import tempfile
+    from dataclasses import replace
 
     import numpy as np
     import torch
 
     from aa_clip_iqm_tpu_torch.cli import bench
     from aa_clip_iqm_tpu_torch.configs import TrainConfig
-    from aa_clip_iqm_tpu_torch.data import synthetic
+    from aa_clip_iqm_tpu_torch.data import datasets, synthetic
     from aa_clip_iqm_tpu_torch.loader import init_trainable
     from aa_clip_iqm_tpu_torch.models import clip
     from aa_clip_iqm_tpu_torch.models.convert import tree_leaves
-    from aa_clip_iqm_tpu_torch.train import checkpoint as ckpt, driver, optim, steps
+    from aa_clip_iqm_tpu_torch.prompts import batched_prompt_tokens
+    from aa_clip_iqm_tpu_torch.train import checkpoint as ckpt, driver, graphs, optim, steps
 
     classes = ("bottle", "screw")
     layers, text_layers = cfg.clip.vision.layers, cfg.clip.text.layers
     vv_blocks = layers - clip.surgery_vv_from(layers, cfg.surgery_until_layer)
+    vis = layers + vv_blocks
     logger = logging.getLogger("chip_smoke.train")
     logger.addHandler(logging.NullHandler())
     logger.propagate = False
@@ -1986,138 +2410,167 @@ def phase_train(card, cfg, frozen):
         return [None if t.grad is None else t.grad.detach().clone()
                 for t in tree_leaves(params)]
 
-    # Every step that run_training takes goes through these spies: launch
-    # counts and the loss per step, and for the first stage-2 step its
-    # inputs, the parameters before it and the gradients after it.
-    record = {"stage1": [], "stage2": [], "first": None}
-    makers = (steps.make_stage1_step, steps.make_stage2_step)
+    # Every step and feature batch that run_training takes goes through
+    # these spies: the programs (and their captures), the loss and time per
+    # step, and for the first stage-2 step its inputs, the parameters before
+    # it and the gradients after it, and a step checkpoint after it (the
+    # point a resume starts from).
+    record = {"stage1": [], "stage2": [], "first": None, "programs": {}}
+    calls = (graphs.GraphedStep.__call__, graphs.GraphedFn.__call__)
+    resume_root = tempfile.mkdtemp(prefix="chip_smoke_resume_")
 
-    def spying(make, stage):
-        def make_spied(*a, **k):
-            step = make(*a, **k)
-
-            def spied(params, opt_state, *rest):
-                first = stage == "stage2" and record["first"] is None
-                before = snapshot(params) if first else None
-                torch.cuda.synchronize()
-                c0, t0 = read_counts(), time.perf_counter()
-                out = step(params, opt_state, *rest)
-                torch.cuda.synchronize()
-                ms = (time.perf_counter() - t0) * 1e3
-                c1 = read_counts()
-                record[stage].append({"counts": {n: c1[n] - c0[n] for n in KERNELS},
-                                      "ms": ms, "loss": float(out[2])})
-                if first:
-                    record["first"] = {"before": before, "args": rest,
-                                       "opt_state": opt_state, "grads": grads_of(params)}
-                return out
-
-            spied.loss_fn = step.loss_fn
-            return spied
-
-        return make_spied
-
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as root:
+    def spied_step(self, params, opt_state, *rest):
+        stage = self.name.split()[0]
+        first = stage == "stage2" and record["first"] is None
+        before = snapshot(params) if first else None
+        captures = len(self.cache.captures)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
-        synthetic.generate(root, n_normal=6, n_anomalous=6, size=IMG, class_names=classes,
-                           seed=11)
-        meta_root = synthetic.register_synthetic(root, classes)
-        train_cfg = TrainConfig(
-            dataset="Synth", img_size=IMG, training_mode="full_shot", shot=-1,
-            text_batch_size=16, image_batch_size=B, text_epoch=1, image_epoch=1,
-            save_path=os.path.join(root, "ckpt"), compute_dtype="bfloat16", remat=False)
-        log(f"# training: 24 synthetic images of {len(classes)} classes at {IMG}px written "
-            f"in {time.perf_counter() - t0:.1f} s")
-        reset_counts()
-        steps.make_stage1_step = spying(makers[0], "stage1")
-        steps.make_stage2_step = spying(makers[1], "stage2")
-        try:
-            t0 = time.perf_counter()
-            out, anchors = driver.run_training(frozen, trainable, cfg, train_cfg, logger,
-                                               metadata_root=meta_root)
-            torch.cuda.synchronize()
-            seconds = time.perf_counter() - t0
-        finally:
-            steps.make_stage1_step, steps.make_stage2_step = makers
-        counts = read_counts()
-        require(out is trainable and list(anchors) == list(classes), "run_training outputs")
-        rows = [json.loads(line) for line in open(os.path.join(train_cfg.save_path,
-                                                               "scalars.jsonl"))]
-        require([(r["stage"], r["step"]) for r in rows]
-                == [("stage1", 0), ("stage1", 1), ("stage2", 0), ("stage2", 1), ("stage2", 2)],
-                f"scalars.jsonl rows {rows}")
-        restored = init_trainable(cfg, seed=5, device=DEVICE, dtype=torch.float32)
-        _, adapted, epoch = ckpt.restore_adapters(train_cfg.save_path, restored)
-        require(adapted and epoch == 1, "restore_adapters found no trained checkpoint")
-        require(all(torch.equal(a, b) for a, b in zip(tree_leaves(restored),
-                                                      tree_leaves(trainable))),
-                "the epoch checkpoint does not hold the trained tensors")
+        out = calls[0](self, params, opt_state, *rest)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        record["programs"][self.name] = (self, params, opt_state)
+        record[stage].append({"ms": ms, "loss": float(out[2]),
+                              "captured": len(self.cache.captures) > captures})
+        if first:
+            record["first"] = {"before": before, "args": rest, "opt_state": opt_state,
+                               "grads": grads_of(params)}
+            ckpt.save_step(resume_root, "stage2", 0, 1, params, opt_state)
+        return out
 
-        # A step checkpoint written and read back: tensors and optimizer state
-        # bit for bit.
-        first = record["first"]
-        ckpt.save_step(train_cfg.save_path, "stage2", 0, 3, trainable, first["opt_state"])
-        other = init_trainable(cfg, seed=5, device=DEVICE, dtype=torch.float32)
-        opt2 = optim.stage2_optimizer(other, train_cfg.image_lr, 3)
-        got = ckpt.load_step(train_cfg.save_path, "stage2", other, opt2)
-        require(got is not None and (got["epoch"], got["step"]) == (0, 3), "load_step")
-        same = all(torch.equal(a, b) for a, b in zip(tree_leaves(other), tree_leaves(trainable)))
-        st_a = first["opt_state"].state_dict()["optimizer"]["state"]
-        st_b = opt2.state_dict()["optimizer"]["state"]
-        same_opt = st_a.keys() == st_b.keys() and all(
-            torch.equal(torch.as_tensor(st_a[k][f]).cpu(), torch.as_tensor(st_b[k][f]).cpu())
-            for k in st_a for f in st_a[k])
-        log(f"# training: step checkpoint round trip: tensors equal {same}, optimizer state "
-            f"equal {same_opt} ({len(st_a)} tensors with moments)")
-        require(same and same_opt, "a reloaded step checkpoint differs from what was saved")
-        del restored, other, opt2
+    def spied_fn(self, *args):
+        record["programs"][self.name] = (self, None, None)
+        return calls[1](self, *args)
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_")   # removed at the phase's end
+    t0 = time.perf_counter()
+    written = IMG + 82          # 600 px: the data layer resizes every image
+    synthetic.generate(root, n_normal=6, n_anomalous=6, size=written, class_names=classes,
+                       seed=11)
+    meta_root = synthetic.register_synthetic(root, classes)
+    train_cfg = TrainConfig(
+        dataset="Synth", img_size=IMG, training_mode="full_shot", shot=-1,
+        text_batch_size=16, image_batch_size=B, text_epoch=1, image_epoch=1,
+        save_path=os.path.join(root, "ckpt"), compute_dtype="bfloat16", remat=False)
+    log(f"# training: 24 synthetic images of {len(classes)} classes at {written} px "
+        f"written in {time.perf_counter() - t0:.1f} s; transforms: "
+        f"{'native' if datasets._use_native() else 'PIL'} (resized to {IMG} px)")
+    require(datasets._use_native(), "training: the data layer is not on the native "
+            "transforms")
+    reset_counts()
+    graphs.GraphedStep.__call__, graphs.GraphedFn.__call__ = spied_step, spied_fn
+    try:
+        t0 = time.perf_counter()
+        out, anchors = driver.run_training(frozen, trainable, cfg, train_cfg, logger,
+                                           metadata_root=meta_root)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        graphs.GraphedStep.__call__, graphs.GraphedFn.__call__ = calls
+    counts = read_counts()
+    final = snapshot(trainable)
+    require(out is trainable and list(anchors) == list(classes), "run_training outputs")
+    rows = [json.loads(line) for line in open(os.path.join(train_cfg.save_path,
+                                                           "scalars.jsonl"))]
+    require([(r["stage"], r["step"]) for r in rows]
+            == [("stage1", 0), ("stage1", 1), ("stage2", 0), ("stage2", 1), ("stage2", 2)],
+            f"scalars.jsonl rows {rows}")
+    restored = init_trainable(cfg, seed=5, device=DEVICE, dtype=torch.float32)
+    _, adapted, epoch = ckpt.restore_adapters(train_cfg.save_path, restored)
+    require(adapted and epoch == 1, "restore_adapters found no trained checkpoint")
+    require(all(torch.equal(a, b) for a, b in zip(tree_leaves(restored),
+                                                  tree_leaves(trainable))),
+            "the epoch checkpoint does not hold the trained tensors")
+
+    # A step checkpoint of the graphed run written and read back: tensors
+    # and optimizer state bit for bit.
+    first = record["first"]
+    ckpt.save_step(train_cfg.save_path, "stage2", 0, 3, trainable, first["opt_state"])
+    other = init_trainable(cfg, seed=5, device=DEVICE, dtype=torch.float32)
+    opt2 = optim.stage2_optimizer(other, train_cfg.image_lr, 3)
+    got = ckpt.load_step(train_cfg.save_path, "stage2", other, opt2)
+    require(got is not None and (got["epoch"], got["step"]) == (0, 3), "load_step")
+    same = all(torch.equal(a, b) for a, b in zip(tree_leaves(other), tree_leaves(trainable)))
+    st_a = first["opt_state"].state_dict()["optimizer"]["state"]
+    st_b = opt2.state_dict()["optimizer"]["state"]
+    same_opt = st_a.keys() == st_b.keys() and all(
+        torch.equal(torch.as_tensor(st_a[k][f]).cpu(), torch.as_tensor(st_b[k][f]).cpu())
+        for k in st_a for f in st_a[k])
+    log(f"# training: step checkpoint round trip of the graphed run: tensors equal {same}, "
+        f"optimizer state equal {same_opt} ({len(st_a)} tensors with moments)")
+    require(same and same_opt, "a reloaded step checkpoint differs from what was saved")
+    del restored, other, opt2
+    image_ds = datasets.get_dataset(train_cfg.dataset, IMG, train_cfg.training_mode,
+                                    train_cfg.shot, "train", logger,
+                                    metadata_root=meta_root, seed=train_cfg.seed)[1]
 
     s1, s2 = record["stage1"], record["stage2"]
-    log(f"# training: run_training took {seconds:.1f} s; launches {counts}")
+    log(f"# training: run_training took {seconds:.1f} s on graphs; launches {counts} (warm-ups, "
+        "captures and the anchors: a replay moves no counter)")
     for stage, recs in (("stage1", s1), ("stage2", s2)):
         for i, r in enumerate(recs):
-            log(f"#   {stage} step {i}: loss {r['loss']:.5f}, {r['ms']:.1f} ms, "
-                f"launches {r['counts']}")
+            log(f"#   {stage} step {i}: loss {r['loss']:.5f}, {r['ms']:.1f} ms"
+                f"{' (warm-up and capture included)' if r['captured'] else ' (replay)'}")
     require(len(s1) == 2 and len(s2) == 3, f"steps taken: {len(s1)} + {len(s2)}")
     require(all(np.isfinite(r["loss"]) for r in s1 + s2), "a training loss is not finite")
-    # Stage 1: the step proper is the text tower's forward, whose backward
-    # differentiates the plain chain, so no backward kernel. The dual visual
-    # towers (shared prefix, then the value-value and the plain branch) run
-    # before each step without a graph and show in the run's totals.
-    vis = layers + vv_blocks
-    for r in s1:
-        require(r["counts"] == counts_of(ln_mlp_residual=text_layers),
-                f"stage-1 step launches {r['counts']}")
-    # Stage 2: block 0's input needs no gradient (its adapter comes after
-    # it), so autograd calls the backward of blocks 1 .. layers-1 only.
-    for r in s2:
-        require(r["counts"] == counts_of(packed_attention=layers, ln_mlp_residual=layers,
-                                         packed_attention_bwd=layers - 1,
-                                         ln_mlp_residual_dx=layers - 1),
-                f"stage-2 step launches {r['counts']}")
-    require(counts == counts_of(
-        packed_attention=2 * vis + 3 * layers,
-        ln_mlp_residual=2 * (vis + text_layers) + text_layers + 3 * layers,
-        packed_attention_bwd=3 * (layers - 1), ln_mlp_residual_dx=3 * (layers - 1)),
-        f"run_training launches {counts}")
+
+    # What each replay launches, measured (graph_launches), and the run's
+    # counters: a warm-up and a capture of each graph, and the anchors.
+    features, _, _ = record["programs"]["stage1 features"]
+    s1_step, s1_params, s1_opt = record["programs"]["stage1 step"]
+    s2_step, s2_params, s2_opt = record["programs"]["stage2 step"]
+    want = {"stage1 features": counts_of(packed_attention=vis, ln_mlp_residual=vis),
+            "stage1 step": counts_of(ln_mlp_residual=text_layers),
+            "stage2 step": counts_of(packed_attention=layers, ln_mlp_residual=layers,
+                                     packed_attention_bwd=layers - 1,
+                                     ln_mlp_residual_dx=layers - 1)}
+    restores = {"stage1 features": contextlib.nullcontext,
+                "stage1 step": lambda: graphs.state_restored(s1_params, s1_opt),
+                "stage2 step": lambda: graphs.state_restored(s2_params, s2_opt)}
+    expected = counts_of(ln_mlp_residual=text_layers)
+    for prog in (features, s1_step, s2_step):
+        for cap in prog.graphs.values():
+            what = f"training graph {prog.name}, batch {cap.inputs[0].shape[0]}"
+            per = graph_launches(cap, what, restores[prog.name])
+            log(f"# {what}: {cap.replays} replays, each {per}; captured in "
+                f"{cap.capture_s:.2f} s, pool +{cap.pool_bytes / 1e9:.2f} GB")
+            require(per == want[prog.name], f"{what}: a replay launched {per}, want "
+                    f"{want[prog.name]}")
+            for name in KERNELS:
+                expected[name] += 2 * per[name]
+    require(sorted(c.replays for c in features.graphs.values()) == [1, 1]
+            and sorted(c.replays for c in s1_step.graphs.values()) == [1, 1]
+            and [c.replays for c in s2_step.graphs.values()] == [3],
+            "the replays are not the steps taken")
+    require(all(int(v) == n for opt, n in ((s1_opt, 2), (s2_opt, 3))
+                for st in opt.optimizer.state.values() for k, v in st.items() if k == "step"),
+            "the optimizers' step counters are not the steps taken")
+    require(counts == expected, f"run_training launches {counts}, want {expected}")
+    log(f"# training: the graphs took exactly the steps of the run (2 stage-1, 3 stage-2 "
+        f"replays; the optimizers' step counters 2 and 3); stage-2 pool "
+        f"{s2_step.cache.memory() / 1e9:.2f} GB, stage 1 {s1_step.cache.memory() / 1e9:.2f} GB")
 
     # What moved: stage 1 trains the text adapter, stage 2 the image and IQM
     # groups; the rest of the "frozen" label group stays as it was made.
-    moved = [not torch.equal(a, b) for a, b in zip(start, tree_leaves(trainable))]
+    moved = [not torch.equal(a, b) for a, b in zip(start, final)]
     for name, label, m in zip(names, labels, moved):
-        want = label != "frozen" or name.startswith("text_adapter/")
-        require(m == want, f"{name} ({label}): {'moved' if m else 'did not move'}")
+        want_move = label != "frozen" or name.startswith("text_adapter/")
+        require(m == want_move, f"{name} ({label}): {'moved' if m else 'did not move'}")
     log(f"# training: {sum(moved)} of {len(moved)} tensors moved; the "
         f"{len(moved) - sum(moved)} that did not carry the 'frozen' label")
     require(all(not t.requires_grad and t.grad is None for t in tree_leaves(frozen)),
             "the frozen backbone got a gradient")
+    s1_snap = {"params": snapshot(s1_params), "opt": copy.deepcopy(s1_opt.state_dict())}
+    s2_snap = {"params": final, "opt": copy.deepcopy(s2_opt.state_dict())}
+    del record["programs"], features, s1_step, s2_step, s1_params, s1_opt, s2_params, s2_opt
+    torch.cuda.empty_cache()
 
-    # The first stage-2 step once more from the same parameters: through the
-    # kernels (must reproduce the recorded gradients), with the backward
-    # kernels alone swapped for their plain versions (and for a planted
-    # fault), and with every kernel swapped. That last route checkpoints its
-    # blocks: autograd through the plain attention would otherwise keep every
-    # block's (B, H, L, L) probabilities.
+    # The first stage-2 step once more from the same parameters, eagerly:
+    # twice through the kernels (the replay's gradients against them), with
+    # the backward kernels alone swapped for their plain versions (and for a
+    # planted fault), and with every kernel swapped. That last route
+    # checkpoints its blocks: autograd through the plain attention would
+    # otherwise keep every block's (B, H, L, L) probabilities.
     _, images, masks, labels_t, anchor_stack, weights, rng = first["args"]
 
     def grads_through(route, remat, batch=B):
@@ -2137,17 +2590,15 @@ def phase_train(card, cfg, frozen):
         torch.cuda.synchronize()
         return float(loss.detach()), grads_of(params)
 
-    def rel(a, b):
-        return float((a.float() - b.float()).square().mean().sqrt()
-                     / b.float().square().mean().sqrt().clamp_min(1e-30))
-
+    rel = rel_err
     _, g_again = grads_through(contextlib.nullcontext(), remat=False)
+    _, g_twice = grads_through(contextlib.nullcontext(), remat=False)
     require(all((a is None) == (b is None) for a, b in zip(first["grads"], g_again)),
-            "a second run of the step gives gradients to other tensors")
-    pairs = [(a, b) for a, b in zip(g_again, first["grads"]) if a is not None]
-    again_equal = all(torch.equal(a, b) for a, b in pairs)
-    again_rel = max(rel(a, b) for a, b in pairs)
-    require(again_rel <= 1e-3, f"the same step twice: gradients differ by {again_rel}")
+            "the eager step gives gradients to other tensors than the replay")
+    hold_replays("training, the first stage-2 step's gradients (run_training's replay)",
+                 [g for g in first["grads"] if g is not None],
+                 [g for g in g_again if g is not None], [g for g in g_twice if g is not None])
+    del g_twice
     # (a) The same forward kernels with the backward kernels swapped for
     # their plain versions: only the adapters of blocks 0-5 lie upstream of a
     # backward kernel, every other tensor must come out the same.
@@ -2158,7 +2609,7 @@ def phase_train(card, cfg, frozen):
     upstream = "image_adapter/layer_adapters/"
     worst = {"bwd": 0.0, "fault": 0.0, "twins": 0.0, "rest": 0.0, "rest_twins": (0.0, "")}
     got_grad = 0
-    for name, gk, gb, gf, gp in zip(names, first["grads"], g_bwd, g_fault, g_plain):
+    for name, gk, gb, gf, gp in zip(names, g_again, g_bwd, g_fault, g_plain):
         require((gk is None) == (gb is None) == (gp is None),
                 f"{name}: a gradient on one route only")
         if gk is None:
@@ -2183,8 +2634,7 @@ def phase_train(card, cfg, frozen):
                 log(f"#   grad {name} (downstream of the tower): rms "
                     f"{gp.float().square().mean().sqrt().item():.3e}, kernels vs all plain "
                     f"{rp:.3e}")
-    block0 = trainable["image_adapter"]["layer_adapters"][0]["w"]
-    g0 = first["grads"][[id(t) for t in tree_leaves(trainable)].index(id(block0))]
+    g0 = g_again[names.index("image_adapter/layer_adapters/0/w")]
     require(g0 is not None and g0.abs().max().item() > 0,
             "no gradient reached block 0's adapter")
     log(f"# training, first stage-2 step, {got_grad} tensors with gradients. Adapters of blocks "
@@ -2194,8 +2644,7 @@ def phase_train(card, cfg, frozen):
         f"{GRAD_TOL:.0e}). Other tensors: kernels vs plain backward {worst['rest']:.3e} (the "
         f"same forward), vs all plain at most {worst['rest_twins'][0]:.3e} "
         f"({worst['rest_twins'][1]}; forward rounding only, not held). Loss {s2[0]['loss']:.5f}, "
-        f"plain backward {loss_b:.5f}, all plain {loss_p:.5f}; the kernel route twice: gradients "
-        f"{'equal bit for bit' if again_equal else f'differ by at most {again_rel:.3e}'}")
+        f"plain backward {loss_b:.5f}, all plain {loss_p:.5f}")
     require(worst["rest"] <= 1e-6, "a tensor downstream of the tower depends on the backward route")
     require(worst["fault"] > GRAD_BWD_TOL, "the gradient check missed the planted fault")
 
@@ -2221,7 +2670,7 @@ def phase_train(card, cfg, frozen):
         fused_counts = diff_counts(read_counts(), reset)
     finally:
         clip.FUSED_ATTN = False
-    fz_rel = max(rel(a, b) for name, a, b in zip(names, g_fz, first["grads"])
+    fz_rel = max(rel(a, b) for name, a, b in zip(names, g_fz, g_again)
                  if name.startswith(upstream) and a is not None)
     log(f"# training, the first stage-2 step with the fused attention half: loss {loss_fz:.5f} "
         f"(flag off {s2[0]['loss']:.5f}), adapters of blocks 0-5 against the flag off: worst rms "
@@ -2235,16 +2684,136 @@ def phase_train(card, cfg, frozen):
     del g_again, g_bwd, g_plain, g_fault, g_a, g_b, g_fz, record, first
     torch.cuda.empty_cache()
 
-    # Rates of both stages (cli/bench.py's train and stage1 modes: a fixed
-    # device-resident batch, MVTec's prompt ensemble, CUDA events) and where
-    # a stage-2 step's time goes.
+    # Stage 2 from one snapshot (run_training's adapters and optimizer after
+    # its 3 steps): 3 replays of a captured step against 3 eager steps of the
+    # capturable optimizer (and 3 again, for the gate), at accum 1 and 2,
+    # with patch dropout and on the fused route; the eager step against the
+    # optimizer that is not capturable; a replay on stale inputs.
+    batches = stage2_batches(cfg, anchors)
+    cfg_drop = replace(cfg, clip=replace(cfg.clip, vision=replace(cfg.clip.vision,
+                                                                  patch_dropout=0.25)))
+    deterministic = {}
+    for label, model, accum, fused in (("accum 1", cfg, 1, False), ("accum 2", cfg, 2, False),
+                                       ("patch dropout 0.25", cfg_drop, 1, False),
+                                       ("fused attention", cfg, 1, True)):
+        clip.FUSED_ATTN = fused
+        try:
+            reset = read_counts()
+            eager, _, _, _ = stage2_block(model, frozen, s2_snap, batches, "eager", accum)
+            again, _, _, _ = stage2_block(model, frozen, s2_snap, batches, "eager", accum)
+            replayed, gstep, gopt, gparams = stage2_block(model, frozen, s2_snap, batches,
+                                                          "graph", accum)
+            add_counts(counts, diff_counts(read_counts(), reset))
+            (cap,) = gstep.graphs.values()
+            per = graph_launches(cap, f"stage 2, {label}",
+                                 lambda: graphs.state_restored(gparams, gopt))
+            k = 2 if accum == 2 else 1
+            attn = {"ln_attn_residual": k * layers} if fused else {
+                "packed_attention": k * layers, "packed_attention_bwd": k * (layers - 1)}
+            want_per = counts_of(ln_mlp_residual=k * layers, ln_mlp_residual_dx=k * (layers - 1),
+                                 **attn)
+            require(per == want_per, f"stage 2, {label}: a replay launched {per}, want "
+                    f"{want_per}")
+            fault = None
+            if label == "accum 1":
+                fault, _, _, _ = stage2_block(model, frozen, s2_snap, batches, "graph", accum,
+                                              stale=True)
+            deterministic[label] = hold_replays(
+                f"training, stage 2 at batch {B}, {label}, 3 steps from one snapshot (each "
+                f"replay {per})", replayed, eager, again, fault)
+            log(f"#   stage 2, {label}: capture {cap.capture_s:.2f} s (warm-up included), "
+                f"pool {gstep.cache.memory() / 1e9:.2f} GB")
+            if label == "accum 1":
+                # One eager step against the optimizer that is not capturable
+                # (float learning rates, step counters on the host): the same
+                # loss, the updated tensors within float32 rounding.
+                plain, _, _, _ = stage2_block(model, frozen, s2_snap, batches, "plain", n=1)
+                one, _, _, _ = stage2_block(model, frozen, s2_snap, batches, "eager", n=1)
+                n_params = len(s2_snap["params"])
+                pairs = list(zip(one[1:1 + n_params], plain[1:1 + n_params],
+                                 s2_snap["params"]))
+                err = max(update_err(a, b, s) for a, b, s in pairs)
+                differ = sum(int((a != b).sum()) for a, b, _ in pairs)
+                log(f"# training, stage 2, the capturable optimizer against the one that is "
+                    f"not: loss {'equal' if torch.equal(one[0], plain[0]) else 'differs'} "
+                    f"({float(one[0]):.6f} and {float(plain[0]):.6f}); {differ} of "
+                    f"{sum(a.numel() for a, _, _ in pairs)} updated elements differ, by at "
+                    f"most {err:.3e} of their update beyond two float32 roundings (tol "
+                    f"{UPDATE_TOL:.0e})")
+                require(torch.equal(one[0], plain[0]) or not deterministic.get("accum 1", True),
+                        "the two optimizers' steps start from different losses")
+                require(err <= UPDATE_TOL, f"the capturable optimizer's update differs by {err}")
+                profile_call(lambda: gstep(gparams, gopt, frozen, *batches[0], None),
+                             f"one stage-2 step at batch {B}, graph replay")
+            del eager, again, replayed, gstep, gopt, gparams, cap, fault
+        finally:
+            clip.FUSED_ATTN = False
+        torch.cuda.empty_cache()
+
+    # A resume of the graphed run from its step checkpoint after stage-2
+    # step 1: run_stage2 restores, captures anew and takes steps 1 and 2;
+    # its adapters against the uninterrupted run's.
+    resumed = init_trainable(cfg, seed=5, device=DEVICE, dtype=torch.float32, requires_grad=True)
+    resume_cfg = replace(train_cfg, save_path=resume_root, checkpoint_every_steps=1)
+    reset = read_counts()
+    t0 = time.perf_counter()
+    driver.run_stage2(frozen, resumed, cfg, resume_cfg, image_ds, anchors, logger)
+    torch.cuda.synchronize()
+    add_counts(counts, diff_counts(read_counts(), reset))
+    shutil.rmtree(resume_root, ignore_errors=True)
+    pairs = list(zip(tree_leaves(resumed), final))
+    r_equal = all(torch.equal(a, b) for a, b in pairs)
+    r_worst = max(rel(a, b) for a, b in pairs)
+    log(f"# training, resume from the graphed run's step checkpoint at stage-2 step 1 (a new "
+        f"capture, steps 1 and 2 in {time.perf_counter() - t0:.1f} s): adapters "
+        f"{'equal bit for bit' if r_equal else f'within {r_worst:.3e}'} of the uninterrupted "
+        "run's")
+    if deterministic["accum 1"]:
+        require(r_equal, f"the resumed run differs from the uninterrupted one by {r_worst}")
+    else:
+        require(r_worst <= REPLAY_TOL, f"the resumed run differs by {r_worst}")
+    del resumed, image_ds
+
+    # Stage 1 from one snapshot (run_training's text adapter and Adam state):
+    # 3 feature batches and steps at batch 16 as replays against eager.
+    prompt_classes, tokens, n_norm, n_abn = batched_prompt_tokens(train_cfg.dataset)
+    s1_prompts = (torch.from_numpy(np.asarray(tokens, np.int64)).to(DEVICE),
+                  len(prompt_classes), n_norm, n_abn)
+    gen = np.random.default_rng(31)
+    s1_batches = [(torch.from_numpy(gen.standard_normal((16, 3, IMG, IMG)).astype(np.float32))
+                   .to(DEVICE),
+                   torch.from_numpy((gen.random((16, 1, IMG, IMG)) > 0.9).astype(np.float32))
+                   .to(DEVICE),
+                   torch.from_numpy(gen.integers(0, len(prompt_classes), 16)).to(DEVICE),
+                   torch.ones(16, device=DEVICE)) for _ in range(3)]
+    reset = read_counts()
+    eager, _, _, _, _ = stage1_block(cfg, frozen, s1_snap, s1_batches, s1_prompts, "eager")
+    again, _, _, _, _ = stage1_block(cfg, frozen, s1_snap, s1_batches, s1_prompts, "eager")
+    replayed, gvis, gstep, gopt, gtext = stage1_block(cfg, frozen, s1_snap, s1_batches,
+                                                      s1_prompts, "graph")
+    add_counts(counts, diff_counts(read_counts(), reset))
+    hold_replays("training, stage 1 at batch 16, 3 feature batches and steps from one snapshot",
+                 replayed, eager, again)
+    profile_call(lambda: gstep(gtext, gopt, frozen, gvis(frozen, s1_batches[0][0]),
+                               *s1_batches[0][1:]),
+                 "one stage-1 batch of 16, graph replays (features and step)")
+    del eager, again, replayed, gvis, gstep, gopt, gtext, s1_batches
+    torch.cuda.empty_cache()
+
+    # Rates of both stages on both routes (cli/bench.py's train and stage1
+    # modes: a fixed device-resident batch, MVTec's prompt ensemble, CUDA
+    # events around blocks of 3), and where an eager stage-2 step's time goes.
     for mode, batch in (("stage1", 16), ("train", B)):
-        samples, _ = bench._measure_train(mode, cfg, frozen, batch, IMG, None, iters=3,
-                                          repeats=2)
-        ips = float(np.median(samples))
-        log(f"# training, {bench.TRAIN_METRICS[mode]}: {ips:.2f} images/s, "
-            f"{batch / ips * 1e3:.1f} ms per step of {batch} on {card} "
-            f"(blocks of 3 steps: {', '.join(f'{s:.2f}' for s in samples)})")
+        rates = {}
+        for route in ("graphs", "eager"):
+            with eager_programs() if route == "eager" else contextlib.nullcontext():
+                samples, _ = bench._measure_train(mode, cfg, frozen, batch, IMG, None, iters=3,
+                                                  repeats=2)
+            rates[route] = float(np.median(samples))
+            log(f"# training, {bench.TRAIN_METRICS[mode]}, {route}: {rates[route]:.2f} "
+                f"images/s, {batch / rates[route] * 1e3:.1f} ms per step of {batch} on {card} "
+                f"(blocks of 3 steps: {', '.join(f'{s:.2f}' for s in samples)})")
+        log(f"# training, {mode}: graphs / eager {rates['graphs'] / rates['eager']:.3f}")
     step_cfg = TrainConfig(dataset="Synth", img_size=IMG, compute_dtype="bfloat16")
     step = steps.make_stage2_step(cfg, step_cfg, compute_dtype=torch.bfloat16)
     opt_state = optim.stage2_optimizer(trainable, step_cfg.image_lr, 100)
@@ -2253,9 +2822,11 @@ def phase_train(card, cfg, frozen):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     profile_call(lambda: step(trainable, opt_state, frozen, *args),
-                 f"one stage-2 step at batch {B}")
-    log(f"# training: peak memory of a stage-2 step at batch {B} "
-        f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+                 f"one stage-2 step at batch {B}, eager")
+    log(f"# training: peak memory of an eager stage-2 step at batch {B} "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB (a graph's pool holds a step's "
+        "activations for as long as the graph lives: the pool sizes above)")
+    shutil.rmtree(root, ignore_errors=True)
     return counts
 
 
@@ -2579,7 +3150,12 @@ def phase_serve(card):
     from aa_clip_iqm_tpu_torch import loader
     from aa_clip_iqm_tpu_torch.cli import single_image
     from aa_clip_iqm_tpu_torch.cli.serve import make_server, serve_forever_in_thread
-    from aa_clip_iqm_tpu_torch.data.datasets import _load_image, _load_image_u8, normalize_clip
+    from aa_clip_iqm_tpu_torch.data.datasets import (
+        _load_image,
+        _load_image_u8,
+        _use_native,
+        normalize_clip,
+    )
     from aa_clip_iqm_tpu_torch.evaluation.scoring import similarity_map_test
     from aa_clip_iqm_tpu_torch.models import adapters, clip
     from aa_clip_iqm_tpu_torch.models.convert import (
@@ -2694,7 +3270,8 @@ def phase_serve(card):
                 f"predict_paths: maps {maps_p.shape}, finite {np.isfinite(maps_p).all()}")
         require(np.array_equal(maps_p, maps_u) and np.array_equal(scores_p, scores_u),
                 "predict_paths differs from predict on the same decoded images")
-        log(f"# serve: predict_paths of {B} PNGs equals predict on their uint8 arrays bit for bit")
+        log(f"# serve: predict_paths of {B} PNGs equals predict on their uint8 arrays bit for "
+            f"bit (decoded with the {'native' if _use_native() else 'PIL'} transforms)")
 
         # 5. HTTP: 32 clients x 2 /v1/predict over 3 classes, half .npy and
         # half JSON with a base64 PNG (of another size: the server resizes),
@@ -3193,6 +3770,7 @@ def phase_tools(card, ctx):
 
     from aa_clip_iqm_tpu_torch.cli import bench
     from aa_clip_iqm_tpu_torch.configs import TrainConfig
+    from aa_clip_iqm_tpu_torch.data.datasets import _use_native
     from aa_clip_iqm_tpu_torch.evaluation.predict import make_predict_fn
     from aa_clip_iqm_tpu_torch.loader import init_trainable
     from aa_clip_iqm_tpu_torch.models import clip as clip_mod
@@ -3247,7 +3825,8 @@ def phase_tools(card, ctx):
     require(np.isfinite(vals).all() and min(vals) >= 0 and max(vals) <= 1,
             f"eval sweep metrics {rows}")
     log(f"# tools, bench eval: {n} images a sweep, {samples[0]:.2f} images/s end to end "
-        f"(anchors, PNG decode, predict, device metrics), Average pixel AUC "
+        f"(anchors, PNG decode with the {'native' if _use_native() else 'PIL'} transforms, "
+        f"predict on graphs, device metrics), Average pixel AUC "
         f"{rows[-1]['pixel AUC']:.2f}, launches {got} on {card}")
 
     # The batch x route grid at batch 8: the stock PyTorch route moves no
@@ -3411,6 +3990,7 @@ def main():
         import aa_clip_iqm_tpu_torch  # noqa: F401  (fails outside a checkout)
 
         phase_build()
+        phase_native(card)
         kernels = phase_kernels()
         launches, ctx = phase_main_path(card)
         add_counts(launches, phase_int8_tiers(card, ctx))
@@ -3435,6 +4015,8 @@ def main():
         entry["launches"] = launches[name]
     import torch
 
+    log(f"# stage profiles measured again after lost records: {len(STAGE_RETRIES)} "
+        f"{STAGE_RETRIES}")
     log(f"# total {time.perf_counter() - t_start:.1f} s")
     log(card)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

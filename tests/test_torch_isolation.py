@@ -1,8 +1,11 @@
 """The port and chip_smoke.py import neither JAX nor the JAX package, and
 importing them needs neither PIL, cv2, pandas nor sklearn (the machine with
-the card is promised none of them)."""
+the card is promised none of them). The port's native transform pipeline is
+built from its own copy of the C++ source and loads its own library, never
+the JAX package's ``native/`` one."""
 import ast
 import os
+import re
 import subprocess
 import sys
 
@@ -53,7 +56,8 @@ def test_new_modules_are_covered():
                 "cli/train.py", "cli/serve.py", "cli/single_image.py",
                 "evaluation/visualize.py", "serving.py", "models/convert.py",
                 "ops/custom_ops.py", "tools/export_model.py", "tools/aot_smoke.py",
-                "platform.py", "utils/profiling.py", "tools/trace_summary.py"):
+                "platform.py", "utils/profiling.py", "tools/trace_summary.py",
+                "train/graphs.py", "data/native.py"):
         assert rel in covered, rel
 
 
@@ -99,3 +103,29 @@ def test_import_leaves_jax_unloaded():
                          text=True, cwd=ROOT, env=env, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "clean"
+
+
+def test_the_native_pipeline_is_the_ports_own():
+    """The port's copy of the C++ source includes system headers only, and a
+    process that imports the port and loads its pipeline maps the port's
+    library and not the JAX package's native/ one, with no module of the JAX
+    package imported."""
+    src = os.path.join(PACKAGE, "native", "image_pipeline.cpp")
+    with open(src) as f:
+        includes = re.findall(r"#include\s*(\S+)", f.read())
+    assert includes and all(i.startswith("<") for i in includes), includes
+    code = (
+        "import sys\n"
+        f"sys.path.insert(0, {ROOT!r})\n"
+        "from aa_clip_iqm_tpu_torch.data import native\n"
+        "assert native.available(), native.BUILD_LOG\n"
+        "maps = open('/proc/self/maps').read()\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'aa_clip_iqm_tpu')]\n"
+        "print(native.LIB_PATH in maps, 'libaaclip_data.so' in maps.replace(native.LIB_PATH, ''),"
+        " bad)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=ROOT, env=env, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "True False []"
