@@ -6,6 +6,7 @@ names and defaults, and the same JSON schema (``embed_dim`` / ``vision_cfg``
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 from dataclasses import dataclass, field
@@ -39,6 +40,36 @@ class VisionConfig:
 
 
 @dataclass(frozen=True)
+class ResNetVisionConfig:
+    """ModifiedResNet vision tower (RN50's), selected when a config's
+    ``vision_cfg.layers`` is a list."""
+
+    image_size: int = 224
+    layers: Sequence[int] = (3, 4, 6, 3)
+    width: int = 64
+    output_dim: int = 1024
+    heads: Optional[int] = None  # None -> width * 32 // 64 (CLIP convention)
+
+    @property
+    def num_heads(self) -> int:
+        return self.heads if self.heads is not None else self.width * 32 // 64
+
+    @property
+    def reduction(self) -> int:
+        # stem /4 then a stride-2 entry into each stage after the first
+        return 4 * 2 ** (len(self.layers) - 1)
+
+    @property
+    def grid(self) -> int:
+        return self.image_size // self.reduction
+
+    @property
+    def final_channels(self) -> int:
+        # last stage planes = width * 2^(stages-1), bottleneck expansion 4
+        return self.width * (2 ** (len(self.layers) - 1)) * 4
+
+
+@dataclass(frozen=True)
 class TextConfig:
     context_length: int = 77
     vocab_size: int = 49408
@@ -56,6 +87,11 @@ class CLIPConfig:
     # Exact (erf) GELU, as the live reference model runs; "quick_gelu" stays
     # available.
     act: str = "gelu"
+
+    def with_image_size(self, img_size: int) -> "CLIPConfig":
+        return dataclasses.replace(
+            self, vision=dataclasses.replace(self.vision, image_size=img_size)
+        )
 
 
 @dataclass(frozen=True)
@@ -175,8 +211,8 @@ def list_models() -> list:
 
 
 def get_model_config(model_name: str, img_size: Optional[int] = None) -> CLIPConfig:
-    """Load a ViT CLIPConfig from the JSON registry, optionally overriding the
-    image size."""
+    """Load a CLIPConfig from the JSON registry, optionally overriding the
+    image size. List-typed vision layers select the ModifiedResNet tower."""
     model_name = model_name.replace("/", "-")
     path = os.path.join(_CONFIG_DIR, model_name + ".json")
     if not os.path.isfile(path):
@@ -187,17 +223,23 @@ def get_model_config(model_name: str, img_size: Optional[int] = None) -> CLIPCon
         raw = json.load(f)
     v, t = raw["vision_cfg"], raw["text_cfg"]
     if isinstance(v["layers"], (list, tuple)):
-        raise ValueError(f"{model_name}: ModifiedResNet towers are not ported")
-    vision = VisionConfig(
-        image_size=img_size or v["image_size"],
-        patch_size=v["patch_size"],
-        width=v["width"],
-        layers=v["layers"],
-        head_width=v.get("head_width", 64),
-        mlp_ratio=v.get("mlp_ratio", 4.0),
-        output_dim=raw["embed_dim"],
-        patch_dropout=v.get("patch_dropout", 0.0),
-    )
+        vision = ResNetVisionConfig(
+            image_size=img_size or v["image_size"],
+            layers=tuple(v["layers"]),
+            width=v["width"],
+            output_dim=raw["embed_dim"],
+        )
+    else:
+        vision = VisionConfig(
+            image_size=img_size or v["image_size"],
+            patch_size=v["patch_size"],
+            width=v["width"],
+            layers=v["layers"],
+            head_width=v.get("head_width", 64),
+            mlp_ratio=v.get("mlp_ratio", 4.0),
+            output_dim=raw["embed_dim"],
+            patch_dropout=v.get("patch_dropout", 0.0),
+        )
     text = TextConfig(
         context_length=t["context_length"],
         vocab_size=t["vocab_size"],

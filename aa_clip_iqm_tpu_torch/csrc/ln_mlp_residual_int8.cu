@@ -62,6 +62,28 @@
 // while the tensor cores wait) and its wait for the chunk's slowest tile.
 // Not yet done: the next tile's products under that wait (a second
 // accumulator), ping-pong consumers, TMA multicast of the shared operand.
+//
+// The same source carries B9, the int8 probe's kernel: it replaces
+// tools/probe_mlp_int8_sweep.py: make_fused -> _kernel_var (pl.pallas_call
+// at :92), the sweep's variants of _int8_kernel. It is this three-stage
+// chain with three differences, each a template or run-time argument here:
+//   - the activation is code 2, GELU on Abramowitz-Stegun 7.1.26 with a
+//     compare-free sign, erf(x) ~ x / (|x| + 1e-3) * (1 - poly(k) e^(-x^2)),
+//     k = 1 / (1 + p |x|); that factor is not +-1 near 0 and is part of the
+//     numerics, so it must not become copysign;
+//   - with ep_bf16 the pre-activation t is rounded to bf16 and the whole
+//     GELU runs on bf16 values: every operation rounds to bf16, each
+//     constant rounded to bf16 first (JAX's weak-typed scalars on a bf16
+//     array), in the plain version's order;
+//   - the chunk width ch is 1024 or 2048. At 2048 a chunk spans 16 of GEMM
+//     1's 128-wide tiles: the cooperative grid holds whole groups of 16
+//     (128 blocks on 132 SMs), the counters' target doubles, and GEMM 2's
+//     s32 chunk sums may pass 2^24, where float(acc) rounds to nearest as
+//     the plain version's int32 -> float32 cast does.
+// Its stages carry their own tag (ln_mlp_residual_int8_probe_stage), so
+// that a profiler tells them from B3's. Bound: 4 M d h int8 operations, as
+// B3's (0.191 ms a layer at the probe's M = 22528, 0.0929 ms at M = 10,960,
+// at 1979 TOP/s).
 
 #include <math.h>
 #include <stdint.h>
@@ -78,6 +100,7 @@ namespace {
 // Names the stage kernels after this source, so that a profiler tells them
 // from B2's, which build the same core.
 struct ln_mlp_residual_int8_stage {};
+struct ln_mlp_residual_int8_probe_stage {};
 
 // What the stages read and write.
 struct Int8Params {
@@ -95,11 +118,40 @@ struct Int8Params {
   int h, d, ch, nch;
 };
 
+// v rounded to bf16 and back (round to nearest even).
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// B9's GELU, 0.5 t (1 + erf(t / sqrt 2)) with erf on Abramowitz-Stegun
+// 7.1.26 and the compare-free sign x / (|x| + 1e-3), one rounding per
+// operation in the plain version's order (fused_mlp.gelu_nocmp): in fp32,
+// or with BF16 every result and constant rounded to bf16 (R).
+template <bool BF16>
+__device__ __forceinline__ float gelu_nocmp(float t) {
+  auto R = [](float v) { return BF16 ? bf16_round(v) : v; };
+  const float x = R(__fmul_rn(t, R(0.70710678118654752f)));
+  const float ax = fabsf(x);
+  const float k = R(__fdiv_rn(1.f, R(__fadd_rn(1.f, R(__fmul_rn(R(0.3275911f), ax))))));
+  float p = R(__fmul_rn(k, R(1.061405429f)));
+  p = R(__fmul_rn(k, R(__fadd_rn(R(-1.453152027f), p))));
+  p = R(__fmul_rn(k, R(__fadd_rn(R(1.421413741f), p))));
+  p = R(__fmul_rn(k, R(__fadd_rn(R(-0.284496736f), p))));
+  p = R(__fmul_rn(k, R(__fadd_rn(R(0.254829592f), p))));
+  const float e = R(expf(R(__fmul_rn(-ax, ax))));
+  const float y = R(__fsub_rn(1.f, R(__fmul_rn(p, e))));
+  const float sign = R(__fdiv_rn(x, R(__fadd_rn(ax, R(1e-3f)))));
+  const float erf = R(__fmul_rn(sign, y));
+  return R(__fmul_rn(R(__fmul_rn(0.5f, t)), R(__fadd_rn(1.f, erf))));
+}
+
 // 0: exact (erf) GELU; 1: QuickGELU x * sigmoid(1.702 x), the sigmoid as
-// 1 / (1 + exp(-t)).
-template <int ACT>
+// 1 / (1 + exp(-t)); 2: B9's compare-free GELU, with EP_BF16 on the
+// pre-activation rounded to bf16.
+template <int ACT, bool EP_BF16 = false>
 __device__ __forceinline__ float activation(float v) {
   if (ACT == 0) return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
+  if (ACT == 2) return gelu_nocmp<EP_BF16>(EP_BF16 ? bf16_round(v) : v);
   return v * (1.f / (1.f + expf(-(1.702f * v))));
 }
 
@@ -159,7 +211,7 @@ __device__ __forceinline__ float ld_acquire(const float* p) {
 // its own chunk, which are numbered no later than one round on, so the
 // lowest chunk not yet done always completes. A wait that outlasts 2^26
 // polls (far beyond any tile) traps rather than hang.
-template <int BN, int ACT>
+template <int BN, int ACT, bool EP_BF16 = false>
 struct hidden_epilogue {
   using Params = Int8Params;
   static constexpr int F = 1;
@@ -189,7 +241,8 @@ struct hidden_epilogue {
         preact<BN>(acc, j, hh, sx[hh], sf, bf, u);
 #pragma unroll
         for (int t = 0; t < 4; ++t) {
-          const float h0 = activation<ACT>(u[2 * t]), h1 = activation<ACT>(u[2 * t + 1]);
+          const float h0 = activation<ACT, EP_BF16>(u[2 * t]);
+          const float h1 = activation<ACT, EP_BF16>(u[2 * t + 1]);
           amax[hh] = fmaxf(amax[hh], fmaxf(fabsf(h0), fabsf(h1)));
           acc[4 * (4 * j + t) + 2 * hh] = __float_as_int(h0);
           acc[4 * (4 * j + t) + 2 * hh + 1] = __float_as_int(h1);
@@ -336,11 +389,39 @@ using Tag = ln_mlp_residual_int8_stage;
 // cooperative launch of whole chunks of tiles.
 constexpr int FC_BM = 192;
 
-template <int ACT>
+template <int ACT, bool EP_BF16 = false, class T = Tag>
 cudaError_t hidden_pass(const int8_t* xq, const int8_t* wfc_t, const Int8Params& p, int M,
                         cudaStream_t s) {
-  return gemm90::launch_gemm_s8<Tag, 128, FC_BM / 64, hidden_epilogue<128, ACT>>(
+  return gemm90::launch_gemm_s8<T, 128, FC_BM / 64, hidden_epilogue<128, ACT, EP_BF16>>(
       xq, p.d, wfc_t, p.d, p, M, p.h, p.d, p.d / gemm90::BK8, s, p.ch / 128);
+}
+
+// The three stages for the entries below: T tags the stage kernels, hidden
+// runs GEMM 1 (hidden_pass with the activation chosen).
+template <class T, class Hidden>
+cudaError_t run_chain(const void* x, const void* ln_g, const void* ln_b, const void* wfc_t,
+                      const void* s_fc, const void* b_fc, const void* wp_t, const void* s_proj,
+                      const void* b_proj, void* xq, void* sx, void* amax, void* sh, void* count,
+                      void* hq, void* y, int M, int d, int h, int ch, float eps, cudaStream_t s,
+                      Hidden hidden) {
+  const Int8Params p{static_cast<const float*>(sx),     static_cast<const float*>(s_fc),
+                     static_cast<const float*>(b_fc),   static_cast<float*>(amax),
+                     static_cast<float*>(sh),           static_cast<int*>(count),
+                     static_cast<int8_t*>(hq),          static_cast<const float*>(s_proj),
+                     static_cast<const float*>(b_proj), static_cast<const bf16*>(x),
+                     static_cast<bf16*>(y),             h, d, ch, h / ch};
+  cudaError_t err = gemm90::ln_quant_rows<T>(
+      static_cast<const bf16*>(x), static_cast<const float*>(ln_g),
+      static_cast<const float*>(ln_b), static_cast<int8_t*>(xq), static_cast<float*>(sx),
+      static_cast<float*>(amax), h / ch, static_cast<int*>(count),
+      (M + FC_BM - 1) / FC_BM * (h / ch), M, d, eps, s);
+  if (err == cudaSuccess)
+    err = hidden(static_cast<const int8_t*>(xq), static_cast<const int8_t*>(wfc_t), p);
+  if (err == cudaSuccess)
+    err = gemm90::launch_gemm_s8<T, 128, 2, proj_epilogue<128>>(
+        static_cast<const int8_t*>(hq), h, static_cast<const int8_t*>(wp_t), h, p, M, d, h,
+        ch / gemm90::BK8, s);
+  return err;
 }
 
 }  // namespace
@@ -361,26 +442,33 @@ extern "C" int aaclip_ln_mlp_residual_int8(
   if ((ch != 128 && ch != 256 && ch != 512 && ch != 1024) || h <= 0 || h % ch != 0)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Int8Params p{static_cast<const float*>(sx),     static_cast<const float*>(s_fc),
-                     static_cast<const float*>(b_fc),   static_cast<float*>(amax),
-                     static_cast<float*>(sh),           static_cast<int*>(count),
-                     static_cast<int8_t*>(hq),          static_cast<const float*>(s_proj),
-                     static_cast<const float*>(b_proj), static_cast<const bf16*>(x),
-                     static_cast<bf16*>(y),             h, d, ch, h / ch};
-  const int8_t* xq8 = static_cast<const int8_t*>(xq);
-  const int8_t* wf = static_cast<const int8_t*>(wfc_t);
-  cudaError_t err = gemm90::ln_quant_rows<Tag>(
-      static_cast<const bf16*>(x), static_cast<const float*>(ln_g),
-      static_cast<const float*>(ln_b), static_cast<int8_t*>(xq), static_cast<float*>(sx),
-      static_cast<float*>(amax), h / ch, static_cast<int*>(count),
-      (M + FC_BM - 1) / FC_BM * (h / ch), M, d, eps, s);
-  if (err == cudaSuccess)
-    err = act == 0 ? hidden_pass<0>(xq8, wf, p, M, s) : hidden_pass<1>(xq8, wf, p, M, s);
-  if (err == cudaSuccess)
-    err = gemm90::launch_gemm_s8<Tag, 128, 2, proj_epilogue<128>>(
-        static_cast<const int8_t*>(hq), h, static_cast<const int8_t*>(wp_t), h, p, M, d, h,
-        ch / gemm90::BK8, s);
-  return err;
+  return run_chain<Tag>(x, ln_g, ln_b, wfc_t, s_fc, b_fc, wp_t, s_proj, b_proj, xq, sx, amax, sh,
+                        count, hq, y, M, d, h, ch, eps, s,
+                        [&](const int8_t* xq8, const int8_t* wf, const Int8Params& p) {
+                          return act == 0 ? hidden_pass<0>(xq8, wf, p, M, s)
+                                          : hidden_pass<1>(xq8, wf, p, M, s);
+                        });
+}
+
+// B9, the int8 probe's kernel: the chain above with the compare-free GELU
+// (activation 2), its epilogue in fp32 or, with ep_bf16, on bf16 values,
+// and a hidden chunk ch of 1024 or 2048. Operands, scratch and alignment as
+// for aaclip_ln_mlp_residual_int8; amax, sh and count sized for this ch.
+extern "C" int aaclip_ln_mlp_residual_int8_probe(
+    const void* x, const void* ln_g, const void* ln_b, const void* wfc_t, const void* s_fc,
+    const void* b_fc, const void* wp_t, const void* s_proj, const void* b_proj, void* xq,
+    void* sx, void* amax, void* sh, void* count, void* hq, void* y, int M, int d, int h, int ch,
+    float eps, int ep_bf16, void* stream) {
+  if (M <= 0 || d <= 0 || d % 128 != 0 || (ch != 1024 && ch != 2048) || h <= 0 || h % ch != 0)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  using T = ln_mlp_residual_int8_probe_stage;
+  return run_chain<T>(x, ln_g, ln_b, wfc_t, s_fc, b_fc, wp_t, s_proj, b_proj, xq, sx, amax, sh,
+                      count, hq, y, M, d, h, ch, eps, s,
+                      [&](const int8_t* xq8, const int8_t* wf, const Int8Params& p) {
+                        return ep_bf16 ? hidden_pass<2, true, T>(xq8, wf, p, M, s)
+                                       : hidden_pass<2, false, T>(xq8, wf, p, M, s);
+                      });
 }
 
 extern "C" const char* aaclip_ln_mlp_residual_int8_error_string(int err) {

@@ -20,6 +20,7 @@ from .configs import (
     AdapterConfig,
     IQMConfig,
     ModelConfig,
+    ResNetVisionConfig,
     get_model_config,
     tiny_test_config,
 )
@@ -51,6 +52,15 @@ def build_model_config(model_name: str = "ViT-L-14-336", img_size: int = 518,
             cfg = replace(cfg, clip=replace(cfg.clip, vision=vision))
         return cfg
     clip_cfg = get_model_config(model_name, img_size=img_size)
+    if isinstance(clip_cfg.vision, ResNetVisionConfig):
+        # A ModifiedResNet backbone serves encode_image and the text tower
+        # only: AdaptedCLIP taps ViT blocks.
+        red = clip_cfg.vision.reduction
+        if img_size % red:
+            raise ValueError(
+                f"img_size {img_size} must be a multiple of the ResNet "
+                f"reduction {red} (e.g. {img_size // red * red})")
+        return ModelConfig(clip=clip_cfg)
     if patch_dropout:
         clip_cfg = replace(clip_cfg, vision=replace(clip_cfg.vision,
                                                     patch_dropout=patch_dropout))
@@ -130,11 +140,13 @@ def load_frozen_backbone(cfg: ModelConfig, backbone_path: Optional[str] = None,
     if path.endswith(".npz"):
         params = load_params_npz(path)
         # An .npz cache may hold another grid's positional embedding (the
-        # checkpoint's native one): resize it bicubically to the config's.
-        pos = np.asarray(params["visual"]["positional_embedding"])
+        # checkpoint's native one): resize it bicubically to the config's
+        # (the ViT's, or the ModifiedResNet's attention pool's).
+        vis = params["visual"]
+        holder = vis if "positional_embedding" in vis else vis["attnpool"]
+        pos = np.asarray(holder["positional_embedding"])
         if pos.shape[0] != cfg.clip.vision.grid ** 2 + 1:
-            params["visual"]["positional_embedding"] = resize_pos_embed_np(
-                pos, cfg.clip.vision.grid)
+            holder["positional_embedding"] = resize_pos_embed_np(pos, cfg.clip.vision.grid)
     else:
         params = _openai_params(cfg, path, cache_npz)
     frozen, _ = params_from_jax(params, None, cfg, device=device, dtype=dtype)

@@ -48,7 +48,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..configs import CLIPConfig, TextConfig, VisionConfig
+from ..configs import CLIPConfig, ResNetVisionConfig, TextConfig, VisionConfig
 from ..ops import attention as attn_ops
 from ..ops.attn_block import ln_attn_residual, ln_attn_residual_ok
 from ..ops.fused_mlp import (
@@ -210,15 +210,21 @@ def vision_forward(
     return pooled, taps, x
 
 
-def encode_image(params, cfg: CLIPConfig, images, compute_dtype=torch.float32):
-    """CLIP.encode_image: the pooled image embedding of the ViT tower.
-    ModifiedResNet towers are not ported (ROADMAP A13)."""
-    if not isinstance(cfg.vision, VisionConfig):
-        raise NotImplementedError(
-            "encode_image runs the ViT tower only; ModifiedResNet towers "
-            "are not ported (ROADMAP A13)")
+def encode_image(params, cfg: CLIPConfig, images, compute_dtype=torch.float32,
+                 use_pallas: bool = True):
+    """CLIP.encode_image: the pooled image embedding of either tower, the
+    ViT (``use_pallas`` as in :func:`vision_forward`) or, for a
+    ``ResNetVisionConfig``, the ModifiedResNet (stock PyTorch calls either
+    way, ``models/modified_resnet.py``)."""
+    if isinstance(cfg.vision, ResNetVisionConfig):
+        from .modified_resnet import resnet_forward
+
+        pooled, _ = resnet_forward(params["visual"], cfg.vision, images,
+                                   compute_dtype=compute_dtype)
+        return pooled
     pooled, _, _ = vision_forward(params["visual"], cfg.vision, images,
-                                  act_name=cfg.act, compute_dtype=compute_dtype)
+                                  act_name=cfg.act, compute_dtype=compute_dtype,
+                                  use_pallas=use_pallas)
     return pooled
 
 

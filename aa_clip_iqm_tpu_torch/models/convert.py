@@ -93,9 +93,13 @@ def params_from_jax(frozen_np, trainable_np, cfg: ModelConfig, device="cuda",
     its trainable dict in ``torch.float32`` (master weights)."""
     frozen = trainable = None
     if frozen_np is not None:
-        blocks = frozen_np["visual"]["blocks"]
-        depth = (len(blocks) if isinstance(blocks, (list, tuple))
-                 else np.shape(blocks["ln_1"]["scale"])[0])
+        visual = frozen_np["visual"]
+        if "layers" in visual:      # ModifiedResNet: blocks per stage
+            depth = tuple(len(stage) for stage in visual["layers"])
+        else:
+            blocks = visual["blocks"]
+            depth = (len(blocks) if isinstance(blocks, (list, tuple))
+                     else np.shape(blocks["ln_1"]["scale"])[0])
         if depth != cfg.clip.vision.layers:
             raise ValueError(f"visual tower has {depth} blocks, config says "
                              f"{cfg.clip.vision.layers}")
@@ -257,21 +261,76 @@ def _text_tree(sd, cfg):
     }
 
 
-def torch_state_dict_to_params(sd, cfg):
-    """An OpenAI ViT CLIP state dict (numpy-valued) -> the numpy pytree of
-    the JAX layout, blocks stacked, with the visual positional embedding
-    resized bicubically to ``cfg.vision``'s grid. ``cfg`` is a
-    ``CLIPConfig``. :func:`params_from_jax` carries the result onto a
-    device. ModifiedResNet towers are not ported (ROADMAP A13)."""
-    from ..configs import VisionConfig
+def _conv_t(w):
+    """A torch conv kernel (out, in, kh, kw) -> HWIO."""
+    return np.ascontiguousarray(_f32(w).transpose(2, 3, 1, 0))
+
+
+def _bn_t(sd, prefix):
+    return {"scale": _f32(sd[prefix + ".weight"]), "bias": _f32(sd[prefix + ".bias"]),
+            "mean": _f32(sd[prefix + ".running_mean"]),
+            "var": _f32(sd[prefix + ".running_var"])}
+
+
+def _lin_t(sd, prefix):
+    p = {"w": _t(sd[prefix + ".weight"])}
+    if prefix + ".bias" in sd:
+        p["b"] = _f32(sd[prefix + ".bias"])
+    return p
+
+
+def resnet_state_dict_to_params(sd, cfg):
+    """An OpenAI RN CLIP state dict (numpy-valued) -> the numpy pytree of the
+    JAX layout: the stem ``visual.conv{1-3}`` / ``bn{1-3}``, the stages
+    ``visual.layer{1-4}.{i}`` with their ``downsample.{0,1}``, the attention
+    pool ``visual.attnpool.{q,k,v,c}_proj`` with its positional embedding
+    resized bicubically to ``cfg.vision``'s grid, and the text tower."""
     from .clip import resize_pos_embed_np
 
-    if not isinstance(cfg.vision, VisionConfig):
-        raise NotImplementedError(
-            "only ViT CLIP checkpoints convert; ModifiedResNet towers are "
-            "not ported (ROADMAP A13)")
+    v = cfg.vision
+    visual = {}
+    for i in (1, 2, 3):
+        visual[f"conv{i}"] = {"kernel": _conv_t(sd[f"visual.conv{i}.weight"])}
+        visual[f"bn{i}"] = _bn_t(sd, f"visual.bn{i}")
+    stages = []
+    for s, n_blocks in enumerate(v.layers, start=1):
+        blocks = []
+        for bi in range(n_blocks):
+            pre = f"visual.layer{s}.{bi}"
+            blk = {}
+            for j in (1, 2, 3):
+                blk[f"conv{j}"] = {"kernel": _conv_t(sd[f"{pre}.conv{j}.weight"])}
+                blk[f"bn{j}"] = _bn_t(sd, f"{pre}.bn{j}")
+            if pre + ".downsample.0.weight" in sd:
+                blk["downsample"] = {"conv": {"kernel": _conv_t(sd[pre + ".downsample.0.weight"])},
+                                     "bn": _bn_t(sd, pre + ".downsample.1")}
+            blocks.append(blk)
+        stages.append(blocks)
+    visual["layers"] = stages
+    visual["attnpool"] = {
+        "positional_embedding": resize_pos_embed_np(
+            _f32(sd["visual.attnpool.positional_embedding"]), v.grid),
+        **{n: _lin_t(sd, f"visual.attnpool.{n}_proj") for n in ("q", "k", "v")},
+        "c_proj": _lin_t(sd, "visual.attnpool.c_proj"),
+    }
+    return {"visual": visual, "text": _text_tree(sd, cfg),
+            "logit_scale": _f32(sd.get("logit_scale", np.log(1 / 0.07)))}
+
+
+def torch_state_dict_to_params(sd, cfg):
+    """An OpenAI CLIP state dict (numpy-valued) -> the numpy pytree of the
+    JAX layout, blocks stacked, with the visual positional embedding
+    resized bicubically to ``cfg.vision``'s grid. ``cfg`` is a
+    ``CLIPConfig``; an RN config (``ResNetVisionConfig``) goes to
+    :func:`resnet_state_dict_to_params`. :func:`params_from_jax` carries the
+    result onto a device."""
+    from ..configs import ResNetVisionConfig
+    from .clip import resize_pos_embed_np
+
     if not all(isinstance(v, np.ndarray) for v in sd.values()):
         sd = {k: np.asarray(v) for k, v in sd.items()}
+    if isinstance(cfg.vision, ResNetVisionConfig):
+        return resnet_state_dict_to_params(sd, cfg)
     conv_w = _f32(sd["visual.conv1.weight"])
     visual = {
         "patch_embed": {"w": np.ascontiguousarray(
@@ -442,18 +501,23 @@ def init_clip_params_np(cfg: ModelConfig, seed: int = 0, shapes_only: bool = Fal
     """Random frozen CLIP params (JAX layout, numpy float32). With
     ``shapes_only`` every matrix is a zero-stride array of zeros (for
     :func:`params_from_jax` onto the meta device)."""
+    from ..configs import ResNetVisionConfig
+
     rng = _rng(seed, shapes_only)
     v, t = cfg.clip.vision, cfg.clip.text
     scale = v.width ** -0.5
-    visual = {
-        "patch_embed": {"w": _normal(rng, (3 * v.patch_size ** 2, v.width), scale)},
-        "class_embedding": _normal(rng, (v.width,), scale),
-        "positional_embedding": _normal(rng, (v.num_patches + 1, v.width), scale),
-        "ln_pre": _ln_init(0, v.width),
-        "blocks": _blocks(rng, v.layers, v.width, int(v.width * v.mlp_ratio)),
-        "ln_post": _ln_init(0, v.width),
-        "proj": _normal(rng, (v.width, v.output_dim), scale),
-    }
+    if isinstance(v, ResNetVisionConfig):
+        visual = _resnet_np(rng, v)
+    else:
+        visual = {
+            "patch_embed": {"w": _normal(rng, (3 * v.patch_size ** 2, v.width), scale)},
+            "class_embedding": _normal(rng, (v.width,), scale),
+            "positional_embedding": _normal(rng, (v.num_patches + 1, v.width), scale),
+            "ln_pre": _ln_init(0, v.width),
+            "blocks": _blocks(rng, v.layers, v.width, int(v.width * v.mlp_ratio)),
+            "ln_post": _ln_init(0, v.width),
+            "proj": _normal(rng, (v.width, v.output_dim), scale),
+        }
     text = {
         "token_embedding": _normal(rng, (t.vocab_size, t.width), 0.02),
         "positional_embedding": _normal(rng, (t.context_length, t.width), 0.01),
@@ -463,6 +527,45 @@ def init_clip_params_np(cfg: ModelConfig, seed: int = 0, shapes_only: bool = Fal
     }
     return {"visual": visual, "text": text,
             "logit_scale": np.float32(math.log(1 / 0.07))}
+
+
+def _resnet_np(rng, cfg):
+    """A ModifiedResNet tower with the shapes of ``init_resnet_params``:
+    conv kernels HWIO with std (fan_in)^-0.5, BatchNorm at identity
+    statistics."""
+    width, emb = cfg.width, cfg.final_channels
+
+    def conv(cin, cout, k):
+        return {"kernel": _normal(rng, (k, k, cin, cout), (cin * k * k) ** -0.5)}
+
+    def bn(c):
+        return {"scale": np.ones(c, np.float32), "bias": np.zeros(c, np.float32),
+                "mean": np.zeros(c, np.float32), "var": np.ones(c, np.float32)}
+
+    def lin(d_in, d_out):
+        return {"w": _normal(rng, (d_in, d_out), 0.02), "b": np.zeros(d_out, np.float32)}
+
+    p = {"conv1": conv(3, width // 2, 3), "bn1": bn(width // 2),
+         "conv2": conv(width // 2, width // 2, 3), "bn2": bn(width // 2),
+         "conv3": conv(width // 2, width, 3), "bn3": bn(width)}
+    stages, cin = [], width
+    for stage_idx, n_blocks in enumerate(cfg.layers):
+        planes = width * 2 ** stage_idx
+        blocks = []
+        for block_idx in range(n_blocks):
+            blk = {"conv1": conv(cin, planes, 1), "bn1": bn(planes),
+                   "conv2": conv(planes, planes, 3), "bn2": bn(planes),
+                   "conv3": conv(planes, planes * 4, 1), "bn3": bn(planes * 4)}
+            if block_idx == 0 and (cin != planes * 4 or stage_idx > 0):
+                blk["downsample"] = {"conv": conv(cin, planes * 4, 1), "bn": bn(planes * 4)}
+            blocks.append(blk)
+            cin = planes * 4
+        stages.append(blocks)
+    p["layers"] = stages
+    p["attnpool"] = {"positional_embedding": _normal(rng, (cfg.grid ** 2 + 1, emb), emb ** -0.5),
+                     "q": lin(emb, emb), "k": lin(emb, emb), "v": lin(emb, emb),
+                     "c_proj": lin(emb, cfg.output_dim)}
+    return p
 
 
 def _xavier(rng, d_in, d_out, bias=True, n=0):
@@ -500,8 +603,15 @@ def init_adapter_params_np(cfg: ModelConfig, seed: int = 111, shapes_only: bool 
     """Random trainable params (JAX layout, numpy float32; xavier-uniform
     weights and torch-default uniform biases, as init_adapter_params);
     ``shapes_only`` as in :func:`init_clip_params_np`."""
+    from ..configs import ResNetVisionConfig
     from .iqm import sinusoidal_positions
 
+    if isinstance(cfg.clip.vision, ResNetVisionConfig):
+        # AdaptedCLIP taps ViT blocks: an RN backbone serves encode_image and
+        # the text tower only, as in the JAX package.
+        raise ValueError(
+            "AdaptedCLIP requires a ViT vision tower; ModifiedResNet "
+            "configs support encode_image/encode_text only")
     rng = _rng(seed, shapes_only)
     a = cfg.adapter
     vw, tw = cfg.clip.vision.width, cfg.clip.text.width

@@ -70,10 +70,11 @@ _ACT_NAMES = {gelu: "gelu", quick_gelu: "quick_gelu"}
 
 
 def reset_launches() -> None:
-    global LAUNCHES, INT8_LAUNCHES, DX_LAUNCHES
+    global LAUNCHES, INT8_LAUNCHES, DX_LAUNCHES, PROBE_LAUNCHES
     LAUNCHES = 0
     INT8_LAUNCHES = 0
     DX_LAUNCHES = 0
+    PROBE_LAUNCHES = 0
 
 
 def ln_mlp_residual_reference(ln_params, mlp_params, x, act, eps: float = 1e-5):
@@ -208,15 +209,16 @@ def ln_mlp_residual_int8_ok(x, mlp_params, act) -> bool:
 
 
 def ln_mlp_residual_int8_reference(ln_params, mlp_params, x, act,
-                                   eps: float = 1e-5):
+                                   eps: float = 1e-5, ch: int = 0):
     """Plain PyTorch twin of the int8 kernel, step by step as
     ``_int8_kernel`` (pallas_mlp.py:161): fp32 LayerNorm kept in fp32, one
     activation scale per row before c_fc and one per (row, hidden chunk)
     before c_proj, exact int32 products, the weight scales folded into the
-    fp32 epilogues, one cast at the end."""
+    fp32 epilogues, one cast at the end. ``ch``: the hidden chunk width,
+    :func:`hidden_chunk` where 0."""
     c_fc, c_proj = mlp_params["c_fc"], mlp_params["c_proj"]
     d, h = x.shape[-1], c_fc["w_q"].shape[-1]
-    ch = hidden_chunk(h)
+    ch = ch or hidden_chunk(h)
     x32 = x.reshape(-1, d).float()
     x_q, sx = quantize_rows(layer_norm(ln_params, x32, eps=eps))
     s_fc, s_proj = c_fc["scale"].reshape(h).float(), c_proj["scale"].reshape(d).float()
@@ -231,18 +233,21 @@ def ln_mlp_residual_int8_reference(ln_params, mlp_params, x, act,
     return y.to(x.dtype).reshape(x.shape)
 
 
-def ln_mlp_residual_int8_stages(ln_params, mlp_params, x, act, eps: float = 1e-5):
+def ln_mlp_residual_int8_stages(ln_params, mlp_params, x, act, eps: float = 1e-5,
+                                ch: int = 0, rows=None):
     """The plain version of the stages the int8 kernel runs (``ops/gemm.py``'s
     int8 modes): the row pass (x_q, sx), GEMM 1's chunk maxima (amax, (M, h /
     ch)) and its h_q and sh, and GEMM 2 (y, x's shape). Returns them in a
     dict under those names. It rounds where
     :func:`ln_mlp_residual_int8_reference` rounds, so its y equals the
-    twin's bit for bit."""
+    twin's bit for bit. ``ch`` as there. ``rows``: a row pass (x_q, sx) to
+    run the GEMMs on in place of the plain one (a kernel's own, to hold its
+    GEMMs apart from its LayerNorm's sum order)."""
     c_fc, c_proj = mlp_params["c_fc"], mlp_params["c_proj"]
     d, h = x.shape[-1], c_fc["w_q"].shape[-1]
-    ch = hidden_chunk(h)
+    ch = ch or hidden_chunk(h)
     x2 = x.reshape(-1, d)
-    x_q, sx = ln_quant_rows_reference(ln_params, x2, eps)
+    x_q, sx = rows if rows is not None else ln_quant_rows_reference(ln_params, x2, eps)
     fc = (c_fc["w_q"], sx, c_fc["scale"], c_fc["b"], act)
     amax = gemm_s8_amax_reference(x_q, *fc, ch)
     h_q, sh = gemm_s8_quant_reference(x_q, *fc, amax, ch)
@@ -308,24 +313,39 @@ def _int8_forward(ln_params, mlp_params, x, act, eps: float = 1e-5, stages: bool
 def _int8_launch(ln_params, mlp_params, x, act, eps: float = 1e-5, stages: bool = False):
     """The kernel's stages on a CUDA x (the CUDA implementation of the op)."""
     fn = "ln_mlp_residual_int8"
+    if act not in _ACTS:
+        raise ValueError(f"{fn}: unsupported activation {act!r}")
+    h = mlp_params["c_fc"]["w_q"].shape[-1]
+    ch = hidden_chunk(h)
+    if not ch:
+        raise ValueError(f"{fn}: d={x.shape[-1]}, h={h} not supported (d and h multiples of 128)")
+    out = _int8_chain(fn, _int8_lib(), ln_params, mlp_params, x, ch, float(eps), _ACTS[act])
+    global INT8_LAUNCHES
+    INT8_LAUNCHES += 1
+    return out if stages else out["y"]
+
+
+def _int8_chain(fn, entry, ln_params, mlp_params, x, ch, *args):
+    """Check the operands of an int8 chain's C ``entry`` (B3's or B9's),
+    allocate its scratch and launch it with the trailing ``args`` (eps and
+    the variant). Returns the dict of the stages' x_q, sx, amax, h_q, sh
+    and y."""
     if x.device.type != "cuda":
         raise ValueError(f"{fn}: unsupported device {x.device}")
     if x.dtype != torch.bfloat16:
         raise TypeError(f"{fn}: dtype {x.dtype} not supported (bfloat16)")
-    if act not in _ACTS:
-        raise ValueError(f"{fn}: unsupported activation {act!r}")
     if not x.is_contiguous():
         raise ValueError(f"{fn}: x must be contiguous")
     c_fc, c_proj = mlp_params["c_fc"], mlp_params["c_proj"]
     d = x.shape[-1]
     h = c_fc["w_q"].shape[-1]
-    ch = hidden_chunk(h)
     if tuple(c_fc["w_q"].shape) != (d, h) or tuple(c_proj["w_q"].shape) != (h, d):
         raise ValueError(f"{fn}: weight shapes do not match x")
     if c_fc["scale"].numel() != h or c_proj["scale"].numel() != d:
         raise ValueError(f"{fn}: scale shapes do not match the weights")
-    if d % 128 or not ch:
-        raise ValueError(f"{fn}: d={d}, h={h} not supported (d and h multiples of 128)")
+    if d % 128 or h % ch:
+        raise ValueError(f"{fn}: d={d}, h={h}, ch={ch} not supported (d a multiple of 128, "
+                         "h of ch)")
     m = x.numel() // d
     dev, f32, i8 = x.device, torch.float32, torch.int8
     # Checked as given, before the transposed copies are made.
@@ -351,14 +371,12 @@ def _int8_launch(ln_params, mlp_params, x, act, eps: float = 1e-5, stages: bool 
                "count": torch.empty((-(-m // 192), h // ch), dtype=torch.int32, device=dev),
                "h_q": torch.empty((m, h), dtype=i8, device=dev)}
     y = torch.empty_like(x)
-    err = _int8_lib()(*ptrs, *(scratch[k].data_ptr()
-                               for k in ("x_q", "sx", "amax", "sh", "count", "h_q")),
-                      y.data_ptr(), m, d, h, ch, float(eps), _ACTS[act], _build.stream_ptr(dev))
+    err = entry(*ptrs, *(scratch[k].data_ptr()
+                         for k in ("x_q", "sx", "amax", "sh", "count", "h_q")),
+                y.data_ptr(), m, d, h, ch, *args, _build.stream_ptr(dev))
     del scratch["count"]
-    _build.check(fn, err)
-    global INT8_LAUNCHES
-    INT8_LAUNCHES += 1
-    return dict(scratch, y=y) if stages else y
+    _build.check("ln_mlp_residual_int8", err)
+    return dict(scratch, y=y)
 
 
 def ln_mlp_residual_int8_with_stages(ln_params, mlp_params, x, act, eps: float = 1e-5):
@@ -366,6 +384,118 @@ def ln_mlp_residual_int8_with_stages(ln_params, mlp_params, x, act, eps: float =
     returns its intermediates: the dict of :func:`ln_mlp_residual_int8_stages`,
     on the card the kernel's own x_q, sx, amax, h_q and sh. No autograd."""
     return _int8_forward(ln_params, mlp_params, x, act, eps, stages=True)
+
+
+# --------------------------------------------------------------------------
+# B9: the int8 probe's variants of the int8 kernel
+# --------------------------------------------------------------------------
+
+#: int8 probe kernel (B9) launches since the last reset.
+PROBE_LAUNCHES = 0
+#: The probe's hidden chunk widths.
+PROBE_CHUNKS = (1024, 2048)
+_SQRT_HALF = 0.7071067811865476
+# Abramowitz-Stegun 7.1.26: p, then a1 .. a5.
+_AS_ERF = (0.3275911, 0.254829592, -0.284496736, 1.421413741, -1.453152027, 1.061405429)
+
+
+def erf_as(ax):
+    """The magnitude of erf at ``ax`` = |x| on Abramowitz-Stegun 7.1.26,
+    ``1 - poly(k) exp(-ax^2)`` with k = 1 / (1 + p ax). Evaluated in ax's
+    dtype one operation at a time, every constant rounded to ax's dtype
+    first, as JAX evaluates it on an array of that dtype (its scalars are
+    weak-typed)."""
+    def c(v):
+        return torch.tensor(v, dtype=ax.dtype)
+
+    p, a1, a2, a3, a4, a5 = _AS_ERF
+    k = c(1.0) / (c(1.0) + c(p) * ax)
+    poly = k * (c(a1) + k * (c(a2) + k * (c(a3) + k * (c(a4) + k * c(a5)))))
+    return c(1.0) - poly * torch.exp(-ax * ax)
+
+
+def erf_nocmp(x):
+    """erf with the sign taken compare-free as ``x / (|x| + 1e-3)``
+    (``_erf_nocmp``, tools/probe_mlp_int8_sweep.py:38) times
+    :func:`erf_as`: that factor is not +-1 near 0, and it is part of the
+    numerics. In x's dtype, as :func:`erf_as`."""
+    ax = x.abs()
+    return (x / (ax + torch.tensor(1e-3, dtype=x.dtype))) * erf_as(ax)
+
+
+def gelu_nocmp(x):
+    """``0.5 x (1 + erf_nocmp(x / sqrt 2))`` in x's dtype (``_gelu_nocmp``)."""
+    def c(v):
+        return torch.tensor(v, dtype=x.dtype)
+
+    return c(0.5) * x * (c(1.0) + erf_nocmp(x * c(_SQRT_HALF)))
+
+
+def probe_activation(ep_bf16: bool):
+    """The activation of the probe's GEMM 1 epilogue on the fp32
+    pre-activation u: :func:`gelu_nocmp` on u, or with ``ep_bf16`` on u
+    rounded to bf16, every operation then rounding to bf16, and the result
+    widened to fp32 again."""
+    if not ep_bf16:
+        return gelu_nocmp
+    return lambda u: gelu_nocmp(u.to(torch.bfloat16)).float()
+
+
+def ln_mlp_residual_int8_probe_reference(ln_params, mlp_params, x, ep_bf16: bool, ch: int):
+    """Plain PyTorch version of B9, ``_kernel_var`` (probe_mlp_int8_sweep.py
+    :53): :func:`ln_mlp_residual_int8_reference` with the compare-free GELU
+    (:func:`probe_activation`), the hidden chunk ``ch`` and the LayerNorm's
+    eps fixed at 1e-5."""
+    return ln_mlp_residual_int8_reference(ln_params, mlp_params, x,
+                                          probe_activation(ep_bf16), 1e-5, ch)
+
+
+def ln_mlp_residual_int8_probe_stages(ln_params, mlp_params, x, ep_bf16: bool, ch: int,
+                                      rows=None):
+    """The plain version of B9's stages: :func:`ln_mlp_residual_int8_stages`
+    with the probe's activation and chunk (``rows`` as there). Its y equals
+    :func:`ln_mlp_residual_int8_probe_reference`'s bit for bit."""
+    return ln_mlp_residual_int8_stages(ln_params, mlp_params, x, probe_activation(ep_bf16),
+                                       1e-5, ch, rows)
+
+
+def _probe_lib():
+    lib = _build.load("ln_mlp_residual_int8")
+    fn = lib.aaclip_ln_mlp_residual_int8_probe
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 16 + [
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def ln_mlp_residual_int8_probe(ln_params, mlp_params, x, ep_bf16: bool, ch: int,
+                               stages: bool = False):
+    """B9, one layer of the int8 probe's chain: ``x + c_proj(gelu_nocmp(
+    c_fc(layer_norm(x))))`` on int8 weights and dynamic int8 activations,
+    one activation scale per row and one per (row, ``ch``-wide hidden
+    chunk), the GELU's epilogue in fp32 or, with ``ep_bf16``, on bf16
+    values. The kernel on a CUDA x, :func:`ln_mlp_residual_int8_probe_reference`
+    on a CPU one; with ``stages`` the dict of
+    :func:`ln_mlp_residual_int8_probe_stages` (on the card, the kernel's own
+    scratch). No autograd.
+
+    x: (..., d) bf16, contiguous, d a multiple of 128; ``ch`` 1024 or 2048,
+    dividing h. Weights as for :func:`ln_mlp_residual_int8`.
+    """
+    fn = "ln_mlp_residual_int8_probe"
+    if ch not in PROBE_CHUNKS:
+        raise ValueError(f"{fn}: ch={ch} not supported {PROBE_CHUNKS}")
+    custom_ops.check_device(fn, x)
+    if x.device.type == "cpu":
+        if stages:
+            return ln_mlp_residual_int8_probe_stages(ln_params, mlp_params, x, ep_bf16, ch)
+        return ln_mlp_residual_int8_probe_reference(ln_params, mlp_params, x, ep_bf16, ch)
+    out = _int8_chain(fn, _probe_lib(), ln_params, mlp_params, x, ch, 1e-5, int(bool(ep_bf16)))
+    global PROBE_LAUNCHES
+    PROBE_LAUNCHES += 1
+    return out if stages else out["y"]
 
 
 # --------------------------------------------------------------------------

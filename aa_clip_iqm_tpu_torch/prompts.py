@@ -65,6 +65,27 @@ def compute_class_anchor(encode_fn: Callable, dataset_name: str,
     return anchors_from_embeddings(encode_fn(normal), encode_fn(abnormal))
 
 
+def compute_all_anchors(encode_fn: Callable, dataset_name: str,
+                        device="cuda") -> Dict[str, torch.Tensor]:
+    """Every class's (dim, 2) anchor, one :func:`compute_class_anchor` a
+    class."""
+    return {c: compute_class_anchor(encode_fn, dataset_name, c, device)
+            for c in CLASS_NAMES[dataset_name]}
+
+
+def per_sentence_embeddings(encode_fn: Callable, dataset_name: str,
+                            class_name: str, device="cuda"):
+    """The L2-normalized float32 embedding of every prompt sentence of one
+    class, unpooled, normal then abnormal: (n_normal + n_abnormal, dim)."""
+    groups = class_prompt_tokens(dataset_name, class_name, device)
+    return torch.cat([l2_normalize(encode_fn(g).float()) for g in groups], dim=0)
+
+
+def stack_batch_anchors(anchor_dict, class_names) -> torch.Tensor:
+    """The (B, dim, 2) stack of each sample's class anchor."""
+    return torch.stack([anchor_dict[c] for c in class_names], dim=0)
+
+
 def batched_prompt_tokens(dataset_name: str):
     """All classes' prompt tokens stacked for one batched encoder call:
     returns (classes, tokens (C*S, 77) int32 numpy, n_normal, n_abnormal)."""

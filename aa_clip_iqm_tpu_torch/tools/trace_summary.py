@@ -98,7 +98,7 @@ def summarize(events, track_filter=None):
 
 def kernel_group(name: str) -> str:
     """The group of a device kernel, by its name: one of the port's
-    hand-written kernels (B1 ... B8), a cuBLAS GEMM, a copy, or other."""
+    hand-written kernels (B1 ... B9), a cuBLAS GEMM, a copy, or other."""
     low = name.lower()
     if "attention_bwd" in low:
         return "B6 packed_attention_vv_bwd" if "<true>" in low else "B4 packed_attention_bwd"
@@ -110,6 +110,8 @@ def kernel_group(name: str) -> str:
         return "B1 packed_attention"
     if "ln_mlp_residual_dx" in low:
         return "B5 ln_mlp_residual_dx"
+    if "ln_mlp_residual_int8_probe" in low:
+        return "B9 ln_mlp_residual_int8_probe"
     if "ln_mlp_residual_int8" in low:
         return "B3 ln_mlp_residual_int8"
     if "ln_mlp_residual" in low:

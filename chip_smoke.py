@@ -16,7 +16,7 @@ line):
      which must build, against PIL at sizes that resize (the bicubic resize
      within one level, masks and the nearest warp exactly) and on 4
      threads against 1;
-  3. kernels: each hand-written kernel (five forward, three backward) against
+  3. kernels: each hand-written kernel (six forward, three backward) against
      its plain PyTorch twin at the main path's shapes in bf16 (largest and
      RMS error in bf16 ulps, ops/compare.py), with CUDA-event times of the
      kernel, the twin and one stock PyTorch call as a yardstick, and the
@@ -48,7 +48,13 @@ line):
      past valid_len 1300; for the value-value
      backward the key term dropped; for the fused attention half-block the
      out bias dropped and, under vv, q read from the q section) must fail
-     the same check;
+     the same check. B9, the int8 probe's kernel, in each of the sweep's
+     (ep_bf16, ch) variants at M = 10,960, held to its plain version and its
+     stages, and on a sign probe whose outputs the compare-free sign
+     decides; planted there: copysign for that sign, an fp32 epilogue where
+     bf16 was asked, ch 1024 where 2048 was asked. B2 at the other configs'
+     widths (896/3584, 640/2560, 512/2048) and B1 at 14 heads over 1025
+     tokens, held and timed;
   4. main path: AnomalyDetector on ViT-L-14-336 at 518 px with seeded random
      weights (dataset MVTec, bf16): builds the text anchors, answers predict
      at batch 1 and 8 and a mixed-class predict_multi, checks shapes, finite
@@ -140,7 +146,18 @@ line):
      train block at --accum 2 with finite losses; a stage-2 step under
      utils.profiling.enable_nan_checks, which must pass on a clean batch
      and raise FloatingPointError with one NaN pixel;
- 13. serve: the main path's seeded ViT-L-14-336 weights at their native
+ 13. models: ViT-B-16-plus-240 (seeded, full width, bf16) encode_image at
+     batch 8 at 240 px (12 B2, no B1: 226 tokens take the plain attention)
+     and 512 px (12 B1 + 12 B2), text_forward over MVTec's prompts (12 B2),
+     each held to the stock route; RN50 at 224 px, batch 8: encode_image on
+     cuDNN held to its float32 forward, its text tower (12 B2 at width 512)
+     held to the stock route, and the same weights as an OpenAI RN .pt
+     through the converter, bit for bit; images/s of each;
+ 14. repo tools: the port's int8_outlier_study --size flagship (every row
+     landed), parity_run --random_backbone at 518 px (exit 0 on the default
+     table, 1 on a shifted one, the int8 tier), and the three probes at
+     their shapes, every B9 variant landed;
+ 15. serve: the main path's seeded ViT-L-14-336 weights at their native
      336 px grid written as an OpenAI-layout fp16 .pt, and seeded adapters
      written by the trainer's checkpoint writer and as the reference's
      text_adapter.pth / image_adapter_3.pth (imported back bit for bit);
@@ -218,9 +235,10 @@ GEMM_SOURCES = ("ln_mlp_residual", "ln_attn_residual", "ln_mlp_residual_dx",
                 "ln_mlp_residual_int8")
 # B3 runs on the core's int8 form: its SASS shows wgmma as IGMMA.
 GMMA_FORM = {"ln_mlp_residual_int8": "IGMMA"}
+# B9, the int8 probe's kernel, lives in ln_mlp_residual_int8.cu beside B3.
 KERNELS = ("packed_attention", "ln_mlp_residual", "ln_mlp_residual_int8",
            "packed_attention_bwd", "ln_mlp_residual_dx", "packed_attention_vv_bwd",
-           "flash_attention", "ln_attn_residual")
+           "flash_attention", "ln_attn_residual", "ln_mlp_residual_int8_probe")
 HR_IMG = 1274                            # ViT-L/14 at 91 x 91 patches
 HR_TOKENS = (HR_IMG // 14) ** 2 + 1      # 8282, past the packed kernel's 8192
 # The 1274 px map against its twins', as the 518 px one: the kernels' own
@@ -257,6 +275,28 @@ SERVE_MODEL, NATIVE_IMG = "ViT-L-14-336", 336
 SERVE_CLASSES = ("bottle", "screw", "carpet")
 SERVE_CLIENTS, SERVE_REQUESTS = 32, 2
 SERVE_TIMEOUT = 300
+# The models phase: each bf16 route (the kernels' and the stock PyTorch
+# one, use_pallas=False) against the float32 stock forward, as rms(diff) /
+# rms(reference) of the embeddings. On an H100 (NVIDIA H100 80GB HBM3,
+# 700.00 W) the sound routes read 9.75e-3 to 1.20e-2 (RN50's cuDNN tower
+# 4.5e-3), the kernels' route 0.934 to 1.009 times the stock route's; the
+# control, the kernels' route with QuickGELU for GELU, 1.40e-2 to 1.67e-2,
+# 1.343 to 1.408 times the stock route's. bf16 rounding alone is worth
+# about 1e-2 on these seeded weights, so MODEL_TOL bounds both routes and
+# MODEL_RATIO, between the two ratios, is the gate the control must fail.
+MODEL_TOL = 2e-2
+MODEL_RATIO = 1.2
+# The probes' reported errors (max |diff| relative to the reference's
+# largest value), bounded about a third above what an H100 read on these
+# seeded inputs: the sweep's 24-layer int8 chain against the float chain, 3.39e-2
+# (fp32 epilogue) and 3.81e-2 (bf16); probe_mlp_int8's one int8 layer
+# against the bf16 one, 1.46e-2; probe_attn_fused's 24-layer fused chain
+# against the unfused one, 1.15e-2 to 1.89e-2. They bound the tools'
+# reports; the kernels are held at the probes' shapes to their plain
+# versions.
+SWEEP_TOL = 5e-2
+PROBE_MLP_TOL = 2e-2
+PROBE_ATTN_TOL = 2.5e-2
 
 
 class Failure(RuntimeError):
@@ -514,7 +554,8 @@ def read_counts():
             "ln_mlp_residual_dx": fused_mlp.DX_LAUNCHES,
             "packed_attention_vv_bwd": pa.VV_BWD_LAUNCHES,
             "flash_attention": flash_attention.LAUNCHES,
-            "ln_attn_residual": attn_block.LAUNCHES}
+            "ln_attn_residual": attn_block.LAUNCHES,
+            "ln_mlp_residual_int8_probe": fused_mlp.PROBE_LAUNCHES}
 
 
 def diff_counts(after, before):
@@ -720,6 +761,435 @@ def rounding_probe(ln, x):
     bias = (k.float() + 0.5) * 2.0 ** -7
     bias[0] = top
     return {"scale": torch.zeros_like(ln["scale"]), "bias": bias}
+
+
+def gelu_nocmp_copysign(u):
+    """Planted fault for B9: the probe's fp32 GELU with its compare-free sign
+    x / (|x| + 1e-3) taken as copysign(1, x)."""
+    import torch
+
+    from aa_clip_iqm_tpu_torch.ops import fused_mlp
+
+    x = u * torch.tensor(fused_mlp._SQRT_HALF, dtype=u.dtype)
+    erf = torch.copysign(torch.ones_like(x), x) * fused_mlp.erf_as(x.abs())
+    return 0.5 * u * (1.0 + erf)
+
+
+def sign_probe(mlp, x):
+    """Inputs on which B9's compare-free sign decides the output: c_fc's
+    bias lowered by 4 puts the fp32 pre-activations in GELU's negative
+    tail, where 1 + erf cancels and the sign's 1e-3 outweighs it; c_proj's
+    bias zeroed and its scales raised 2^12, and x scaled by 2^-10 (which
+    LayerNorm does not see), make the MLP branch the whole output, so the
+    hold sees it. Returns (mlp, x)."""
+    import torch
+
+    fc = dict(mlp["c_fc"], b=mlp["c_fc"]["b"] - 4.0)
+    proj = dict(mlp["c_proj"], b=torch.zeros_like(mlp["c_proj"]["b"]),
+                scale=mlp["c_proj"]["scale"] * 2.0 ** 12)
+    return {"c_fc": fc, "c_proj": proj}, x * 2.0 ** -10
+
+
+def hold_int8_probe(what, ln, mlp, x, ep, ch):
+    """B9 in one (ep_bf16, ch) variant held to the plain version: its GEMMs
+    on its own row pass (x_q, sx), y in bf16 ulps and h_q within one step;
+    x_q within one step of the plain stages', on all but 1e-5 of its
+    elements; h_q within one step of theirs and the whole in bf16 ulps.
+    Where the LayerNorm's fp32 sums, taken in another order, flip an x_q,
+    the row's hidden values move; with the bf16 epilogue one of them may
+    move its chunk's bf16 maximum by an ulp, which requantizes the whole
+    (row, chunk): h_q then moves by more than a step and y by up to 8.5
+    ulps on an H100. An sx one fp32 ulp off does the same to h_q, though
+    not to y. So with the bf16 epilogue the rows with a flipped x_q are
+    held on the kernel's own row pass only (above, where the flip is the
+    kernel's input), h_q is held to the plain stages on the rows whose x_q
+    and sx both agree, y on those whose x_q agrees, and the RMS over all
+    rows stays within its tolerance. Returns (out, ref, max abs error)."""
+    import torch
+
+    from aa_clip_iqm_tpu_torch.ops import fused_mlp
+    from aa_clip_iqm_tpu_torch.ops.compare import BF16_RMS_ULPS, bf16_error
+
+    got = fused_mlp.ln_mlp_residual_int8_probe(ln, mlp, x, ep, ch, stages=True)
+    out = got["y"]
+    ref = fused_mlp.ln_mlp_residual_int8_probe_reference(ln, mlp, x, ep, ch)
+    st = fused_mlp.ln_mlp_residual_int8_probe_stages(ln, mlp, x, ep, ch)
+    require(torch.equal(st["y"], ref), f"{what}: its stages' y differs from its plain y")
+    torch.cuda.synchronize()
+    differing = (out != ref).float().mean().item()
+    # What is left on the kernel's own row pass is GEMM 2's fp32 fold order.
+    own = fused_mlp.ln_mlp_residual_int8_probe_stages(ln, mlp, x, ep, ch,
+                                                      rows=(got["x_q"], got["sx"]))
+    hold(f"{what} against the plain version of GEMM 1 and GEMM 2 on its own row pass",
+         out, own["y"], x)
+    require((got["h_q"].int() - own["h_q"].int()).abs().max().item() <= 1,
+            f"{what}: h_q off its own row pass's by more than one step")
+    x_q_flips = (got["x_q"] != st["x_q"]).float().mean().item()
+    require((got["x_q"].int() - st["x_q"].int()).abs().max().item() <= 1 and x_q_flips <= 1e-5,
+            f"{what}: x_q differs from the plain row pass's on {x_q_flips:.2e} of its elements "
+            f"or by more than one step")
+    # The rows held to the plain version itself: all, or with the bf16
+    # epilogue y on those whose x_q agrees with the plain row pass's and h_q
+    # on those whose sx agrees too (an sx one fp32 ulp off moves a bf16
+    # rounding of the hidden values, and with it the chunk's maximum).
+    rows = len(out)
+    full = torch.ones(rows, dtype=torch.bool, device=out.device)
+    same = (got["x_q"] == st["x_q"]).all(dim=-1) if ep else full
+    same_sx = (same & (got["sx"].reshape(rows, -1) == st["sx"].reshape(rows, -1)).all(dim=-1)
+               if ep else full)
+    h_q_diff = (got["h_q"][same_sx].int() - st["h_q"][same_sx].int()).abs()
+    log(f"# {what} against the plain version of its stages: x_q {x_q_flips:.3e} differ; "
+        f"h_q {(h_q_diff > 0).float().mean().item():.3e} differ, by at most "
+        f"{h_q_diff.max().item()}, on the {int(same_sx.sum())} rows held "
+        f"({rows - int(same.sum())} rows with a flipped x_q, "
+        f"{int((same & ~same_sx).sum())} more with another sx)")
+    require(h_q_diff.max().item() <= 1, f"{what}: h_q off by more than one step")
+    err = (out.float() - ref.float()).abs().max().item()
+    if not ep:
+        hold(f"{what} against its plain version ({differing:.2e} of the elements differ)",
+             out, ref, x)
+        return out, ref, err
+    n_flipped = int((~same).sum().item())
+    hold(f"{what} against its plain version on the {int(same.sum().item())} rows whose x_q "
+         f"agrees ({differing:.2e} of all elements differ)", out[same], ref[same], x[same])
+    max_ulps, rms_ulps = bf16_error(out, ref, x)
+    log(f"# {what} against its plain version on all rows: ulps max {max_ulps:.2f}, rms "
+        f"{rms_ulps:.3f} (tol {BF16_RMS_ULPS})")
+    require(rms_ulps <= BF16_RMS_ULPS, f"{what}: rms {rms_ulps} against its plain version")
+    if n_flipped:
+        max_ulps, rms_ulps = bf16_error(out[~same], ref[~same], x[~same])
+        log(f"# {what} on the {n_flipped} rows with a flipped x_q (held on its own row "
+            f"pass): against its plain version ulps max {max_ulps:.2f}, rms {rms_ulps:.3f}")
+    return out, ref, err
+
+
+def int8_probe_kernel(gen, dev):
+    """B9 in each of the sweep's (ep_bf16, ch) variants
+    (probe_mlp_int8_sweep.VARIANTS), held by :func:`hold_int8_probe` at the
+    main path's M = 10,960, d 1024, h 4096 and on the sign probe, and again
+    on the probe sweep's own inputs at its M = 22,528; three planted faults
+    (copysign for the sign term, an fp32 epilogue where bf16 was asked, ch
+    1024 where 2048 was asked) must fail the same hold, at both shapes;
+    each variant's times, its stages' device times, the bound and the two
+    bare products on torch._int_mm. Returns the kernel's JSON row (the
+    fp32-epilogue, ch 1024 variant's times)."""
+    import torch
+
+    from aa_clip_iqm_tpu_torch.ops import fused_mlp, quant
+    from aa_clip_iqm_tpu_torch.tools import probe_mlp_int8_sweep as sweep
+
+    m, d, h = B * TOKENS, WIDTH, 4 * WIDTH
+
+    def rnd(*shape, std=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * std
+
+    ln = {"scale": 1.0 + 0.1 * rnd(d), "bias": 0.1 * rnd(d)}
+    mlp = {n: quant.quantize_linear_params(p) for n, p in (
+        ("c_fc", {"w": rnd(d, h, std=d ** -0.5), "b": rnd(h, std=0.02)}),
+        ("c_proj", {"w": rnd(h, d, std=h ** -0.5), "b": rnd(d, std=0.02)}))}
+    x = rnd(m, d).to(torch.bfloat16)
+    probe_mlp, probe_x = sign_probe(mlp, x)
+    variants = sweep.VARIANTS
+    refs, worst, times = {}, 0.0, {}
+    ops = 4 * m * d * h
+
+    def faults(where, refs, x):
+        planted(f"B9 fp32 epilogue where bf16 was asked (ch 1024), {where}",
+                refs[(False, 1024)], refs[(True, 1024)], x)
+        planted(f"B9 ch 1024 where 2048 was asked (fp32 epilogue), {where}",
+                refs[(False, 1024)], refs[(False, 2048)], x)
+
+    for ep, ch in variants:
+        what = f"B9 ln_mlp_residual_int8_probe M={m} ep_bf16={int(ep)} ch={ch}"
+        out, refs[(ep, ch)], err = hold_int8_probe(what, ln, mlp, x, ep, ch)
+        worst = max(worst, err)
+        if not ep:
+            # The sign probe: the compare-free sign decides these outputs.
+            out_p = fused_mlp.ln_mlp_residual_int8_probe(ln, probe_mlp, probe_x, ep, ch)
+            ref_p = fused_mlp.ln_mlp_residual_int8_probe_reference(ln, probe_mlp, probe_x, ep, ch)
+            hold(f"{what} on the sign probe", out_p, ref_p, probe_x)
+            if ch == 1024:
+                planted("B9 copysign(1, x) for the compare-free sign x / (|x| + 1e-3), on the "
+                        "sign probe", fused_mlp.ln_mlp_residual_int8_reference(
+                            ln, probe_mlp, probe_x, gelu_nocmp_copysign, 1e-5, ch),
+                        ref_p, probe_x)
+            del out_p, ref_p
+        ms = cuda_time(lambda: fused_mlp.ln_mlp_residual_int8_probe(ln, mlp, x, ep, ch), 20)
+        plain_ms = cuda_time(
+            lambda: fused_mlp.ln_mlp_residual_int8_probe_reference(ln, mlp, x, ep, ch), 3)
+        times[(ep, ch)] = (ms, plain_ms)
+        log(f"# B9 time, ep_bf16={int(ep)} ch={ch}: kernel {ms:.3f} ms "
+            f"({ops / ms / 1e9:.1f} TOP/s), plain {plain_ms:.3f} ms")
+        stage_times(f"B9 ep_bf16={int(ep)} ch={ch}",
+                    lambda: fused_mlp.ln_mlp_residual_int8_probe(ln, mlp, x, ep, ch),
+                    {"ln_quant_rows": ("LN + row quantize", "bytes", m * d * 2 + m * d + m * 4),
+                     "hidden_epilogue": ("GEMM 1 (hid, chunk maxima exchanged, h_q)", "ops",
+                                         2 * m * d * h),
+                     "proj_epilogue": ("GEMM 2 (chunk fold, x)", "ops", 2 * m * d * h)})
+        del out
+    faults(f"M={m}", refs, x)
+    st = fused_mlp.ln_mlp_residual_int8_probe_stages(ln, mlp, x, False, 1024)
+    w_fc, w_p = mlp["c_fc"]["w_q"], mlp["c_proj"]["w_q"]
+    int_mm_ms = cuda_time(lambda: (torch._int_mm(st["x_q"], w_fc), torch._int_mm(st["h_q"], w_p)),
+                          10)
+    nbytes = 2 * m * d * 2 + 2 * d * h + (h + d) * 4 + (3 * d + h) * 4
+    b_ms, b_by = bound(ops, nbytes, PEAK_INT8_OPS)
+    ms, plain_ms = times[(False, 1024)]
+    log(f"# B9 time: kernel {ms:.3f} ms (ep_bf16=0 ch=1024; "
+        + ", ".join(f"ep_bf16={int(e)} ch={c} {times[(e, c)][0]:.3f} ms" for e, c in variants[1:])
+        + f"), plain {plain_ms:.3f} ms, the two bare products on torch._int_mm {int_mm_ms:.3f} ms "
+        f"({ops / int_mm_ms / 1e9:.1f} TOP/s), bound {b_ms:.4f} ms ({b_by}; {ops:.3e} int8 "
+        f"operations, {nbytes / 1e6:.1f} MB)")
+    del st, refs, x, probe_x
+    # The probe sweep's own inputs at its M: twice the row blocks of the
+    # main path's, through the same cooperative chunk-maxima exchange.
+    s_ln, _, s_mlp, s_x = sweep.make_case(sweep.ROWS, dev)
+    refs = {}
+    for ep, ch in variants:
+        _, refs[(ep, ch)], _ = hold_int8_probe(
+            f"B9 on the probe sweep's inputs M={sweep.ROWS} ep_bf16={int(ep)} ch={ch}",
+            s_ln, s_mlp, s_x, ep, ch)
+    faults(f"M={sweep.ROWS} (the probe sweep's inputs)", refs, s_x)
+    del refs, s_x
+    return {"name": "ln_mlp_residual_int8_probe", "route": "cuda",
+            "source": "aa_clip_iqm_tpu_torch/csrc/ln_mlp_residual_int8.cu",
+            "replaces": "tools/probe_mlp_int8_sweep.py:53",
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": int_mm_ms}
+
+
+def other_widths(gen, dev):
+    """B2 at the widths of the two other configs (ViT-B-16-plus-240's vision
+    896/3584 at 512 and 240 px, its text 640/2560, RN50's text 512/2048) and B1 at
+    ViT-B-16-plus's 14 heads over 1025 tokens (512 px), each held to its
+    plain version and its stages or walk, with the kernel's, the plain
+    version's and the stock call's times and the bound. N = 896 and 640 are
+    no multiples of 256: the GEMM core takes 128-wide tiles there."""
+    import torch
+    import torch.nn.functional as F
+
+    from aa_clip_iqm_tpu_torch.ops import fused_mlp, packed_attention as pa
+    from aa_clip_iqm_tpu_torch.ops.layers import gelu
+
+    bf16 = torch.bfloat16
+
+    def rnd(*shape, std=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * std
+
+    # (what, rows, d, h): ViT-B-16-plus at 512 and 240 px, batch 8 (8 x 1025
+    # and 8 x 226 rows); the two text towers over MVTec's 240 prompt
+    # sentences of 77 tokens.
+    for what, m, d, h in (("ViT-B-16-plus vision", B * 1025, 896, 3584),
+                          ("ViT-B-16-plus vision 240 px", B * 226, 896, 3584),
+                          ("ViT-B-16-plus text", 240 * 77, 640, 2560),
+                          ("RN50 text", 240 * 77, 512, 2048)):
+        ln = {"scale": 1.0 + 0.1 * rnd(d), "bias": 0.1 * rnd(d)}
+        mlp = {"c_fc": {"w": rnd(d, h, std=d ** -0.5).to(bf16), "b": rnd(h, std=0.02)},
+               "c_proj": {"w": rnd(h, d, std=h ** -0.5).to(bf16), "b": rnd(d, std=0.02)}}
+        x = rnd(m, d).to(bf16)
+        out = fused_mlp.ln_mlp_residual(ln, mlp, x, gelu)
+        hold(f"B2 {what} M={m} d={d} h={h}", out,
+             fused_mlp.ln_mlp_residual_reference(ln, mlp, x, gelu), x)
+        hold(f"B2 {what} against the plain version of its stages", out,
+             fused_mlp.ln_mlp_residual_stages(ln, mlp, x, gelu), x)
+        ms = cuda_time(lambda: fused_mlp.ln_mlp_residual(ln, mlp, x, gelu), 20)
+        plain_ms = cuda_time(lambda: fused_mlp.ln_mlp_residual_reference(ln, mlp, x, gelu), 5)
+        xn = F.layer_norm(x, (d,))
+        b_fc, b_proj = mlp["c_fc"]["b"].to(bf16), mlp["c_proj"]["b"].to(bf16)
+        lib_ms = cuda_time(lambda: torch.addmm(
+            b_proj, F.gelu(torch.addmm(b_fc, xn, mlp["c_fc"]["w"])), mlp["c_proj"]["w"]), 20)
+        flops = 4 * m * d * h
+        nbytes = 2 * m * d * 2 + 2 * d * h * 2 + (3 * d + h) * 4
+        b_ms, b_by = bound(flops, nbytes)
+        log(f"# B2 time, {what} (M={m}, d={d}, h={h}): kernel {ms:.3f} ms ({tflops(flops, ms)}), "
+            f"plain {plain_ms:.3f} ms, addmm-gelu-addmm {lib_ms:.3f} ms, bound {b_ms:.4f} ms "
+            f"({b_by})")
+        del ln, mlp, x, out, xn
+
+    heads, tokens, width = 14, 1025, 896
+    qkv = rnd(B, tokens, 3 * width).to(bf16)
+    scale = HD ** -0.5
+    out = pa.flash_mha_packed(qkv, heads, scale)
+    hold(f"B1 packed_attention {heads} heads L={tokens}", out,
+         pa.flash_mha_packed_reference(qkv, heads, scale))
+    hold_walk(f"B1 {heads} heads against the plain version of its walk", out,
+              pa.flash_mha_packed_stages(qkv, heads, scale, False, None))
+    ms = cuda_time(lambda: pa.flash_mha_packed(qkv, heads, scale), 20)
+    plain_ms = cuda_time(lambda: pa.flash_mha_packed_reference(qkv, heads, scale), 3)
+    q, k, v = qkv.view(B, tokens, 3, heads, HD).permute(2, 0, 3, 1, 4)
+    lib_ms = cuda_time(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale), 20)
+    flops = 4 * B * heads * tokens * tokens * HD
+    b_ms, b_by = bound(flops, qkv.numel() * 2 + B * tokens * width * 2)
+    log(f"# B1 time, {heads} heads x {tokens} tokens, batch {B}: kernel {ms:.3f} ms "
+        f"({tflops(flops, ms)}), plain {plain_ms:.3f} ms, sdpa {lib_ms:.3f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by})")
+
+
+def phase_models(card):
+    """The repository's two other configs at full width, seeded weights in
+    bf16 on the card: ViT-B-16-plus-240 (12 blocks of 896, 14 heads; text 12
+    blocks of 640) encode_image at batch 8 at 240 px (226 tokens: the plain
+    attention, 12 B2) and at 512 px (1025 tokens: 12 B1 + 12 B2) and
+    text_forward over MVTec's prompts (12 B2): the kernels' route and the
+    stock route (use_pallas=False, no kernel launched), both in bf16, each
+    held to the float32 stock forward within MODEL_TOL, and the kernels'
+    route with QuickGELU for GELU, the control, must fail that gate; the
+    240 px forward profiled on both routes. RN50 at 224 px, batch 8:
+    encode_image on cuDNN (no kernel) held to its float32 forward, the text
+    tower (12 B2 at width 512) held as ViT-B-16-plus-240's, and the same
+    weights written as an OpenAI RN .pt, converted and encoded again, bit
+    for bit. Images/s of every forward."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from aa_clip_iqm_tpu_torch.configs import ModelConfig, get_model_config
+    from aa_clip_iqm_tpu_torch.models import clip as clip_mod
+    from aa_clip_iqm_tpu_torch.models.convert import (
+        init_clip_params_np,
+        load_openai_checkpoint,
+        params_from_jax,
+    )
+    from aa_clip_iqm_tpu_torch.prompts import batched_prompt_tokens
+
+    t_phase = time.perf_counter()
+    bf16, f32 = torch.bfloat16, torch.float32
+    total = counts_of()
+    rng = np.random.default_rng(13)
+    _, tokens, _, _ = batched_prompt_tokens("MVTec")
+    tokens = torch.from_numpy(np.asarray(tokens, np.int64)).to(DEVICE)
+
+    def rel(a, b):
+        a, b = a.float(), b.float()
+        return ((a - b).square().mean().sqrt() / b.square().mean().sqrt()).item()
+
+    def images(n, size):
+        return torch.from_numpy(rng.standard_normal((n, 3, size, size))
+                                .astype(np.float32)).to(DEVICE)
+
+    def routes(what, fn, want, n, control):
+        """fn(use_pallas, dtype): the kernels' route in bf16, launching
+        ``want``, and the stock route in bf16, which launches nothing, each
+        held to the float32 stock forward within MODEL_TOL; ``control()``,
+        the kernels' route with QuickGELU for GELU, must fail that gate; n
+        items a call."""
+        reset_counts()
+        out = fn(True, bf16)
+        torch.cuda.synchronize()
+        got = read_counts()
+        add_counts(total, got)
+        require(got == want, f"{what}: launches { {k: v for k, v in got.items() if v} }, "
+                f"want { {k: v for k, v in want.items() if v} }")
+        reset_counts()
+        stock = fn(False, bf16)
+        torch.cuda.synchronize()
+        require(read_counts() == counts_of(), f"{what}: the stock route launched a kernel")
+        want_f32 = fn(False, f32)
+        r_k, r_s, r_c = rel(out, want_f32), rel(stock, want_f32), rel(control(), want_f32)
+        require(torch.isfinite(out).all().item() and r_k <= MODEL_TOL and r_s <= MODEL_TOL
+                and r_k <= MODEL_RATIO * r_s,
+                f"{what}: against float32, the kernels' route {r_k:.3e}, the stock route "
+                f"{r_s:.3e} (tol {MODEL_TOL:.1e}, and {MODEL_RATIO} x the stock route's)")
+        require(r_c > MODEL_RATIO * r_s,
+                f"{what}: the QuickGELU control passed the gate ({r_c:.3e})")
+        ms, ms_stock = cuda_time(lambda: fn(True, bf16), 5), cuda_time(lambda: fn(False, bf16), 5)
+        log(f"# models, {what}: {tuple(out.shape)}, launches "
+            f"{ {k: v for k, v in got.items() if v} }; against float32 rms: kernels' route "
+            f"{r_k:.3e} ({r_k / r_s:.3f} x the stock route's), stock route {r_s:.3e} (tol "
+            f"{MODEL_TOL:.1e}, and {MODEL_RATIO} x the stock route's), QuickGELU control "
+            f"{r_c:.3e} ({r_c / r_s:.3f} x, caught); kernels' route against the stock route "
+            f"{rel(out, stock):.3e}; {n / ms * 1e3:.1f} per s on the kernels, "
+            f"{n / ms_stock * 1e3:.1f} per s on the stock route, on {card}")
+        return out
+
+    clip = get_model_config("ViT-B-16-plus-240")
+    cfg = ModelConfig(clip=clip)
+    params = init_clip_params_np(cfg, seed=3)
+    frozen = {dt: params_from_jax(params, None, cfg, device=DEVICE, dtype=dt)[0]
+              for dt in (bf16, f32)}
+    layers = clip.vision.layers
+    for img in (240, 512):
+        c = clip.with_image_size(img)
+        quick = dataclasses.replace(c, act="quick_gelu")
+        visual = {dt: {"visual": frozen[dt]["visual"]} for dt in (bf16, f32)}
+        if img != 240:
+            pos = torch.from_numpy(clip_mod.resize_pos_embed_np(
+                params["visual"]["positional_embedding"], c.vision.grid)).to(DEVICE)
+            visual = {dt: {"visual": dict(v["visual"], positional_embedding=pos)}
+                      for dt, v in visual.items()}
+        x = images(B, img)
+        want = counts_of(ln_mlp_residual=layers) if img == 240 else counts_of(
+            packed_attention=layers, ln_mlp_residual=layers)
+
+        def encode(up, dt, cc=c, visual=visual, x=x):
+            return clip_mod.encode_image(visual[dt], cc, x, compute_dtype=dt, use_pallas=up)
+
+        routes(f"ViT-B-16-plus-240 encode_image {img} px batch {B}", encode, want, B,
+               lambda quick=quick, encode=encode: encode(True, bf16, quick))
+        if img == 240:
+            # Where the 240 px forward's time goes on each route: the plain
+            # attention (226 tokens, below B1's 256) against B2 at M = 1,808.
+            profile_call(lambda: encode(True, bf16), f"ViT-B-16-plus-240 encode_image 240 px "
+                         f"batch {B}, the kernels' route")
+            profile_call(lambda: encode(False, bf16), f"ViT-B-16-plus-240 encode_image 240 px "
+                         f"batch {B}, the stock route")
+
+    def text_of(frozen, clip):
+        def text(up, dt, act=clip.act):
+            return clip_mod.text_forward(frozen[dt]["text"], clip.text, tokens, act_name=act,
+                                         compute_dtype=dt, use_pallas=up)
+        return text
+
+    vit_text = text_of(frozen, clip)
+    routes(f"ViT-B-16-plus-240 text_forward, MVTec's {len(tokens)} prompts", vit_text,
+           counts_of(ln_mlp_residual=clip.text.layers), len(tokens),
+           lambda: vit_text(True, bf16, "quick_gelu"))
+    del frozen, params
+
+    clip = get_model_config("RN50")
+    cfg = ModelConfig(clip=clip)
+    params = init_clip_params_np(cfg, seed=4)
+    frozen = {dt: params_from_jax(params, None, cfg, device=DEVICE, dtype=dt)[0]
+              for dt in (bf16, f32)}
+    x = images(B, clip.vision.image_size)
+    reset_counts()
+    pooled = clip_mod.encode_image(frozen[bf16], clip, x, compute_dtype=bf16)
+    torch.cuda.synchronize()
+    require(read_counts() == counts_of(), "RN50 encode_image launched a kernel")
+    r = rel(pooled, clip_mod.encode_image(frozen[f32], clip, x))
+    require(torch.isfinite(pooled).all().item() and pooled.shape == (B, clip.embed_dim)
+            and r <= MODEL_TOL, f"RN50 encode_image: bf16 against float32 {r:.3e}")
+    ms = cuda_time(lambda: clip_mod.encode_image(frozen[bf16], clip, x, compute_dtype=bf16), 5)
+    log(f"# models, RN50 encode_image 224 px batch {B} (cuDNN, no kernel of the port): "
+        f"{tuple(pooled.shape)}, bf16 against float32 rms {r:.3e} (tol {MODEL_TOL:.1e}), "
+        f"{B / ms * 1e3:.1f} images/s on {card}")
+    rn_text = text_of(frozen, clip)
+    text = routes(f"RN50 text_forward, MVTec's {len(tokens)} prompts", rn_text,
+                  counts_of(ln_mlp_residual=clip.text.layers), len(tokens),
+                  lambda: rn_text(True, bf16, "quick_gelu"))
+    # The same weights as an OpenAI RN checkpoint (float32, so no rounding on
+    # the way), through the converter: the same embeddings, bit for bit.
+    with tempfile.TemporaryDirectory() as tmp:
+        pt = os.path.join(tmp, "RN50.pt")
+        torch.save(openai_state_dict(params, cfg, torch.float32), pt)
+        conv, _ = params_from_jax(load_openai_checkpoint(pt, clip), None, cfg, device=DEVICE,
+                                  dtype=bf16)
+    reset_counts()
+    again = clip_mod.encode_image(conv, clip, x, compute_dtype=bf16)
+    text_again = clip_mod.text_forward(conv["text"], clip.text, tokens, act_name=clip.act,
+                                       compute_dtype=bf16)
+    torch.cuda.synchronize()
+    add_counts(total, read_counts())
+    require(torch.equal(again, pooled) and torch.equal(text_again, text),
+            "RN50 through the converter differs from the seeded weights")
+    log("# models, RN50 through an OpenAI .pt and the converter: encode_image and "
+        "text_forward bit for bit the seeded weights'")
+    del frozen, conv, params
+    torch.cuda.empty_cache()
+    log(f"# models phase: {time.perf_counter() - t_phase:.1f} s, launches {total}")
+    return total
 
 
 def phase_kernels():
@@ -962,6 +1432,12 @@ def phase_kernels():
         "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
         "bound_by": b_by, "library_ms": lib_ms}
     del x, out, ref, mlp, xn, st, w_fc, w_p
+
+    # --- B9: the int8 probe's kernel at the main path's M ------------------
+    results["ln_mlp_residual_int8_probe"] = int8_probe_kernel(gen, dev)
+
+    # --- B2 at the other two configs' widths, B1 at ViT-B-16-plus's heads ---
+    other_widths(gen, dev)
 
     # --- B4: packed attention backward at ViT-L/518, batch 8 --------------
     # The kernels take the forward's log-sum-exp (B1 with it on), as the
@@ -3026,17 +3502,20 @@ def phase_surgery_backward(ctx):
     return got
 
 
-def openai_state_dict(params, cfg):
+def openai_state_dict(params, cfg, dtype=None):
     """The OpenAI CLIP state dict of a numpy params tree in the JAX layout
-    (blocks stacked), in fp16 as OpenAI ships it, with its three metadata
-    entries: the inverse of models/convert.torch_state_dict_to_params, which
-    the package itself never needs."""
+    (blocks stacked), in fp16 as OpenAI ships it (or ``dtype``), with its
+    three metadata entries: the inverse of
+    models/convert.torch_state_dict_to_params, which the package itself
+    never needs. A ModifiedResNet tree (RN50) gives the RN layout."""
     import numpy as np
     import torch
 
+    dtype = dtype or torch.float16
+
     def half(x, transpose=False):
         x = np.asarray(x, np.float32)
-        return torch.from_numpy(np.ascontiguousarray(x.T if transpose else x)).half()
+        return torch.from_numpy(np.ascontiguousarray(x.T if transpose else x)).to(dtype)
 
     sd = {}
 
@@ -3057,15 +3536,40 @@ def openai_state_dict(params, cfg):
                 sd[f"{p}.mlp.{name}.weight"] = half(b["mlp"][name]["w"][i], True)
                 sd[f"{p}.mlp.{name}.bias"] = half(b["mlp"][name]["b"][i])
 
-    v, t, p = params["visual"], params["text"], cfg.clip.vision.patch_size
-    conv = np.asarray(v["patch_embed"]["w"], np.float32).T
-    sd["visual.conv1.weight"] = half(conv.reshape(conv.shape[0], 3, p, p))
-    sd["visual.class_embedding"] = half(v["class_embedding"])
-    sd["visual.positional_embedding"] = half(v["positional_embedding"])
-    ln("visual.ln_pre", v["ln_pre"])
-    blocks("visual.transformer.resblocks", v["blocks"], cfg.clip.vision.layers)
-    ln("visual.ln_post", v["ln_post"])
-    sd["visual.proj"] = half(v["proj"])
+    def conv_bn(prefix, conv, bn, bn_prefix):
+        sd[f"{prefix}.weight"] = half(np.transpose(np.asarray(conv["kernel"]), (3, 2, 0, 1)))
+        for key, name in (("weight", "scale"), ("bias", "bias"), ("running_mean", "mean"),
+                          ("running_var", "var")):
+            sd[f"{bn_prefix}.{key}"] = half(bn[name])
+
+    v, t = params["visual"], params["text"]
+    if "layers" in v:               # ModifiedResNet
+        for i in (1, 2, 3):
+            conv_bn(f"visual.conv{i}", v[f"conv{i}"], v[f"bn{i}"], f"visual.bn{i}")
+        for s, blocks_ in enumerate(v["layers"], start=1):
+            for i, blk in enumerate(blocks_):
+                pre = f"visual.layer{s}.{i}"
+                for j in (1, 2, 3):
+                    conv_bn(f"{pre}.conv{j}", blk[f"conv{j}"], blk[f"bn{j}"], f"{pre}.bn{j}")
+                if "downsample" in blk:
+                    conv_bn(f"{pre}.downsample.0", blk["downsample"]["conv"],
+                            blk["downsample"]["bn"], f"{pre}.downsample.1")
+        ap = v["attnpool"]
+        sd["visual.attnpool.positional_embedding"] = half(ap["positional_embedding"])
+        for name, key in (("q", "q_proj"), ("k", "k_proj"), ("v", "v_proj"),
+                          ("c_proj", "c_proj")):
+            sd[f"visual.attnpool.{key}.weight"] = half(ap[name]["w"], True)
+            sd[f"visual.attnpool.{key}.bias"] = half(ap[name]["b"])
+    else:
+        p = cfg.clip.vision.patch_size
+        conv = np.asarray(v["patch_embed"]["w"], np.float32).T
+        sd["visual.conv1.weight"] = half(conv.reshape(conv.shape[0], 3, p, p))
+        sd["visual.class_embedding"] = half(v["class_embedding"])
+        sd["visual.positional_embedding"] = half(v["positional_embedding"])
+        ln("visual.ln_pre", v["ln_pre"])
+        blocks("visual.transformer.resblocks", v["blocks"], cfg.clip.vision.layers)
+        ln("visual.ln_post", v["ln_post"])
+        sd["visual.proj"] = half(v["proj"])
     sd["token_embedding.weight"] = half(t["token_embedding"])
     sd["positional_embedding"] = half(t["positional_embedding"])
     blocks("transformer.resblocks", t["blocks"], cfg.clip.text.layers)
@@ -3946,6 +4450,160 @@ def phase_tools(card, ctx):
     return total
 
 
+def phase_repo_tools(card):
+    """The port's counterparts of the repository's root tools, on the card:
+    int8_outlier_study --size flagship with its defaults (factors 1, 20,
+    100; 8 images; the six tiers), every row landed (none failed or
+    skipped), B3 counted; parity_run --random_backbone on a synthetic
+    dataset at 518 px on ViT-L in bf16 (the default anchor table, which has
+    no row for it: exit 0), against a table shifted past the budget (exit
+    1) and with --quantize_backbone int8 (exit 0), its reports written; the
+    three probes at their shapes (probe_mlp_int8_sweep: every B9 variant
+    lands; probe_mlp_int8; probe_attn_fused), each chain timed as a CUDA
+    graph, each probe's error within its limit (SWEEP_TOL, PROBE_MLP_TOL,
+    PROBE_ATTN_TOL), and one layer of each chain of the last two held to its
+    plain version at the probe's shape (B9 is held at the sweep's in the
+    kernels phase)."""
+    import contextlib
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from aa_clip_iqm_tpu_torch.data.synthetic import generate, register_synthetic
+    from aa_clip_iqm_tpu_torch.ops import attn_block as ab
+    from aa_clip_iqm_tpu_torch.ops import fused_mlp
+    from aa_clip_iqm_tpu_torch.ops import packed_attention as pa
+    from aa_clip_iqm_tpu_torch.ops.layers import gelu, layer_norm, linear
+    from aa_clip_iqm_tpu_torch.tools import (
+        int8_outlier_study,
+        parity_run,
+        probe_attn_fused,
+        probe_mlp_int8,
+        probe_mlp_int8_sweep,
+    )
+
+    t_phase = time.perf_counter()
+    total = counts_of()
+
+    def window(what):
+        """Counts set to 0 before the tool and read after it."""
+        @contextlib.contextmanager
+        def run():
+            reset_counts()
+            t0 = time.perf_counter()
+            yield
+            torch.cuda.synchronize()
+            got = read_counts()
+            add_counts(total, got)
+            log(f"# repo tools, {what}: {time.perf_counter() - t0:.1f} s, launches "
+                f"{ {k: v for k, v in got.items() if v} }")
+        return run()
+
+    with window("int8_outlier_study --size flagship"):
+        rows = int8_outlier_study.run_study(size="flagship", device=DEVICE,
+                                            out=lambda line: log(f"#   {line}"))
+        got = read_counts()
+    bad = [r for r in rows if "error" in r]
+    require(not bad, f"int8_outlier_study: rows that did not land: {bad}")
+    require(len(rows) == 18, f"int8_outlier_study: {len(rows)} rows, want 3 factors x 6 tiers")
+    require(all(np.isfinite(r["rho"]) and np.isfinite(r["dauroc_pts"]) for r in rows),
+            "int8_outlier_study: a row is not finite")
+    require(got["ln_mlp_residual_int8"] > 0, "int8_outlier_study launched no B3")
+
+    with tempfile.TemporaryDirectory() as root:
+        generate(root, n_normal=4, n_anomalous=4, size=IMG, seed=7, class_names=("widget",))
+        meta = register_synthetic(root)
+        base = ["--model_name", "ViT-L-14-336", "--img_size", str(IMG), "--random_backbone",
+                "--datasets", "Synth", "--metadata_root", meta, "--image_batch_size", str(B),
+                "--compute_dtype", "bfloat16", "--device", DEVICE]
+
+        def report(out):
+            for name in ("report.json", "report.md", "Synth.txt", "Synth.json"):
+                require(os.path.isfile(os.path.join(out, name)), f"parity_run wrote no {name}")
+            with open(os.path.join(out, "report.json")) as f:
+                return json.load(f)
+
+        out1 = os.path.join(root, "rep1")
+        with window("parity_run --random_backbone (the default anchor table)"):
+            rc = parity_run.main(base + ["--out", out1])
+        summary = report(out1)
+        avg = summary["datasets"]["Synth"]["average"]
+        require(rc == 0 and summary["datasets"]["Synth"]["pass"] is None,
+                f"parity_run with no row for the dataset: exit {rc}")
+        require(all(np.isfinite(v) for v in avg.values()), f"parity_run: averages {avg}")
+        table = os.path.join(root, "shifted.json")
+        with open(table, "w") as f:
+            json.dump({"Synth": dict(avg, **{"pixel AUC": avg["pixel AUC"] + 5.0})}, f)
+        out2 = os.path.join(root, "rep2")
+        with window("parity_run against a table shifted 5 points"):
+            rc2 = parity_run.main(base + ["--out", out2, "--anchor_table", table])
+        require(rc2 == 1 and report(out2)["failed"] == ["Synth"],
+                f"parity_run out of budget: exit {rc2}")
+        out3 = os.path.join(root, "rep3")
+        with window("parity_run --quantize_backbone int8"):
+            rc3 = parity_run.main(base + ["--out", out3, "--quantize_backbone", "int8"])
+            got = read_counts()
+        summary3 = report(out3)
+        require(rc3 == 0 and "quantized backbone (int8)" in summary3["weights"]
+                and got["ln_mlp_residual_int8"] > 0,
+                f"parity_run int8: exit {rc3}, launches {got}")
+        log(f"# repo tools, parity_run at {IMG} px on {card}: bf16 averages {avg}, outlier "
+            f"ratios {summary['int8_outlier_ratios']}; shifted table exit {rc2}; int8 averages "
+            f"{summary3['datasets']['Synth']['average']}")
+
+    with window("probe_mlp_int8_sweep"):
+        sweep = probe_mlp_int8_sweep.run(device=DEVICE, out=lambda line: log(f"#   {line}"))
+        got = read_counts()
+    require(set(sweep) == set(probe_mlp_int8_sweep.VARIANTS) and got["ln_mlp_residual_int8_probe"]
+            >= len(sweep) * probe_mlp_int8_sweep.LAYERS, f"probe sweep: {sorted(sweep)}, {got}")
+    for key, r in sweep.items():
+        require(r["where"] == "cuda graph" and r["ms"] > 0 and r["vs_fp"] <= SWEEP_TOL
+                and np.isfinite(r["vs_base"]), f"probe sweep {key}: {r}")
+    log(f"# repo tools, probe_mlp_int8_sweep on {card}: " + "; ".join(
+        f"ep_bf16={int(e)} ch={c} {r['ms']:.2f} ms/chain ({r['tops']:.1f} TOP/s), vs fp "
+        f"{r['vs_fp']:.2e} (tol {SWEEP_TOL}), vs base {r['vs_base']:.2e}"
+        for (e, c), r in sweep.items()))
+
+    with window("probe_mlp_int8"):
+        res = probe_mlp_int8.run(device=DEVICE, out=lambda line: log(f"#   {line}"))
+    require(res["rel_err"] <= PROBE_MLP_TOL and all(c["ms"] > 0 for c in res["chains"].values()),
+            f"probe_mlp_int8: {res} (tol {PROBE_MLP_TOL})")
+    # One layer of each of its chains held to its plain version at its shape.
+    ln, mlp, qmlp, x = probe_mlp_int8.make_case(probe_mlp_int8.ROWS, DEVICE)
+    m = len(x)
+    hold(f"probe_mlp_int8's B2 layer M={m}", fused_mlp.ln_mlp_residual(ln, mlp, x, gelu),
+         fused_mlp.ln_mlp_residual_reference(ln, mlp, x, gelu), x)
+    hold(f"probe_mlp_int8's B3 layer M={m}", fused_mlp.ln_mlp_residual_int8(ln, qmlp, x, gelu),
+         fused_mlp.ln_mlp_residual_int8_reference(ln, qmlp, x, gelu), x)
+    del ln, mlp, qmlp, x
+    with window("probe_attn_fused"):
+        res = probe_attn_fused.run(device=DEVICE, out=lambda line: log(f"#   {line}"))
+        got = read_counts()
+    require(all(r["rel_err"] <= PROBE_ATTN_TOL and r["fused_ms"] > 0 for r in res.values())
+            and got["ln_attn_residual"] > 0 and got["packed_attention"] > 0,
+            f"probe_attn_fused: {res}, {got} (tol {PROBE_ATTN_TOL})")
+    # One layer of each chain held to its plain version at the larger batch:
+    # B8, and B1 on the chain's packed projection, vv off and on.
+    heads, valid = probe_attn_fused.HEADS, probe_attn_fused.VALID
+    rng = np.random.default_rng(0)
+    ln, attn = probe_attn_fused.make_params(rng, DEVICE)
+    x = torch.from_numpy(rng.standard_normal((16, probe_attn_fused.TOKENS, probe_attn_fused.D))
+                         .astype(np.float32) * 0.5).to(device=DEVICE, dtype=torch.bfloat16)
+    qkv = linear(attn["qkv"], layer_norm(ln, x))
+    scale = (probe_attn_fused.D // heads) ** -0.5
+    for vv in (False, True):
+        what = f"probe_attn_fused's layer B=16 L={x.shape[1]} valid_len={valid} vv={vv}"
+        hold(f"{what}: B8", ab.ln_attn_residual(ln, attn, x, heads, vv, valid),
+             ab.ln_attn_residual_reference(ln, attn, x, heads, vv, valid), x)
+        hold(f"{what}: B1", pa.flash_mha_packed(qkv, heads, scale, vv=vv, valid_len=valid),
+             pa.flash_mha_packed_reference(qkv, heads, scale, vv=vv, valid_len=valid))
+    del ln, attn, x, qkv
+    torch.cuda.empty_cache()
+    log(f"# repo tools phase: {time.perf_counter() - t_phase:.1f} s, launches {total}")
+    return total
+
+
 def profile_call(fn, what):
     """Device time by kernel group for one call of ``fn`` (torch.profiler):
     where the time goes, and the device's idle share of the call."""
@@ -4000,6 +4658,8 @@ def main():
         add_counts(launches, phase_surgery_backward(ctx))
         add_counts(launches, phase_deploy(card, ctx))
         add_counts(launches, phase_tools(card, ctx))
+        add_counts(launches, phase_models(card))
+        add_counts(launches, phase_repo_tools(card))
         cfg, frozen = ctx["cfg"], ctx["frozen"]
         del ctx
         phase_metrics_scale(card)

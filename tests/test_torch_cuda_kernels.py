@@ -212,6 +212,64 @@ def test_ln_mlp_residual_int8_matches_twin(dev, m, d, h, act):
         assert (got[name].int() - st[name].int()).abs().max().item() <= 1, name
 
 
+@pytest.mark.parametrize("m,d,h,ep_bf16,ch", [
+    (10960, 1024, 4096, False, 1024),  # ViT-L/518, batch 8: the sweep's variants
+    (10960, 1024, 4096, True, 1024),
+    (10960, 1024, 4096, False, 2048),
+    (22528, 1024, 4096, True, 2048),   # the probe's own M
+    (1370, 1024, 4096, False, 2048),   # ragged rows
+    (1, 1024, 4096, True, 1024),
+    (77, 256, 2048, False, 2048),      # one chunk of 16 tiles
+])
+def test_ln_mlp_residual_int8_probe_matches_plain(dev, m, d, h, ep_bf16, ch):
+    """B9 against its plain version and its stages: the products are exact
+    and the GELU's operations round where the plain version's do, so they
+    differ only where the LayerNorm's fp32 sums flip a rounding. GEMM 1 and
+    GEMM 2 are held to their plain version on the kernel's own row pass;
+    the whole and h_q to the plain version; with the bf16 epilogue the rows
+    whose x_q flipped are held on the kernel's own row pass only, since a
+    flipped x_q can move a chunk's bf16 maximum and so requantize the whole
+    (row, chunk), and the RMS over all rows (chip_smoke.py's B9 hold)."""
+    ln, qmlp, x = _int8_case(dev, m, d, h, m + h + ch)
+    before = (fused_mlp.PROBE_LAUNCHES, fused_mlp.INT8_LAUNCHES)
+    out = fused_mlp.ln_mlp_residual_int8_probe(ln, qmlp, x, ep_bf16, ch)
+    assert (fused_mlp.PROBE_LAUNCHES, fused_mlp.INT8_LAUNCHES) == (before[0] + 1, before[1])
+    ref = fused_mlp.ln_mlp_residual_int8_probe_reference(ln, qmlp, x, ep_bf16, ch)
+    got = fused_mlp.ln_mlp_residual_int8_probe(ln, qmlp, x, ep_bf16, ch, stages=True)
+    st = fused_mlp.ln_mlp_residual_int8_probe_stages(ln, qmlp, x, ep_bf16, ch)
+    # With the bf16 epilogue the plain holds take y on the rows whose x_q
+    # agrees and h_q on those whose sx agrees too; the others are held on
+    # the kernel's own row pass (below).
+    same = same_sx = torch.ones(m, dtype=torch.bool, device=dev)
+    if ep_bf16:
+        same = (got["x_q"] == st["x_q"]).all(dim=-1)
+        same_sx = same & (got["sx"].reshape(m, -1) == st["sx"].reshape(m, -1)).all(dim=-1)
+    if same.any():
+        _check(out[same], ref[same], x[same])
+    if same_sx.any():
+        assert (got["h_q"][same_sx].int() - st["h_q"][same_sx].int()).abs().max().item() <= 1
+    torch.cuda.synchronize()
+    assert bf16_error(out, ref, x)[1] <= BF16_RMS_ULPS
+    assert torch.equal(got["y"], out)
+    assert got["sh"].shape == (m, h // ch)
+    assert (got["x_q"].int() - st["x_q"].int()).abs().max().item() <= 1
+    own = fused_mlp.ln_mlp_residual_int8_probe_stages(ln, qmlp, x, ep_bf16, ch,
+                                                      rows=(got["x_q"], got["sx"]))
+    _check(out, own["y"], x)
+    assert (got["h_q"].int() - own["h_q"].int()).abs().max().item() <= 1
+
+
+def test_int8_probe_refuses_bad_inputs(dev):
+    ln, qmlp, x = _int8_case(dev, 64, 256, 2048, 3)
+    with pytest.raises(ValueError, match="ch=512"):
+        fused_mlp.ln_mlp_residual_int8_probe(ln, qmlp, x, False, 512)
+    with pytest.raises(TypeError, match="dtype"):
+        fused_mlp.ln_mlp_residual_int8_probe(ln, qmlp, x.float(), False, 1024)
+    ln3, q3, x3 = _int8_case(dev, 64, 256, 3072, 4)     # 2048 does not divide h
+    with pytest.raises(ValueError, match="not supported"):
+        fused_mlp.ln_mlp_residual_int8_probe(ln3, q3, x3, False, 2048)
+
+
 def test_int8_wrapper_refuses_bad_inputs(dev):
     ln, qmlp, x = _int8_case(dev, 64, 128, 512, 1)
     with pytest.raises(TypeError, match="dtype"):

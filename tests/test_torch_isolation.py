@@ -57,7 +57,10 @@ def test_new_modules_are_covered():
                 "evaluation/visualize.py", "serving.py", "models/convert.py",
                 "ops/custom_ops.py", "tools/export_model.py", "tools/aot_smoke.py",
                 "platform.py", "utils/profiling.py", "tools/trace_summary.py",
-                "train/graphs.py", "data/native.py"):
+                "train/graphs.py", "data/native.py", "models/modified_resnet.py",
+                "tools/parity_run.py", "tools/int8_outlier_study.py",
+                "tools/convert_backbone.py", "tools/chains.py", "tools/probe_mlp_int8.py",
+                "tools/probe_mlp_int8_sweep.py", "tools/probe_attn_fused.py"):
         assert rel in covered, rel
 
 

@@ -142,6 +142,7 @@ def test_device_view_counts_kernels_by_group(tmp_path, capsys):
             "ln_attn_residual_x": "B8", "packed_attention_bwd<false>": "B4",
             "packed_attention_bwd<true>": "B6", "ln_mlp_residual_dx_k": "B5",
             "ln_mlp_residual_int8_gemm": "B3", "Memcpy DtoD": "memcpy",
+            "gemm_s8_kernel<ln_mlp_residual_int8_probe_stage, 128>": "B9",
             "sm90_xmma_gemm": "GEMM", "triton_x": "other"}
     assert {n: tsummary.kernel_group(n).split()[0] for n in want} == want
 
