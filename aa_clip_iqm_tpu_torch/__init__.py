@@ -21,7 +21,9 @@ and the two-stage adapter training:
     scoring, anchors, ``make_predict_fn``, ``evaluate_dataset`` and
     ``AnomalyDetector``;
   - :mod:`.cli` — ``evaluate`` (the sweep), ``train``, ``serve`` (HTTP),
-    ``single_image`` and ``bench``.
+    ``single_image`` and ``bench``;
+  - :mod:`.parallel` — data and tensor parallelism over several processes
+    on ``torch.distributed`` (``--data_parallel`` under ``torchrun``).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``. On a
 CPU tensor each kernel wrapper runs its plain twin; on a CUDA tensor it

@@ -15,8 +15,11 @@ reference's ``text_adapter.pth`` / ``image_adapter_{N}.pth`` from
 ``<save_path>/visualization/``. ``--profile_dir`` writes a ``torch.profiler``
 trace of the sweep there, and ``--debug_nans`` raises ``FloatingPointError``
 at the first op that makes a NaN. ``--use_pallas`` is accepted and changes
-nothing: the port always runs its kernels. Data-parallel evaluation is not
-ported yet.
+nothing: the port always runs its kernels. ``--data_parallel`` under
+``torchrun`` splits every batch over its ranks (``evaluate_dataset(mesh=)``):
+each rank predicts its rows, the maps are gathered, and rank 0 logs and
+prints the table, which is the single-process table. In one process without
+``torchrun`` the flag changes nothing.
 """
 import argparse
 import os
@@ -29,10 +32,11 @@ from ..evaluation.predict import evaluate_dataset, results_table
 from ..loader import build_model_config, init_trainable, load_frozen_backbone
 from ..models.convert import import_reference_checkpoints
 from ..ops.quant import quantize_backbone_auto
+from ..parallel.multihost import data_parallel_mesh, is_primary
 from ..platform import default_device
 from ..prompts import compute_frozen_anchors
 from ..train.checkpoint import restore_adapters
-from ..utils.misc import setup_logger, setup_seed
+from ..utils.misc import quiet_logger, setup_logger, setup_seed
 from ..utils.profiling import enable_nan_checks, trace
 
 TIERS = ["int8", "int8_attn", "int8_mlp", "int8+smooth", "int8_attn+smooth",
@@ -93,6 +97,9 @@ def build_parser():
                         "'int8_mlp' only the MLP (fused int8 kernel)")
     parser.add_argument("--device", type=str, default=default_device(),
                         help="cuda (default) or cpu; AACLIP_PLATFORM=cpu sets cpu")
+    parser.add_argument("--data_parallel", action="store_true",
+                        help="under torchrun: split every batch over its ranks, "
+                        "one card each (a single process: no effect)")
     parser.add_argument("--use_pallas", action="store_true",
                         help="accepted for the JAX CLI's flag surface: the port always runs its "
                         "kernels (JAX's default, without this flag, is its XLA route)")
@@ -121,8 +128,12 @@ def model_config(args):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    mesh = None
+    if args.data_parallel:
+        mesh, args.device = data_parallel_mesh(args.device)
+    primary = is_primary()
     setup_seed(args.seed)
-    logger = setup_logger(args.save_path, "test.log")
+    logger = setup_logger(args.save_path, "test.log") if primary else quiet_logger("test")
     logger.info("args: %s", vars(args))
 
     dtype = {"bfloat16": torch.bfloat16, "float32": torch.float32}[
@@ -169,13 +180,15 @@ def main(argv=None):
         with trace(args.profile_dir):
             rows = evaluate_dataset(frozen, trainable, model_cfg, eval_cfg, datasets,
                                     anchors, logger=logger, compute_dtype=dtype,
-                                    visualize_dir=args.save_path if args.visualize else None)
+                                    visualize_dir=(args.save_path if args.visualize and primary
+                                                   else None), mesh=mesh)
     finally:
         if args.debug_nans:
             enable_nan_checks(False)
     table = results_table(rows)
     logger.info("final results:\n%s", table)
-    print(table)
+    if primary:
+        print(table)
     return rows
 
 

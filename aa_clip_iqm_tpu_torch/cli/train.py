@@ -11,8 +11,18 @@ trainable adapters as float32 master weights. ``--profile_dir`` writes a
 ``torch.profiler`` trace of the whole run there (``tools/trace_summary.py``
 reads it), and ``--debug_nans`` raises ``FloatingPointError`` at the first op
 that makes a NaN (``utils/profiling.enable_nan_checks``). ``--use_pallas`` is
-accepted and changes nothing: the port always runs its kernels. Data-parallel
-training is not ported yet.
+accepted and changes nothing: the port always runs its kernels.
+
+``--data_parallel`` under ``torchrun`` trains data-parallel over its ranks,
+one card each (NCCL; gloo with ``--device cpu``):
+
+    torchrun --standalone --nproc_per_node 8 -m aa_clip_iqm_tpu_torch.cli.train \
+        --data_parallel --dataset VisA --image_batch_size 16 ...
+
+Each rank loads its rows of every batch and the step is the single-process
+step on the whole batch (``train/steps.py``); rank 0 alone logs and writes
+the checkpoints. In one process without ``torchrun`` the flag changes
+nothing, as JAX's does with one device.
 """
 import argparse
 
@@ -21,9 +31,10 @@ import torch
 from ..configs import TrainConfig
 from ..loader import build_model_config, init_trainable, load_frozen_backbone
 from ..ops.quant import quantize_backbone_auto
+from ..parallel.multihost import data_parallel_mesh, is_primary
 from ..platform import default_device
 from ..train.driver import run_training
-from ..utils.misc import setup_logger, setup_seed
+from ..utils.misc import quiet_logger, setup_logger, setup_seed
 from ..utils.profiling import enable_nan_checks, trace
 from .evaluate import TIERS
 
@@ -84,6 +95,9 @@ def build_parser():
                         choices=["bfloat16", "float32"])
     parser.add_argument("--device", type=str, default=default_device(),
                         help="cuda (default) or cpu; AACLIP_PLATFORM=cpu sets cpu")
+    parser.add_argument("--data_parallel", action="store_true",
+                        help="under torchrun: split every batch over its ranks, "
+                        "one card each (a single process: no effect)")
     parser.add_argument("--clip_grad_norm", type=float, default=None,
                         help="global-norm gradient clip for stage 2. Default "
                         "off = the executed reference (its clip runs before "
@@ -120,9 +134,15 @@ def build_parser():
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    mesh = None
+    if args.data_parallel:
+        mesh, args.device = data_parallel_mesh(args.device)
     setup_seed(args.seed)
-    logger = setup_logger(args.save_path, "train.log")
+    logger = (setup_logger(args.save_path, "train.log") if is_primary()
+              else quiet_logger("train"))
     logger.info("args: %s", vars(args))
+    if mesh is not None:
+        logger.info("data-parallel over %d ranks (%s)", mesh.data_size, mesh.backend)
 
     model_cfg = build_model_config(
         model_name=args.model_name, img_size=args.img_size, relu=args.relu,
@@ -171,7 +191,7 @@ def main(argv=None):
     try:
         with trace(args.profile_dir):
             return run_training(frozen, trainable, model_cfg, train_cfg, logger,
-                                metadata_root=args.metadata_root)
+                                metadata_root=args.metadata_root, mesh=mesh)
     finally:
         if args.debug_nans:
             enable_nan_checks(False)

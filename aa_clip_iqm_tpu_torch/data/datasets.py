@@ -282,7 +282,7 @@ class TrainDataset:
         }
 
     def epoch_batches(self, epoch: int, batch_size: int,
-                      start_batch: int = 0, drop_last: bool = False):
+                      start_batch: int = 0, drop_last: bool = False, rows=None):
         """Deterministic per-epoch batch stream for resumable training: the
         shuffle order derives from (seed, epoch) and every sample's
         augmentation stream from (seed, epoch, position in the epoch), so
@@ -290,7 +290,14 @@ class TrainDataset:
         resumed mid-epoch skips ``start_batch`` batches, without decoding
         them, and continues with bit-identical data. The samples decode on
         the ``AACLIP_DATA_WORKERS`` pool, and the stream is the same for any
-        number of workers."""
+        number of workers.
+
+        ``rows``: a data-parallel rank's share. ``rows(n)`` gives the range
+        [lo, hi) of the padded batch that a batch of n samples puts on the
+        rank; only those samples are decoded, and the positions at or past n
+        are padding (zero image and mask, label 0, the batch's last class),
+        as the single-process driver pads. Each batch then carries
+        ``n_valid``, its real rows."""
         order = np.arange(len(self.meta))
         np.random.default_rng((self.seed, epoch)).shuffle(order)
         for b, start in enumerate(range(0, len(order), batch_size)):
@@ -301,7 +308,27 @@ class TrainDataset:
                 continue
             jobs = [(int(i), np.random.default_rng((self.seed, epoch, start + j)))
                     for j, i in enumerate(idxs)]
-            yield collate(_map(lambda job: self._get(*job), jobs))
+            if rows is None:
+                yield collate(_map(lambda job: self._get(*job), jobs))
+                continue
+            lo, hi = rows(len(idxs))
+            jobs = jobs[lo:hi]
+            pad = self._padding(hi - lo - len(jobs), self.meta[int(idxs[-1])]["class_name"])
+            batch = collate(_map(lambda job: self._get(*job), jobs)) if jobs else pad
+            if jobs and len(pad["label"]):
+                batch = {k: (v + pad[k] if isinstance(v, list)
+                             else np.concatenate([v, pad[k]], axis=0))
+                         for k, v in batch.items()}
+            batch["n_valid"] = len(jobs)
+            yield batch
+
+    def _padding(self, k: int, class_name: str) -> dict:
+        """``k`` padding rows in ``collate``'s layout."""
+        s = self.img_size
+        return {"image": np.zeros((k, 3, s, s), np.float32),
+                "mask": np.zeros((k, 1, s, s), np.float32),
+                "label": np.zeros(k, np.int64), "file_name": [""] * k,
+                "class_name": [class_name] * k}
 
     def batches(self, batch_size: int, shuffle: bool = True, drop_last: bool = False):
         """Batches in a shuffled (or metadata) order drawn from the dataset's

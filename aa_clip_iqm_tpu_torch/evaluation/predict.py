@@ -9,8 +9,16 @@ The returned predict function is the eager program; on a CUDA device
 ``evaluate_dataset`` replays it as one CUDA graph per bucket of the tail
 ladder (``train/graphs.py``), where the JAX package jits it, and the ladder
 bounds the captures as it bounds JAX's compiles. The metric program stays
-eager: each of its shapes runs once per class. Data-parallel evaluation over
-several cards is not ported yet.
+eager: each of its shapes runs once per class.
+
+Data parallelism (``mesh=``, a ``parallel.mesh.Mesh``): every rank reads
+each batch, predicts its own block of the batch's rows and gathers the
+others' maps and logits (``parallel.collectives.gather_rows``), so that each
+rank holds the whole class and ranks it as a single process does: the table
+is the single-process table. Under a mesh every tail is padded to the full
+batch, which the data ranks must divide, as JAX's ``buckets=(batch_size,)``.
+A class's maps then take a rank's memory as they take a single process's
+(3,714 maps of 518 px in float32, the largest shipped class, are 4 GB).
 """
 from __future__ import annotations
 
@@ -25,6 +33,8 @@ from ..configs import EvalConfig, ModelConfig
 from ..data.registry import DOMAINS, IMAGE_MEAN, IMAGE_STD
 from ..models import adapters as adapters_mod
 from ..ops.interp import device_constant
+from ..parallel.collectives import broadcast_row, gather_rows
+from ..parallel.multihost import process_local_rows
 from ..ops.metrics import (
     DEFAULT_CHUNK,
     _rank_metrics,
@@ -54,7 +64,8 @@ def _device_normalize(images_u8):
 def make_predict_fn(cfg: ModelConfig, img_size: int, domain: str,
                     use_iqm: bool = True, compute_dtype=torch.float32,
                     text_weight: float = 0.6, iqm_weight: float = 0.4,
-                    image_score_mode: str = "fixed", use_pallas: bool = True):
+                    image_score_mode: str = "fixed", use_pallas: bool = True,
+                    mesh=None):
     """Build predict(frozen, trainable, images, anchors) ->
     (final_map (B, H, W) fp32, image_logit (B,) fp32).
 
@@ -66,21 +77,42 @@ def make_predict_fn(cfg: ModelConfig, img_size: int, domain: str,
     use_pallas: True (the port's default; JAX's is False) runs the
     hand-written kernels; False the stock PyTorch route with none
     (``models.clip``), JAX's XLA chain.
+    mesh: data parallelism. ``images`` and ``anchors`` are the global batch,
+    which the mesh's data ranks must divide; each rank runs its rows
+    (``process_local_rows``) and the outputs are the global batch's,
+    gathered. "reference_eval" scores every row from global row 1, whose
+    det token the rank that holds it sends to the others. With a
+    tensor-parallel ``frozen`` (``parallel.mesh.shard_backbone``) the blocks
+    sum over the mesh's 'model' ranks.
     """
     if image_score_mode not in ("fixed", "reference_eval"):
         raise ValueError(f"unknown image_score_mode {image_score_mode!r}")
-    logit_fn = (scoring.image_logit if image_score_mode == "fixed"
-                else scoring.image_logit_reference_eval)
 
     def predict(frozen, trainable, images, anchors):
         with torch.inference_mode():
+            total = images.shape[0]
+            if mesh is not None:
+                if total % mesh.data_size:
+                    raise ValueError(f"batch {total} does not split over the "
+                                     f"{mesh.data_size} data-parallel ranks")
+                lo, hi = process_local_rows(mesh, total)
+                images, anchors = images[lo:hi], anchors[lo:hi]
             if images.dtype == torch.uint8:
                 images = _device_normalize(images)
             out = adapters_mod.encode_image_adapted(
                 frozen, trainable, cfg, images,
                 text_anchors=anchors if use_iqm else None,
                 compute_dtype=compute_dtype, use_pallas=use_pallas)
-            img_logit = logit_fn(out.det_token, anchors)
+            if image_score_mode == "fixed":
+                img_logit = scoring.image_logit(out.det_token, anchors)
+            elif mesh is None:
+                img_logit = scoring.image_logit_reference_eval(out.det_token, anchors)
+            else:
+                scoring.check_reference_eval_batch(total)
+                per = hi - lo
+                mine = out.det_token[1 - lo] if lo <= 1 < hi else None
+                det1 = broadcast_row(mine, out.det_token[0], 1, per, mesh)
+                img_logit = scoring.image_logit_from_row(det1, anchors)
             text_maps = [
                 scoring.similarity_map_test(s, anchors, img_size, domain)
                 for s in out.seg_tokens
@@ -93,7 +125,10 @@ def make_predict_fn(cfg: ModelConfig, img_size: int, domain: str,
             final = scoring.fuse_maps(text_maps, iqm_maps,
                                       text_weight=text_weight,
                                       iqm_weight=iqm_weight)
-            return final.float(), img_logit.float()
+            final, img_logit = final.float(), img_logit.float()
+            if mesh is not None:
+                final, img_logit = gather_rows(final, mesh), gather_rows(img_logit, mesh)
+            return final, img_logit
 
     return predict
 
@@ -265,7 +300,7 @@ def evaluate_dataset(frozen, trainable, model_cfg: ModelConfig,
                      logger=None, use_iqm: bool = True,
                      compute_dtype=torch.float32, device_resident: bool = True,
                      visualize_dir: Optional[str] = None, use_pallas: bool = True,
-                     graphs=None):
+                     graphs=None, mesh=None):
     """Per-class sweep producing a results table (list of metric dicts plus
     an Average row), parity with test_last.py:273-327.
 
@@ -284,21 +319,28 @@ def evaluate_dataset(frozen, trainable, model_cfg: ModelConfig,
     ``train.graphs.GraphCache`` to capture into and replay from, so that a
     caller that sweeps again (a benchmark) replays what an earlier call
     captured on the same weights; None makes one for this call.
+
+    ``mesh``: data parallelism (module docstring). Every rank returns the
+    table; pass ``logger`` on rank 0 only, and write ``visualize_dir`` from
+    one rank.
     """
     device_resident = device_resident and not visualize_dir
     domain = DOMAINS[eval_cfg.dataset]
+    if mesh is not None and eval_cfg.batch_size % mesh.data_size:
+        raise ValueError(f"batch size {eval_cfg.batch_size} does not split over the "
+                         f"{mesh.data_size} data-parallel ranks")
     predict_fn = make_predict_fn(
         model_cfg, eval_cfg.img_size, domain, use_iqm=use_iqm,
         compute_dtype=compute_dtype, text_weight=eval_cfg.text_weight,
         iqm_weight=eval_cfg.iqm_weight,
-        image_score_mode=eval_cfg.image_score_mode, use_pallas=use_pallas)
-    if anchors and graphs_mod.enabled(next(iter(anchors.values())).device):
+        image_score_mode=eval_cfg.image_score_mode, use_pallas=use_pallas, mesh=mesh)
+    if anchors and graphs_mod.enabled(next(iter(anchors.values())).device, mesh):
         cache = graphs if graphs is not None else graphs_mod.GraphCache()
         eager_fn = predict_fn
         predict_fn = cache.program(
             ("predict", model_cfg, eval_cfg.img_size, domain, use_iqm, compute_dtype,
              eval_cfg.text_weight, eval_cfg.iqm_weight, eval_cfg.image_score_mode,
-             use_pallas),
+             use_pallas, None if mesh is None else id(mesh)),
             lambda: graphs_mod.GraphedFn(eager_fn, cache, "predict"))
     rows = []
 
@@ -315,7 +357,8 @@ def evaluate_dataset(frozen, trainable, model_cfg: ModelConfig,
         preds = predict_class(predict_fn, frozen, trainable, dataset,
                               anchors[class_name], eval_cfg.batch_size,
                               device_resident=device_resident,
-                              image_score_mode=eval_cfg.image_score_mode)
+                              image_score_mode=eval_cfg.image_score_mode,
+                              buckets=None if mesh is None else (eval_cfg.batch_size,))
         if device_resident:
             row = class_metrics_device(preds, class_name, domain, defer=True)
         else:

@@ -115,14 +115,24 @@ def image_logit(det_token, anchors):
     return (pred[:, 1] + 1.0) * 0.5
 
 
+def check_reference_eval_batch(batch: int) -> None:
+    if batch < 2:
+        raise ValueError(
+            "image_logit_reference_eval requires batch >= 2: the reference's"
+            " pred[:, 1] crashes at B == 1 (test_last.py:90-92)")
+
+
+def image_logit_from_row(det_row, anchors):
+    """Every row's score from one det token ``det_row`` (D,): its
+    normal-anchor cosine against each row's anchors, mapped to [0, 1]."""
+    pred = torch.einsum("d,bdc->bc", det_row.float(), anchors.float())
+    return (pred[:, 0] + 1.0) * 0.5
+
+
 def image_logit_reference_eval(det_token, anchors):
     """Exact transcription of the reference's executed eval image score
     (test_last.py:90-92 + forward_utils.py:269-271), for parity studies: the
     whole batch scores as sample index 1's normal-anchor cosine. Requires
     B >= 2 like the reference (B == 1 raises there)."""
-    if det_token.shape[0] < 2:
-        raise ValueError(
-            "image_logit_reference_eval requires batch >= 2: the reference's"
-            " pred[:, 1] crashes at B == 1 (test_last.py:90-92)")
-    pred = torch.einsum("d,bdc->bc", det_token.float()[1], anchors.float())
-    return (pred[:, 0] + 1.0) * 0.5
+    check_reference_eval_batch(det_token.shape[0])
+    return image_logit_from_row(det_token[1], anchors)

@@ -61,10 +61,13 @@ from ..ops.layers import (
     ACTIVATIONS,
     layer_norm,
     linear,
+    linear_partial,
     mlp_block,
     norm_preserving_blend,
     simple_adapter,
 )
+from ..parallel.collectives import copy_to_model, sum_from_model
+from ..parallel.mesh import TensorParallelBlock
 
 # Route the whole attention residual branch (LN -> qkv -> attention ->
 # out-proj -> residual) through the fused kernel (ops/attn_block.py) instead
@@ -91,7 +94,11 @@ def _run_block(block, x, num_heads, act, attn_mask=None, vv=False,
     ``fused_mlp="frozen"`` takes the fused MLP whose backward is the dx-only
     kernel: valid only while the block's parameters carry no gradient (it
     raises otherwise). ``use_pallas=False``: the stock PyTorch chain (module
-    docstring)."""
+    docstring). A :class:`..parallel.mesh.TensorParallelBlock` runs
+    :func:`_run_tp_block`."""
+    if isinstance(block, TensorParallelBlock):
+        return _run_tp_block(block, x, num_heads, act, attn_mask=attn_mask, vv=vv,
+                             valid_len=valid_len, use_pallas=use_pallas)
     if not use_pallas:
         h = layer_norm(block["ln_1"], x)
         if vv:
@@ -120,6 +127,49 @@ def _run_block(block, x, num_heads, act, attn_mask=None, vv=False,
     if ln_mlp_residual_int8_ok(x, mlp, act):
         return ln_mlp_residual_int8(block["ln_2"], mlp, x, act)
     return x + mlp_block(mlp, layer_norm(block["ln_2"], x), act)
+
+
+def _row_parallel(params, x, group):
+    """A row-split projection: this rank's float32 partial product, summed
+    over ``group``, then the replicated float32 bias and one rounding to
+    x's dtype, as :func:`..ops.layers.linear` rounds the whole product."""
+    y = sum_from_model(linear_partial(params, x), group)
+    return (y + params["b"].float()).to(x.dtype)
+
+
+def _run_tp_block(block, x, num_heads, act, attn_mask=None, vv=False,
+                  valid_len=None, use_pallas=True):
+    """One rank's share of a Megatron tensor-parallel block
+    (``parallel.mesh.shard_backbone``): ``num_heads / n_model`` heads and a
+    ``1 / n_model`` share of the MLP's hidden units.
+
+    Attention: LayerNorm, the column-split qkv projection (``[q_r | k_r |
+    v_r]``), attention over the rank's heads through the same route as the
+    whole block (the packed kernel, B1, where its gate holds; its backward
+    B4), the row-split out-projection's float32 partial sums summed over the
+    'model' ranks before the bias and the one rounding. MLP: LayerNorm, the
+    two cuBLAS products on the hidden share, the sum, the bias and the
+    residual. The fused MLP kernels (B2, its dx backward B5, and the int8
+    B3) add the residual inside GEMM 2, so they cannot stand in for a
+    partial sum, and the fused attention half (B8) holds whole heads: none
+    of them runs under tensor parallelism, as the JAX package shards only
+    its XLA route. The collectives are autograd functions: the copy into
+    each column-split layer sums the input's gradient over the ranks
+    backward, and the row-split sum passes its gradient through, so a frozen
+    block backpropagates to the adapters below it."""
+    group = block.group
+    heads = num_heads // block.n_model
+    h = copy_to_model(layer_norm(block["ln_1"], x), group)
+    if vv:
+        a = attn_ops.vv_heads(block["attn"], h, heads, valid_len=valid_len,
+                              use_pallas=use_pallas)
+    else:
+        a = attn_ops.mha_heads(block["attn"], h, heads, attn_mask=attn_mask,
+                               valid_len=valid_len, use_pallas=use_pallas)
+    x = x + _row_parallel(block["attn"]["out"], a, group)
+    mlp = block["mlp"]
+    h = copy_to_model(layer_norm(block["ln_2"], x), group)
+    return x + _row_parallel(mlp["c_proj"], act(linear(mlp["c_fc"], h)), group)
 
 
 def embed_patches(params, cfg: VisionConfig, images, compute_dtype,

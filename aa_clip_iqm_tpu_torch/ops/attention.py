@@ -69,12 +69,14 @@ def library_sdpa(q, k, v, scale, attn_mask=None):
     return F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask, scale=scale)
 
 
-def packed_ok(x, num_heads: int, attn_mask) -> bool:
+def packed_ok(x, num_heads: int, attn_mask, width=None) -> bool:
     """Whether the packed kernel takes this call: ``_packed_pallas_ok``
     (attention.py:56) without its backend test. No mask, at least
     ``2 * BLK_Q`` and at most ``ROW_KERNEL_MAX_TOKENS`` tokens, and whole
-    heads in 128-column panels."""
-    l, w = x.shape[1], x.shape[-1]
+    heads in 128-column panels. ``width``: the attention's width, the heads'
+    columns (x's width unless the heads are a tensor-parallel share)."""
+    l = x.shape[1]
+    w = x.shape[-1] if width is None else width
     if (attn_mask is not None or l < 2 * flash_attention.BLK_Q
             or l > flash_attention.ROW_KERNEL_MAX_TOKENS or w % num_heads):
         return False
@@ -83,42 +85,62 @@ def packed_ok(x, num_heads: int, attn_mask) -> bool:
     return (group * hd) % 128 == 0 and num_heads % group == 0
 
 
-def mha(params, x, num_heads: int, attn_mask=None, valid_len=None,
-        use_pallas: bool = True):
-    """Self-attention block core (torch MultiheadAttention parity): the packed
-    kernel straight off the packed projection where :func:`packed_ok` holds
-    (``valid_len`` masks keys at or past it), else ``flash_mha`` on split
-    heads. ``use_pallas=False``: :func:`library_sdpa` on split heads, as
-    JAX's XLA route (which, like JAX's, takes no ``valid_len``)."""
-    hd = x.shape[-1] // num_heads
-    scale = hd ** -0.5
-    if use_pallas and packed_ok(x, num_heads, attn_mask):
+def attention_width(params) -> int:
+    """Columns of the heads that ``params["qkv"]`` projects to (a third of
+    its output): the model width, or a tensor-parallel rank's share of it."""
+    qkv = params["qkv"]
+    return (qkv["w"] if "w" in qkv else qkv["w_q"]).shape[-1] // 3
+
+
+def mha_heads(params, x, num_heads: int, attn_mask=None, valid_len=None,
+              use_pallas: bool = True):
+    """Self-attention of the ``num_heads`` heads that ``params["qkv"]``
+    projects to, before the out-projection: (B, L, num_heads * head width)
+    in merged-head layout. The packed kernel straight off the packed
+    projection where :func:`packed_ok` holds (``valid_len`` masks keys at or
+    past it), else ``flash_mha`` on split heads; ``use_pallas=False``:
+    :func:`library_sdpa` on split heads, as JAX's XLA route (which, like
+    JAX's, takes no ``valid_len``)."""
+    width = attention_width(params)
+    scale = (width // num_heads) ** -0.5
+    if use_pallas and packed_ok(x, num_heads, attn_mask, width):
         qkv = linear(params["qkv"], x)
-        out = flash_mha_packed(qkv, num_heads, scale, valid_len=valid_len)
-        return linear(params["out"], out)
+        return flash_mha_packed(qkv, num_heads, scale, valid_len=valid_len)
     q, k, v = qkv_project(params, x)
     qh, kh, vh = (_split_heads(t, num_heads) for t in (q, k, v))
     attend = flash_mha if use_pallas else library_sdpa
-    out = attend(qh, kh, vh, scale, attn_mask=attn_mask)
-    return linear(params["out"], _merge_heads(out))
+    return _merge_heads(attend(qh, kh, vh, scale, attn_mask=attn_mask))
 
 
-def vv_attention(params, x, num_heads: int, valid_len=None, use_pallas: bool = True):
-    """CLIP-Surgery value-value attention (q = k = v) over the token axis:
-    the packed kernel with ``vv=True`` where :func:`packed_ok` holds, else
-    ``flash_mha`` on the split value heads (:func:`library_sdpa` with
-    ``use_pallas=False``)."""
-    hd = x.shape[-1] // num_heads
-    scale = hd ** -0.5
-    if use_pallas and packed_ok(x, num_heads, None):
+def mha(params, x, num_heads: int, attn_mask=None, valid_len=None,
+        use_pallas: bool = True):
+    """Self-attention block core (torch MultiheadAttention parity):
+    :func:`mha_heads`, then the out-projection."""
+    return linear(params["out"], mha_heads(params, x, num_heads, attn_mask=attn_mask,
+                                           valid_len=valid_len, use_pallas=use_pallas))
+
+
+def vv_heads(params, x, num_heads: int, valid_len=None, use_pallas: bool = True):
+    """CLIP-Surgery value-value attention (q = k = v) over the token axis of
+    the ``num_heads`` heads ``params["qkv"]`` projects to, before the
+    out-projection: the packed kernel with ``vv=True`` where
+    :func:`packed_ok` holds, else ``flash_mha`` on the split value heads
+    (:func:`library_sdpa` with ``use_pallas=False``)."""
+    width = attention_width(params)
+    scale = (width // num_heads) ** -0.5
+    if use_pallas and packed_ok(x, num_heads, None, width):
         qkv = linear(params["qkv"], x)
-        out = flash_mha_packed(qkv, num_heads, scale, vv=True, valid_len=valid_len)
-        return linear(params["out"], out)
+        return flash_mha_packed(qkv, num_heads, scale, vv=True, valid_len=valid_len)
     _, _, v = qkv_project(params, x)
     vh = _split_heads(v, num_heads)
     attend = flash_mha if use_pallas else library_sdpa
-    out = attend(vh, vh, vh, scale)
-    return linear(params["out"], _merge_heads(out))
+    return _merge_heads(attend(vh, vh, vh, scale))
+
+
+def vv_attention(params, x, num_heads: int, valid_len=None, use_pallas: bool = True):
+    """:func:`vv_heads`, then the out-projection."""
+    return linear(params["out"], vv_heads(params, x, num_heads, valid_len=valid_len,
+                                          use_pallas=use_pallas))
 
 
 def vv_attention_batch_axis(params, x, num_heads: int):

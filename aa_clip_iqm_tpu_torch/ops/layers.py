@@ -93,6 +93,48 @@ def linear(params, x):
     return y.reshape(*x.shape[:-1], w.shape[-1])
 
 
+class _MmF32(torch.autograd.Function):
+    """bf16 ``x2 @ w`` on the card with the float32 accumulator as the
+    output (``mm`` with a float32 output, which autograd cannot
+    differentiate itself). The backward's products run in the input dtype:
+    the cotangent arrives from a cast of the bf16 result, so it is exact
+    there."""
+
+    @staticmethod
+    def forward(ctx, x2, w):
+        ctx.save_for_backward(x2, w)
+        return torch.mm(x2, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w = ctx.saved_tensors
+        g = g.to(x2.dtype)
+        need_x, need_w = ctx.needs_input_grad
+        dx = torch.matmul(g, w.t()) if need_x else None
+        dw = torch.matmul(x2.t(), g) if need_w else None
+        return dx, dw
+
+
+def linear_partial(params, x):
+    """``x @ W`` accumulated and returned in float32, without the bias: one
+    rank's share of a row-split product, which the tensor-parallel block sums
+    over its ranks before it adds the bias and rounds once, so that the
+    result is :func:`linear`'s."""
+    w = params["w"].to(x.dtype)
+    x2 = x.reshape(-1, x.shape[-1])
+    if x.dtype == torch.float32:
+        y = torch.matmul(x2, w)
+    elif x.is_cuda:
+        if torch.is_grad_enabled() and (x2.requires_grad or w.requires_grad):
+            y = _MmF32.apply(x2, w)
+        else:
+            y = torch.mm(x2, w, out_dtype=torch.float32)
+    else:
+        # As in linear: products of bf16 values are exact in float32.
+        y = torch.matmul(x2.float(), w.float())
+    return y.reshape(*x.shape[:-1], w.shape[-1])
+
+
 def leaky_relu(x, negative_slope: float = 0.01):
     return torch.where(x >= 0, x, negative_slope * x)
 

@@ -25,27 +25,52 @@ surfaces here. Programs:
 
 It asserts each program's output shapes, (B, H, W) maps and (B,) scores on
 ``cuda``, and the number of ``aaclip::`` nodes of each kind in its graph,
-``addmm_f32`` included, and prints one line per program. Left out: the JAX
-tool's data- and tensor-parallel and multislice programs, which wait for
-the port's multi-card support (ROADMAP A14).
+``addmm_f32`` included, and prints one line per program.
+
+Then the JAX tool's four mesh programs (its programs 1-4), each run as rank
+0's program of 8 ranks at 518 px, global batch 8, bf16, on fake CUDA
+tensors, its collectives through torch's fake process group (which answers
+at once), every op recorded as it dispatches (``MESH_PROGRAMS``):
+
+  5. the stage-2 loss on a (data 4, model 2) mesh with the backbone split
+     by ``backbone_param_sharding``: the rank's 2 rows, its shard shapes
+     (qkv (1024, 1536), out (512, 1024), c_fc (1024, 2048), c_proj (2048,
+     1024)), 24 B1 at 8 heads and two all-reduces per block (48);
+  6. predict on the same mesh with the backbone replicated: 2 rows, 24 B1
+     at 16 heads and 24 B2, the maps and logits gathered (2 all-gathers);
+  7. the stage-2 loss on the (replica 2, data 2, model 2) multislice mesh,
+     TP backbone: as 5;
+  8. predict over both data tiers of that mesh: as 6.
+
+Left out of 5 and 7: the backward and the step's gradient sum. A PyTorch
+built for the CPU cannot make autograd nodes for fake CUDA tensors; the
+gloo tests (tests/test_torch_parallel.py) and chip_smoke.py's parallel
+phase run the whole step.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
 from collections import Counter
 from unittest import mock
 
+import numpy as np
 import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
 from torch.overrides import TorchFunctionMode
+from torch.utils._python_dispatch import TorchDispatchMode
 
+from ..configs import TrainConfig
 from ..loader import build_model_config, init_trainable, random_backbone
 from ..models import clip as clip_mod
 from ..models.convert import tree_map
 from ..ops import quant
+from ..parallel import mesh as mesh_mod
+from ..parallel.multihost import process_local_rows
 from ..serving import _ExternalWeights
 from ..evaluation.predict import make_predict_fn
+from ..train import steps
 
 MODEL = "ViT-L-14-336"
 
@@ -172,9 +197,133 @@ def run(programs=PROGRAMS, log=print):
             raise AssertionError(f"{name}: aaclip:: nodes {nodes}, want {want}")
 
 
+class _Recorder(TorchDispatchMode):
+    """Counts the ops that dispatch under it, and the head counts that
+    ``aaclip::flash_mha_packed`` (B1) is called with."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops, self.b1_heads = Counter(), Counter()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = str(func)
+        self.ops[name] += 1
+        if name.startswith("aaclip.flash_mha_packed"):
+            self.b1_heads[int(args[1])] += 1
+        return func(*args, **(kwargs or {}))
+
+
+@contextlib.contextmanager
+def fake_process_group(world: int, rank: int = 0):
+    """torch's fake process group: every collective returns at once."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("a process group is live already")
+    dist.init_process_group("fake", store=FakeStore(), rank=rank, world_size=world)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def _mesh(shape):
+    if len(shape) == 3:
+        return mesh_mod.make_multislice_mesh(shape[0], n_data=shape[1], n_model=shape[2],
+                                             device="cuda")
+    return mesh_mod.make_mesh(n_data=shape[0], n_model=shape[1], device="cuda")
+
+
+def trace_mesh(program: str, shape, img_size: int = 518, batch: int = 8):
+    """Rank 0's ``program`` ("stage2" or "predict") of ViT-L/14-336 on a
+    mesh of ``shape`` ((data, model) or (replica, data, model)), on fake
+    CUDA tensors. Returns (the recorder, the rank's rows, its qkv / out /
+    c_fc / c_proj shard shapes, the output shapes)."""
+    cfg = build_model_config(MODEL, img_size=img_size)
+    frozen = random_backbone(cfg, device="meta", dtype=torch.bfloat16)
+    # float32 masters for the step, bf16 for serving, as the callers make them.
+    trainable = init_trainable(cfg, device="meta", dtype=torch.float32 if program == "stage2"
+                               else torch.bfloat16)
+    world = int(np.prod(shape))
+    with fake_process_group(world), FakeTensorMode(allow_non_fake_inputs=True), _Indexing():
+        mesh = _mesh(shape)
+
+        def cuda(t):
+            return torch.empty(t.shape, dtype=t.dtype, device="cuda")
+
+        frozen, trainable = tree_map(cuda, frozen), tree_map(cuda, trainable)
+        images = torch.empty((batch, 3, img_size, img_size), dtype=torch.float32,
+                             device="cuda")
+        anchors = torch.empty((batch, cfg.clip.embed_dim, 2), dtype=torch.float32,
+                              device="cuda")
+        rows = process_local_rows(mesh, batch)
+        rec = _Recorder()
+        if program == "stage2":
+            frozen = mesh_mod.shard_backbone(mesh, frozen, cfg.clip)
+            step = steps.make_stage2_step(
+                cfg, TrainConfig(img_size=img_size, compute_dtype="bfloat16"),
+                compute_dtype=torch.bfloat16, mesh=mesh,
+                frozen_sharding=mesh_mod.backbone_param_sharding(mesh, frozen))
+            n = rows[1] - rows[0]
+            masks = torch.empty((n, 1, img_size, img_size), dtype=torch.float32,
+                                device="cuda")
+            labels = torch.empty((n,), dtype=torch.int64, device="cuda")
+            weights = torch.empty((n,), dtype=torch.float32, device="cuda")
+            with torch.no_grad(), rec:
+                out = step.loss_fn(trainable, frozen, images[:n], masks, labels,
+                                   anchors[:n], weights, None)
+            outputs = [tuple(out.shape)]
+        else:
+            predict = make_predict_fn(cfg, img_size, "Industrial",
+                                      compute_dtype=torch.bfloat16, mesh=mesh)
+            with rec:
+                outputs = [tuple(t.shape) for t in predict(frozen, trainable, images,
+                                                           anchors)]
+        block = frozen["visual"]["blocks"][0]
+        shards = tuple(tuple(block[a][b]["w"].shape) for a, b in (
+            ("attn", "qkv"), ("attn", "out"), ("mlp", "c_fc"), ("mlp", "c_proj")))
+    return rec, rows, shards, outputs
+
+
+_TP_SHARDS = ((1024, 1536), (512, 1024), (1024, 2048), (2048, 1024))
+_FULL = ((1024, 3072), (1024, 1024), (1024, 4096), (4096, 1024))
+#: (name, program, mesh shape, rank 0's rows, shard shapes, B1 calls by
+#: head count, all-reduces, all-gathers, B2 calls, output shapes).
+MESH_PROGRAMS = (
+    ("stage-2 loss, data 4 x model 2, TP backbone", "stage2", (4, 2), (0, 2), _TP_SHARDS,
+     {8: 24}, 48, 0, 0, [()]),
+    ("predict, data 4 x model 2", "predict", (4, 2), (0, 2), _FULL, {16: 24}, 0, 2, 24,
+     [(8, 518, 518), (8,)]),
+    ("stage-2 loss, multislice 2 x 2 x 2, TP backbone", "stage2", (2, 2, 2), (0, 2),
+     _TP_SHARDS, {8: 24}, 48, 0, 0, [()]),
+    ("predict, multislice 2 x 2 x 2", "predict", (2, 2, 2), (0, 2), _FULL, {16: 24}, 0, 2, 24,
+     [(8, 518, 518), (8,)]),
+)
+
+
+def run_mesh(programs=MESH_PROGRAMS, log=print):
+    """Run each mesh program as rank 0 and hold what it dispatched. Raises
+    AssertionError at the first that is off."""
+    for name, program, shape, rows, shards, b1, reduces, gathers, b2, outputs in programs:
+        t0 = time.perf_counter()
+        rec, got_rows, got_shards, got_out = trace_mesh(program, shape)
+        got = {"rows": got_rows, "shards": got_shards, "B1 by heads": dict(rec.b1_heads),
+               "all-reduces": rec.ops["c10d.allreduce_.default"],
+               "all-gathers": rec.ops["c10d.allgather_.default"],
+               "B2": rec.ops["aaclip.ln_mlp_residual.default"], "outputs": got_out}
+        want = {"rows": rows, "shards": shards, "B1 by heads": b1, "all-reduces": reduces,
+                "all-gathers": gathers, "B2": b2, "outputs": outputs}
+        log(f"{name}: rank 0 of {int(np.prod(shape))} in {time.perf_counter() - t0:.1f} s, "
+            f"{got}")
+        if got != want:
+            raise AssertionError(f"{name}: {got}, want {want}")
+
+
 def main(argv=None):
     argparse.ArgumentParser(description=__doc__.split("\n\n")[0]).parse_args(argv)
     run()
+    run_mesh()
     print("aot smoke OK")
 
 

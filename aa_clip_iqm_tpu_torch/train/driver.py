@@ -1,6 +1,6 @@
 """Two-stage training orchestration (reference train.py:240-436).
 
-Counterpart of ``aa_clip_iqm_tpu/train/driver.py``, on one device.
+Counterpart of ``aa_clip_iqm_tpu/train/driver.py``.
 ``run_training(frozen, trainable, model_cfg, train_cfg, logger)`` runs:
   stage 1: text-anchor adaptation, with checkpoint resume;
   anchor freeze: adapted (or raw, if text_epoch == 0) per-class anchors;
@@ -25,6 +25,19 @@ batch's included, after any checkpoint load), with graphable optimizers;
 on the CPU, and under NaN checks, they run eagerly as before. The two routes
 take the same steps on the same data.
 
+Data parallelism (``mesh=``, a ``parallel.mesh.Mesh``, one process per
+card): every rank runs the same loop on its own rows of each batch. A batch
+is padded with zero-weight rows to a multiple of the data ranks (stage 2:
+of lcm(data ranks, grad_accum_steps)), as JAX's driver pads to its devices,
+and each rank decodes only its block of it (``process_local_rows``;
+``TrainDataset.epoch_batches(rows=...)``). The trainable tensors are
+replicated: rank 0's are broadcast at the start (``parallel.mesh.
+replicate``), every rank computes the same anchors from them, and every
+rank takes the same steps (``train/steps.py`` sums the gradients). Rank 0 alone
+writes the checkpoints, the step checkpoints and ``scalars.jsonl``; a
+resume loads them on every rank. The steps run as CUDA graphs on an NCCL
+process group, eagerly on gloo (``graphs.enabled``).
+
 Observability: per-step {stage, epoch, step, loss, lr, wall_ms} rows are
 appended to {save_path}/scalars.jsonl at each epoch end. Losses stay on the
 device during the epoch and are fetched in one transfer: the step loop never
@@ -34,6 +47,7 @@ from __future__ import annotations
 
 import copy
 import json
+import math
 import os
 import threading
 import time
@@ -45,6 +59,8 @@ import torch
 from ..configs import ModelConfig, TrainConfig
 from ..data.datasets import get_dataset, prefetch
 from ..models.convert import tree_map
+from ..parallel.mesh import replicate
+from ..parallel.multihost import is_primary, process_local_rows
 from ..prompts import batched_prompt_tokens, compute_frozen_anchors
 from . import checkpoint as ckpt
 from . import graphs, optim, steps
@@ -73,6 +89,16 @@ def _pad_batch(batch, multiple: int):
     out["label"] = np.concatenate([batch["label"], np.zeros(pad, np.int64)])
     out["class_name"] = list(batch["class_name"]) + [batch["class_name"][-1]] * pad
     return out, n
+
+
+def _rows(mesh, accum: int = 1) -> dict:
+    """``epoch_batches``' keyword for a rank's rows of a batch of n samples
+    padded to a multiple of lcm(data ranks, ``accum``); none without a mesh
+    (the whole batch, padded by :func:`_pad_batch`)."""
+    if mesh is None:
+        return {}
+    multiple = math.lcm(mesh.data_size, accum)
+    return {"rows": lambda n: process_local_rows(mesh, -(-n // multiple) * multiple)}
 
 
 def _append_scalars(save_path: str, stage: str, epoch: int, first_step: int,
@@ -169,16 +195,18 @@ def _finish_epoch(train_cfg, stage, epoch, first, losses, lrs, wall_ms, t0, logg
     if losses:
         loss_host = torch.stack(losses).float().cpu().numpy()   # one fetch
         mean_loss = float(loss_host.mean())
-        _append_scalars(train_cfg.save_path, stage, epoch, first, loss_host, lrs,
-                        wall_ms)
+        if is_primary():
+            _append_scalars(train_cfg.save_path, stage, epoch, first, loss_host, lrs,
+                            wall_ms)
     else:
         mean_loss = float("nan")
     logger.info("loss: %f (%.1fs)", mean_loss, time.time() - t0)
 
 
 def run_stage1(frozen, trainable, model_cfg: ModelConfig, train_cfg: TrainConfig,
-               text_dataset, logger):
-    """Train ``trainable["text_adapter"]`` in place; returns ``trainable``."""
+               text_dataset, logger, mesh=None):
+    """Train ``trainable["text_adapter"]`` in place; returns ``trainable``.
+    ``mesh``: data parallelism (module docstring)."""
     dtype = _DTYPES[train_cfg.compute_dtype]
     device = _device_of(frozen)
     classes, prompt_toks, n_norm, n_abn = batched_prompt_tokens(train_cfg.dataset)
@@ -186,7 +214,8 @@ def run_stage1(frozen, trainable, model_cfg: ModelConfig, train_cfg: TrainConfig
     prompt_toks = torch.from_numpy(np.asarray(prompt_toks, np.int64)).to(device)
 
     text_params = trainable["text_adapter"]
-    graphed = graphs.enabled(device)
+    graphed = graphs.enabled(device, mesh)
+    primary = is_primary()
     opt_state = optim.stage1_optimizer(text_params, train_cfg.text_lr,
                                        graphable=graphed)
     start_epoch = 0
@@ -197,10 +226,11 @@ def run_stage1(frozen, trainable, model_cfg: ModelConfig, train_cfg: TrainConfig
     start_epoch, start_step = _load_step_resume(
         train_cfg, "stage1", text_params, opt_state, start_epoch, logger)
 
-    visual_fn = steps.make_stage1_visual_fn(model_cfg, compute_dtype=dtype)
+    visual_fn = steps.make_stage1_visual_fn(model_cfg, compute_dtype=dtype, mesh=mesh)
     step_fn = steps.make_stage1_step(model_cfg, train_cfg, prompt_toks,
                                      len(classes), n_norm, n_abn,
-                                     compute_dtype=dtype)
+                                     compute_dtype=dtype, mesh=mesh)
+    rows = _rows(mesh)
     if graphed:   # captured after the resume above has loaded the state
         cache = graphs.GraphCache()
         visual_fn = graphs.GraphedFn(visual_fn, cache, "stage1 features")
@@ -215,14 +245,15 @@ def run_stage1(frozen, trainable, model_cfg: ModelConfig, train_cfg: TrainConfig
             t0 = time.time()
             t_prev = time.perf_counter()
             for i, batch in enumerate(prefetch(text_dataset.epoch_batches(
-                    epoch, train_cfg.text_batch_size, start_batch=first))):
+                    epoch, train_cfg.text_batch_size, start_batch=first, **rows))):
                 step = first + i
-                n_valid = batch["image"].shape[0]
+                n = batch["image"].shape[0]
+                n_valid = batch.get("n_valid", n)
                 images = torch.from_numpy(batch["image"]).to(device)
                 masks = torch.from_numpy(batch["mask"]).to(device)
                 class_idx = torch.tensor(
                     [class_to_idx[c] for c in batch["class_name"]], device=device)
-                weights = torch.ones(n_valid, device=device)
+                weights = (torch.arange(n, device=device) < n_valid).float()
                 patch_feats = visual_fn(frozen, images)
                 text_params, opt_state, loss = step_fn(
                     text_params, opt_state, frozen, patch_feats, masks,
@@ -231,16 +262,17 @@ def run_stage1(frozen, trainable, model_cfg: ModelConfig, train_cfg: TrainConfig
                 now = time.perf_counter()
                 wall_ms.append((now - t_prev) * 1e3)
                 t_prev = now
-                if every > 0 and (step + 1) % every == 0:
+                if primary and every > 0 and (step + 1) % every == 0:
                     saver.save(train_cfg.save_path, "stage1", epoch, step + 1,
                                text_params, opt_state)
                     t_prev = time.perf_counter()  # leave the snapshot out
             _finish_epoch(train_cfg, "stage1", epoch, first, losses,
                           np.full(len(losses), train_cfg.text_lr), wall_ms, t0, logger)
             saver.wait()  # the epoch-tier save/clear must not race a step write
-            ckpt.save_stage1(train_cfg.save_path, epoch + 1, text_params, opt_state)
-            if every > 0:
-                ckpt.clear_step(train_cfg.save_path, "stage1")
+            if primary:
+                ckpt.save_stage1(train_cfg.save_path, epoch + 1, text_params, opt_state)
+                if every > 0:
+                    ckpt.clear_step(train_cfg.save_path, "stage1")
     finally:
         # On an interruption, let the snapshot in flight land: it is a
         # consistent (epoch, step) state. An error here must not mask the
@@ -253,9 +285,9 @@ def run_stage1(frozen, trainable, model_cfg: ModelConfig, train_cfg: TrainConfig
 
 
 def run_stage2(frozen, trainable, model_cfg: ModelConfig, train_cfg: TrainConfig,
-               image_dataset, anchors, logger):
+               image_dataset, anchors, logger, mesh=None):
     """Train the image adapter and the IQM family in place; returns
-    ``trainable``."""
+    ``trainable``. ``mesh``: data parallelism (module docstring)."""
     dtype = _DTYPES[train_cfg.compute_dtype]
     device = _device_of(frozen)
     accum = max(1, train_cfg.grad_accum_steps)
@@ -269,7 +301,8 @@ def run_stage2(frozen, trainable, model_cfg: ModelConfig, train_cfg: TrainConfig
     steps_per_epoch = max(1, -(-len(image_dataset) // train_cfg.image_batch_size))
     total_steps = steps_per_epoch * train_cfg.image_epoch
     quirk = train_cfg.image_epoch if train_cfg.torch_lr_quirk else None
-    graphed = graphs.enabled(device)
+    graphed = graphs.enabled(device, mesh)
+    primary = is_primary()
     opt_state = optim.stage2_optimizer(
         trainable, train_cfg.image_lr, total_steps,
         iqm_lr_scale=train_cfg.iqm_lr_scale,
@@ -288,7 +321,8 @@ def run_stage2(frozen, trainable, model_cfg: ModelConfig, train_cfg: TrainConfig
                                       torch_quirk_period_steps=quirk)
 
     step_fn = steps.make_stage2_step(model_cfg, train_cfg, compute_dtype=dtype,
-                                     clip_grad_norm=train_cfg.clip_grad_norm)
+                                     clip_grad_norm=train_cfg.clip_grad_norm, mesh=mesh)
+    rows = _rows(mesh, accum)
     if graphed:   # captured after the resume above has loaded the state
         step_fn = graphs.GraphedStep(step_fn, graphs.GraphCache(), "stage2 step")
     patch_drop = model_cfg.clip.vision.patch_dropout > 0.0
@@ -302,10 +336,13 @@ def run_stage2(frozen, trainable, model_cfg: ModelConfig, train_cfg: TrainConfig
             t0 = time.time()
             t_prev = time.perf_counter()
             for i, batch in enumerate(prefetch(image_dataset.epoch_batches(
-                    epoch, train_cfg.image_batch_size, start_batch=first))):
+                    epoch, train_cfg.image_batch_size, start_batch=first, **rows))):
                 step = first + i
-                # Tail batches must split into grad_accum microbatches too.
-                batch, n_valid = _pad_batch(batch, accum)
+                if mesh is None:
+                    # Tail batches must split into grad_accum microbatches too.
+                    batch, n_valid = _pad_batch(batch, accum)
+                else:
+                    n_valid = batch["n_valid"]
                 n = batch["image"].shape[0]
                 anchor_stack = torch.stack([anchors[c] for c in batch["class_name"]])
                 weights = (torch.arange(n, device=device) < n_valid).float()
@@ -327,7 +364,7 @@ def run_stage2(frozen, trainable, model_cfg: ModelConfig, train_cfg: TrainConfig
                 now = time.perf_counter()
                 wall_ms.append((now - t_prev) * 1e3)
                 t_prev = now
-                if every > 0 and (step + 1) % every == 0:
+                if primary and every > 0 and (step + 1) % every == 0:
                     saver.save(train_cfg.save_path, "stage2", epoch, step + 1,
                                trainable, opt_state)
                     t_prev = time.perf_counter()  # leave the snapshot out
@@ -336,10 +373,11 @@ def run_stage2(frozen, trainable, model_cfg: ModelConfig, train_cfg: TrainConfig
                           [lr_sched(g0 + k) for k in range(len(losses))], wall_ms,
                           t0, logger)
             saver.wait()  # the epoch-tier save/clear must not race a step write
-            ckpt.save_stage2(train_cfg.save_path, epoch + 1, trainable, opt_state,
-                             keep_last=train_cfg.keep_checkpoints)
-            if every > 0:
-                ckpt.clear_step(train_cfg.save_path, "stage2")
+            if primary:
+                ckpt.save_stage2(train_cfg.save_path, epoch + 1, trainable, opt_state,
+                                 keep_last=train_cfg.keep_checkpoints)
+                if every > 0:
+                    ckpt.clear_step(train_cfg.save_path, "stage2")
     finally:
         try:
             saver.wait()
@@ -349,8 +387,11 @@ def run_stage2(frozen, trainable, model_cfg: ModelConfig, train_cfg: TrainConfig
 
 
 def run_training(frozen, trainable, model_cfg: ModelConfig, train_cfg: TrainConfig,
-                 logger, metadata_root: Optional[str] = None):
-    """The full two-stage pipeline. Returns (trainable, anchors)."""
+                 logger, metadata_root: Optional[str] = None, mesh=None):
+    """The full two-stage pipeline. Returns (trainable, anchors). ``mesh``:
+    data parallelism (module docstring)."""
+    if mesh is not None:
+        replicate(mesh, trainable)      # every rank starts from rank 0's adapters
     text_ds, image_ds = get_dataset(
         train_cfg.dataset, train_cfg.img_size, train_cfg.training_mode,
         train_cfg.shot, "train", logger, metadata_root=metadata_root,
@@ -358,11 +399,11 @@ def run_training(frozen, trainable, model_cfg: ModelConfig, train_cfg: TrainConf
 
     if train_cfg.text_epoch > 0:
         trainable = run_stage1(frozen, trainable, model_cfg, train_cfg, text_ds,
-                               logger)
+                               logger, mesh=mesh)
     anchors = compute_frozen_anchors(
         frozen, trainable, model_cfg, train_cfg.dataset,
         adapted=train_cfg.text_epoch > 0,
         compute_dtype=_DTYPES[train_cfg.compute_dtype])
     trainable = run_stage2(frozen, trainable, model_cfg, train_cfg, image_ds,
-                           anchors, logger)
+                           anchors, logger, mesh=mesh)
     return trainable, anchors

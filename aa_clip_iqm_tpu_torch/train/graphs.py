@@ -21,8 +21,13 @@ step or a batch costs one launch from the host instead of thousands.
 
 The programs run as graphs where :func:`enabled` says so: on a CUDA device,
 unless NaN checks are on (``utils.profiling.enable_nan_checks`` must see
-every op). Elsewhere, and on the CPU, the callers run the eager functions.
-A capture that fails raises: nothing falls back to the eager program.
+every op), and under a data- or tensor-parallel mesh only where its process
+group's collectives can be captured. NCCL's can: a captured step holds its
+gradient all-reduce and replays it. gloo's cannot (its collectives run on
+the host, outside any stream), so on a gloo process group the programs run
+eagerly; that is a rule of the backend, not a fallback. Elsewhere, and on
+the CPU, the callers run the eager functions. A capture that fails raises:
+nothing falls back to the eager program.
 
 The anchors program (``prompts.compute_frozen_anchors``) runs once per run
 and the per-class metric program each shape once per class: a graph of
@@ -31,6 +36,7 @@ either would never be replayed, so both stay eager.
 from __future__ import annotations
 
 import contextlib
+import gc
 import time
 from typing import Callable, Dict, List
 
@@ -42,9 +48,11 @@ from ..ops import interp
 from ..utils.profiling import nan_checks_enabled
 
 
-def enabled(device) -> bool:
-    """Whether programs on ``device`` run as CUDA graphs."""
-    return torch.device(device).type == "cuda" and not nan_checks_enabled()
+def enabled(device, mesh=None) -> bool:
+    """Whether programs on ``device`` (under ``mesh``, a
+    ``parallel.mesh.Mesh``, if given) run as CUDA graphs."""
+    return (torch.device(device).type == "cuda" and not nan_checks_enabled()
+            and (mesh is None or mesh.graphable))
 
 
 def capture(fn: Callable, pool, device):
@@ -70,8 +78,19 @@ def capture(fn: Callable, pool, device):
         fn()
     torch.cuda.current_stream(device).wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):
-        out = fn()
+    # Python's cycle collector must not run inside the capture: a dead graph
+    # it destroyed there would release its memory pool, which frees device
+    # memory, and that invalidates the capture (a later call then fails with
+    # "operation failed due to a previous error during capture").
+    gc.collect()
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):
+            out = fn()
+    finally:
+        if enabled:
+            gc.enable()
     return graph, out
 
 
@@ -229,9 +248,10 @@ class GraphedFn:
             inputs = [_static_copy(t, device) for t in _flatten(data)]
             static = iter(_unflatten(data, inputs))
             call = [a if isinstance(a, dict) else next(static) for a in args]
+            fn = self.fn    # not self: a capture must not hold its owner
 
             def run():
-                return self.fn(*call)
+                return fn(*call)
 
             g = self.graphs[key] = self.cache._capture(run, held, inputs, device,
                                                        replaces=g)
@@ -298,9 +318,10 @@ class GraphedStep:
         device = leaves[0].device
         inputs = [_static_copy(t, device) for t in _flatten(batch)]
         static = _unflatten(batch, inputs)
+        update = self.step.update   # not self: a capture must not hold its owner
 
         def run():
-            return self.step.update(params, opt_state, frozen, *static)
+            return update(params, opt_state, frozen, *static)
 
         with state_restored(params, opt_state):
             return self.cache._capture(run, held, inputs, device,

@@ -22,6 +22,25 @@ function carries its ``update``: the same step without the schedule's
 advance (gradients, clipping, the optimizer's update; returns the loss),
 which is what ``train/graphs.py`` captures. Nothing in an update reads a
 value on the host or has a shape that depends on the data.
+
+Data parallelism (``mesh=``, a ``parallel.mesh.Mesh``): each rank runs the
+step on its own block of the global batch's rows (``parallel.multihost.
+process_local_rows``), with replicated parameters, and the step is exactly
+the single-process step on the whole batch, as JAX's sharded step is, not
+DDP's mean of per-rank means: ``train/driver.py`` pads a tail batch with zero-weight
+rows, so two ranks can hold different numbers of valid rows, and every loss
+is a weighted mean over the global batch. Stage 2 backpropagates each
+rank's numerator ``loss_r * sum(w_r)`` (the form gradient accumulation
+uses), then one sum over the data ranks covers the flattened gradients, the
+numerators and ``sum(w)``, and everything is divided by ``max(sum w, 1)``.
+Stage 1's orthogonality term is the square of a global weighted mean, so
+its step sums the per-rank numerators and weights in the forward
+(``parallel.collectives.sum_from_model``, whose backward passes each rank's
+share through) and sums the gradients after the backward. Clipping runs
+after the sum, so every rank takes the same optimizer step. Under a mesh
+whose 'model' axis splits the backbone (``parallel.mesh.shard_backbone``),
+the frozen tree the step is given, or the one ``frozen_sharding`` makes of
+it, runs its blocks tensor-parallel.
 """
 from __future__ import annotations
 
@@ -36,6 +55,9 @@ from ..models import clip as clip_mod
 from ..models.convert import tree_leaves
 from ..ops.layers import l2_normalize, layer_norm, linear, patch_dropout_indices
 from ..ops.losses import cross_entropy_logits, seg_loss, seg_loss_tokens
+from ..parallel.collectives import all_reduce_sum_, sum_from_model
+from ..parallel.mesh import TensorParallelBlock, shard_backbone
+from ..parallel.multihost import process_local_rows
 from ..prompts import anchors_from_flat_embeddings
 from .optim import OptState, clip_stage2_grads
 
@@ -45,15 +67,26 @@ def _zero_grads(params):
         t.grad = None
 
 
+def _sum_grads(params, group, extra=()):
+    """Sum the gradients of ``params`` (and the tensors ``extra``) over the
+    data ranks ``group``, in place, in one collective."""
+    all_reduce_sum_([t.grad for t in tree_leaves(params) if t.grad is not None]
+                    + list(extra), group)
+
+
 # ----------------------------------------------------------------------
 # Stage 1
 # ----------------------------------------------------------------------
 
-def make_stage1_visual_fn(cfg: ModelConfig, compute_dtype=torch.float32):
+def make_stage1_visual_fn(cfg: ModelConfig, compute_dtype=torch.float32, mesh=None):
     """Visual features for stage 1, without a graph.
 
     Returns fn(frozen, images) -> patch_feats, a list of (B, L, D) per level,
-    each ln_post'ed, projected, L2-normalized and CLS-added."""
+    each ln_post'ed, projected, L2-normalized and CLS-added. Under ``mesh``
+    ``images`` are this rank's rows and so are the features: the program
+    needs no collective of its own (with a tensor-parallel ``frozen`` its
+    blocks make theirs)."""
+    del mesh
     levels = tuple(cfg.adapter.levels)
     vv_from = clip_mod.surgery_vv_from(cfg.clip.vision.layers,
                                        cfg.surgery_until_layer)
@@ -77,16 +110,19 @@ def make_stage1_visual_fn(cfg: ModelConfig, compute_dtype=torch.float32):
 
 def make_stage1_step(cfg: ModelConfig, train_cfg: TrainConfig, prompt_tokens,
                      n_classes: int, n_normal: int, n_abnormal: int,
-                     compute_dtype=torch.float32):
+                     compute_dtype=torch.float32, mesh=None):
     """Build step(text_params, opt_state, frozen, patch_feats, masks,
     class_idx, weights) -> (text_params, opt_state, loss).
 
     prompt_tokens: (C * S, 77) integer tensor on the model's device.
     class_idx: (B,) index of each sample's class into the anchor stack.
+    mesh: data parallelism over its data ranks, each step given the rank's
+    rows (module docstring); the loss is the global batch's on every rank.
     """
     img_size = train_cfg.img_size
     last_only = train_cfg.stage1_last_level_only
     norm_w = train_cfg.text_norm_weight
+    group = None if mesh is None else mesh.data_group
 
     def loss_fn(text_params, frozen, patch_feats, masks, class_idx, weights):
         emb = adapters_mod.encode_text_adapted(
@@ -100,20 +136,29 @@ def make_stage1_step(cfg: ModelConfig, train_cfg: TrainConfig, prompt_tokens,
         # rows (weight 0) do not dilute it.
         w = weights.float()
         dots = (anchors[:, :, 0] * anchors[:, :, 1]).sum(dim=1)
-        ortho = ((dots * w).sum() / w.sum().clamp_min(1.0)) ** 2
 
         losses = [seg_loss(scoring.similarity_map_train(f, anchors, img_size),
                            masks, sample_weight=weights) for f in patch_feats]
         # last_only: only the deepest level contributes gradient, as the
         # reference's loss reassignment has it.
         total = losses[-1] if last_only else sum(losses)
-        return total + ortho * norm_w
+        if mesh is None:
+            ortho = ((dots * w).sum() / w.sum().clamp_min(1.0)) ** 2
+            return total + ortho * norm_w
+        # The global batch's sums: the seg numerator, the dots' and the
+        # weights'. Every rank computes the same loss from them.
+        w_r = w.sum()
+        sums = sum_from_model(torch.stack([total * w_r, (dots * w).sum(), w_r]), group)
+        denom = sums[2].clamp_min(1.0)
+        return sums[0] / denom + (sums[1] / denom) ** 2 * norm_w
 
     def update(text_params, opt_state: OptState, frozen, patch_feats, masks,
                class_idx, weights):
         _zero_grads(text_params)
         loss = loss_fn(text_params, frozen, patch_feats, masks, class_idx, weights)
         loss.backward()
+        if mesh is not None:
+            _sum_grads(text_params, group)
         opt_state.optimizer.step()
         return loss.detach()
 
@@ -135,7 +180,8 @@ def make_stage1_step(cfg: ModelConfig, train_cfg: TrainConfig, prompt_tokens,
 
 def make_stage2_step(cfg: ModelConfig, train_cfg: TrainConfig,
                      compute_dtype=torch.float32,
-                     clip_grad_norm: Optional[float] = None):
+                     clip_grad_norm: Optional[float] = None, mesh=None,
+                     frozen_sharding=None):
     """Build step(trainable, opt_state, frozen, images, masks, labels,
     anchors, weights[, rng]) -> (trainable, opt_state, loss).
 
@@ -153,6 +199,18 @@ def make_stage2_step(cfg: ModelConfig, train_cfg: TrainConfig,
     per-microbatch numerators ``loss_k * sum(w_k)`` (and their gradients)
     and dividing by ``max(sum(w), 1)`` gives the full-batch loss and
     gradients up to fp32 summation order.
+
+    mesh: data parallelism over its data ranks (module docstring); each step
+    is given the rank's rows, and its loss is the global batch's. The rank's
+    rows split into ``grad_accum_steps`` microbatches as evenly as they go
+    (``run_stage2`` pads the global batch to a multiple of lcm(data ranks,
+    grad_accum_steps), which the rank's share need not divide), and a
+    patch-dropout generator draws the global batch's kept indices, of which
+    the rank takes its rows: the step is the single-process step.
+    frozen_sharding: ``parallel.mesh.backbone_param_sharding`` of the frozen
+    tree, as JAX's step takes it; a frozen tree that is not yet this rank's
+    tensor-parallel shard is split by it once (``shard_backbone``) and the
+    shard kept for the tree's later calls.
     """
     img_size = train_cfg.img_size
     text_w = train_cfg.text_loss_weight
@@ -163,17 +221,36 @@ def make_stage2_step(cfg: ModelConfig, train_cfg: TrainConfig,
     patch_size = cfg.clip.vision.patch_size
     drop_rate = cfg.clip.vision.patch_dropout
 
+    group = None if mesh is None else mesh.data_group
+    shard = []          # (the frozen tree last given, its shard)
+
     def keep_indices(generator, batch: int, device):
         """The (batch, K) kept-token indices drawn from ``generator``, one
         draw of each microbatch's rows after another; None without patch
-        dropout."""
+        dropout. Under a mesh ``batch`` is the rank's share: the draw is the
+        global batch's, and the rank's rows of it are returned."""
         if drop_rate <= 0.0:
             return None
-        micro = batch // grad_accum
-        return torch.cat([patch_dropout_indices(generator, micro,
-                                                cfg.clip.vision.num_patches,
-                                                drop_rate, device=device)
-                          for _ in range(grad_accum)])
+        total = batch if mesh is None else batch * mesh.data_size
+        micro = total // grad_accum
+        idx = torch.cat([patch_dropout_indices(generator, micro,
+                                               cfg.clip.vision.num_patches,
+                                               drop_rate, device=device)
+                         for _ in range(grad_accum)])
+        if mesh is None:
+            return idx
+        lo, hi = process_local_rows(mesh, total)
+        return idx[lo:hi]
+
+    def frozen_shard(frozen):
+        """``frozen`` as ``frozen_sharding`` lays it out (the identity
+        without one, or for a tree that is a shard already)."""
+        if frozen_sharding is None or isinstance(frozen["visual"]["blocks"][0],
+                                                 TensorParallelBlock):
+            return frozen
+        if not shard or shard[0] is not frozen:
+            shard[:] = [frozen, shard_backbone(mesh, frozen, cfg.clip)]
+        return shard[1]
 
     def loss_fn(trainable, frozen, images, masks, labels, anchors, weights, rng):
         out = adapters_mod.encode_image_adapted(
@@ -210,16 +287,19 @@ def make_stage2_step(cfg: ModelConfig, train_cfg: TrainConfig,
         return total
 
     def accumulate(trainable, frozen, images, masks, labels, anchors, weights, rng):
-        """Loss and gradients (left in ``.grad``) over the microbatches."""
+        """Loss and gradients (left in ``.grad``) over the microbatches, each
+        backpropagating its numerator. Under a mesh the microbatches are the
+        rank's rows split as evenly as they go, and one sum over the data
+        ranks covers the gradients, the numerators and the weights before
+        the division."""
         batch = images.shape[0]
-        if batch % grad_accum:
+        if mesh is None and batch % grad_accum:
             raise ValueError(
                 f"batch size {batch} is not divisible by grad_accum_steps="
                 f"{grad_accum}; run_stage2 pads its batches to a multiple of it")
-        micro = batch // grad_accum
         num = w_tot = 0.0
-        for k in range(grad_accum):
-            sl = slice(k * micro, (k + 1) * micro)
+        for rows in torch.arange(batch).tensor_split(min(grad_accum, batch)):
+            sl = slice(int(rows[0]), int(rows[-1]) + 1)
             rng_k = None if rng is None else rng[sl]
             w_sum = weights[sl].float().sum()
             num_k = loss_fn(trainable, frozen, images[sl], masks[sl], labels[sl],
@@ -227,6 +307,10 @@ def make_stage2_step(cfg: ModelConfig, train_cfg: TrainConfig,
             num_k.backward()
             num = num + num_k.detach()
             w_tot = w_tot + w_sum
+        if mesh is not None:
+            sums = torch.stack([num, w_tot])
+            _sum_grads(trainable, group, extra=(sums,))
+            num, w_tot = sums[0], sums[1]
         denom = w_tot.clamp_min(1.0)
         for t in tree_leaves(trainable):
             if t.grad is not None:
@@ -237,8 +321,9 @@ def make_stage2_step(cfg: ModelConfig, train_cfg: TrainConfig,
                anchors, weights, rng=None):
         if isinstance(rng, torch.Generator):
             rng = keep_indices(rng, images.shape[0], images.device)
+        frozen = frozen_shard(frozen)
         _zero_grads(trainable)
-        if grad_accum > 1:
+        if mesh is not None or grad_accum > 1:
             loss = accumulate(trainable, frozen, images, masks, labels, anchors,
                               weights, rng)
         else:

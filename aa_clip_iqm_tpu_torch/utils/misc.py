@@ -17,6 +17,16 @@ def setup_seed(seed: int):
     os.environ["PYTHONHASHSEED"] = str(seed)
 
 
+def quiet_logger(name: str) -> logging.Logger:
+    """A logger that writes nothing: a data-parallel run's ranks other than
+    rank 0, which alone logs and writes."""
+    logger = logging.getLogger(f"aa_clip_iqm_tpu_torch.quiet.{name}")
+    logger.handlers.clear()
+    logger.addHandler(logging.NullHandler())
+    logger.propagate = False
+    return logger
+
+
 def setup_logger(save_path: str, filename: str) -> logging.Logger:
     """A logger that writes to ``save_path/filename`` and to the console."""
     os.makedirs(save_path, exist_ok=True)

@@ -175,7 +175,32 @@ line):
      window on the eager program, and the idle share of the same traffic
      under the profiler;
      cli.single_image zero-shot (B1 in value-value mode) and from the
-     checkpoint, each saved map against the same computation done directly.
+     checkpoint, each saved map against the same computation done directly;
+ 16. parallel (the port's multi-GPU paths, parallel/, on the one card, at
+     ViT-L-14-336, 518 px, full width and depth, bf16, seeded weights):
+     (a) a world-size-1 NCCL process group in this process, 3 stage-2 steps
+     at batch 8 on its mesh replayed from a captured graph (the gradient
+     all-reduce in it) against eager steps, bit for bit where two eager
+     runs agree, and step ms of both; `torchrun --standalone
+     --nproc_per_node 1 -m aa_clip_iqm_tpu_torch.cli.train --data_parallel
+     --random_backbone` for 2 stage-2 steps at batch 8 on graphs against
+     the same command without torchrun, run at once: losses and saved
+     adapters bit for bit; (b) two gloo processes sharing the card
+     (`--parallel-child`; NCCL refuses two ranks on one GPU): a DP stage-2
+     step at global batch 8 and at 7 valid rows (4 and 3 a rank), the loss
+     within 1e-4 and the gradients within 1e-3 of one process's step over
+     the ranks' halves as two microbatches (GRAD_BWD_TOL of its whole-batch
+     step), a planted fault (DDP's mean of the ranks' mean-loss gradients)
+     that must fail; a DP evaluate_dataset over two in-memory classes,
+     its table within 1e-6 of one process's; the gradients' gloo
+     all-reduce ms; (c) predict at batch 8 with the backbone split over 2
+     gloo ranks (n_model=2, B1 at 8 heads), the map within MAP_TOL of one
+     process's, and a planted fault (the attention out-projection's
+     all-reduce dropped) that must fail; a stage-2 step at batch 8 through
+     the split backbone (24 B1 and 23 B4 on the local heads, no B2 or B5),
+     its loss and gradients within GRAD_TOL of one process's. The children print their kernel
+     counters (their parallel paths only) on a line each, and the phase
+     adds them to the launches.
 On the card every AnomalyDetector request replays the CUDA graph of its
 bucket (captured at the bucket's first request, after a warm-up run), and
 the training steps and the sweep's predict calls replay theirs
@@ -202,6 +227,7 @@ import shutil
 import subprocess
 import sys
 import time
+import traceback
 import weakref
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -2643,7 +2669,7 @@ def eager_programs():
     from aa_clip_iqm_tpu_torch.train import graphs
 
     enabled = graphs.enabled
-    graphs.enabled = lambda device: False
+    graphs.enabled = lambda device, mesh=None: False
     try:
         yield
     finally:
@@ -2757,14 +2783,15 @@ def stage2_batches(cfg, anchors, n=3, seed=21):
     return out
 
 
-def stage2_block(cfg, frozen, snap, batches, route, accum=1, n=3, stale=False):
+def stage2_block(cfg, frozen, snap, batches, route, accum=1, n=3, stale=False, mesh=None):
     """``n`` stage-2 steps at batch B from the snapshot ``snap`` (the
     adapters and the optimizer's state): ``route`` "eager" (the capturable
     optimizer, run eagerly), "plain" (the optimizer that is not capturable,
     with float learning rates) or "graph" (replays of a GraphedStep;
     ``stale`` skips the copy-in after the first step, a planted fault).
-    Returns (losses + updated tensors + optimizer state as one list, the
-    step, its optimizer, the parameters)."""
+    ``mesh``: the step's data-parallel mesh. Returns (losses + updated
+    tensors + optimizer state as one list, the step, its optimizer, the
+    parameters)."""
     import copy
 
     import torch
@@ -2782,7 +2809,7 @@ def stage2_block(cfg, frozen, snap, batches, route, accum=1, n=3, stale=False):
     opt = optim.stage2_optimizer(params, 5e-4, 3, graphable=route != "plain")
     opt.load_state_dict(copy.deepcopy(snap["opt"]))
     train_cfg = TrainConfig(img_size=IMG, compute_dtype="bfloat16", grad_accum_steps=accum)
-    step = steps.make_stage2_step(cfg, train_cfg, compute_dtype=torch.bfloat16)
+    step = steps.make_stage2_step(cfg, train_cfg, compute_dtype=torch.bfloat16, mesh=mesh)
     if route == "graph":
         step = graphs.GraphedStep(step, graphs.GraphCache(), "stage2 step")
     drop = cfg.clip.vision.patch_dropout > 0
@@ -4604,6 +4631,460 @@ def phase_repo_tools(card):
     return total
 
 
+# ----------------------------------------------------------------------
+# Parallel: the port's data- and tensor-parallel paths on the one card
+# ----------------------------------------------------------------------
+
+PARALLEL_TIMEOUT = 420                   # each child process, seconds
+PARALLEL_LOSS_TOL = 1e-4                 # DP loss against one process, relative
+# DP gradients: rms(diff) / rms(one process's). Against one process's step
+# over the same two halves as two microbatches (the same bf16 roundings);
+# against one process's whole-batch step GRAD_BWD_TOL holds, since each
+# half's bf16 weight gradients then round on their own (2-3e-3 rehearsed on
+# the CPU).
+PARALLEL_GRAD_TOL = 1e-3
+PARALLEL_TABLE_TOL = 1e-6                # DP evaluation table against one process's
+PARALLEL_CLASSES = ("bottle", "screw")
+PARALLEL_MODEL = "ViT-L-14-336"
+PARALLEL_CLI = ()                        # more cli.train arguments (a CPU rehearsal's)
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _wait_all(procs, logs, what, timeout=PARALLEL_TIMEOUT):
+    """Wait for every process of ``procs`` (killed at the deadline), then
+    require each to have exited 0; on a failure print the end of its log."""
+    deadline = time.monotonic() + timeout
+    try:
+        for p in procs:
+            try:
+                p.wait(max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, path in zip(procs, logs):
+        if p.returncode != 0:
+            with open(path) as f:
+                tail = f.read()[-3000:]
+            log(f"# {what}: a process exited {p.returncode}; the end of its output:\n{tail}")
+        require(p.returncode == 0, f"{what}: a process exited {p.returncode}")
+
+
+def parallel_world1(root):
+    """(a) cli.train --data_parallel under torchrun at world size 1 (NCCL,
+    the steps on CUDA graphs with the gradient all-reduce captured) against
+    the same command without torchrun: the losses and the saved adapters bit
+    for bit."""
+    import torch
+
+    from aa_clip_iqm_tpu_torch.data.synthetic import generate
+    from aa_clip_iqm_tpu_torch.loader import build_model_config, init_trainable
+    from aa_clip_iqm_tpu_torch.models.convert import tree_leaves
+    from aa_clip_iqm_tpu_torch.train.checkpoint import restore_adapters
+
+    t0 = time.perf_counter()
+    data, meta = os.path.join(root, "data"), os.path.join(root, "metadata")
+    generate(os.path.join(root, "staging"), n_normal=8, n_anomalous=8, size=IMG,
+             class_names=("bottle",), seed=13, dataset_name="MVTec-AD")
+    os.makedirs(data)
+    shutil.move(os.path.join(root, "staging", "MVTec-AD"), os.path.join(data, "MVTec-AD"))
+    os.makedirs(os.path.join(meta, "MVTec"))
+    shutil.move(os.path.join(root, "staging", "metadata", "MVTec-AD", "full-shot.jsonl"),
+                os.path.join(meta, "MVTec", "full-shot.jsonl"))
+    args = ["--data_parallel", "--random_backbone", "--dataset", "MVTec", "--img_size",
+            str(IMG), "--training_mode", "full_shot", "--text_epoch", "0", "--image_epoch",
+            "1", "--image_batch_size", str(B), "--metadata_root", meta, "--seed", "7",
+            *PARALLEL_CLI]
+    env = {**os.environ, "AACLIP_DATA_ROOT": data, "PYTHONPATH": ROOT}
+    env.pop("AACLIP_MULTIHOST", None)
+    runs = {"torchrun": [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                         "--nproc_per_node", "1", "-m", "aa_clip_iqm_tpu_torch.cli.train"],
+            "one process": [sys.executable, "-m", "aa_clip_iqm_tpu_torch.cli.train"]}
+    procs, logs = [], []
+    for name, cmd in runs.items():
+        path = os.path.join(root, f"{name.replace(' ', '_')}.log")
+        logs.append(path)
+        with open(path, "w") as f:
+            procs.append(subprocess.Popen(
+                [*cmd, *args, "--save_path", os.path.join(root, name.replace(" ", "_"))],
+                cwd=ROOT, env=env, stdout=f, stderr=subprocess.STDOUT))
+    _wait_all(procs, logs, "parallel (a)")
+    wall = time.perf_counter() - t0
+    a, b = (os.path.join(root, n.replace(" ", "_")) for n in runs)
+    with open(os.path.join(a, "train.log")) as f:
+        mesh_line = [ln for ln in f if "data-parallel over" in ln]
+    require(mesh_line and "over 1 ranks (nccl)" in mesh_line[0],
+            f"parallel (a): the torchrun run did not train on an NCCL mesh: {mesh_line}")
+
+    def losses(path):
+        with open(os.path.join(path, "scalars.jsonl")) as f:
+            return [json.loads(ln)["loss"] for ln in f]
+
+    la, lb = losses(a), losses(b)
+    cfg = build_model_config(PARALLEL_MODEL, img_size=IMG)
+    ta, _, _ = restore_adapters(a, init_trainable(cfg, device="cpu", dtype=torch.float32))
+    tb, _, _ = restore_adapters(b, init_trainable(cfg, device="cpu", dtype=torch.float32))
+    equal = all(torch.equal(x, y) for x, y in zip(tree_leaves(ta), tree_leaves(tb)))
+    log(f"# parallel (a): cli.train --data_parallel under torchrun (world size 1, NCCL, stage "
+        f"2 on CUDA graphs with the all-reduce captured) and without it, {len(la)} steps at "
+        f"batch {B} each, both in {wall:.1f} s: losses {la} and {lb}, "
+        f"{'equal' if la == lb else 'DIFFER'}; saved adapters "
+        f"{'equal bit for bit' if equal else 'DIFFER'}")
+    require(len(la) == 2 and la == lb, f"parallel (a): losses {la} and {lb}")
+    require(equal, "parallel (a): the saved adapters differ")
+
+
+def parallel_nccl_graphs():
+    """(a) in this process: a process group of world size 1 on NCCL, and 3
+    stage-2 steps at batch B on its mesh from one snapshot, eager and as
+    replays of a captured step (the gradient all-reduce in the graph):
+    bit for bit where two eager runs agree, as the training phase holds its
+    replays; step ms on both."""
+    import torch
+    import torch.distributed as dist
+
+    from aa_clip_iqm_tpu_torch.loader import build_model_config, init_trainable, random_backbone
+    from aa_clip_iqm_tpu_torch.models.convert import tree_leaves
+    from aa_clip_iqm_tpu_torch.parallel.mesh import make_mesh
+    from aa_clip_iqm_tpu_torch.parallel.multihost import maybe_initialize
+    from aa_clip_iqm_tpu_torch.train import optim
+
+    require(maybe_initialize(f"127.0.0.1:{_free_port()}", 1, 0, backend="nccl"),
+            "parallel: the NCCL process group did not initialize")
+    try:
+        cfg = build_model_config(PARALLEL_MODEL, img_size=IMG)
+        frozen = random_backbone(cfg, seed=0, device=DEVICE, dtype=torch.bfloat16)
+        mesh = make_mesh()
+        require(mesh.graphable and mesh.data_group is not None,
+                f"parallel: the world-size-1 mesh {mesh} has no NCCL group")
+        params = init_trainable(cfg, seed=111, device=DEVICE, dtype=torch.float32,
+                                requires_grad=True)
+        snap = {"params": [t.detach().clone() for t in tree_leaves(params)],
+                "opt": optim.stage2_optimizer(params, 5e-4, 3, graphable=True).state_dict()}
+        g = torch.Generator().manual_seed(31)
+        anchors = {c: torch.nn.functional.normalize(
+            torch.randn(cfg.clip.embed_dim, 2, generator=g), dim=0).to(DEVICE)
+            for c in PARALLEL_CLASSES}
+        batches = stage2_batches(cfg, anchors)
+        eager, estep, eopt, eparams = stage2_block(cfg, frozen, snap, batches, "eager",
+                                                   mesh=mesh)
+        again, _, _, _ = stage2_block(cfg, frozen, snap, batches, "eager", mesh=mesh)
+        replayed, gstep, gopt, gparams = stage2_block(cfg, frozen, snap, batches, "graph",
+                                                      mesh=mesh)
+        hold_replays(f"parallel (a): stage 2 at batch {B} on a world-size-1 NCCL mesh, 3 "
+                     f"steps from one snapshot (the gradient all-reduce captured)",
+                     replayed, eager, again)
+
+        def step_ms(step, params, opt, n=5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(n):
+                step(params, opt, frozen, *batches[i % len(batches)], None)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) / n * 1e3
+
+        log(f"# parallel (a): world-size-1 NCCL stage-2 step at batch {B}: "
+            f"{step_ms(gstep, gparams, gopt):.1f} ms a graph replay, "
+            f"{step_ms(estep, eparams, eopt):.1f} ms eager (host clock, 5 steps each)")
+        del frozen, eager, again, replayed, gstep, estep
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+
+def parallel_gloo(root):
+    """(b) and (c): two gloo processes on the one card (NCCL refuses two
+    ranks on one GPU), each running parallel_child; the parent holds their
+    results to rank 0's single-process references. Returns the kernel
+    launches the children's parallel paths counted."""
+    import numpy as np
+
+    from aa_clip_iqm_tpu_torch.loader import build_model_config
+
+    t0 = time.perf_counter()
+    port = _free_port()
+    procs, logs = [], []
+    for rank in range(2):
+        env = {**os.environ, "PYTHONPATH": ROOT, "MASTER_ADDR": "127.0.0.1",
+               "MASTER_PORT": str(port), "RANK": str(rank), "WORLD_SIZE": "2",
+               "LOCAL_RANK": "0"}
+        env.pop("AACLIP_MULTIHOST", None)
+        path = os.path.join(root, f"child{rank}.log")
+        logs.append(path)
+        with open(path, "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--parallel-child", str(rank),
+                 root], cwd=ROOT, env=env, stdout=f, stderr=subprocess.STDOUT))
+    _wait_all(procs, logs, "parallel (b, c)")
+    wall = time.perf_counter() - t0
+    counts = counts_of()
+    for path in logs:
+        with open(path) as f:
+            lines = f.read().splitlines()
+        for ln in lines:
+            if ln.startswith("# "):
+                log(ln)
+        got = [json.loads(ln.split(" ", 1)[1]) for ln in lines if ln.startswith("COUNTS ")]
+        require(len(got) == 1, f"parallel: a child printed {len(got)} counter lines")
+        add_counts(counts, got[0])
+    res = [np.load(os.path.join(root, f"rank{r}.npz")) for r in range(2)]
+    ref = np.load(os.path.join(root, "reference.npz"))
+    layers = build_model_config(PARALLEL_MODEL, img_size=IMG).clip.vision.layers
+
+    def rel(a, b):
+        a, b = a.astype(np.float64), b.astype(np.float64)
+        return float(np.sqrt(((a - b) ** 2).mean()) / max(np.sqrt((b ** 2).mean()), 1e-30))
+
+    for case in ("full", "padded"):
+        for r in range(2):
+            lerr = abs(float(res[r][f"{case} loss"]) - float(ref[f"{case} loss"])) / abs(
+                float(ref[f"{case} loss"]))
+            gerr = rel(res[r][f"{case} grads"], ref[f"{case} grads"])
+            gone = rel(res[r][f"{case} grads"], ref[f"{case} grads, one batch"])
+            log(f"# parallel (b): stage-2 step, DP over 2 gloo ranks, global batch {B} "
+                f"({case}: {int(ref[f'{case} valid'])} valid rows), rank {r}: loss "
+                f"{float(res[r][f'{case} loss']):.6f} against one process's "
+                f"{float(ref[f'{case} loss']):.6f} (rel {lerr:.2e}, tol {PARALLEL_LOSS_TOL:.0e}); "
+                f"gradients rel {gerr:.2e} of one process's over the ranks' halves as two "
+                f"microbatches (tol {PARALLEL_GRAD_TOL:.0e}), {gone:.2e} of one process's "
+                f"over the whole batch at once (tol {GRAD_BWD_TOL:.0e}: each half's bf16 "
+                "weight gradients round on their own)")
+            require(lerr <= PARALLEL_LOSS_TOL, f"parallel (b): {case} loss off by {lerr}")
+            require(gerr <= PARALLEL_GRAD_TOL, f"parallel (b): {case} gradients off by {gerr}")
+            require(gone <= GRAD_BWD_TOL, f"parallel (b): {case} gradients off by {gone}")
+    fault = min(rel(res[0]["mean of means grads"], ref[k])
+                for k in ("padded grads", "padded grads, one batch"))
+    log(f"# planted fault, parallel (b): DDP's mean of the ranks' mean-loss gradients on the "
+        f"padded batch (4 and 3 valid rows): rel {fault:.2e}: "
+        f"{'caught' if fault > PARALLEL_GRAD_TOL else 'passed (NOT caught)'}")
+    require(fault > PARALLEL_GRAD_TOL, "parallel (b): the gate missed the mean of means")
+    for r in range(2):
+        terr = float(np.abs(res[r]["table"] - ref["table"]).max())
+        log(f"# parallel (b): evaluate_dataset over {len(PARALLEL_CLASSES)} in-memory classes "
+            f"at batch {B}, DP over 2 gloo ranks, rank {r}: table within {terr:.2e} of one "
+            f"process's (tol {PARALLEL_TABLE_TOL:.0e})")
+        require(terr <= PARALLEL_TABLE_TOL, f"parallel (b): the DP table is off by {terr}")
+    for r in range(2):
+        err = map_diff(res[r]["tp map"], ref["map"])
+        bad = map_diff(res[r]["tp map, out all-reduce dropped"], ref["map"])
+        log(f"# parallel (c): predict at batch {B}, TP n_model=2 over 2 gloo ranks (B1 at "
+            f"{HEADS // 2} heads), rank {r}: map {err:.2e} of one process's (gate {MAP_TOL:.0e}); "
+            f"planted fault (the out-projection's all-reduce dropped): {bad:.2e}, "
+            f"{'caught' if bad > MAP_TOL else 'passed (NOT caught)'}")
+        require(err <= MAP_TOL, f"parallel (c): the TP map is off by {err}")
+        require(bad > MAP_TOL, "parallel (c): the gate missed the dropped all-reduce")
+        launched = dict(zip(KERNELS, (int(n) for n in res[r]["tp step launches"])))
+        want = counts_of(packed_attention=layers, packed_attention_bwd=layers - 1)
+        lerr = abs(float(res[r]["tp padded loss"]) - float(ref["padded loss"])) / abs(
+            float(ref["padded loss"]))
+        gerr = rel(res[r]["tp padded grads"], ref["padded grads, one batch"])
+        log(f"# parallel (c): stage-2 step at batch {B} ({int(ref['padded valid'])} valid "
+            f"rows) through the TP backbone, rank {r}: loss rel {lerr:.2e}, gradients rel "
+            f"{gerr:.2e} of one process's (tol {GRAD_TOL:.0e}, the cuBLAS MLP chain against "
+            f"B2 and B5); launched {launched}")
+        require(launched == want, f"parallel (c): the TP step launched {launched}, want {want}")
+        require(lerr <= GRAD_TOL and gerr <= GRAD_TOL,
+                f"parallel (c): the TP step is off by {lerr} (loss) and {gerr} (gradients)")
+    log(f"# parallel (b, c): 2 gloo processes in {wall:.1f} s, their parallel paths "
+        f"launched {counts}")
+    return counts
+
+
+def parallel_child(rank, root):
+    """One of the two gloo ranks of the parallel phase (on the one card):
+    (b) the DP stage-2 step at global batch 8, full and padded, the planted
+    mean of means, a DP evaluate_dataset; (c) TP predict with the backbone
+    split over 2 ranks, and the same with the attention out-projection's
+    all-reduce dropped. Rank 0 then computes the single-process references.
+    Prints its timings, and its kernel counters (the parallel paths only) on
+    a line 'COUNTS {json}'."""
+    sys.path.insert(0, ROOT)
+    from dataclasses import replace
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from aa_clip_iqm_tpu_torch.configs import EvalConfig, TrainConfig
+    from aa_clip_iqm_tpu_torch.evaluation.predict import METRIC_KEYS, evaluate_dataset
+    from aa_clip_iqm_tpu_torch.evaluation.predict import make_predict_fn
+    from aa_clip_iqm_tpu_torch.loader import build_model_config, init_trainable, random_backbone
+    from aa_clip_iqm_tpu_torch.models import clip
+    from aa_clip_iqm_tpu_torch.models.convert import tree_leaves
+    from aa_clip_iqm_tpu_torch.parallel.collectives import all_reduce_sum_
+    from aa_clip_iqm_tpu_torch.parallel.mesh import make_mesh, shard_backbone
+    from aa_clip_iqm_tpu_torch.parallel.multihost import maybe_initialize, process_local_rows
+    from aa_clip_iqm_tpu_torch.prompts import compute_frozen_anchors
+    from aa_clip_iqm_tpu_torch.train import optim, steps
+
+    rank = int(rank)
+    maybe_initialize(f"127.0.0.1:{os.environ['MASTER_PORT']}", 2, rank, backend="gloo")
+    try:
+        t0 = time.perf_counter()
+        cfg = build_model_config(PARALLEL_MODEL, img_size=IMG)
+        frozen = random_backbone(cfg, seed=0, device=DEVICE, dtype=torch.bfloat16)
+        serve = init_trainable(cfg, seed=111, device=DEVICE, dtype=torch.bfloat16)
+        rng = np.random.default_rng(29)
+        anchors = rng.standard_normal((B, cfg.clip.embed_dim, 2)).astype(np.float32)
+        anchors /= np.linalg.norm(anchors, axis=1, keepdims=True)
+        batch = [torch.from_numpy(a).to(DEVICE) for a in (
+            rng.standard_normal((B, 3, IMG, IMG)).astype(np.float32),
+            (rng.random((B, 1, IMG, IMG)) > 0.9).astype(np.float32),
+            rng.integers(0, 2, B), anchors)]
+        u8 = torch.from_numpy(rng.integers(0, 256, (B, 3, IMG, IMG), dtype=np.uint8)).to(DEVICE)
+        train_cfg = TrainConfig(img_size=IMG, compute_dtype="bfloat16")
+        valid = {"full": B, "padded": B - 1}
+        out, ref = {}, {}
+
+        def stage2(mesh, rows, case, accum=1, backbone=None):
+            trainable = init_trainable(cfg, seed=111, device=DEVICE, dtype=torch.float32,
+                                       requires_grad=True)
+            opt = optim.stage2_optimizer(trainable, train_cfg.image_lr, 10, graphable=False)
+            step = steps.make_stage2_step(cfg, replace(train_cfg, grad_accum_steps=accum),
+                                          compute_dtype=torch.bfloat16, mesh=mesh)
+            weights = (torch.arange(B, device=DEVICE) < valid[case]).float()
+            lo, hi = rows
+            _, _, loss = step(trainable, opt, frozen if backbone is None else backbone,
+                              *[t[lo:hi] for t in batch], weights[lo:hi])
+            grads = torch.cat([t.grad.reshape(-1) for t in tree_leaves(trainable)
+                               if t.grad is not None])
+            return loss.item(), grads.float().cpu().numpy()
+
+        def table(rows):
+            return np.asarray([[r[k] for k in METRIC_KEYS] for r in rows], np.float64)
+
+        sets = {c: MemoryDataset(c, 12, IMG, seed=40 + i)
+                for i, c in enumerate(PARALLEL_CLASSES)}
+        class_anchors = compute_frozen_anchors(frozen, serve, cfg, "MVTec", adapted=False,
+                                               compute_dtype=torch.bfloat16)
+        ecfg = EvalConfig(dataset="MVTec", img_size=IMG, batch_size=B)
+        torch.cuda.synchronize()
+        print(f"# parallel child {rank}: ViT-L weights and anchors in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+        # (b) data parallelism
+        reset_counts()
+        t0 = time.perf_counter()
+        mesh = make_mesh()
+        rows = process_local_rows(mesh, B)
+        t_step = []
+        for case in valid:
+            out[f"{case} loss"], out[f"{case} grads"] = stage2(mesh, rows, case)
+            torch.cuda.synchronize()
+            t_step.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+        t0 = time.perf_counter()
+        table_dp = evaluate_dataset(frozen, serve, cfg, ecfg, sets, class_anchors,
+                                    compute_dtype=torch.bfloat16, mesh=mesh)
+        t_eval = time.perf_counter() - t0
+        out["table"] = table(table_dp)
+
+        # (c) tensor parallelism
+        tp = make_mesh(n_data=1, n_model=2)
+        shard = shard_backbone(tp, frozen, cfg.clip)
+        predict_tp = make_predict_fn(cfg, IMG, "Industrial", compute_dtype=torch.bfloat16,
+                                     mesh=tp)
+        anchors_t = batch[3]
+        t0 = time.perf_counter()
+        maps, _ = predict_tp(shard, serve, u8, anchors_t)
+        torch.cuda.synchronize()
+        t_tp = time.perf_counter() - t0
+        out["tp map"] = maps.cpu().numpy()
+        before = read_counts()
+        t0 = time.perf_counter()
+        out["tp padded loss"], out["tp padded grads"] = stage2(tp, (0, B), "padded",
+                                                               backbone=shard)
+        torch.cuda.synchronize()
+        t_tp_step = time.perf_counter() - t0
+        counts = read_counts()
+        out["tp step launches"] = np.asarray([counts[k] - before[k] for k in KERNELS])
+        flat = torch.zeros(out["full grads"].size + 2, device=DEVICE)
+        all_reduce_sum_([flat], dist.group.WORLD)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            all_reduce_sum_([flat], dist.group.WORLD)
+        torch.cuda.synchronize()
+        t_reduce = (time.perf_counter() - t0) / 5
+
+        # The planted faults, outside the counted paths: DDP's mean of the
+        # ranks' mean losses, and TP without the out-projection's sum.
+        _, local = stage2(None, rows, "padded")
+        g = torch.from_numpy(local)
+        dist.all_reduce(g)
+        out["mean of means grads"] = (g / 2).numpy()
+        keep = clip._row_parallel
+        width = cfg.clip.vision.width
+
+        def no_attn_sum(params, x, group):
+            return keep(params, x, None if params["w"].shape[0] == width // 2 else group)
+
+        clip._row_parallel = no_attn_sum
+        try:
+            maps, _ = predict_tp(shard, serve, u8, anchors_t)
+        finally:
+            clip._row_parallel = keep
+        out["tp map, out all-reduce dropped"] = maps.cpu().numpy()
+        np.savez(os.path.join(root, f"rank{rank}.npz"), **out)
+        print(f"# parallel child {rank}: stage-2 step at {B // 2} rows (eager, the gradients' "
+              f"gloo all-reduce included; the two processes share the card) {t_step[0]:.0f} "
+              f"ms the first, {t_step[1]:.0f} ms the second (fresh adapters and optimizer "
+              f"each), the gradients' gloo all-reduce alone {t_reduce * 1e3:.1f} ms "
+              f"({flat.numel() * 4 / 1e6:.1f} MB), DP sweep {t_eval:.1f} s, TP predict "
+              f"{t_tp * 1e3:.0f} ms (48 gloo all-reduces of "
+              f"{B * TOKENS * WIDTH * 4 / 1e6:.0f} MB), TP stage-2 step at {B} rows "
+              f"{t_tp_step * 1e3:.0f} ms (its first)", flush=True)
+        del shard, predict_tp
+        torch.cuda.empty_cache()
+        dist.barrier()
+
+        # Rank 0: the single-process references, while rank 1 waits.
+        if rank == 0:
+            for case in valid:
+                ref[f"{case} loss"], ref[f"{case} grads"] = stage2(None, (0, B), case, accum=2)
+                _, ref[f"{case} grads, one batch"] = stage2(None, (0, B), case)
+                ref[f"{case} valid"] = valid[case]
+            ref["table"] = table(evaluate_dataset(frozen, serve, cfg, ecfg, sets,
+                                                  class_anchors,
+                                                  compute_dtype=torch.bfloat16))
+            maps, _ = make_predict_fn(cfg, IMG, "Industrial", compute_dtype=torch.bfloat16)(
+                frozen, serve, u8, anchors_t)
+            ref["map"] = maps.cpu().numpy()
+            np.savez(os.path.join(root, "reference.npz"), **ref)
+        dist.barrier()
+        print("COUNTS " + json.dumps(counts), flush=True)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def phase_parallel(card):
+    """The port's multi-GPU paths on the one card (module docstring, phase
+    16). Returns the launches of the children's parallel paths."""
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
+    t0 = time.perf_counter()
+    try:
+        parallel_nccl_graphs()
+        parallel_world1(root)
+        counts = parallel_gloo(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"# parallel: {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
 def profile_call(fn, what):
     """Device time by kernel group for one call of ``fn`` (torch.profiler):
     where the time goes, and the device's idle share of the call."""
@@ -4666,9 +5147,12 @@ def main():
         add_counts(launches, phase_train(card, cfg, frozen))
         del frozen
         add_counts(launches, phase_serve(card))
+        add_counts(launches, phase_parallel(card))
         for name in KERNELS:
             require(launches[name] > 0, f"the driven paths never launched {name}")
     except (Failure, ImportError, RuntimeError, subprocess.CalledProcessError) as exc:
+        if not isinstance(exc, Failure):
+            traceback.print_exc()
         log(f"# FAILED: {type(exc).__name__}: {exc}")
         return 1
     for name, entry in kernels.items():
@@ -4691,4 +5175,6 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--exported-child"]:
         sys.exit(exported_child(*sys.argv[2:5]))
+    if sys.argv[1:2] == ["--parallel-child"]:
+        sys.exit(parallel_child(*sys.argv[2:4]))
     sys.exit(main())

@@ -30,3 +30,23 @@ def test_the_trace_applies_the_card_limits(monkeypatch):
     monkeypatch.setattr(custom_ops, "HEAD_DIM", 128)
     with pytest.raises(ValueError, match="head width"):
         aot_smoke.trace(518, 1)
+
+
+@pytest.mark.parametrize("program", aot_smoke.MESH_PROGRAMS,
+                         ids=[p[0] for p in aot_smoke.MESH_PROGRAMS])
+def test_mesh_program_runs_as_rank_0(program):
+    """JAX's data-, tensor-parallel and multislice programs as rank 0's, at
+    ViT-L/518 on fake CUDA tensors and torch's fake process group: the
+    rank's rows and shards, B1 at its share of the heads, two all-reduces a
+    tensor-parallel block, the gathers of the predict program."""
+    lines = []
+    aot_smoke.run_mesh((program,), log=lines.append)
+    assert len(lines) == 1 and "all-reduces" in lines[0]
+
+
+def test_a_wrong_mesh_count_fails():
+    """One all-reduce a block (the out-projection's sum dropped) would fail."""
+    name, program, shape, rows, shards, b1, reduces, *rest = aot_smoke.MESH_PROGRAMS[0]
+    with pytest.raises(AssertionError):
+        aot_smoke.run_mesh(((name, program, shape, rows, shards, b1, reduces // 2, *rest),),
+                           log=lambda _: None)

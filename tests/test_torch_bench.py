@@ -9,6 +9,9 @@ without a GPU, the latency and eval helpers on a CPU detector, and
 import dataclasses
 import json
 import os
+import socket
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -257,13 +260,32 @@ def test_platform_sets_the_clis_default_device(monkeypatch, value, device):
         assert parser.parse_args(argv + ["--device", "cpu"]).device == "cpu"
 
 
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
 def test_platform_refuses_other_values_and_multihost(monkeypatch):
     monkeypatch.setenv("AACLIP_PLATFORM", "tpu")
     with pytest.raises(ValueError, match="AACLIP_PLATFORM"):
         tplatform.default_device()
     with pytest.raises(ValueError, match="AACLIP_PLATFORM"):
         tcli_train.build_parser()
-    monkeypatch.setenv("AACLIP_PLATFORM", "cpu")
-    monkeypatch.setenv("AACLIP_MULTIHOST", "1")
-    with pytest.raises(NotImplementedError, match="A14"):
-        tplatform.default_device()
+    # AACLIP_MULTIHOST=1 is no longer refused: it joins the launcher's
+    # process group (gloo under AACLIP_PLATFORM=cpu), in a fresh process.
+    code = ("import torch.distributed as dist\n"
+            "from aa_clip_iqm_tpu_torch import platform\n"
+            "print(platform.default_device(), dist.is_initialized(), dist.get_backend(),\n"
+            "      dist.get_world_size())\n"
+            "dist.destroy_process_group()\n")
+    env = {**os.environ, "AACLIP_PLATFORM": "cpu", "AACLIP_MULTIHOST": "1", "RANK": "0",
+           "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1",
+           "MASTER_PORT": str(_free_port())}
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=ROOT, env=env, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split() == ["cpu", "True", "gloo", "1"]

@@ -341,7 +341,14 @@ def test_cli_train_then_evaluate(data, tmp_path, capsys):
     untrained = tcli_eval.main(common + ["--image_batch_size", "4", "--seed", "7",
                                          "--no_adapters"])
     assert any(a["pixel AUC"] != b["pixel AUC"] for a, b in zip(rows, untrained))
-    with pytest.raises(SystemExit):
-        tcli_train.main(common + ["--data_parallel"])
+    # --data_parallel without a launcher changes nothing, as JAX's with one
+    # device: the same adapters bit for bit.
+    def stage2_only(name, *extra):
+        return tcli_train.main([*common[:-1], str(tmp_path / name), "--training_mode",
+                                "full_shot", "--text_epoch", "0", "--image_epoch", "1",
+                                "--image_batch_size", "8", "--seed", "7", *extra])[0]
+
+    plain, flagged = stage2_only("one"), stage2_only("dp", "--data_parallel")
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(plain), tree_leaves(flagged)))
     capsys.readouterr()
     assert list(anchors) == list(CLASSES) and "iqm" in trainable

@@ -320,6 +320,62 @@ def test_graphs_only_on_cuda_without_nan_checks():
         enable_nan_checks(False)
 
 
+class _FakeCuda:
+    """Stand-ins for the CUDA calls of ``graphs.capture`` and
+    ``GraphCache``, so that the capture's Python logic runs on the CPU."""
+
+    @staticmethod
+    def install(monkeypatch):
+        import contextlib
+        from types import SimpleNamespace
+
+        stream = SimpleNamespace(wait_stream=lambda other: None)
+        for name, value in (
+                ("Stream", lambda device=None: stream),
+                ("stream", lambda s: contextlib.nullcontext()),
+                ("current_stream", lambda device=None: stream),
+                ("CUDAGraph", lambda: SimpleNamespace(replay=lambda: None)),
+                ("graph", lambda g, pool=None, capture_error_mode=None:
+                    contextlib.nullcontext()),
+                ("graph_pool_handle", lambda: (0, 1)),
+                ("synchronize", lambda device=None: None),
+                ("memory_snapshot", lambda: [])):
+            monkeypatch.setattr(torch.cuda, name, value)
+
+
+def test_capture_keeps_the_cycle_collector_out(monkeypatch):
+    """A dead graph that Python's cycle collector destroys inside a capture
+    releases its memory pool there, which invalidates the capture: capture()
+    collects first and keeps the collector off while the call is captured
+    (on, as before, for the warm-up and after)."""
+    import gc
+
+    _FakeCuda.install(monkeypatch)
+    seen = []
+    graphs.capture(lambda: seen.append(gc.isenabled()), None, "cpu")
+    assert seen == [True, False] and gc.isenabled()
+
+
+def test_a_captured_program_does_not_hold_its_owner(monkeypatch):
+    """GraphedFn's captures keep their function and buffers but not the
+    GraphedFn, so a dropped program (and its graphs) goes at once, not at a
+    later cycle collection, which could fall inside another capture."""
+    import gc
+    import weakref
+
+    _FakeCuda.install(monkeypatch)
+    gc.disable()
+    try:
+        fn = graphs.GraphedFn(lambda x: x * 2, graphs.GraphCache(), "double")
+        out = fn(torch.ones(3))
+        assert torch.equal(out, torch.full((3,), 2.0))
+        ref = weakref.ref(fn)
+        del fn
+        assert ref() is None
+    finally:
+        gc.enable()
+
+
 def test_the_cpu_never_captures(tmp_path, monkeypatch):
     """run_training (both stages, a tail batch in each) and evaluate_dataset
     on the CPU run the eager programs: a capture, or even a graph cache,
@@ -528,7 +584,7 @@ def test_sweep_on_graphs_equals_eager(dev, monkeypatch):
     again = evaluate_dataset(frozen, trainable, cfg, eval_cfg, datasets, anchors,
                              compute_dtype=torch.bfloat16, graphs=cache)
     assert sorted(c.replays for c in cache.captures) == [4, 4]
-    monkeypatch.setattr(graphs, "enabled", lambda device: False)
+    monkeypatch.setattr(graphs, "enabled", lambda device, mesh=None: False)
     eager = evaluate_dataset(frozen, trainable, cfg, eval_cfg, datasets, anchors,
                              compute_dtype=torch.bfloat16)
     keys = ("pixel AUC", "pixel AP", "image AUC", "image AP")
