@@ -21,6 +21,12 @@ assembled from a backbone and a ``cli.train`` save path, or read from
 Endpoints (JSON responses):
   GET  /v1/health         {"status", "dataset", "img_size", "classes", ...}
   GET  /v1/classes        {"classes": [...]}
+  GET  /v1/stats          the process's counters (``utils.profiling.counters``):
+                          the service's ``serve.requests``, ``serve.batches``
+                          and ``serve.queue_wait_s`` (submit to dispatch),
+                          the handlers' ``http.decode_s`` and
+                          ``http.encode_s``, the detector's ``predict.*``,
+                          ``graphs.*`` and set-up counters
   POST /v1/predict        one image -> {"score", "map"?}
   POST /v1/predict_batch  {"requests": [...]} -> {"results": [...]}; the
                           whole list is submitted before any wait.
@@ -56,6 +62,7 @@ from urllib.parse import parse_qs, urlsplit
 import numpy as np
 
 from ..platform import default_device
+from ..utils import profiling
 
 logger = logging.getLogger("aa_clip_iqm_tpu_torch.serve")
 
@@ -145,8 +152,10 @@ class PredictHandler(BaseHTTPRequestHandler):
             raise _HTTPError(400, f"cannot decode image: {exc}")
         return normalize_clip(img01).astype(np.float32)
 
+    @profiling.timed("http.decode_s")
     def _parse_one(self, entry) -> tuple:
-        """A JSON request entry -> (normalized image, class_name)."""
+        """A JSON request entry -> (normalized image, class_name); its
+        seconds add to ``http.decode_s``."""
         if not isinstance(entry, dict):
             raise _HTTPError(400, "each request must be a JSON object")
         class_name = entry.get("class_name")
@@ -164,8 +173,10 @@ class PredictHandler(BaseHTTPRequestHandler):
                               "'npy_b64' (preprocessed array)")
 
     # -- response encoding ---------------------------------------------
+    @profiling.timed("http.encode_s")
     def _result_json(self, amap: np.ndarray, score: float,
                      image: np.ndarray, map_mode: str) -> dict:
+        """One answer's JSON object; its seconds add to ``http.encode_s``."""
         out = {"score": float(score)}
         if map_mode == "npy":
             out["map"] = {"b64": _b64_npy(amap), "encoding": "npy",
@@ -198,6 +209,8 @@ class PredictHandler(BaseHTTPRequestHandler):
             self._send_json({"status": "ok", **self.server.meta})
         elif path == "/v1/classes":
             self._send_json({"classes": self.server.meta["classes"]})
+        elif path == "/v1/stats":
+            self._send_json(profiling.counters())
         else:
             self._send_json({"error": f"no such endpoint: {path}"}, 404,
                             close=True)
@@ -235,7 +248,8 @@ class PredictHandler(BaseHTTPRequestHandler):
                           or self.headers.get("X-Class-Name"))
             if not class_name:
                 raise _HTTPError(400, "class via ?class_name= or X-Class-Name")
-            image = self._decode_npy_image(body)
+            with profiling.timed("http.decode_s"):
+                image = self._decode_npy_image(body)
         amap, score = self._await(self.server.service.submit(image, class_name))
         self._send_json(self._result_json(amap, score, image, map_mode))
 

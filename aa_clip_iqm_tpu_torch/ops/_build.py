@@ -21,6 +21,8 @@ import threading
 import time
 from typing import Dict, Iterable
 
+from ..utils.profiling import count, span
+
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PACKAGE_DIR), "build",
@@ -84,11 +86,15 @@ def build(names: Iterable[str]) -> Dict[str, float]:
     the library was already up to date)."""
     names = list(names)
     t0 = time.perf_counter()
-    procs = {n: _start(n) for n in names if _stale(n)}
-    seconds = {n: 0.0 for n in names}
-    for n, proc in procs.items():
-        _finish(n, proc)
-        seconds[n] = time.perf_counter() - t0
+    with span("setup/kernels"):
+        procs = {n: _start(n) for n in names if _stale(n)}
+        seconds = {n: 0.0 for n in names}
+        for n, proc in procs.items():
+            _finish(n, proc)
+            seconds[n] = time.perf_counter() - t0
+    if procs:
+        count("kernels.builds", len(procs))
+        count("kernels.build_s", time.perf_counter() - t0)
     return seconds
 
 
@@ -97,12 +103,14 @@ def load(name: str) -> ctypes.CDLL:
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
-            build([name])
-            lib = ctypes.CDLL(_paths(name)[1])
-            err_fn = getattr(lib, f"aaclip_{name}_error_string")
-            err_fn.argtypes = [ctypes.c_int]
-            err_fn.restype = ctypes.c_char_p
-            _LIBS[name] = lib
+            with span("setup/kernels"):
+                build([name])
+                lib = ctypes.CDLL(_paths(name)[1])
+                err_fn = getattr(lib, f"aaclip_{name}_error_string")
+                err_fn.argtypes = [ctypes.c_int]
+                err_fn.restype = ctypes.c_char_p
+                _LIBS[name] = lib
+            count("kernels.loads")
         return lib
 
 

@@ -19,6 +19,7 @@ from .data.registry import CLASS_NAMES, PROMPTS, REAL_NAMES
 from .models import adapters as adapters_mod
 from .ops.layers import l2_normalize
 from .tokenizer import tokenize
+from .utils.profiling import span, timed
 
 
 def class_prompt_sentences(dataset_name: str, class_name: str) -> List[List[str]]:
@@ -122,18 +123,23 @@ def compute_frozen_anchors(frozen, trainable, model_cfg: ModelConfig,
     off, so that stage 2's loss can save the anchors for its backward (an
     inference tensor cannot be saved), even when the caller is in inference
     mode itself. ``use_pallas=False``: the text tower on stock PyTorch
-    calls, no hand-written kernel (``models.clip``)."""
-    classes, tokens, n_norm, n_abn = batched_prompt_tokens(dataset_name)
-    device = frozen["text"]["token_embedding"].device
-    tokens = torch.from_numpy(np.asarray(tokens, np.int64)).to(device)
-    with torch.inference_mode(False), torch.no_grad():
-        if adapted:
-            emb = adapters_mod.encode_text_adapted(
-                frozen, trainable, model_cfg, tokens, compute_dtype=compute_dtype,
-                use_pallas=use_pallas)
-        else:
-            emb = adapters_mod.encode_text_frozen(
-                frozen, model_cfg, tokens, compute_dtype=compute_dtype,
-                use_pallas=use_pallas)
-        anchors = anchors_from_flat_embeddings(emb, len(classes), n_norm, n_abn)
-    return {c: anchors[i] for i, c in enumerate(classes)}
+    calls, no hand-written kernel (``models.clip``). Its seconds, the
+    device's work included (it synchronises a CUDA device), add to the
+    counter ``setup.anchors_s``."""
+    with span("setup/anchors"), timed("setup.anchors_s"):
+        classes, tokens, n_norm, n_abn = batched_prompt_tokens(dataset_name)
+        device = frozen["text"]["token_embedding"].device
+        tokens = torch.from_numpy(np.asarray(tokens, np.int64)).to(device)
+        with torch.inference_mode(False), torch.no_grad():
+            if adapted:
+                emb = adapters_mod.encode_text_adapted(
+                    frozen, trainable, model_cfg, tokens, compute_dtype=compute_dtype,
+                    use_pallas=use_pallas)
+            else:
+                emb = adapters_mod.encode_text_frozen(
+                    frozen, model_cfg, tokens, compute_dtype=compute_dtype,
+                    use_pallas=use_pallas)
+            anchors = anchors_from_flat_embeddings(emb, len(classes), n_norm, n_abn)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        return {c: anchors[i] for i, c in enumerate(classes)}

@@ -34,6 +34,14 @@ A CPU detector runs eagerly, and so does any detector while
 ``utils.profiling.enable_nan_checks`` is on: its checks synchronise at every
 op, which a capture forbids. ``det._predict`` is the eager program itself.
 
+A detector's call is the span ``aaclip/predict`` (``utils.profiling.span``)
+with the children ``predict/stage``, ``predict/copy_in``, ``predict/replay``
+(``predict/run`` when eager) and ``predict/copy_out``; each device batch
+adds to the counters ``predict.calls``, ``predict.rows``,
+``predict.padded_rows``, ``predict.bytes_in`` and ``predict.bytes_out``. The
+micro-batcher counts ``serve.requests``, ``serve.batches`` and
+``serve.queue_wait_s``.
+
 ``export_predictor`` writes one ``torch.export`` program per bucket, whose
 kernels are the ``aaclip::`` custom ops (``ops/custom_ops.py``), and
 ``ExportedPredictor`` serves them with no model code.
@@ -60,33 +68,39 @@ from .ops import interp
 from .prompts import compute_frozen_anchors
 from .train import graphs
 from .train.checkpoint import restore_adapters
-from .utils.profiling import nan_checks_enabled
+from .utils.profiling import count, nan_checks_enabled, span
 
 #: Default batch buckets (as the JAX package's compile-once ladder).
 DEFAULT_BATCH_BUCKETS = (1, 8, 16, 32)
 
 
-def _bucketed(images, buckets, split, run):
-    """Bucket fit/pad/split shared by the predict entry points: empty batches
-    give empty results; batches larger than the biggest bucket are split
-    through ``split(start, stop)``; the rest are zero-padded to the smallest
-    fitting bucket and run once through ``run(padded, bucket, n)``."""
+def _bucketed(images, buckets, run):
+    """Bucket fit and split shared by the predict entry points: empty batches
+    give empty results; batches larger than the biggest bucket (``buckets``
+    ascending) are split into chunks of it; each chunk ``images[start:stop]``
+    runs once through ``run(start, stop, bucket)`` with the smallest bucket
+    that fits it, which pads it (:func:`_pad`)."""
     n = images.shape[0]
     if n == 0:
         return (np.zeros((0,) + tuple(images.shape[-2:]), np.float32),
                 np.zeros((0,), np.float32))
-    fitting = [b for b in buckets if b >= n]
-    if not fitting:
-        bucket = buckets[-1]
-        maps, scores = zip(*(split(i, min(i + bucket, n))
-                             for i in range(0, n, bucket)))
-        return np.concatenate(maps), np.concatenate(scores)
-    bucket = fitting[0]
-    if bucket != n:
-        images = np.concatenate(
-            [images, np.zeros((bucket - n,) + tuple(images.shape[1:]),
-                              images.dtype)], axis=0)
-    return run(images, bucket, n)
+    top, parts = buckets[-1], []
+    for i in range(0, n, top):
+        j = min(i + top, n)
+        parts.append(run(i, j, next(b for b in buckets if b >= j - i)))
+    if len(parts) == 1:
+        return parts[0]
+    maps, scores = zip(*parts)
+    return np.concatenate(maps), np.concatenate(scores)
+
+
+def _pad(images, bucket):
+    """``images`` zero-padded to ``bucket`` rows."""
+    n = images.shape[0]
+    if bucket == n:
+        return images
+    return np.concatenate(
+        [images, np.zeros((bucket - n,) + tuple(images.shape[1:]), images.dtype)], axis=0)
 
 
 class _BucketGraph:
@@ -190,32 +204,50 @@ class AnomalyDetector:
 
     def _run(self, padded, anchors_b, n):
         """One padded bucket through the program: a graph replay on the
-        card, the eager program on the CPU or with NaN checks on."""
+        card, the eager program on the CPU or with NaN checks on. Counts
+        the device batch, its rows and padding, and the bytes copied
+        between host and device (the anchors are on the device already)."""
+        count("predict.calls")
+        count("predict.rows", n)
+        count("predict.padded_rows", padded.shape[0] - n)
+        count("predict.bytes_in", padded.nbytes)
         if self.device.type == "cuda" and not nan_checks_enabled():
-            return self._run_graph(padded, anchors_b, n)
-        return self._run_eager(padded, anchors_b, n)
+            maps, scores = self._run_graph(padded, anchors_b, n)
+        else:
+            maps, scores = self._run_eager(padded, anchors_b, n)
+        count("predict.bytes_out", maps.nbytes + scores.nbytes)
+        return maps, scores
 
     def _run_eager(self, padded, anchors_b, n):
-        images = torch.from_numpy(np.ascontiguousarray(padded)).to(self.device)
-        maps, scores = self._predict(self.frozen, self.trainable, images,
-                                     anchors_b)
-        return maps[:n].cpu().numpy(), scores[:n].cpu().numpy()
+        with span("predict/stage"):
+            images = torch.from_numpy(np.ascontiguousarray(padded))
+        with span("predict/copy_in"):
+            images = images.to(self.device)
+        with span("predict/run"):
+            maps, scores = self._predict(self.frozen, self.trainable, images,
+                                         anchors_b)
+        with span("predict/copy_out"):
+            return maps[:n].cpu().numpy(), scores[:n].cpu().numpy()
 
     def _run_graph(self, padded, anchors_b, n):
         """Copy in, replay, copy out. The graphs' buffers are shared by every
         replay (and their intermediates by every bucket, through one memory
         pool), so one lock serialises the three steps."""
-        images = torch.from_numpy(np.ascontiguousarray(padded))
+        with span("predict/stage"):
+            images = torch.from_numpy(np.ascontiguousarray(padded))
         key = (images.shape[0], images.dtype, clip_mod.FUSED_ATTN)
         with self._graph_lock:
             g = self._graphs.get(key)
             if g is None or g.frozen is not self.frozen or g.trainable is not self.trainable:
                 g = self._graphs[key] = self._capture(images, anchors_b)
-            g.images.copy_(images)
-            g.anchors.copy_(anchors_b)
-            g.graph.replay()
+            with span("predict/copy_in"):
+                g.images.copy_(images)
+                g.anchors.copy_(anchors_b)
+            with span("predict/replay"):
+                g.graph.replay()
             g.replays += 1
-            return g.maps[:n].cpu().numpy(), g.scores[:n].cpu().numpy()
+            with span("predict/copy_out"):
+                return g.maps[:n].cpu().numpy(), g.scores[:n].cpu().numpy()
 
     def _capture(self, images, anchors_b) -> "_BucketGraph":
         """Warm up, then capture the predict program on static buffers.
@@ -236,21 +268,25 @@ class AnomalyDetector:
         replays."""
         dev = self.device
         t0 = time.perf_counter()
-        pool0 = self.graph_memory()
-        static_images = images.to(dev)
-        static_anchors = anchors_b.contiguous().clone()
-        if self._graph_pool is None:
-            self._graph_pool = torch.cuda.graph_pool_handle()
-        graph, (maps, scores) = graphs.capture(
-            lambda: self._predict(self.frozen, self.trainable, static_images,
-                                  static_anchors),
-            self._graph_pool, dev)
-        torch.cuda.synchronize(dev)
-        return _BucketGraph(
-            graph=graph, images=static_images, anchors=static_anchors, maps=maps,
-            scores=scores, frozen=self.frozen, trainable=self.trainable,
-            constants=interp.device_constants(), capture_s=time.perf_counter() - t0,
-            pool_bytes=self.graph_memory() - pool0)
+        with span("capture"):
+            pool0 = self.graph_memory()
+            static_images = images.to(dev)
+            static_anchors = anchors_b.contiguous().clone()
+            if self._graph_pool is None:
+                self._graph_pool = torch.cuda.graph_pool_handle()
+            graph, (maps, scores) = graphs.capture(
+                lambda: self._predict(self.frozen, self.trainable, static_images,
+                                      static_anchors),
+                self._graph_pool, dev)
+            torch.cuda.synchronize(dev)
+            capture_s = time.perf_counter() - t0
+            count("graphs.captures")
+            count("graphs.capture_s", capture_s)
+            return _BucketGraph(
+                graph=graph, images=static_images, anchors=static_anchors, maps=maps,
+                scores=scores, frozen=self.frozen, trainable=self.trainable,
+                constants=interp.device_constants(), capture_s=capture_s,
+                pool_bytes=self.graph_memory() - pool0)
 
     def graph_memory(self) -> int:
         """Bytes of device memory in the segments of the graphs' shared pool
@@ -276,15 +312,16 @@ class AnomalyDetector:
         if class_name not in self.anchors:
             raise KeyError(
                 f"unknown class {class_name!r}; available: {self.class_names()}")
+        anchor = self.anchors[class_name]
 
-        def run(padded, bucket, n):
-            anchor = self.anchors[class_name]
-            anchors_b = anchor[None].expand((bucket,) + tuple(anchor.shape))
-            return self._run(padded, anchors_b, n)
+        def run(i, j, bucket):
+            with span("predict/stage"):
+                padded = _pad(images[i:j], bucket)
+                anchors_b = anchor[None].expand((bucket,) + tuple(anchor.shape))
+            return self._run(padded, anchors_b, j - i)
 
-        return _bucketed(images, self._buckets,
-                         lambda i, j: self.predict(images[i:j], class_name),
-                         run)
+        with span("predict"):
+            return _bucketed(images, self._buckets, run)
 
     def predict_multi(self, images: np.ndarray,
                       class_names: Sequence[str]
@@ -301,15 +338,15 @@ class AnomalyDetector:
                 f"unknown class {unknown[0]!r}; available: "
                 f"{self.class_names()}")
 
-        def run(padded, bucket, n):
-            pad_names = list(class_names) + [class_names[-1]] * (bucket - n)
-            anchors_b = torch.stack([self.anchors[c] for c in pad_names], dim=0)
-            return self._run(padded, anchors_b, n)
+        def run(i, j, bucket):
+            with span("predict/stage"):
+                padded = _pad(images[i:j], bucket)
+                pad_names = list(class_names[i:j]) + [class_names[j - 1]] * (bucket - (j - i))
+                anchors_b = torch.stack([self.anchors[c] for c in pad_names], dim=0)
+            return self._run(padded, anchors_b, j - i)
 
-        return _bucketed(images, self._buckets,
-                         lambda i, j: self.predict_multi(images[i:j],
-                                                         class_names[i:j]),
-                         run)
+        with span("predict"):
+            return _bucketed(images, self._buckets, run)
 
     def predict_paths(self, paths: Sequence[str],
                       class_name: str) -> Tuple[np.ndarray, np.ndarray]:
@@ -539,14 +576,13 @@ class ExportedPredictor:
                 f"unknown class {class_name!r}; available: {self.class_names()}")
         self._check_images(images)
 
-        def run(padded, bucket, n):
-            anchor = self.anchors[class_name]
-            anchors_b = anchor[None].expand((bucket,) + tuple(anchor.shape))
-            return self._call(padded, anchors_b, n)
+        anchor = self.anchors[class_name]
 
-        return _bucketed(images, self.manifest["batch_sizes"],
-                         lambda i, j: self.predict(images[i:j], class_name),
-                         run)
+        def run(i, j, bucket):
+            anchors_b = anchor[None].expand((bucket,) + tuple(anchor.shape))
+            return self._call(_pad(images[i:j], bucket), anchors_b, j - i)
+
+        return _bucketed(images, self.manifest["batch_sizes"], run)
 
     def predict_multi(self, images: np.ndarray,
                       class_names: Sequence[str]
@@ -564,15 +600,12 @@ class ExportedPredictor:
                 f"{self.class_names()}")
         self._check_images(images)
 
-        def run(padded, bucket, n):
-            pad_names = list(class_names) + [class_names[-1]] * (bucket - n)
+        def run(i, j, bucket):
+            pad_names = list(class_names[i:j]) + [class_names[j - 1]] * (bucket - (j - i))
             anchors_b = torch.stack([self.anchors[c] for c in pad_names], dim=0)
-            return self._call(padded, anchors_b, n)
+            return self._call(_pad(images[i:j], bucket), anchors_b, j - i)
 
-        return _bucketed(images, self.manifest["batch_sizes"],
-                         lambda i, j: self.predict_multi(images[i:j],
-                                                         class_names[i:j]),
-                         run)
+        return _bucketed(images, self.manifest["batch_sizes"], run)
 
     def _call(self, images, anchors_b, n):
         program = self._program(anchors_b.shape[0])
@@ -643,7 +676,7 @@ class MicroBatchingService:
         with self._lock:
             if self._closed:
                 raise RuntimeError("MicroBatchingService is closed")
-            self._queue.put((image, class_name, fut))
+            self._queue.put((image, class_name, fut, time.perf_counter()))
         return fut
 
     def predict(self, image: np.ndarray, class_name: str):
@@ -662,7 +695,6 @@ class MicroBatchingService:
     # ------------------------------------------------------------------
     def _run(self):
         import queue
-        import time
 
         while True:
             item = self._queue.get()
@@ -729,7 +761,7 @@ class MicroBatchingService:
             else:
                 valid.append(item)
         if valid:
-            self._dispatch(valid, lambda images: multi(images, [c for _, c, _ in valid]))
+            self._dispatch(valid, lambda images: multi(images, [it[1] for it in valid]))
 
     def _flush_by_class(self, batch):
         """For detectors with only a single-class predict()."""
@@ -743,13 +775,19 @@ class MicroBatchingService:
     def _dispatch(self, items, run):
         """Run one device batch and settle its futures. Any exception (a
         sticky CUDA error included) settles every future of the batch with
-        it, and the worker goes on."""
-        try:
-            images = np.stack([img for img, _, _ in items]).astype(np.float32)
-            maps, scores = run(images)
-        except Exception as exc:
-            for _, _, fut in items:
-                self._settle(fut, exc=exc)
-            return
-        for i, (_, _, fut) in enumerate(items):
-            self._settle(fut, result=(maps[i], scores[i]))
+        it, and the worker goes on. Counts the batch, its requests and their
+        seconds in the queue (from ``submit`` to here)."""
+        now = time.perf_counter()
+        count("serve.batches")
+        count("serve.requests", len(items))
+        count("serve.queue_wait_s", sum(now - it[3] for it in items))
+        with span("serve/dispatch"):
+            try:
+                images = np.stack([it[0] for it in items]).astype(np.float32)
+                maps, scores = run(images)
+            except Exception as exc:
+                for it in items:
+                    self._settle(it[2], exc=exc)
+                return
+            for i, it in enumerate(items):
+                self._settle(it[2], result=(maps[i], scores[i]))

@@ -29,6 +29,12 @@ eagerly; that is a rule of the backend, not a fallback. Elsewhere, and on
 the CPU, the callers run the eager functions. A capture that fails raises:
 nothing falls back to the eager program.
 
+A step is the span ``aaclip/step`` (``utils.profiling.span``) with the
+children ``step/prepare`` (kept-token draw, key and held check, gradients
+pointed back; a capture, span ``capture``, falls inside), ``step/copy_in``,
+``step/replay`` and ``step/advance`` (schedule, loss copy); the counters are
+``step.calls``, ``graphs.captures`` and ``graphs.capture_s``.
+
 The anchors program (``prompts.compute_frozen_anchors``) runs once per run
 and the per-class metric program each shape once per class: a graph of
 either would never be replayed, so both stay eager.
@@ -45,7 +51,7 @@ import torch
 from ..models import clip as clip_mod
 from ..models.convert import tree_leaves
 from ..ops import interp
-from ..utils.profiling import nan_checks_enabled
+from ..utils.profiling import count, nan_checks_enabled, span
 
 
 def enabled(device, mesh=None) -> bool:
@@ -212,15 +218,19 @@ class GraphCache:
         if replaces is not None:
             self.captures.remove(replaces)
         t0 = time.perf_counter()
-        pool0 = self.memory()
-        graph, outputs = capture(fn, self.pool(), device)
-        torch.cuda.synchronize(device)
-        grads = None if grads_of is None else [t.grad for t in grads_of]
-        cap = _Capture(graph, fn, inputs, outputs, held, version,
-                       time.perf_counter() - t0, self.memory() - pool0, grads=grads,
-                       constants=interp.device_constants())
-        self.captures.append(cap)
-        return cap
+        with span("capture"):
+            pool0 = self.memory()
+            graph, outputs = capture(fn, self.pool(), device)
+            torch.cuda.synchronize(device)
+            grads = None if grads_of is None else [t.grad for t in grads_of]
+            capture_s = time.perf_counter() - t0
+            count("graphs.captures")
+            count("graphs.capture_s", capture_s)
+            cap = _Capture(graph, fn, inputs, outputs, held, version, capture_s,
+                           self.memory() - pool0, grads=grads,
+                           constants=interp.device_constants())
+            self.captures.append(cap)
+            return cap
 
 
 def _static_copy(x: torch.Tensor, device) -> torch.Tensor:
@@ -293,26 +303,34 @@ class GraphedStep:
         if not opt_state.graphable:
             raise ValueError("a captured step needs a graphable optimizer "
                              "(optim.stage1_optimizer / stage2_optimizer on the card)")
-        batch = list(batch)
-        if isinstance(batch[-1], torch.Generator):
-            images = batch[0]
-            batch[-1] = self.step.keep_indices(batch[-1], images.shape[0], images.device)
-        leaves = list(tree_leaves(params))
-        held = (*leaves, opt_state, frozen)
-        key = _key(batch)
-        g = self.graphs.get(key)
-        if g is None or not g.holds(held, opt_state.version):
-            g = self.graphs[key] = self._capture(params, opt_state, frozen, batch, leaves,
-                                                 held, replaces=g)
-        else:
-            for dst, src in zip(g.inputs, _flatten(batch)):
-                dst.copy_(src)
-        for t, grad in zip(leaves, g.grads):
-            t.grad = grad
-        g.graph.replay()
-        g.replays += 1
-        opt_state.advance()
-        return params, opt_state, g.outputs.clone()
+        count("step.calls")
+        with span("step"):
+            with span("step/prepare"):
+                batch = list(batch)
+                if isinstance(batch[-1], torch.Generator):
+                    images = batch[0]
+                    batch[-1] = self.step.keep_indices(batch[-1], images.shape[0],
+                                                       images.device)
+                leaves = list(tree_leaves(params))
+                held = (*leaves, opt_state, frozen)
+                key = _key(batch)
+                g = self.graphs.get(key)
+                fresh = g is None or not g.holds(held, opt_state.version)
+                if fresh:
+                    g = self.graphs[key] = self._capture(params, opt_state, frozen, batch,
+                                                         leaves, held, replaces=g)
+                for t, grad in zip(leaves, g.grads):
+                    t.grad = grad
+            if not fresh:
+                with span("step/copy_in"):
+                    for dst, src in zip(g.inputs, _flatten(batch)):
+                        dst.copy_(src)
+            with span("step/replay"):
+                g.graph.replay()
+            g.replays += 1
+            with span("step/advance"):
+                opt_state.advance()
+                return params, opt_state, g.outputs.clone()
 
     def _capture(self, params, opt_state, frozen, batch, leaves, held, replaces):
         device = leaves[0].device

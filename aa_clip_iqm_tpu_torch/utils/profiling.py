@@ -1,23 +1,57 @@
-"""Tracing and profiling, the counterpart of
-``aa_clip_iqm_tpu/utils/profiling.py`` with the same names:
+"""Tracing, counters and NaN checks, the counterpart of
+``aa_clip_iqm_tpu/utils/profiling.py``:
 
   - ``trace(log_dir)``: a ``torch.profiler`` trace (host and CUDA activity)
     written as a Chrome trace under ``log_dir``
     (``tools/trace_summary.py`` summarises it);
-  - ``step_annotation(name)``: a named range in that trace;
-  - ``StepTimer``: step times with a device synchronise;
+  - ``span(name)``: the program's one way to name a range of its host work,
+    ``aaclip/<name>`` in the profiler's timeline, on the clock of the
+    device's events; it costs a gate check when no profiler runs;
+  - ``count(name, n)``, ``timed(name)``, ``counters()``,
+    ``reset_counters()``: the program's counters, sums kept by name in this
+    process, always on and safe under threads;
   - ``enable_nan_checks``: the counterpart of ``jax_debug_nans``, raising
     ``FloatingPointError`` at the first op whose floating output holds a NaN.
+
+The spans and counters the program keeps:
+
+============================  ==============================================
+span ``aaclip/...``           where
+============================  ==============================================
+``predict``                   ``serving.AnomalyDetector.predict`` /
+                              ``predict_multi``, the caller's call; its
+                              children ``predict/stage`` (padding, the
+                              anchors' gather, ``from_numpy``),
+                              ``predict/copy_in``, ``predict/replay`` (or
+                              ``predict/run``, the eager program) and
+                              ``predict/copy_out`` (the maps and scores to
+                              host memory)
+``step``                      ``train.graphs.GraphedStep.__call__``; its
+                              children ``step/prepare``, ``step/copy_in``,
+                              ``step/replay``, ``step/advance``
+``capture``                   a CUDA graph's warm-up and capture
+``serve/dispatch``            one device batch of ``MicroBatchingService``
+``setup/anchors``             ``prompts.compute_frozen_anchors``
+``setup/kernels``             ``ops._build``: nvcc runs and library loads
+============================  ==============================================
+
+Counters: ``predict.calls`` (device batches), ``predict.rows``,
+``predict.padded_rows``, ``predict.bytes_in`` / ``predict.bytes_out`` (the
+bytes between host and device memory), ``step.calls``, ``graphs.captures``,
+``graphs.capture_s``, ``setup.anchors_s``, ``kernels.builds`` (nvcc runs),
+``kernels.build_s``, ``kernels.loads``, ``serve.requests``,
+``serve.batches``, ``serve.queue_wait_s``, ``http.decode_s``,
+``http.encode_s``. ``cli.serve`` answers ``GET /v1/stats`` with them.
 """
 from __future__ import annotations
 
 import contextlib
 import os
 import socket
+import threading
 import time
-from typing import Optional
+from typing import Dict, Optional
 
-import numpy as np
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
@@ -49,49 +83,54 @@ def trace(log_dir: Optional[str]):
     prof.export_chrome_trace(os.path.join(log_dir, name))
 
 
-def step_annotation(name: str):
-    """A named range in the profiler's timeline (``record_function``)."""
-    return torch.profiler.record_function(name)
+#: The prefix of the program's ranges in a profiler's timeline.
+SPAN_PREFIX = "aaclip/"
+_NULL_SPAN = contextlib.nullcontext()
+_profiler_enabled = torch._C._autograd._profiler_enabled
+
+
+def span(name: str):
+    """A range ``aaclip/<name>`` in the profiler's timeline
+    (``record_function``) while a profiler runs; otherwise one shared null
+    context, so that a span costs the gate check alone."""
+    if _profiler_enabled():
+        return torch.profiler.record_function(SPAN_PREFIX + name)
+    return _NULL_SPAN
+
+
+_COUNTS: Dict[str, float] = {}
+_COUNTS_LOCK = threading.Lock()
+
+
+def count(name: str, n=1) -> None:
+    """Add ``n`` (an int or a float) to the counter ``name``."""
+    with _COUNTS_LOCK:
+        _COUNTS[name] = _COUNTS.get(name, 0) + n
+
+
+@contextlib.contextmanager
+def timed(name: str):
+    """Add the block's wall seconds to the counter ``name``."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        count(name, time.perf_counter() - t0)
+
+
+def counters() -> Dict[str, float]:
+    """A snapshot of every counter: {name: sum}."""
+    with _COUNTS_LOCK:
+        return dict(_COUNTS)
+
+
+def reset_counters() -> None:
+    with _COUNTS_LOCK:
+        _COUNTS.clear()
 
 
 def _tensors(tree):
     return [t for t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
-
-
-def sync(tree) -> None:
-    """Wait for the work that produces the tensors of ``tree`` (nested dicts,
-    lists and tuples): synchronise each CUDA device they lie on."""
-    for dev in {t.device for t in _tensors(tree) if t.is_cuda}:
-        torch.cuda.synchronize(dev)
-
-
-class StepTimer:
-    """Running mean / percentile step timer with a device synchronise."""
-
-    def __init__(self):
-        self.samples = []
-        self._t0 = None
-
-    def start(self):
-        self._t0 = time.perf_counter()
-
-    def stop(self, outputs=None) -> float:
-        if outputs is not None:
-            sync(outputs)
-        dt = time.perf_counter() - self._t0
-        self.samples.append(dt)
-        return dt
-
-    def summary(self) -> dict:
-        if not self.samples:
-            return {}
-        arr = np.asarray(self.samples)
-        return {
-            "steps": len(arr),
-            "mean_s": float(arr.mean()),
-            "p50_s": float(np.percentile(arr, 50)),
-            "p95_s": float(np.percentile(arr, 95)),
-        }
 
 
 # Ops not checked: those whose output is uninitialised memory, which a

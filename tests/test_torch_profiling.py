@@ -1,10 +1,10 @@
 """The port's tracing and NaN checks on the CPU, against the JAX package:
 ``utils/profiling.trace`` writes a Chrome trace that the port's
-``tools/trace_summary`` reads, with the ``step_annotation`` ranges in it;
+``tools/trace_summary`` reads, with the ``span`` ranges in it;
 the port's ``summarize`` equals the repo-root ``tools/trace_summary.py``'s on
 the same events (exactly: the same sums in the same order); the ``--device``
 view counts kernels (graph replays included) by group and a directory with
-no trace fails; ``StepTimer`` keeps JAX's keys; ``enable_nan_checks`` and
+no trace fails; ``enable_nan_checks`` and
 ``jax_debug_nans`` both raise ``FloatingPointError`` on the same planted
 NaN, a clean stage-2 step passes the checks and one NaN pixel fails it; the
 CLIs take ``--profile_dir``, ``--debug_nans``, ``--use_pallas`` and
@@ -56,16 +56,16 @@ def test_trace_writes_what_the_summary_reads(tmp_path):
     x = torch.randn(64, 64)
     with tprofiling.trace(str(tmp_path / "prof")):
         for i in range(2):
-            with tprofiling.step_annotation(f"step_{i}"):
+            with tprofiling.span(f"step_{i}"):
                 x = torch.tanh(x @ x)
     assert os.listdir(tmp_path) == ["prof"]
     path = tsummary.find_trace(str(tmp_path))
     assert path.endswith(".pt.trace.json")
     events = tsummary.load_events(path)
     names = {e.get("name") for e in events}
-    assert {"step_0", "step_1"} <= names
+    assert {"aaclip/step_0", "aaclip/step_1"} <= names
     per_track, totals = tsummary.summarize(events)
-    steps = [t for t, ops in per_track.items() if "step_0" in ops]
+    steps = [t for t, ops in per_track.items() if "aaclip/step_0" in ops]
     assert steps and all(totals[t] > 0 for t in steps)
     assert any(name.startswith("aten::mm") for t in steps for name in per_track[t])
     assert tsummary.main([str(tmp_path), "--top", "3"]) == 0
@@ -155,18 +155,6 @@ def test_summary_fails_without_a_trace_or_kernels(tmp_path):
     _write(tmp_path, [e for e in EVENTS if e.get("cat") != "kernel"])
     with pytest.raises(SystemExit, match="no kernel events"):
         tsummary.main([str(tmp_path), "--device"])
-
-
-def test_step_timer_keys_match_jax():
-    timers = [tprofiling.StepTimer(), jprofiling.StepTimer()]
-    assert [t.summary() for t in timers] == [{}, {}]
-    for t in timers:
-        for _ in range(3):
-            t.start()
-            t.stop()
-    assert set(timers[0].summary()) == set(timers[1].summary())
-    assert timers[0].summary()["steps"] == 3
-    tprofiling.sync({"a": [torch.ones(2), (torch.zeros(1),)], "b": None})
 
 
 @pytest.fixture(scope="module")

@@ -122,6 +122,24 @@ def test_health_and_classes(server_stack):
     assert status == 200 and "widget" in body["classes"]
 
 
+def test_stats_answers_the_counters(server_stack):
+    """GET /v1/stats answers the process's counters: a request adds one to
+    the service's requests and to the detector's device rows, and seconds
+    to the handler's decode and encode."""
+    base, _, _, _ = server_stack
+    status, before = _get(base + "/v1/stats")
+    assert status == 200 and isinstance(before, dict)
+    status, _ = _post(base + "/v1/predict?class_name=widget", _npy_bytes(_image(5)),
+                      "application/octet-stream")
+    assert status == 200
+    status, after = _get(base + "/v1/stats")
+    assert status == 200
+    assert after["serve.requests"] == before.get("serve.requests", 0) + 1
+    assert after["predict.rows"] == before.get("predict.rows", 0) + 1
+    for key in ("serve.queue_wait_s", "http.decode_s", "http.encode_s"):
+        assert after[key] > before.get(key, 0.0), key
+
+
 def test_predict_npy_roundtrip(server_stack):
     """The .npy route: the score and map of the detector called directly;
     map=none answers the score alone."""
