@@ -25,7 +25,7 @@ span ``aaclip/...``           where
                               ``predict/copy_in``, ``predict/replay`` (or
                               ``predict/run``, the eager program) and
                               ``predict/copy_out`` (the maps and scores to
-                              host memory)
+                              host memory, page-locked on the card)
 ``step``                      ``train.graphs.GraphedStep.__call__``; its
                               children ``step/prepare``, ``step/copy_in``,
                               ``step/replay``, ``step/advance``
@@ -37,11 +37,15 @@ span ``aaclip/...``           where
 
 Counters: ``predict.calls`` (device batches), ``predict.rows``,
 ``predict.padded_rows``, ``predict.bytes_in`` / ``predict.bytes_out`` (the
-bytes between host and device memory), ``step.calls``, ``graphs.captures``,
-``graphs.capture_s``, ``setup.anchors_s``, ``kernels.builds`` (nvcc runs),
-``kernels.build_s``, ``kernels.loads``, ``serve.requests``,
-``serve.batches``, ``serve.queue_wait_s``, ``http.decode_s``,
-``http.encode_s``. ``cli.serve`` answers ``GET /v1/stats`` with them.
+bytes between host and device memory), ``predict.copy_out_pinned`` (device
+batches copied out into page-locked host memory, the graphed path's
+copy-out), ``predict.pinned_allocs`` (page-locked blocks that copy-out had
+to create rather than reuse from PyTorch's caching host allocator),
+``step.calls``, ``graphs.captures``, ``graphs.capture_s``,
+``setup.anchors_s``, ``kernels.builds`` (nvcc runs), ``kernels.build_s``,
+``kernels.loads``, ``serve.requests``, ``serve.batches``,
+``serve.queue_wait_s``, ``http.decode_s``, ``http.encode_s``.
+``cli.serve`` answers ``GET /v1/stats`` with them.
 """
 from __future__ import annotations
 

@@ -10,7 +10,9 @@ Each op is held to its plain version on the same CUDA tensors in bf16 ulps
 (ops/compare.py); a graph replay is held to the eager program bit for bit
 (the same kernels in the same order), on the tiny config and at one ViT-L
 bucket, and again after the input buffers were rewritten by other
-requests.
+requests. A replay's maps and scores come back as views of page-locked
+host memory, each its own block: later calls, and later windows of the
+micro-batcher, leave them as they were.
 """
 import numpy as np
 import pytest
@@ -22,7 +24,8 @@ from aa_clip_iqm_tpu_torch.ops import attn_block, flash_attention, fused_mlp, qu
 from aa_clip_iqm_tpu_torch.ops import packed_attention as pa
 from aa_clip_iqm_tpu_torch.ops.compare import BF16_MAX_ULPS, BF16_RMS_ULPS, bf16_error
 from aa_clip_iqm_tpu_torch.ops.layers import gelu
-from aa_clip_iqm_tpu_torch.serving import AnomalyDetector
+from aa_clip_iqm_tpu_torch.serving import AnomalyDetector, MicroBatchingService
+from aa_clip_iqm_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.cuda
 OPS = torch.ops.aaclip
@@ -227,3 +230,87 @@ def test_concurrent_requests_share_the_graphs_safely(dev):
     assert not any(t.is_alive() for t in threads)
     assert not errors, errors[0]
     assert _replays(det) == 40 and len(det.graph_stats()) == 2
+
+
+def _pinned_base(a):
+    """The tensor at the root of numpy array ``a``'s chain of bases."""
+    while isinstance(a, np.ndarray):
+        a = a.base
+    return a
+
+
+def _eager_multi(det, images, names):
+    """The eager program on ``images`` padded as ``predict_multi`` pads them."""
+    bucket = next(b for b in det._buckets if b >= len(images))
+    pad = np.zeros((bucket - len(images),) + images.shape[1:], images.dtype)
+    names = list(names) + [names[-1]] * (bucket - len(names))
+    anchors = torch.stack([det.anchors[c] for c in names], dim=0)
+    return det._run_eager(np.concatenate([images, pad]), anchors, len(images))
+
+
+def _counted(name):
+    return profiling.counters().get(name, 0)
+
+
+def test_replayed_outputs_are_page_locked_views_of_their_own(dev):
+    """``predict_multi`` on a graph returns float32, C-contiguous maps and
+    scores bit for bit the eager program's, each a view of a pinned tensor;
+    a first call's arrays are unchanged by three later calls on other
+    frames; ten calls that drop their results reuse the allocator's blocks."""
+    cfg = tconfigs.tiny_test_config(56)
+    det = AnomalyDetector(random_backbone(cfg, device=dev), init_trainable(cfg, device=dev),
+                          cfg, "MVTec", img_size=56, batch_buckets=(4,), device=dev)
+    rng = np.random.default_rng(4)
+    frames = [rng.integers(0, 256, (4, 3, 56, 56), dtype=np.uint8) for _ in range(4)]
+    names = det.class_names()[:4]
+    det.predict_multi(frames[0], names)                  # warm-up, capture, replay
+    maps, scores = det.predict_multi(frames[0], names)
+    maps_e, scores_e = _eager_multi(det, frames[0], names)
+    np.testing.assert_array_equal(maps, maps_e)
+    np.testing.assert_array_equal(scores, scores_e)
+    for a, shape in ((maps, (4, 56, 56)), (scores, (4,))):
+        assert a.dtype == np.float32 and a.shape == shape and a.flags.c_contiguous
+        base = _pinned_base(a)
+        assert isinstance(base, torch.Tensor) and base.is_pinned()
+    kept_maps, kept_scores = maps.copy(), scores.copy()
+    for f in frames[1:]:
+        other, _ = det.predict_multi(f, names[::-1])
+        np.testing.assert_array_equal(other, _eager_multi(det, f, names[::-1])[0])
+    np.testing.assert_array_equal(maps, kept_maps)
+    np.testing.assert_array_equal(scores, kept_scores)
+    pinned, allocs, calls = (_counted("predict.copy_out_pinned"),
+                             _counted("predict.pinned_allocs"), _counted("predict.calls"))
+    for i in range(10):
+        det.predict_multi(frames[i % 4], names)
+    assert _counted("predict.copy_out_pinned") - pinned == 10
+    assert _counted("predict.calls") - calls == 10
+    assert _counted("predict.pinned_allocs") - allocs <= 2
+
+
+def test_a_served_map_outlives_later_windows(dev):
+    """Under ``MicroBatchingService`` a request's map is a view of its
+    window's page-locked block, and is intact and right after two later
+    windows of other requests ran."""
+    cfg = tconfigs.tiny_test_config(56)
+    det = AnomalyDetector(random_backbone(cfg, device=dev), init_trainable(cfg, device=dev),
+                          cfg, "MVTec", img_size=56, batch_buckets=(4,), device=dev)
+    rng = np.random.default_rng(5)
+    windows = [rng.standard_normal((2, 3, 56, 56)).astype(np.float32) for _ in range(3)]
+    names = [["bottle", "screw"], ["cable", "grid"], ["screw", "bottle"]]
+    svc = MicroBatchingService(det, max_batch=2, max_latency_ms=1000.0)
+    try:
+        got = []
+        for w, ns in zip(windows, names):
+            futs = [svc.submit(img, c) for img, c in zip(w, ns)]
+            got.append([f.result(timeout=300) for f in futs])
+    finally:
+        svc.close()
+    first = got[0]
+    for amap, _ in first:
+        base = _pinned_base(amap)
+        assert isinstance(base, torch.Tensor) and base.is_pinned()
+    for (w, ns), results in zip(zip(windows, names), got):
+        maps_e, scores_e = _eager_multi(det, w, ns)
+        for i, (amap, score) in enumerate(results):
+            np.testing.assert_array_equal(amap, maps_e[i])
+            assert score == scores_e[i]

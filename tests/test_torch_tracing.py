@@ -9,7 +9,9 @@ tests/test_torch_train_graphs.py) gives ``aaclip/step`` with its children;
 the detector counts its device batches, rows, padding and host<->device
 bytes, each bucket of a split call once; building a detector adds to
 ``setup.anchors_s``; the kernels' build and load, the micro-batcher and the
-registry itself count as documented.
+registry itself count as documented; a CPU detector returns ordinary
+arrays and copies nothing into page-locked memory; every counter the
+package keeps is named in ``utils/profiling``'s list.
 
 Marked ``cuda`` (skipped without a card): under the profiler each replayed
 ``GraphedStep`` call and each replayed predict gives its spans, no
@@ -18,6 +20,8 @@ runs inside ``aaclip/predict/copy_out``. On a machine with a card:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_tracing.py -q
 """
+import pathlib
+import re
 import threading
 import time
 from concurrent.futures import Future
@@ -128,6 +132,38 @@ def test_a_split_call_counts_each_bucket_once(det):
     m2, s2 = det.predict_multi(images[8:], names[8:])
     np.testing.assert_array_equal(maps, np.concatenate([m1, m2]))
     np.testing.assert_array_equal(scores, np.concatenate([s1, s2]))
+
+
+def test_a_cpu_detector_copies_out_into_ordinary_arrays(det):
+    """The eager CPU path returns plain float32 arrays, and the page-locked
+    copy-out of the graphed path neither runs nor counts."""
+    maps, scores = det.predict_multi(_u8(3, seed=2), det.class_names()[:3])
+    for a in (maps, scores):
+        assert isinstance(a, np.ndarray) and a.dtype == np.float32
+        base = a
+        while isinstance(base, np.ndarray):
+            base = base.base
+        assert base is None or not base.is_pinned()
+    c = profiling.counters()
+    assert c["predict.calls"] == 1
+    assert c.get("predict.copy_out_pinned", 0) == 0
+    assert c.get("predict.pinned_allocs", 0) == 0
+
+
+_PACKAGE = pathlib.Path(profiling.__file__).resolve().parents[1]
+_COUNTED = sorted({m for f in _PACKAGE.rglob("*.py")
+                   for m in re.findall(r"\b(?:count|timed)\(\"([a-z0-9_.]+)\"",
+                                       f.read_text())})
+
+
+@pytest.mark.parametrize("name", _COUNTED)
+def test_profiling_lists_every_counter_the_package_keeps(name):
+    assert f"``{name}``" in profiling.__doc__
+
+
+def test_the_pinned_copy_out_counters_are_kept_and_listed():
+    for name in ("predict.copy_out_pinned", "predict.pinned_allocs"):
+        assert name in _COUNTED
 
 
 def test_building_a_detector_adds_to_setup_anchors_s(det):
