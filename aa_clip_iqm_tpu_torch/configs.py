@@ -3,6 +3,10 @@
 Counterpart of ``aa_clip_iqm_tpu/configs.py``: the same dataclasses, field
 names and defaults, and the same JSON schema (``embed_dim`` / ``vision_cfg``
 / ``text_cfg``) read from this package's own ``registry/model_configs``.
+The models that the port runs and the JAX package does not (EVA02-CLIP's
+vision tower, :class:`Eva02VisionConfig`) live apart, in
+``registry/port_models``, read after it: ``list_models`` stays the JAX
+package's list.
 """
 from __future__ import annotations
 
@@ -10,9 +14,10 @@ import dataclasses
 import json
 import os
 from dataclasses import dataclass, field
-from typing import Optional, Sequence
+from typing import ClassVar, Optional, Sequence
 
 _CONFIG_DIR = os.path.join(os.path.dirname(__file__), "registry", "model_configs")
+_PORT_CONFIG_DIR = os.path.join(os.path.dirname(__file__), "registry", "port_models")
 
 
 @dataclass(frozen=True)
@@ -37,6 +42,29 @@ class VisionConfig:
     @property
     def num_patches(self) -> int:
         return self.grid * self.grid
+
+
+@dataclass(frozen=True)
+class Eva02VisionConfig(VisionConfig):
+    """EVA-02's ViT (EVA-CLIP, arXiv 2303.15389; the block of arXiv
+    2303.11331), selected when a config's ``vision_cfg`` sets ``rope``. Its
+    block, beside CLIP's: LayerNorms of eps ``ln_eps``; q and v projections
+    with a bias, k without; 2-D rotary embedding of the patch rows' q and k
+    (not the class row's), each head's first half by the patch's row and
+    second half by its column, at positions rescaled to a
+    ``rope_ref_grid`` x ``rope_ref_grid`` grid (``pt_hw_seq_len``,
+    ``intp_freq``); a LayerNorm on the attention's output before the
+    out-projection (sub-LN); a SwiGLU MLP of hidden ``mlp_hidden`` with a
+    LayerNorm before its last product. The tower has no ln_pre, and its
+    pooled output goes through a projection with a bias (``head``)."""
+
+    rope_ref_grid: int = 16
+    #: Every LayerNorm's eps (EVA-CLIP's ``partial(LayerNorm, eps=1e-6)``).
+    ln_eps: ClassVar[float] = 1e-6
+
+    @property
+    def mlp_hidden(self) -> int:
+        return int(self.width * self.mlp_ratio)
 
 
 @dataclass(frozen=True)
@@ -210,19 +238,43 @@ def list_models() -> list:
                   if fn.endswith(".json"))
 
 
+# The EVA02-CLIP vision settings that select the block Eva02VisionConfig
+# describes; a config with another value of one of them asks for a block the
+# port does not have.
+_EVA02_BLOCK = {"rope": True, "intp_freq": True, "naiveswiglu": True, "subln": True}
+
+
 def get_model_config(model_name: str, img_size: Optional[int] = None) -> CLIPConfig:
-    """Load a CLIPConfig from the JSON registry, optionally overriding the
-    image size. List-typed vision layers select the ModifiedResNet tower."""
+    """Load a CLIPConfig from the JSON registry (the JAX package's models,
+    then the port's own), optionally overriding the image size. List-typed
+    vision layers select the ModifiedResNet tower, ``rope`` EVA-02's."""
     model_name = model_name.replace("/", "-")
-    path = os.path.join(_CONFIG_DIR, model_name + ".json")
-    if not os.path.isfile(path):
+    path = next((p for p in (os.path.join(d, model_name + ".json")
+                             for d in (_CONFIG_DIR, _PORT_CONFIG_DIR)) if os.path.isfile(p)),
+                None)
+    if path is None:
         raise FileNotFoundError(
             f"Model config for {model_name!r} not found; available: {list_models()}"
         )
     with open(path) as f:
         raw = json.load(f)
     v, t = raw["vision_cfg"], raw["text_cfg"]
-    if isinstance(v["layers"], (list, tuple)):
+    if v.get("rope"):
+        other = {k: v.get(k) for k, want in _EVA02_BLOCK.items() if v.get(k) != want}
+        if other:
+            raise NotImplementedError(f"{model_name}: EVA-02 vision settings {other}; the "
+                                      f"port's EVA-02 block takes {_EVA02_BLOCK}")
+        vision = Eva02VisionConfig(
+            image_size=img_size or v["image_size"],
+            patch_size=v["patch_size"],
+            width=v["width"],
+            layers=v["layers"],
+            head_width=v["head_width"],
+            mlp_ratio=v["mlp_ratio"],
+            output_dim=raw["embed_dim"],
+            rope_ref_grid=v["pt_hw_seq_len"],
+        )
+    elif isinstance(v["layers"], (list, tuple)):
         vision = ResNetVisionConfig(
             image_size=img_size or v["image_size"],
             layers=tuple(v["layers"]),
@@ -275,3 +327,16 @@ def tiny_test_config(img_size: int = 56) -> ModelConfig:
         intermediate_size=32, encoder_hidden_size=16, text_encoder_hidden_size=32,
     )
     return ModelConfig(clip=clip, adapter=adapter, iqm=iqm, surgery_until_layer=4)
+
+
+def tiny_eva02_config(img_size: int = 56) -> ModelConfig:
+    """:func:`tiny_test_config` with an EVA-02 vision tower of the same
+    width: 4 heads of 16, a hidden width of 170 (no multiple of 128, as
+    EVA02-CLIP-L's 2730 is not) and a rotary reference grid of 3 against
+    the 4 x 4 grid of 56 px."""
+    cfg = tiny_test_config(img_size)
+    v = cfg.clip.vision
+    vision = Eva02VisionConfig(image_size=v.image_size, patch_size=v.patch_size,
+                               width=v.width, layers=v.layers, head_width=v.head_width,
+                               mlp_ratio=2.6667, output_dim=v.output_dim, rope_ref_grid=3)
+    return dataclasses.replace(cfg, clip=dataclasses.replace(cfg.clip, vision=vision))

@@ -18,10 +18,12 @@ import torch
 
 from .configs import (
     AdapterConfig,
+    Eva02VisionConfig,
     IQMConfig,
     ModelConfig,
     ResNetVisionConfig,
     get_model_config,
+    tiny_eva02_config,
     tiny_test_config,
 )
 from .models.clip import resize_pos_embed_np
@@ -45,8 +47,8 @@ def build_model_config(model_name: str = "ViT-L-14-336", img_size: int = 518,
                        iqm_num_layers: int = 2, iqm_num_heads: int = 8,
                        surgery_until_layer: int = 20,
                        patch_dropout: float = 0.0) -> ModelConfig:
-    if model_name == "tiny-test":
-        cfg = tiny_test_config(img_size)
+    if model_name in ("tiny-test", "tiny-eva02-test"):
+        cfg = (tiny_test_config if model_name == "tiny-test" else tiny_eva02_config)(img_size)
         if patch_dropout:
             vision = replace(cfg.clip.vision, patch_dropout=patch_dropout)
             cfg = replace(cfg, clip=replace(cfg.clip, vision=vision))
@@ -137,6 +139,9 @@ def load_frozen_backbone(cfg: ModelConfig, backbone_path: Optional[str] = None,
                 "pointing to the OpenAI ViT-L-14-336px.pt (or a converted "
                 ".npz), or pass allow_random for an untrained backbone.")
         return random_backbone(cfg, seed=seed, device=device, dtype=dtype)
+    if isinstance(cfg.clip.vision, Eva02VisionConfig) and not path.endswith(".npz"):
+        raise NotImplementedError(f"{path}: the port reads no EVA-CLIP checkpoint yet; give it "
+                                  "an .npz of its own layout, or a random backbone")
     if path.endswith(".npz"):
         params = load_params_npz(path)
         # An .npz cache may hold another grid's positional embedding (the

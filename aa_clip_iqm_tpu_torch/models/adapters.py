@@ -80,7 +80,8 @@ def encode_image_adapted(frozen, trainable, cfg: ModelConfig, images,
     )
 
     # Patch tokens (CLS dropped) -> frozen ln_post.
-    tokens = [layer_norm(vis["ln_post"], t[:, 1:, :]) for t in taps]
+    eps = clip_model.ln_eps(cfg.clip.vision)
+    tokens = [layer_norm(vis["ln_post"], t[:, 1:, :], eps=eps) for t in taps]
 
     seg_tokens = [
         l2_normalize(simple_proj(ia["seg_proj"][i], t, a.relu))

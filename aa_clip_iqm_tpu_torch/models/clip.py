@@ -13,6 +13,19 @@ of per-layer dicts instead of leaves stacked on a layer axis:
   block = {ln_1, attn: {qkv: {w,b}, out: {w,b}}, ln_2,
            mlp: {c_fc: {w,b}, c_proj: {w,b}}}
 
+An EVA-02 vision tower (``configs.Eva02VisionConfig``, EVA02-CLIP) has no
+ln_pre, a bias on its patch embedding, and a projection with a bias,
+``head: {w, b}``, in ``proj``'s place (its final norm is ``ln_post``); its
+blocks are
+
+  block = {ln_1, attn: {qkv: {w}, q: {b}, v: {b}, ln, out: {w,b}}, ln_2,
+           mlp: {w12: {w,b}, ln, w3: {w,b}}}
+
+run by :func:`_run_eva02_block`: q/k/v packed in one (d, 3d) weight, the
+bias ``[q | 0 | v]`` (k has none), the rotary embedding of the patch rows'
+q and k (``ops/rope.py``), the sub-LN ``attn.ln`` before the out-projection,
+and the SwiGLU MLP with its sub-LN ``mlp.ln`` (``ops/swiglu.py``).
+
 A block with float MLP weights, vision or text, runs its MLP half through
 :func:`..ops.fused_mlp.ln_mlp_residual`, or with ``fused_mlp="frozen"``
 through :func:`..ops.fused_mlp.ln_mlp_residual_frozen`, whose backward is the
@@ -40,6 +53,7 @@ the port's main path runs its kernels.
 """
 from __future__ import annotations
 
+import functools
 import math
 import os
 from typing import Optional, Sequence
@@ -48,7 +62,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..configs import CLIPConfig, ResNetVisionConfig, TextConfig, VisionConfig
+from ..configs import CLIPConfig, Eva02VisionConfig, ResNetVisionConfig, TextConfig, VisionConfig
 from ..ops import attention as attn_ops
 from ..ops.attn_block import ln_attn_residual, ln_attn_residual_ok
 from ..ops.fused_mlp import (
@@ -59,6 +73,7 @@ from ..ops.fused_mlp import (
 )
 from ..ops.layers import (
     ACTIVATIONS,
+    frozen_layout,
     layer_norm,
     linear,
     linear_partial,
@@ -66,8 +81,11 @@ from ..ops.layers import (
     norm_preserving_blend,
     simple_adapter,
 )
+from ..ops.rope import rope_qk, rope_qk_reference, rope_table
+from ..ops.swiglu import layer_norm_rows, ln_swiglu_residual, swiglu_mlp
 from ..parallel.collectives import copy_to_model, sum_from_model
 from ..parallel.mesh import TensorParallelBlock
+from ..utils.profiling import count
 
 # Route the whole attention residual branch (LN -> qkv -> attention ->
 # out-proj -> residual) through the fused kernel (ops/attn_block.py) instead
@@ -129,6 +147,62 @@ def _run_block(block, x, num_heads, act, attn_mask=None, vv=False,
     return x + mlp_block(mlp, layer_norm(block["ln_2"], x), act)
 
 
+def _qkv_bias(q_b, v_b):
+    """EVA-02's packed projection bias ``[q | 0 | v]`` in float32."""
+    return torch.cat((q_b.float(), torch.zeros_like(q_b, dtype=torch.float32), v_b.float()))
+
+
+def _records_grad(block, x) -> bool:
+    """Whether autograd records a block's call on x: x or one of the block's
+    tensors needs a gradient while gradients are enabled."""
+    if not torch.is_grad_enabled():
+        return False
+    stack = [x, block]
+    while stack:
+        t = stack.pop()
+        if isinstance(t, dict):
+            stack.extend(t.values())
+        elif isinstance(t, torch.Tensor) and t.requires_grad:
+            return True
+    return False
+
+
+def _run_eva02_block(block, x, num_heads, act=None, attn_mask=None, vv=False, valid_len=None,
+                     fused_mlp=True, use_pallas=True, *, rope, eps):
+    """EVA-02's block (the module docstring): ``rope`` is the rotary table of
+    the rows' patches (``ops.rope``), ``eps`` the LayerNorms'.
+    ``use_pallas`` runs LN1 and the sub-LN on ``ln_swiglu_residual``'s
+    LayerNorm pass, the rotation kernel (in place on the cuBLAS projection),
+    the attention kernels as CLIP's block runs them (B1, or B7 above 8,192
+    tokens) and ``ln_swiglu_residual`` for the MLP half, each the plain
+    version on the CPU. ``use_pallas=False``, and a call whose x or block
+    weights autograd records (training: the adapters below need x's
+    gradient), run the stock chain (SDPA on the card), as these kernels
+    have no backward. ``act`` and ``fused_mlp`` are CLIP's and unused:
+    SwiGLU is the block's own. Value-value attention and masks are CLIP's
+    text and surgery paths, not this tower's."""
+    if vv or attn_mask is not None:
+        raise NotImplementedError("EVA-02 blocks run plain self-attention only")
+    count("blocks.eva02")
+    kernels = use_pallas and not _records_grad(block, x)
+    attn = block["attn"]
+    norm = layer_norm_rows if kernels else layer_norm
+    u = norm(block["ln_1"], x, eps=eps)
+    if kernels:
+        bias = frozen_layout(_qkv_bias, attn["q"]["b"], attn["v"]["b"])
+        qkv = rope_qk(linear({"w": attn["qkv"]["w"], "b": bias}, u), rope, num_heads)
+    else:
+        qkv = linear({"w": attn["qkv"]["w"], "b": _qkv_bias(attn["q"]["b"], attn["v"]["b"])}, u)
+        qkv = rope_qk_reference(qkv, rope, num_heads)
+    a = attn_ops.attend_qkv(qkv, num_heads, valid_len=valid_len, use_pallas=kernels)
+    x = x + linear(attn["out"], norm(attn["ln"], a, eps=eps))
+    if kernels:
+        count("mlp.swiglu_fused")
+        return ln_swiglu_residual(block["ln_2"], block["mlp"], x, eps=eps, ffn_eps=eps)
+    count("mlp.swiglu_chain")
+    return x + swiglu_mlp(block["mlp"], layer_norm(block["ln_2"], x, eps=eps), eps)
+
+
 def _row_parallel(params, x, group):
     """A row-split projection: this rank's float32 partial product, summed
     over ``group``, then the replicated float32 bias and one rounding to
@@ -174,9 +248,9 @@ def _run_tp_block(block, x, num_heads, act, attn_mask=None, vv=False,
 
 def embed_patches(params, cfg: VisionConfig, images, compute_dtype,
                   keep_idx=None):
-    """Patch embedding, class token, positional embedding and ln_pre:
-    (B, 3, H, W) -> (B, L+1, width), the input of the first block.
-    ``keep_idx`` (B, K): patch-dropout kept-token indices
+    """Patch embedding, class token, positional embedding and ln_pre (none
+    in an EVA-02 tower): (B, 3, H, W) -> (B, L+1, width), the input of the
+    first block. ``keep_idx`` (B, K): patch-dropout kept-token indices
     (``ops.layers.patch_dropout_indices``), applied after the positional
     embedding and before ln_pre; the class token is always kept."""
     x = patchify(params, images.to(compute_dtype), cfg.patch_size)
@@ -186,14 +260,45 @@ def embed_patches(params, cfg: VisionConfig, images, compute_dtype,
     if keep_idx is not None:
         idx = keep_idx[..., None].expand(-1, -1, x.shape[-1])
         x = torch.cat([x[:, :1], torch.gather(x[:, 1:], 1, idx)], dim=1)
+    if isinstance(cfg, Eva02VisionConfig):
+        return x
     return layer_norm(params["ln_pre"], x)
+
+
+def ln_eps(cfg: VisionConfig) -> float:
+    """The vision tower's LayerNorm eps: EVA-02's, or CLIP's 1e-5."""
+    return cfg.ln_eps if isinstance(cfg, Eva02VisionConfig) else 1e-5
+
+
+def pool(params, cfg: VisionConfig, x):
+    """The pooled embedding of the class token of the last block's output
+    ``x``: ln_post, then ``proj`` (an EVA-02 tower: ``head``, with a
+    bias)."""
+    pooled = layer_norm(params["ln_post"], x[:, 0], eps=ln_eps(cfg))
+    if isinstance(cfg, Eva02VisionConfig):
+        return linear(params["head"], pooled)
+    return linear({"w": params["proj"]}, pooled)
+
+
+def block_runner(cfg: VisionConfig, device, keep_idx=None):
+    """The function that runs one of the tower's blocks, as
+    :func:`run_blocks` calls it: :func:`_run_block`, or for an EVA-02 tower
+    :func:`_run_eva02_block` with its rotary table for the grid (made once,
+    ``ops.rope.rope_table``; the kept patches' rows under patch dropout)."""
+    if not isinstance(cfg, Eva02VisionConfig):
+        return _run_block
+    rope = rope_table(cfg.grid, cfg.rope_ref_grid, cfg.head_width, device)
+    if keep_idx is not None:
+        rope = rope[:, keep_idx]           # (2, B, K, hd): each sample's kept patches
+    return functools.partial(_run_eva02_block, rope=rope, eps=cfg.ln_eps)
 
 
 def run_blocks(blocks, x, num_heads: int, act, attn_mask=None, vv_from=None,
                adapters=None, adapter_weight: float = 0.0, adapt_until: int = 0,
                out_layers: Sequence[int] = (), start: int = 0, stop=None,
-               remat: bool = False, fused_mlp=True, use_pallas=True):
-    """Run blocks [start, stop) in order (all by default). Blocks
+               remat: bool = False, fused_mlp=True, use_pallas=True, run_block=_run_block):
+    """Run blocks [start, stop) in order (all by default), each through
+    ``run_block`` (:func:`block_runner`'s for a vision tower). Blocks
     [0, adapt_until) are each followed by their SimpleAdapter and the
     norm-preserving blend; blocks at index >= ``vv_from`` use value-value
     attention; the outputs of the 1-based layers in ``out_layers`` are
@@ -204,9 +309,9 @@ def run_blocks(blocks, x, num_heads: int, act, attn_mask=None, vv_from=None,
     stop = len(blocks) if stop is None else stop
     for i in range(start, stop):
         def body(x, i=i):
-            y = _run_block(blocks[i], x, num_heads, act, attn_mask=attn_mask,
-                           vv=vv_from is not None and i >= vv_from,
-                           fused_mlp=fused_mlp, use_pallas=use_pallas)
+            y = run_block(blocks[i], x, num_heads, act, attn_mask=attn_mask,
+                          vv=vv_from is not None and i >= vv_from,
+                          fused_mlp=fused_mlp, use_pallas=use_pallas)
             if i < adapt_until:
                 y = norm_preserving_blend(y, simple_adapter(adapters[i], y),
                                           adapter_weight)
@@ -254,10 +359,9 @@ def vision_forward(
                          vv_from=vv_from, adapters=adapters,
                          adapter_weight=adapter_weight, adapt_until=adapt_until,
                          out_layers=out_layers, remat=remat, fused_mlp=fused_mlp,
-                         use_pallas=use_pallas)
-    pooled = layer_norm(params["ln_post"], x[:, 0])
-    pooled = linear({"w": params["proj"]}, pooled)
-    return pooled, taps, x
+                         use_pallas=use_pallas,
+                         run_block=block_runner(cfg, x.device, keep_idx))
+    return pool(params, cfg, x), taps, x
 
 
 def encode_image(params, cfg: CLIPConfig, images, compute_dtype=torch.float32,
@@ -295,14 +399,15 @@ def dual_vision_features(params, cfg: VisionConfig, images,
     act = ACTIVATIONS[act_name]
     blocks = params["blocks"]
     x = embed_patches(params, cfg, images, compute_dtype)
+    run_block = block_runner(cfg, x.device)
     x, taps = run_blocks(blocks, x, cfg.heads, act, out_layers=out_layers,
-                         stop=vv_from, use_pallas=use_pallas)
+                         stop=vv_from, use_pallas=use_pallas, run_block=run_block)
     _, vv_taps = run_blocks(blocks, x, cfg.heads, act, vv_from=vv_from,
-                            out_layers=out_layers, start=vv_from, use_pallas=use_pallas)
-    xp, _ = run_blocks(blocks, x, cfg.heads, act, start=vv_from, use_pallas=use_pallas)
-    pooled = layer_norm(params["ln_post"], xp[:, 0])
-    pooled = linear({"w": params["proj"]}, pooled)
-    return pooled, taps + vv_taps
+                            out_layers=out_layers, start=vv_from, use_pallas=use_pallas,
+                            run_block=run_block)
+    xp, _ = run_blocks(blocks, x, cfg.heads, act, start=vv_from, use_pallas=use_pallas,
+                       run_block=run_block)
+    return pool(params, cfg, xp), taps + vv_taps
 
 
 def surgery_vv_from(num_layers: int, dpam_layer: int) -> int:

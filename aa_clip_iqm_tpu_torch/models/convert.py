@@ -497,17 +497,48 @@ def _blocks(rng, n, width, hidden):
             "mlp": {"c_fc": lin(width, hidden), "c_proj": lin(hidden, width)}}
 
 
+def _eva02_blocks(rng, n, width, hidden):
+    """n stacked EVA-02 blocks (``models/clip.py``'s layout): q and v
+    biases, no k bias, the two sub-LNs, [W1 | W2] packed."""
+    def lin(d_in, d_out, bias=True):
+        p = {"w": _normal(rng, (n, d_in, d_out), d_in ** -0.5)}
+        if bias:
+            p["b"] = np.zeros((n, d_out), np.float32)
+        return p
+
+    return {"ln_1": _ln_init(n, width),
+            "attn": {"qkv": lin(width, 3 * width, bias=False),
+                     "q": {"b": np.zeros((n, width), np.float32)},
+                     "v": {"b": np.zeros((n, width), np.float32)},
+                     "ln": _ln_init(n, width), "out": lin(width, width)},
+            "ln_2": _ln_init(n, width),
+            "mlp": {"w12": lin(width, 2 * hidden), "ln": _ln_init(n, hidden),
+                    "w3": lin(hidden, width)}}
+
+
 def init_clip_params_np(cfg: ModelConfig, seed: int = 0, shapes_only: bool = False):
     """Random frozen CLIP params (JAX layout, numpy float32). With
     ``shapes_only`` every matrix is a zero-stride array of zeros (for
-    :func:`params_from_jax` onto the meta device)."""
-    from ..configs import ResNetVisionConfig
+    :func:`params_from_jax` onto the meta device). An EVA-02 vision tower
+    takes its own layout (``models/clip.py``)."""
+    from ..configs import Eva02VisionConfig, ResNetVisionConfig
 
     rng = _rng(seed, shapes_only)
     v, t = cfg.clip.vision, cfg.clip.text
     scale = v.width ** -0.5
     if isinstance(v, ResNetVisionConfig):
         visual = _resnet_np(rng, v)
+    elif isinstance(v, Eva02VisionConfig):
+        visual = {
+            "patch_embed": {"w": _normal(rng, (3 * v.patch_size ** 2, v.width), scale),
+                            "b": np.zeros(v.width, np.float32)},
+            "class_embedding": _normal(rng, (v.width,), scale),
+            "positional_embedding": _normal(rng, (v.num_patches + 1, v.width), scale),
+            "blocks": _eva02_blocks(rng, v.layers, v.width, v.mlp_hidden),
+            "ln_post": _ln_init(0, v.width),
+            "head": {"w": _normal(rng, (v.width, v.output_dim), scale),
+                     "b": np.zeros(v.output_dim, np.float32)},
+        }
     else:
         visual = {
             "patch_embed": {"w": _normal(rng, (3 * v.patch_size ** 2, v.width), scale)},

@@ -80,18 +80,40 @@ def _finish(name: str, proc: subprocess.Popen) -> None:
     os.replace(_tmp(name), _paths(name)[1])
 
 
+def _stop(procs: Dict[str, subprocess.Popen]) -> None:
+    """Kill the builds still running and drop their partial libraries."""
+    for name, proc in procs.items():
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+        if proc.stdout is not None:
+            proc.stdout.close()
+        try:
+            os.remove(_tmp(name))
+        except FileNotFoundError:
+            pass
+
+
 def build(names: Iterable[str]) -> Dict[str, float]:
     """Build the stale kernels among ``names``, one nvcc per source, all
     started together. Returns the wall seconds each build took (0.0 when
-    the library was already up to date)."""
+    the library was already up to date). If one build fails, the others
+    are killed before the error is raised: no nvcc outlives the call."""
     names = list(names)
     t0 = time.perf_counter()
     with span("setup/kernels"):
-        procs = {n: _start(n) for n in names if _stale(n)}
+        procs = {}
         seconds = {n: 0.0 for n in names}
-        for n, proc in procs.items():
-            _finish(n, proc)
-            seconds[n] = time.perf_counter() - t0
+        try:
+            for n in names:
+                if _stale(n):
+                    procs[n] = _start(n)
+            for n, proc in procs.items():
+                _finish(n, proc)
+                seconds[n] = time.perf_counter() - t0
+        except BaseException:
+            _stop(procs)
+            raise
     if procs:
         count("kernels.builds", len(procs))
         count("kernels.build_s", time.perf_counter() - t0)

@@ -101,13 +101,20 @@ def mha_heads(params, x, num_heads: int, attn_mask=None, valid_len=None,
     past it), else ``flash_mha`` on split heads; ``use_pallas=False``:
     :func:`library_sdpa` on split heads, as JAX's XLA route (which, like
     JAX's, takes no ``valid_len``)."""
-    width = attention_width(params)
+    return attend_qkv(linear(params["qkv"], x), num_heads, attn_mask=attn_mask,
+                      valid_len=valid_len, use_pallas=use_pallas)
+
+
+def attend_qkv(qkv, num_heads: int, attn_mask=None, valid_len=None, use_pallas: bool = True):
+    """Self-attention on a packed projection ``qkv`` (B, L, 3w), in
+    merged-head layout (B, L, w): :func:`mha_heads`' route after its
+    projection (the packed kernel where :func:`packed_ok` holds, else split
+    heads)."""
+    width = qkv.shape[-1] // 3
     scale = (width // num_heads) ** -0.5
-    if use_pallas and packed_ok(x, num_heads, attn_mask, width):
-        qkv = linear(params["qkv"], x)
+    if use_pallas and packed_ok(qkv, num_heads, attn_mask, width):
         return flash_mha_packed(qkv, num_heads, scale, valid_len=valid_len)
-    q, k, v = qkv_project(params, x)
-    qh, kh, vh = (_split_heads(t, num_heads) for t in (q, k, v))
+    qh, kh, vh = (_split_heads(t, num_heads) for t in qkv.chunk(3, dim=-1))
     attend = flash_mha if use_pallas else library_sdpa
     return _merge_heads(attend(qh, kh, vh, scale, attn_mask=attn_mask))
 

@@ -37,7 +37,6 @@ requires one):
 from __future__ import annotations
 
 import ctypes
-import weakref
 
 import torch
 
@@ -54,7 +53,7 @@ from .gemm import (
     ln_quant_rows_reference,
     quantize_rows,
 )
-from .layers import gelu, layer_norm, mlp_block, quick_gelu
+from .layers import frozen_layout, gelu, layer_norm, mlp_block, quick_gelu
 from .quant import int8_matmul
 
 #: Float-kernel launches since the last reset (incremented once per launch).
@@ -255,20 +254,14 @@ def ln_mlp_residual_int8_stages(ln_params, mlp_params, x, act, eps: float = 1e-5
     return {"x_q": x_q, "sx": sx, "amax": amax, "h_q": h_q, "sh": sh, "y": y.reshape(x.shape)}
 
 
-# Weights as the kernel reads them: transposed, (out, in), k contiguous. Laid
-# out once per weight tensor (the backbone is frozen, so a weight is never
-# updated in place) and dropped with it.
-_TRANSPOSED = {}
-
-
 def _transposed(w_q):
-    key = id(w_q)
-    hit = _TRANSPOSED.get(key)
-    if hit is not None and hit[0]() is w_q:
-        return hit[1]
-    w_t = w_q.t().contiguous()
-    _TRANSPOSED[key] = (weakref.ref(w_q, lambda _: _TRANSPOSED.pop(key, None)), w_t)
-    return w_t
+    """The weight as the kernel reads it: transposed, (out, in), k
+    contiguous; laid out once per weight tensor (``layers.frozen_layout``)."""
+    return frozen_layout(_t_contiguous, w_q)
+
+
+def _t_contiguous(w):
+    return w.t().contiguous()
 
 
 def _int8_lib():

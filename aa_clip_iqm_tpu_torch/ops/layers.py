@@ -8,6 +8,8 @@ float32, the bias added in float32, and one cast back to the input dtype.
 """
 from __future__ import annotations
 
+import weakref
+
 import torch
 import torch.nn.functional as F
 
@@ -189,3 +191,29 @@ def patch_dropout_indices(generator, batch: int, num_tokens: int, rate: float,
     idx = torch.topk(scores, keep, dim=-1).indices
     idx = torch.sort(idx, dim=-1).values
     return idx if device is None else idx.to(device)
+
+
+# What frozen_layout made, by (build, the first source): the sources' ids and
+# the result, dropped with the first source.
+_LAYOUTS: dict = {}
+
+
+def frozen_layout(build, *sources):
+    """``build(*sources)`` for tensors of a frozen backbone (a kernel's layout
+    of a layer's weights), made at the first call and kept while the first
+    source lives: a frozen weight is never updated in place, so the result
+    stays right, and a CUDA graph that keeps the tree keeps it. The first
+    call makes new tensors, which a capture must not (they would live in its
+    pool): it must come before the capture (the detector's warm-up run)."""
+    key, ids = (build, id(sources[0])), tuple(map(id, sources))
+    hit = _LAYOUTS.get(key)
+    if hit is not None and hit[0]() is sources[0] and hit[1] == ids:
+        return hit[2]
+    if sources[0].is_cuda and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(f"{getattr(build, '__name__', build)}: a layout of frozen weights "
+                           "is first made during a CUDA graph capture; run the program once "
+                           "before capturing it")
+    with torch.inference_mode(False), torch.no_grad():
+        out = build(*sources)
+    _LAYOUTS[key] = (weakref.ref(sources[0], lambda _: _LAYOUTS.pop(key, None)), ids, out)
+    return out

@@ -98,7 +98,8 @@ def summarize(events, track_filter=None):
 
 def kernel_group(name: str) -> str:
     """The group of a device kernel, by its name: one of the port's
-    hand-written kernels (B1 ... B9), a cuBLAS GEMM, a copy, or other."""
+    hand-written kernels (B1 ... B9; EVA-02's S1, its LayerNorm pass alone,
+    and R1), a cuBLAS GEMM, a copy, or other."""
     low = name.lower()
     if "attention_bwd" in low:
         return "B6 packed_attention_vv_bwd" if "<true>" in low else "B4 packed_attention_bwd"
@@ -116,6 +117,12 @@ def kernel_group(name: str) -> str:
         return "B3 ln_mlp_residual_int8"
     if "ln_mlp_residual" in low:
         return "B2 ln_mlp_residual"
+    if "eva02_layer_norm" in low:
+        return "S1 ln_swiglu_residual_layer_norm"
+    if "ln_swiglu_residual" in low:
+        return "S1 ln_swiglu_residual"
+    if "rope_qk" in low:
+        return "R1 rope_qk"
     if "memcpy" in low or "memset" in low:
         return "memcpy"
     if any(k in low for k in ("gemm", "nvjet", "sm90_xmma", "cutlass", "imma", "i8816")):

@@ -33,6 +33,8 @@ span ``aaclip/...``           where
 ``serve/dispatch``            one device batch of ``MicroBatchingService``
 ``setup/anchors``             ``prompts.compute_frozen_anchors``
 ``setup/kernels``             ``ops._build``: nvcc runs and library loads
+``setup/rope``                ``ops.rope.rope_table``: an EVA-02 tower's
+                              rotary table made for a grid (once per grid)
 ============================  ==============================================
 
 Counters: ``predict.calls`` (device batches), ``predict.rows``,
@@ -44,7 +46,12 @@ to create rather than reuse from PyTorch's caching host allocator),
 ``step.calls``, ``graphs.captures``, ``graphs.capture_s``,
 ``setup.anchors_s``, ``kernels.builds`` (nvcc runs), ``kernels.build_s``,
 ``kernels.loads``, ``serve.requests``, ``serve.batches``,
-``serve.queue_wait_s``, ``http.decode_s``, ``http.encode_s``.
+``serve.queue_wait_s``, ``http.decode_s``, ``http.encode_s``; for an
+EVA-02 vision tower ``rope.tables`` (rotary tables made), ``blocks.eva02``
+(EVA-02 blocks run) and ``mlp.swiglu_fused`` / ``mlp.swiglu_chain`` (its MLP
+halves run on ``ln_swiglu_residual``, or on the stock chain: ``use_pallas=
+False`` or under autograd). The model's counters count Python calls, so in a
+CUDA graph they count the warm-up and the capture, not the replays.
 ``cli.serve`` answers ``GET /v1/stats`` with them.
 """
 from __future__ import annotations

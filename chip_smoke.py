@@ -9,9 +9,9 @@ line):
   2. build: compiles csrc/*.cu with nvcc (one process per source, in
      parallel) and prints the seconds, each kernel's registers and spills,
      and the wgmma (HGMMA; IGMMA for int8) and UTMALDG (TMA load)
-     instructions in the SASS of the seven sources on wgmma (B2, B8 and B5
-     on the GEMM core, B3 on its int8 form, B4/B6, and B1 and B7 on the
-     attention walk), which must not be zero; then the native transform
+     instructions in the SASS of the eight sources on wgmma (B2, B8, B5 and
+     EVA-02's S1 on the GEMM core, B3 on its int8 form, B4/B6, and B1 and B7
+     on the attention walk), which must not be zero; then the native transform
      pipeline (data/native.py, g++ on the port's copy of the C++ source),
      which must build, against PIL at sizes that resize (the bicubic resize
      within one level, masks and the nearest warp exactly) and on 4
@@ -55,6 +55,26 @@ line):
      bf16 was asked, ch 1024 where 2048 was asked. B2 at the other configs'
      widths (896/3584, 640/2560, 512/2048) and B1 at 14 heads over 1025
      tokens, held and timed;
+ 3b. EVA-02 (EVA02-CLIP-L-14-336 at 518 px, the cell offline-eva02l-518-b32):
+     its three kernel entries at the cell's shapes, bf16, each held in bf16
+     ulps to the stock calls it stands for and timed against them, with the
+     bound from bytes and operations: S1, ln_swiglu_residual, at M = 10,960
+     and 43,840 (batch 8 and 32), d 1024, h 2730, against the stock chain
+     (LayerNorm, cuBLAS, SiLU, multiply, LayerNorm, cuBLAS, add) run in
+     float32 on the same bf16 input and weights, and no further from it
+     (RMS) than the same chain in bf16, which rounds more often; and
+     against the plain version of its stages, with each stage's device
+     time; its
+     LayerNorm pass alone (LN1 and the attention sub-LN) at M = 43,840
+     against layers.layer_norm; R1, rope_qk, at batch 32 (1,370 tokens, 16
+     heads of 64) against its plain version. Planted faults: the sub-LN
+     averaged over the padded hidden width, the rotation from the class row
+     on, the rotation left off k. Then AnomalyDetector on seeded random
+     EVA-02 weights at batch 32 (MVTec, one captured bucket): a mixed-class
+     predict_multi, whose replay must run 24 B1, 24 S1, 48 LayerNorm passes
+     and 24 R1 and whose forwards must count no stock-chain MLP
+     (mlp.swiglu_chain 0); its map against the same batch through the plain
+     versions (and against a planted fault, the rotation dropped); timings;
   4. main path: AnomalyDetector on ViT-L-14-336 at 518 px with seeded random
      weights (dataset MVTec, bf16): builds the text anchors, answers predict
      at batch 1 and 8 and a mixed-class predict_multi, checks shapes, finite
@@ -251,20 +271,26 @@ INT8_MAP_TOL = 8e-2
 # backward (B6) lives in packed_attention_bwd.cu beside B4.
 SOURCES = ("packed_attention", "ln_mlp_residual", "ln_mlp_residual_int8",
            "packed_attention_bwd", "ln_mlp_residual_dx", "flash_attention",
-           "ln_attn_residual")
+           "ln_attn_residual", "ln_swiglu_residual", "rope_qk")
 # The sources whose kernels run on wgmma fed by TMA (csrc/gemm_sm90.cuh):
-# the GEMM core's B2, B8 and B5 and its int8 form's B3, B4/B6's tile
+# the GEMM core's B2, B8, B5 and S1 and its int8 form's B3, B4/B6's tile
 # kernels, and the attention forward walk of B1 and B7
 # (csrc/attention_fwd.cuh, B8's attention stage).
 GEMM_SOURCES = ("ln_mlp_residual", "ln_attn_residual", "ln_mlp_residual_dx",
                 "packed_attention_bwd", "packed_attention", "flash_attention",
-                "ln_mlp_residual_int8")
+                "ln_mlp_residual_int8", "ln_swiglu_residual")
 # B3 runs on the core's int8 form: its SASS shows wgmma as IGMMA.
 GMMA_FORM = {"ln_mlp_residual_int8": "IGMMA"}
-# B9, the int8 probe's kernel, lives in ln_mlp_residual_int8.cu beside B3.
+# B9, the int8 probe's kernel, lives in ln_mlp_residual_int8.cu beside B3;
+# S1's LayerNorm pass alone (EVA-02's LN1 and attention sub-LN) is a second
+# entry of ln_swiglu_residual.cu.
 KERNELS = ("packed_attention", "ln_mlp_residual", "ln_mlp_residual_int8",
            "packed_attention_bwd", "ln_mlp_residual_dx", "packed_attention_vv_bwd",
-           "flash_attention", "ln_attn_residual", "ln_mlp_residual_int8_probe")
+           "flash_attention", "ln_attn_residual", "ln_mlp_residual_int8_probe",
+           "ln_swiglu_residual", "ln_swiglu_residual_layer_norm", "rope_qk")
+# EVA02-CLIP-L-14-336 (phase 3b): the offline cell's batch, the MLP's hidden
+# width (2730, padded to 2816 inside S1) and the LayerNorms' eps.
+EVA_MODEL, EVA_B, EVA_HIDDEN, EVA_EPS = "EVA02-CLIP-L-14-336", 32, 2730, 1e-6
 HR_IMG = 1274                            # ViT-L/14 at 91 x 91 patches
 HR_TOKENS = (HR_IMG // 14) ** 2 + 1      # 8282, past the packed kernel's 8192
 # The 1274 px map against its twins', as the 518 px one: the kernels' own
@@ -561,17 +587,19 @@ def planted(what, fault, ref, base=None):
 
 
 def reset_counts():
-    from aa_clip_iqm_tpu_torch.ops import attn_block, flash_attention, fused_mlp
+    from aa_clip_iqm_tpu_torch.ops import attn_block, flash_attention, fused_mlp, rope, swiglu
     from aa_clip_iqm_tpu_torch.ops import packed_attention as pa
 
     pa.reset_launches()
     fused_mlp.reset_launches()
     flash_attention.reset_launches()
     attn_block.reset_launches()
+    swiglu.reset_launches()
+    rope.reset_launches()
 
 
 def read_counts():
-    from aa_clip_iqm_tpu_torch.ops import attn_block, flash_attention, fused_mlp
+    from aa_clip_iqm_tpu_torch.ops import attn_block, flash_attention, fused_mlp, rope, swiglu
     from aa_clip_iqm_tpu_torch.ops import packed_attention as pa
 
     return {"packed_attention": pa.LAUNCHES, "ln_mlp_residual": fused_mlp.LAUNCHES,
@@ -581,7 +609,10 @@ def read_counts():
             "packed_attention_vv_bwd": pa.VV_BWD_LAUNCHES,
             "flash_attention": flash_attention.LAUNCHES,
             "ln_attn_residual": attn_block.LAUNCHES,
-            "ln_mlp_residual_int8_probe": fused_mlp.PROBE_LAUNCHES}
+            "ln_mlp_residual_int8_probe": fused_mlp.PROBE_LAUNCHES,
+            "ln_swiglu_residual": swiglu.LAUNCHES,
+            "ln_swiglu_residual_layer_norm": swiglu.LN_LAUNCHES,
+            "rope_qk": rope.LAUNCHES}
 
 
 def diff_counts(after, before):
@@ -2071,20 +2102,26 @@ class _Twins:
     are out of the way too."""
 
     def __init__(self, attn=None, mlp=None, mlp_int8=None, flash=None, block=None,
-                 keep_attn=False):
+                 keep_attn=False, rope=None):
         self._attn, self._mlp, self._mlp_int8 = attn, mlp, mlp_int8
-        self._flash, self._block = flash, block
+        self._flash, self._block, self._rope = flash, block, rope
         self._keep_attn = keep_attn          # leave B1 on its kernel
         self._eager = _Eager()               # a graph replay would keep the kernels
 
     def __enter__(self):
         from aa_clip_iqm_tpu_torch.models import clip
         from aa_clip_iqm_tpu_torch.ops import attention, attn_block, fused_mlp, packed_attention
+        from aa_clip_iqm_tpu_torch.ops import layers, rope, swiglu
 
         self._eager.__enter__()
         self._saved = (attention.flash_mha_packed, attention.flash_mha, clip.ln_attn_residual,
                        clip.ln_mlp_residual, clip.ln_mlp_residual_int8,
-                       clip.ln_mlp_residual_frozen)
+                       clip.ln_mlp_residual_frozen, clip.layer_norm_rows, clip.rope_qk,
+                       clip.ln_swiglu_residual)
+        # EVA-02's block: its LayerNorm pass, rotation and MLP half.
+        clip.layer_norm_rows = layers.layer_norm
+        clip.rope_qk = self._rope or rope.rope_qk_reference
+        clip.ln_swiglu_residual = swiglu.ln_swiglu_residual_reference
         if not self._keep_attn:
             attention.flash_mha_packed = (self._attn
                                           or packed_attention.flash_mha_packed_reference)
@@ -2102,8 +2139,8 @@ class _Twins:
         from aa_clip_iqm_tpu_torch.ops import attention
 
         (attention.flash_mha_packed, attention.flash_mha, clip.ln_attn_residual,
-         clip.ln_mlp_residual, clip.ln_mlp_residual_int8,
-         clip.ln_mlp_residual_frozen) = self._saved
+         clip.ln_mlp_residual, clip.ln_mlp_residual_int8, clip.ln_mlp_residual_frozen,
+         clip.layer_norm_rows, clip.rope_qk, clip.ln_swiglu_residual) = self._saved
         self._eager.__exit__(*exc)
 
 
@@ -2161,6 +2198,227 @@ class _PlainVvBackward:
         from aa_clip_iqm_tpu_torch.ops import packed_attention
 
         packed_attention.flash_mha_packed_bwd = self._saved
+
+
+def f32_tree(tree):
+    """A parameter tree's tensors in float32."""
+    return {k: f32_tree(v) if isinstance(v, dict) else v.float() for k, v in tree.items()}
+
+
+def rope_off_k(qkv, table, num_heads):
+    """A planted fault: the rotation applied to q alone."""
+    from aa_clip_iqm_tpu_torch.ops.rope import rope_qk_reference
+
+    w = qkv.shape[-1] // 3
+    out = rope_qk_reference(qkv, table, num_heads)
+    out[..., w:2 * w] = qkv[..., w:2 * w]
+    return out
+
+
+def rope_from_class_row(qkv, table, num_heads):
+    """A planted fault: the table aligned to the sequence's start, so the
+    class row takes patch 0's angles and each patch its predecessor's."""
+    from aa_clip_iqm_tpu_torch.ops.rope import rotate
+
+    l, w = qkv.shape[1], qkv.shape[-1] // 3
+    hd = w // num_heads
+    turned = rotate(qkv[:, :-1, :2 * w].unflatten(-1, (2 * num_heads, hd)),
+                    table[0][None, :, None, :], table[1][None, :, None, :])
+    out = qkv.clone()
+    out[:, :l - 1, :2 * w] = turned.flatten(-2)
+    return out
+
+
+def rope_dropped(qkv, table, num_heads):
+    """A planted fault for the whole model: no rotation at all."""
+    return qkv
+
+
+def phase_eva02(card):
+    """EVA02-CLIP-L-14-336 at 518 px (module docstring, phase 3b). Returns
+    the rows of its three kernel entries and the launches of its detector
+    run (the counters' eager launches, as the main path counts them)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from aa_clip_iqm_tpu_torch.loader import build_model_config, init_trainable, random_backbone
+    from aa_clip_iqm_tpu_torch.ops import rope, swiglu
+    from aa_clip_iqm_tpu_torch.ops.compare import bf16_error
+    from aa_clip_iqm_tpu_torch.ops.layers import layer_norm
+    from aa_clip_iqm_tpu_torch.serving import AnomalyDetector
+    from aa_clip_iqm_tpu_torch.utils import profiling
+
+    t_phase = time.perf_counter()
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    bf16, d, h, eps = torch.bfloat16, WIDTH, EVA_HIDDEN, EVA_EPS
+    src = "aa_clip_iqm_tpu_torch/csrc/"
+    results = {}
+
+    def rnd(*shape, std=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * std
+
+    # --- S1: ln_swiglu_residual, at batch 8 and the cell's batch 32 --------
+    ln = {"scale": 1.0 + 0.02 * rnd(d), "bias": 0.02 * rnd(d)}
+    mlp = {"w12": {"w": rnd(d, 2 * h, std=d ** -0.5).to(bf16), "b": rnd(2 * h, std=0.02)},
+           "ln": {"scale": 1.0 + 0.02 * rnd(h), "bias": 0.02 * rnd(h)},
+           "w3": {"w": rnd(h, d, std=h ** -0.5).to(bf16), "b": rnd(d, std=0.02)}}
+    worst, timing = 0.0, None
+    for b in (B, EVA_B):
+        m = b * TOKENS
+        x = rnd(m, d).to(bf16)
+        out = swiglu.ln_swiglu_residual(ln, mlp, x, eps, eps)
+        chain = swiglu.ln_swiglu_residual_reference(ln, mlp, x, eps, eps)
+        stages = swiglu.ln_swiglu_residual_stages(ln, mlp, x, eps, eps)
+        # The bf16 chain rounds both products, g and LN_ffn(g) where S1
+        # rounds g alone, so both are held to the chain's function: the same
+        # stock calls in float32 on the same bf16 input and weights. S1 must
+        # be within the kernels' ulps of it and no further (RMS) than the
+        # bf16 chain.
+        exact = swiglu.ln_swiglu_residual_reference(f32_tree(ln), f32_tree(mlp), x.float(),
+                                                    eps, eps)
+        worst = max(worst, hold(f"S1 against the stock chain in float32 (M={m}, d {d}, h {h})",
+                                out, exact, x))
+        k_err, c_err = bf16_error(out, exact, x), bf16_error(chain, exact, x)
+        log(f"# S1 / the stock bf16 chain against the chain in float32 (M={m}): ulps max "
+            f"{k_err[0]:.2f} / {c_err[0]:.2f}, rms {k_err[1]:.3f} / {c_err[1]:.3f}; S1 against "
+            f"the bf16 chain: ulps max, rms {bf16_error(out, chain, x)}")
+        require(k_err[1] <= c_err[1], f"S1 is further from the chain's function than the stock "
+                                      f"bf16 chain (M={m})")
+        hold(f"S1 against its stages (M={m})", out, stages, x)
+        ops = swiglu.lay_out(*swiglu.leaves(mlp))
+        ops.h = ops.hp
+        planted(f"S1 sub-LN averaged over the padded width {ops.hp} (M={m})",
+                swiglu.ln_swiglu_residual_stages(ln, mlp, x, eps, eps, ops=ops), exact, x)
+        del stages, ops, exact
+        ms = cuda_time(lambda: swiglu.ln_swiglu_residual(ln, mlp, x, eps, eps), 20)
+        plain_ms = cuda_time(lambda: swiglu.ln_swiglu_residual_stages(ln, mlp, x, eps, eps), 5)
+        lib_ms = cuda_time(lambda: swiglu.ln_swiglu_residual_reference(ln, mlp, x, eps, eps), 10)
+        flops = 2 * m * 3 * d * h
+        nbytes = (2 * m * d + 3 * d * h + 2 * m * h) * 2
+        b_ms, b_by = bound(flops, nbytes)
+        log(f"# S1 time (M={m}): kernel {ms:.4f} ms ({tflops(flops, ms)}), stages {plain_ms:.4f} "
+            f"ms, stock chain {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; {flops:.3e} FLOP, "
+            f"{nbytes / 1e6:.1f} MB)")
+        hp = -(-h // swiglu.HIDDEN_TILE) * swiglu.HIDDEN_TILE
+        stage_times(f"S1 (M={m})", lambda: swiglu.ln_swiglu_residual(ln, mlp, x, eps, eps),
+                    {"layer_norm_rows": ("LayerNorm pass", "bytes", 2 * m * d * 2),
+                     "swiglu_dual": ("dual product (+ b12, SiLU *)", "flop", 2 * m * d * 2 * hp),
+                     "swiglu_out": ("out product (+ sub-LN, b3', x)", "flop", 2 * m * hp * d)})
+        if b == EVA_B:
+            timing = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                      "library_ms": lib_ms}
+        del x, out, chain
+    results["ln_swiglu_residual"] = {
+        "name": "ln_swiglu_residual", "route": "cuda", "source": src + "ln_swiglu_residual.cu",
+        "replaces": "none (EVA-02's MLP half)", "max_abs_err": worst, **timing}
+
+    # --- S1's LayerNorm pass alone: LN1 and the attention sub-LN ---------
+    m = EVA_B * TOKENS
+    x = (3 * rnd(m, d) + 1).to(bf16)
+    out = swiglu.layer_norm_rows(ln, x, eps)
+    err = hold(f"S1's LayerNorm pass against layers.layer_norm (M={m}, d {d})", out,
+               layer_norm(ln, x, eps=eps))
+    ms = cuda_time(lambda: swiglu.layer_norm_rows(ln, x, eps), 20)
+    plain_ms = cuda_time(lambda: layer_norm(ln, x, eps=eps), 10)
+    lib_ms = cuda_time(lambda: F.layer_norm(x, (d,), ln["scale"].to(bf16), ln["bias"].to(bf16),
+                                            eps), 20)
+    b_ms, b_by = bound(7 * m * d, 2 * m * d * 2 + 2 * d * 4)
+    log(f"# S1 LayerNorm pass time (M={m}): kernel {ms:.4f} ms, layers.layer_norm "
+        f"{plain_ms:.4f} ms, F.layer_norm in bf16 {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    results["ln_swiglu_residual_layer_norm"] = {
+        "name": "ln_swiglu_residual_layer_norm", "route": "cuda",
+        "source": src + "ln_swiglu_residual.cu", "replaces": "none (EVA-02's LN1 and sub-LN)",
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": lib_ms}
+    del x, out
+
+    # --- R1: rope_qk on the cell's packed projection ---------------------
+    grid = IMG // 14
+    table = rope.rope_table(grid, 16, HD, dev)
+    qkv = rnd(EVA_B, TOKENS, 3 * d).to(bf16)
+    want = rope.rope_qk_reference(qkv, table, HEADS)
+    got = rope.rope_qk(qkv.clone(), table, HEADS)
+    err = hold(f"R1 rope_qk against its plain version (batch {EVA_B}, {TOKENS} tokens)", got,
+               want)
+    require(torch.equal(got[:, 0], qkv[:, 0]) and torch.equal(got[..., 2 * d:], qkv[..., 2 * d:]),
+            "R1 moved the class row or the v columns")
+    planted("R1 rotation left off k", rope_off_k(qkv, table, HEADS), want)
+    planted("R1 rotation from the class row on", rope_from_class_row(qkv, table, HEADS), want)
+    buf = qkv.clone()
+    ms = cuda_time(lambda: rope.rope_qk(buf, table, HEADS), 20)
+    plain_ms = cuda_time(lambda: rope.rope_qk_reference(qkv, table, HEADS), 10)
+    elems = EVA_B * (TOKENS - 1) * 2 * d
+    b_ms, b_by = bound(3 * elems, 2 * elems * 2 + 2 * (TOKENS - 1) * HD * 4)
+    log(f"# R1 time (batch {EVA_B}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}; {(2 * elems * 2) / ms / 1e6:.1f} GB/s)")
+    results["rope_qk"] = {
+        "name": "rope_qk", "route": "cuda", "source": src + "rope_qk.cu",
+        "replaces": "none (EVA-02's rotation of q and k)", "max_abs_err": err, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    del qkv, want, got, buf, ln, mlp
+
+    # --- The detector on the three kernels, at the cell's batch ----------
+    t0 = time.perf_counter()
+    cfg = build_model_config(EVA_MODEL, img_size=IMG)
+    frozen = random_backbone(cfg, seed=0, device=DEVICE, dtype=bf16)
+    trainable = init_trainable(cfg, seed=111, device=DEVICE, dtype=bf16)
+    torch.cuda.synchronize()
+    layers = cfg.clip.vision.layers
+    log(f"# EVA-02: {EVA_MODEL} @ {IMG}px, hidden {cfg.clip.vision.mlp_hidden}, random weights "
+        f"in {time.perf_counter() - t0:.1f} s")
+    reset_counts()
+    profiling.reset_counters()
+    det = AnomalyDetector(frozen, trainable, cfg, "MVTec", img_size=IMG,
+                          compute_dtype=bf16, batch_buckets=(EVA_B,), device=DEVICE)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    require(counts == counts_of(ln_mlp_residual=cfg.clip.text.layers),
+            f"EVA-02 anchor build launches {counts}")
+    classes = det.class_names()
+    rng = np.random.default_rng(17)
+    imgs = rng.integers(0, 256, (EVA_B, 3, IMG, IMG), dtype=np.uint8)
+    names = [classes[i % len(classes)] for i in range(EVA_B)]
+    (maps, scores), ran = graph_request(det, lambda: det.predict_multi(imgs, names))
+    require(maps.shape == (EVA_B, IMG, IMG) and scores.shape == (EVA_B,),
+            f"EVA-02 predict_multi: maps {maps.shape}, scores {scores.shape}")
+    require(np.isfinite(maps).all() and np.isfinite(scores).all(), "EVA-02: non-finite output")
+    want_ran = counts_of(packed_attention=layers, ln_swiglu_residual=layers,
+                         ln_swiglu_residual_layer_norm=2 * layers, rope_qk=layers)
+    log(f"# EVA-02 predict_multi b{EVA_B}: maps in [{maps.min():.4f}, {maps.max():.4f}], "
+        f"launches per replay { {k: v for k, v in ran.items() if v} } (graph replay)")
+    require(ran == want_ran, f"EVA-02 replay launches {ran}, want {want_ran}")
+    c = profiling.counters()
+    log(f"# EVA-02 counters: blocks.eva02 {c.get('blocks.eva02', 0)}, mlp.swiglu_fused "
+        f"{c.get('mlp.swiglu_fused', 0)}, mlp.swiglu_chain {c.get('mlp.swiglu_chain', 0)}")
+    require(c.get("mlp.swiglu_chain", 0) == 0 and c.get("mlp.swiglu_fused", 0) > 0
+            and c["mlp.swiglu_fused"] == c["blocks.eva02"],
+            "EVA-02's detector ran a stock-chain MLP on the card")
+    launches = read_counts()
+
+    # The same batch through the plain versions (B1's included), then with
+    # the rotation dropped, which the comparison must catch.
+    with _Twins():
+        before = read_counts()
+        maps_t, scores_t = det.predict_multi(imgs, names)
+        require(read_counts() == before, "EVA-02 twin run launched a kernel")
+    rel = map_diff(maps, maps_t)
+    log(f"# EVA-02 kernels vs plain versions, batch {EVA_B} map: rms diff / std {rel:.3e} "
+        f"(tol {MAP_TOL:.0e}); scores max abs diff {float(np.abs(scores - scores_t).max()):.3e}")
+    require(rel <= MAP_TOL, f"EVA-02 map differs from the plain versions' by {rel}")
+    with _Twins(rope=rope_dropped):
+        rel_f = map_diff(det.predict_multi(imgs, names)[0], maps_t)
+    log(f"# planted fault, EVA-02 rotation dropped, batch {EVA_B} map: rms diff / std "
+        f"{rel_f:.3e}")
+    require(rel_f > MAP_TOL, "EVA-02 map comparison missed the dropped rotation")
+    time_requests(det, imgs, card, f"EVA-02 {EVA_MODEL}")
+    log_graphs(det, "EVA-02")
+    del det, frozen, trainable
+    torch.cuda.empty_cache()
+    log(f"# EVA-02 phase: {time.perf_counter() - t_phase:.1f} s, launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    return results, launches
 
 
 def phase_main_path(card):
@@ -5131,7 +5389,10 @@ def main():
         phase_build()
         phase_native(card)
         kernels = phase_kernels()
+        eva_kernels, eva_launches = phase_eva02(card)
+        kernels.update(eva_kernels)
         launches, ctx = phase_main_path(card)
+        add_counts(launches, eva_launches)
         add_counts(launches, phase_int8_tiers(card, ctx))
         add_counts(launches, phase_sweep(card, ctx))
         add_counts(launches, phase_fused(card, ctx))

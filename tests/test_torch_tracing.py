@@ -10,7 +10,9 @@ the detector counts its device batches, rows, padding and host<->device
 bytes, each bucket of a split call once; building a detector adds to
 ``setup.anchors_s``; the kernels' build and load, the micro-batcher and the
 registry itself count as documented; a CPU detector returns ordinary
-arrays and copies nothing into page-locked memory; every counter the
+arrays and copies nothing into page-locked memory; an EVA-02 tower makes
+its rotary table once per grid under ``aaclip/setup/rope`` (``rope.tables``)
+and counts its blocks and the route of each MLP half; every counter the
 package keeps is named in ``utils/profiling``'s list.
 
 Marked ``cuda`` (skipped without a card): under the profiler each replayed
@@ -230,6 +232,30 @@ def test_kernel_builds_and_loads_are_counted(monkeypatch):
     assert [s[0] for s in _host_spans(prof)] == ["setup/kernels"]
 
 
+def test_a_failed_build_leaves_no_nvcc_running(monkeypatch):
+    """When one build fails, the builds started with it are killed before
+    the error reaches the caller."""
+    import subprocess
+    import sys
+
+    scripts = {"bad": "import sys; sys.exit(1)", "slow": "import time; time.sleep(60)"}
+    started = {}
+
+    def start(name):
+        started[name] = subprocess.Popen([sys.executable, "-c", scripts[name]],
+                                         stdout=subprocess.PIPE,
+                                         stderr=subprocess.STDOUT, text=True)
+        return started[name]
+
+    monkeypatch.setattr(_build, "_stale", lambda name: True)
+    monkeypatch.setattr(_build, "_start", start)
+    t0 = time.perf_counter()
+    with pytest.raises(RuntimeError, match="nvcc failed for csrc/bad.cu"):
+        _build.build(["bad", "slow"])
+    assert time.perf_counter() - t0 < 30
+    assert all(p.poll() is not None for p in started.values())
+
+
 class _Stub:
     img_size = 8
 
@@ -331,6 +357,43 @@ def _overlap(ops, spans):
         for _, a, b in spans:
             total += max(0.0, min(e, b) - max(s, a))
     return total
+
+
+def test_a_rotary_table_is_made_once_per_grid_under_setup_rope():
+    from aa_clip_iqm_tpu_torch.ops import rope
+
+    # A grid no other test asks for: its table is made here, under the span.
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        first = rope.rope_table(7, 5, 16, "cpu")
+    again = rope.rope_table(7, 5, 16, "cpu")
+    assert again is first and first.shape == (2, 49, 16)
+    assert [s[0] for s in _host_spans(prof)] == ["setup/rope"]
+    assert profiling.counters()["rope.tables"] == 1
+    rope.rope_table(6, 5, 16, "cpu")                   # another grid, another table
+    assert profiling.counters()["rope.tables"] == 2
+
+
+@pytest.mark.parametrize("use_pallas", [True, False])
+def test_eva02_blocks_and_mlp_routes_are_counted(use_pallas):
+    cfg = tconfigs.tiny_eva02_config(IMG)
+    frozen = random_backbone(cfg, seed=0, device="cpu", dtype=torch.float32)
+    trainable = init_trainable(cfg, seed=1, device="cpu", dtype=torch.float32)
+    d = AnomalyDetector(frozen, trainable, cfg, "MVTec", img_size=IMG,
+                        compute_dtype=torch.float32, batch_buckets=(2,), device="cpu",
+                        use_pallas=use_pallas)
+    d.predict_multi(_u8(2), d.class_names()[:2])
+    d.predict_multi(_u8(2, seed=1), d.class_names()[:2])
+    c = profiling.counters()
+    layers = cfg.clip.vision.layers
+    assert c["blocks.eva02"] == 2 * layers
+    route, other = (("mlp.swiglu_fused", "mlp.swiglu_chain") if use_pallas
+                    else ("mlp.swiglu_chain", "mlp.swiglu_fused"))
+    assert c[route] == 2 * layers and other not in c
+
+
+def test_the_eva02_counters_are_kept_and_listed():
+    for name in ("rope.tables", "blocks.eva02", "mlp.swiglu_fused", "mlp.swiglu_chain"):
+        assert name in _COUNTED
 
 
 @pytest.mark.cuda
