@@ -39,6 +39,9 @@
 //      xn, which launch 2 has read;
 //   4. the out-projection GEMM with epilogue (b): x + (O . W_out + b_out).
 // Head width 64 only (ViT-L: 16 heads of 64), d a multiple of 128.
+// Two more entries run launches 1-2 (front) and 4 (back) alone, with the
+// caller's attention kernel between them: the model's route outside
+// AACLIP_FUSED_ATTN, whose attention stays B1 (or B7).
 
 #include "attention_fwd.cuh"
 #include "common.cuh"
@@ -98,6 +101,42 @@ extern "C" int aaclip_ln_attn_residual(const void* x, const void* ln_g, const vo
   return gemm90::gemm<Tag>(xn_o, ld, static_cast<const bf16*>(w_out), d,
                            static_cast<const float*>(b_out), xb, d, static_cast<bf16*>(y), d, M,
                            d, d, gemm90::ACT_NONE, 0, s);
+}
+
+// The kernel's halves around an attention launch of the caller's, each its
+// stages of the same name on the same core: the model's unfused route
+// (models/clip.py), which keeps its own attention kernel between them.
+//
+// front: xn = LayerNorm(x) into the caller's bf16 scratch (M, d), then qkv =
+// xn . w_qkv + b_qkv with epilogue (a) and no activation into qkv (M, 3d),
+// the packed (B, L, 3d) layout that B1 reads. x (M, d) bf16, LayerNorm
+// scale/bias and b_qkv fp32, w_qkv (d, 3d) bf16. Two launches.
+extern "C" int aaclip_ln_attn_residual_front(const void* x, const void* ln_g, const void* ln_b,
+                                             const void* w_qkv, const void* b_qkv, void* xn,
+                                             void* qkv, int M, int d, float eps, void* stream) {
+  if (M <= 0 || d % 128 != 0) return cudaErrorInvalidValue;
+  using Tag = ln_attn_residual_stage;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  bf16* xn_b = static_cast<bf16*>(xn);
+  cudaError_t err = gemm90::layer_norm_rows<Tag>(static_cast<const bf16*>(x),
+                                                 static_cast<const float*>(ln_g),
+                                                 static_cast<const float*>(ln_b), xn_b, d, M, d,
+                                                 eps, s);
+  if (err != cudaSuccess) return err;
+  return gemm90::gemm<Tag>(xn_b, d, static_cast<const bf16*>(w_qkv), 3 * d,
+                           static_cast<const float*>(b_qkv), nullptr, 0,
+                           static_cast<bf16*>(qkv), 3 * d, M, 3 * d, d, gemm90::ACT_NONE, 0, s);
+}
+
+// back: y = x + (o . w_out + b_out), epilogue (b), rounded once. o, x and y
+// (M, d) bf16, w_out (d, d) bf16, b_out fp32. One launch.
+extern "C" int aaclip_ln_attn_residual_back(const void* o, const void* w_out, const void* b_out,
+                                            const void* x, void* y, int M, int d, void* stream) {
+  if (M <= 0 || d % 128 != 0) return cudaErrorInvalidValue;
+  return gemm90::gemm<ln_attn_residual_stage>(
+      static_cast<const bf16*>(o), d, static_cast<const bf16*>(w_out), d,
+      static_cast<const float*>(b_out), static_cast<const bf16*>(x), d, static_cast<bf16*>(y),
+      d, M, d, d, gemm90::ACT_NONE, 0, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* aaclip_ln_attn_residual_error_string(int err) {

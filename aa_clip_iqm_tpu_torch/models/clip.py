@@ -35,12 +35,17 @@ that kernel's gate allows (bf16, width a multiple of 128), else through the
 unfused ``x + mlp_block(...)`` on ``int8_linear``. Each fused function is the
 Hopper kernel on the card and its plain twin on the CPU. Attention routes as
 in the JAX package (``ops/attention.py``): the packed-qkv kernel where its
-gate holds, else the unpacked flash kernel on split heads. With
-``FUSED_ATTN`` (``AACLIP_FUSED_ATTN=1``) an unmasked block whose weights pass
+gate holds, else the unpacked flash kernel on split heads. An unmasked block
+whose call passes :func:`..ops.attn_block.ln_attn_halves_ok` and which
+autograd does not record runs the LayerNorm and the qkv projection on B8's
+front kernel and the out-projection with the residual on its back kernel,
+around that attention route (:func:`_run_block`, and EVA-02's block
+likewise). With ``FUSED_ATTN`` (``AACLIP_FUSED_ATTN=1``) a block that passes
 :func:`..ops.attn_block.ln_attn_residual_ok` runs its whole attention half
 (LayerNorm, qkv, attention, out-projection, residual) through the fused
-kernel instead. The tower is not padded: the attention kernels mask the
-ragged key tile themselves.
+kernel instead, recorded by autograd or not.
+The tower is not padded: the attention kernels mask the ragged key tile
+themselves.
 
 ``use_pallas=False`` (every function here takes it) is the JAX package's XLA
 chain on stock PyTorch calls and launches no hand-written kernel: the
@@ -64,7 +69,14 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs import CLIPConfig, Eva02VisionConfig, ResNetVisionConfig, TextConfig, VisionConfig
 from ..ops import attention as attn_ops
-from ..ops.attn_block import ln_attn_residual, ln_attn_residual_ok
+from ..ops import custom_ops
+from ..ops.attn_block import (
+    ln_attn_back,
+    ln_attn_front,
+    ln_attn_halves_ok,
+    ln_attn_residual,
+    ln_attn_residual_ok,
+)
 from ..ops.fused_mlp import (
     ln_mlp_residual,
     ln_mlp_residual_frozen,
@@ -106,9 +118,16 @@ def patchify(params, images, patch_size: int):
 def _run_block(block, x, num_heads, act, attn_mask=None, vv=False,
                valid_len=None, fused_mlp=True, use_pallas=True):
     """Pre-norm residual attention block. ``vv`` selects the CLIP-Surgery
-    value-value attention. With ``FUSED_ATTN``, no mask and a block that
-    passes ``ln_attn_residual_ok`` the attention half is one fused kernel
-    (int8 attention weights fail the gate and keep the chain).
+    value-value attention. An unmasked block runs its attention half on
+    B8's kernels (int8 attention weights fail both gates): with
+    ``FUSED_ATTN``, where ``ln_attn_residual_ok`` holds, as one fused
+    kernel; else, where ``ln_attn_halves_ok`` holds, autograd records
+    nothing and ``vv`` is off, as B8's front (the LayerNorm pass and the qkv
+    product), the routed attention kernel and B8's back (the out-projection
+    with the residual, rounded once), counted ``attn.proj_fused``. Every
+    other unmasked block runs the chain (LayerNorm, cuBLAS projections,
+    attention, residual add), counted ``attn.proj_chain``; a masked one (the
+    text tower) too, and the stock route, uncounted.
     ``fused_mlp="frozen"`` takes the fused MLP whose backward is the dx-only
     kernel: valid only while the block's parameters carry no gradient (it
     raises otherwise). ``use_pallas=False``: the stock PyTorch chain (module
@@ -125,11 +144,18 @@ def _run_block(block, x, num_heads, act, attn_mask=None, vv=False,
             x = x + attn_ops.mha(block["attn"], h, num_heads, attn_mask=attn_mask,
                                  use_pallas=False)
         return x + mlp_block(block["mlp"], layer_norm(block["ln_2"], x), act)
-    if (FUSED_ATTN and attn_mask is None
-            and ln_attn_residual_ok(x, block["attn"], num_heads)):
-        x = ln_attn_residual(block["ln_1"], block["attn"], x, num_heads, vv,
-                             valid_len)
+    attn = block["attn"]
+    if attn_mask is None and FUSED_ATTN and ln_attn_residual_ok(x, attn, num_heads):
+        x = ln_attn_residual(block["ln_1"], attn, x, num_heads, vv, valid_len)
+    elif (attn_mask is None and not vv and ln_attn_halves_ok(x, attn)
+          and not _records_grad(block, x)):
+        count("attn.proj_fused")
+        qkv = ln_attn_front(block["ln_1"], _f32_bias(attn["qkv"]), x)
+        x = ln_attn_back(_f32_bias(attn["out"]),
+                         attn_ops.attend_qkv(qkv, num_heads, valid_len=valid_len), x)
     else:
+        if attn_mask is None:
+            count("attn.proj_chain")
         h = layer_norm(block["ln_1"], x)
         if vv:
             a = attn_ops.vv_attention(block["attn"], h, num_heads,
@@ -145,6 +171,20 @@ def _run_block(block, x, num_heads, act, attn_mask=None, vv=False,
     if ln_mlp_residual_int8_ok(x, mlp, act):
         return ln_mlp_residual_int8(block["ln_2"], mlp, x, act)
     return x + mlp_block(mlp, layer_norm(block["ln_2"], x), act)
+
+
+def _float32(t):
+    return t.float()
+
+
+def _f32_bias(params):
+    """A projection's ``{w, b}`` with its bias in float32, as the kernels read
+    it: made once per frozen bias (``layers.frozen_layout``), so that a
+    graph's replay runs no cast; in a trace the cast is an op of the trace."""
+    b = params["b"]
+    if b.dtype != torch.float32:
+        b = b.float() if custom_ops.is_traced(b) else frozen_layout(_float32, b)
+    return {"w": params["w"], "b": b}
 
 
 def _qkv_bias(q_b, v_b):
@@ -171,11 +211,19 @@ def _run_eva02_block(block, x, num_heads, act=None, attn_mask=None, vv=False, va
                      fused_mlp=True, use_pallas=True, *, rope, eps):
     """EVA-02's block (the module docstring): ``rope`` is the rotary table of
     the rows' patches (``ops.rope``), ``eps`` the LayerNorms'.
-    ``use_pallas`` runs LN1 and the sub-LN on ``ln_swiglu_residual``'s
-    LayerNorm pass, the rotation kernel (in place on the cuBLAS projection),
-    the attention kernels as CLIP's block runs them (B1, or B7 above 8,192
-    tokens) and ``ln_swiglu_residual`` for the MLP half, each the plain
-    version on the CPU. ``use_pallas=False``, and a call whose x or block
+    ``use_pallas`` runs LN1 and the qkv projection on B8's front kernel,
+    the rotation kernel (in place on the projection), the attention kernels
+    as CLIP's block runs them (B1, or B7 above 8,192 tokens), the sub-LN on
+    ``ln_swiglu_residual``'s LayerNorm pass, the out-projection with the
+    residual on B8's back kernel and ``ln_swiglu_residual`` for the MLP
+    half, each the plain version on the CPU. A call that fails
+    ``ln_attn_halves_ok`` (on the card every published width passes it;
+    the tests' float32 tower of width 64 does not) runs LN1 and the sub-LN
+    on the LayerNorm pass and both projections on cuBLAS instead, around
+    the same rotation and attention, so that the tiny tower holds those
+    plain versions to the reference. The attention half is counted
+    ``attn.proj_fused`` or ``attn.proj_chain`` as CLIP's, under
+    ``use_pallas`` only. ``use_pallas=False``, and a call whose x or block
     weights autograd records (training: the adapters below need x's
     gradient), run the stock chain (SDPA on the card), as these kernels
     have no backward. ``act`` and ``fused_mlp`` are CLIP's and unused:
@@ -186,16 +234,25 @@ def _run_eva02_block(block, x, num_heads, act=None, attn_mask=None, vv=False, va
     count("blocks.eva02")
     kernels = use_pallas and not _records_grad(block, x)
     attn = block["attn"]
+    fused = kernels and ln_attn_halves_ok(x, attn)
+    if use_pallas:
+        count("attn.proj_fused" if fused else "attn.proj_chain")
     norm = layer_norm_rows if kernels else layer_norm
-    u = norm(block["ln_1"], x, eps=eps)
     if kernels:
-        bias = frozen_layout(_qkv_bias, attn["q"]["b"], attn["v"]["b"])
-        qkv = rope_qk(linear({"w": attn["qkv"]["w"], "b": bias}, u), rope, num_heads)
+        qkv_p = {"w": attn["qkv"]["w"],
+                 "b": frozen_layout(_qkv_bias, attn["q"]["b"], attn["v"]["b"])}
+        if fused:
+            qkv = ln_attn_front(block["ln_1"], qkv_p, x, eps=eps)
+        else:
+            qkv = linear(qkv_p, norm(block["ln_1"], x, eps=eps))
+        qkv = rope_qk(qkv, rope, num_heads)
     else:
-        qkv = linear({"w": attn["qkv"]["w"], "b": _qkv_bias(attn["q"]["b"], attn["v"]["b"])}, u)
+        qkv = linear({"w": attn["qkv"]["w"], "b": _qkv_bias(attn["q"]["b"], attn["v"]["b"])},
+                     layer_norm(block["ln_1"], x, eps=eps))
         qkv = rope_qk_reference(qkv, rope, num_heads)
-    a = attn_ops.attend_qkv(qkv, num_heads, valid_len=valid_len, use_pallas=kernels)
-    x = x + linear(attn["out"], norm(attn["ln"], a, eps=eps))
+    a = norm(attn["ln"], attn_ops.attend_qkv(qkv, num_heads, valid_len=valid_len,
+                                             use_pallas=kernels), eps=eps)
+    x = ln_attn_back(_f32_bias(attn["out"]), a, x) if fused else x + linear(attn["out"], a)
     if kernels:
         count("mlp.swiglu_fused")
         return ln_swiglu_residual(block["ln_2"], block["mlp"], x, eps=eps, ffn_eps=eps)

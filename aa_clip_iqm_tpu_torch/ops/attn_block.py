@@ -15,6 +15,15 @@ or raises, through the custom op ``aaclip::ln_attn_residual``
 gradient is autograd through the plain chain, for x and every
 parameter, as JAX's ``_bwd`` (pallas_attn_block.py:224) is an XLA recompute.
 
+The kernel's halves run alone too, with the caller's attention kernel
+between them: :func:`ln_attn_front` (the LayerNorm pass and the qkv
+projection, epilogue (a) without an activation, into the packed (B, L, 3d)
+layout that B1 reads) and :func:`ln_attn_back` (the out-projection with the
+residual, epilogue (b), one rounding), the custom ops ``aaclip::ln_attn_front``
+and ``aaclip::ln_attn_back``. The model's blocks take them wherever autograd
+records nothing and :func:`ln_attn_halves_ok` holds (``models/clip.py``);
+they have no backward.
+
 The gate :func:`ln_attn_residual_ok` is JAX's without its backend test and
 without its ``L % 128`` term: the kernel masks its own ragged key tail, as
 B1 does, so the tower is never padded.
@@ -31,22 +40,25 @@ from .layers import layer_norm, linear
 from .packed_attention import (flash_mha_packed_reference, flash_mha_packed_stages,
                                mha_reference)
 
-#: Kernel calls since the last reset (one per call; each call is four launches).
+#: Kernel calls since the last reset (one per call; each call is four launches),
+#: and calls of the halves alone (the front is two launches, the back one).
 LAUNCHES = 0
+FRONT_LAUNCHES = 0
+BACK_LAUNCHES = 0
 #: The one head width the kernel is built for (ViT-L: 16 heads of 64).
 HEAD_DIM = 64
 
 
 def reset_launches() -> None:
-    global LAUNCHES
-    LAUNCHES = 0
+    global LAUNCHES, FRONT_LAUNCHES, BACK_LAUNCHES
+    LAUNCHES = FRONT_LAUNCHES = BACK_LAUNCHES = 0
 
 
-def ln_attn_residual_ok(x, attn_params, num_heads: int) -> bool:
-    """Whether the fused route takes this call site: the gate of
-    pallas_attn_block.py:116 without its backend test and without L % 128.
-    bf16 x, float (not int8) qkv weights, square projections, whole heads
-    in 128-column panels."""
+def ln_attn_halves_ok(x, attn_params) -> bool:
+    """Whether the halves (:func:`ln_attn_front`, :func:`ln_attn_back`) take
+    a block's call: bf16 (B, L, d) x with d a multiple of 128, float (not
+    int8) qkv weights, square projections. It has no term on the heads: the
+    attention between the halves is the caller's own route."""
     if x.dtype != torch.bfloat16 or x.dim() != 3:
         return False
     if "w" not in attn_params["qkv"]:        # int8 ({"w_q", "scale", "b"})
@@ -57,7 +69,18 @@ def ln_attn_residual_ok(x, attn_params, num_heads: int) -> bool:
         return False
     if w.shape[-1] != 3 * d or tuple(attn_params["out"]["w"].shape) != (d, d):
         return False
-    if d % 128 or d % num_heads:
+    return d % 128 == 0
+
+
+def ln_attn_residual_ok(x, attn_params, num_heads: int) -> bool:
+    """Whether the fused route takes this call site: the gate of
+    pallas_attn_block.py:116 without its backend test and without L % 128.
+    The halves' gate (:func:`ln_attn_halves_ok`), and whole heads in
+    128-column panels for the kernel's own attention stage."""
+    if not ln_attn_halves_ok(x, attn_params):
+        return False
+    d = x.shape[-1]
+    if d % num_heads:
         return False
     hd = d // num_heads
     group = max(1, 128 // hd)
@@ -101,13 +124,36 @@ def ln_attn_residual_stages(ln_params, attn_params, x, num_heads: int, vv: bool 
     return gemm_bias_residual_reference(o, out_p["w"], out_p["b"], x)
 
 
-def _lib():
-    lib = _build.load("ln_attn_residual")
-    fn = lib.aaclip_ln_attn_residual
+def ln_attn_front_reference(ln_params, qkv_params, x, eps: float = 1e-5):
+    """The front's plain version, the kernel's first two stages:
+    ``LN(x) @ W_qkv + b_qkv`` in fp32 from the rounded LN(x), rounded once
+    (without an activation epilogue (a) is :func:`.layers.linear` bit for
+    bit). x (..., d), W_qkv (d, 3d) -> (..., 3d)."""
+    return gemm_bias_act_reference(layer_norm(ln_params, x, eps=eps), qkv_params["w"],
+                                   qkv_params["b"])
+
+
+def ln_attn_back_reference(out_params, o, x):
+    """The back's plain version, the kernel's last stage: ``x + (o @ W_out
+    + b_out)`` in fp32, rounded once. o, x (..., d)."""
+    return gemm_bias_residual_reference(o, out_params["w"], out_params["b"], x)
+
+
+_ENTRIES = {
+    "aaclip_ln_attn_residual": [ctypes.c_void_p] * 9 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+    "aaclip_ln_attn_residual_front": [ctypes.c_void_p] * 7 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p],
+    "aaclip_ln_attn_residual_back": [ctypes.c_void_p] * 5 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+}
+
+
+def _lib(entry="aaclip_ln_attn_residual"):
+    fn = getattr(_build.load("ln_attn_residual"), entry)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 9 + [
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        fn.argtypes = _ENTRIES[entry]
         fn.restype = ctypes.c_int
     return fn
 
@@ -174,6 +220,86 @@ def _launch(ln_params, attn_params, x, num_heads: int, vv: bool, valid_len, eps:
     global LAUNCHES
     LAUNCHES += 1
     return y
+
+
+def _half_input(fn, x, d):
+    """x as a half's kernel reads it: bf16 (..., d) on the card, d a
+    multiple of 128, contiguous (a copy only where it is not) and 16-byte
+    aligned."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{fn}: unsupported device {x.device}")
+    if x.dtype != torch.bfloat16 or x.shape[-1] != d or d % 128:
+        raise ValueError(f"{fn}: takes bf16 (..., d) with d a multiple of 128; got "
+                         f"{tuple(x.shape)} {x.dtype}")
+    x = x.contiguous()
+    if x.data_ptr() % 16:
+        raise ValueError(f"{fn}: x must be 16-byte aligned")
+    return x
+
+
+def _launch_front(ln_params, qkv_params, x, eps: float):
+    """The front on a CUDA x (the CUDA implementation of its op)."""
+    fn = "ln_attn_front"
+    d = x.shape[-1]
+    x = _half_input(fn, x, d)
+    if tuple(qkv_params["w"].shape) != (d, 3 * d):
+        raise ValueError(f"{fn}: qkv weight {tuple(qkv_params['w'].shape)} for width {d}")
+    dev, m = x.device, x.numel() // d
+    ops = [_operand(ln_params["scale"], torch.float32, dev, "ln scale"),
+           _operand(ln_params["bias"], torch.float32, dev, "ln bias"),
+           _operand(qkv_params["w"], torch.bfloat16, dev, "qkv weight"),
+           _operand(qkv_params["b"], torch.float32, dev, "qkv bias")]
+    xn = torch.empty((m, d), dtype=x.dtype, device=dev)
+    qkv = torch.empty((*x.shape[:-1], 3 * d), dtype=x.dtype, device=dev)
+    err = _lib("aaclip_ln_attn_residual_front")(
+        x.data_ptr(), *(t.data_ptr() for t in ops), xn.data_ptr(), qkv.data_ptr(), m, d,
+        float(eps), _build.stream_ptr(dev))
+    _build.check("ln_attn_residual", err)
+    global FRONT_LAUNCHES
+    FRONT_LAUNCHES += 1
+    return qkv
+
+
+def _launch_back(out_params, o, x):
+    """The back on CUDA tensors (the CUDA implementation of its op)."""
+    fn = "ln_attn_back"
+    d = x.shape[-1]
+    x, o = _half_input(fn, x, d), _half_input(fn, o, d)
+    if o.shape != x.shape or tuple(out_params["w"].shape) != (d, d):
+        raise ValueError(f"{fn}: o {tuple(o.shape)}, out weight "
+                         f"{tuple(out_params['w'].shape)} for x {tuple(x.shape)}")
+    dev = x.device
+    w = _operand(out_params["w"], torch.bfloat16, dev, "out weight")
+    b = _operand(out_params["b"], torch.float32, dev, "out bias")
+    y = torch.empty_like(x)
+    err = _lib("aaclip_ln_attn_residual_back")(
+        o.data_ptr(), w.data_ptr(), b.data_ptr(), x.data_ptr(), y.data_ptr(), x.numel() // d, d,
+        _build.stream_ptr(dev))
+    _build.check("ln_attn_residual", err)
+    global BACK_LAUNCHES
+    BACK_LAUNCHES += 1
+    return y
+
+
+def ln_attn_front(ln_params, qkv_params, x, eps: float = 1e-5):
+    """``LN(x) @ W_qkv + b_qkv`` rounded once, (..., d) -> (..., 3d), in the
+    packed layout that :func:`.attention.attend_qkv` takes: through
+    ``aaclip::ln_attn_front``, the kernel's LayerNorm pass and qkv product on
+    a CUDA x (bf16, d a multiple of 128), :func:`ln_attn_front_reference` on
+    a CPU x. No gradient: give the bias in float32 where a graph replays the
+    call, so that no cast runs in it."""
+    custom_ops.check_device("ln_attn_front", x)
+    return custom_ops.ln_attn_front(x, ln_params["scale"], ln_params["bias"], qkv_params["w"],
+                                    qkv_params["b"], float(eps))
+
+
+def ln_attn_back(out_params, o, x):
+    """``x + (o @ W_out + b_out)`` rounded once: through
+    ``aaclip::ln_attn_back``, the kernel's out-projection with the residual
+    on CUDA tensors, :func:`ln_attn_back_reference` on CPU ones. No
+    gradient."""
+    custom_ops.check_device("ln_attn_back", x)
+    return custom_ops.ln_attn_back(o, x, out_params["w"], out_params["b"])
 
 
 def _leaves(ln_params, attn_params):

@@ -12,6 +12,8 @@ One namespace, ``aaclip::``:
                             (``flash_attention.py``)
   ``ln_attn_residual``      B8, the fused attention half-block
                             (``attn_block.py``)
+  ``ln_attn_front``         B8's LayerNorm pass and qkv product alone
+  ``ln_attn_back``          B8's out-projection with the residual alone
 
 Each op has three implementations:
 
@@ -48,7 +50,8 @@ from torch import Tensor
 
 #: The forward ops, as ``torch.ops.aaclip.<name>``.
 OPS = ("flash_mha_packed", "flash_mha_packed_lse", "ln_mlp_residual",
-       "ln_mlp_residual_int8", "flash_mha", "ln_attn_residual")
+       "ln_mlp_residual_int8", "flash_mha", "ln_attn_residual", "ln_attn_front",
+       "ln_attn_back")
 #: The card kernels' one head width (B1, B7, B8).
 HEAD_DIM = 64
 
@@ -234,7 +237,7 @@ def _(q, k, v, scale):
 
 
 # --------------------------------------------------------------------------
-# B8: the fused attention half-block
+# B8: the fused attention half-block, and its halves alone
 # --------------------------------------------------------------------------
 
 def _attn_params(w_qkv, b_qkv, w_out, b_out):
@@ -270,6 +273,61 @@ def _(x, ln_scale, ln_bias, w_qkv, b_qkv, w_out, b_out, num_heads, vv, valid_len
                              "(B, L, d) x, float square projections, whole heads in "
                              "128-column panels)")
         _cuda_head_width("ln_attn_residual", x, x.shape[-1], num_heads)
+    return torch.empty_like(x)
+
+
+def _cuda_half(fn: str, x: Tensor, w: Tensor, cols: int) -> None:
+    """The halves' limits on the card: bf16 x of a width d that is a
+    multiple of 128, and a (d, cols) weight."""
+    d = x.shape[-1]
+    if x.device.type == "cuda" and (x.dtype != torch.bfloat16 or d % 128):
+        raise ValueError(f"{fn}: takes bf16 x of a width that is a multiple of 128; got "
+                         f"{tuple(x.shape)} {x.dtype}")
+    if tuple(w.shape) != (d, cols):
+        raise ValueError(f"{fn}: weight {tuple(w.shape)} for width {d}")
+
+
+@torch.library.custom_op("aaclip::ln_attn_front", mutates_args=(), device_types="cpu")
+def ln_attn_front(x: Tensor, ln_scale: Tensor, ln_bias: Tensor, w_qkv: Tensor, b_qkv: Tensor,
+                  eps: float) -> Tensor:
+    from .attn_block import ln_attn_front_reference
+
+    return ln_attn_front_reference(_ln(ln_scale, ln_bias), {"w": w_qkv, "b": b_qkv}, x, eps)
+
+
+@ln_attn_front.register_kernel("cuda")
+def _(x, ln_scale, ln_bias, w_qkv, b_qkv, eps):
+    from .attn_block import _launch_front
+
+    return _launch_front(_ln(ln_scale, ln_bias), {"w": w_qkv, "b": b_qkv}, x, eps)
+
+
+@ln_attn_front.register_fake
+def _(x, ln_scale, ln_bias, w_qkv, b_qkv, eps):
+    d = x.shape[-1]
+    _cuda_half("ln_attn_front", x, w_qkv, 3 * d)
+    return x.new_empty((*x.shape[:-1], 3 * d))
+
+
+@torch.library.custom_op("aaclip::ln_attn_back", mutates_args=(), device_types="cpu")
+def ln_attn_back(o: Tensor, x: Tensor, w_out: Tensor, b_out: Tensor) -> Tensor:
+    from .attn_block import ln_attn_back_reference
+
+    return ln_attn_back_reference({"w": w_out, "b": b_out}, o, x)
+
+
+@ln_attn_back.register_kernel("cuda")
+def _(o, x, w_out, b_out):
+    from .attn_block import _launch_back
+
+    return _launch_back({"w": w_out, "b": b_out}, o, x)
+
+
+@ln_attn_back.register_fake
+def _(o, x, w_out, b_out):
+    _cuda_half("ln_attn_back", x, w_out, x.shape[-1])
+    if o.shape != x.shape:
+        raise ValueError(f"ln_attn_back: o {tuple(o.shape)} for x {tuple(x.shape)}")
     return torch.empty_like(x)
 
 

@@ -14,14 +14,17 @@ fake applies its kernel's shape limits (heads of 64, B3's multiples of
 128). A shape fault that only shows at flagship scale on the card then
 surfaces here. Programs:
 
-  1. 518 px, batch 8, bf16: 24 ``aaclip::flash_mha_packed`` (B1) and 24
-     ``aaclip::ln_mlp_residual`` (B2);
+  1. 518 px, batch 8, bf16: 24 ``aaclip::ln_attn_front`` (B8's LayerNorm
+     pass and qkv product), 24 ``aaclip::flash_mha_packed`` (B1), 24
+     ``aaclip::ln_attn_back`` (B8's out-projection with the residual) and
+     24 ``aaclip::ln_mlp_residual`` (B2);
   2. the same in the ``int8`` tier: 24 B1 and 24
-     ``aaclip::ln_mlp_residual_int8`` (B3), no B2;
+     ``aaclip::ln_mlp_residual_int8`` (B3), no B2, the int8 projections on
+     the chain;
   3. the same with ``AACLIP_FUSED_ATTN=1`` (``models.clip.FUSED_ATTN``): 24
      ``aaclip::ln_attn_residual`` (B8) and 24 B2, no B1;
-  4. 1274 px (8,282 tokens, past B1's 8,192), batch 2: 24
-     ``aaclip::flash_mha`` (B7) and 24 B2.
+  4. 1274 px (8,282 tokens, past B1's 8,192), batch 2: 24 B8 fronts, 24
+     ``aaclip::flash_mha`` (B7), 24 B8 backs and 24 B2.
 
 It asserts each program's output shapes, (B, H, W) maps and (B,) scores on
 ``cuda``, and the number of ``aaclip::`` nodes of each kind in its graph,
@@ -169,17 +172,19 @@ def trace(img_size: int, batch: int, quantize=None, fused_attn: bool = False):
 #: projections of the adapters' head.
 HEAD_PRODUCTS = 33
 #: (name, img_size, batch, quantize, fused_attn, aaclip:: nodes wanted). A
-#: block's qkv and out-projection are one product each, unless the int8 tier
-#: quantizes them or B8 fuses them.
+#: block's qkv and out-projection run on B8's front and back, unless the
+#: int8 tier quantizes them (int8 products, no node) or B8 fuses the half.
 PROGRAMS = (
     ("518px b8 bf16", 518, 8, None, False,
-     {"flash_mha_packed": 24, "ln_mlp_residual": 24, "addmm_f32": 48 + HEAD_PRODUCTS}),
+     {"ln_attn_front": 24, "flash_mha_packed": 24, "ln_attn_back": 24, "ln_mlp_residual": 24,
+      "addmm_f32": HEAD_PRODUCTS}),
     ("518px b8 int8", 518, 8, "int8", False,
      {"flash_mha_packed": 24, "ln_mlp_residual_int8": 24, "addmm_f32": HEAD_PRODUCTS}),
     ("518px b8 AACLIP_FUSED_ATTN=1", 518, 8, None, True,
      {"ln_attn_residual": 24, "ln_mlp_residual": 24, "addmm_f32": HEAD_PRODUCTS}),
     ("1274px b2 bf16", 1274, 2, None, False,
-     {"flash_mha": 24, "ln_mlp_residual": 24, "addmm_f32": 48 + HEAD_PRODUCTS}),
+     {"ln_attn_front": 24, "flash_mha": 24, "ln_attn_back": 24, "ln_mlp_residual": 24,
+      "addmm_f32": HEAD_PRODUCTS}),
 )
 
 

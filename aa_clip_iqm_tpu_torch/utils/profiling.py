@@ -50,7 +50,10 @@ to create rather than reuse from PyTorch's caching host allocator),
 EVA-02 vision tower ``rope.tables`` (rotary tables made), ``blocks.eva02``
 (EVA-02 blocks run) and ``mlp.swiglu_fused`` / ``mlp.swiglu_chain`` (its MLP
 halves run on ``ln_swiglu_residual``, or on the stock chain: ``use_pallas=
-False`` or under autograd). The model's counters count Python calls, so in a
+False`` or under autograd); for every unmasked vision block off the stock
+route (``use_pallas``) ``attn.proj_fused`` / ``attn.proj_chain`` (its attention
+half's LayerNorm and projections run on B8's front and back kernels, or on the
+chain). The model's counters count Python calls, so in a
 CUDA graph they count the warm-up and the capture, not the replays.
 ``cli.serve`` answers ``GET /v1/stats`` with them.
 """

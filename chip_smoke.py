@@ -55,6 +55,15 @@ line):
      bf16 was asked, ch 1024 where 2048 was asked. B2 at the other configs'
      widths (896/3584, 640/2560, 512/2048) and B1 at 14 heads over 1025
      tokens, held and timed;
+ 3a. B8's halves alone, which every unmasked vision block runs around B1
+     or B7 where autograd records nothing: the front (the LayerNorm pass and
+     the qkv product) and the back (the out-projection with the residual)
+     at (8, 1370), (32, 1370) and (8, 8282) tokens of width 1024, each held
+     in bf16 ulps to its plain version, with a planted fault each (the qkv
+     bias dropped, the residual dropped); times against their plain
+     versions and the chain they replace (layer_norm and linear: the upcast
+     LayerNorm, cuBLAS with the float32 bias and the cast, the residual
+     add), with the bound, and the front's stage times at batch 32;
  3b. EVA-02 (EVA02-CLIP-L-14-336 at 518 px, the cell offline-eva02l-518-b32):
      its three kernel entries at the cell's shapes, bf16, each held in bf16
      ulps to the stock calls it stands for and timed against them, with the
@@ -71,26 +80,31 @@ line):
      averaged over the padded hidden width, the rotation from the class row
      on, the rotation left off k. Then AnomalyDetector on seeded random
      EVA-02 weights at batch 32 (MVTec, one captured bucket): a mixed-class
-     predict_multi, whose replay must run 24 B1, 24 S1, 48 LayerNorm passes
-     and 24 R1 and whose forwards must count no stock-chain MLP
+     predict_multi, whose replay must run 24 B1, 24 S1, 24 LayerNorm passes
+     (the sub-LN; LN1 runs in B8's front) and 24 R1 and whose forwards must count no stock-chain MLP
      (mlp.swiglu_chain 0); its map against the same batch through the plain
      versions (and against a planted fault, the rotation dropped); timings;
   4. main path: AnomalyDetector on ViT-L-14-336 at 518 px with seeded random
      weights (dataset MVTec, bf16): builds the text anchors, answers predict
      at batch 1 and 8 and a mixed-class predict_multi, checks shapes, finite
-     values and the kernels' launch counts (24 of each per vision forward),
-     compares a batch-8 request with the same batch run through the twins
-     (and shows that twins with a planted fault fail that comparison), and
+     values and the kernels' launch counts (24 each of B1, B2, B8's front
+     and B8's back per vision forward), compares a batch-8 request with the
+     same batch run through the twins, B8's halves included (and shows that
+     twins with a planted fault fail that comparison: B1's key tail
+     unmasked, QuickGELU in B2, the front without its LayerNorm, the back
+     without the residual), and
      times batch-8 requests;
   5. int8 tiers: AnomalyDetector(quantize=t) for int8, int8_attn and
      int8_mlp, a batch-8 request each, with the launch counts each tier
      must show (the fused int8 MLP kernel where the MLP is quantized, the
-     float one where it is not), the int8 map against the twins' and against
+     float one where it is not; B8's halves where the attention is not),
+     the int8 map against the twins' and against
      the bf16 tier's, and batch-8 timings;
   6. sweep: evaluate_dataset at 518 px over an in-memory synthetic dataset of
      two classes, for the bf16 and the int8 tier, its predict calls replayed
      as one CUDA graph a bucket (train/graphs.py): each replay's launches
-     (24 B1 and 24 of the tier's MLP), the replays by bucket, the metrics of
+     (24 B1 and 24 of the tier's MLP, and 24 of each of B8's halves in the
+     bf16 tier), the replays by bucket, the metrics of
      two sweeps on graphs against the eager sweep's to 1e-4, images/s of
      both; the device metrics must equal the host's on the fetched maps.
      Then the sweep over 48 PNGs at 600 px that the data layer resizes, on
@@ -102,8 +116,10 @@ line):
      518 px, full depth, bf16 compute with float32 adapters: stage 1 for 2
      steps at batch 16, the anchors, stage 2 for 3 steps at batch 8, every
      feature batch and step a CUDA graph replay. Finite losses; each
-     graph's replay measured launching 43 B1 + 43 B2 (stage-1 features), 12
-     B2 (stage-1 step), 24 B1 + 24 B2 + 23 B4 + 23 B5 (stage-2 step); the
+     graph's replay measured launching 43 B1 + 43 B2 + 24 of each of B8's
+     halves (stage-1 features: the blocks that are not value-value), 12 B2
+     (stage-1 step), 24 B1 + 24 B2 + 23 B4 + 23 B5 + one of each of B8's
+     halves (stage-2 step: block 0, which no gradient reaches); the
      replays and the optimizers' step counters are the steps taken; every
      trained tensor moved and every frozen one did not; a step checkpoint
      of the graphed run restores bit for bit, and a resume from the one
@@ -154,7 +170,8 @@ line):
  12. tools: the measuring and inspecting entry points on the main path's
      weights, in the process: the bench's latency mode (cli/bench.py
      measure_latency) at batch 1 and 8 on a detector's graphs, p50 and p95,
-     each replay 24 B1 + 24 B2 (replay_launches), and the same detector
+     each replay 24 B1 + 24 B2 + 24 of each of B8's halves (replay_launches),
+     and the same detector
      under NaN checks running its eager program; the eval mode (eval_sweeps:
      anchors and evaluate_dataset over 48 synthetic PNGs, one timed sweep),
      metrics finite and in [0, 1]; the batch x route grid at batch 8, the
@@ -167,8 +184,9 @@ line):
      utils.profiling.enable_nan_checks, which must pass on a clean batch
      and raise FloatingPointError with one NaN pixel;
  13. models: ViT-B-16-plus-240 (seeded, full width, bf16) encode_image at
-     batch 8 at 240 px (12 B2, no B1: 226 tokens take the plain attention)
-     and 512 px (12 B1 + 12 B2), text_forward over MVTec's prompts (12 B2),
+     batch 8 at 240 px (12 B2 and 12 of each of B8's halves, no B1: 226
+     tokens take the plain attention) and 512 px (12 B1 + 12 B2 and the
+     halves), text_forward over MVTec's prompts (12 B2),
      each held to the stock route; RN50 at 224 px, batch 8: encode_image on
      cuDNN held to its float32 forward, its text tower (12 B2 at width 512)
      held to the stock route, and the same weights as an OpenAI RN .pt
@@ -283,11 +301,15 @@ GEMM_SOURCES = ("ln_mlp_residual", "ln_attn_residual", "ln_mlp_residual_dx",
 GMMA_FORM = {"ln_mlp_residual_int8": "IGMMA"}
 # B9, the int8 probe's kernel, lives in ln_mlp_residual_int8.cu beside B3;
 # S1's LayerNorm pass alone (EVA-02's LN1 and attention sub-LN) is a second
-# entry of ln_swiglu_residual.cu.
+# entry of ln_swiglu_residual.cu; B8's halves alone (the front: its LayerNorm
+# pass and qkv product; the back: its out-projection with the residual),
+# which every unmasked vision block runs at inference around B1 or B7, are
+# two more entries of ln_attn_residual.cu.
 KERNELS = ("packed_attention", "ln_mlp_residual", "ln_mlp_residual_int8",
            "packed_attention_bwd", "ln_mlp_residual_dx", "packed_attention_vv_bwd",
            "flash_attention", "ln_attn_residual", "ln_mlp_residual_int8_probe",
-           "ln_swiglu_residual", "ln_swiglu_residual_layer_norm", "rope_qk")
+           "ln_swiglu_residual", "ln_swiglu_residual_layer_norm", "rope_qk",
+           "ln_attn_residual_front", "ln_attn_residual_back")
 # EVA02-CLIP-L-14-336 (phase 3b): the offline cell's batch, the MLP's hidden
 # width (2730, padded to 2816 inside S1) and the LayerNorms' eps.
 EVA_MODEL, EVA_B, EVA_HIDDEN, EVA_EPS = "EVA02-CLIP-L-14-336", 32, 2730, 1e-6
@@ -612,7 +634,9 @@ def read_counts():
             "ln_mlp_residual_int8_probe": fused_mlp.PROBE_LAUNCHES,
             "ln_swiglu_residual": swiglu.LAUNCHES,
             "ln_swiglu_residual_layer_norm": swiglu.LN_LAUNCHES,
-            "rope_qk": rope.LAUNCHES}
+            "rope_qk": rope.LAUNCHES,
+            "ln_attn_residual_front": attn_block.FRONT_LAUNCHES,
+            "ln_attn_residual_back": attn_block.BACK_LAUNCHES}
 
 
 def diff_counts(after, before):
@@ -622,6 +646,12 @@ def diff_counts(after, before):
 def counts_of(**launched):
     """A full launch-count dict: zero but for the kernels named."""
     return {**dict.fromkeys(KERNELS, 0), **launched}
+
+
+def halves(n):
+    """B8's front and back, ``n`` of each: the attention half of ``n``
+    unmasked ViT blocks that autograd does not record (models.clip)."""
+    return {"ln_attn_residual_front": n, "ln_attn_residual_back": n}
 
 
 def add_counts(total, got):
@@ -1086,7 +1116,8 @@ def phase_models(card):
     """The repository's two other configs at full width, seeded weights in
     bf16 on the card: ViT-B-16-plus-240 (12 blocks of 896, 14 heads; text 12
     blocks of 640) encode_image at batch 8 at 240 px (226 tokens: the plain
-    attention, 12 B2) and at 512 px (1025 tokens: 12 B1 + 12 B2) and
+    attention, 12 B2) and at 512 px (1025 tokens: 12 B1 + 12 B2), 12 of each
+    of B8's halves at both sizes, and
     text_forward over MVTec's prompts (12 B2): the kernels' route and the
     stock route (use_pallas=False, no kernel launched), both in bf16, each
     held to the float32 stock forward within MODEL_TOL, and the kernels'
@@ -1177,8 +1208,8 @@ def phase_models(card):
             visual = {dt: {"visual": dict(v["visual"], positional_embedding=pos)}
                       for dt, v in visual.items()}
         x = images(B, img)
-        want = counts_of(ln_mlp_residual=layers) if img == 240 else counts_of(
-            packed_attention=layers, ln_mlp_residual=layers)
+        want = counts_of(ln_mlp_residual=layers, **halves(layers)) if img == 240 else counts_of(
+            packed_attention=layers, ln_mlp_residual=layers, **halves(layers))
 
         def encode(up, dt, cc=c, visual=visual, x=x):
             return clip_mod.encode_image(visual[dt], cc, x, compute_dtype=dt, use_pallas=up)
@@ -1825,6 +1856,93 @@ def phase_kernels():
     return results
 
 
+def phase_attn_halves():
+    """B8's halves alone (module docstring, phase 3a), the attention half of
+    every unmasked vision block at inference: the front (the LayerNorm pass
+    and the qkv product, epilogue (a)) and the back (the out-projection
+    with the residual, epilogue (b)) at the offline cells' shapes, each
+    against its plain version in bf16 ulps, with a planted fault each; times
+    against the chain they replace (layers.layer_norm and layers.linear:
+    the upcast LayerNorm, cuBLAS with the float32 bias and the cast, and
+    the residual add). Returns the two rows, timed at the 518 px cell's
+    batch of 32."""
+    import torch
+
+    from aa_clip_iqm_tpu_torch.ops import attn_block as ab
+    from aa_clip_iqm_tpu_torch.ops.layers import layer_norm, linear
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(2020)
+    bf16, d = torch.bfloat16, WIDTH
+    src = "aa_clip_iqm_tpu_torch/csrc/ln_attn_residual.cu"
+
+    def rnd(*shape, std=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * std
+
+    ln = {"scale": 1.0 + 0.1 * rnd(d), "bias": 0.1 * rnd(d)}
+    qkv_p = {"w": rnd(d, 3 * d, std=d ** -0.5).to(bf16), "b": rnd(3 * d, std=0.1)}
+    out_p = {"w": rnd(d, d, std=d ** -0.5).to(bf16), "b": rnd(d, std=0.1)}
+    no_bias = {"w": qkv_p["w"], "b": torch.zeros_like(qkv_p["b"])}
+    worst = {"front": 0.0, "back": 0.0}
+    rows = {}
+    for batch, tokens in ((B, TOKENS), (EVA_B, TOKENS), (B, HR_TOKENS)):
+        x = rnd(batch, tokens, d).to(bf16)
+        o = rnd(batch, tokens, d).to(bf16)
+        what = f"B={batch} L={tokens} d={d}"
+        before = (ab.FRONT_LAUNCHES, ab.BACK_LAUNCHES)
+        qkv = ab.ln_attn_front(ln, qkv_p, x)
+        y = ab.ln_attn_back(out_p, o, x)
+        require((ab.FRONT_LAUNCHES, ab.BACK_LAUNCHES) == (before[0] + 1, before[1] + 1),
+                f"B8's halves, {what}: the counters did not count one launch each")
+        require(qkv.shape == (batch, tokens, 3 * d) and y.shape == x.shape,
+                f"B8's halves, {what}: qkv {tuple(qkv.shape)}, y {tuple(y.shape)}")
+        ref = ab.ln_attn_front_reference(ln, qkv_p, x)
+        worst["front"] = max(worst["front"], hold(f"B8 front (LayerNorm, qkv) {what}", qkv, ref))
+        planted(f"B8 front, qkv bias dropped, {what}",
+                ab.ln_attn_front_reference(ln, no_bias, x), ref)
+        del qkv, ref
+        # Held on y - x: the residual x is the same in both.
+        ref = ab.ln_attn_back_reference(out_p, o, x)
+        worst["back"] = max(worst["back"], hold(f"B8 back (out-projection, residual) {what}",
+                                                y, ref, x))
+        planted(f"B8 back, residual dropped, {what}", back_without_residual(out_p, o, x), ref, x)
+        del y, ref
+        m = batch * tokens
+        cases = {
+            "front": (lambda: ab.ln_attn_front(ln, qkv_p, x),
+                      lambda: ab.ln_attn_front_reference(ln, qkv_p, x),
+                      lambda: linear(qkv_p, layer_norm(ln, x)),
+                      6 * m * d * d, (m * d + m * 3 * d + 3 * d * d) * 2 + 5 * d * 4),
+            "back": (lambda: ab.ln_attn_back(out_p, o, x),
+                     lambda: ab.ln_attn_back_reference(out_p, o, x),
+                     lambda: x + linear(out_p, o),
+                     2 * m * d * d, (3 * m * d + d * d) * 2 + d * 4)}
+        for half, (kernel, plain, library, flops, nbytes) in cases.items():
+            ms, plain_ms = cuda_time(kernel, 20), cuda_time(plain, 3)
+            lib_ms = cuda_time(library, 20)
+            b_ms, b_by = bound(flops, nbytes)
+            log(f"# B8 {half} time, {what}: kernel {ms:.4f} ms ({tflops(flops, ms)}), plain "
+                f"{plain_ms:.4f} ms, the chain it replaces (layer_norm and linear: cuBLAS with "
+                f"the float32 bias and the cast{', the residual add' if half == 'back' else ''}) "
+                f"{lib_ms:.4f} ms ({tflops(flops, lib_ms)}), bound {b_ms:.4f} ms ({b_by}; "
+                f"{flops:.3e} FLOP, {nbytes / 1e6:.1f} MB)")
+            if batch == EVA_B:
+                rows[half] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                              "bound_by": b_by, "library_ms": lib_ms}
+        if batch == EVA_B:
+            stage_times("B8 front", cases["front"][0],
+                        {"layer_norm_rows": ("LayerNorm pass", "bytes", 2 * m * d * 2),
+                         "gemm_bias_act": ("qkv GEMM (+ b_qkv)", "flop", 6 * m * d * d)})
+        del x, o, cases
+    torch.cuda.empty_cache()
+    return {f"ln_attn_residual_{half}": {
+        "name": f"ln_attn_residual_{half}", "route": "cuda", "source": src,
+        "replaces": ("none (a ViT block's LayerNorm and qkv linear at inference)"
+                     if half == "front" else
+                     "none (a ViT block's out linear and residual add at inference)"),
+        "max_abs_err": worst[half], **rows[half]} for half in ("front", "back")}
+
+
 def vv_bwd_variant(qkv, d_out, num_heads, scale, vv=True, valid_len=None, key_term=True):
     """The plain value-value backward written out once more (as
     ``flash_mha_packed_bwd_reference`` with ``vv``), with its planted fault:
@@ -2095,6 +2213,24 @@ def mlp_quick_gelu(ln, mlp, x, act, eps=1e-5):
     return ln_mlp_residual_reference(ln, mlp, x, quick_gelu, eps)
 
 
+def front_without_layer_norm(ln_params, qkv_params, x, eps=1e-5):
+    """B8's front with a planted fault: the qkv product of x itself, its
+    LayerNorm pass skipped."""
+    from aa_clip_iqm_tpu_torch.ops.gemm import gemm_bias_act_reference
+
+    return gemm_bias_act_reference(x, qkv_params["w"], qkv_params["b"])
+
+
+def back_without_residual(out_params, o, x):
+    """B8's back with a planted fault: the out-projection without the
+    residual (epilogue (b) adding nothing)."""
+    import torch
+
+    from aa_clip_iqm_tpu_torch.ops.attn_block import ln_attn_back_reference
+
+    return ln_attn_back_reference(out_params, o, torch.zeros_like(x))
+
+
 class _Twins:
     """Route the port's kernel call sites to their plain twins, or to the
     given stand-ins (used only to compare the main path against the twins).
@@ -2102,9 +2238,10 @@ class _Twins:
     are out of the way too."""
 
     def __init__(self, attn=None, mlp=None, mlp_int8=None, flash=None, block=None,
-                 keep_attn=False, rope=None):
+                 keep_attn=False, rope=None, front=None, back=None):
         self._attn, self._mlp, self._mlp_int8 = attn, mlp, mlp_int8
         self._flash, self._block, self._rope = flash, block, rope
+        self._front, self._back = front, back
         self._keep_attn = keep_attn          # leave B1 on its kernel
         self._eager = _Eager()               # a graph replay would keep the kernels
 
@@ -2117,7 +2254,7 @@ class _Twins:
         self._saved = (attention.flash_mha_packed, attention.flash_mha, clip.ln_attn_residual,
                        clip.ln_mlp_residual, clip.ln_mlp_residual_int8,
                        clip.ln_mlp_residual_frozen, clip.layer_norm_rows, clip.rope_qk,
-                       clip.ln_swiglu_residual)
+                       clip.ln_swiglu_residual, clip.ln_attn_front, clip.ln_attn_back)
         # EVA-02's block: its LayerNorm pass, rotation and MLP half.
         clip.layer_norm_rows = layers.layer_norm
         clip.rope_qk = self._rope or rope.rope_qk_reference
@@ -2128,6 +2265,9 @@ class _Twins:
         # flash_mha's plain twin, fallbacks included, is the plain sdpa.
         attention.flash_mha = self._flash or attention.sdpa
         clip.ln_attn_residual = self._block or attn_block.ln_attn_residual_reference
+        # B8's halves, which the blocks run around B1 or B7 at inference.
+        clip.ln_attn_front = self._front or attn_block.ln_attn_front_reference
+        clip.ln_attn_back = self._back or attn_block.ln_attn_back_reference
         clip.ln_mlp_residual = self._mlp or fused_mlp.ln_mlp_residual_reference
         clip.ln_mlp_residual_int8 = (self._mlp_int8
                                      or fused_mlp.ln_mlp_residual_int8_reference)
@@ -2140,7 +2280,8 @@ class _Twins:
 
         (attention.flash_mha_packed, attention.flash_mha, clip.ln_attn_residual,
          clip.ln_mlp_residual, clip.ln_mlp_residual_int8, clip.ln_mlp_residual_frozen,
-         clip.layer_norm_rows, clip.rope_qk, clip.ln_swiglu_residual) = self._saved
+         clip.layer_norm_rows, clip.rope_qk, clip.ln_swiglu_residual, clip.ln_attn_front,
+         clip.ln_attn_back) = self._saved
         self._eager.__exit__(*exc)
 
 
@@ -2385,16 +2526,20 @@ def phase_eva02(card):
             f"EVA-02 predict_multi: maps {maps.shape}, scores {scores.shape}")
     require(np.isfinite(maps).all() and np.isfinite(scores).all(), "EVA-02: non-finite output")
     want_ran = counts_of(packed_attention=layers, ln_swiglu_residual=layers,
-                         ln_swiglu_residual_layer_norm=2 * layers, rope_qk=layers)
+                         ln_swiglu_residual_layer_norm=layers, rope_qk=layers, **halves(layers))
     log(f"# EVA-02 predict_multi b{EVA_B}: maps in [{maps.min():.4f}, {maps.max():.4f}], "
         f"launches per replay { {k: v for k, v in ran.items() if v} } (graph replay)")
     require(ran == want_ran, f"EVA-02 replay launches {ran}, want {want_ran}")
     c = profiling.counters()
     log(f"# EVA-02 counters: blocks.eva02 {c.get('blocks.eva02', 0)}, mlp.swiglu_fused "
-        f"{c.get('mlp.swiglu_fused', 0)}, mlp.swiglu_chain {c.get('mlp.swiglu_chain', 0)}")
+        f"{c.get('mlp.swiglu_fused', 0)}, mlp.swiglu_chain {c.get('mlp.swiglu_chain', 0)}, "
+        f"attn.proj_fused {c.get('attn.proj_fused', 0)}, attn.proj_chain "
+        f"{c.get('attn.proj_chain', 0)}")
     require(c.get("mlp.swiglu_chain", 0) == 0 and c.get("mlp.swiglu_fused", 0) > 0
             and c["mlp.swiglu_fused"] == c["blocks.eva02"],
             "EVA-02's detector ran a stock-chain MLP on the card")
+    require(c.get("attn.proj_chain", 0) == 0 and c.get("attn.proj_fused", 0) == c["blocks.eva02"],
+            "EVA-02's detector ran a block's attention half off B8's halves on the card")
     launches = read_counts()
 
     # The same batch through the plain versions (B1's included), then with
@@ -2426,7 +2571,6 @@ def phase_main_path(card):
     import torch
 
     from aa_clip_iqm_tpu_torch.loader import build_model_config, init_trainable, random_backbone
-    from aa_clip_iqm_tpu_torch.ops import fused_mlp, packed_attention as pa
     from aa_clip_iqm_tpu_torch.serving import AnomalyDetector
 
     t0 = time.perf_counter()
@@ -2473,8 +2617,9 @@ def phase_main_path(card):
             f"scores {np.round(scores, 4).tolist()}, launches B1 {got[0]} B2 {got[1]} "
             "(graph replay)")
         check(maps, scores, len(imgs), what)
-        require(ran == counts_of(packed_attention=layers, ln_mlp_residual=layers),
-                f"{what}: launches {ran}, want {layers} each of B1 and B2")
+        require(ran == counts_of(packed_attention=layers, ln_mlp_residual=layers,
+                                 **halves(layers)),
+                f"{what}: launches {ran}, want {layers} each of B1, B2 and B8's halves")
     counts = read_counts()
 
     # The same batch-8 request through the twins, on the card; then through
@@ -2482,16 +2627,19 @@ def phase_main_path(card):
     imgs8 = images(B)
     maps_k, scores_k = det.predict(imgs8, "screw")
     with _Twins():
-        before = (pa.LAUNCHES, fused_mlp.LAUNCHES)
+        before = read_counts()
         maps_t, scores_t = det.predict(imgs8, "screw")
-        require(before == (pa.LAUNCHES, fused_mlp.LAUNCHES), "twin run launched a kernel")
+        require(before == read_counts(), "twin run launched a kernel")
     rel = map_diff(maps_k, maps_t)
     score_diff = float(np.abs(scores_k - scores_t).max())
     log(f"# kernels vs twins, batch 8 map: rms diff / std {rel:.3e} (tol {MAP_TOL:.0e}); "
         f"scores max abs diff {score_diff:.3e}")
     require(rel <= MAP_TOL, f"map differs from the twins' by {rel}")
     for what, twins in (("B1 key tail unmasked", _Twins(attn=attn_tail_unmasked)),
-                        ("B2 QuickGELU", _Twins(mlp=mlp_quick_gelu))):
+                        ("B2 QuickGELU", _Twins(mlp=mlp_quick_gelu)),
+                        ("B8 front without its LayerNorm",
+                         _Twins(front=front_without_layer_norm)),
+                        ("B8 back without the residual", _Twins(back=back_without_residual))):
         with twins:
             rel_f = map_diff(det.predict(imgs8, "screw")[0], maps_t)
         log(f"# planted fault, {what}, batch 8 map: rms diff / std {rel_f:.3e}")
@@ -2533,10 +2681,11 @@ def phase_int8_tiers(card, ctx):
     cfg, imgs8 = ctx["cfg"], ctx["imgs8"]
     layers, text_layers = cfg.clip.vision.layers, cfg.clip.text.layers
     total = dict.fromkeys(KERNELS, 0)
-    # Per vision forward: (B1, B2, B3).
-    want = {"int8": (layers, 0, layers), "int8_attn": (layers, layers, 0),
-            "int8_mlp": (layers, 0, layers)}
-    for tier, (b1, b2, b3) in want.items():
+    # Per vision forward: (B1, B2, B3, B8's halves); a quantized attention
+    # keeps the chain.
+    want = {"int8": (layers, 0, layers, 0), "int8_attn": (layers, layers, 0, 0),
+            "int8_mlp": (layers, 0, layers, layers)}
+    for tier, (b1, b2, b3, b8) in want.items():
         t0 = time.perf_counter()
         reset_counts()
         det = AnomalyDetector(ctx["frozen"], ctx["trainable"], cfg, "MVTec", img_size=IMG,
@@ -2551,7 +2700,8 @@ def phase_int8_tiers(card, ctx):
             "(graph replay)")
         ctx["check"](maps, scores, B, f"tier {tier}")
         require(ran == counts_of(packed_attention=b1, ln_mlp_residual=b2,
-                                 ln_mlp_residual_int8=b3), f"tier {tier}: launches {ran}")
+                                 ln_mlp_residual_int8=b3, **halves(b8)),
+                f"tier {tier}: launches {ran}")
         add_counts(total, read_counts())
         rel_bf16 = map_diff(maps, ctx["maps_bf16"])
         log(f"# tier {tier} vs the bf16 tier, batch 8 map: rms diff / std {rel_bf16:.3e} "
@@ -2746,7 +2896,8 @@ def phase_sweep(card, ctx):
                 rows_again = out
         seconds, eager_s = (sum(timed[r]) / 2 for r in ("graphs", "eager"))
         mlp = "ln_mlp_residual_int8" if tier == "int8" else "ln_mlp_residual"
-        per_forward = counts_of(packed_attention=layers, **{mlp: layers})
+        per_forward = counts_of(packed_attention=layers, **{mlp: layers},
+                                **halves(0 if tier == "int8" else layers))
         buckets, captured, ran = {}, dict.fromkeys(KERNELS, 0), dict.fromkeys(KERNELS, 0)
         for cap in cache.captures:
             bucket = cap.inputs[0].shape[0]
@@ -3280,11 +3431,15 @@ def phase_train(card, cfg, frozen):
     features, _, _ = record["programs"]["stage1 features"]
     s1_step, s1_params, s1_opt = record["programs"]["stage1 step"]
     s2_step, s2_params, s2_opt = record["programs"]["stage2 step"]
-    want = {"stage1 features": counts_of(packed_attention=vis, ln_mlp_residual=vis),
+    # B8's halves: the features' blocks that are not value-value, and block 0
+    # of a stage-2 step (its x and weights need no gradient; every later
+    # block follows an adapter).
+    want = {"stage1 features": counts_of(packed_attention=vis, ln_mlp_residual=vis,
+                                         **halves(vis - vv_blocks)),
             "stage1 step": counts_of(ln_mlp_residual=text_layers),
             "stage2 step": counts_of(packed_attention=layers, ln_mlp_residual=layers,
                                      packed_attention_bwd=layers - 1,
-                                     ln_mlp_residual_dx=layers - 1)}
+                                     ln_mlp_residual_dx=layers - 1, **halves(1))}
     restores = {"stage1 features": contextlib.nullcontext,
                 "stage1 step": lambda: graphs.state_restored(s1_params, s1_opt),
                 "stage2 step": lambda: graphs.state_restored(s2_params, s2_opt)}
@@ -3470,7 +3625,8 @@ def phase_train(card, cfg, frozen):
                                  lambda: graphs.state_restored(gparams, gopt))
             k = 2 if accum == 2 else 1
             attn = {"ln_attn_residual": k * layers} if fused else {
-                "packed_attention": k * layers, "packed_attention_bwd": k * (layers - 1)}
+                "packed_attention": k * layers, "packed_attention_bwd": k * (layers - 1),
+                **halves(k)}
             want_per = counts_of(ln_mlp_residual=k * layers, ln_mlp_residual_dx=k * (layers - 1),
                                  **attn)
             require(per == want_per, f"stage 2, {label}: a replay launched {per}, want "
@@ -3698,7 +3854,8 @@ def phase_highres(card, ctx):
             f"scores {np.round(scores, 4).tolist()}, launches {ran} (graph replay)")
         require(maps.shape == (n, HR_IMG, HR_IMG) and scores.shape == (n,), "1274 px shapes")
         require(np.isfinite(maps).all() and np.isfinite(scores).all(), "1274 px: non-finite")
-        require(ran == counts_of(flash_attention=layers, ln_mlp_residual=layers),
+        require(ran == counts_of(flash_attention=layers, ln_mlp_residual=layers,
+                                 **halves(layers)),
                 f"1274 px batch {n}: launches {ran}")
     total = read_counts()
     with _Twins():
@@ -4199,7 +4356,8 @@ def phase_serve(card):
                     and np.array_equal(saved, amap), f"single_image {route}: saved map")
             require(rel <= MAP_TOL, f"single_image {route}: map differs by {rel}")
             require(got == counts_of(packed_attention=want_b1,
-                                     ln_mlp_residual=want_b1 + 2 * text_layers),
+                                     ln_mlp_residual=want_b1 + 2 * text_layers,
+                                     **halves(layers)),
                     f"single_image {route}: launches {got}")
     counts = read_counts()
     del det
@@ -4349,12 +4507,15 @@ def phase_deploy(card, ctx):
     for tier, tdet in ctx["det_tiers"].items():
         _, per_replay[tier] = graph_vs_eager(tdet, imgs8, ["screw"] * B,
                                              f"tier {tier} batch 8", INT8_MAP_TOL)
-    want = {"bf16": counts_of(packed_attention=layers, ln_mlp_residual=layers),
+    want = {"bf16": counts_of(packed_attention=layers, ln_mlp_residual=layers,
+                              **halves(layers)),
             "fused": counts_of(ln_attn_residual=layers, ln_mlp_residual=layers),
-            "1274px": counts_of(flash_attention=layers, ln_mlp_residual=layers),
+            "1274px": counts_of(flash_attention=layers, ln_mlp_residual=layers,
+                                **halves(layers)),
             "int8": counts_of(packed_attention=layers, ln_mlp_residual_int8=layers),
             "int8_attn": counts_of(packed_attention=layers, ln_mlp_residual=layers),
-            "int8_mlp": counts_of(packed_attention=layers, ln_mlp_residual_int8=layers)}
+            "int8_mlp": counts_of(packed_attention=layers, ln_mlp_residual_int8=layers,
+                                  **halves(layers))}
     for key, got in per_replay.items():
         require(got == want[key], f"deploy, {key}: launches per replay {got}, want {want[key]}")
 
@@ -4459,7 +4620,7 @@ def phase_deploy(card, ctx):
             b3 = key == "int8"
             require(report["launches"] == counts_of(
                 packed_attention=2 * layers, ln_mlp_residual=0 if b3 else 2 * layers,
-                ln_mlp_residual_int8=2 * layers if b3 else 0),
+                ln_mlp_residual_int8=2 * layers if b3 else 0, **halves(0 if b3 else 2 * layers)),
                 f"exported {key}: the CUDA kernels were not all launched")
             if key == "swapped":
                 require(rel > tol, "the export comparison missed the swapped anchors")
@@ -4544,7 +4705,8 @@ def phase_deploy(card, ctx):
 def phase_tools(card, ctx):
     """The measuring and inspecting entry points on the main path's ViT-L
     weights: the bench's latency mode at batch 1 and 8 on the detector's
-    graphs (24 B1 + 24 B2 a replay), its eval mode (one timed sweep), the
+    graphs (24 B1 + 24 B2 and 24 of each of B8's halves a replay), its eval
+    mode (one timed sweep), the
     batch x route grid at batch 8 (the stock PyTorch route against the
     kernels: its map within MAP_TOL, no kernel counter moved), a profile of
     an inference block read by the port's trace_summary --device (and an
@@ -4571,7 +4733,7 @@ def phase_tools(card, ctx):
     t_phase = time.perf_counter()
     cfg, frozen, trainable = ctx["cfg"], ctx["frozen"], ctx["trainable"]
     layers = cfg.clip.vision.layers
-    per_forward = counts_of(packed_attention=layers, ln_mlp_residual=layers)
+    per_forward = counts_of(packed_attention=layers, ln_mlp_residual=layers, **halves(layers))
     total = counts_of()
     rng = np.random.default_rng(11)
 
@@ -4590,7 +4752,8 @@ def phase_tools(card, ctx):
         require(np.isfinite(lat).all() and p50 > 0, f"latency b{b}: {lat}")
         log(f"# tools, bench latency b{b}: p50 {p50:.2f} ms, p95 {p95:.2f} ms, min "
             f"{min(lat):.2f}, max {max(lat):.2f} ({len(lat)} float32 requests, each a graph "
-            f"replay of 24 B1 + 24 B2 with the host copies) on {card}")
+            f"replay of 24 B1 + 24 B2 + 24 of each of B8's halves with the host copies) on "
+            f"{card}")
     # NaN checks on: the same detector runs its eager program, no replay.
     before = {k: g.replays for k, g in det._graphs.items()}
     profiling.enable_nan_checks(True)
@@ -4636,7 +4799,8 @@ def phase_tools(card, ctx):
         got = read_counts()
         calls = 1 + 5 * 3 + 1
         want = counts_of() if not use_pallas else counts_of(
-            packed_attention=layers * calls, ln_mlp_residual=layers * calls)
+            packed_attention=layers * calls, ln_mlp_residual=layers * calls,
+            **halves(layers * calls))
         require(got == want, f"grid, use_pallas={use_pallas}: launches {got}, want {want}")
         add_counts(total, got)
         speed[use_pallas] = bench._median_spread(samples)
@@ -5389,6 +5553,7 @@ def main():
         phase_build()
         phase_native(card)
         kernels = phase_kernels()
+        kernels.update(phase_attn_halves())
         eva_kernels, eva_launches = phase_eva02(card)
         kernels.update(eva_kernels)
         launches, ctx = phase_main_path(card)

@@ -281,3 +281,293 @@ def test_stages_with_the_walk_match_twin(b, l, d, heads, vv, valid):
                                     (d // heads) ** -0.5, False, valid)
     want = tgemm.gemm_bias_residual_reference(o, attn["out"]["w"], attn["out"]["b"], xt)
     assert torch.equal(out, want)
+
+
+# B8's halves alone (the front: LayerNorm pass and qkv product; the back:
+# the out-projection with the residual), which the model's blocks run around
+# the routed attention kernel wherever autograd records nothing.
+
+HALF_CASES = [c for c in STAGE_CASES if not c[4]]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,l,d,heads,vv,valid", HALF_CASES)
+def test_halves_are_the_kernels_stages(b, l, d, heads, vv, valid, dtype):
+    """The front's plain version is the kernel's first two stages and the
+    back's its last, bit for bit in float32 and in bf16, through the
+    wrappers and the ``aaclip::`` ops alike; with the attention between them
+    they compose ``ln_attn_residual_stages``. In bf16 the back, which rounds
+    once, is held to the chain's ``x + linear(out, o)`` in bf16 ulps."""
+    ln, attn = (_torch(t) for t in _params(l + heads + 2, d))
+    x = torch.from_numpy(_x(b + d + 2, b, l, d)).to(dtype)
+    xn, proj, o, out = _stages(ln, attn, x, heads, False, valid)
+    front = tpb.ln_attn_front(ln, attn["qkv"], x)
+    assert torch.equal(front, proj)
+    assert torch.equal(torch.ops.aaclip.ln_attn_front(x, ln["scale"], ln["bias"],
+                                                      attn["qkv"]["w"], attn["qkv"]["b"], 1e-5),
+                       proj)
+    back = tpb.ln_attn_back(attn["out"], o, x)
+    assert torch.equal(back, out)
+    assert torch.equal(torch.ops.aaclip.ln_attn_back(o, x, attn["out"]["w"], attn["out"]["b"]),
+                       out)
+    assert torch.equal(out, tpb.ln_attn_residual_stages(ln, attn, x, heads, False, valid))
+    if dtype == torch.bfloat16:
+        chain = x + tlayers.linear(attn["out"], o)
+        assert bf16_close(back, chain, x), bf16_error(back, chain, x)
+
+
+def test_the_front_takes_eps_and_any_leading_shape():
+    ln, attn = (_torch(t) for t in _params(11, 128))
+    x = torch.from_numpy(_x(12, 3, 5, 128)).to(torch.bfloat16)
+    for eps in (1e-5, 1e-6):
+        want = tlayers.linear(attn["qkv"], tlayers.layer_norm(ln, x, eps=eps))
+        assert torch.equal(tpb.ln_attn_front(ln, attn["qkv"], x, eps), want)
+        assert torch.equal(tpb.ln_attn_front(ln, attn["qkv"], x[0], eps), want[0])
+
+
+def _clip_block(seed, d, tree=_torch):
+    ln, attn = _params(seed, d)
+    rng = np.random.default_rng(seed + 1)
+
+    def w(*shape):
+        return (0.05 * rng.standard_normal(shape)).astype(np.float32)
+
+    block = {"ln_1": ln, "attn": attn,
+             "ln_2": {"scale": 1.0 + w(d), "bias": w(d)},
+             "mlp": {"c_fc": {"w": w(d, 4 * d), "b": w(4 * d)},
+                     "c_proj": {"w": w(4 * d, d), "b": w(d)}}}
+    return block if tree is None else tree(block)
+
+
+def _counted():
+    from aa_clip_iqm_tpu_torch.utils import profiling
+
+    c = profiling.counters()
+    return c.get("attn.proj_fused", 0), c.get("attn.proj_chain", 0)
+
+
+class _Spies:
+    """Counts the calls of B8's halves and of the fused half-block that
+    ``models.clip`` makes."""
+
+    def __init__(self, monkeypatch):
+        from aa_clip_iqm_tpu_torch.models import clip as tclip
+
+        self.calls = {"front": 0, "back": 0, "fused": 0}
+        for key, name in (("front", "ln_attn_front"), ("back", "ln_attn_back"),
+                          ("fused", "ln_attn_residual")):
+            monkeypatch.setattr(tclip, name, self._spy(key, getattr(tclip, name)))
+
+    def _spy(self, key, real):
+        def spy(*a, **k):
+            self.calls[key] += 1
+            return real(*a, **k)
+        return spy
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("valid", [None, 100])
+def test_run_block_takes_the_halves_where_nothing_is_recorded(valid, dtype, monkeypatch):
+    """Under ``no_grad`` an unmasked bf16 block runs B8's front, the routed
+    attention and B8's back, counted ``attn.proj_fused``: held to the chain
+    (the same block with x recorded by autograd) in bf16 ulps and to JAX's
+    block at the file's tolerance. The block's float32 or bf16 biases give
+    the same output (the kernels read them in float32)."""
+    from aa_clip_iqm_tpu.models import clip as jclip
+    from aa_clip_iqm_tpu.ops.layers import gelu as jgelu
+    from aa_clip_iqm_tpu_torch.models import clip as tclip
+    from aa_clip_iqm_tpu_torch.ops.layers import gelu as tgelu
+
+    d, heads = 128, 2
+    raw = _clip_block(21, d, tree=None)
+    block = _tree(raw, lambda a: torch.from_numpy(a).to(dtype))
+    x = torch.from_numpy(_x(22, 2, 300, d)).to(torch.bfloat16)
+    spies = _Spies(monkeypatch)
+    before = _counted()
+    with torch.no_grad():
+        out = tclip._run_block(block, x, heads, tgelu, valid_len=valid)
+    assert _counted() == (before[0] + 1, before[1])
+    assert spies.calls == {"front": 1, "back": 1, "fused": 0}
+    chain = tclip._run_block(block, x.clone().requires_grad_(True), heads, tgelu,
+                             valid_len=valid).detach()
+    assert _counted() == (before[0] + 1, before[1] + 1)
+    assert spies.calls["front"] == 1
+    n = 300 if valid is None else valid
+    out_n, chain_n, x_n = out[:, :n], chain[:, :n], x[:, :n]
+    assert bf16_close(out_n, chain_n, x_n), bf16_error(out_n, chain_n, x_n)
+    ref = jclip._run_block(_jax(_tree(raw, lambda a: np.asarray(
+        torch.from_numpy(a).to(dtype).float()))), jnp.asarray(x.float().numpy(), jnp.bfloat16),
+        heads, jgelu, use_pallas=True, valid_len=valid)
+    np.testing.assert_allclose(out_n.float().numpy(), np.asarray(ref, np.float32)[:, :n],
+                               rtol=TOL, atol=TOL)
+
+
+def test_run_block_halves_around_split_head_attention(monkeypatch):
+    """Past the packed kernel's token limit (lowered here to 256) the halves
+    wrap the split-head attention (B7 on the card)."""
+    from aa_clip_iqm_tpu_torch.models import clip as tclip
+    from aa_clip_iqm_tpu_torch.ops import attention as tattn
+    from aa_clip_iqm_tpu_torch.ops import flash_attention as tfa
+    from aa_clip_iqm_tpu_torch.ops.layers import gelu as tgelu
+
+    monkeypatch.setattr(tfa, "ROW_KERNEL_MAX_TOKENS", 256)
+    split = []
+    real = tattn.flash_mha
+    monkeypatch.setattr(tattn, "flash_mha", lambda *a, **k: split.append(1) or real(*a, **k))
+    block = _clip_block(23, 128)
+    x = torch.from_numpy(_x(24, 1, 300, 128)).to(torch.bfloat16)
+    spies = _Spies(monkeypatch)
+    with torch.no_grad():
+        out = tclip._run_block(block, x, 2, tgelu)
+    assert spies.calls == {"front": 1, "back": 1, "fused": 0} and split == [1]
+    chain = tclip._run_block(block, x.clone().requires_grad_(True), 2, tgelu).detach()
+    assert split == [1, 1]
+    assert bf16_close(out, chain, x), bf16_error(out, chain, x)
+
+
+def _int8_attention(block):
+    from aa_clip_iqm_tpu_torch.ops import quant
+
+    attn = dict(block["attn"])
+    attn["qkv"] = quant.quantize_linear_params(attn["qkv"])
+    attn["out"] = quant.quantize_linear_params(attn["out"])
+    return {**block, "attn": attn}
+
+
+# (case, (attn.proj_fused, attn.proj_chain) counted, the calls made)
+ROUTE_CASES = [
+    ("no_grad", (1, 0), {"front": 1, "back": 1, "fused": 0}),
+    ("grad enabled, nothing needs one", (1, 0), {"front": 1, "back": 1, "fused": 0}),
+    ("x needs a gradient", (0, 1), {"front": 0, "back": 0, "fused": 0}),
+    ("a weight needs a gradient", (0, 1), {"front": 0, "back": 0, "fused": 0}),
+    ("int8 attention", (0, 1), {"front": 0, "back": 0, "fused": 0}),
+    ("value-value", (0, 1), {"front": 0, "back": 0, "fused": 0}),
+    ("float32 x", (0, 1), {"front": 0, "back": 0, "fused": 0}),
+    ("masked (text tower)", (0, 0), {"front": 0, "back": 0, "fused": 0}),
+    ("AACLIP_FUSED_ATTN=1", (0, 0), {"front": 0, "back": 0, "fused": 1}),
+    ("use_pallas=False", (0, 0), {"front": 0, "back": 0, "fused": 0}),
+]
+
+
+@pytest.mark.parametrize("case,counted,calls", ROUTE_CASES, ids=[c[0] for c in ROUTE_CASES])
+def test_the_route_is_taken_only_where_it_may_be(case, counted, calls, monkeypatch):
+    """The halves run where autograd records nothing, the block is
+    unmasked, ``vv`` is off and ``ln_attn_halves_ok`` holds, and
+    ``FUSED_ATTN`` is off; each unmasked block on the chain counts
+    ``attn.proj_chain``, a masked one (the text tower) and the stock route
+    count neither."""
+    from aa_clip_iqm_tpu_torch.models import clip as tclip
+    from aa_clip_iqm_tpu_torch.ops import attention as tattn
+    from aa_clip_iqm_tpu_torch.ops.layers import gelu as tgelu
+
+    block = _clip_block(25, 128)
+    x = torch.from_numpy(_x(26, 1, 128, 128)).to(torch.bfloat16)
+    kw = {}
+    if case == "x needs a gradient":
+        x.requires_grad_(True)
+    elif case == "a weight needs a gradient":
+        block["attn"]["out"]["b"].requires_grad_(True)
+    elif case == "int8 attention":
+        block = _int8_attention(block)
+    elif case == "value-value":
+        kw["vv"] = True
+    elif case == "float32 x":
+        x = x.float()
+    elif case == "masked (text tower)":
+        kw["attn_mask"] = tattn.causal_mask(128)
+    elif case == "AACLIP_FUSED_ATTN=1":
+        monkeypatch.setattr(tclip, "FUSED_ATTN", True)
+    elif case == "use_pallas=False":
+        kw["use_pallas"] = False
+    spies = _Spies(monkeypatch)
+    before = _counted()
+    if case == "no_grad":
+        with torch.no_grad():
+            out = tclip._run_block(block, x, 2, tgelu, **kw)
+    else:
+        out = tclip._run_block(block, x, 2, tgelu, **kw)
+    after = _counted()
+    assert (after[0] - before[0], after[1] - before[1]) == counted
+    assert spies.calls == calls
+    assert out.shape == x.shape and out.dtype == x.dtype
+
+
+HALVES_GATE_CASES = [
+    ("bf16 (B, L, d), float weights", (2, 16, 128), None, True),
+    ("float32 x", (2, 16, 128), "float32", False),
+    ("2-D x", (16, 128), None, False),
+    ("width not a multiple of 128", (2, 16, 192), None, False),
+    ("int8 qkv", (2, 16, 128), "int8", False),
+    ("qkv not three times the width", (2, 16, 128), "narrow qkv", False),
+    ("out not square", (2, 16, 128), "wide out", False),
+]
+
+
+@pytest.mark.parametrize("case,shape,change,want", HALVES_GATE_CASES,
+                         ids=[c[0] for c in HALVES_GATE_CASES])
+def test_the_halves_gate(case, shape, change, want):
+    """``ln_attn_halves_ok``: what B8's front and back can take, with no
+    term on the heads; ``ln_attn_residual_ok`` is that gate and B8's
+    attention panels."""
+    from aa_clip_iqm_tpu_torch.ops import quant
+
+    d = shape[-1]
+    _, attn = (_torch(t) for t in _params(29, d))
+    x = torch.zeros(shape, dtype=torch.float32 if change == "float32" else torch.bfloat16)
+    if change == "int8":
+        attn["qkv"] = quant.quantize_linear_params(attn["qkv"])
+    elif change == "narrow qkv":
+        attn["qkv"]["w"] = attn["qkv"]["w"][:, :2 * d]
+    elif change == "wide out":
+        attn["out"]["w"] = torch.zeros((d, 2 * d))
+    assert tpb.ln_attn_halves_ok(x, attn) == want
+    if not want:
+        assert not tpb.ln_attn_residual_ok(x, attn, 2)
+
+
+@pytest.mark.parametrize("fused_attn", [False, True], ids=["flag off", "AACLIP_FUSED_ATTN=1"])
+def test_the_halves_take_heads_that_b8_s_attention_cannot(fused_attn, monkeypatch):
+    """Heads of 96 fail ``ln_attn_residual_ok`` (B8's attention stage holds
+    whole heads in 128-column panels) and pass ``ln_attn_halves_ok``: the
+    halves run around the routed attention, the flag set or not, counted
+    ``attn.proj_fused``, and agree with the chain in bf16 ulps."""
+    from aa_clip_iqm_tpu_torch.models import clip as tclip
+    from aa_clip_iqm_tpu_torch.ops.layers import gelu as tgelu
+
+    d, heads = 384, 4
+    block = _clip_block(27, d)
+    x = torch.from_numpy(_x(28, 1, 130, d)).to(torch.bfloat16)
+    assert tpb.ln_attn_halves_ok(x, block["attn"])
+    assert not tpb.ln_attn_residual_ok(x, block["attn"], heads)
+    monkeypatch.setattr(tclip, "FUSED_ATTN", fused_attn)
+    spies = _Spies(monkeypatch)
+    before = _counted()
+    with torch.no_grad():
+        out = tclip._run_block(block, x, heads, tgelu)
+    assert _counted() == (before[0] + 1, before[1])
+    assert spies.calls == {"front": 1, "back": 1, "fused": 0}
+    chain = tclip._run_block(block, x.clone().requires_grad_(True), heads, tgelu).detach()
+    assert _counted() == (before[0] + 1, before[1] + 1)
+    assert spies.calls == {"front": 1, "back": 1, "fused": 0}
+    assert bf16_close(out, chain, x), bf16_error(out, chain, x)
+
+
+def test_the_fused_share_reads_the_counters(monkeypatch):
+    """``benchmark/metrics/attn.proj_fused_share.py``: the fused share of the
+    counted blocks, in percent; nothing without the counters or off the
+    card."""
+    from benchmark.harness import load_module
+    from benchmark.trace import Trace
+    from aa_clip_iqm_tpu_torch.utils import profiling
+
+    read = load_module("metrics", "attn.proj_fused_share").read
+    ctx = type("Ctx", (), {"trace": Trace([("k", 0.0, 10.0)], [], (0.0, 100.0))})()
+    monkeypatch.setattr(profiling, "counters", lambda: {"attn.proj_fused": 48})
+    assert read(ctx) == 100.0
+    monkeypatch.setattr(profiling, "counters",
+                        lambda: {"attn.proj_fused": 36, "attn.proj_chain": 12})
+    assert read(ctx) == 75.0
+    monkeypatch.setattr(profiling, "counters", lambda: {"predict.calls": 3})
+    assert read(ctx) is None
+    ctx.trace = Trace([], [], (0.0, 1.0))                 # a CPU rehearsal: nothing
+    assert read(ctx) is None

@@ -598,6 +598,48 @@ def test_ln_attn_residual_autograd_on_the_card(dev):
                                     torch.zeros((1, 8, 256), device=dev, dtype=torch.bfloat16), 2)
 
 
+def _fails(out, ref, base=None):
+    """Whether ``out`` falls outside :func:`_check`'s hold of ``ref``."""
+    torch.cuda.synchronize()
+    max_ulps, rms_ulps = bf16_error(out, ref, base)
+    return max_ulps > BF16_MAX_ULPS or rms_ulps > BF16_RMS_ULPS
+
+
+@pytest.mark.parametrize("batch,seq_len", [(8, 1370), (32, 1370), (8, 8282)])
+def test_ln_attn_halves_match_plain(dev, batch, seq_len):
+    """B8's front (LayerNorm pass and qkv product) and back (out-projection
+    with the residual) alone, at the offline cells' shapes, against their
+    plain versions; each plain version with a planted fault (the front's
+    bias dropped, the back's residual dropped) fails the same hold."""
+    d = 1024
+    ln, attn, gen = _block_case(dev, d, seq_len + batch)
+    x = torch.randn((batch, seq_len, d), generator=gen, device=dev).to(torch.bfloat16)
+    o = torch.randn((batch, seq_len, d), generator=gen, device=dev).to(torch.bfloat16)
+    before = (attn_block.FRONT_LAUNCHES, attn_block.BACK_LAUNCHES)
+    qkv = attn_block.ln_attn_front(ln, attn["qkv"], x)
+    y = attn_block.ln_attn_back(attn["out"], o, x)
+    assert (attn_block.FRONT_LAUNCHES, attn_block.BACK_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    assert qkv.shape == (batch, seq_len, 3 * d) and y.shape == x.shape
+    _check(qkv, attn_block.ln_attn_front_reference(ln, attn["qkv"], x))
+    no_bias = {"w": attn["qkv"]["w"], "b": torch.zeros_like(attn["qkv"]["b"])}
+    assert _fails(qkv, attn_block.ln_attn_front_reference(ln, no_bias, x))
+    _check(y, attn_block.ln_attn_back_reference(attn["out"], o, x), x)
+    assert _fails(y, attn_block.ln_attn_back_reference(attn["out"], o, torch.zeros_like(x)), x)
+
+
+def test_ln_attn_halves_refuse_what_they_cannot_take(dev):
+    ln, attn, _ = _block_case(dev, 192, 1)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        attn_block.ln_attn_front(ln, attn["qkv"],
+                                 torch.zeros((2, 8, 192), device=dev, dtype=torch.bfloat16))
+    ln, attn, _ = _block_case(dev, 256, 2)
+    x = torch.zeros((2, 8, 256), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        attn_block.ln_attn_front(ln, attn["qkv"], x.float())
+    with pytest.raises(ValueError, match=r"o \(2, 4, 256\)"):
+        attn_block.ln_attn_back(attn["out"], x[:, :4].contiguous(), x)
+
+
 def _float_case(dev, dtype, m, d, h, seed):
     gen = torch.Generator(device=dev).manual_seed(seed)
 

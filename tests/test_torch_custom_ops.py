@@ -206,6 +206,62 @@ def test_ln_attn_residual_op(vv, valid_len):
                                rtol=0.06, atol=0.06)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ln_attn_halves_ops(dtype):
+    """B8's front and back as ops: opcheck, and the CPU implementation is
+    the plain version bit for bit, launching nothing."""
+    b, l, d = 2, 130, 128
+    ln, attn = _attn_params(31, d)
+    tln, tattn = _t(ln), _t(attn)
+    x, o = (torch.from_numpy(_rng(s).standard_normal((b, l, d)).astype(np.float32)).to(dtype)
+            for s in (32, 33))
+    front = (x, tln["scale"], tln["bias"], tattn["qkv"]["w"], tattn["qkv"]["b"], 1e-6)
+    back = (o, x, tattn["out"]["w"], tattn["out"]["b"])
+    torch.library.opcheck(custom_ops.ln_attn_front, front)
+    torch.library.opcheck(custom_ops.ln_attn_back, back)
+    attn_block.reset_launches()
+    qkv = OPS.ln_attn_front(*front)
+    assert qkv.shape == (b, l, 3 * d) and qkv.dtype == dtype
+    assert torch.equal(qkv, attn_block.ln_attn_front_reference(tln, tattn["qkv"], x, 1e-6))
+    assert torch.equal(OPS.ln_attn_back(*back),
+                       attn_block.ln_attn_back_reference(tattn["out"], o, x))
+    assert (attn_block.FRONT_LAUNCHES, attn_block.BACK_LAUNCHES) == (0, 0)
+
+
+def test_ln_attn_halves_fakes():
+    """The halves' fakes: shapes on the meta device; on fake CUDA tensors
+    the card's limits (bf16 x, a width that is a multiple of 128, matching
+    shapes)."""
+    f32 = dict(dtype=torch.float32, device="meta")
+    x = torch.empty((2, 7, 128), dtype=torch.bfloat16, device="meta")
+    ln = (torch.empty(128, **f32), torch.empty(128, **f32))
+    qkv = OPS.ln_attn_front(x, *ln, torch.empty((128, 384), dtype=torch.bfloat16,
+                                                device="meta"), torch.empty(384, **f32), 1e-5)
+    assert qkv.shape == (2, 7, 384) and qkv.dtype == torch.bfloat16
+    y = OPS.ln_attn_back(x, x, torch.empty((128, 128), dtype=torch.bfloat16, device="meta"),
+                         torch.empty(128, **f32))
+    assert y.shape == x.shape and y.dtype == x.dtype
+    with FakeTensorMode():
+        f32 = dict(dtype=torch.float32, device="cuda")
+        bf = dict(dtype=torch.bfloat16, device="cuda")
+        x = torch.empty((1, 8, 192), **bf)
+        with pytest.raises(ValueError, match="multiple of 128"):
+            OPS.ln_attn_front(x, torch.empty(192, **f32), torch.empty(192, **f32),
+                              torch.empty((192, 576), **bf), torch.empty(576, **f32), 1e-5)
+        x = torch.empty((1, 8, 128), **bf)
+        ln = (torch.empty(128, **f32), torch.empty(128, **f32))
+        with pytest.raises(ValueError, match="weight"):
+            OPS.ln_attn_front(x, *ln, torch.empty((128, 256), **bf), torch.empty(256, **f32),
+                              1e-5)
+        with pytest.raises(ValueError, match="multiple of 128"):
+            OPS.ln_attn_front(x.float(), *ln, torch.empty((128, 384), **bf),
+                              torch.empty(384, **f32), 1e-5)
+        w, b = torch.empty((128, 128), **bf), torch.empty(128, **f32)
+        assert OPS.ln_attn_back(x, x, w, b).shape == x.shape
+        with pytest.raises(ValueError, match="ln_attn_back: o"):
+            OPS.ln_attn_back(torch.empty((1, 4, 128), **bf), x, w, b)
+
+
 # --------------------------------------------------------------------------
 # The fakes: shapes on the meta device, the card's limits on fake CUDA
 # --------------------------------------------------------------------------

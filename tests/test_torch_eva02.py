@@ -441,6 +441,114 @@ def test_eva02_counters_count_blocks_and_routes(tiny):
     assert after["mlp.swiglu_fused"] - before.get("mlp.swiglu_fused", 0) == n
 
 
+def test_the_tiny_float32_tower_keeps_the_attention_chain(tiny):
+    """The tiny tower (float32, width 64) fails ``ln_attn_halves_ok``: each
+    block's attention half stays on the chain and counts so."""
+    before = profiling.counters()
+    with torch.no_grad():
+        _tower(tiny, _images(1))
+    after = profiling.counters()
+    n = tiny[0].clip.vision.layers
+    assert after["attn.proj_chain"] - before.get("attn.proj_chain", 0) == n
+    assert after.get("attn.proj_fused", 0) == before.get("attn.proj_fused", 0)
+
+
+@pytest.mark.parametrize("what", ["tiny tower", "bf16 block"])
+def test_the_stock_route_counts_no_attention_route(tiny, what):
+    """``use_pallas=False`` counts neither ``attn.proj_fused`` nor
+    ``attn.proj_chain``, as CLIP's block on the stock route does: the
+    share's denominator is the blocks that could take the halves."""
+    keys = ("attn.proj_fused", "attn.proj_chain")
+    before = profiling.counters()
+    with torch.no_grad():
+        if what == "tiny tower":
+            _tower(tiny, _images(1), use_pallas=False)
+            n = tiny[0].clip.vision.layers
+        else:
+            x = torch.randn(2, 17, 128, generator=torch.Generator().manual_seed(8))
+            tclip._run_eva02_block(_bf16_block(), x.to(torch.bfloat16), 2,
+                                   rope=trope.rope_table(4, 3, 64, CPU), eps=1e-6,
+                                   use_pallas=False)
+            n = 1
+    after = profiling.counters()
+    assert all(after.get(k, 0) == before.get(k, 0) for k in keys)
+    assert after["blocks.eva02"] - before.get("blocks.eva02", 0) == n
+
+
+def _bf16_block(d=128, h=192, seed=0):
+    """An EVA-02 block of a width that B8's halves take (two heads of 64),
+    bf16, on seeded random weights."""
+    g = torch.Generator().manual_seed(seed)
+
+    def w(*shape, scale):
+        return (torch.randn(shape, generator=g) * scale).to(torch.bfloat16)
+
+    def ln(n):
+        return {"scale": 1 + w(n, scale=0.1), "bias": w(n, scale=0.1)}
+
+    return {"ln_1": ln(d),
+            "attn": {"qkv": {"w": w(d, 3 * d, scale=d ** -0.5)}, "q": {"b": w(d, scale=0.05)},
+                     "v": {"b": w(d, scale=0.05)}, "ln": ln(d),
+                     "out": {"w": w(d, d, scale=d ** -0.5), "b": w(d, scale=0.05)}},
+            "ln_2": ln(d),
+            "mlp": {"w12": {"w": w(d, 2 * h, scale=d ** -0.5), "b": w(2 * h, scale=0.05)},
+                    "ln": ln(h), "w3": {"w": w(h, d, scale=h ** -0.5), "b": w(d, scale=0.05)}}}
+
+
+@pytest.mark.parametrize("needs_grad,route", [(None, "attn.proj_fused"),
+                                              ("x", "attn.proj_chain"),
+                                              ("weight", "attn.proj_chain")])
+def test_a_bf16_block_takes_b8_s_halves_where_nothing_is_recorded(needs_grad, route,
+                                                                  monkeypatch):
+    """A bf16 EVA-02 block of width 128 whose call autograd does not record
+    runs LN1 and the ``[q | 0 | v]`` projection on B8's front and the
+    out-projection with the residual on its back, around the rotation, the
+    attention and the sub-LN: held to the chain (x recorded) in bf16 ulps.
+    A recorded call runs the chain, and neither half."""
+    from aa_clip_iqm_tpu_torch.ops import attn_block
+
+    calls = []
+
+    def spy(name):
+        real = getattr(tclip, name)
+
+        def call(*a, **k):
+            calls.append(name)
+            return real(*a, **k)
+        monkeypatch.setattr(tclip, name, call)
+
+    spy("ln_attn_front")
+    spy("ln_attn_back")
+    blk = _bf16_block()
+    x = torch.randn(2, 17, 128, generator=torch.Generator().manual_seed(7)).to(torch.bfloat16)
+    table = trope.rope_table(4, 3, 64, CPU)
+    chain = tclip._run_eva02_block(blk, x.clone().requires_grad_(True), 2, rope=table,
+                                   eps=1e-6).detach()
+    if needs_grad == "x":
+        x.requires_grad_(True)
+    elif needs_grad == "weight":
+        blk["attn"]["out"]["w"].requires_grad_(True)
+    before = profiling.counters()
+    calls.clear()
+    got = tclip._run_eva02_block(blk, x, 2, rope=table, eps=1e-6)
+    after = profiling.counters()
+    other = ({"attn.proj_fused", "attn.proj_chain"} - {route}).pop()
+    assert after[route] - before.get(route, 0) == 1
+    assert after.get(other, 0) == before.get(other, 0)
+    assert calls == (["ln_attn_front", "ln_attn_back"] if needs_grad is None else [])
+    got = got.detach()
+    if needs_grad is None:
+        max_ulps, rms_ulps = bf16_error(got, chain, x)
+        assert max_ulps <= BF16_MAX_ULPS and rms_ulps <= BF16_RMS_ULPS, (max_ulps, rms_ulps)
+        # The front is the chain's LN1 and projection bit for bit.
+        attn = blk["attn"]
+        qkv_p = {"w": attn["qkv"]["w"], "b": tclip._qkv_bias(attn["q"]["b"], attn["v"]["b"])}
+        assert torch.equal(attn_block.ln_attn_front(blk["ln_1"], qkv_p, x, 1e-6),
+                           tclip.linear(qkv_p, layer_norm(blk["ln_1"], x, eps=1e-6)))
+    else:
+        assert torch.equal(got, chain)
+
+
 # --------------------------------------------------------------------------
 # On the card
 # --------------------------------------------------------------------------

@@ -268,7 +268,8 @@ def _wide_config(img=224):
 
 
 @pytest.mark.parametrize("quantize,fused,want", [
-    (None, False, {"flash_mha_packed": 2, "ln_mlp_residual": 2}),
+    (None, False, {"ln_attn_front": 2, "flash_mha_packed": 2, "ln_attn_back": 2,
+                   "ln_mlp_residual": 2}),
     ("int8", False, {"flash_mha_packed": 2, "ln_mlp_residual_int8": 2}),
     (None, True, {"ln_attn_residual": 2, "ln_mlp_residual": 2}),
 ])
