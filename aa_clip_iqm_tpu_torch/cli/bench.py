@@ -115,24 +115,32 @@ def _sweep_configs(sweep, default_batch, default_pallas):
 
 @contextlib.contextmanager
 def plain_twins():
-    """Route the kernel call sites to their plain PyTorch twins (autograd
-    then differentiates the twins, so the backward kernels are out too)."""
+    """Route every kernel call site of ``models.clip`` and ``ops.attention``
+    to its plain PyTorch version (autograd then differentiates those, so the
+    backward kernels are out too)."""
     from ..models import clip
-    from ..ops import attention, attn_block, fused_mlp, packed_attention
+    from ..ops import attention, attn_block, fused_mlp, layers, packed_attention, rope, swiglu
 
-    saved = (attention.flash_mha_packed, attention.flash_mha, clip.ln_attn_residual,
-             clip.ln_mlp_residual, clip.ln_mlp_residual_frozen, clip.ln_mlp_residual_int8)
-    attention.flash_mha_packed = packed_attention.flash_mha_packed_reference
-    attention.flash_mha = attention.sdpa
-    clip.ln_attn_residual = attn_block.ln_attn_residual_reference
-    clip.ln_mlp_residual = fused_mlp.ln_mlp_residual_reference
-    clip.ln_mlp_residual_frozen = fused_mlp.ln_mlp_residual_reference
-    clip.ln_mlp_residual_int8 = fused_mlp.ln_mlp_residual_int8_reference
+    twins = {
+        (attention, "flash_mha_packed"): packed_attention.flash_mha_packed_reference,
+        (attention, "flash_mha"): attention.sdpa,
+        (clip, "ln_attn_front"): attn_block.ln_attn_front_reference,
+        (clip, "ln_attn_back"): attn_block.ln_attn_back_reference,
+        (clip, "ln_mlp_residual"): fused_mlp.ln_mlp_residual_reference,
+        (clip, "ln_mlp_residual_frozen"): fused_mlp.ln_mlp_residual_reference,
+        (clip, "ln_mlp_residual_int8"): fused_mlp.ln_mlp_residual_int8_reference,
+        (clip, "ln_swiglu_residual"): swiglu.ln_swiglu_residual_reference,
+        (clip, "layer_norm_rows"): layers.layer_norm,
+        (clip, "rope_qk"): rope.rope_qk_reference,
+    }
+    saved = {(mod, name): getattr(mod, name) for mod, name in twins}
+    for (mod, name), twin in twins.items():
+        setattr(mod, name, twin)
     try:
         yield
     finally:
-        (attention.flash_mha_packed, attention.flash_mha, clip.ln_attn_residual,
-         clip.ln_mlp_residual, clip.ln_mlp_residual_frozen, clip.ln_mlp_residual_int8) = saved
+        for (mod, name), kernel in saved.items():
+            setattr(mod, name, kernel)
 
 
 def _time_blocks(one_batch, batch, iters, repeats, profile_dir=None):

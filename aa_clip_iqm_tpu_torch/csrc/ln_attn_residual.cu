@@ -40,8 +40,9 @@
 //   4. the out-projection GEMM with epilogue (b): x + (O . W_out + b_out).
 // Head width 64 only (ViT-L: 16 heads of 64), d a multiple of 128.
 // Two more entries run launches 1-2 (front) and 4 (back) alone, with the
-// caller's attention kernel between them: the model's route outside
-// AACLIP_FUSED_ATTN, whose attention stays B1 (or B7).
+// caller's attention kernel between them: the model's route at inference,
+// whose attention stays B1 (or B7). The whole entry is the port of the TPU
+// kernel, held to it and to its plain twin by the tests.
 
 #include "attention_fwd.cuh"
 #include "common.cuh"

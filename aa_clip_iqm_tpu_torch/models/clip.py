@@ -40,27 +40,22 @@ whose call passes :func:`..ops.attn_block.ln_attn_halves_ok` and which
 autograd does not record runs the LayerNorm and the qkv projection on B8's
 front kernel and the out-projection with the residual on its back kernel,
 around that attention route (:func:`_run_block`, and EVA-02's block
-likewise). With ``FUSED_ATTN`` (``AACLIP_FUSED_ATTN=1``) a block that passes
-:func:`..ops.attn_block.ln_attn_residual_ok` runs its whole attention half
-(LayerNorm, qkv, attention, out-projection, residual) through the fused
-kernel instead, recorded by autograd or not.
-The tower is not padded: the attention kernels mask the ragged key tile
-themselves.
+likewise). The tower is not padded: the attention kernels mask the ragged
+key tile themselves.
 
 ``use_pallas=False`` (every function here takes it) is the JAX package's XLA
 chain on stock PyTorch calls and launches no hand-written kernel: the
 attention through ``ops.attention.library_sdpa`` after the cuBLAS
 projections, the MLP as ``x + mlp_block(layer_norm(x))`` (JAX's
 ``_xla_chain``; int8 weights keep ``int8_linear``, without B3), the
-``fused_mlp`` and ``FUSED_ATTN`` switches ignored. It is reached only when a
-caller passes it. The port's default is ``True``, where JAX's is ``False``:
-the port's main path runs its kernels.
+``fused_mlp`` switch ignored. It is reached only when a caller passes it.
+The port's default is ``True``, where JAX's is ``False``: the port's main
+path runs its kernels.
 """
 from __future__ import annotations
 
 import functools
 import math
-import os
 from typing import Optional, Sequence
 
 import numpy as np
@@ -70,13 +65,7 @@ from torch.utils.checkpoint import checkpoint
 from ..configs import CLIPConfig, Eva02VisionConfig, ResNetVisionConfig, TextConfig, VisionConfig
 from ..ops import attention as attn_ops
 from ..ops import custom_ops
-from ..ops.attn_block import (
-    ln_attn_back,
-    ln_attn_front,
-    ln_attn_halves_ok,
-    ln_attn_residual,
-    ln_attn_residual_ok,
-)
+from ..ops.attn_block import ln_attn_back, ln_attn_front, ln_attn_halves_ok
 from ..ops.fused_mlp import (
     ln_mlp_residual,
     ln_mlp_residual_frozen,
@@ -99,13 +88,6 @@ from ..parallel.collectives import copy_to_model, sum_from_model
 from ..parallel.mesh import TensorParallelBlock
 from ..utils.profiling import count
 
-# Route the whole attention residual branch (LN -> qkv -> attention ->
-# out-proj -> residual) through the fused kernel (ops/attn_block.py) instead
-# of the LN / projections / attention chain. Opt-in, as in the JAX package:
-# env AACLIP_FUSED_ATTN=1, read at import.
-FUSED_ATTN = os.environ.get("AACLIP_FUSED_ATTN", "0") == "1"
-
-
 def patchify(params, images, patch_size: int):
     """(B, 3, H, W) -> (B, L, width) via reshape + matmul (== strided conv)."""
     b, c, h, w = images.shape
@@ -118,16 +100,15 @@ def patchify(params, images, patch_size: int):
 def _run_block(block, x, num_heads, act, attn_mask=None, vv=False,
                valid_len=None, fused_mlp=True, use_pallas=True):
     """Pre-norm residual attention block. ``vv`` selects the CLIP-Surgery
-    value-value attention. An unmasked block runs its attention half on
-    B8's kernels (int8 attention weights fail both gates): with
-    ``FUSED_ATTN``, where ``ln_attn_residual_ok`` holds, as one fused
-    kernel; else, where ``ln_attn_halves_ok`` holds, autograd records
-    nothing and ``vv`` is off, as B8's front (the LayerNorm pass and the qkv
-    product), the routed attention kernel and B8's back (the out-projection
-    with the residual, rounded once), counted ``attn.proj_fused``. Every
-    other unmasked block runs the chain (LayerNorm, cuBLAS projections,
-    attention, residual add), counted ``attn.proj_chain``; a masked one (the
-    text tower) too, and the stock route, uncounted.
+    value-value attention. An unmasked block where ``ln_attn_halves_ok``
+    holds (int8 attention weights fail it), autograd records nothing and
+    ``vv`` is off runs its attention half as B8's front (the LayerNorm pass
+    and the qkv product), the routed attention kernel and B8's back (the
+    out-projection with the residual, rounded once), counted
+    ``attn.proj_fused``. Every other unmasked block runs the chain
+    (LayerNorm, cuBLAS projections, attention, residual add), counted
+    ``attn.proj_chain``; a masked one (the text tower) too, and the stock
+    route, uncounted.
     ``fused_mlp="frozen"`` takes the fused MLP whose backward is the dx-only
     kernel: valid only while the block's parameters carry no gradient (it
     raises otherwise). ``use_pallas=False``: the stock PyTorch chain (module
@@ -145,10 +126,8 @@ def _run_block(block, x, num_heads, act, attn_mask=None, vv=False,
                                  use_pallas=False)
         return x + mlp_block(block["mlp"], layer_norm(block["ln_2"], x), act)
     attn = block["attn"]
-    if attn_mask is None and FUSED_ATTN and ln_attn_residual_ok(x, attn, num_heads):
-        x = ln_attn_residual(block["ln_1"], attn, x, num_heads, vv, valid_len)
-    elif (attn_mask is None and not vv and ln_attn_halves_ok(x, attn)
-          and not _records_grad(block, x)):
+    if (attn_mask is None and not vv and ln_attn_halves_ok(x, attn)
+            and not _records_grad(block, x)):
         count("attn.proj_fused")
         qkv = ln_attn_front(block["ln_1"], _f32_bias(attn["qkv"]), x)
         x = ln_attn_back(_f32_bias(attn["out"]),

@@ -4,9 +4,15 @@ Each ``csrc/<name>.cu`` (with the shared ``csrc/*.cuh`` headers) is compiled
 on its own by ``nvcc`` into a shared library with a plain C interface,
 ``build/aa_clip_iqm_tpu_torch/lib<name>.so`` beside the package, and loaded
 with ``ctypes``. A library is rebuilt when its source or a header is newer.
-Nothing includes PyTorch's headers, so a build takes seconds. Pointers and
-the stream go through ``ctypes.c_void_p``; every C entry returns the
-launch's ``cudaGetLastError()``, which :func:`check` turns into an exception.
+Nothing includes PyTorch's headers, so a build takes seconds.
+
+Each C entry ``aaclip_<name>`` is declared once, at module level of the
+wrapper that launches it, as an :class:`Entry`, the one way the port reaches
+it: the entry loads its library on its first call, types its parameters
+once, passes the current stream last, turns the returned
+``cudaGetLastError()`` into an exception and counts the launch as
+``launches.<name>`` (``utils.profiling``). :data:`ENTRIES` holds every
+declaration, so that a test can hold each to its C signature.
 
 Nothing here runs at import time: the CPU tests import every module, and
 this machine need not have ``nvcc``.
@@ -19,9 +25,9 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Optional, Sequence
 
-from ..utils.profiling import count, span
+from ..utils.profiling import count, counters, span
 
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
@@ -136,12 +142,50 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
-def check(name: str, err: int) -> None:
-    """Raise if a kernel's C entry reported a CUDA error."""
-    if err:
-        msg = getattr(_LIBS[name], f"aaclip_{name}_error_string")(err)
-        raise RuntimeError(f"{name} launch failed: CUDA error {err} "
-                           f"({msg.decode(errors='replace')})")
+#: Every declared C entry, by name (``aaclip_<name>`` in ``csrc/<lib>.cu``).
+ENTRIES: Dict[str, "Entry"] = {}
+#: The prefix of the launch counters.
+LAUNCH_COUNTER = "launches."
+
+
+class Entry:
+    """The C entry ``aaclip_<name>`` of ``csrc/<lib>.cu``, whose parameters
+    are ``argtypes`` and then the stream (``void*``), returning a CUDA error
+    code. Calling it (``entry(device, *args)``) loads the library on the first
+    call (:func:`load`), launches on ``device``'s current stream, raises
+    ``RuntimeError`` on a nonzero code and counts ``launches.<counter>``,
+    ``counter`` being ``name`` unless the call gives another."""
+
+    def __init__(self, lib: str, name: str, argtypes: Sequence):
+        self.lib, self.name = lib, name
+        self.argtypes = [*argtypes, ctypes.c_void_p]
+        self._fn = self._error_string = None
+        ENTRIES[name] = self
+
+    def _bind(self):
+        lib = load(self.lib)
+        fn = getattr(lib, "aaclip_" + self.name)
+        fn.argtypes, fn.restype = self.argtypes, ctypes.c_int
+        self._error_string = getattr(lib, f"aaclip_{self.lib}_error_string")
+        self._fn = fn
+        return fn
+
+    def __call__(self, device, *args, counter: Optional[str] = None) -> None:
+        err = (self._fn or self._bind())(*args, stream_ptr(device))
+        if err:
+            msg = self._error_string(err).decode(errors="replace")
+            raise RuntimeError(f"aaclip_{self.name} launch failed: CUDA error {err} ({msg})")
+        count(LAUNCH_COUNTER + (counter or self.name))
+
+
+def launches(since: Optional[Dict[str, float]] = None) -> Dict[str, int]:
+    """The launch counters as {name: launches}, less their values in the
+    snapshot ``since`` (a :func:`..utils.profiling.counters` result); the
+    counters that did not move are left out."""
+    since = since or {}
+    moved = {k[len(LAUNCH_COUNTER):]: int(v - since.get(k, 0))
+             for k, v in counters().items() if k.startswith(LAUNCH_COUNTER)}
+    return {k: v for k, v in moved.items() if v}
 
 
 def stream_ptr(device) -> int:

@@ -30,7 +30,7 @@ B1 does, so the tower is never padded.
 """
 from __future__ import annotations
 
-import ctypes
+from ctypes import c_float, c_int, c_void_p
 
 import torch
 
@@ -40,18 +40,8 @@ from .layers import layer_norm, linear
 from .packed_attention import (flash_mha_packed_reference, flash_mha_packed_stages,
                                mha_reference)
 
-#: Kernel calls since the last reset (one per call; each call is four launches),
-#: and calls of the halves alone (the front is two launches, the back one).
-LAUNCHES = 0
-FRONT_LAUNCHES = 0
-BACK_LAUNCHES = 0
 #: The one head width the kernel is built for (ViT-L: 16 heads of 64).
 HEAD_DIM = 64
-
-
-def reset_launches() -> None:
-    global LAUNCHES, FRONT_LAUNCHES, BACK_LAUNCHES
-    LAUNCHES = FRONT_LAUNCHES = BACK_LAUNCHES = 0
 
 
 def ln_attn_halves_ok(x, attn_params) -> bool:
@@ -139,23 +129,12 @@ def ln_attn_back_reference(out_params, o, x):
     return gemm_bias_residual_reference(o, out_params["w"], out_params["b"], x)
 
 
-_ENTRIES = {
-    "aaclip_ln_attn_residual": [ctypes.c_void_p] * 9 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
-    "aaclip_ln_attn_residual_front": [ctypes.c_void_p] * 7 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p],
-    "aaclip_ln_attn_residual_back": [ctypes.c_void_p] * 5 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
-}
-
-
-def _lib(entry="aaclip_ln_attn_residual"):
-    fn = getattr(_build.load("ln_attn_residual"), entry)
-    if fn.argtypes is None:
-        fn.argtypes = _ENTRIES[entry]
-        fn.restype = ctypes.c_int
-    return fn
+# Each call of the whole kernel is four launches, of the front two, of the back one.
+_WHOLE = _build.Entry("ln_attn_residual", "ln_attn_residual",
+                      [c_void_p] * 9 + [c_int] * 5 + [c_float, c_float, c_int])
+_FRONT = _build.Entry("ln_attn_residual", "ln_attn_residual_front",
+                      [c_void_p] * 7 + [c_int, c_int, c_float])
+_BACK = _build.Entry("ln_attn_residual", "ln_attn_residual_back", [c_void_p] * 5 + [c_int, c_int])
 
 
 def _operand(t, dtype, device, what):
@@ -213,12 +192,8 @@ def _launch(ln_params, attn_params, x, num_heads: int, vv: bool, valid_len, eps:
     # attention output.
     scratch = torch.empty((b * l, (d if vv else 3 * d) + d), dtype=bf16, device=dev)
     y = torch.empty_like(x)
-    err = _lib()(x.data_ptr(), *(t.data_ptr() for t in ops), scratch.data_ptr(), y.data_ptr(),
-                 b, l, d, num_heads, vl, float(eps), float(hd ** -0.5), int(bool(vv)),
-                 _build.stream_ptr(dev))
-    _build.check("ln_attn_residual", err)
-    global LAUNCHES
-    LAUNCHES += 1
+    _WHOLE(dev, x.data_ptr(), *(t.data_ptr() for t in ops), scratch.data_ptr(), y.data_ptr(),
+           b, l, d, num_heads, vl, float(eps), float(hd ** -0.5), int(bool(vv)))
     return y
 
 
@@ -251,12 +226,8 @@ def _launch_front(ln_params, qkv_params, x, eps: float):
            _operand(qkv_params["b"], torch.float32, dev, "qkv bias")]
     xn = torch.empty((m, d), dtype=x.dtype, device=dev)
     qkv = torch.empty((*x.shape[:-1], 3 * d), dtype=x.dtype, device=dev)
-    err = _lib("aaclip_ln_attn_residual_front")(
-        x.data_ptr(), *(t.data_ptr() for t in ops), xn.data_ptr(), qkv.data_ptr(), m, d,
-        float(eps), _build.stream_ptr(dev))
-    _build.check("ln_attn_residual", err)
-    global FRONT_LAUNCHES
-    FRONT_LAUNCHES += 1
+    _FRONT(dev, x.data_ptr(), *(t.data_ptr() for t in ops), xn.data_ptr(), qkv.data_ptr(), m, d,
+           float(eps))
     return qkv
 
 
@@ -272,12 +243,8 @@ def _launch_back(out_params, o, x):
     w = _operand(out_params["w"], torch.bfloat16, dev, "out weight")
     b = _operand(out_params["b"], torch.float32, dev, "out bias")
     y = torch.empty_like(x)
-    err = _lib("aaclip_ln_attn_residual_back")(
-        o.data_ptr(), w.data_ptr(), b.data_ptr(), x.data_ptr(), y.data_ptr(), x.numel() // d, d,
-        _build.stream_ptr(dev))
-    _build.check("ln_attn_residual", err)
-    global BACK_LAUNCHES
-    BACK_LAUNCHES += 1
+    _BACK(dev, o.data_ptr(), w.data_ptr(), b.data_ptr(), x.data_ptr(), y.data_ptr(),
+          x.numel() // d, d)
     return y
 
 

@@ -19,8 +19,8 @@ there is no backward kernel to port.
 """
 from __future__ import annotations
 
-import ctypes
 import math
+from ctypes import c_float, c_int, c_void_p
 
 import torch
 
@@ -40,15 +40,7 @@ HEAD_DIM = 64
 TILE_KEYS = 128
 LOG2E = 1.4426950408889634
 
-#: Kernel launches since the last reset (incremented once per launch).
-LAUNCHES = 0
-
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-
-
-def reset_launches() -> None:
-    global LAUNCHES
-    LAUNCHES = 0
 
 
 def flash_mha_reference(q, k, v, scale: float):
@@ -93,15 +85,8 @@ def attention_fwd_stages(q, k, v, scale: float, n_keys=None, with_lse: bool = Fa
     return out
 
 
-def _lib():
-    lib = _build.load("flash_attention")
-    fn = lib.aaclip_flash_attention
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-            ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
+_KERNEL = _build.Entry("flash_attention", "flash_attention",
+                       [c_void_p] * 4 + [c_int] * 3 + [c_float, c_int])
 
 
 def _forward(q, k, v, scale: float):
@@ -128,11 +113,8 @@ def _launch(q, k, v, scale: float):
     if hd != HEAD_DIM:
         raise ValueError(f"{fn}: head width {hd}; the kernel takes {HEAD_DIM}")
     out = torch.empty_like(q)
-    err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, l,
-                 hd, float(scale), _DTYPES[q.dtype], _build.stream_ptr(q.device))
-    _build.check("flash_attention", err)
-    global LAUNCHES
-    LAUNCHES += 1
+    _KERNEL(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, l, hd,
+            float(scale), _DTYPES[q.dtype])
     return out
 
 

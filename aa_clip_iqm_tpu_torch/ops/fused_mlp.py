@@ -36,7 +36,7 @@ requires one):
 """
 from __future__ import annotations
 
-import ctypes
+from ctypes import c_float, c_int, c_void_p
 
 import torch
 
@@ -56,24 +56,9 @@ from .gemm import (
 from .layers import frozen_layout, gelu, layer_norm, mlp_block, quick_gelu
 from .quant import int8_matmul
 
-#: Float-kernel launches since the last reset (incremented once per launch).
-LAUNCHES = 0
-#: int8-kernel launches since the last reset.
-INT8_LAUNCHES = 0
-#: dx-kernel (frozen backward) launches since the last reset.
-DX_LAUNCHES = 0
-
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ACTS = {gelu: 0, quick_gelu: 1}
 _ACT_NAMES = {gelu: "gelu", quick_gelu: "quick_gelu"}
-
-
-def reset_launches() -> None:
-    global LAUNCHES, INT8_LAUNCHES, DX_LAUNCHES, PROBE_LAUNCHES
-    LAUNCHES = 0
-    INT8_LAUNCHES = 0
-    DX_LAUNCHES = 0
-    PROBE_LAUNCHES = 0
 
 
 def ln_mlp_residual_reference(ln_params, mlp_params, x, act, eps: float = 1e-5):
@@ -96,15 +81,16 @@ def ln_mlp_residual_stages(ln_params, mlp_params, x, act, eps: float = 1e-5):
     return gemm_bias_residual_reference(hid, c_proj["w"], c_proj["b"], x)
 
 
-def _lib():
-    lib = _build.load("ln_mlp_residual")
-    fn = lib.aaclip_ln_mlp_residual
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 10 + [
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
+_FLOAT = _build.Entry("ln_mlp_residual", "ln_mlp_residual",
+                      [c_void_p] * 10 + [c_int] * 3 + [c_float, c_int, c_int])
+# B3 and B9 share their operands: the int8 chain's (x, LayerNorm, both
+# weights with their scales and biases, scratch, y), M, d, h, ch, eps and the
+# variant (B3's activation, B9's ep_bf16).
+_INT8_ARGS = [c_void_p] * 16 + [c_int] * 4 + [c_float, c_int]
+_INT8 = _build.Entry("ln_mlp_residual_int8", "ln_mlp_residual_int8", _INT8_ARGS)
+_PROBE = _build.Entry("ln_mlp_residual_int8", "ln_mlp_residual_int8_probe", _INT8_ARGS)
+_DX = _build.Entry("ln_mlp_residual_dx", "ln_mlp_residual_dx",
+                   [c_void_p] * 11 + [c_int] * 3 + [c_float, c_int, c_int])
 
 
 def _operand(t, dtype, device, what, fn="ln_mlp_residual"):
@@ -170,12 +156,9 @@ def _launch(ln_params, mlp_params, x, act, eps: float = 1e-5):
         xin = torch.empty((m, d), dtype=x.dtype, device=dev)
         hid = torch.empty((m, h), dtype=x.dtype, device=dev)
     y = torch.empty_like(x)
-    err = _lib()(*ptrs, xin if xin is None else xin.data_ptr(),
-                 hid if hid is None else hid.data_ptr(), y.data_ptr(), m, d, h, float(eps),
-                 _ACTS[act], _DTYPES[x.dtype], _build.stream_ptr(dev))
-    _build.check("ln_mlp_residual", err)
-    global LAUNCHES
-    LAUNCHES += 1
+    _FLOAT(dev, *ptrs, xin if xin is None else xin.data_ptr(),
+           hid if hid is None else hid.data_ptr(), y.data_ptr(), m, d, h, float(eps),
+           _ACTS[act], _DTYPES[x.dtype])
     return y
 
 
@@ -264,17 +247,6 @@ def _t_contiguous(w):
     return w.t().contiguous()
 
 
-def _int8_lib():
-    lib = _build.load("ln_mlp_residual_int8")
-    fn = lib.aaclip_ln_mlp_residual_int8
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 16 + [
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
-
-
 def _int8_forward(ln_params, mlp_params, x, act, eps: float = 1e-5, stages: bool = False):
     """The int8 forward without autograd, through
     ``aaclip::ln_mlp_residual_int8``: the twin on the CPU, the kernel's
@@ -312,14 +284,12 @@ def _int8_launch(ln_params, mlp_params, x, act, eps: float = 1e-5, stages: bool 
     ch = hidden_chunk(h)
     if not ch:
         raise ValueError(f"{fn}: d={x.shape[-1]}, h={h} not supported (d and h multiples of 128)")
-    out = _int8_chain(fn, _int8_lib(), ln_params, mlp_params, x, ch, float(eps), _ACTS[act])
-    global INT8_LAUNCHES
-    INT8_LAUNCHES += 1
+    out = _int8_chain(fn, _INT8, ln_params, mlp_params, x, ch, float(eps), _ACTS[act])
     return out if stages else out["y"]
 
 
 def _int8_chain(fn, entry, ln_params, mlp_params, x, ch, *args):
-    """Check the operands of an int8 chain's C ``entry`` (B3's or B9's),
+    """Check the operands of an int8 chain's :class:`._build.Entry` (B3's or B9's),
     allocate its scratch and launch it with the trailing ``args`` (eps and
     the variant). Returns the dict of the stages' x_q, sx, amax, h_q, sh
     and y."""
@@ -364,11 +334,10 @@ def _int8_chain(fn, entry, ln_params, mlp_params, x, ch, *args):
                "count": torch.empty((-(-m // 192), h // ch), dtype=torch.int32, device=dev),
                "h_q": torch.empty((m, h), dtype=i8, device=dev)}
     y = torch.empty_like(x)
-    err = entry(*ptrs, *(scratch[k].data_ptr()
-                         for k in ("x_q", "sx", "amax", "sh", "count", "h_q")),
-                y.data_ptr(), m, d, h, ch, *args, _build.stream_ptr(dev))
+    entry(dev, *ptrs, *(scratch[k].data_ptr()
+                        for k in ("x_q", "sx", "amax", "sh", "count", "h_q")),
+          y.data_ptr(), m, d, h, ch, *args)
     del scratch["count"]
-    _build.check("ln_mlp_residual_int8", err)
     return dict(scratch, y=y)
 
 
@@ -383,8 +352,6 @@ def ln_mlp_residual_int8_with_stages(ln_params, mlp_params, x, act, eps: float =
 # B9: the int8 probe's variants of the int8 kernel
 # --------------------------------------------------------------------------
 
-#: int8 probe kernel (B9) launches since the last reset.
-PROBE_LAUNCHES = 0
 #: The probe's hidden chunk widths.
 PROBE_CHUNKS = (1024, 2048)
 _SQRT_HALF = 0.7071067811865476
@@ -452,17 +419,6 @@ def ln_mlp_residual_int8_probe_stages(ln_params, mlp_params, x, ep_bf16: bool, c
                                        1e-5, ch, rows)
 
 
-def _probe_lib():
-    lib = _build.load("ln_mlp_residual_int8")
-    fn = lib.aaclip_ln_mlp_residual_int8_probe
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 16 + [
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
-
-
 def ln_mlp_residual_int8_probe(ln_params, mlp_params, x, ep_bf16: bool, ch: int,
                                stages: bool = False):
     """B9, one layer of the int8 probe's chain: ``x + c_proj(gelu_nocmp(
@@ -485,9 +441,7 @@ def ln_mlp_residual_int8_probe(ln_params, mlp_params, x, ep_bf16: bool, ch: int,
         if stages:
             return ln_mlp_residual_int8_probe_stages(ln_params, mlp_params, x, ep_bf16, ch)
         return ln_mlp_residual_int8_probe_reference(ln_params, mlp_params, x, ep_bf16, ch)
-    out = _int8_chain(fn, _probe_lib(), ln_params, mlp_params, x, ch, 1e-5, int(bool(ep_bf16)))
-    global PROBE_LAUNCHES
-    PROBE_LAUNCHES += 1
+    out = _int8_chain(fn, _PROBE, ln_params, mlp_params, x, ch, 1e-5, int(bool(ep_bf16)))
     return out if stages else out["y"]
 
 
@@ -561,17 +515,6 @@ def ln_mlp_residual_dx_stages(ln_params, mlp_params, x, g, act, eps: float = 1e-
     return ln_dx_rows_reference(x2, t, g2, eps).reshape(x.shape)
 
 
-def _dx_lib():
-    lib = _build.load("ln_mlp_residual_dx")
-    fn = lib.aaclip_ln_mlp_residual_dx
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 11 + [
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
-
-
 def ln_mlp_residual_dx(ln_params, mlp_params, x, g, act, eps: float = 1e-5):
     """dx (same shape as x) of the fused chain for frozen parameters: the
     plain version on CPU tensors, the kernel on CUDA tensors (in bf16 at
@@ -612,11 +555,8 @@ def ln_mlp_residual_dx(ln_params, mlp_params, x, g, act, eps: float = 1e-5):
                    torch.empty((m, h), dtype=x.dtype, device=dev),
                    torch.empty((m, d), dtype=f32, device=dev)]
     dx = torch.empty_like(x)
-    err = _dx_lib()(*ptrs, *(t if t is None else t.data_ptr() for t in scratch), dx.data_ptr(),
-                    m, d, h, float(eps), _ACTS[act], _DTYPES[x.dtype], _build.stream_ptr(dev))
-    _build.check(fn, err)
-    global DX_LAUNCHES
-    DX_LAUNCHES += 1
+    _DX(dev, *ptrs, *(t if t is None else t.data_ptr() for t in scratch), dx.data_ptr(),
+        m, d, h, float(eps), _ACTS[act], _DTYPES[x.dtype])
     return dx
 
 

@@ -43,16 +43,13 @@ them; the model reaches the core only through B2, B5 and B8.
 """
 from __future__ import annotations
 
-import ctypes
+from ctypes import c_int, c_void_p as ptr
 
 import torch
 
 from . import _build
 from .layers import gelu, layer_norm, quick_gelu
 from .quant import int8_matmul
-
-#: Launches of the core alone since the last reset (B2 and B8 count their own).
-LAUNCHES = 0
 
 _ACTS = {gelu: 0, quick_gelu: 1, None: 2}
 
@@ -73,11 +70,6 @@ def dquick_gelu(x):
 
 #: Each activation's exact derivative, as epilogue (c) takes it.
 DACTS = {gelu: dgelu, quick_gelu: dquick_gelu}
-
-
-def reset_launches() -> None:
-    global LAUNCHES
-    LAUNCHES = 0
 
 
 def _acc_bias(a, w, b):
@@ -185,16 +177,13 @@ def gemm_s8_proj_reference(h_q, w_q, sh, s_proj, b_proj, x, ch):
     return (x32 + f * s_proj.reshape(n).float() + b_proj.float()).to(x.dtype)
 
 
-def _lib():
-    lib = _build.load("ln_mlp_residual")
-    fn = lib.aaclip_ln_mlp_residual_gemm
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
+# The core's products alone, each counted under its own entry's name.
+_GEMM = _build.Entry("ln_mlp_residual", "ln_mlp_residual_gemm",
+                     [ptr, c_int, ptr, c_int, ptr, ptr, c_int, ptr] + [c_int] * 6)
+_GEMM_F32 = _build.Entry("ln_mlp_residual_dx", "ln_mlp_residual_dx_gemm_f32",
+                         [ptr, c_int, ptr, c_int, c_int, ptr, ptr] + [c_int] * 5)
+_GEMM_DUAL = _build.Entry("ln_mlp_residual_dx", "ln_mlp_residual_dx_gemm_dual",
+                          [ptr, c_int, ptr, c_int, ptr, ptr, c_int, ptr, c_int, ptr] + [c_int] * 5)
 
 
 def _launch(a, w, b, res, act, tile_n):
@@ -218,24 +207,10 @@ def _launch(a, w, b, res, act, tile_n):
     m = a.numel() // k
     bias = tensors[2]
     out = torch.empty((*a.shape[:-1], n), dtype=torch.bfloat16, device=a.device)
-    err = _lib()(a.data_ptr(), k, w.data_ptr(), n, bias.data_ptr(),
-                 res.data_ptr() if res is not None else None, n, out.data_ptr(), n, m, n, k,
-                 _ACTS[act], tile_n, _build.stream_ptr(a.device))
-    _build.check("ln_mlp_residual", err)
-    global LAUNCHES
-    LAUNCHES += 1
+    _GEMM(a.device, a.data_ptr(), k, w.data_ptr(), n, bias.data_ptr(),
+          res.data_ptr() if res is not None else None, n, out.data_ptr(), n, m, n, k,
+          _ACTS[act], tile_n)
     return out
-
-
-def _dx_lib(entry):
-    lib = _build.load("ln_mlp_residual_dx")
-    fn = getattr(lib, entry)
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = ([p, i, p, i, i, p, p, i, i, i, i, i, p] if entry.endswith("f32")
-                       else [p, i, p, i, p, p, i, p, i, p, i, i, i, i, i, p])
-        fn.restype = ctypes.c_int
-    return fn
 
 
 def _checked(fn, a, *tensors):
@@ -268,13 +243,8 @@ def gemm_f32(a, w, scale=None, w_kmajor: bool = False, tile_n: int = 0):
     _checked(fn, a, w, scale)
     m = a.numel() // k
     out = torch.empty((*a.shape[:-1], n), dtype=torch.float32, device=a.device)
-    err = _dx_lib("aaclip_ln_mlp_residual_dx_gemm_f32")(
-        a.data_ptr(), k, w.data_ptr(), w.shape[-1], int(w_kmajor),
-        None if scale is None else scale.data_ptr(), out.data_ptr(), n, m, n, k, tile_n,
-        _build.stream_ptr(a.device))
-    _build.check("ln_mlp_residual_dx", err)
-    global LAUNCHES
-    LAUNCHES += 1
+    _GEMM_F32(a.device, a.data_ptr(), k, w.data_ptr(), w.shape[-1], int(w_kmajor),
+              None if scale is None else scale.data_ptr(), out.data_ptr(), n, m, n, k, tile_n)
     return out
 
 
@@ -298,12 +268,8 @@ def gemm_dual_dact(a, w, b, a2, w2t, act):
     _checked(fn, a, w, bias, a2, w2t)
     m = a.numel() // k
     out = torch.empty((*a.shape[:-1], n), dtype=torch.bfloat16, device=a.device)
-    err = _dx_lib("aaclip_ln_mlp_residual_dx_gemm_dual")(
-        a.data_ptr(), k, w.data_ptr(), n, bias.data_ptr(), a2.data_ptr(), k, w2t.data_ptr(), k,
-        out.data_ptr(), n, m, n, k, _ACTS[act], _build.stream_ptr(a.device))
-    _build.check("ln_mlp_residual_dx", err)
-    global LAUNCHES
-    LAUNCHES += 1
+    _GEMM_DUAL(a.device, a.data_ptr(), k, w.data_ptr(), n, bias.data_ptr(), a2.data_ptr(), k,
+               w2t.data_ptr(), k, out.data_ptr(), n, m, n, k, _ACTS[act])
     return out
 
 

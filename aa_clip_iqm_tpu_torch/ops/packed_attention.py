@@ -24,30 +24,16 @@ still honour an explicit ``valid_len`` (keys at or past it are masked).
 """
 from __future__ import annotations
 
-import ctypes
+from ctypes import c_float, c_int, c_void_p
 
 import torch
 
 from . import _build, custom_ops
 from .flash_attention import attention_fwd_stages
 
-#: Forward-kernel launches since the last reset (incremented once per launch).
-LAUNCHES = 0
-#: Backward-kernel launches since the last reset (B4, ``vv=False``).
-BWD_LAUNCHES = 0
-#: Value-value backward launches since the last reset (B6, ``vv=True``).
-VV_BWD_LAUNCHES = 0
-
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: The one head width the kernel is built for (ViT-L: 16 heads of 64).
 HEAD_DIM = 64
-
-
-def reset_launches() -> None:
-    global LAUNCHES, BWD_LAUNCHES, VV_BWD_LAUNCHES
-    LAUNCHES = 0
-    BWD_LAUNCHES = 0
-    VV_BWD_LAUNCHES = 0
 
 
 def flash_mha_packed_reference(qkv, num_heads: int, scale: float,
@@ -128,16 +114,12 @@ def flash_mha_packed_stages(qkv, num_heads: int, scale: float, vv: bool = False,
     return (out, lse.reshape(b, num_heads, l)) if with_lse else out
 
 
-def _lib():
-    lib = _build.load("packed_attention")
-    fn = lib.aaclip_packed_attention
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
+_FORWARD = _build.Entry("packed_attention", "packed_attention",
+                        [c_void_p] * 3 + [c_int] * 6 + [c_float, c_int, c_int])
+# B4, counted ``packed_attention_bwd``; for ``vv`` B6, counted
+# ``packed_attention_vv_bwd``.
+_BACKWARD = _build.Entry("packed_attention_bwd", "packed_attention_bwd",
+                         [c_void_p] * 6 + [c_int] * 6 + [c_float, c_int, c_int])
 
 
 def _check_qkv(fn: str, qkv, num_heads: int, valid_len):
@@ -186,12 +168,9 @@ def _launch(qkv, num_heads: int, scale: float, vv: bool, valid_len,
     out = torch.empty((b, l, w), dtype=qkv.dtype, device=qkv.device)
     lse = (torch.empty((b, num_heads, l), dtype=torch.float32, device=qkv.device)
            if with_lse else None)
-    err = _lib()(qkv.data_ptr(), out.data_ptr(), None if lse is None else lse.data_ptr(),
-                 b, l, w, num_heads, hd, vl, float(scale), int(bool(vv)),
-                 _DTYPES[qkv.dtype], _build.stream_ptr(qkv.device))
-    _build.check("packed_attention", err)
-    global LAUNCHES
-    LAUNCHES += 1
+    _FORWARD(qkv.device, qkv.data_ptr(), out.data_ptr(),
+             None if lse is None else lse.data_ptr(), b, l, w, num_heads, hd, vl, float(scale),
+             int(bool(vv)), _DTYPES[qkv.dtype])
     return (out, lse) if with_lse else out
 
 
@@ -289,18 +268,6 @@ def flash_mha_packed_bwd_stages(qkv, dO, num_heads: int, scale: float, vv: bool 
     return torch.cat([merge(d_q), merge(d_k), merge(d_val)], dim=-1)
 
 
-def _bwd_lib():
-    lib = _build.load("packed_attention_bwd")
-    fn = lib.aaclip_packed_attention_bwd
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-            ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
-
-
 def flash_mha_packed_bwd(qkv, dO, num_heads: int, scale: float, vv: bool = False,
                          valid_len=None, lse=None):
     """dqkv (B, L, 3W) from qkv (B, L, 3W) and dO (B, L, W): the plain
@@ -332,16 +299,10 @@ def flash_mha_packed_bwd(qkv, dO, num_heads: int, scale: float, vv: bool = False
     # dk/dv kernel, which adds the value and key terms and rounds once.
     qterm = (torch.empty((b, l, w), dtype=torch.float32, device=qkv.device)
              if vv else None)
-    err = _bwd_lib()(qkv.data_ptr(), dO.data_ptr(), lse.data_ptr(), dqkv.data_ptr(),
-                     stats.data_ptr(), None if qterm is None else qterm.data_ptr(), b, l, w,
-                     num_heads, hd, vl, float(scale), int(bool(vv)),
-                     _DTYPES[qkv.dtype], _build.stream_ptr(qkv.device))
-    _build.check("packed_attention_bwd", err)
-    global BWD_LAUNCHES, VV_BWD_LAUNCHES
-    if vv:
-        VV_BWD_LAUNCHES += 1
-    else:
-        BWD_LAUNCHES += 1
+    _BACKWARD(qkv.device, qkv.data_ptr(), dO.data_ptr(), lse.data_ptr(), dqkv.data_ptr(),
+              stats.data_ptr(), None if qterm is None else qterm.data_ptr(), b, l, w, num_heads,
+              hd, vl, float(scale), int(bool(vv)), _DTYPES[qkv.dtype],
+              counter="packed_attention_vv_bwd" if vv else None)
     return dqkv
 
 

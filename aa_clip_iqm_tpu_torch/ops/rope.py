@@ -22,7 +22,7 @@ by its angle. The class row is not rotated.
 """
 from __future__ import annotations
 
-import ctypes
+from ctypes import c_int, c_long, c_void_p
 
 import numpy as np
 import torch
@@ -30,15 +30,6 @@ import torch
 from ..utils.profiling import count, span
 from . import _build
 from .interp import device_constant
-
-#: Kernel launches since the last reset.
-LAUNCHES = 0
-
-
-def reset_launches() -> None:
-    global LAUNCHES
-    LAUNCHES = 0
-
 
 def rope_angles(grid: int, ref_grid: int, head_dim: int) -> np.ndarray:
     """(grid * grid, head_dim) float64 angles theta of the module docstring."""
@@ -95,14 +86,7 @@ def rope_qk_reference(qkv, table, num_heads: int):
     return out
 
 
-def _lib():
-    lib = _build.load("rope_qk")
-    fn = lib.aaclip_rope_qk
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_long] + [ctypes.c_int] * 4 + [
-            ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
+_KERNEL = _build.Entry("rope_qk", "rope_qk", [c_void_p] * 3 + [c_long] + [c_int] * 4)
 
 
 def rope_qk(qkv, table, num_heads: int):
@@ -130,9 +114,6 @@ def rope_qk(qkv, table, num_heads: int):
         raise ValueError(f"rope_qk: table {tuple(table.shape)} {table.dtype} does not fit "
                          f"{tuple(qkv.shape)} with {num_heads} heads")
     stride_b = rows * hd if per_sample else 0
-    err = _lib()(qkv.data_ptr(), table[0].data_ptr(), table[1].data_ptr(), stride_b, b, l, w,
-                 hd, _build.stream_ptr(qkv.device))
-    _build.check("rope_qk", err)
-    global LAUNCHES
-    LAUNCHES += 1
+    _KERNEL(qkv.device, qkv.data_ptr(), table[0].data_ptr(), table[1].data_ptr(), stride_b, b,
+            l, w, hd)
     return qkv

@@ -25,7 +25,7 @@ the chain where a gradient is recorded.
 """
 from __future__ import annotations
 
-import ctypes
+from ctypes import c_float, c_int, c_void_p
 from types import SimpleNamespace
 
 import numpy as np
@@ -36,18 +36,9 @@ from . import _build
 from .gemm import _acc, _acc_bias
 from .layers import frozen_layout, layer_norm, linear
 
-#: Kernel launches since the last reset: the whole MLP half, and the
-#: LayerNorm pass alone (:func:`layer_norm_rows`).
-LAUNCHES = 0
-LN_LAUNCHES = 0
 #: The hidden layer's tile width in the kernel's dual product; the hidden
 #: width is padded to a multiple of it.
 HIDDEN_TILE = 128
-
-
-def reset_launches() -> None:
-    global LAUNCHES, LN_LAUNCHES
-    LAUNCHES = LN_LAUNCHES = 0
 
 
 def swiglu_mlp(mlp, u, eps: float = 1e-6):
@@ -117,23 +108,11 @@ def ln_swiglu_residual_stages(ln_params, mlp, x, eps: float = 1e-6, ffn_eps: flo
     return y.to(x.dtype).reshape(x.shape)
 
 
-def _lib():
-    lib = _build.load("ln_swiglu_residual")
-    fn = lib.aaclip_ln_swiglu_residual
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 + [
-            ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
-
-
-def _ln_lib():
-    fn = _build.load("ln_swiglu_residual").aaclip_ln_swiglu_residual_layer_norm
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                                               ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
+# The whole MLP half, and the LayerNorm pass alone (:func:`layer_norm_rows`).
+_MLP = _build.Entry("ln_swiglu_residual", "ln_swiglu_residual",
+                    [c_void_p] * 12 + [c_int] * 4 + [c_float, c_float])
+_LN = _build.Entry("ln_swiglu_residual", "ln_swiglu_residual_layer_norm",
+                   [c_void_p] * 4 + [c_int, c_int, c_float])
 
 
 def layer_norm_rows(ln_params, x, eps: float = 1e-6):
@@ -150,11 +129,8 @@ def layer_norm_rows(ln_params, x, eps: float = 1e-6):
                          f"multiple of 8; got {tuple(x.shape)} {x.dtype} on {x.device}")
     g, b = (ln_params[k].to(torch.float32).contiguous() for k in ("scale", "bias"))
     y = torch.empty_like(x)
-    err = _ln_lib()(x.data_ptr(), g.data_ptr(), b.data_ptr(), y.data_ptr(), x.numel() // d, d,
-                    float(eps), _build.stream_ptr(x.device))
-    _build.check("ln_swiglu_residual", err)
-    global LN_LAUNCHES
-    LN_LAUNCHES += 1
+    _LN(x.device, x.data_ptr(), g.data_ptr(), b.data_ptr(), y.data_ptr(), x.numel() // d, d,
+        float(eps))
     return y
 
 
@@ -177,11 +153,7 @@ def _launch(ln_params, mlp, x, eps: float, ffn_eps: float):
     y = torch.empty_like(x)
     ptrs = [t.data_ptr() for t in (x, *ln, ops.w12t, ops.b12, ops.w3t, ops.s3, ops.b3, xin,
                                    hid, stats, y)]
-    err = _lib()(*ptrs, m, d, ops.h, ops.hp, float(eps), float(ffn_eps),
-                 _build.stream_ptr(dev))
-    _build.check(fn, err)
-    global LAUNCHES
-    LAUNCHES += 1
+    _MLP(dev, *ptrs, m, d, ops.h, ops.hp, float(eps), float(ffn_eps))
     return y
 
 

@@ -25,20 +25,20 @@ chunks, as in the JAX package. ``quantize=`` selects an int8 backbone tier
 
 On the card a detector runs each bucket as a CUDA graph, the counterpart of
 the JAX package compiling its predict program once per bucket: the first
-request of a (bucket, input dtype, ``models.clip.FUSED_ATTN``) runs the
-eager program once (a warm-up that builds the kernels' libraries, sets
-their launch attributes, fills the device constants and the int8 kernel's
-transposed weights), then captures it; every later request copies its
-batch into the graph's input buffers, replays, and copies the outputs out
-into page-locked host memory, with asynchronous device-to-host copies. So
-on the card the maps and scores a detector returns are numpy views of
-page-locked blocks of PyTorch's caching host allocator, rounded up to a
-power of two (64 MB for 32 maps at 518 px or 8 at 1274 px): a block stays
-page-locked while the caller holds an array of it, or a view such as a
-``MicroBatchingService`` request's map, and is reused once they are
-dropped. A caller that keeps many results keeps them in page-locked memory;
-``np.array(maps)`` copies one out. A call split over several chunks of the
-largest bucket returns their concatenation in ordinary memory.
+request of a (bucket, input dtype) runs the eager program once (a warm-up
+that builds the kernels' libraries, sets their launch attributes, fills the
+device constants and the int8 kernel's transposed weights), then captures
+it; every later request copies its batch into the graph's input buffers,
+replays, and copies the outputs out into page-locked host memory, with
+asynchronous device-to-host copies. So on the card the maps and scores a
+detector returns are numpy views of page-locked blocks of PyTorch's caching
+host allocator, rounded up to a power of two (64 MB for 32 maps at 518 px or
+8 at 1274 px): a block stays page-locked while the caller holds an array of
+it, or a view such as a ``MicroBatchingService`` request's map, and is
+reused once they are dropped. A caller that keeps many results keeps them in
+page-locked memory; ``np.array(maps)`` copies one out. A call split over
+several chunks of the largest bucket returns their concatenation in ordinary
+memory.
 A CPU detector runs eagerly, and so does any detector while
 ``utils.profiling.enable_nan_checks`` is on: its checks synchronise at every
 op, which a capture forbids. ``det._predict`` is the eager program itself.
@@ -74,7 +74,6 @@ from .data.datasets import _load_image_u8
 from .data.registry import DOMAINS
 from .evaluation.predict import make_predict_fn
 from .loader import build_model_config, init_trainable, load_frozen_backbone
-from .models import clip as clip_mod
 from .ops import custom_ops  # noqa: F401  (registers the aaclip:: ops the programs call)
 from .ops import interp
 from .prompts import compute_frozen_anchors
@@ -270,7 +269,7 @@ class AnomalyDetector:
         pool), so one lock serialises the three steps."""
         with span("predict/stage"):
             images = torch.from_numpy(np.ascontiguousarray(padded))
-        key = (images.shape[0], images.dtype, clip_mod.FUSED_ATTN)
+        key = (images.shape[0], images.dtype)
         with self._graph_lock:
             g = self._graphs.get(key)
             if g is None or g.frozen is not self.frozen or g.trainable is not self.trainable:
@@ -329,15 +328,14 @@ class AnomalyDetector:
         return graphs.pool_memory(self._graph_pool)
 
     def graph_stats(self) -> List[dict]:
-        """One entry per captured graph: its bucket, input dtype and
-        ``FUSED_ATTN``, its replays (the device batches it ran), the seconds
-        of its warm-up and capture, and how much its capture grew the
-        graphs' pool."""
+        """One entry per captured graph: its bucket and input dtype, its
+        replays (the device batches it ran), the seconds of its warm-up and
+        capture, and how much its capture grew the graphs' pool."""
         with self._graph_lock:
-            return [{"bucket": b, "dtype": str(dt).replace("torch.", ""), "fused_attn": fa,
+            return [{"bucket": b, "dtype": str(dt).replace("torch.", ""),
                      "replays": g.replays, "capture_s": g.capture_s,
                      "pool_bytes": g.pool_bytes}
-                    for (b, dt, fa), g in self._graphs.items()]
+                    for (b, dt), g in self._graphs.items()]
 
     def predict(self, images: np.ndarray,
                 class_name: str) -> Tuple[np.ndarray, np.ndarray]:
@@ -481,9 +479,8 @@ def export_predictor(detector: AnomalyDetector, out_dir: str,
 
     The programs hold the device they were traced on, so export on the
     device you serve on: the manifest records it (``device``, the card's
-    name in ``device_name``) with ``fused_attn`` (``AACLIP_FUSED_ATTN``,
-    which picks the attention path at trace time). Returns the seconds each
-    bucket's export and save took."""
+    name in ``device_name``). Returns the seconds each bucket's export and
+    save took."""
     if weights not in ("external", "baked"):
         raise ValueError(f"weights must be 'external' or 'baked', got {weights!r}")
     if not batch_sizes or any(int(b) <= 0 for b in batch_sizes):
@@ -540,7 +537,6 @@ def export_predictor(detector: AnomalyDetector, out_dir: str,
             "device": dev.type,
             "device_name": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                             else dev.type),
-            "fused_attn": bool(clip_mod.FUSED_ATTN),
             "use_pallas": bool(use_pallas),
             "weights": weights,
             "bf16_keys": bf16_keys,

@@ -21,9 +21,7 @@ surfaces here. Programs:
   2. the same in the ``int8`` tier: 24 B1 and 24
      ``aaclip::ln_mlp_residual_int8`` (B3), no B2, the int8 projections on
      the chain;
-  3. the same with ``AACLIP_FUSED_ATTN=1`` (``models.clip.FUSED_ATTN``): 24
-     ``aaclip::ln_attn_residual`` (B8) and 24 B2, no B1;
-  4. 1274 px (8,282 tokens, past B1's 8,192), batch 2: 24 B8 fronts, 24
+  3. 1274 px (8,282 tokens, past B1's 8,192), batch 2: 24 B8 fronts, 24
      ``aaclip::flash_mha`` (B7), 24 B8 backs and 24 B2.
 
 It asserts each program's output shapes, (B, H, W) maps and (B,) scores on
@@ -35,17 +33,17 @@ Then the JAX tool's four mesh programs (its programs 1-4), each run as rank
 tensors, its collectives through torch's fake process group (which answers
 at once), every op recorded as it dispatches (``MESH_PROGRAMS``):
 
-  5. the stage-2 loss on a (data 4, model 2) mesh with the backbone split
+  4. the stage-2 loss on a (data 4, model 2) mesh with the backbone split
      by ``backbone_param_sharding``: the rank's 2 rows, its shard shapes
      (qkv (1024, 1536), out (512, 1024), c_fc (1024, 2048), c_proj (2048,
      1024)), 24 B1 at 8 heads and two all-reduces per block (48);
-  6. predict on the same mesh with the backbone replicated: 2 rows, 24 B1
+  5. predict on the same mesh with the backbone replicated: 2 rows, 24 B1
      at 16 heads and 24 B2, the maps and logits gathered (2 all-gathers);
-  7. the stage-2 loss on the (replica 2, data 2, model 2) multislice mesh,
-     TP backbone: as 5;
-  8. predict over both data tiers of that mesh: as 6.
+  6. the stage-2 loss on the (replica 2, data 2, model 2) multislice mesh,
+     TP backbone: as 4;
+  7. predict over both data tiers of that mesh: as 5.
 
-Left out of 5 and 7: the backward and the step's gradient sum. A PyTorch
+Left out of 4 and 6: the backward and the step's gradient sum. A PyTorch
 built for the CPU cannot make autograd nodes for fake CUDA tensors; the
 gloo tests (tests/test_torch_parallel.py) and chip_smoke.py's parallel
 phase run the whole step.
@@ -66,7 +64,6 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from ..configs import TrainConfig
 from ..loader import build_model_config, init_trainable, random_backbone
-from ..models import clip as clip_mod
 from ..models.convert import tree_map
 from ..ops import quant
 from ..parallel import mesh as mesh_mod
@@ -131,7 +128,7 @@ class _Indexing(TorchFunctionMode):
         return x
 
 
-def trace(img_size: int, batch: int, quantize=None, fused_attn: bool = False):
+def trace(img_size: int, batch: int, quantize=None):
     """Export the predict program of ViT-L/14-336 at ``img_size`` for one
     batch, on fake CUDA tensors. Returns (program, output shapes and devices,
     seconds)."""
@@ -139,8 +136,6 @@ def trace(img_size: int, batch: int, quantize=None, fused_attn: bool = False):
     frozen = random_backbone(cfg, device="meta", dtype=torch.bfloat16)
     trainable = init_trainable(cfg, device="meta", dtype=torch.bfloat16)
     predict = make_predict_fn(cfg, img_size, "Industrial", compute_dtype=torch.bfloat16)
-    saved = clip_mod.FUSED_ATTN
-    clip_mod.FUSED_ATTN = fused_attn
     # Real tensors (the interpolation operators, the image mean and std) meet
     # the fakes as constants of the trace.
     with FakeTensorMode(allow_non_fake_inputs=True), _Indexing():
@@ -155,13 +150,10 @@ def trace(img_size: int, batch: int, quantize=None, fused_attn: bool = False):
                              device="cuda")
         anchors = torch.empty((batch, cfg.clip.embed_dim, 2), dtype=torch.float32,
                               device="cuda")
-        try:
-            t0 = time.perf_counter()
-            program = torch.export.export(_ExternalWeights(predict),
-                                          (frozen, trainable, images, anchors), strict=False)
-            seconds = time.perf_counter() - t0
-        finally:
-            clip_mod.FUSED_ATTN = saved
+        t0 = time.perf_counter()
+        program = torch.export.export(_ExternalWeights(predict),
+                                      (frozen, trainable, images, anchors), strict=False)
+        seconds = time.perf_counter() - t0
     outputs = [(tuple(node.meta["val"].shape), node.meta["val"].device.type)
                for node in program.graph.output_node().args[0]]
     return program, outputs, seconds
@@ -171,18 +163,16 @@ def trace(img_size: int, batch: int, quantize=None, fused_attn: bool = False):
 #: program outside the tower's blocks: the IQM head's 28 and the five
 #: projections of the adapters' head.
 HEAD_PRODUCTS = 33
-#: (name, img_size, batch, quantize, fused_attn, aaclip:: nodes wanted). A
-#: block's qkv and out-projection run on B8's front and back, unless the
-#: int8 tier quantizes them (int8 products, no node) or B8 fuses the half.
+#: (name, img_size, batch, quantize, aaclip:: nodes wanted). A block's qkv
+#: and out-projection run on B8's front and back, unless the int8 tier
+#: quantizes them (int8 products, no node).
 PROGRAMS = (
-    ("518px b8 bf16", 518, 8, None, False,
+    ("518px b8 bf16", 518, 8, None,
      {"ln_attn_front": 24, "flash_mha_packed": 24, "ln_attn_back": 24, "ln_mlp_residual": 24,
       "addmm_f32": HEAD_PRODUCTS}),
-    ("518px b8 int8", 518, 8, "int8", False,
+    ("518px b8 int8", 518, 8, "int8",
      {"flash_mha_packed": 24, "ln_mlp_residual_int8": 24, "addmm_f32": HEAD_PRODUCTS}),
-    ("518px b8 AACLIP_FUSED_ATTN=1", 518, 8, None, True,
-     {"ln_attn_residual": 24, "ln_mlp_residual": 24, "addmm_f32": HEAD_PRODUCTS}),
-    ("1274px b2 bf16", 1274, 2, None, False,
+    ("1274px b2 bf16", 1274, 2, None,
      {"ln_attn_front": 24, "flash_mha": 24, "ln_attn_back": 24, "ln_mlp_residual": 24,
       "addmm_f32": HEAD_PRODUCTS}),
 )
@@ -191,8 +181,8 @@ PROGRAMS = (
 def run(programs=PROGRAMS, log=print):
     """Trace each program and hold its output shapes and node counts.
     Raises AssertionError at the first that is off."""
-    for name, img, batch, quantize, fused, want in programs:
-        program, outputs, seconds = trace(img, batch, quantize, fused)
+    for name, img, batch, quantize, want in programs:
+        program, outputs, seconds = trace(img, batch, quantize)
         nodes = dict(aaclip_nodes(program))
         log(f"{name}: {len(program.graph.nodes)} graph nodes in {seconds:.1f} s, "
             f"outputs {outputs}, aaclip:: {nodes}")

@@ -48,7 +48,6 @@ from typing import Callable, Dict, List
 
 import torch
 
-from ..models import clip as clip_mod
 from ..models.convert import tree_leaves
 from ..ops import interp
 from ..utils.profiling import count, nan_checks_enabled, span
@@ -151,8 +150,7 @@ def _unflatten(args, flat: list) -> list:
 
 
 def _key(args) -> tuple:
-    """A capture's key: the structure, shapes and dtypes of ``args``, and
-    the attention route that ``models.clip.FUSED_ATTN`` picks."""
+    """A capture's key: the structure, shapes and dtypes of ``args``."""
     parts = []
     for a in args:
         if isinstance(a, (list, tuple)):
@@ -161,7 +159,7 @@ def _key(args) -> tuple:
             parts.append(None)
         else:
             parts.append((tuple(a.shape), a.dtype))
-    return tuple(parts) + (clip_mod.FUSED_ATTN,)
+    return tuple(parts)
 
 
 class _Capture:
@@ -278,8 +276,8 @@ class GraphedStep:
     signature and results: ``step(params, opt_state, frozen, *batch) ->
     (params, opt_state, loss)``, for the steps of ``train/steps.py``.
 
-    One graph per key: the batch's shapes and dtypes and ``FUSED_ATTN`` (the
-    step's ``grad_accum_steps`` and clipping are its own). A key is captured
+    One graph per key: the batch's shapes and dtypes (the step's
+    ``grad_accum_steps`` and clipping are its own). A key is captured
     at its first call, after a warm-up step whose effects on the parameters
     and the optimizer are undone (:func:`state_restored`), so that a run
     takes exactly the steps it takes eagerly. It is captured again when a

@@ -53,8 +53,11 @@ halves run on ``ln_swiglu_residual``, or on the stock chain: ``use_pallas=
 False`` or under autograd); for every unmasked vision block off the stock
 route (``use_pallas``) ``attn.proj_fused`` / ``attn.proj_chain`` (its attention
 half's LayerNorm and projections run on B8's front and back kernels, or on the
-chain). The model's counters count Python calls, so in a
-CUDA graph they count the warm-up and the capture, not the replays.
+chain); ``launches.<name>`` for each hand-written kernel's C entry
+``aaclip_<name>`` (``ops._build.Entry``; B4 and B6 share one entry, counted
+``launches.packed_attention_bwd`` and ``launches.packed_attention_vv_bwd``).
+These counters count Python calls, so in a CUDA graph they count the
+warm-up and the capture, not the replays.
 ``cli.serve`` answers ``GET /v1/stats`` with them.
 """
 from __future__ import annotations

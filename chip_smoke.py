@@ -111,63 +111,55 @@ line):
      graphs, with the native transforms on and off at 1 and 4 decode
      threads. Then the pixel metrics alone on random maps of the largest
      shipped class (3,714 images), for their time and peak memory;
-  7. training: run_training on a synthetic dataset of two classes written
-     at 600 px (resized to 518 by the native transforms), ViT-L-14-336 at
-     518 px, full depth, bf16 compute with float32 adapters: stage 1 for 2
-     steps at batch 16, the anchors, stage 2 for 3 steps at batch 8, every
-     feature batch and step a CUDA graph replay. Finite losses; each
-     graph's replay measured launching 43 B1 + 43 B2 + 24 of each of B8's
-     halves (stage-1 features: the blocks that are not value-value), 12 B2
-     (stage-1 step), 24 B1 + 24 B2 + 23 B4 + 23 B5 + one of each of B8's
-     halves (stage-2 step: block 0, which no gradient reaches); the
-     replays and the optimizers' step counters are the steps taken; every
-     trained tensor moved and every frozen one did not; a step checkpoint
-     of the graphed run restores bit for bit, and a resume from the one
-     after stage-2 step 1 captures anew and ends on the uninterrupted run's
-     adapters; the first stage-2 step's gradients from the replay against
-     the eager step, against the same step with the backward kernels
-     swapped for their plain versions (and for a planted fault that the
-     comparison must catch) and with every kernel swapped; checkpointed
-     blocks give the same loss; one stage-2 step with the fused attention
-     half-block (24 of it, 23 MLP dx, no attention backward kernel). Then,
-     from one snapshot of the trained adapters and optimizer, 3 replays of
-     a captured stage-2 step against 3 eager steps of the capturable
-     optimizer at accum 1 and 2, with patch dropout and on the fused route
-     (bit for bit where two eager runs agree bit for bit, else within
-     1e-3), replays on stale inputs that must fail that gate, the
-     capturable optimizer's update against the other's, and the same for
-     stage 1 at batch 16 (features, losses, text adapter, moments);
-     images/s of both stages on graphs and eagerly, and profiles of a
-     replayed and an eager step (idle share, pool size, peak memory);
-  8. fused attention (models.clip.FUSED_ATTN, AACLIP_FUSED_ATTN=1): a batch-8
-     request at 518 px (24 fused blocks per vision forward, no packed
-     attention), its map against the flag off and the twins, timings and a
-     profile; one no-grad stage-1 feature batch of 16 (43 fused blocks);
-  9. high resolution: AnomalyDetector at 1274 px (8,282 tokens, past the
+  7. training: run_training on a synthetic dataset of two classes written at
+     600 px (resized to 518 by the native transforms), ViT-L-14-336 at 518 px,
+     full depth, bf16 compute with float32 adapters: stage 1 for 2 steps at
+     batch 16, the anchors, stage 2 for 3 steps at batch 8, every feature
+     batch and step a CUDA graph replay. Finite losses; each graph's replay
+     measured launching 43 B1 + 43 B2 + 24 of each of B8's halves (stage-1
+     features: the blocks that are not value-value), 12 B2 (stage-1 step), 24
+     B1 + 24 B2 + 23 B4 + 23 B5 + one of each of B8's halves (stage-2 step:
+     block 0, which no gradient reaches); the replays and the optimizers' step
+     counters are the steps taken; every trained tensor moved and every frozen
+     one did not; a step checkpoint of the graphed run restores bit for bit,
+     and a resume from the one after stage-2 step 1 captures anew and ends on
+     the uninterrupted run's adapters; the first stage-2 step's gradients from
+     the replay against the eager step, against the same step with the
+     backward kernels swapped for their plain versions (and for a planted
+     fault that the comparison must catch) and with every kernel swapped;
+     checkpointed blocks give the same loss. Then, from one snapshot of the
+     trained adapters and optimizer, 3 replays of a captured stage-2 step
+     against 3 eager steps of the capturable optimizer at accum 1 and 2 and
+     with patch dropout (bit for bit where two eager runs agree bit for bit,
+     else within 1e-3), replays on stale inputs that must fail that gate, the
+     capturable optimizer's update against the other's, and the same for stage
+     1 at batch 16 (features, losses, text adapter, moments); images/s of both
+     stages on graphs and eagerly, and profiles of a replayed and an eager
+     step (idle share, pool size, peak memory);
+  8. high resolution: AnomalyDetector at 1274 px (8,282 tokens, past the
      packed kernel's 8,192): requests at batch 1 and 2 through the unpacked
      flash kernel (24 per vision forward, no packed attention), the batch-2
      map against the twins (and a planted fault), timings and a profile;
- 10. surgery backward: dual_vision_features at 518 px, batch 2, full depth,
+  9. surgery backward: dual_vision_features at 518 px, batch 2, full depth,
      differentiated to a float32 image: the value-value backward once per
      surgery block and the packed backward once per shared-prefix block; the
      input's and every tap's gradient against the same backward with the
      value-value kernel alone swapped for its plain version (and for a
      planted fault);
- 11. deploy: AnomalyDetector's per-bucket CUDA graphs against its eager
-     program (det._predict) on the same padded input, bit for bit expected
-     and held to 4e-2 (8e-2 for the int8 tiers): 518 px at batch 1, 8 and
-     a mixed-class 5, the fused attention half at batch 8, 1274 px at batch
-     2 and each int8 tier at batch 8, with the launches each replay runs; a
-     planted fault (a replay whose copy-in is skipped) must fail; graph and
-     eager images/s, p50 and idle share at batch 1 and 8; captures,
-     replays and the graphs' memory. Then export_predictor for bf16 at
-     buckets (1, 8) and the int8 tier at (8), each artifact loaded by
-     ExportedPredictor in a fresh python3 (this script with
+ 10. deploy: AnomalyDetector's per-bucket CUDA graphs against its eager
+     program (det._predict) on the same padded input, bit for bit expected and
+     held to 4e-2 (8e-2 for the int8 tiers): 518 px at batch 1, 8 and a
+     mixed-class 5, 1274 px at batch 2 and each int8 tier at batch 8, with the
+     launches each replay runs; a planted fault (a replay whose copy-in is
+     skipped) must fail; graph and eager images/s, p50 and idle share at batch
+     1 and 8; captures, replays and the graphs' memory. Then export_predictor
+     for bf16 at buckets (1, 8) and the int8 tier at (8), each artifact loaded
+     by ExportedPredictor in a fresh python3 (this script with
      --exported-child), held to the detector and counted launching the
      aaclip:: ops' CUDA implementations, with a planted fault (two classes'
-     anchors swapped) that must fail; and a short HTTP window of
-     cli.serve --exported (8 clients x 2 requests) against predict_multi;
- 12. tools: the measuring and inspecting entry points on the main path's
+     anchors swapped) that must fail; and a short HTTP window of cli.serve --exported (8 clients x 2
+     requests) against predict_multi;
+ 11. tools: the measuring and inspecting entry points on the main path's
      weights, in the process: the bench's latency mode (cli/bench.py
      measure_latency) at batch 1 and 8 on a detector's graphs, p50 and p95,
      each replay 24 B1 + 24 B2 + 24 of each of B8's halves (replay_launches),
@@ -183,7 +175,7 @@ line):
      train block at --accum 2 with finite losses; a stage-2 step under
      utils.profiling.enable_nan_checks, which must pass on a clean batch
      and raise FloatingPointError with one NaN pixel;
- 13. models: ViT-B-16-plus-240 (seeded, full width, bf16) encode_image at
+ 12. models: ViT-B-16-plus-240 (seeded, full width, bf16) encode_image at
      batch 8 at 240 px (12 B2 and 12 of each of B8's halves, no B1: 226
      tokens take the plain attention) and 512 px (12 B1 + 12 B2 and the
      halves), text_forward over MVTec's prompts (12 B2),
@@ -191,11 +183,11 @@ line):
      cuDNN held to its float32 forward, its text tower (12 B2 at width 512)
      held to the stock route, and the same weights as an OpenAI RN .pt
      through the converter, bit for bit; images/s of each;
- 14. repo tools: the port's int8_outlier_study --size flagship (every row
+ 13. repo tools: the port's int8_outlier_study --size flagship (every row
      landed), parity_run --random_backbone at 518 px (exit 0 on the default
      table, 1 on a shifted one, the int8 tier), and the three probes at
      their shapes, every B9 variant landed;
- 15. serve: the main path's seeded ViT-L-14-336 weights at their native
+ 14. serve: the main path's seeded ViT-L-14-336 weights at their native
      336 px grid written as an OpenAI-layout fp16 .pt, and seeded adapters
      written by the trainer's checkpoint writer and as the reference's
      text_adapter.pth / image_adapter_3.pth (imported back bit for bit);
@@ -214,7 +206,7 @@ line):
      under the profiler;
      cli.single_image zero-shot (B1 in value-value mode) and from the
      checkpoint, each saved map against the same computation done directly;
- 16. parallel (the port's multi-GPU paths, parallel/, on the one card, at
+ 15. parallel (the port's multi-GPU paths, parallel/, on the one card, at
      ViT-L-14-336, 518 px, full width and depth, bf16, seeded weights):
      (a) a world-size-1 NCCL process group in this process, 3 stage-2 steps
      at batch 8 on its mesh replayed from a captured graph (the gradient
@@ -250,8 +242,9 @@ must run the port's device kernels that the eager program runs on the
 graph's buffers, as many times each, and the counters count the eager
 run's launches (replay_launches); a request's launches are then its
 graphs' replays times that (graph_request). Comparisons with the plain
-twins run the eager program. Launch counts are set to 0 before each driven
-path and read after it; the kernels' "launches" are the counters' totals,
+twins run the eager program. Launch counts (the ``launches.*`` counters
+that ops._build.Entry keeps) are set to 0 before each driven path and read
+after it; the kernels' "launches" are the counters' totals,
 replays not included. The second-to-last line is a JSON object with one
 entry per kernel; the last line is {"ok": true, "device": {...}}.
 """
@@ -608,35 +601,24 @@ def planted(what, fault, ref, base=None):
     require(not bf16_close(fault, ref, base), f"check missed planted fault: {what}")
 
 
-def reset_counts():
-    from aa_clip_iqm_tpu_torch.ops import attn_block, flash_attention, fused_mlp, rope, swiglu
-    from aa_clip_iqm_tpu_torch.ops import packed_attention as pa
+# The counters' values at the last reset_counts, from which read_counts counts.
+_COUNTS_ZERO = {}
 
-    pa.reset_launches()
-    fused_mlp.reset_launches()
-    flash_attention.reset_launches()
-    attn_block.reset_launches()
-    swiglu.reset_launches()
-    rope.reset_launches()
+
+def reset_counts():
+    from aa_clip_iqm_tpu_torch.utils import profiling
+
+    _COUNTS_ZERO.clear()
+    _COUNTS_ZERO.update(profiling.counters())
 
 
 def read_counts():
-    from aa_clip_iqm_tpu_torch.ops import attn_block, flash_attention, fused_mlp, rope, swiglu
-    from aa_clip_iqm_tpu_torch.ops import packed_attention as pa
+    """Each kernel's launches since reset_counts: the difference of its
+    ``launches.<name>`` counter (ops._build.Entry)."""
+    from aa_clip_iqm_tpu_torch.ops import _build
 
-    return {"packed_attention": pa.LAUNCHES, "ln_mlp_residual": fused_mlp.LAUNCHES,
-            "ln_mlp_residual_int8": fused_mlp.INT8_LAUNCHES,
-            "packed_attention_bwd": pa.BWD_LAUNCHES,
-            "ln_mlp_residual_dx": fused_mlp.DX_LAUNCHES,
-            "packed_attention_vv_bwd": pa.VV_BWD_LAUNCHES,
-            "flash_attention": flash_attention.LAUNCHES,
-            "ln_attn_residual": attn_block.LAUNCHES,
-            "ln_mlp_residual_int8_probe": fused_mlp.PROBE_LAUNCHES,
-            "ln_swiglu_residual": swiglu.LAUNCHES,
-            "ln_swiglu_residual_layer_norm": swiglu.LN_LAUNCHES,
-            "rope_qk": rope.LAUNCHES,
-            "ln_attn_residual_front": attn_block.FRONT_LAUNCHES,
-            "ln_attn_residual_back": attn_block.BACK_LAUNCHES}
+    launched = _build.launches(_COUNTS_ZERO)
+    return {n: launched.get(n, 0) for n in KERNELS}
 
 
 def diff_counts(after, before):
@@ -685,12 +667,9 @@ def replay_launches(det, key):
     device kernels that the eager program runs on the graph's own buffers,
     each as many times, and the counters count the eager run's launches (a
     replay moves no counter)."""
-    from aa_clip_iqm_tpu_torch.models import clip as clip_mod
-
     g = det._graphs[key]
     if g in _PER_REPLAY:
         return _PER_REPLAY[g]
-    require(key[2] == clip_mod.FUSED_ATTN, f"graph {key}: FUSED_ATTN has changed")
     # The profiler now and then loses a few kernel records of a run, so a
     # disagreement is measured again, up to three times in all.
     for attempt in range(3):
@@ -734,8 +713,8 @@ def log_graphs(det, what):
     stats = det.graph_stats()
     for key, g in zip(list(det._graphs), stats):      # graph_stats() keeps their order
         per = {k: v for k, v in replay_launches(det, key).items() if v}
-        log(f"# graphs, {what}: bucket {g['bucket']} {g['dtype']} fused_attn "
-            f"{g['fused_attn']}: 1 capture ({g['capture_s']:.2f} s with its warm-up, the "
+        log(f"# graphs, {what}: bucket {g['bucket']} {g['dtype']}: 1 capture "
+            f"({g['capture_s']:.2f} s with its warm-up, the "
             f"pool grown by {g['pool_bytes'] / 1e9:.3f} GB), {g['replays']} replays, "
             f"launches per replay {per} (measured)")
     log(f"# graphs, {what}: {len(stats)} graphs holding {det.graph_memory() / 1e9:.3f} GB "
@@ -1889,10 +1868,10 @@ def phase_attn_halves():
         x = rnd(batch, tokens, d).to(bf16)
         o = rnd(batch, tokens, d).to(bf16)
         what = f"B={batch} L={tokens} d={d}"
-        before = (ab.FRONT_LAUNCHES, ab.BACK_LAUNCHES)
+        before = read_counts()
         qkv = ab.ln_attn_front(ln, qkv_p, x)
         y = ab.ln_attn_back(out_p, o, x)
-        require((ab.FRONT_LAUNCHES, ab.BACK_LAUNCHES) == (before[0] + 1, before[1] + 1),
+        require(diff_counts(read_counts(), before) == counts_of(**halves(1)),
                 f"B8's halves, {what}: the counters did not count one launch each")
         require(qkv.shape == (batch, tokens, 3 * d) and y.shape == x.shape,
                 f"B8's halves, {what}: qkv {tuple(qkv.shape)}, y {tuple(y.shape)}")
@@ -2018,17 +1997,6 @@ def block_no_out_bias(ln, attn_p, x, num_heads, vv=False, valid_len=None, eps=1e
     no_bias = {"qkv": attn_p["qkv"], "out": {"w": attn_p["out"]["w"],
                                              "b": torch.zeros_like(attn_p["out"]["b"])}}
     return ln_attn_residual_reference(ln, no_bias, x, num_heads, vv, valid_len, eps)
-
-
-def block_scale_dropped(ln, attn_p, x, num_heads, vv=False, valid_len=None, eps=1e-5):
-    """Planted fault for the fused-attention map: the B8 twin without the
-    1/sqrt(hd) scale of the scores."""
-    from aa_clip_iqm_tpu_torch.ops.layers import layer_norm, linear
-    from aa_clip_iqm_tpu_torch.ops.packed_attention import flash_mha_packed_reference
-
-    qkv = linear(attn_p["qkv"], layer_norm(ln, x, eps=eps))
-    out = flash_mha_packed_reference(qkv, num_heads, 1.0, vv, valid_len)
-    return x + linear(attn_p["out"], out)
 
 
 def block_q_from_q_section(ln, attn_p, x, num_heads, eps=1e-5):
@@ -2237,10 +2205,10 @@ class _Twins:
     Autograd differentiates the twins themselves, so the backward kernels
     are out of the way too."""
 
-    def __init__(self, attn=None, mlp=None, mlp_int8=None, flash=None, block=None,
-                 keep_attn=False, rope=None, front=None, back=None):
+    def __init__(self, attn=None, mlp=None, mlp_int8=None, flash=None, keep_attn=False,
+                 rope=None, front=None, back=None):
         self._attn, self._mlp, self._mlp_int8 = attn, mlp, mlp_int8
-        self._flash, self._block, self._rope = flash, block, rope
+        self._flash, self._rope = flash, rope
         self._front, self._back = front, back
         self._keep_attn = keep_attn          # leave B1 on its kernel
         self._eager = _Eager()               # a graph replay would keep the kernels
@@ -2251,10 +2219,10 @@ class _Twins:
         from aa_clip_iqm_tpu_torch.ops import layers, rope, swiglu
 
         self._eager.__enter__()
-        self._saved = (attention.flash_mha_packed, attention.flash_mha, clip.ln_attn_residual,
-                       clip.ln_mlp_residual, clip.ln_mlp_residual_int8,
-                       clip.ln_mlp_residual_frozen, clip.layer_norm_rows, clip.rope_qk,
-                       clip.ln_swiglu_residual, clip.ln_attn_front, clip.ln_attn_back)
+        self._saved = (attention.flash_mha_packed, attention.flash_mha, clip.ln_mlp_residual,
+                       clip.ln_mlp_residual_int8, clip.ln_mlp_residual_frozen,
+                       clip.layer_norm_rows, clip.rope_qk, clip.ln_swiglu_residual,
+                       clip.ln_attn_front, clip.ln_attn_back)
         # EVA-02's block: its LayerNorm pass, rotation and MLP half.
         clip.layer_norm_rows = layers.layer_norm
         clip.rope_qk = self._rope or rope.rope_qk_reference
@@ -2264,7 +2232,6 @@ class _Twins:
                                           or packed_attention.flash_mha_packed_reference)
         # flash_mha's plain twin, fallbacks included, is the plain sdpa.
         attention.flash_mha = self._flash or attention.sdpa
-        clip.ln_attn_residual = self._block or attn_block.ln_attn_residual_reference
         # B8's halves, which the blocks run around B1 or B7 at inference.
         clip.ln_attn_front = self._front or attn_block.ln_attn_front_reference
         clip.ln_attn_back = self._back or attn_block.ln_attn_back_reference
@@ -2278,8 +2245,8 @@ class _Twins:
         from aa_clip_iqm_tpu_torch.models import clip
         from aa_clip_iqm_tpu_torch.ops import attention
 
-        (attention.flash_mha_packed, attention.flash_mha, clip.ln_attn_residual,
-         clip.ln_mlp_residual, clip.ln_mlp_residual_int8, clip.ln_mlp_residual_frozen,
+        (attention.flash_mha_packed, attention.flash_mha, clip.ln_mlp_residual,
+         clip.ln_mlp_residual_int8, clip.ln_mlp_residual_frozen,
          clip.layer_norm_rows, clip.rope_qk, clip.ln_swiglu_residual, clip.ln_attn_front,
          clip.ln_attn_back) = self._saved
         self._eager.__exit__(*exc)
@@ -2509,8 +2476,8 @@ def phase_eva02(card):
     layers = cfg.clip.vision.layers
     log(f"# EVA-02: {EVA_MODEL} @ {IMG}px, hidden {cfg.clip.vision.mlp_hidden}, random weights "
         f"in {time.perf_counter() - t0:.1f} s")
-    reset_counts()
     profiling.reset_counters()
+    reset_counts()
     det = AnomalyDetector(frozen, trainable, cfg, "MVTec", img_size=IMG,
                           compute_dtype=bf16, batch_buckets=(EVA_B,), device=DEVICE)
     torch.cuda.synchronize()
@@ -3575,96 +3542,67 @@ def phase_train(card, cfg, frozen):
     require(abs(loss_r - loss_a) <= 1e-3 * abs(loss_a), "remat changes the loss")
     require(g_rel <= 1e-3, "remat changes the gradients")
 
-    # The first stage-2 step with the fused attention half-block
-    # (AACLIP_FUSED_ATTN=1): 24 of it forward, its backward the plain chain
-    # (as in JAX), so no attention backward kernel; the MLP dx kernel as
-    # before. Its gradients against the kernel route with the flag off.
-    clip.FUSED_ATTN = True
-    try:
-        reset = read_counts()
-        loss_fz, g_fz = grads_through(contextlib.nullcontext(), remat=False)
-        fused_counts = diff_counts(read_counts(), reset)
-    finally:
-        clip.FUSED_ATTN = False
-    fz_rel = max(rel(a, b) for name, a, b in zip(names, g_fz, g_again)
-                 if name.startswith(upstream) and a is not None)
-    log(f"# training, the first stage-2 step with the fused attention half: loss {loss_fz:.5f} "
-        f"(flag off {s2[0]['loss']:.5f}), adapters of blocks 0-5 against the flag off: worst rms "
-        f"diff / rms {fz_rel:.3e} (tol {GRAD_TOL:.0e}); launches {fused_counts}")
-    require(np.isfinite(loss_fz), "the fused stage-2 loss is not finite")
-    require(fused_counts == counts_of(ln_attn_residual=layers, ln_mlp_residual=layers,
-                                      ln_mlp_residual_dx=layers - 1),
-            f"fused stage-2 step launches {fused_counts}")
-    require(fz_rel <= GRAD_TOL, f"fused stage-2 gradients differ by {fz_rel}")
-    add_counts(counts, fused_counts)
-    del g_again, g_bwd, g_plain, g_fault, g_a, g_b, g_fz, record, first
+    del g_again, g_bwd, g_plain, g_fault, g_a, g_b, record, first
     torch.cuda.empty_cache()
 
     # Stage 2 from one snapshot (run_training's adapters and optimizer after
     # its 3 steps): 3 replays of a captured step against 3 eager steps of the
-    # capturable optimizer (and 3 again, for the gate), at accum 1 and 2,
-    # with patch dropout and on the fused route; the eager step against the
-    # optimizer that is not capturable; a replay on stale inputs.
+    # capturable optimizer (and 3 again, for the gate), at accum 1 and 2 and
+    # with patch dropout; the eager step against the optimizer that is not
+    # capturable; a replay on stale inputs.
     batches = stage2_batches(cfg, anchors)
     cfg_drop = replace(cfg, clip=replace(cfg.clip, vision=replace(cfg.clip.vision,
                                                                   patch_dropout=0.25)))
     deterministic = {}
-    for label, model, accum, fused in (("accum 1", cfg, 1, False), ("accum 2", cfg, 2, False),
-                                       ("patch dropout 0.25", cfg_drop, 1, False),
-                                       ("fused attention", cfg, 1, True)):
-        clip.FUSED_ATTN = fused
-        try:
-            reset = read_counts()
-            eager, _, _, _ = stage2_block(model, frozen, s2_snap, batches, "eager", accum)
-            again, _, _, _ = stage2_block(model, frozen, s2_snap, batches, "eager", accum)
-            replayed, gstep, gopt, gparams = stage2_block(model, frozen, s2_snap, batches,
-                                                          "graph", accum)
-            add_counts(counts, diff_counts(read_counts(), reset))
-            (cap,) = gstep.graphs.values()
-            per = graph_launches(cap, f"stage 2, {label}",
-                                 lambda: graphs.state_restored(gparams, gopt))
-            k = 2 if accum == 2 else 1
-            attn = {"ln_attn_residual": k * layers} if fused else {
-                "packed_attention": k * layers, "packed_attention_bwd": k * (layers - 1),
-                **halves(k)}
-            want_per = counts_of(ln_mlp_residual=k * layers, ln_mlp_residual_dx=k * (layers - 1),
-                                 **attn)
-            require(per == want_per, f"stage 2, {label}: a replay launched {per}, want "
-                    f"{want_per}")
-            fault = None
-            if label == "accum 1":
-                fault, _, _, _ = stage2_block(model, frozen, s2_snap, batches, "graph", accum,
-                                              stale=True)
-            deterministic[label] = hold_replays(
-                f"training, stage 2 at batch {B}, {label}, 3 steps from one snapshot (each "
-                f"replay {per})", replayed, eager, again, fault)
-            log(f"#   stage 2, {label}: capture {cap.capture_s:.2f} s (warm-up included), "
-                f"pool {gstep.cache.memory() / 1e9:.2f} GB")
-            if label == "accum 1":
-                # One eager step against the optimizer that is not capturable
-                # (float learning rates, step counters on the host): the same
-                # loss, the updated tensors within float32 rounding.
-                plain, _, _, _ = stage2_block(model, frozen, s2_snap, batches, "plain", n=1)
-                one, _, _, _ = stage2_block(model, frozen, s2_snap, batches, "eager", n=1)
-                n_params = len(s2_snap["params"])
-                pairs = list(zip(one[1:1 + n_params], plain[1:1 + n_params],
-                                 s2_snap["params"]))
-                err = max(update_err(a, b, s) for a, b, s in pairs)
-                differ = sum(int((a != b).sum()) for a, b, _ in pairs)
-                log(f"# training, stage 2, the capturable optimizer against the one that is "
-                    f"not: loss {'equal' if torch.equal(one[0], plain[0]) else 'differs'} "
-                    f"({float(one[0]):.6f} and {float(plain[0]):.6f}); {differ} of "
-                    f"{sum(a.numel() for a, _, _ in pairs)} updated elements differ, by at "
-                    f"most {err:.3e} of their update beyond two float32 roundings (tol "
-                    f"{UPDATE_TOL:.0e})")
-                require(torch.equal(one[0], plain[0]) or not deterministic.get("accum 1", True),
-                        "the two optimizers' steps start from different losses")
-                require(err <= UPDATE_TOL, f"the capturable optimizer's update differs by {err}")
-                profile_call(lambda: gstep(gparams, gopt, frozen, *batches[0], None),
-                             f"one stage-2 step at batch {B}, graph replay")
-            del eager, again, replayed, gstep, gopt, gparams, cap, fault
-        finally:
-            clip.FUSED_ATTN = False
+    for label, model, accum in (("accum 1", cfg, 1), ("accum 2", cfg, 2),
+                                ("patch dropout 0.25", cfg_drop, 1)):
+        reset = read_counts()
+        eager, _, _, _ = stage2_block(model, frozen, s2_snap, batches, "eager", accum)
+        again, _, _, _ = stage2_block(model, frozen, s2_snap, batches, "eager", accum)
+        replayed, gstep, gopt, gparams = stage2_block(model, frozen, s2_snap, batches,
+                                                      "graph", accum)
+        add_counts(counts, diff_counts(read_counts(), reset))
+        (cap,) = gstep.graphs.values()
+        per = graph_launches(cap, f"stage 2, {label}",
+                             lambda: graphs.state_restored(gparams, gopt))
+        k = 2 if accum == 2 else 1
+        want_per = counts_of(ln_mlp_residual=k * layers, ln_mlp_residual_dx=k * (layers - 1),
+                             packed_attention=k * layers,
+                             packed_attention_bwd=k * (layers - 1), **halves(k))
+        require(per == want_per, f"stage 2, {label}: a replay launched {per}, want "
+                f"{want_per}")
+        fault = None
+        if label == "accum 1":
+            fault, _, _, _ = stage2_block(model, frozen, s2_snap, batches, "graph", accum,
+                                          stale=True)
+        deterministic[label] = hold_replays(
+            f"training, stage 2 at batch {B}, {label}, 3 steps from one snapshot (each "
+            f"replay {per})", replayed, eager, again, fault)
+        log(f"#   stage 2, {label}: capture {cap.capture_s:.2f} s (warm-up included), "
+            f"pool {gstep.cache.memory() / 1e9:.2f} GB")
+        if label == "accum 1":
+            # One eager step against the optimizer that is not capturable
+            # (float learning rates, step counters on the host): the same
+            # loss, the updated tensors within float32 rounding.
+            plain, _, _, _ = stage2_block(model, frozen, s2_snap, batches, "plain", n=1)
+            one, _, _, _ = stage2_block(model, frozen, s2_snap, batches, "eager", n=1)
+            n_params = len(s2_snap["params"])
+            pairs = list(zip(one[1:1 + n_params], plain[1:1 + n_params],
+                             s2_snap["params"]))
+            err = max(update_err(a, b, s) for a, b, s in pairs)
+            differ = sum(int((a != b).sum()) for a, b, _ in pairs)
+            log(f"# training, stage 2, the capturable optimizer against the one that is "
+                f"not: loss {'equal' if torch.equal(one[0], plain[0]) else 'differs'} "
+                f"({float(one[0]):.6f} and {float(plain[0]):.6f}); {differ} of "
+                f"{sum(a.numel() for a, _, _ in pairs)} updated elements differ, by at "
+                f"most {err:.3e} of their update beyond two float32 roundings (tol "
+                f"{UPDATE_TOL:.0e})")
+            require(torch.equal(one[0], plain[0]) or not deterministic.get("accum 1", True),
+                    "the two optimizers' steps start from different losses")
+            require(err <= UPDATE_TOL, f"the capturable optimizer's update differs by {err}")
+            profile_call(lambda: gstep(gparams, gopt, frozen, *batches[0], None),
+                         f"one stage-2 step at batch {B}, graph replay")
+        del eager, again, replayed, gstep, gopt, gparams, cap, fault
         torch.cuda.empty_cache()
 
     # A resume of the graphed run from its step checkpoint after stage-2
@@ -3745,75 +3683,6 @@ def phase_train(card, cfg, frozen):
         "activations for as long as the graph lives: the pool sizes above)")
     shutil.rmtree(root, ignore_errors=True)
     return counts
-
-
-def phase_fused(card, ctx):
-    """The fused attention half-block on its two no-grad paths
-    (models.clip.FUSED_ATTN, as AACLIP_FUSED_ATTN=1 sets it at import): a
-    batch-8 request at 518 px and one stage-1 feature batch of 16."""
-    import numpy as np
-    import torch
-
-    from aa_clip_iqm_tpu_torch.models import clip
-    from aa_clip_iqm_tpu_torch.train import steps
-
-    cfg, frozen, det, imgs8 = ctx["cfg"], ctx["frozen"], ctx["det"], ctx["imgs8"]
-    layers = cfg.clip.vision.layers
-    vv_blocks = layers - clip.surgery_vv_from(layers, cfg.surgery_until_layer)
-    total = dict.fromkeys(KERNELS, 0)
-    clip.FUSED_ATTN = True
-    try:
-        reset_counts()
-        (maps, scores), ran = graph_request(det, lambda: det.predict(imgs8, "screw"))
-        log(f"# fused attention, batch-8 request: maps in [{maps.min():.4f}, {maps.max():.4f}], "
-            f"launches {ran} (graph replay)")
-        ctx["check"](maps, scores, B, "fused attention request")
-        require(ran == counts_of(ln_attn_residual=layers, ln_mlp_residual=layers),
-                f"fused attention request: launches {ran}")
-        add_counts(total, read_counts())
-        rel_twins = map_diff(maps, ctx["maps_twins"])
-        rel_off = map_diff(maps, ctx["maps_bf16"])
-        log(f"# fused attention vs the twins, batch 8 map: rms diff / std {rel_twins:.3e} "
-            f"(tol {MAP_TOL:.0e}); vs the flag off (B1 chain) {rel_off:.3e} (tol {MAP_TOL:.0e})")
-        require(rel_twins <= MAP_TOL, f"fused map differs from the twins' by {rel_twins}")
-        require(rel_off <= MAP_TOL, f"fused map differs from the flag off by {rel_off}")
-        # (The random backbone's biases are zero, so dropping one is no fault
-        # here; the kernels phase plants that one on random biases.)
-        with _Twins(block=block_scale_dropped):
-            rel_f = map_diff(det.predict(imgs8, "screw")[0], ctx["maps_twins"])
-        log(f"# planted fault, B8 without its 1/sqrt(hd) scale, batch 8 map: rms diff / std "
-            f"{rel_f:.3e}")
-        require(rel_f > MAP_TOL, "map comparison missed the planted fault in B8")
-        time_requests(det, imgs8, card, "fused attention (AACLIP_FUSED_ATTN=1)")
-        profile_request(det, imgs8)
-
-        # One stage-1 batch of 16: the no-grad dual tower, the surgery blocks
-        # included, all through the fused block.
-        rng = np.random.default_rng(31)
-        images = torch.from_numpy(rng.standard_normal((16, 3, IMG, IMG)).astype(np.float32)).cuda()
-        features = steps.make_stage1_visual_fn(cfg, compute_dtype=torch.bfloat16)
-        reset_counts()
-        t0 = time.perf_counter()
-        feats = features(frozen, images)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        got = read_counts()
-        n_fused = 2 * layers - (layers - vv_blocks)
-        log(f"# fused attention, stage-1 feature batch of 16: {len(feats)} levels in "
-            f"{seconds * 1e3:.1f} ms (first call), launches {got}")
-        require(got == counts_of(ln_attn_residual=n_fused, ln_mlp_residual=n_fused),
-                f"fused stage-1 batch: launches {got}, want {n_fused} fused blocks")
-        require(all(torch.isfinite(f).all().item() and f.shape == (16, TOKENS - 1, cfg.clip.embed_dim)
-                    for f in feats), "fused stage-1 features")
-        add_counts(total, got)
-    finally:
-        clip.FUSED_ATTN = False
-    feats_off = features(frozen, images)
-    rel = max(float((a.float() - b.float()).square().mean().sqrt()
-                    / b.float().square().mean().sqrt()) for a, b in zip(feats, feats_off))
-    log(f"# fused attention, stage-1 features vs the flag off: worst rms diff / rms {rel:.3e} "
-        f"(not held)")
-    return total
 
 
 def phase_highres(card, ctx):
@@ -4455,8 +4324,8 @@ def exported_child(artifact, inputs, out):
 
 def phase_deploy(card, ctx):
     """Deploying the port: per-bucket CUDA graphs against the eager program
-    (518 px at batch 1, 8 and a mixed-class 5, the fused attention half at
-    batch 8, 1274 px at batch 2, each int8 tier at batch 8), with a planted
+    (518 px at batch 1, 8 and a mixed-class 5, 1274 px at batch 2, each int8
+    tier at batch 8), with a planted
     fault (a replay whose copy-in is skipped); graph and eager timed and
     profiled at batch 1 and 8; the bf16 program exported at buckets (1, 8)
     and the int8 tier's at (8), each artifact loaded in a fresh python3
@@ -4471,7 +4340,6 @@ def phase_deploy(card, ctx):
 
     from aa_clip_iqm_tpu_torch.cli import serve as serve_cli
     from aa_clip_iqm_tpu_torch.data.datasets import normalize_clip
-    from aa_clip_iqm_tpu_torch.models import clip
     from aa_clip_iqm_tpu_torch.serving import (AnomalyDetector, MicroBatchingService,
                                                export_predictor)
 
@@ -4496,12 +4364,6 @@ def phase_deploy(card, ctx):
                                            MAP_TOL)
     graph_vs_eager(det, u8(5), [classes[i % 3] for i in range(5)],
                    "518 px mixed-class batch 5 (bucket 8)", MAP_TOL)
-    clip.FUSED_ATTN = True
-    try:
-        _, per_replay["fused"] = graph_vs_eager(det, imgs8, ["screw"] * B,
-                                                "518 px batch 8, AACLIP_FUSED_ATTN=1", MAP_TOL)
-    finally:
-        clip.FUSED_ATTN = False
     _, per_replay["1274px"] = graph_vs_eager(ctx["det_hr"], ctx["imgs_hr"], ["screw"] * 2,
                                              "1274 px batch 2", MAP_TOL)
     for tier, tdet in ctx["det_tiers"].items():
@@ -4509,7 +4371,6 @@ def phase_deploy(card, ctx):
                                              f"tier {tier} batch 8", INT8_MAP_TOL)
     want = {"bf16": counts_of(packed_attention=layers, ln_mlp_residual=layers,
                               **halves(layers)),
-            "fused": counts_of(ln_attn_residual=layers, ln_mlp_residual=layers),
             "1274px": counts_of(flash_attention=layers, ln_mlp_residual=layers,
                                 **halves(layers)),
             "int8": counts_of(packed_attention=layers, ln_mlp_residual_int8=layers),
@@ -4521,7 +4382,7 @@ def phase_deploy(card, ctx):
 
     # The planted fault: the batch-8 graph replayed on the previous
     # request's images.
-    graph = det._graphs[(B, torch.uint8, False)]
+    graph = det._graphs[(B, torch.uint8)]
     other = u8(B)
     det.predict(imgs8, "screw")
     real, graph.images = graph.images, _NoCopy()
@@ -4724,7 +4585,6 @@ def phase_tools(card, ctx):
     from aa_clip_iqm_tpu_torch.data.datasets import _use_native
     from aa_clip_iqm_tpu_torch.evaluation.predict import make_predict_fn
     from aa_clip_iqm_tpu_torch.loader import init_trainable
-    from aa_clip_iqm_tpu_torch.models import clip as clip_mod
     from aa_clip_iqm_tpu_torch.serving import AnomalyDetector
     from aa_clip_iqm_tpu_torch.tools import trace_summary
     from aa_clip_iqm_tpu_torch.train import optim, steps
@@ -4744,7 +4604,7 @@ def phase_tools(card, ctx):
     for b in (1, B):
         images = [rng.standard_normal((b, 3, IMG, IMG)).astype(np.float32) for _ in range(4)]
         lat, ran = graph_request(det, lambda: bench.measure_latency(det, images, "screw"))
-        per = replay_launches(det, (b, torch.float32, clip_mod.FUSED_ATTN))
+        per = replay_launches(det, (b, torch.float32))
         require(per == per_forward, f"latency b{b}: a replay launched {per}, want {per_forward}")
         replays = ran["packed_attention"] // layers
         require(replays == bench.LATENCY_CALLS + 1, f"latency b{b}: {replays} replays")
@@ -5492,7 +5352,7 @@ def parallel_child(rank, root):
 
 def phase_parallel(card):
     """The port's multi-GPU paths on the one card (module docstring, phase
-    16). Returns the launches of the children's parallel paths."""
+    15). Returns the launches of the children's parallel paths."""
     import tempfile
 
     root = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
@@ -5560,7 +5420,6 @@ def main():
         add_counts(launches, eva_launches)
         add_counts(launches, phase_int8_tiers(card, ctx))
         add_counts(launches, phase_sweep(card, ctx))
-        add_counts(launches, phase_fused(card, ctx))
         add_counts(launches, phase_highres(card, ctx))
         add_counts(launches, phase_surgery_backward(ctx))
         add_counts(launches, phase_deploy(card, ctx))

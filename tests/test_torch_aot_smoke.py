@@ -18,9 +18,9 @@ def test_flagship_program_exports_on_meta(program):
 
 def test_a_wrong_count_fails():
     """The tool's check bites: a program held to other node counts fails."""
-    name, img, batch, quantize, fused, want = aot_smoke.PROGRAMS[2]
+    name, img, batch, quantize, want = aot_smoke.PROGRAMS[0]
     with pytest.raises(AssertionError):
-        aot_smoke.run(((name, img, batch, quantize, fused, {**want, "ln_attn_residual": 23}),),
+        aot_smoke.run(((name, img, batch, quantize, {**want, "ln_attn_front": 23}),),
                       log=lambda _: None)
 
 

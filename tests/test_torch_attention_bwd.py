@@ -13,7 +13,9 @@ import pytest
 import torch
 
 from aa_clip_iqm_tpu.ops import pallas_attention as jpa
+from aa_clip_iqm_tpu_torch.ops import _build
 from aa_clip_iqm_tpu_torch.ops import packed_attention as pa
+from aa_clip_iqm_tpu_torch.utils import profiling
 
 HEADS, HD = 2, 64
 SCALE = HD ** -0.5
@@ -75,11 +77,11 @@ def test_function_backward_matches_autograd_of_the_twin(vv, seq_len, valid_len):
     (ref,) = torch.autograd.grad(
         pa.flash_mha_packed_reference(t, HEADS, SCALE, vv, valid_len), t,
         torch.from_numpy(g))
-    pa.reset_launches()
+    before = profiling.counters()
     out = pa.flash_mha_packed(t, HEADS, SCALE, vv=vv, valid_len=valid_len)
     assert out.grad_fn is not None
     (got,) = torch.autograd.grad(out, t, torch.from_numpy(g))
-    assert (pa.LAUNCHES, pa.BWD_LAUNCHES) == (0, 0)
+    assert _build.launches(before) == {}
     np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=RTOL, atol=ATOL)
 
 
@@ -201,7 +203,7 @@ def test_function_saves_lse(vv):
     plain backward), bit for bit; no kernel launches."""
     qkv, g = _inputs(21, 130, batch=2)
     t = torch.from_numpy(qkv).requires_grad_(True)
-    pa.reset_launches()
+    before = profiling.counters()
     out = pa.flash_mha_packed(t, HEADS, SCALE, vv=vv, valid_len=100)
     saved = out.grad_fn.saved_tensors
     assert len(saved) == 2 and torch.equal(saved[0], t.detach())
@@ -210,7 +212,7 @@ def test_function_saves_lse(vv):
     want = pa.flash_mha_packed_bwd_reference(t.detach(), torch.from_numpy(g), HEADS, SCALE,
                                              vv, 100)
     assert torch.equal(got, want)
-    assert (pa.LAUNCHES, pa.BWD_LAUNCHES, pa.VV_BWD_LAUNCHES) == (0, 0, 0)
+    assert _build.launches(before) == {}
 
 
 def test_surgery_tower_gradient_matches_jax():
@@ -251,9 +253,9 @@ def test_surgery_tower_gradient_matches_jax():
 
     ref = np.asarray(jax.grad(jloss)(jnp.asarray(images)))
     img = torch.from_numpy(images).requires_grad_(True)
-    pa.reset_launches()
+    before = profiling.counters()
     pooled, taps = tclip.dual_vision_features(tparams["visual"], tcfg.clip.vision, img, levels,
                                               vv_from)
     (pooled.square().sum() + sum(t.square().sum() for t in taps)).backward()
-    assert (pa.LAUNCHES, pa.BWD_LAUNCHES, pa.VV_BWD_LAUNCHES) == (0, 0, 0)
+    assert _build.launches(before) == {}
     np.testing.assert_allclose(img.grad.numpy(), ref, rtol=0, atol=2e-5 * np.abs(ref).max())

@@ -15,11 +15,13 @@ import torch
 
 from aa_clip_iqm_tpu.ops import pallas_attention as jpa
 from aa_clip_iqm_tpu.ops import pallas_attn_block as jpb
+from aa_clip_iqm_tpu_torch.ops import _build
 from aa_clip_iqm_tpu_torch.ops import attn_block as tpb
 from aa_clip_iqm_tpu_torch.ops import gemm as tgemm
 from aa_clip_iqm_tpu_torch.ops import layers as tlayers
 from aa_clip_iqm_tpu_torch.ops import packed_attention as tpa
 from aa_clip_iqm_tpu_torch.ops.compare import bf16_close, bf16_error
+from aa_clip_iqm_tpu_torch.utils import profiling
 
 TOL = 0.06
 
@@ -79,10 +81,10 @@ def test_matches_jax_kernel(b, l, d, heads, vv, valid):
     x = _x(b + l, b, l, d)
     ref = jpb.ln_attn_residual(_jax(ln), _jax(attn), jnp.asarray(x, jnp.bfloat16), heads,
                                vv, valid)
-    tpb.reset_launches()
+    before = profiling.counters()
     out = tpb.ln_attn_residual(_torch(ln), _torch(attn),
                                torch.from_numpy(x).to(torch.bfloat16), heads, vv, valid)
-    assert tpb.LAUNCHES == 0 and out.dtype == torch.bfloat16
+    assert _build.launches(before) == {} and out.dtype == torch.bfloat16
     n = valid if valid is not None else l
     np.testing.assert_allclose(out.float().numpy()[:, :n], np.asarray(ref, np.float32)[:, :n],
                                rtol=TOL, atol=TOL)
@@ -129,47 +131,6 @@ def test_gate_mirrors_jax():
     assert jpb.ln_attn_residual_ok(jnp.zeros((2, 128, 128), jnp.bfloat16), ja, 2)
     assert not jpb.ln_attn_residual_ok(jnp.zeros((2, 130, 128), jnp.bfloat16), ja, 2)
     assert tpb.ln_attn_residual_ok(torch.zeros((2, 130, 128), dtype=torch.bfloat16), ta, 2)
-
-
-@pytest.mark.parametrize("vv", [False, True])
-def test_run_block_fused_matches_jax(vv, monkeypatch):
-    """_run_block with FUSED_ATTN on in both packages takes the fused branch
-    on both sides and gives JAX's block output."""
-    from aa_clip_iqm_tpu.models import clip as jclip
-    from aa_clip_iqm_tpu.ops.layers import gelu as jgelu
-    from aa_clip_iqm_tpu_torch.models import clip as tclip
-    from aa_clip_iqm_tpu_torch.ops.layers import gelu as tgelu
-
-    d, heads = 128, 2
-    ln, attn = _params(3, d)
-    rng = np.random.default_rng(4)
-    block = {"ln_1": ln, "attn": attn,
-             "ln_2": {"scale": np.ones(d, np.float32), "bias": np.zeros(d, np.float32)},
-             "mlp": {"c_fc": {"w": (0.05 * rng.standard_normal((d, 4 * d))).astype(np.float32),
-                              "b": np.zeros(4 * d, np.float32)},
-                     "c_proj": {"w": (0.05 * rng.standard_normal((4 * d, d))).astype(np.float32),
-                                "b": np.zeros(d, np.float32)}}}
-    x = _x(5, 1, 128, d)
-    monkeypatch.setattr(jclip, "FUSED_ATTN", True)
-    monkeypatch.setattr(tclip, "FUSED_ATTN", True)
-    calls = []
-    real = tclip.ln_attn_residual
-
-    def spy(*a, **k):
-        calls.append(k)
-        return real(*a, **k)
-
-    monkeypatch.setattr(tclip, "ln_attn_residual", spy)
-    ref = jclip._run_block(_jax(block), jnp.asarray(x, jnp.bfloat16), heads, jgelu,
-                           use_pallas=True, vv=vv)
-    out = tclip._run_block(_torch(block), torch.from_numpy(x).to(torch.bfloat16), heads,
-                           tgelu, vv=vv)
-    assert len(calls) == 1
-    np.testing.assert_allclose(out.float().numpy(), np.asarray(ref, np.float32),
-                               rtol=TOL, atol=TOL)
-    monkeypatch.setattr(tclip, "FUSED_ATTN", False)
-    tclip._run_block(_torch(block), torch.from_numpy(x).to(torch.bfloat16), heads, tgelu, vv=vv)
-    assert len(calls) == 1                 # the flag off keeps the chain
 
 
 def test_function_gradients_match_jax_vjp():
@@ -347,15 +308,13 @@ def _counted():
 
 
 class _Spies:
-    """Counts the calls of B8's halves and of the fused half-block that
-    ``models.clip`` makes."""
+    """Counts the calls of B8's halves that ``models.clip`` makes."""
 
     def __init__(self, monkeypatch):
         from aa_clip_iqm_tpu_torch.models import clip as tclip
 
-        self.calls = {"front": 0, "back": 0, "fused": 0}
-        for key, name in (("front", "ln_attn_front"), ("back", "ln_attn_back"),
-                          ("fused", "ln_attn_residual")):
+        self.calls = {"front": 0, "back": 0}
+        for key, name in (("front", "ln_attn_front"), ("back", "ln_attn_back")):
             monkeypatch.setattr(tclip, name, self._spy(key, getattr(tclip, name)))
 
     def _spy(self, key, real):
@@ -387,7 +346,7 @@ def test_run_block_takes_the_halves_where_nothing_is_recorded(valid, dtype, monk
     with torch.no_grad():
         out = tclip._run_block(block, x, heads, tgelu, valid_len=valid)
     assert _counted() == (before[0] + 1, before[1])
-    assert spies.calls == {"front": 1, "back": 1, "fused": 0}
+    assert spies.calls == {"front": 1, "back": 1}
     chain = tclip._run_block(block, x.clone().requires_grad_(True), heads, tgelu,
                              valid_len=valid).detach()
     assert _counted() == (before[0] + 1, before[1] + 1)
@@ -419,7 +378,7 @@ def test_run_block_halves_around_split_head_attention(monkeypatch):
     spies = _Spies(monkeypatch)
     with torch.no_grad():
         out = tclip._run_block(block, x, 2, tgelu)
-    assert spies.calls == {"front": 1, "back": 1, "fused": 0} and split == [1]
+    assert spies.calls == {"front": 1, "back": 1} and split == [1]
     chain = tclip._run_block(block, x.clone().requires_grad_(True), 2, tgelu).detach()
     assert split == [1, 1]
     assert bf16_close(out, chain, x), bf16_error(out, chain, x)
@@ -436,24 +395,23 @@ def _int8_attention(block):
 
 # (case, (attn.proj_fused, attn.proj_chain) counted, the calls made)
 ROUTE_CASES = [
-    ("no_grad", (1, 0), {"front": 1, "back": 1, "fused": 0}),
-    ("grad enabled, nothing needs one", (1, 0), {"front": 1, "back": 1, "fused": 0}),
-    ("x needs a gradient", (0, 1), {"front": 0, "back": 0, "fused": 0}),
-    ("a weight needs a gradient", (0, 1), {"front": 0, "back": 0, "fused": 0}),
-    ("int8 attention", (0, 1), {"front": 0, "back": 0, "fused": 0}),
-    ("value-value", (0, 1), {"front": 0, "back": 0, "fused": 0}),
-    ("float32 x", (0, 1), {"front": 0, "back": 0, "fused": 0}),
-    ("masked (text tower)", (0, 0), {"front": 0, "back": 0, "fused": 0}),
-    ("AACLIP_FUSED_ATTN=1", (0, 0), {"front": 0, "back": 0, "fused": 1}),
-    ("use_pallas=False", (0, 0), {"front": 0, "back": 0, "fused": 0}),
+    ("no_grad", (1, 0), {"front": 1, "back": 1}),
+    ("grad enabled, nothing needs one", (1, 0), {"front": 1, "back": 1}),
+    ("x needs a gradient", (0, 1), {"front": 0, "back": 0}),
+    ("a weight needs a gradient", (0, 1), {"front": 0, "back": 0}),
+    ("int8 attention", (0, 1), {"front": 0, "back": 0}),
+    ("value-value", (0, 1), {"front": 0, "back": 0}),
+    ("float32 x", (0, 1), {"front": 0, "back": 0}),
+    ("masked (text tower)", (0, 0), {"front": 0, "back": 0}),
+    ("use_pallas=False", (0, 0), {"front": 0, "back": 0}),
 ]
 
 
 @pytest.mark.parametrize("case,counted,calls", ROUTE_CASES, ids=[c[0] for c in ROUTE_CASES])
 def test_the_route_is_taken_only_where_it_may_be(case, counted, calls, monkeypatch):
     """The halves run where autograd records nothing, the block is
-    unmasked, ``vv`` is off and ``ln_attn_halves_ok`` holds, and
-    ``FUSED_ATTN`` is off; each unmasked block on the chain counts
+    unmasked, ``vv`` is off and ``ln_attn_halves_ok`` holds; each unmasked
+    block on the chain counts
     ``attn.proj_chain``, a masked one (the text tower) and the stock route
     count neither."""
     from aa_clip_iqm_tpu_torch.models import clip as tclip
@@ -475,8 +433,6 @@ def test_the_route_is_taken_only_where_it_may_be(case, counted, calls, monkeypat
         x = x.float()
     elif case == "masked (text tower)":
         kw["attn_mask"] = tattn.causal_mask(128)
-    elif case == "AACLIP_FUSED_ATTN=1":
-        monkeypatch.setattr(tclip, "FUSED_ATTN", True)
     elif case == "use_pallas=False":
         kw["use_pallas"] = False
     spies = _Spies(monkeypatch)
@@ -525,12 +481,11 @@ def test_the_halves_gate(case, shape, change, want):
         assert not tpb.ln_attn_residual_ok(x, attn, 2)
 
 
-@pytest.mark.parametrize("fused_attn", [False, True], ids=["flag off", "AACLIP_FUSED_ATTN=1"])
-def test_the_halves_take_heads_that_b8_s_attention_cannot(fused_attn, monkeypatch):
+def test_the_halves_take_heads_that_b8_s_attention_cannot(monkeypatch):
     """Heads of 96 fail ``ln_attn_residual_ok`` (B8's attention stage holds
     whole heads in 128-column panels) and pass ``ln_attn_halves_ok``: the
-    halves run around the routed attention, the flag set or not, counted
-    ``attn.proj_fused``, and agree with the chain in bf16 ulps."""
+    halves run around the routed attention, counted ``attn.proj_fused``,
+    and agree with the chain in bf16 ulps."""
     from aa_clip_iqm_tpu_torch.models import clip as tclip
     from aa_clip_iqm_tpu_torch.ops.layers import gelu as tgelu
 
@@ -539,16 +494,15 @@ def test_the_halves_take_heads_that_b8_s_attention_cannot(fused_attn, monkeypatc
     x = torch.from_numpy(_x(28, 1, 130, d)).to(torch.bfloat16)
     assert tpb.ln_attn_halves_ok(x, block["attn"])
     assert not tpb.ln_attn_residual_ok(x, block["attn"], heads)
-    monkeypatch.setattr(tclip, "FUSED_ATTN", fused_attn)
     spies = _Spies(monkeypatch)
     before = _counted()
     with torch.no_grad():
         out = tclip._run_block(block, x, heads, tgelu)
     assert _counted() == (before[0] + 1, before[1])
-    assert spies.calls == {"front": 1, "back": 1, "fused": 0}
+    assert spies.calls == {"front": 1, "back": 1}
     chain = tclip._run_block(block, x.clone().requires_grad_(True), heads, tgelu).detach()
     assert _counted() == (before[0] + 1, before[1] + 1)
-    assert spies.calls == {"front": 1, "back": 1, "fused": 0}
+    assert spies.calls == {"front": 1, "back": 1}
     assert bf16_close(out, chain, x), bf16_error(out, chain, x)
 
 

@@ -7,6 +7,7 @@ exporting no ``aaclip::`` node, the bench's flags and its refusal to measure
 without a GPU, the latency and eval helpers on a CPU detector, and
 ``AACLIP_PLATFORM`` / ``AACLIP_MULTIHOST``."""
 import dataclasses
+import inspect
 import json
 import os
 import socket
@@ -88,16 +89,56 @@ def wide():
 
 @pytest.fixture
 def no_kernels(monkeypatch):
-    """Every kernel call site raises, and the fused attention switch is on:
-    the library route must reach none of them."""
+    """Every kernel call site raises: the library route must reach none of
+    them."""
     def boom(*args, **kwargs):
         raise AssertionError("the library route reached a kernel wrapper")
 
     for mod, name in ((tattention, "flash_mha_packed"), (tattention, "flash_mha"),
-                      (tclip, "ln_attn_residual"), (tclip, "ln_mlp_residual"),
-                      (tclip, "ln_mlp_residual_frozen"), (tclip, "ln_mlp_residual_int8")):
+                      (tclip, "ln_attn_front"), (tclip, "ln_attn_back"),
+                      (tclip, "ln_mlp_residual"), (tclip, "ln_mlp_residual_frozen"),
+                      (tclip, "ln_mlp_residual_int8")):
         monkeypatch.setattr(mod, name, boom)
-    monkeypatch.setattr(tclip, "FUSED_ATTN", True)
+
+
+def _kernel_wrappers():
+    """The module-level names of ``models.clip`` and ``ops.attention`` bound
+    to a kernel wrapper of ``ops/``: a function whose module has its plain
+    twin ``<name>_reference``, and the two whose plain versions are named
+    otherwise (``ln_mlp_residual_frozen``'s forward is
+    ``ln_mlp_residual_reference``'s, ``layer_norm_rows``'s is
+    ``layers.layer_norm``)."""
+    found = set()
+    for mod in (tclip, tattention):
+        for name, obj in vars(mod).items():
+            home = sys.modules.get(getattr(obj, "__module__", None) or "")
+            if (callable(obj) and home is not None and home.__name__.startswith(
+                    "aa_clip_iqm_tpu_torch.ops.") and hasattr(home, name + "_reference")):
+                found.add((mod, name))
+    return found | {(tclip, "ln_mlp_residual_frozen"), (tclip, "layer_norm_rows")}
+
+
+def test_plain_twins_swap_every_kernel_wrapper():
+    """``cli.bench --twins`` reaches no kernel: inside ``plain_twins`` every
+    kernel wrapper the model and the attention dispatch bind is swapped for
+    a plain version with the same signature, and each is restored after."""
+    sites = _kernel_wrappers()
+    assert {n for _, n in sites} >= {"flash_mha_packed", "flash_mha", "ln_attn_front",
+                                     "ln_attn_back", "ln_mlp_residual", "ln_mlp_residual_int8",
+                                     "ln_swiglu_residual", "rope_qk", "layer_norm_rows"}
+    before = {s: getattr(*s) for s in sites}
+    with tbench.plain_twins():
+        for (mod, name), kernel in before.items():
+            twin = getattr(mod, name)
+            assert twin is not kernel, name
+            # The twin takes the wrapper's calls: every parameter by position,
+            # and those with a default, which call sites pass so, by name.
+            params = list(inspect.signature(kernel).parameters.values())
+            sig = inspect.signature(twin)
+            sig.bind(*range(len(params)))
+            sig.bind(*range(sum(p.default is p.empty for p in params)),
+                     **{p.name: 0 for p in params if p.default is not p.empty})
+    assert {s: getattr(*s) for s in sites} == before
 
 
 def test_library_route_predict_matches_jax(wide, no_kernels):

@@ -20,7 +20,7 @@ import torch
 
 from aa_clip_iqm_tpu_torch import configs as tconfigs
 from aa_clip_iqm_tpu_torch.loader import build_model_config, init_trainable, random_backbone
-from aa_clip_iqm_tpu_torch.ops import attn_block, flash_attention, fused_mlp, quant
+from aa_clip_iqm_tpu_torch.ops import _build, attn_block, flash_attention, fused_mlp, quant
 from aa_clip_iqm_tpu_torch.ops import packed_attention as pa
 from aa_clip_iqm_tpu_torch.ops.compare import BF16_MAX_ULPS, BF16_RMS_ULPS, bf16_error
 from aa_clip_iqm_tpu_torch.ops.layers import gelu
@@ -53,10 +53,10 @@ def _randn(dev, *shape, scale=1.0, dtype=torch.bfloat16, seed=0):
 
 def test_flash_mha_packed_ops(dev):
     qkv = _randn(dev, 2, 1370, 3 * 1024)
-    before = pa.LAUNCHES
+    before = profiling.counters()
     out = OPS.flash_mha_packed(qkv, 16, 0.125, False, None)
     out_l, lse = OPS.flash_mha_packed_lse(qkv, 16, 0.125, False, 1300)
-    assert pa.LAUNCHES == before + 2
+    assert _build.launches(before) == {"packed_attention": 2}
     _check(out, pa.flash_mha_packed_reference(qkv, 16, 0.125))
     _check(out_l, pa.flash_mha_packed_reference(qkv, 16, 0.125, False, 1300))
     want = pa.packed_lse_reference(qkv, 16, 0.125, False, 1300)
@@ -75,27 +75,27 @@ def test_ln_mlp_residual_ops(dev, int8):
                       "b": _randn(dev, d, scale=0.02, dtype=torch.float32, seed=6)}}
     if int8:
         q = {k: quant.quantize_linear_params(p) for k, p in mlp.items()}
-        before = fused_mlp.INT8_LAUNCHES
+        before = profiling.counters()
         out = OPS.ln_mlp_residual_int8(x, ln["scale"], ln["bias"], q["c_fc"]["w_q"],
                                        q["c_fc"]["scale"], q["c_fc"]["b"], q["c_proj"]["w_q"],
                                        q["c_proj"]["scale"], q["c_proj"]["b"], "gelu", 1e-5)
-        assert fused_mlp.INT8_LAUNCHES == before + 1
+        assert _build.launches(before) == {"ln_mlp_residual_int8": 1}
         # The stages round where the kernel rounds (tests/test_torch_cuda_kernels.py).
         _check(out, fused_mlp.ln_mlp_residual_int8_stages(ln, q, x, gelu)["y"], x)
     else:
-        before = fused_mlp.LAUNCHES
+        before = profiling.counters()
         out = OPS.ln_mlp_residual(x, ln["scale"], ln["bias"], mlp["c_fc"]["w"],
                                   mlp["c_fc"]["b"], mlp["c_proj"]["w"], mlp["c_proj"]["b"],
                                   "gelu", 1e-5)
-        assert fused_mlp.LAUNCHES == before + 1
+        assert _build.launches(before) == {"ln_mlp_residual": 1}
         _check(out, fused_mlp.ln_mlp_residual_reference(ln, mlp, x, gelu), x)
 
 
 def test_flash_mha_op(dev):
     q, k, v = (_randn(dev, 16, 8282, 64, seed=s) for s in range(3))
-    before = flash_attention.LAUNCHES
+    before = profiling.counters()
     out = OPS.flash_mha(q, k, v, 0.125)
-    assert flash_attention.LAUNCHES == before + 1
+    assert _build.launches(before) == {"flash_attention": 1}
     _check(out, flash_attention.flash_mha_reference(q, k, v, 0.125))
 
 
@@ -110,10 +110,10 @@ def test_ln_attn_residual_op(dev, vv):
                     "b": _randn(dev, 3 * d, scale=0.02, dtype=f32, seed=4)},
             "out": {"w": _randn(dev, d, d, scale=d ** -0.5, seed=5),
                     "b": _randn(dev, d, scale=0.02, dtype=f32, seed=6)}}
-    before = attn_block.LAUNCHES
+    before = profiling.counters()
     out = OPS.ln_attn_residual(x, ln["scale"], ln["bias"], attn["qkv"]["w"], attn["qkv"]["b"],
                                attn["out"]["w"], attn["out"]["b"], 16, vv, None, 1e-5)
-    assert attn_block.LAUNCHES == before + 1
+    assert _build.launches(before) == {"ln_attn_residual": 1}
     _check(out, attn_block.ln_attn_residual_stages(ln, attn, x, 16, vv, walk=True), x)
 
 
@@ -129,11 +129,12 @@ def test_ln_attn_halves_ops(dev):
              "b": _randn(dev, 3 * d, scale=0.02, dtype=f32, seed=4)}
     out_p = {"w": _randn(dev, d, d, scale=d ** -0.5, seed=5),
              "b": _randn(dev, d, scale=0.02, dtype=f32, seed=6)}
-    before = (attn_block.FRONT_LAUNCHES, attn_block.BACK_LAUNCHES)
+    before = profiling.counters()
     qkv = OPS.ln_attn_front(x, ln["scale"], ln["bias"], qkv_p["w"], qkv_p["b"], 1e-5)
     o = OPS.flash_mha_packed(qkv, 16, 0.125, False, None)
     y = OPS.ln_attn_back(o, x, out_p["w"], out_p["b"])
-    assert (attn_block.FRONT_LAUNCHES, attn_block.BACK_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    assert _build.launches(before) == {"ln_attn_residual_front": 1, "ln_attn_residual_back": 1,
+                                       "packed_attention": 1}
     _check(qkv, attn_block.ln_attn_front_reference(ln, qkv_p, x))
     _check(y, attn_block.ln_attn_back_reference(out_p, o, x), x)
 
@@ -193,6 +194,12 @@ def test_graph_replay_matches_eager_tiny(dev):
     _graph_against_eager(det, 56, 0)
 
 
+def _launched(before, *names):
+    """The launches of each named C entry since the counters' snapshot ``before``."""
+    got = _build.launches(before)
+    return tuple(got.get(n, 0) for n in names)
+
+
 def test_graph_replay_matches_eager_vit_l(dev):
     cfg = build_model_config("ViT-L-14-336", img_size=518)
     det = AnomalyDetector(random_backbone(cfg, device=dev), init_trainable(cfg, device=dev),
@@ -206,18 +213,13 @@ def test_graph_replay_matches_eager_vit_l(dev):
     images = np.random.default_rng(3).integers(0, 256, (2, 3, 518, 518), dtype=np.uint8)
     for _ in range(3):
         replayed = _device_kernels(lambda: det.predict(images, "bottle"))
-        before = (pa.LAUNCHES, fused_mlp.LAUNCHES)
+        before = profiling.counters()
         eager = _device_kernels(lambda: _eager(det, images, "bottle"))
-        assert (pa.LAUNCHES - before[0], fused_mlp.LAUNCHES - before[1]) == (24, 24)
+        assert _launched(before, "packed_attention", "ln_mlp_residual") == (24, 24)
         if replayed == eager:
             break
     assert replayed == eager
     assert sum(n for k, n in replayed.items() if "packed_attention" in k) == 24
-
-
-def _launches():
-    return (attn_block.FRONT_LAUNCHES, attn_block.BACK_LAUNCHES, pa.LAUNCHES,
-            flash_attention.LAUNCHES)
 
 
 @pytest.mark.parametrize("model,img,attention", [
@@ -242,9 +244,10 @@ def test_graph_replays_run_b8_s_halves(dev, model, img, attention):
     # profiler's records is measured again, up to three times in all.
     for _ in range(3):
         replayed = _device_kernels(lambda: det.predict(images, "bottle"))
-        before = _launches()
+        before = profiling.counters()
         eager = _device_kernels(lambda: _eager(det, images, "bottle"))
-        assert tuple(a - b for a, b in zip(_launches(), before)) == want
+        assert _launched(before, "ln_attn_residual_front", "ln_attn_residual_back",
+                         "packed_attention", "flash_attention") == want
         if replayed == eager:
             break
     assert replayed == eager

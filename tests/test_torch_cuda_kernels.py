@@ -8,11 +8,13 @@ present. On a machine with an H100 and nvcc run
 import pytest
 import torch
 
-from aa_clip_iqm_tpu_torch.ops import attn_block, flash_attention as fa, fused_mlp, gemm, quant
+from aa_clip_iqm_tpu_torch.ops import _build, attn_block, flash_attention as fa, fused_mlp, gemm
 from aa_clip_iqm_tpu_torch.ops import packed_attention as pa
+from aa_clip_iqm_tpu_torch.ops import quant
 from aa_clip_iqm_tpu_torch.ops.compare import (BF16_MAX_ULPS, BF16_RMS_ULPS, WALK_MAX_ULPS,
                                                 bf16_error)
 from aa_clip_iqm_tpu_torch.ops.layers import gelu, quick_gelu
+from aa_clip_iqm_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.cuda
 
@@ -66,9 +68,9 @@ def _check_walk(out, stages, base=None):
 def test_packed_attention_matches_twin(dev, dtype, heads, hd, seq_len, vv, valid_len):
     gen = torch.Generator(device=dev).manual_seed(seq_len + hd)
     qkv = torch.randn((2, seq_len, 3 * heads * hd), generator=gen, device=dev).to(dtype)
-    before = pa.LAUNCHES
+    before = profiling.counters()
     out = pa.flash_mha_packed(qkv, heads, hd ** -0.5, vv=vv, valid_len=valid_len)
-    assert pa.LAUNCHES == before + 1
+    assert _build.launches(before) == {"packed_attention": 1}
     _check(out, pa.flash_mha_packed_reference(qkv, heads, hd ** -0.5, vv=vv,
                                               valid_len=valid_len))
     _check_walk(out, pa.flash_mha_packed_stages(qkv, heads, hd ** -0.5, vv, valid_len))
@@ -124,9 +126,9 @@ def test_ln_mlp_residual_matches_twin(dev, dtype, m, d, h, act):
     mlp = {"c_fc": {"w": rnd(d, h, std=d ** -0.5).to(dtype), "b": rnd(h, std=0.02)},
            "c_proj": {"w": rnd(h, d, std=h ** -0.5).to(dtype), "b": rnd(d, std=0.02)}}
     x = rnd(m, d).to(dtype)
-    before = fused_mlp.LAUNCHES
+    before = profiling.counters()
     out = fused_mlp.ln_mlp_residual(ln, mlp, x, act)
-    assert fused_mlp.LAUNCHES == before + 1
+    assert _build.launches(before) == {"ln_mlp_residual": 1}
     _check(out, fused_mlp.ln_mlp_residual_reference(ln, mlp, x, act), x)
     if dtype == torch.bfloat16:
         # The stages' plain version rounds where the kernel does.
@@ -153,12 +155,12 @@ def test_gemm_core_matches_plain(dev, m, n, k, tile_n):
     a = rnd(m, k).to(torch.bfloat16)
     w = rnd(k, n, std=k ** -0.5).to(torch.bfloat16)
     b, res = rnd(n, std=0.1), rnd(m, n).to(torch.bfloat16)
-    before = gemm.LAUNCHES
+    before = profiling.counters()
     for act in (None, gelu, quick_gelu):
         _check(gemm.gemm_bias_act(a, w, b, act, tile_n), gemm.gemm_bias_act_reference(a, w, b, act))
     _check(gemm.gemm_bias_residual(a, w, b, res, tile_n),
            gemm.gemm_bias_residual_reference(a, w, b, res), res)
-    assert gemm.LAUNCHES == before + 4
+    assert _build.launches(before) == {"ln_mlp_residual_gemm": 4}
     with pytest.raises(ValueError, match="not supported"):
         gemm.gemm_bias_act(a[:, :k - 8].contiguous(), w[:k - 8].contiguous(), b)
 
@@ -198,9 +200,9 @@ def test_ln_mlp_residual_int8_matches_twin(dev, m, d, h, act):
     own may differ from by one step at most."""
     ln, qmlp, x = _int8_case(dev, m, d, h, m + h)
     assert fused_mlp.ln_mlp_residual_int8_ok(x, qmlp, act)
-    before = (fused_mlp.INT8_LAUNCHES, fused_mlp.LAUNCHES)
+    before = profiling.counters()
     out = fused_mlp.ln_mlp_residual_int8(ln, qmlp, x, act)
-    assert (fused_mlp.INT8_LAUNCHES, fused_mlp.LAUNCHES) == (before[0] + 1, before[1])
+    assert _build.launches(before) == {"ln_mlp_residual_int8": 1}
     _check(out, fused_mlp.ln_mlp_residual_int8_reference(ln, qmlp, x, act), x)
     batched = fused_mlp.ln_mlp_residual_int8(ln, qmlp, x.reshape(1, m, d), act)
     assert torch.equal(batched.reshape(m, d), out)
@@ -231,9 +233,9 @@ def test_ln_mlp_residual_int8_probe_matches_plain(dev, m, d, h, ep_bf16, ch):
     flipped x_q can move a chunk's bf16 maximum and so requantize the whole
     (row, chunk), and the RMS over all rows (chip_smoke.py's B9 hold)."""
     ln, qmlp, x = _int8_case(dev, m, d, h, m + h + ch)
-    before = (fused_mlp.PROBE_LAUNCHES, fused_mlp.INT8_LAUNCHES)
+    before = profiling.counters()
     out = fused_mlp.ln_mlp_residual_int8_probe(ln, qmlp, x, ep_bf16, ch)
-    assert (fused_mlp.PROBE_LAUNCHES, fused_mlp.INT8_LAUNCHES) == (before[0] + 1, before[1])
+    assert _build.launches(before) == {"ln_mlp_residual_int8_probe": 1}
     ref = fused_mlp.ln_mlp_residual_int8_probe_reference(ln, qmlp, x, ep_bf16, ch)
     got = fused_mlp.ln_mlp_residual_int8_probe(ln, qmlp, x, ep_bf16, ch, stages=True)
     st = fused_mlp.ln_mlp_residual_int8_probe_stages(ln, qmlp, x, ep_bf16, ch)
@@ -329,9 +331,9 @@ def test_packed_attention_bwd_matches_plain(dev, dtype, batch, heads, seq_len, v
     _, lse = pa._forward(qkv, heads, hd ** -0.5, False, valid_len, with_lse=True)
     with pytest.raises(ValueError, match="lse"):
         pa.flash_mha_packed_bwd(qkv, d_out, heads, hd ** -0.5, valid_len=valid_len)
-    before = (pa.BWD_LAUNCHES, pa.LAUNCHES)
+    before = profiling.counters()
     out = pa.flash_mha_packed_bwd(qkv, d_out, heads, hd ** -0.5, valid_len=valid_len, lse=lse)
-    assert (pa.BWD_LAUNCHES, pa.LAUNCHES) == (before[0] + 1, before[1])
+    assert _build.launches(before) == {"packed_attention_bwd": 1}
     ref = pa.flash_mha_packed_bwd_reference(qkv, d_out, heads, hd ** -0.5,
                                             valid_len=valid_len)
     stages = pa.flash_mha_packed_bwd_stages(qkv, d_out, heads, hd ** -0.5, False, valid_len, lse)
@@ -437,17 +439,16 @@ def test_packed_attention_autograd_on_the_card(dev):
     qkv = torch.randn((1, 130, 3 * 128), generator=gen, device=dev).to(torch.bfloat16)
     qkv.requires_grad_(True)
     g = torch.randn((1, 130, 128), generator=gen, device=dev).to(torch.bfloat16)
-    before = (pa.LAUNCHES, pa.BWD_LAUNCHES, pa.VV_BWD_LAUNCHES)
+    before = profiling.counters()
     out = pa.flash_mha_packed(qkv, 2, 0.125)
     assert out.grad_fn is not None
     (grad,) = torch.autograd.grad(out, qkv, g)
-    assert (pa.LAUNCHES, pa.BWD_LAUNCHES, pa.VV_BWD_LAUNCHES) == (
-        before[0] + 1, before[1] + 1, before[2])
+    assert _build.launches(before) == {"packed_attention": 1, "packed_attention_bwd": 1}
     _check(grad, pa.flash_mha_packed_bwd_reference(qkv.detach(), g, 2, 0.125))
     out = pa.flash_mha_packed(qkv, 2, 0.125, vv=True)
     (grad,) = torch.autograd.grad(out, qkv, g)
-    assert (pa.LAUNCHES, pa.BWD_LAUNCHES, pa.VV_BWD_LAUNCHES) == (
-        before[0] + 2, before[1] + 1, before[2] + 1)
+    assert _build.launches(before) == {"packed_attention": 2, "packed_attention_bwd": 1,
+                                       "packed_attention_vv_bwd": 1}
     assert not grad[..., :256].any()
     _check(grad[..., 256:], pa.flash_mha_packed_bwd_reference(
         qkv.detach(), g, 2, 0.125, vv=True)[..., 256:])
@@ -469,10 +470,10 @@ def test_packed_attention_vv_bwd_matches_plain(dev, dtype, batch, heads, seq_len
     qkv = torch.randn((batch, seq_len, 3 * heads * hd), generator=gen, device=dev).to(dtype)
     d_out = torch.randn((batch, seq_len, heads * hd), generator=gen, device=dev).to(dtype)
     _, lse = pa._forward(qkv, heads, hd ** -0.5, True, valid_len, with_lse=True)
-    before = (pa.VV_BWD_LAUNCHES, pa.BWD_LAUNCHES)
+    before = profiling.counters()
     out = pa.flash_mha_packed_bwd(qkv, d_out, heads, hd ** -0.5, vv=True, valid_len=valid_len,
                                   lse=lse)
-    assert (pa.VV_BWD_LAUNCHES, pa.BWD_LAUNCHES) == (before[0] + 1, before[1])
+    assert _build.launches(before) == {"packed_attention_vv_bwd": 1}
     ref = pa.flash_mha_packed_bwd_reference(qkv, d_out, heads, hd ** -0.5, vv=True,
                                             valid_len=valid_len)
     w = heads * hd
@@ -505,9 +506,9 @@ def test_flash_attention_matches_twin(dev, dtype, bh, seq_len):
     gen = torch.Generator(device=dev).manual_seed(bh + seq_len)
     q, k, v = (torch.randn((bh, seq_len, 64), generator=gen, device=dev).to(dtype)
                for _ in range(3))
-    before = fa.LAUNCHES
+    before = profiling.counters()
     out = fa._forward(q, k, v, 0.125)
-    assert fa.LAUNCHES == before + 1
+    assert _build.launches(before) == {"flash_attention": 1}
     _check(out, fa.flash_mha_reference(q, k, v, 0.125))
     _check_walk(out, fa.attention_fwd_stages(q, k, v, 0.125))
 
@@ -519,10 +520,10 @@ def test_flash_attention_autograd_on_the_card(dev):
     q, k, v = (torch.randn((2, 4, 300, 64), generator=gen, device=dev).requires_grad_(True)
                for _ in range(3))
     g = torch.randn((2, 4, 300, 64), generator=gen, device=dev)
-    before = fa.LAUNCHES
+    before = profiling.counters()
     out = fa.flash_mha(q, k, v, 0.125)
     got = torch.autograd.grad(out, (q, k, v), g)
-    assert fa.LAUNCHES == before + 1
+    assert _build.launches(before) == {"flash_attention": 1}
     want = torch.autograd.grad(fa.flash_mha_reference(q, k, v, 0.125), (q, k, v), g)
     for a, b in zip(got, want):
         _check(a, b)
@@ -569,9 +570,9 @@ def test_ln_attn_residual_matches_twin(dev, batch, seq_len, d, vv, valid_len):
     x = torch.randn((batch, seq_len, d), generator=gen, device=dev).to(torch.bfloat16)
     heads = d // 64
     assert attn_block.ln_attn_residual_ok(x, attn, heads)
-    before = attn_block.LAUNCHES
+    before = profiling.counters()
     out = attn_block.ln_attn_residual(ln, attn, x, heads, vv, valid_len)
-    assert attn_block.LAUNCHES == before + 1
+    assert _build.launches(before) == {"ln_attn_residual": 1}
     _check(out, attn_block.ln_attn_residual_reference(ln, attn, x, heads, vv, valid_len), x)
     _check(out, attn_block.ln_attn_residual_stages(ln, attn, x, heads, vv, valid_len), x)
     _check_walk(out, attn_block.ln_attn_residual_stages(ln, attn, x, heads, vv, valid_len,
@@ -585,10 +586,10 @@ def test_ln_attn_residual_autograd_on_the_card(dev):
     attn["out"]["b"].requires_grad_(True)
     x = torch.randn((2, 300, 256), generator=gen, device=dev).to(torch.bfloat16).requires_grad_(True)
     g = torch.randn((2, 300, 256), generator=gen, device=dev).to(torch.bfloat16)
-    before = attn_block.LAUNCHES
+    before = profiling.counters()
     y = attn_block.ln_attn_residual(ln, attn, x, 4, True)
     dx, db = torch.autograd.grad(y, (x, attn["out"]["b"]), g)
-    assert attn_block.LAUNCHES == before + 1
+    assert _build.launches(before) == {"ln_attn_residual": 1}
     ref = attn_block.ln_attn_residual_reference(ln, attn, x, 4, True)
     rdx, rdb = torch.autograd.grad(ref, (x, attn["out"]["b"]), g)
     _check(dx, rdx, g)
@@ -615,10 +616,10 @@ def test_ln_attn_halves_match_plain(dev, batch, seq_len):
     ln, attn, gen = _block_case(dev, d, seq_len + batch)
     x = torch.randn((batch, seq_len, d), generator=gen, device=dev).to(torch.bfloat16)
     o = torch.randn((batch, seq_len, d), generator=gen, device=dev).to(torch.bfloat16)
-    before = (attn_block.FRONT_LAUNCHES, attn_block.BACK_LAUNCHES)
+    before = profiling.counters()
     qkv = attn_block.ln_attn_front(ln, attn["qkv"], x)
     y = attn_block.ln_attn_back(attn["out"], o, x)
-    assert (attn_block.FRONT_LAUNCHES, attn_block.BACK_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    assert _build.launches(before) == {"ln_attn_residual_front": 1, "ln_attn_residual_back": 1}
     assert qkv.shape == (batch, seq_len, 3 * d) and y.shape == x.shape
     _check(qkv, attn_block.ln_attn_front_reference(ln, attn["qkv"], x))
     no_bias = {"w": attn["qkv"]["w"], "b": torch.zeros_like(attn["qkv"]["b"])}
@@ -664,9 +665,9 @@ def _float_case(dev, dtype, m, d, h, seed):
 ])
 def test_ln_mlp_residual_dx_matches_plain(dev, dtype, m, d, h, act):
     ln, mlp, x, g = _float_case(dev, dtype, m, d, h, m + d)
-    before = (fused_mlp.DX_LAUNCHES, fused_mlp.LAUNCHES)
+    before = profiling.counters()
     out = fused_mlp.ln_mlp_residual_dx(ln, mlp, x, g, act)
-    assert (fused_mlp.DX_LAUNCHES, fused_mlp.LAUNCHES) == (before[0] + 1, before[1])
+    assert _build.launches(before) == {"ln_mlp_residual_dx": 1}
     # Held on dx - g: the residual cotangent g is the same in both.
     _check(out, fused_mlp.ln_mlp_residual_dx_reference(ln, mlp, x, g, act), g)
     if dtype == torch.bfloat16:
@@ -695,7 +696,7 @@ def test_gemm_core_new_modes_match_plain(dev, m, n, k):
     w = rnd(k, n, std=k ** -0.5).to(torch.bfloat16)
     w2t = rnd(n, k, std=k ** -0.5).to(torch.bfloat16)
     scale, b = 1.0 + 0.1 * rnd(n), rnd(n, std=0.1)
-    before = gemm.LAUNCHES
+    before = profiling.counters()
     for tile_n in (0, 128):
         _check(gemm.gemm_f32(a, w, scale, tile_n=tile_n), gemm.gemm_f32_reference(a, w, scale))
         _check(gemm.gemm_f32(a, w2t, None, w_kmajor=True, tile_n=tile_n),
@@ -703,7 +704,8 @@ def test_gemm_core_new_modes_match_plain(dev, m, n, k):
     for act in (gelu, quick_gelu):
         _check(gemm.gemm_dual_dact(a, w, b, a2, w2t, act),
                gemm.gemm_dual_dact_reference(a, w, b, a2, w2t, act))
-    assert gemm.LAUNCHES == before + 6
+    assert _build.launches(before) == {"ln_mlp_residual_dx_gemm_f32": 4,
+                                       "ln_mlp_residual_dx_gemm_dual": 2}
     with pytest.raises(ValueError, match="not supported"):
         gemm.gemm_f32(a[:, :k - 8].contiguous(), w[:k - 8].contiguous())
 
@@ -713,10 +715,10 @@ def test_fused_mlp_autograd_on_the_card(dev):
     through the dx kernel; the general one recomputes the plain chain."""
     ln, mlp, x, g = _float_case(dev, torch.bfloat16, 200, 256, 512, 9)
     x.requires_grad_(True)
-    before = (fused_mlp.LAUNCHES, fused_mlp.DX_LAUNCHES)
+    before = profiling.counters()
     y = fused_mlp.ln_mlp_residual_frozen(ln, mlp, x, gelu)
     (dx,) = torch.autograd.grad(y, x, g)
-    assert (fused_mlp.LAUNCHES, fused_mlp.DX_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    assert _build.launches(before) == {"ln_mlp_residual": 1, "ln_mlp_residual_dx": 1}
     ref = fused_mlp.ln_mlp_residual_dx_reference(ln, mlp, x.detach(), g, gelu)
     _check(dx, ref, g)
     mlp["c_fc"]["b"].requires_grad_(True)
@@ -724,7 +726,7 @@ def test_fused_mlp_autograd_on_the_card(dev):
         fused_mlp.ln_mlp_residual_frozen(ln, mlp, x, gelu)
     y = fused_mlp.ln_mlp_residual(ln, mlp, x, gelu)
     dx2, db = torch.autograd.grad(y, [x, mlp["c_fc"]["b"]], g)
-    assert (fused_mlp.LAUNCHES, fused_mlp.DX_LAUNCHES) == (before[0] + 2, before[1] + 1)
+    assert _build.launches(before) == {"ln_mlp_residual": 2, "ln_mlp_residual_dx": 1}
     assert db.shape == mlp["c_fc"]["b"].shape and torch.isfinite(db).all()
     _check(dx2, ref, g)
 
@@ -779,15 +781,15 @@ def _stage2_step(device, dtype, patch_dropout=0.0, quantize=None, **train_kw):
                                        for _ in range(n)]))
     step = steps.make_stage2_step(
         cfg, TrainConfig(img_size=img, **train_kw), compute_dtype=dtype)
-    before = (pa.LAUNCHES, pa.BWD_LAUNCHES, fused_mlp.LAUNCHES, fused_mlp.DX_LAUNCHES,
-              fused_mlp.INT8_LAUNCHES)
+    before = profiling.counters()
     _, _, loss = step(trainable, optim.stage2_optimizer(trainable, 5e-4, 4), frozen, images,
                       masks, labels, anchors, weights, keep_idx)
-    after = (pa.LAUNCHES, pa.BWD_LAUNCHES, fused_mlp.LAUNCHES, fused_mlp.DX_LAUNCHES,
-             fused_mlp.INT8_LAUNCHES)
+    launched = _build.launches(before)
     grads = [None if t.grad is None else t.grad.detach().float().cpu()
              for t in tree_leaves(trainable)]
-    return float(loss), grads, tuple(a - b for a, b in zip(after, before))
+    return float(loss), grads, tuple(launched.get(n, 0) for n in (
+        "packed_attention", "packed_attention_bwd", "ln_mlp_residual", "ln_mlp_residual_dx",
+        "ln_mlp_residual_int8"))
 
 
 @pytest.mark.parametrize("options,launches", [

@@ -21,10 +21,11 @@ from aa_clip_iqm_tpu.ops import pallas_attention as jpa
 from aa_clip_iqm_tpu.ops import pallas_attn_block as jpb
 from aa_clip_iqm_tpu.ops import pallas_mlp as jpm
 from aa_clip_iqm_tpu.ops import quant as jquant
-from aa_clip_iqm_tpu_torch.ops import attn_block, custom_ops, flash_attention, fused_mlp
+from aa_clip_iqm_tpu_torch.ops import _build, attn_block, custom_ops, flash_attention, fused_mlp
 from aa_clip_iqm_tpu_torch.ops import layers as tlayers
 from aa_clip_iqm_tpu_torch.ops import packed_attention as tpa
 from aa_clip_iqm_tpu_torch.ops import quant as tquant
+from aa_clip_iqm_tpu_torch.utils import profiling
 
 OPS = torch.ops.aaclip
 
@@ -98,10 +99,10 @@ def test_flash_mha_packed_op(vv, valid_len):
     scale = hd ** -0.5
     torch.library.opcheck(custom_ops.flash_mha_packed, (qt, heads, scale, vv, valid_len))
     torch.library.opcheck(custom_ops.flash_mha_packed_lse, (qt, heads, scale, vv, valid_len))
-    tpa.reset_launches()
+    before = profiling.counters()
     out = OPS.flash_mha_packed(qt, heads, scale, vv, valid_len)
     out_l, lse = OPS.flash_mha_packed_lse(qt, heads, scale, vv, valid_len)
-    assert tpa.LAUNCHES == 0
+    assert _build.launches(before) == {}
     assert torch.equal(out, tpa.flash_mha_packed_reference(qt, heads, scale, vv, valid_len))
     assert torch.equal(out_l, out)
     assert torch.equal(lse, tpa.packed_lse_reference(qt, heads, scale, vv, valid_len))
@@ -123,9 +124,9 @@ def test_ln_mlp_residual_op(act):
     args = (xt, tln["scale"], tln["bias"], tmlp["c_fc"]["w"], tmlp["c_fc"]["b"],
             tmlp["c_proj"]["w"], tmlp["c_proj"]["b"], act, 1e-5)
     torch.library.opcheck(custom_ops.ln_mlp_residual, args)
-    fused_mlp.reset_launches()
+    before = profiling.counters()
     out = OPS.ln_mlp_residual(*args)
-    assert fused_mlp.LAUNCHES == 0 and out.dtype == torch.bfloat16
+    assert _build.launches(before) == {} and out.dtype == torch.bfloat16
     tact = tlayers.ACTIVATIONS[act]
     assert torch.equal(out, fused_mlp.ln_mlp_residual_reference(tln, tmlp, xt, tact))
     assert torch.equal(fused_mlp.ln_mlp_residual(tln, tmlp, xt, tact), out)
@@ -147,9 +148,9 @@ def test_ln_mlp_residual_int8_op(act):
     args = (xt, tln["scale"], tln["bias"], fc["w_q"], fc["scale"], fc["b"], proj["w_q"],
             proj["scale"], proj["b"], act, 1e-5)
     torch.library.opcheck(custom_ops.ln_mlp_residual_int8, args)
-    fused_mlp.reset_launches()
+    before = profiling.counters()
     out = OPS.ln_mlp_residual_int8(*args)
-    assert fused_mlp.INT8_LAUNCHES == 0 and out.dtype == torch.bfloat16
+    assert _build.launches(before) == {} and out.dtype == torch.bfloat16
     tact = tlayers.ACTIVATIONS[act]
     assert torch.equal(out, fused_mlp.ln_mlp_residual_int8_reference(tln, tq, xt, tact))
     assert torch.equal(fused_mlp.ln_mlp_residual_int8(tln, tq, xt, tact), out)
@@ -171,9 +172,9 @@ def test_flash_mha_op(seq_len):
     qt, kt, vt = (torch.from_numpy(a) for a in (q, k, v))
     scale = 64 ** -0.5
     torch.library.opcheck(custom_ops.flash_mha, (qt, kt, vt, scale))
-    flash_attention.reset_launches()
+    before = profiling.counters()
     out = OPS.flash_mha(qt, kt, vt, scale)
-    assert flash_attention.LAUNCHES == 0
+    assert _build.launches(before) == {}
     assert torch.equal(out, flash_attention.flash_mha_reference(qt, kt, vt, scale))
     assert torch.equal(flash_attention.flash_mha(qt[None], kt[None], vt[None], scale)[0], out)
     ref = np.asarray(jpa.flash_mha(*(jnp.asarray(a[None]) for a in (q, k, v)), scale))[0]
@@ -193,9 +194,9 @@ def test_ln_attn_residual_op(vv, valid_len):
     args = (xt, tln["scale"], tln["bias"], tattn["qkv"]["w"], tattn["qkv"]["b"],
             tattn["out"]["w"], tattn["out"]["b"], heads, vv, valid_len, 1e-5)
     torch.library.opcheck(custom_ops.ln_attn_residual, args)
-    attn_block.reset_launches()
+    before = profiling.counters()
     out = OPS.ln_attn_residual(*args)
-    assert attn_block.LAUNCHES == 0 and out.dtype == torch.bfloat16
+    assert _build.launches(before) == {} and out.dtype == torch.bfloat16
     assert torch.equal(out, attn_block.ln_attn_residual_reference(tln, tattn, xt, heads, vv,
                                                                   valid_len))
     assert torch.equal(attn_block.ln_attn_residual(tln, tattn, xt, heads, vv, valid_len), out)
@@ -219,13 +220,13 @@ def test_ln_attn_halves_ops(dtype):
     back = (o, x, tattn["out"]["w"], tattn["out"]["b"])
     torch.library.opcheck(custom_ops.ln_attn_front, front)
     torch.library.opcheck(custom_ops.ln_attn_back, back)
-    attn_block.reset_launches()
+    before = profiling.counters()
     qkv = OPS.ln_attn_front(*front)
     assert qkv.shape == (b, l, 3 * d) and qkv.dtype == dtype
     assert torch.equal(qkv, attn_block.ln_attn_front_reference(tln, tattn["qkv"], x, 1e-6))
     assert torch.equal(OPS.ln_attn_back(*back),
                        attn_block.ln_attn_back_reference(tattn["out"], o, x))
-    assert (attn_block.FRONT_LAUNCHES, attn_block.BACK_LAUNCHES) == (0, 0)
+    assert _build.launches(before) == {}
 
 
 def test_ln_attn_halves_fakes():

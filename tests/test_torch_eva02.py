@@ -40,6 +40,7 @@ from aa_clip_iqm_tpu_torch import configs as tconfigs
 from aa_clip_iqm_tpu_torch.loader import (build_model_config, init_trainable,
                                           load_frozen_backbone, random_backbone)
 from aa_clip_iqm_tpu_torch.models import clip as tclip
+from aa_clip_iqm_tpu_torch.ops import _build
 from aa_clip_iqm_tpu_torch.ops import rope as trope
 from aa_clip_iqm_tpu_torch.ops import swiglu
 from aa_clip_iqm_tpu_torch.ops.compare import BF16_MAX_ULPS, BF16_RMS_ULPS, bf16_error
@@ -579,9 +580,9 @@ def test_rope_kernel_matches_plain_on_the_card(dev, b, grid, per_sample):
                             for _ in range(b)])
         table = table[:, keep]
     want = trope.rope_qk_reference(qkv, table, heads)
-    before = trope.LAUNCHES
+    before = profiling.counters()
     got = trope.rope_qk(qkv.clone(), table, heads)
-    assert trope.LAUNCHES == before + 1
+    assert _build.launches(before) == {"rope_qk": 1}
     ok, err = _ulps_ok(got, want)
     assert ok, err
     assert torch.equal(got[:, 0], qkv[:, 0]) and torch.equal(got[..., 2 * w:], qkv[..., 2 * w:])
@@ -597,9 +598,9 @@ def test_ln_swiglu_residual_matches_its_stages_on_the_card(dev, m, d, h):
     ln = {k: t.to(dev) for k, t in ln.items()}
     mlp = {k: {n: t.to(dev) for n, t in p.items()} for k, p in mlp.items()}
     x = torch.randn(m, d, generator=torch.Generator().manual_seed(2)).to(dev, torch.bfloat16)
-    before = swiglu.LAUNCHES
+    before = profiling.counters()
     got = swiglu.ln_swiglu_residual(ln, mlp, x)
-    assert swiglu.LAUNCHES == before + 1
+    assert _build.launches(before) == {"ln_swiglu_residual": 1}
     stages = swiglu.ln_swiglu_residual_stages(ln, mlp, x)
     ok, err = _ulps_ok(got, stages, x)
     assert ok, err

@@ -449,14 +449,16 @@ def test_bench_helpers_and_gpu_requirement():
     from aa_clip_iqm_tpu_torch.ops import attn_block
 
     def sites():
-        return (attention.flash_mha_packed, attention.flash_mha, tclip.ln_attn_residual,
-                tclip.ln_mlp_residual, tclip.ln_mlp_residual_frozen, tclip.ln_mlp_residual_int8)
+        return (attention.flash_mha_packed, attention.flash_mha, tclip.ln_attn_front,
+                tclip.ln_attn_back, tclip.ln_mlp_residual, tclip.ln_mlp_residual_frozen,
+                tclip.ln_mlp_residual_int8)
 
     before = sites()
     with tbench.plain_twins():
         assert attention.flash_mha_packed is packed_attention.flash_mha_packed_reference
         assert attention.flash_mha is attention.sdpa
-        assert tclip.ln_attn_residual is attn_block.ln_attn_residual_reference
+        assert tclip.ln_attn_front is attn_block.ln_attn_front_reference
+        assert tclip.ln_attn_back is attn_block.ln_attn_back_reference
         assert tclip.ln_mlp_residual is fused_mlp.ln_mlp_residual_reference
         assert tclip.ln_mlp_residual_frozen is fused_mlp.ln_mlp_residual_reference
         assert tclip.ln_mlp_residual_int8 is fused_mlp.ln_mlp_residual_int8_reference

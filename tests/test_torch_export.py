@@ -28,7 +28,6 @@ from aa_clip_iqm_tpu.models import adapters as jadapters
 from aa_clip_iqm_tpu.models.clip import init_clip_params
 from aa_clip_iqm_tpu_torch import configs as tconfigs
 from aa_clip_iqm_tpu_torch.loader import init_trainable, random_backbone
-from aa_clip_iqm_tpu_torch.models import clip as tclip
 from aa_clip_iqm_tpu_torch.models.convert import params_from_jax, tree_map
 from aa_clip_iqm_tpu_torch.ops import interp
 from aa_clip_iqm_tpu_torch.serving import (
@@ -127,7 +126,7 @@ def test_exported_predictor_roundtrip(weights, tmp_path, mode):
         manifest = json.load(f)
     jkeys = set(jpred.manifest) - {"platforms"}
     assert jkeys <= set(manifest)
-    assert {"device", "device_name", "fused_attn"} <= set(manifest)
+    assert {"device", "device_name"} <= set(manifest)
     assert manifest["device"] == "cpu" and manifest["weights"] == mode
     assert manifest["batch_sizes"] == [1, 2] and manifest["bf16_keys"] == []
     assert sorted(os.listdir(out)) == sorted(
@@ -267,13 +266,11 @@ def _wide_config(img=224):
     return dataclasses.replace(cfg, clip=dataclasses.replace(cfg.clip, vision=vision))
 
 
-@pytest.mark.parametrize("quantize,fused,want", [
-    (None, False, {"ln_attn_front": 2, "flash_mha_packed": 2, "ln_attn_back": 2,
-                   "ln_mlp_residual": 2}),
-    ("int8", False, {"flash_mha_packed": 2, "ln_mlp_residual_int8": 2}),
-    (None, True, {"ln_attn_residual": 2, "ln_mlp_residual": 2}),
+@pytest.mark.parametrize("quantize,want", [
+    (None, {"ln_attn_front": 2, "flash_mha_packed": 2, "ln_attn_back": 2, "ln_mlp_residual": 2}),
+    ("int8", {"flash_mha_packed": 2, "ln_mlp_residual_int8": 2}),
 ])
-def test_programs_hold_the_aaclip_ops(tmp_path, monkeypatch, quantize, fused, want):
+def test_programs_hold_the_aaclip_ops(tmp_path, quantize, want):
     """Each exported graph calls the kernels as aaclip:: ops, one per block
     of the vision tower, and reproduces the detector (bf16 compute)."""
     cfg = _wide_config()
@@ -281,13 +278,10 @@ def test_programs_hold_the_aaclip_ops(tmp_path, monkeypatch, quantize, fused, wa
                           init_trainable(cfg, device="cpu", dtype=torch.bfloat16), cfg,
                           "MVTec", img_size=224, compute_dtype=torch.bfloat16, device="cpu",
                           batch_buckets=(2,), quantize=quantize)
-    monkeypatch.setattr(tclip, "FUSED_ATTN", fused)
     out = str(tmp_path / "exp")
     export_predictor(det, out, batch_sizes=(2,))
     program = torch.export.load(os.path.join(out, "predict_b2.pt2"))
     assert dict(aaclip_nodes(program)) == want
-    with open(os.path.join(out, "manifest.json")) as f:
-        assert json.load(f)["fused_attn"] is fused
     images = np.random.default_rng(9).standard_normal((2, 3, 224, 224)).astype(np.float32)
     np.testing.assert_array_equal(ExportedPredictor(out).predict(images, "bottle")[0],
                                   det.predict(images, "bottle")[0])

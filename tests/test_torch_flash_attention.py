@@ -21,6 +21,7 @@ from aa_clip_iqm_tpu_torch.ops import _build
 from aa_clip_iqm_tpu_torch.ops import attention as tattn
 from aa_clip_iqm_tpu_torch.ops import flash_attention as tfa
 from aa_clip_iqm_tpu_torch.ops.compare import bf16_close, bf16_error
+from aa_clip_iqm_tpu_torch.utils import profiling
 
 RTOL, ATOL = 2e-4, 2e-5
 
@@ -50,9 +51,9 @@ def test_flash_mha_matches_jax_kernel_fp32(seq_len, blockwise, monkeypatch):
     q, k, v = _heads(seq_len, 1, 2, seq_len, 64)
     scale = 64 ** -0.5
     ref = np.asarray(jpa.flash_mha(*(jnp.asarray(t) for t in (q, k, v)), scale))
-    tfa.reset_launches()
+    before = profiling.counters()
     out = tfa.flash_mha(*(torch.from_numpy(t) for t in (q, k, v)), scale)
-    assert tfa.LAUNCHES == 0 and out.shape == q.shape and out.dtype == torch.float32
+    assert _build.launches(before) == {} and out.shape == q.shape and out.dtype == torch.float32
     np.testing.assert_allclose(out.numpy(), ref, rtol=RTOL, atol=ATOL)
 
 

@@ -13,10 +13,12 @@ import torch
 
 from aa_clip_iqm_tpu.ops import layers as jlayers
 from aa_clip_iqm_tpu.ops import pallas_mlp as pm
+from aa_clip_iqm_tpu_torch.ops import _build
 from aa_clip_iqm_tpu_torch.ops import fused_mlp
 from aa_clip_iqm_tpu_torch.ops import gemm as tgemm
 from aa_clip_iqm_tpu_torch.ops import layers as tlayers
 from aa_clip_iqm_tpu_torch.ops.compare import bf16_close, bf16_error
+from aa_clip_iqm_tpu_torch.utils import profiling
 
 SHAPES = [(130, 128, 512), (640, 256, 1024)]
 ACTS = ["gelu", "quick_gelu"]
@@ -60,11 +62,11 @@ def test_twin_matches_jax_kernel_bf16(m, d, h, act):
     ref = pm.ln_mlp_residual(_to(ln, jnp.asarray), _to(mlp, jnp.asarray),
                              jnp.asarray(x, jnp.bfloat16),
                              jlayers.ACTIVATIONS[act])
-    fused_mlp.reset_launches()
+    before = profiling.counters()
     out = fused_mlp.ln_mlp_residual(
         _to(ln, torch.from_numpy), _to(mlp, torch.from_numpy),
         torch.from_numpy(x).to(torch.bfloat16), tlayers.ACTIVATIONS[act])
-    assert fused_mlp.LAUNCHES == 0
+    assert _build.launches(before) == {}
     assert out.shape == (m, d) and out.dtype == torch.bfloat16
     # bf16 rounding dominates (the tolerance of tests/test_pallas_mlp.py).
     np.testing.assert_allclose(out.float().numpy(), np.asarray(ref, np.float32),

@@ -16,8 +16,10 @@ import torch
 from aa_clip_iqm_tpu.ops import layers as jlayers
 from aa_clip_iqm_tpu.ops import pallas_mlp as pm
 from aa_clip_iqm_tpu.ops import quant as jquant
+from aa_clip_iqm_tpu_torch.ops import _build
 from aa_clip_iqm_tpu_torch.ops import fused_mlp
 from aa_clip_iqm_tpu_torch.ops import layers as tlayers
+from aa_clip_iqm_tpu_torch.utils import profiling
 
 ACTS = ["gelu", "quick_gelu"]
 
@@ -104,11 +106,11 @@ def test_frozen_function_matches_autograd_and_launches_nothing(act):
     t = torch.from_numpy(x).requires_grad_(True)
     (ref,) = torch.autograd.grad(fused_mlp.ln_mlp_residual_reference(tln, tmlp, t, a), t,
                                  torch.from_numpy(g))
-    fused_mlp.reset_launches()
+    before = profiling.counters()
     y = fused_mlp.ln_mlp_residual_frozen(tln, tmlp, t, a)
     assert y.grad_fn is not None
     (got,) = torch.autograd.grad(y, t, torch.from_numpy(g))
-    assert (fused_mlp.LAUNCHES, fused_mlp.DX_LAUNCHES) == (0, 0)
+    assert _build.launches(before) == {}
     np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-5, atol=1e-6)
     assert torch.equal(y, fused_mlp.ln_mlp_residual(tln, tmlp, t, a))
 
@@ -254,8 +256,8 @@ def test_core_new_modes_plain_versions(act):
     ).to(torch.bfloat16).float().numpy(), rtol=8e-3, atol=1e-6)
     fp32 = gemm.gemm_dual_dact_reference(a, w, b, a2, w2t, tlayers.ACTIVATIONS[act])
     np.testing.assert_allclose(fp32.numpy(), want.numpy(), rtol=1e-5, atol=1e-5)
-    gemm.reset_launches()
+    before = profiling.counters()
     assert torch.equal(gemm.gemm_f32(a, w2t, scale, w_kmajor=True),
                        gemm.gemm_f32_reference(a, w2t, scale, w_kmajor=True))
     assert torch.equal(gemm.gemm_dual_dact(ab, wb, b, a2b, w2b, tlayers.ACTIVATIONS[act]), dual)
-    assert gemm.LAUNCHES == 0
+    assert _build.launches(before) == {}

@@ -17,9 +17,11 @@ from aa_clip_iqm_tpu.ops import layers as jlayers
 from aa_clip_iqm_tpu.ops import pallas_mlp as pm
 from aa_clip_iqm_tpu.ops import quant as jquant
 from aa_clip_iqm_tpu_torch.models import clip as tclip
+from aa_clip_iqm_tpu_torch.ops import _build
 from aa_clip_iqm_tpu_torch.ops import fused_mlp, gemm
 from aa_clip_iqm_tpu_torch.ops import layers as tlayers
 from aa_clip_iqm_tpu_torch.ops import quant as tquant
+from aa_clip_iqm_tpu_torch.utils import profiling
 
 # The small cases of tests/test_pallas_mlp.py (m, d, h, activation); the
 # chunk width follows from h: 512, 128 (384 = 3 x 128) and 1024.
@@ -86,9 +88,9 @@ def test_int8_twin_matches_jax_kernel(interpret, m, d, h, act):
     xt = torch.from_numpy(x).to(torch.bfloat16)
     tln = _to(ln, torch.from_numpy)
     assert fused_mlp.ln_mlp_residual_int8_ok(xt, tq, tact)
-    fused_mlp.reset_launches()
+    before = profiling.counters()
     out_t = fused_mlp.ln_mlp_residual_int8(tln, tq, xt, tact)
-    assert fused_mlp.INT8_LAUNCHES == 0 and fused_mlp.LAUNCHES == 0
+    assert _build.launches(before) == {}
     assert out_t.shape == (m, d) and out_t.dtype == torch.bfloat16
     out = out_t.float().numpy()
     diff = np.abs(out - ref)
@@ -111,9 +113,9 @@ def test_stages_equal_twin_bit_for_bit(m, d, h, act):
     tact = tlayers.ACTIVATIONS[act]
     xt = torch.from_numpy(x).to(torch.bfloat16)
     tln = _to(ln, torch.from_numpy)
-    fused_mlp.reset_launches()
+    before = profiling.counters()
     st = fused_mlp.ln_mlp_residual_int8_with_stages(tln, tq, xt, tact)
-    assert fused_mlp.INT8_LAUNCHES == 0
+    assert _build.launches(before) == {}
     assert torch.equal(st["y"], fused_mlp.ln_mlp_residual_int8_reference(tln, tq, xt, tact))
     ch = fused_mlp.hidden_chunk(h)
     assert st["x_q"].shape == (m, d) and st["x_q"].dtype == torch.int8

@@ -29,9 +29,11 @@ import torch
 from jax.experimental import pallas as pl
 
 from aa_clip_iqm_tpu.ops.quant import quantize_linear_params as jquantize
+from aa_clip_iqm_tpu_torch.ops import _build
 from aa_clip_iqm_tpu_torch.ops import fused_mlp
 from aa_clip_iqm_tpu_torch.ops import quant as tquant
 from aa_clip_iqm_tpu_torch.tools.probe_mlp_int8_sweep import VARIANTS
+from aa_clip_iqm_tpu_torch.utils import profiling
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 M, D, H = 32, 1024, 4096
@@ -100,9 +102,9 @@ def _held(out, ref):
 def test_plain_matches_jax_kernel_var(sweep, case, ep_bf16, ch):
     xj, bcast, (tln, tmlp, xt) = case
     ref = _jax_kernel(sweep, xj, bcast, ep_bf16, ch)
-    fused_mlp.reset_launches()
+    before = profiling.counters()
     out = fused_mlp.ln_mlp_residual_int8_probe(tln, tmlp, xt, ep_bf16, ch)
-    assert fused_mlp.PROBE_LAUNCHES == 0 and fused_mlp.INT8_LAUNCHES == 0
+    assert _build.launches(before) == {}
     assert out.shape == (M, D) and out.dtype == torch.bfloat16
     diff = _held(out.float().numpy(), ref)
     if not ep_bf16:

@@ -32,7 +32,7 @@ from aa_clip_iqm_tpu_torch import prompts as tprompts
 from aa_clip_iqm_tpu_torch.models import clip as tclip
 from aa_clip_iqm_tpu_torch.models import convert as tconvert
 from aa_clip_iqm_tpu_torch.models import modified_resnet as tmr
-from aa_clip_iqm_tpu_torch.ops import fused_mlp, packed_attention, quant as tquant
+from aa_clip_iqm_tpu_torch.ops import fused_mlp, quant as tquant
 from aa_clip_iqm_tpu_torch.tokenizer import tokenize
 from fixture_weights import synth_state_dict
 from torch_ref import make_rn_state_dict
@@ -121,8 +121,6 @@ def test_encode_image_use_pallas_matches_jax(tiny, use_pallas):
     cfg, tcfg, frozen, tf = tiny
     imgs = np.random.default_rng(1).standard_normal((2, 3, 56, 56)).astype(np.float32)
     want = jclip.encode_image(frozen, cfg.clip, jnp.asarray(imgs), use_pallas=False)
-    fused_mlp.reset_launches()
-    packed_attention.reset_launches()
     calls = {"n": 0}
     real = fused_mlp.ln_mlp_residual
 
@@ -194,7 +192,6 @@ def test_vit_b16_plus_encode_image_matches_jax(vit_b16_plus, img):
         np.array(jf["visual"]["positional_embedding"])))
     imgs = np.random.default_rng(img).standard_normal((1, 3, img, img)).astype(np.float32)
     want = jclip.encode_image(jf, jc, jnp.asarray(imgs))
-    packed_attention.reset_launches()
     got = tclip.encode_image(dict(tf, visual=tvis), tc, torch.from_numpy(imgs))
     assert got.shape == (1, 640)
     _close_rel(got.numpy(), want, 1e-4)

@@ -10,8 +10,10 @@ import pytest
 import torch
 
 from aa_clip_iqm_tpu.ops import pallas_attention as pa
+from aa_clip_iqm_tpu_torch.ops import _build
 from aa_clip_iqm_tpu_torch.ops import packed_attention as tpa
 from aa_clip_iqm_tpu_torch.ops.compare import bf16_close, bf16_error
+from aa_clip_iqm_tpu_torch.utils import profiling
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -41,10 +43,10 @@ def test_twin_matches_jax_kernel(seq_len, vv, valid):
     scale = hd ** -0.5
     ref = np.asarray(pa.flash_mha_packed(jnp.asarray(qkv), heads, scale, vv,
                                          valid_len))
-    tpa.reset_launches()
+    before = profiling.counters()
     out = tpa.flash_mha_packed(torch.from_numpy(qkv), heads, scale, vv=vv,
                                valid_len=valid_len)
-    assert tpa.LAUNCHES == 0
+    assert _build.launches(before) == {}
     assert out.shape == (b, seq_len, heads * hd) and out.dtype == torch.float32
     np.testing.assert_allclose(out.numpy(), ref, rtol=2e-4, atol=2e-5)
 

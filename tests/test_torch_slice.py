@@ -24,9 +24,10 @@ from aa_clip_iqm_tpu_torch.models.convert import (
     init_clip_params_np,
     params_from_jax,
 )
-from aa_clip_iqm_tpu_torch.ops import fused_mlp, packed_attention
+from aa_clip_iqm_tpu_torch.ops import _build
 from aa_clip_iqm_tpu_torch.prompts import compute_frozen_anchors
 from aa_clip_iqm_tpu_torch.serving import AnomalyDetector
+from aa_clip_iqm_tpu_torch.utils import profiling
 
 IMG = 56
 
@@ -98,9 +99,9 @@ def test_anchors_match_jax(model, adapted):
     cfg, frozen, trainable, tcfg, tf, tt, anchors = model
     ref = (anchors if adapted
            else jax_anchors(frozen, trainable, cfg, "MVTec", adapted=False))
-    fused_mlp.reset_launches()
+    before = profiling.counters()
     out = compute_frozen_anchors(tf, tt, tcfg, "MVTec", adapted=adapted)
-    assert fused_mlp.LAUNCHES == 0
+    assert _build.launches(before) == {}
     assert list(out) == list(ref)
     for c in ref:
         assert out[c].shape == (tcfg.clip.embed_dim, 2)
@@ -114,10 +115,10 @@ def test_make_predict_fn_matches_jax(model):
     anc = _anchor_batch(anchors, ["bottle", "grid"])
     jmap, jlogit = jmake_predict(cfg, IMG, "Industrial", compute_dtype=jnp.float32)(
         frozen, trainable, jnp.asarray(imgs), jnp.asarray(anc))
-    packed_attention.reset_launches()
+    before = profiling.counters()
     tmap, tlogit = make_predict_fn(tcfg, IMG, "Industrial")(
         tf, tt, torch.from_numpy(imgs), torch.from_numpy(anc))
-    assert packed_attention.LAUNCHES == 0
+    assert _build.launches(before) == {}
     assert tmap.shape == (2, IMG, IMG) and tlogit.shape == (2,)
     assert tmap.dtype == torch.float32
     _close_rel(tmap.numpy(), jmap, 1e-4)

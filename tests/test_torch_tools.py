@@ -21,7 +21,7 @@ from aa_clip_iqm_tpu.models import adapters as jadapters
 from aa_clip_iqm_tpu.models import clip as jclip
 from aa_clip_iqm_tpu_torch import configs as tconfigs
 from aa_clip_iqm_tpu_torch.models.convert import params_from_jax
-from aa_clip_iqm_tpu_torch.ops import fused_mlp
+from aa_clip_iqm_tpu_torch.ops import _build
 from aa_clip_iqm_tpu_torch.tools import (
     int8_outlier_study,
     parity_run,
@@ -29,6 +29,7 @@ from aa_clip_iqm_tpu_torch.tools import (
     probe_mlp_int8,
     probe_mlp_int8_sweep,
 )
+from aa_clip_iqm_tpu_torch.utils import profiling
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -219,11 +220,11 @@ def test_probe_shapes_match_jax():
 def test_probe_sweep_plumbing_on_the_cpu():
     """B9's chain at 64 rows and 2 layers: every variant lands, each with its
     own numbers; the base's error against itself is 0."""
-    fused_mlp.reset_launches()
+    before = profiling.counters()
     lines = []
     res = probe_mlp_int8_sweep.run(rows=64, layers=2, device="cpu", iters=1, warmup=0,
                                    out=lines.append)
-    assert fused_mlp.PROBE_LAUNCHES == 0
+    assert _build.launches(before) == {}
     assert set(res) == set(probe_mlp_int8_sweep.VARIANTS)
     for key, r in res.items():
         assert r["where"] == "cpu host clock" and r["ms"] > 0

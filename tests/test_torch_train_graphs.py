@@ -27,7 +27,6 @@ import torch
 
 from aa_clip_iqm_tpu_torch import configs as tconfigs
 from aa_clip_iqm_tpu_torch.loader import init_trainable, random_backbone
-from aa_clip_iqm_tpu_torch.models import clip as clip_mod
 from aa_clip_iqm_tpu_torch.models.convert import tree_leaves
 from aa_clip_iqm_tpu_torch.train import graphs, optim, steps
 from aa_clip_iqm_tpu_torch.utils.profiling import enable_nan_checks
@@ -292,23 +291,16 @@ def test_graphed_step_needs_a_graphable_optimizer():
 
 
 def test_keys_and_buffers_round_trip():
-    """A capture's key names the arguments' structure, shapes and dtypes and
-    the FUSED_ATTN route; the static buffers refill the same structure."""
+    """A capture's key names the arguments' structure, shapes and dtypes; the
+    static buffers refill the same structure."""
     a, b, c = torch.zeros(2, 3), torch.ones(4, dtype=torch.int64), torch.zeros(1)
     args = [a, [b, c], None]
     flat = graphs._flatten(args)
     assert [t is u for t, u in zip(flat, (a, b, c))] == [True] * 3
     again = graphs._unflatten(args, [t.clone() for t in flat])
     assert again[2] is None and [tuple(t.shape) for t in again[1]] == [(4,), (1,)]
-    key = graphs._key(args)
-    assert key[:3] == (((2, 3), torch.float32), (((4,), torch.int64), ((1,), torch.float32)),
-                       None)
-    saved = clip_mod.FUSED_ATTN
-    try:
-        clip_mod.FUSED_ATTN = not saved
-        assert graphs._key(args) != key
-    finally:
-        clip_mod.FUSED_ATTN = saved
+    assert graphs._key(args) == (((2, 3), torch.float32),
+                                 (((4,), torch.int64), ((1,), torch.float32)), None)
 
 
 def test_graphs_only_on_cuda_without_nan_checks():
@@ -457,22 +449,16 @@ def _hold(replayed, eager, again):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("options", [
-    {}, {"grad_accum_steps": 2}, {"patch_dropout": 0.25}, {"fused": True},
-    {"remat": True}, {"clip_grad_norm": 1.0},
-], ids=["plain", "accum2", "patch_dropout", "fused", "remat", "clip"])
+    {}, {"grad_accum_steps": 2}, {"patch_dropout": 0.25}, {"remat": True},
+    {"clip_grad_norm": 1.0},
+], ids=["plain", "accum2", "patch_dropout", "remat", "clip"])
 def test_stage2_replays_equal_eager_steps(dev, options):
     """Three replays of one captured stage-2 step against three eager
     capturable steps from the same state: losses, adapters and Adam moments;
     one capture, three replays, three optimizer steps."""
     cfg, frozen = _small_model(dev, torch.bfloat16, img=CARD_IMG, heads64=True,
                                patch_dropout=options.get("patch_dropout", 0.0))
-    saved = clip_mod.FUSED_ATTN
-    clip_mod.FUSED_ATTN = bool(options.get("fused"))
-    try:
-        runs = [_run_stage2(cfg, frozen, dev, options, graphed)
-                for graphed in (False, False, True)]
-    finally:
-        clip_mod.FUSED_ATTN = saved
+    runs = [_run_stage2(cfg, frozen, dev, options, graphed) for graphed in (False, False, True)]
     flat = [[*run[3], *tree_leaves(run[1]), *(v for _, v in _opt_tensors(run[2]))]
             for run in runs]
     _hold(flat[2], flat[0], flat[1])

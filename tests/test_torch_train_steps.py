@@ -22,9 +22,10 @@ from aa_clip_iqm_tpu.train import steps as jsteps
 from aa_clip_iqm_tpu_torch import configs as tconfigs
 from aa_clip_iqm_tpu_torch.loader import build_model_config
 from aa_clip_iqm_tpu_torch.models.convert import params_from_jax, params_to_jax, tree_leaves
-from aa_clip_iqm_tpu_torch.ops import fused_mlp, packed_attention
+from aa_clip_iqm_tpu_torch.ops import _build
 from aa_clip_iqm_tpu_torch.train import optim as toptim
 from aa_clip_iqm_tpu_torch.train import steps as tsteps
+from aa_clip_iqm_tpu_torch.utils import profiling
 
 IMG = 56
 TOL = 2e-5
@@ -123,8 +124,7 @@ def test_stage1_step_matches_jax(model):
 
     tcfg = tconfigs.tiny_test_config(IMG)
     ttrain = tconfigs.TrainConfig(dataset="MVTec", img_size=IMG, compute_dtype="float32")
-    fused_mlp.reset_launches()
-    packed_attention.reset_launches()
+    before = profiling.counters()
     tfeats = tsteps.make_stage1_visual_fn(tcfg)(tf, torch.from_numpy(images))
     assert all(f.grad_fn is None for f in tfeats)
     for t, j in zip(tfeats, jfeats):
@@ -138,7 +138,7 @@ def test_stage1_step_matches_jax(model):
                                 torch.from_numpy(class_idx).long(),
                                 torch.from_numpy(weights))
     assert params is tt["text_adapter"] and opt2 is opt and tloss.grad_fn is None
-    assert fused_mlp.LAUNCHES == packed_attention.LAUNCHES == 0
+    assert _build.launches(before) == {}
     np.testing.assert_allclose(tloss.item(), float(jloss), rtol=TOL)
     _trees_close({"text_adapter": params}, {"text_adapter": jparams})
     after = params_to_jax(tt)
