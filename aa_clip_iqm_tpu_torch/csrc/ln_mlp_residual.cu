@@ -277,6 +277,36 @@ extern "C" int aaclip_ln_mlp_residual_gemm(const void* a, int lda, const void* w
       static_cast<bf16*>(out), ld_out, M, N, K, act, tile_n, static_cast<cudaStream_t>(stream));
 }
 
+namespace {
+
+// Floats whose bit patterns are base + i, i < n: the GEMM core's erf and
+// exact GELU against the same through CUDA's erff; each float at which
+// either differs (one NaN against another counts as equal) adds 1 to *count.
+__global__ void gelu_check_kernel(unsigned base, unsigned n, unsigned long long* count) {
+  const unsigned i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const float a = __uint_as_float(base + i);
+  const float e0 = erff(a), e1 = gemm90::erf_exact(a);
+  const float g0 = 0.5f * a * (1.f + erff(a * 0.70710678118654752f));
+  const float g1 = gemm90::activation<gemm90::ACT_GELU>(a);
+  auto same = [](float x, float y) {
+    return __float_as_uint(x) == __float_as_uint(y) || (x != x && y != y);
+  };
+  if (!same(e0, e1) || !same(g0, g1)) atomicAdd(count, 1ull);
+}
+
+}  // namespace
+
+// The count of floats (bit patterns base .. base + n - 1, n <= 2^31) at
+// which the core's exact GELU or its erf differ from CUDA's erff, added to
+// count (device, one unsigned 64-bit integer).
+extern "C" int aaclip_ln_mlp_residual_gelu_check(long base, long n, void* count, void* stream) {
+  if (base < 0 || n <= 0 || n > (1L << 31) || base + n > (1L << 32)) return cudaErrorInvalidValue;
+  gelu_check_kernel<<<(unsigned)((n + 255) / 256), 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      (unsigned)base, (unsigned)n, static_cast<unsigned long long*>(count));
+  return cudaGetLastError();
+}
+
 extern "C" const char* aaclip_ln_mlp_residual_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

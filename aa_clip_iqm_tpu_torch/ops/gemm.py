@@ -40,10 +40,11 @@ bit. :func:`gemm_bias_act`, :func:`gemm_bias_residual`, :func:`gemm_f32` and
 :func:`gemm_dual_dact` launch one product of the core alone on CUDA tensors
 (the plain version on CPU tensors): the card tests and ``chip_smoke.py`` use
 them; the model reaches the core only through B2, B5 and B8.
+:func:`gelu_mismatches` holds the core's GELU to CUDA's erff.
 """
 from __future__ import annotations
 
-from ctypes import c_int, c_void_p as ptr
+from ctypes import c_int, c_long, c_void_p as ptr
 
 import torch
 
@@ -180,6 +181,7 @@ def gemm_s8_proj_reference(h_q, w_q, sh, s_proj, b_proj, x, ch):
 # The core's products alone, each counted under its own entry's name.
 _GEMM = _build.Entry("ln_mlp_residual", "ln_mlp_residual_gemm",
                      [ptr, c_int, ptr, c_int, ptr, ptr, c_int, ptr] + [c_int] * 6)
+_GELU_CHECK = _build.Entry("ln_mlp_residual", "ln_mlp_residual_gelu_check", [c_long, c_long, ptr])
 _GEMM_F32 = _build.Entry("ln_mlp_residual_dx", "ln_mlp_residual_dx_gemm_f32",
                          [ptr, c_int, ptr, c_int, c_int, ptr, ptr] + [c_int] * 5)
 _GEMM_DUAL = _build.Entry("ln_mlp_residual_dx", "ln_mlp_residual_dx_gemm_dual",
@@ -288,3 +290,16 @@ def gemm_bias_residual(a, w, b, res, tile_n: int = 0):
     if a.device.type == "cpu":
         return gemm_bias_residual_reference(a, w, b, res)
     return _launch(a, w, b, res, None, tile_n)
+
+
+def gelu_mismatches(device, base: int = 0, n: int = 1 << 32) -> int:
+    """The floats, as the bit patterns ``base`` .. ``base + n - 1`` (by
+    default every one), at which the core's exact GELU or its erf differ
+    from the same through CUDA's ``erff``, counted on ``device``."""
+    if base < 0 or n <= 0 or base + n > 1 << 32:
+        raise ValueError(f"gelu_mismatches: base={base}, n={n} is not a range of the 2^32 "
+                         "float bit patterns")
+    count = torch.zeros(1, dtype=torch.int64, device=device)
+    for start in range(base, base + n, 1 << 28):
+        _GELU_CHECK(device, start, min(1 << 28, base + n - start), count.data_ptr())
+    return int(count.item())

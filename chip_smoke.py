@@ -31,7 +31,10 @@ line):
      batch 8 and 1 (B6: 2) with valid_len None and 1300, fed the forward's
      log-sum-exp, with each stage's device time
      (torch.profiler; a stage read at 0 ms is measured again, up to three
-     times), and B2's two GEMMs at both tile widths.
+     times), and B2's two GEMMs at both tile widths. The GEMM core's
+     epilogue (a) alone at B2's GEMM 1 and B8's qkv product (batch 8 and
+     32) and the text tower's GEMM 1: in bf16 ulps the plain version,
+     timed with TFLOP/s and the bound.
      Planted faults (a twin with its key tail unmasked, its biases dropped,
      the wrong activation, the last k-slice of B2's hidden layer dropped,
      B2's rows past 1,280 left at zero; for the int8
@@ -469,6 +472,37 @@ def gemm_tiles(ln, mlp, x):
             cells.append(f"{tile} wide {ms:.4f} ms ({flop / ms / 1e9:.1f} TFLOP/s, {tiles} tiles "
                          f"= {tiles / sms:.2f} waves on {sms} SMs)")
         log(f"# GEMM core, B2's GEMM {which} (M={m}, N={n}, K={k}): {'; '.join(cells)}")
+
+
+def gemm_act_products(gen, dev):
+    """The GEMM core's epilogue (a) alone, through the core-alone entry:
+    B2's GEMM 1 (GELU, K = 1024) and the qkv product of B8's front (no
+    activation, K = 1024) at batch 8 and 32, and the text tower's GEMM 1
+    (QuickGELU, K = 768, MVTec's 240 prompts); each held in bf16 ulps to
+    the plain version and timed (CUDA events), with TFLOP/s and the bound."""
+    import torch
+
+    from aa_clip_iqm_tpu_torch.ops import gemm
+    from aa_clip_iqm_tpu_torch.ops.layers import gelu, quick_gelu
+
+    cases = (("B2's GEMM 1", B * TOKENS, 4 * WIDTH, WIDTH, gelu),
+             ("B2's GEMM 1", EVA_B * TOKENS, 4 * WIDTH, WIDTH, gelu),
+             ("B8's qkv product", B * TOKENS, 3 * WIDTH, WIDTH, None),
+             ("B8's qkv product", EVA_B * TOKENS, 3 * WIDTH, WIDTH, None),
+             ("the text tower's GEMM 1", 240 * 77, 3072, 768, quick_gelu))
+    for what, m, n, k, act in cases:
+        a = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+        w = (torch.randn((k, n), generator=gen, device=dev) * k ** -0.5).to(torch.bfloat16)
+        b = torch.randn((n,), generator=gen, device=dev) * 0.02
+        where = f"{what} (M={m}, N={n}, K={k})"
+        hold(f"{where}, epilogue (a)", gemm.gemm_bias_act(a, w, b, act),
+             gemm.gemm_bias_act_reference(a, w, b, act))
+        ms = cuda_time(lambda: gemm.gemm_bias_act(a, w, b, act), 10)
+        flop = 2 * m * n * k
+        b_ms, b_by = bound(flop, (m * k + k * n + m * n) * 2 + n * 4)
+        log(f"# GEMM core epilogue (a), {where}: {ms:.4f} ms ({tflops(flop, ms)}); "
+            f"bound {b_ms:.4f} ms ({b_by})")
+        del a, w, b
 
 
 def bound(flops, nbytes, peak_ops=PEAK_BF16_FLOPS):
@@ -1391,6 +1425,7 @@ def phase_kernels():
                          "gemm_bias_act": ("GEMM 1 (+ b_fc, GELU)", "flop", 2 * m * d * h),
                          "gemm_bias_residual": ("GEMM 2 (+ b_proj, x)", "flop", 2 * m * d * h)})
             gemm_tiles(ln, mlp, x)
+            gemm_act_products(gen, dev)
             timing = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                       "bound_by": b_by, "library_ms": lib_ms}
             del xn

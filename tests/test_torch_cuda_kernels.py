@@ -165,6 +165,34 @@ def test_gemm_core_matches_plain(dev, m, n, k, tile_n):
         gemm.gemm_bias_act(a[:, :k - 8].contiguous(), w[:k - 8].contiguous(), b)
 
 
+@pytest.mark.parametrize("m", [1, 77, 1370, 10960, 43840, 66256])
+@pytest.mark.parametrize("n,k", [(4096, 1024), (3072, 768)])
+def test_gemm_act_epilogue_tile_widths_match(dev, m, n, k):
+    """Epilogue (a) (bias and activation where the accumulator holds them,
+    the quads trading rounded bf16 pairs) at B2's GEMM 1 and the text
+    tower's widths, from one row to a 1274 px batch: held to the plain
+    version in bf16 ulps for GELU, QuickGELU and none, and bit for bit the
+    same at both tile widths and at the core's choice."""
+    gen = torch.Generator(device=dev).manual_seed(m + n + k)
+    a = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+    w = (torch.randn((k, n), generator=gen, device=dev) * k ** -0.5).to(torch.bfloat16)
+    b = torch.randn((n,), generator=gen, device=dev) * 0.1
+    before = profiling.counters()
+    for act in (None, gelu, quick_gelu):
+        out = gemm.gemm_bias_act(a, w, b, act, 128)
+        _check(out, gemm.gemm_bias_act_reference(a, w, b, act))
+        assert torch.equal(out, gemm.gemm_bias_act(a, w, b, act, 256))
+        assert torch.equal(out, gemm.gemm_bias_act(a, w, b, act))
+    assert _build.launches(before) == {"ln_mlp_residual_gemm": 9}
+
+
+def test_gelu_matches_erff_on_every_float(dev):
+    """The core's exact GELU and its erf (two polynomial chains and one
+    select) against the same through CUDA's erff, over all 2^32 floats:
+    bit for bit, NaN for NaN."""
+    assert gemm.gelu_mismatches(dev) == 0
+
+
 def _int8_case(dev, m, d, h, seed):
     gen = torch.Generator(device=dev).manual_seed(seed)
 

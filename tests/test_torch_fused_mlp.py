@@ -125,6 +125,30 @@ def test_stages_equal_twin_fp32(m, d, h, act):
     assert torch.equal(out, fused_mlp.ln_mlp_residual_stages(ln, mlp, xt, act_t))
 
 
+@pytest.mark.parametrize("tile_n", [0, 128, 256])
+def test_core_tile_widths_give_the_plain_version_on_cpu(tile_n):
+    """The tile width is an order of the card's work alone: on a CPU tensor
+    the core-alone product is its plain version, bit for bit, for every
+    activation and every width the core takes."""
+    gen = torch.Generator().manual_seed(22)
+    a = torch.randn((37, 128), generator=gen).to(torch.bfloat16)
+    w = (torch.randn((128, 256), generator=gen) * 128 ** -0.5).to(torch.bfloat16)
+    b = torch.randn((256,), generator=gen) * 0.1
+    for act in (None, tlayers.gelu, tlayers.quick_gelu):
+        assert torch.equal(tgemm.gemm_bias_act(a, w, b, act, tile_n),
+                           tgemm.gemm_bias_act_reference(a, w, b, act))
+
+
+@pytest.mark.parametrize("base,n", [(-1, 16), (0, 0), ((1 << 32) - 8, 16)])
+def test_gelu_check_refuses_a_range_outside_the_floats(base, n):
+    """The GELU check counts over float bit patterns, 0 .. 2^32 - 1: an
+    empty range or one outside them is refused before any library loads."""
+    before = profiling.counters()
+    with pytest.raises(ValueError, match="not a range"):
+        tgemm.gelu_mismatches("cpu", base, n)
+    assert _build.launches(before) == {}
+
+
 @pytest.mark.parametrize("act", ACTS)
 @pytest.mark.parametrize("m,d,h", SHAPES)
 def test_stages_round_as_jax_kernel_bf16(m, d, h, act):
