@@ -34,7 +34,7 @@ _TURN = '''  auto my_turn = [&]() { asm volatile("bar.sync %0, 256;\\n" ::"r"(1 
   auto your_turn = [&]() { asm volatile("bar.arrive %0, 256;\\n" ::"r"(2 - wg)); };'''
 _RESCALE = '''  auto rescale = [&](const float (&alpha)[2]) {
 #pragma unroll
-    for (int i = 0; i < 32; ++i) o[i] *= alpha[(i / 2) & 1];
+    for (int i = 0; i < HD / 2; ++i) o[i] *= alpha[(i / 2) & 1];
   };'''
 _EXP_MAX = "const float m_new = fmaxf(m_run[r], mx[r] * scale2);"
 _EXP = "sc[i] = fast_exp2(fmaf(sc[i], scale2, -m_run[(i / 2) & 1]));"
@@ -49,7 +49,7 @@ VARIANTS = {
     "skip_unmoved_rescale": [(_RESCALE, '''  auto rescale = [&](const float (&alpha)[2]) {
     if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
 #pragma unroll
-      for (int i = 0; i < 32; ++i) o[i] *= alpha[(i / 2) & 1];
+      for (int i = 0; i < HD / 2; ++i) o[i] *= alpha[(i / 2) & 1];
     }
   };''')],
     # A 2-stage K/V ring instead of 4.

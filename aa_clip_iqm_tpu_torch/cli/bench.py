@@ -119,7 +119,8 @@ def plain_twins():
     to its plain PyTorch version (autograd then differentiates those, so the
     backward kernels are out too)."""
     from ..models import clip
-    from ..ops import attention, attn_block, fused_mlp, layers, packed_attention, rope, swiglu
+    from ..ops import (attention, attn_block, fused_mlp, gemm, layers, packed_attention, postnorm,
+                       rope, swiglu)
 
     twins = {
         (attention, "flash_mha_packed"): packed_attention.flash_mha_packed_reference,
@@ -132,6 +133,9 @@ def plain_twins():
         (clip, "ln_swiglu_residual"): swiglu.ln_swiglu_residual_reference,
         (clip, "layer_norm_rows"): layers.layer_norm,
         (clip, "rope_qk"): rope.rope_qk_reference,
+        (clip, "gemm_act"): gemm.gemm_bias_act_reference,
+        (clip, "gemm_f32"): gemm.gemm_f32_reference,
+        (clip, "ln_residual_rows"): postnorm.ln_residual_rows_reference,
     }
     saved = {(mod, name): getattr(mod, name) for mod, name in twins}
     for (mod, name), twin in twins.items():

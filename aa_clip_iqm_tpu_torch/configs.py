@@ -4,7 +4,7 @@ Counterpart of ``aa_clip_iqm_tpu/configs.py``: the same dataclasses, field
 names and defaults, and the same JSON schema (``embed_dim`` / ``vision_cfg``
 / ``text_cfg``) read from this package's own ``registry/model_configs``.
 The models that the port runs and the JAX package does not (EVA02-CLIP's
-vision tower, :class:`Eva02VisionConfig`) live apart, in
+vision towers, :class:`Eva02VisionConfig`) live apart, in
 ``registry/port_models``, read after it: ``list_models`` stays the JAX
 package's list.
 """
@@ -46,19 +46,29 @@ class VisionConfig:
 
 @dataclass(frozen=True)
 class Eva02VisionConfig(VisionConfig):
-    """EVA-02's ViT (EVA-CLIP, arXiv 2303.15389; the block of arXiv
-    2303.11331), selected when a config's ``vision_cfg`` sets ``rope``. Its
-    block, beside CLIP's: LayerNorms of eps ``ln_eps``; q and v projections
-    with a bias, k without; 2-D rotary embedding of the patch rows' q and k
-    (not the class row's), each head's first half by the patch's row and
-    second half by its column, at positions rescaled to a
-    ``rope_ref_grid`` x ``rope_ref_grid`` grid (``pt_hw_seq_len``,
-    ``intp_freq``); a LayerNorm on the attention's output before the
-    out-projection (sub-LN); a SwiGLU MLP of hidden ``mlp_hidden`` with a
-    LayerNorm before its last product. The tower has no ln_pre, and its
-    pooled output goes through a projection with a bias (``head``)."""
+    """An EVA-CLIP ViT (EVA-CLIP, arXiv 2303.15389), selected when a
+    config's ``vision_cfg`` names an ``eva_model_name``. Either block has,
+    beside CLIP's, LayerNorms of eps ``ln_eps`` and q and v projections with
+    a bias, k without; the tower has no ln_pre, a bias on its patch
+    embedding, and its pooled output goes through a projection with a bias
+    (``head``).
+
+    EVA-02's block (the block of arXiv 2303.11331; ``rope``, ``intp_freq``,
+    ``naiveswiglu``, ``subln``): 2-D rotary embedding of the patch rows' q
+    and k (not the class row's), each head's first half by the patch's row
+    and second half by its column, at positions rescaled to a
+    ``rope_ref_grid`` x ``rope_ref_grid`` grid (``pt_hw_seq_len``); a
+    LayerNorm on the attention's output before the out-projection (sub-LN);
+    a SwiGLU MLP of hidden ``mlp_hidden`` with a LayerNorm before its last
+    product.
+
+    ``postnorm`` (EVA02-CLIP-E/14+'s ``postnorm`` with none of the above):
+    ``x = x + LN1(attn(x))`` then ``x = x + LN2(W2 GELU(W1 x + b1) + b2)``,
+    the exact GELU MLP of hidden ``mlp_hidden``, no rotation and no
+    sub-LN."""
 
     rope_ref_grid: int = 16
+    postnorm: bool = False
     #: Every LayerNorm's eps (EVA-CLIP's ``partial(LayerNorm, eps=1e-6)``).
     ln_eps: ClassVar[float] = 1e-6
 
@@ -238,16 +248,42 @@ def list_models() -> list:
                   if fn.endswith(".json"))
 
 
-# The EVA02-CLIP vision settings that select the block Eva02VisionConfig
-# describes; a config with another value of one of them asks for a block the
-# port does not have.
+# The EVA02-CLIP vision settings that select one of the blocks
+# Eva02VisionConfig describes: EVA-02's (all four of these set) or the
+# post-norm block (``postnorm`` with none of them). Any other combination
+# asks for a block the port does not have.
 _EVA02_BLOCK = {"rope": True, "intp_freq": True, "naiveswiglu": True, "subln": True}
+_EVA_KEYS = (*_EVA02_BLOCK, "postnorm")
+
+
+def _eva_postnorm(model_name: str, v: dict) -> bool:
+    """Which EVA block ``vision_cfg`` ``v`` asks for: False for EVA-02's,
+    True for the post-norm block; raises ``NotImplementedError`` naming the
+    keys for any other combination."""
+    given = {k: bool(v.get(k, False)) for k in _EVA_KEYS}
+    if given == {**_EVA02_BLOCK, "postnorm": False}:
+        return False
+    if given == {**{k: False for k in _EVA02_BLOCK}, "postnorm": True}:
+        return True
+    raise NotImplementedError(
+        f"{model_name}: EVA vision settings {given}; the port has EVA-02's block "
+        f"({_EVA02_BLOCK}, no postnorm) and the post-norm block (postnorm alone)")
+
+
+def is_port_model(model_name: str) -> bool:
+    """Whether ``model_name`` is one of the port's own models
+    (``registry/port_models``), not the JAX package's."""
+    model_name = model_name.replace("/", "-")
+    return (not os.path.isfile(os.path.join(_CONFIG_DIR, model_name + ".json"))
+            and os.path.isfile(os.path.join(_PORT_CONFIG_DIR, model_name + ".json")))
 
 
 def get_model_config(model_name: str, img_size: Optional[int] = None) -> CLIPConfig:
     """Load a CLIPConfig from the JSON registry (the JAX package's models,
     then the port's own), optionally overriding the image size. List-typed
-    vision layers select the ModifiedResNet tower, ``rope`` EVA-02's."""
+    vision layers select the ModifiedResNet tower; an ``eva_model_name``
+    (or any of the EVA block settings) an EVA-CLIP tower, whose block the
+    settings select (:func:`_eva_postnorm`)."""
     model_name = model_name.replace("/", "-")
     path = next((p for p in (os.path.join(d, model_name + ".json")
                              for d in (_CONFIG_DIR, _PORT_CONFIG_DIR)) if os.path.isfile(p)),
@@ -259,11 +295,8 @@ def get_model_config(model_name: str, img_size: Optional[int] = None) -> CLIPCon
     with open(path) as f:
         raw = json.load(f)
     v, t = raw["vision_cfg"], raw["text_cfg"]
-    if v.get("rope"):
-        other = {k: v.get(k) for k, want in _EVA02_BLOCK.items() if v.get(k) != want}
-        if other:
-            raise NotImplementedError(f"{model_name}: EVA-02 vision settings {other}; the "
-                                      f"port's EVA-02 block takes {_EVA02_BLOCK}")
+    if "eva_model_name" in v or any(k in v for k in _EVA_KEYS):
+        postnorm = _eva_postnorm(model_name, v)
         vision = Eva02VisionConfig(
             image_size=img_size or v["image_size"],
             patch_size=v["patch_size"],
@@ -272,7 +305,8 @@ def get_model_config(model_name: str, img_size: Optional[int] = None) -> CLIPCon
             head_width=v["head_width"],
             mlp_ratio=v["mlp_ratio"],
             output_dim=raw["embed_dim"],
-            rope_ref_grid=v["pt_hw_seq_len"],
+            rope_ref_grid=16 if postnorm else v["pt_hw_seq_len"],
+            postnorm=postnorm,
         )
     elif isinstance(v["layers"], (list, tuple)):
         vision = ResNetVisionConfig(
@@ -339,4 +373,17 @@ def tiny_eva02_config(img_size: int = 56) -> ModelConfig:
     vision = Eva02VisionConfig(image_size=v.image_size, patch_size=v.patch_size,
                                width=v.width, layers=v.layers, head_width=v.head_width,
                                mlp_ratio=2.6667, output_dim=v.output_dim, rope_ref_grid=3)
+    return dataclasses.replace(cfg, clip=dataclasses.replace(cfg.clip, vision=vision))
+
+
+def tiny_eva_postnorm_config(img_size: int = 56) -> ModelConfig:
+    """:func:`tiny_test_config` with a post-norm EVA tower
+    (``Eva02VisionConfig.postnorm``, EVA02-CLIP-E/14+'s block): width 112,
+    4 heads of 28, EVA02-CLIP-E/14+'s ``mlp_ratio`` (hidden 960), 4 blocks,
+    taps (2, 4)."""
+    cfg = tiny_test_config(img_size)
+    v = cfg.clip.vision
+    vision = Eva02VisionConfig(image_size=v.image_size, patch_size=v.patch_size, width=112,
+                               layers=v.layers, head_width=28, mlp_ratio=8.571428571428571,
+                               output_dim=v.output_dim, postnorm=True)
     return dataclasses.replace(cfg, clip=dataclasses.replace(cfg.clip, vision=vision))

@@ -4,7 +4,10 @@
 // (B8, csrc/ln_attn_residual.cu): the three differ only in where a block's
 // q, k, v rows and output rows live, which a Layout of strides says. Each
 // source instantiates the kernels with a tag type named after itself, so
-// that a profiler tells them apart by the kernel's name.
+// that a profiler tells them apart by the kernel's name; the tag also
+// carries the head width, `Tag::hd`: 64 for every tag, and 112 for B1's
+// second instance (packed_attention_hd112, EVA02-CLIP-E/14+'s heads), so
+// that the 64-wide kernels keep their names.
 //
 // What it computes, per (batch b = blockIdx.z, head h = blockIdx.y):
 //   S = scale * Q K^T in fp32, keys >= n_keys masked to -inf,
@@ -46,8 +49,20 @@
 //     between a register-operand wgmma's issue and its wait);
 //   - fp32: one 128-thread block per 64-row query tile, 64-key tiles, plain
 //     FMAs over shared-memory tiles, so it keeps full fp32 precision.
-// Rows past L are never written, nor their log-sum-exp. Head width 64 only
-// (ViT-L's 16 heads).
+// Rows past L are never written, nor their log-sum-exp.
+//
+// Head width 112 (bf16): a head row is 224 bytes, more than the 128 bytes
+// of one swizzle row, so Q, K and V are loaded as two 64-column boxes each,
+// columns [0, 64) and [64, 128) of the head: the second box's last 16
+// columns are the next head's (or, past the section's width, TMA's zeros)
+// and are never multiplied. S = Q K^T takes seven k16 steps, four in the
+// first box and three in the second (the start advanced 32 bytes a step
+// inside the swizzle row, as at 64); O += P V is wgmma m64n112k16, V read
+// N-major with the two boxes one LBO apart, so O holds 56 fp32 registers a
+// thread. The boxes being twice as large, the K/V ring has three stages
+// (Q 32 KB + 3 x 64 KB: 224 KB of the SM's 227 KB) where it has four at
+// 64. The extra 16 columns cost 14% more TMA traffic, which the L2 serves
+// (every query block of a head reads the same K and V), and no products.
 //
 // Online softmax differs from the TPU kernels' whole-row softmax only by fp32
 // rounding of the running rescale, plus the bf16 rounding of P (taken against
@@ -66,8 +81,6 @@
 namespace aaclip {
 namespace attn_fwd {
 namespace {  // each source that includes this is a library of its own
-
-constexpr int HD = 64;                 // head width
 
 // Where block (head blockIdx.y, batch blockIdx.z) finds its rows: row r of q
 // (k, v alike) at q + z * batch + y * head + r * ld, row r of the output at
@@ -95,10 +108,21 @@ constexpr int TQ = 128;                // query rows per block: two warpgroups o
 constexpr int TK = 128;                // keys per tile
 constexpr int WG_THREADS = 384;        // consumer warpgroups 0 and 1, producer 2
 constexpr int STAGES = 4;
-constexpr int BOX = TQ * HD * 2;       // bytes of one 128-row box of Q, K or V
-constexpr int RING = BOX;              // the ring follows the Q box
-constexpr int BARS = RING + STAGES * 2 * BOX;
-constexpr int WG_SMEM = BARS + (2 * STAGES + 1) * 8 + 1024;   // + 1 KB to align
+constexpr int BOX = TQ * 64 * 2;       // bytes of one 128-row x 64-column box
+
+// The bf16 walk's shared memory at head width HD: the Q boxes, then the
+// ring's K and V boxes per stage (BOXES 64-column boxes each), then the
+// barriers.
+template <int HD_>
+struct Smem {
+  static_assert(HD_ == 64 || HD_ == 112, "head width 64 or 112");
+  static constexpr int BOXES = (HD_ + 63) / 64;
+  static constexpr int STAGES_ = HD_ == 64 ? STAGES : 3;
+  static constexpr int PANEL = BOXES * BOX;      // one operand's boxes of a tile
+  static constexpr int RING = PANEL;             // the ring follows the Q boxes
+  static constexpr int BARS = RING + STAGES_ * 2 * PANEL;
+  static constexpr int SIZE = BARS + (2 * STAGES_ + 1) * 8 + 1024;   // + 1 KB to align
+};
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.69314718055994531f;
 
@@ -119,16 +143,52 @@ __device__ __forceinline__ float fast_exp2(float x) {
   return y;
 }
 
+// O += P V for one k16 step of keys: wgmma m64nHDk16 with P (A) from
+// registers and V (B) N-major behind its descriptor.
+template <int HD_>
+__device__ __forceinline__ void wgmma_pv(float (&o)[HD_ / 2], const unsigned (&a)[4],
+                                         uint64_t desc_v);
+
+template <>
+__device__ __forceinline__ void wgmma_pv<64>(float (&o)[32], const unsigned (&a)[4],
+                                             uint64_t desc_v) {
+  gemm90::wgmma_bf16_rs<1>(o, a, desc_v);
+}
+
+template <>
+__device__ __forceinline__ void wgmma_pv<112>(float (&d)[56], const unsigned (&a)[4],
+                                              uint64_t desc_v) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55"
+      "}, {%56, %57, %58, %59}, %60, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_v), "r"(1));
+}
+
 template <class Tag>
 __global__ void __launch_bounds__(WG_THREADS, 1)
 attention_wgmma_kernel(const __grid_constant__ Maps maps, bf16* __restrict__ out,
                        float* __restrict__ lse, Layout lay, int L, int n_keys, float scale) {
+  constexpr int HD = Tag::hd;
+  using S = Smem<HD>;
+  constexpr int STAGES = S::STAGES_;
   extern __shared__ unsigned char smem_raw[];
   // The boxes start on 1024-byte swizzle atoms (TMA writes, wgmma reads).
   unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
-  auto kbox = [&](int s) { return smem + RING + s * 2 * BOX; };
-  auto vbox = [&](int s) { return smem + RING + s * 2 * BOX + BOX; };
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + BARS);
+  auto kbox = [&](int s) { return smem + S::RING + s * 2 * S::PANEL; };
+  auto vbox = [&](int s) { return smem + S::RING + s * 2 * S::PANEL + S::PANEL; };
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::BARS);
   uint64_t* empty = full + STAGES;
   uint64_t* q_full = empty + STAGES;
   const int q0 = blockIdx.x * TQ;
@@ -152,14 +212,19 @@ attention_wgmma_kernel(const __grid_constant__ Maps maps, bf16* __restrict__ out
     if (threadIdx.x == 256) {
       const int col = blockIdx.y * maps.col_step;
       const int plane = blockIdx.z * maps.zstep + blockIdx.y * maps.ystep;
-      gemm90::mbar_expect_tx(q_full, BOX);
-      gemm90::tma_load_3d(smem, maps.q, q_full, col, q0, plane);
+      gemm90::mbar_expect_tx(q_full, S::PANEL);
+#pragma unroll
+      for (int j = 0; j < S::BOXES; ++j)
+        gemm90::tma_load_3d(smem + j * BOX, maps.q, q_full, col + 64 * j, q0, plane);
       for (int t = 0; t < ntiles; ++t) {
         const int s = t % STAGES;
         gemm90::mbar_wait(&empty[s], ((t / STAGES) & 1) ^ 1);
-        gemm90::mbar_expect_tx(&full[s], 2 * BOX);
-        gemm90::tma_load_3d(kbox(s), maps.k, &full[s], col, t * TK, plane);
-        gemm90::tma_load_3d(vbox(s), maps.v, &full[s], col, t * TK, plane);
+        gemm90::mbar_expect_tx(&full[s], 2 * S::PANEL);
+#pragma unroll
+        for (int j = 0; j < S::BOXES; ++j) {
+          gemm90::tma_load_3d(kbox(s) + j * BOX, maps.k, &full[s], col + 64 * j, t * TK, plane);
+          gemm90::tma_load_3d(vbox(s) + j * BOX, maps.v, &full[s], col + 64 * j, t * TK, plane);
+        }
       }
     }
     return;
@@ -172,28 +237,31 @@ attention_wgmma_kernel(const __grid_constant__ Maps maps, bf16* __restrict__ out
   const int row0 = q0 + wg * 64 + (threadIdx.x % 128 / 32) * 16 + lane / 4;
   const float scale2 = scale * LOG2E;
   const unsigned char* qa = smem + wg * 64 * 128;   // this warpgroup's Q rows
-  float o[32], sc[64];
+  float o[HD / 2], sc[64];
   unsigned pa[8][4];                   // P of the previous tile, as A fragments
   // Running max of S scale log2 e and this lane's part of the running sum.
   float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
 #pragma unroll
-  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
   gemm90::fence_regs(o);
 
   auto fence_p = [&]() {
 #pragma unroll
     for (int kk = 0; kk < 8; ++kk) gemm90::fence_regs(pa[kk]);
   };
-  // S = Q K^T of the tile in stage s, issued as one commit group.
+  // S = Q K^T of the tile in stage s, issued as one commit group: k-step
+  // kk reads 32 bytes into box kk / 4.
   auto issue_scores = [&](int s) {
 #pragma unroll
     for (int i = 0; i < 64; ++i) sc[i] = 0.f;
     gemm90::fence_regs(sc);
     gemm90::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk)
-      gemm90::wgmma_bf16<128, 0>(sc, gemm90::smem_desc(qa + kk * 32, 16, 1024),
-                                 gemm90::smem_desc(kbox(s) + kk * 32, 16, 1024));
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const int at = kk / 4 * BOX + kk % 4 * 32;
+      gemm90::wgmma_bf16<128, 0>(sc, gemm90::smem_desc(qa + at, 16, 1024),
+                                 gemm90::smem_desc(kbox(s) + at, 16, 1024));
+    }
     gemm90::wgmma_commit();
   };
   // O += P V of the tile in stage s, issued as one commit group; pa is read
@@ -202,7 +270,7 @@ attention_wgmma_kernel(const __grid_constant__ Maps maps, bf16* __restrict__ out
     gemm90::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < TK / 16; ++kk)
-      gemm90::wgmma_bf16_rs<1>(o, pa[kk], gemm90::smem_desc(vbox(s) + kk * 16 * 128, BOX, 1024));
+      wgmma_pv<HD>(o, pa[kk], gemm90::smem_desc(vbox(s) + kk * 16 * 128, BOX, 1024));
     fence_p();
     gemm90::wgmma_commit();
   };
@@ -249,7 +317,7 @@ attention_wgmma_kernel(const __grid_constant__ Maps maps, bf16* __restrict__ out
   // slower.
   auto rescale = [&](const float (&alpha)[2]) {
 #pragma unroll
-    for (int i = 0; i < 32; ++i) o[i] *= alpha[(i / 2) & 1];
+    for (int i = 0; i < HD / 2; ++i) o[i] *= alpha[(i / 2) & 1];
   };
   // Ping-pong: the two consumer warpgroups take turns to issue their
   // products (named barrier 1 + wg: this warpgroup's 128 threads wait and
@@ -339,21 +407,27 @@ constexpr int NWARPS = 4;              // each warp owns 16 query rows
 constexpr int NTHREADS = NWARPS * 32;
 constexpr int ROWS_PER_WARP = BQ / NWARPS;
 
-constexpr int LDT = HD + 4;            // q/k/v tile and accumulator row stride
 constexpr int LDS = BK + 4;            // score / probability row stride
-constexpr size_t F_Q = 0;
-constexpr size_t F_K = F_Q + round_up(sizeof(float) * BQ * LDT, 128);
-constexpr size_t F_V = F_K + round_up(sizeof(float) * BK * LDT, 128);
-constexpr size_t F_S = F_V + round_up(sizeof(float) * BK * LDT, 128);
-constexpr size_t F_O = F_S + round_up(sizeof(float) * BQ * LDS, 128);
-constexpr size_t F32_SMEM = F_O + round_up(sizeof(float) * BQ * LDT, 128);
+
+// The fp32 path's shared memory at head width HD: q/k/v tiles and the
+// accumulator with row stride LDT, the scores with LDS.
+template <int HD_>
+struct F32Smem {
+  static constexpr int LDT = HD_ + 4;
+  static constexpr size_t F_Q = 0;
+  static constexpr size_t F_K = F_Q + round_up(sizeof(float) * BQ * LDT, 128);
+  static constexpr size_t F_V = F_K + round_up(sizeof(float) * BK * LDT, 128);
+  static constexpr size_t F_S = F_V + round_up(sizeof(float) * BK * LDT, 128);
+  static constexpr size_t F_O = F_S + round_up(sizeof(float) * BQ * LDS, 128);
+  static constexpr size_t SIZE = F_O + round_up(sizeof(float) * BQ * LDT, 128);
+};
 
 // Copy rows [r0, r0 + ROWS) of one head's (L, HD) panel into shared memory,
 // 16 bytes per thread per step; rows at or past L are zero-filled.
-template <int ROWS>
+template <int HD, int ROWS>
 __device__ __forceinline__ void load_tile_f32(float* dst, const float* src, int row_stride,
                                               int r0, int L) {
-  constexpr int VPR = HD / 4;
+  constexpr int VPR = HD / 4, LDT = F32Smem<HD>::LDT;
   for (int i = threadIdx.x; i < ROWS * VPR; i += NTHREADS) {
     const int r = i / VPR, c = (i % VPR) * 4;
     float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -368,6 +442,10 @@ __global__ void __launch_bounds__(NTHREADS)
 attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ out,
                      float* __restrict__ lse, Layout lay, int L, int n_keys, float scale) {
+  constexpr int HD = Tag::hd;
+  using F = F32Smem<HD>;
+  constexpr int LDT = F::LDT;
+  constexpr size_t F_Q = F::F_Q, F_K = F::F_K, F_V = F::F_V, F_S = F::F_S, F_O = F::F_O;
   extern __shared__ __align__(128) unsigned char smem[];
   float* Qs = reinterpret_cast<float*>(smem + F_Q);
   float* Ks = reinterpret_cast<float*>(smem + F_K);
@@ -381,7 +459,7 @@ attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int wr0 = warp * ROWS_PER_WARP;
   const long in_off = in_offset(lay);
 
-  load_tile_f32<BQ>(Qs, q + in_off, lay.ld, q0, L);
+  load_tile_f32<HD, BQ>(Qs, q + in_off, lay.ld, q0, L);
   for (int i = threadIdx.x; i < BQ * LDT; i += NTHREADS) Os[i] = 0.f;
   // Lanes 2i and 2i+1 own row wr0 + i of the online softmax (each takes
   // every other column) and both keep its running max and sum.
@@ -391,8 +469,8 @@ attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   __syncthreads();
 
   for (int k0 = 0; k0 < n_keys; k0 += BK) {
-    load_tile_f32<BK>(Ks, k + in_off, lay.ld, k0, L);
-    load_tile_f32<BK>(Vs, v + in_off, lay.ld, k0, L);
+    load_tile_f32<HD, BK>(Ks, k + in_off, lay.ld, k0, L);
+    load_tile_f32<HD, BK>(Vs, v + in_off, lay.ld, k0, L);
     __syncthreads();
 
     for (int i = lane; i < ROWS_PER_WARP * BK; i += 32) {
@@ -457,6 +535,7 @@ attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // and block (h, b) reads columns from h * HD of plane b; with one plane per
 // head (B7: batch 1, or planes heads apart) it reads plane b * heads + h.
 // Row strides and pointers must suit TMA: 16-byte multiples.
+template <int HD>
 inline cudaError_t make_maps(Maps* maps, const bf16* q, const bf16* k, const bf16* v,
                              const Layout& lay, int L, int heads, int batch) {
   const bool cols = lay.head < lay.ld;
@@ -484,21 +563,23 @@ cudaError_t launch(int dtype, const void* q, const void* k, const void* v, void*
   cudaError_t err;
   if (dtype == 1) {
     Maps maps;
-    err = make_maps(&maps, static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                    static_cast<const bf16*>(v), lay, L, heads, batch);
-    if (err == cudaSuccess) err = gemm90::set_smem(attention_wgmma_kernel<Tag>, WG_SMEM);
+    err = make_maps<Tag::hd>(&maps, static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                             static_cast<const bf16*>(v), lay, L, heads, batch);
+    constexpr int smem = Smem<Tag::hd>::SIZE;
+    if (err == cudaSuccess) err = gemm90::set_smem(attention_wgmma_kernel<Tag>, smem);
     if (err != cudaSuccess) return err;
     const dim3 grid((L + TQ - 1) / TQ, heads, batch);
-    attention_wgmma_kernel<Tag><<<grid, WG_THREADS, WG_SMEM, stream>>>(
+    attention_wgmma_kernel<Tag><<<grid, WG_THREADS, smem, stream>>>(
         maps, static_cast<bf16*>(out), lse, lay, L, n_keys, scale);
     return cudaGetLastError();
   }
   if (dtype == 0) {
+    constexpr size_t smem = F32Smem<Tag::hd>::SIZE;
     err = cudaFuncSetAttribute(attention_f32_kernel<Tag>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)F32_SMEM);
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     const dim3 grid((L + BQ - 1) / BQ, heads, batch);
-    attention_f32_kernel<Tag><<<grid, NTHREADS, F32_SMEM, stream>>>(
+    attention_f32_kernel<Tag><<<grid, NTHREADS, smem, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(out), lse, lay, L, n_keys, scale);
     return cudaGetLastError();

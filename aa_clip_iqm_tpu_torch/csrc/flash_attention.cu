@@ -31,7 +31,9 @@
 using namespace aaclip;
 
 // The kernels' tag: their names read attention_wgmma_kernel<flash_attention>.
-struct flash_attention;
+struct flash_attention {
+  static constexpr int hd = 64;
+};
 
 // q, k, v, out: contiguous (BH, L, head_dim). dtype: 0 = float32,
 // 1 = bfloat16. Returns the launch's cudaError_t.
@@ -39,7 +41,8 @@ extern "C" int aaclip_flash_attention(const void* q, const void* k, const void* 
                                       int BH, int L, int head_dim, float scale, int dtype,
                                       void* stream) {
   // Head width 64 only: the one width on the port's path (ViT-L's 16 heads).
-  if (BH <= 0 || L <= 0 || BH > 65535 || head_dim != attn_fwd::HD) return cudaErrorInvalidValue;
+  if (BH <= 0 || L <= 0 || BH > 65535 || head_dim != flash_attention::hd)
+    return cudaErrorInvalidValue;
   const attn_fwd::Layout lay{0, (long)L * head_dim, head_dim, 0, (long)L * head_dim, head_dim};
   return attn_fwd::launch<flash_attention>(dtype, q, k, v, out, nullptr, lay, L, BH, 1, L, scale,
                                            static_cast<cudaStream_t>(stream));

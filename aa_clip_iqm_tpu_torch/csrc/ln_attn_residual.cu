@@ -56,7 +56,9 @@ constexpr int HD = 64;
 
 // Names the stage kernels after this source, so that a profiler tells them
 // from B1's and B2's.
-struct ln_attn_residual_stage {};
+struct ln_attn_residual_stage {
+  static constexpr int hd = 64;        // the attention walk's head width
+};
 
 }  // namespace
 

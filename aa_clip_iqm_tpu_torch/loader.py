@@ -23,7 +23,9 @@ from .configs import (
     ModelConfig,
     ResNetVisionConfig,
     get_model_config,
+    is_port_model,
     tiny_eva02_config,
+    tiny_eva_postnorm_config,
     tiny_test_config,
 )
 from .models.clip import resize_pos_embed_np
@@ -47,8 +49,10 @@ def build_model_config(model_name: str = "ViT-L-14-336", img_size: int = 518,
                        iqm_num_layers: int = 2, iqm_num_heads: int = 8,
                        surgery_until_layer: int = 20,
                        patch_dropout: float = 0.0) -> ModelConfig:
-    if model_name in ("tiny-test", "tiny-eva02-test"):
-        cfg = (tiny_test_config if model_name == "tiny-test" else tiny_eva02_config)(img_size)
+    tiny = {"tiny-test": tiny_test_config, "tiny-eva02-test": tiny_eva02_config,
+            "tiny-eva-postnorm-test": tiny_eva_postnorm_config}
+    if model_name in tiny:
+        cfg = tiny[model_name](img_size)
         if patch_dropout:
             vision = replace(cfg.clip.vision, patch_dropout=patch_dropout)
             cfg = replace(cfg, clip=replace(cfg.clip, vision=vision))
@@ -87,6 +91,10 @@ def build_model_config(model_name: str = "ViT-L-14-336", img_size: int = 518,
             num_hidden_layers=iqm_num_layers,
             num_attention_heads=iqm_num_heads,
             encoder_hidden_size=iqm_hidden_size,
+            # IQM's text cross-attention reads the anchors, embed_dim wide;
+            # the JAX package's models keep its 768.
+            **({"text_encoder_hidden_size": clip_cfg.embed_dim}
+               if is_port_model(model_name) else {}),
         ),
         surgery_until_layer=surgery_until_layer,
     )

@@ -24,7 +24,15 @@ blocks are
 run by :func:`_run_eva02_block`: q/k/v packed in one (d, 3d) weight, the
 bias ``[q | 0 | v]`` (k has none), the rotary embedding of the patch rows'
 q and k (``ops/rope.py``), the sub-LN ``attn.ln`` before the out-projection,
-and the SwiGLU MLP with its sub-LN ``mlp.ln`` (``ops/swiglu.py``).
+and the SwiGLU MLP with its sub-LN ``mlp.ln`` (``ops/swiglu.py``). A
+post-norm EVA tower (``Eva02VisionConfig.postnorm``, EVA02-CLIP-E/14+) has
+the same embedding and head, and blocks
+
+  block = {ln_1, attn: {qkv: {w}, q: {b}, v: {b}, out: {w,b}}, ln_2,
+           mlp: {c_fc: {w,b}, c_proj: {w,b}}}
+
+run by :func:`_run_eva_postnorm_block`: ``x + LN1(attn(x))``, then ``x +
+LN2(c_proj(GELU(c_fc(x))))`` (``ops/postnorm.py``).
 
 A block with float MLP weights, vision or text, runs its MLP half through
 :func:`..ops.fused_mlp.ln_mlp_residual`, or with ``fused_mlp="frozen"``
@@ -75,6 +83,7 @@ from ..ops.fused_mlp import (
 from ..ops.layers import (
     ACTIVATIONS,
     frozen_layout,
+    gelu,
     layer_norm,
     linear,
     linear_partial,
@@ -82,6 +91,7 @@ from ..ops.layers import (
     norm_preserving_blend,
     simple_adapter,
 )
+from ..ops.postnorm import gemm_act, gemm_f32, ln_residual_rows, check_postnorm
 from ..ops.rope import rope_qk, rope_qk_reference, rope_table
 from ..ops.swiglu import layer_norm_rows, ln_swiglu_residual, swiglu_mlp
 from ..parallel.collectives import copy_to_model, sum_from_model
@@ -239,6 +249,48 @@ def _run_eva02_block(block, x, num_heads, act=None, attn_mask=None, vv=False, va
     return x + swiglu_mlp(block["mlp"], layer_norm(block["ln_2"], x, eps=eps), eps)
 
 
+def _run_eva_postnorm_block(block, x, num_heads, act=None, attn_mask=None, vv=False,
+                            valid_len=None, fused_mlp=True, use_pallas=True, *, eps):
+    """The post-norm EVA block (the module docstring), LayerNorms of eps
+    ``eps``. With ``use_pallas``, where autograd records nothing: the qkv
+    product with the bias ``[q | 0 | v]`` on the GEMM core's epilogue (a),
+    the attention straight off the packed projection (``attend_qkv``: B1,
+    heads of 112 on its second instance), the out-projection kept in fp32
+    (epilogue (d)) and ``x + LN1(. + b_o)`` in one row pass, then ``GELU(x
+    W1 + b1)`` on epilogue (a), W2 in fp32 and ``x + LN2(. + b2)`` in a
+    second row pass; each the plain version on the CPU. On the card a call
+    that ``ops.postnorm.check_postnorm`` refuses (float32, or a width that
+    is not a multiple of 128) raises. Each half is counted
+    ``postnorm.fused``; a call under ``use_pallas`` that autograd records
+    runs the chain and counts ``postnorm.chain``, twice. That chain, and
+    ``use_pallas=False``: ``linear`` products, each rounded, ``layer_norm``,
+    the stock attention (SDPA on the card). ``act`` and ``fused_mlp`` are
+    CLIP's and unused: the block's GELU is exact. Value-value attention and
+    masks are CLIP's text and surgery paths, not this tower's."""
+    if vv or attn_mask is not None:
+        raise NotImplementedError("post-norm EVA blocks run plain self-attention only")
+    count("blocks.eva_postnorm")
+    attn, mlp = block["attn"], block["mlp"]
+    kernels = use_pallas and not _records_grad(block, x)
+    if kernels:
+        check_postnorm(x, block)
+        count("postnorm.fused", 2)
+        qkv = gemm_act(x, attn["qkv"]["w"],
+                       frozen_layout(_qkv_bias, attn["q"]["b"], attn["v"]["b"]))
+        o = attn_ops.attend_qkv(qkv, num_heads, valid_len=valid_len)
+        x = ln_residual_rows(gemm_f32(o, attn["out"]["w"]), attn["out"]["b"], block["ln_1"], x,
+                             eps)
+        h = gemm_act(x, mlp["c_fc"]["w"], mlp["c_fc"]["b"], gelu)
+        return ln_residual_rows(gemm_f32(h, mlp["c_proj"]["w"]), mlp["c_proj"]["b"],
+                                block["ln_2"], x, eps)
+    if use_pallas:
+        count("postnorm.chain", 2)
+    qkv = linear({"w": attn["qkv"]["w"], "b": _qkv_bias(attn["q"]["b"], attn["v"]["b"])}, x)
+    o = attn_ops.attend_qkv(qkv, num_heads, valid_len=valid_len, use_pallas=kernels)
+    x = x + layer_norm(block["ln_1"], linear(attn["out"], o), eps=eps)
+    return x + layer_norm(block["ln_2"], mlp_block(mlp, x, gelu), eps=eps)
+
+
 def _row_parallel(params, x, group):
     """A row-split projection: this rank's float32 partial product, summed
     over ``group``, then the replicated float32 bias and one rounding to
@@ -318,11 +370,14 @@ def pool(params, cfg: VisionConfig, x):
 
 def block_runner(cfg: VisionConfig, device, keep_idx=None):
     """The function that runs one of the tower's blocks, as
-    :func:`run_blocks` calls it: :func:`_run_block`, or for an EVA-02 tower
+    :func:`run_blocks` calls it: :func:`_run_block`; for a post-norm EVA
+    tower :func:`_run_eva_postnorm_block`; for an EVA-02 tower
     :func:`_run_eva02_block` with its rotary table for the grid (made once,
     ``ops.rope.rope_table``; the kept patches' rows under patch dropout)."""
     if not isinstance(cfg, Eva02VisionConfig):
         return _run_block
+    if cfg.postnorm:
+        return functools.partial(_run_eva_postnorm_block, eps=cfg.ln_eps)
     rope = rope_table(cfg.grid, cfg.rope_ref_grid, cfg.head_width, device)
     if keep_idx is not None:
         rope = rope[:, keep_idx]           # (2, B, K, hd): each sample's kept patches

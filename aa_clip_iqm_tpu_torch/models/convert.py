@@ -497,30 +497,35 @@ def _blocks(rng, n, width, hidden):
             "mlp": {"c_fc": lin(width, hidden), "c_proj": lin(hidden, width)}}
 
 
-def _eva02_blocks(rng, n, width, hidden):
-    """n stacked EVA-02 blocks (``models/clip.py``'s layout): q and v
-    biases, no k bias, the two sub-LNs, [W1 | W2] packed."""
+def _eva_blocks(rng, n, width, hidden, postnorm):
+    """n stacked EVA blocks (``models/clip.py``'s layouts): q and v biases,
+    no k bias, a biased out-projection; EVA-02's attention sub-LN and SwiGLU
+    MLP ([W1 | W2] packed, its sub-LN, W3), or the post-norm block's GELU
+    MLP (``c_fc``, ``c_proj``)."""
     def lin(d_in, d_out, bias=True):
         p = {"w": _normal(rng, (n, d_in, d_out), d_in ** -0.5)}
         if bias:
             p["b"] = np.zeros((n, d_out), np.float32)
         return p
 
-    return {"ln_1": _ln_init(n, width),
-            "attn": {"qkv": lin(width, 3 * width, bias=False),
-                     "q": {"b": np.zeros((n, width), np.float32)},
-                     "v": {"b": np.zeros((n, width), np.float32)},
-                     "ln": _ln_init(n, width), "out": lin(width, width)},
-            "ln_2": _ln_init(n, width),
-            "mlp": {"w12": lin(width, 2 * hidden), "ln": _ln_init(n, hidden),
-                    "w3": lin(hidden, width)}}
+    attn = {"qkv": lin(width, 3 * width, bias=False),
+            "q": {"b": np.zeros((n, width), np.float32)},
+            "v": {"b": np.zeros((n, width), np.float32)}}
+    if postnorm:
+        attn["out"] = lin(width, width)
+        mlp = {"c_fc": lin(width, hidden), "c_proj": lin(hidden, width)}
+    else:
+        attn.update(ln=_ln_init(n, width), out=lin(width, width))
+        mlp = {"w12": lin(width, 2 * hidden), "ln": _ln_init(n, hidden),
+               "w3": lin(hidden, width)}
+    return {"ln_1": _ln_init(n, width), "attn": attn, "ln_2": _ln_init(n, width), "mlp": mlp}
 
 
 def init_clip_params_np(cfg: ModelConfig, seed: int = 0, shapes_only: bool = False):
     """Random frozen CLIP params (JAX layout, numpy float32). With
     ``shapes_only`` every matrix is a zero-stride array of zeros (for
-    :func:`params_from_jax` onto the meta device). An EVA-02 vision tower
-    takes its own layout (``models/clip.py``)."""
+    :func:`params_from_jax` onto the meta device). An EVA vision tower takes
+    its own layout (``models/clip.py``)."""
     from ..configs import Eva02VisionConfig, ResNetVisionConfig
 
     rng = _rng(seed, shapes_only)
@@ -534,7 +539,7 @@ def init_clip_params_np(cfg: ModelConfig, seed: int = 0, shapes_only: bool = Fal
                             "b": np.zeros(v.width, np.float32)},
             "class_embedding": _normal(rng, (v.width,), scale),
             "positional_embedding": _normal(rng, (v.num_patches + 1, v.width), scale),
-            "blocks": _eva02_blocks(rng, v.layers, v.width, v.mlp_hidden),
+            "blocks": _eva_blocks(rng, v.layers, v.width, v.mlp_hidden, v.postnorm),
             "ln_post": _ln_init(0, v.width),
             "head": {"w": _normal(rng, (v.width, v.output_dim), scale),
                      "b": np.zeros(v.output_dim, np.float32)},
@@ -656,7 +661,10 @@ def init_adapter_params_np(cfg: ModelConfig, seed: int = 111, shapes_only: bool 
         },
         "text_adapter": {
             "layers": _xavier(rng, tw, tw, bias=False, n=a.text_adapt_until),
-            "proj": _xavier(rng, tw, tw, bias=False),
+            # To the anchors' width, embed_dim. For the JAX registry's ViT
+            # towers that is the text width, the JAX package's layout; RN50,
+            # where the two differ, has no trainable layout (raised above).
+            "proj": _xavier(rng, tw, out_dim, bias=False),
         },
         "iqm": _iqm_np(rng, cfg.iqm),
         "class_query_mlp": {"fc1": _xavier(rng, vw, hidden),

@@ -6,7 +6,7 @@ qkv stored transposed for right-multiplication,
 
 Self-attention routes as the JAX package's ``use_pallas`` path does: where
 :func:`packed_ok` holds (no mask, 256 to ``ROW_KERNEL_MAX_TOKENS`` tokens,
-whole heads in 128-column panels) through
+whole heads in 128-column panels or heads of 112) through
 :func:`.packed_attention.flash_mha_packed` (B1) straight off the packed
 projection, otherwise through :func:`.flash_attention.flash_mha` on split
 heads (B7 above ``ROW_KERNEL_MAX_TOKENS`` tokens or with an odd head layout;
@@ -28,7 +28,7 @@ import torch.nn.functional as F
 from . import flash_attention
 from .flash_attention import flash_mha
 from .layers import linear
-from .packed_attention import flash_mha_packed
+from .packed_attention import WIDE_HEAD_DIM, flash_mha_packed
 
 
 def _split_heads(x, num_heads):
@@ -73,8 +73,10 @@ def packed_ok(x, num_heads: int, attn_mask, width=None) -> bool:
     """Whether the packed kernel takes this call: ``_packed_pallas_ok``
     (attention.py:56) without its backend test. No mask, at least
     ``2 * BLK_Q`` and at most ``ROW_KERNEL_MAX_TOKENS`` tokens, and whole
-    heads in 128-column panels. ``width``: the attention's width, the heads'
-    columns (x's width unless the heads are a tensor-parallel share)."""
+    heads in 128-column panels, or heads of 112 (B1's second instance,
+    which JAX's TPU kernel has not). ``width``: the attention's width, the
+    heads' columns (x's width unless the heads are a tensor-parallel
+    share)."""
     l = x.shape[1]
     w = x.shape[-1] if width is None else width
     if (attn_mask is not None or l < 2 * flash_attention.BLK_Q
@@ -82,7 +84,7 @@ def packed_ok(x, num_heads: int, attn_mask, width=None) -> bool:
         return False
     hd = w // num_heads
     group = max(1, 128 // hd)
-    return (group * hd) % 128 == 0 and num_heads % group == 0
+    return hd == WIDE_HEAD_DIM or ((group * hd) % 128 == 0 and num_heads % group == 0)
 
 
 def attention_width(params) -> int:

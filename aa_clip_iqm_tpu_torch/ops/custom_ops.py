@@ -22,8 +22,9 @@ Each op has three implementations:
 - CPU: the module's plain version, what the CPU has always run;
 - fake (also the meta device's): output shapes and dtypes only. On a fake
   CUDA tensor it also applies the card kernel's own shape limits (B1, B7 and
-  B8 take heads of 64; B3 needs d a multiple of 128 and a hidden width that
-  chunks), so that a trace for the card fails where the card would.
+  B8 take heads of 64, B1 also of 112; B3 needs d a multiple of 128 and a
+  hidden width that chunks), so that a trace for the card fails where the
+  card would.
 
 One more op, ``aaclip::addmm_f32``, is no kernel of the port: it wraps
 cuBLAS's ``addmm`` with a float32 output (``ops/layers.linear``'s bf16
@@ -52,7 +53,7 @@ from torch import Tensor
 OPS = ("flash_mha_packed", "flash_mha_packed_lse", "ln_mlp_residual",
        "ln_mlp_residual_int8", "flash_mha", "ln_attn_residual", "ln_attn_front",
        "ln_attn_back")
-#: The card kernels' one head width (B1, B7, B8).
+#: The card kernels' head width (B1, B7, B8).
 HEAD_DIM = 64
 
 
@@ -72,10 +73,11 @@ def check_device(fn: str, t) -> None:
         raise ValueError(f"{fn}: unsupported device {t.device}")
 
 
-def _cuda_head_width(fn: str, t: Tensor, width: int, num_heads: int) -> None:
-    if t.device.type == "cuda" and (width % num_heads or width // num_heads != HEAD_DIM):
+def _cuda_head_width(fn: str, t: Tensor, width: int, num_heads: int, extra=()) -> None:
+    if t.device.type == "cuda" and (width % num_heads
+                                    or width // num_heads not in (HEAD_DIM, *extra)):
         raise ValueError(f"{fn}: head width {width / num_heads:g}; the kernel takes "
-                         f"{HEAD_DIM}")
+                         f"{' or '.join(map(str, (HEAD_DIM, *extra)))}")
 
 
 def _activation(act: str):
@@ -95,8 +97,10 @@ def _ln(scale, bias):
 # --------------------------------------------------------------------------
 
 def _packed_out_shape(fn: str, qkv: Tensor, num_heads: int):
+    from .packed_attention import WIDE_HEAD_DIM
+
     b, l, threew = qkv.shape
-    _cuda_head_width(fn, qkv, threew // 3, num_heads)
+    _cuda_head_width(fn, qkv, threew // 3, num_heads, (WIDE_HEAD_DIM,))
     return b, l, threew // 3
 
 

@@ -39,7 +39,8 @@ rounding, so that without an activation stage (a) equals ``linear`` bit for
 bit. :func:`gemm_bias_act`, :func:`gemm_bias_residual`, :func:`gemm_f32` and
 :func:`gemm_dual_dact` launch one product of the core alone on CUDA tensors
 (the plain version on CPU tensors): the card tests and ``chip_smoke.py`` use
-them; the model reaches the core only through B2, B5 and B8.
+them; the model reaches the core through B2, B5 and B8, and through the
+post-norm EVA block's own entries (``ops/postnorm.py``).
 :func:`gelu_mismatches` holds the core's GELU to CUDA's erff.
 """
 from __future__ import annotations

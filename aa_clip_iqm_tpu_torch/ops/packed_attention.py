@@ -32,8 +32,12 @@ from . import _build, custom_ops
 from .flash_attention import attention_fwd_stages
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: The one head width the kernel is built for (ViT-L: 16 heads of 64).
+#: The head width of every kernel here (ViT-L: 16 heads of 64).
 HEAD_DIM = 64
+#: The forward's second head width, an instance of its own (EVA02-CLIP-E/14+:
+#: 16 heads of 112). The backward kernels take :data:`HEAD_DIM` only.
+WIDE_HEAD_DIM = 112
+FORWARD_HEAD_DIMS = (HEAD_DIM, WIDE_HEAD_DIM)
 
 
 def flash_mha_packed_reference(qkv, num_heads: int, scale: float,
@@ -116,14 +120,19 @@ def flash_mha_packed_stages(qkv, num_heads: int, scale: float, vv: bool = False,
 
 _FORWARD = _build.Entry("packed_attention", "packed_attention",
                         [c_void_p] * 3 + [c_int] * 6 + [c_float, c_int, c_int])
+# The forward at head width 112, counted ``packed_attention_hd112``.
+_FORWARD_HD112 = _build.Entry("packed_attention", "packed_attention_hd112",
+                              [c_void_p] * 3 + [c_int] * 6 + [c_float, c_int, c_int])
+_FORWARDS = {HEAD_DIM: _FORWARD, WIDE_HEAD_DIM: _FORWARD_HD112}
 # B4, counted ``packed_attention_bwd``; for ``vv`` B6, counted
 # ``packed_attention_vv_bwd``.
 _BACKWARD = _build.Entry("packed_attention_bwd", "packed_attention_bwd",
                          [c_void_p] * 6 + [c_int] * 6 + [c_float, c_int, c_int])
 
 
-def _check_qkv(fn: str, qkv, num_heads: int, valid_len):
-    """What both kernels ask of a CUDA qkv; returns (B, L, W, hd, valid_len)."""
+def _check_qkv(fn: str, qkv, num_heads: int, valid_len, head_dims=(HEAD_DIM,)):
+    """What the kernels ask of a CUDA qkv, heads of one of ``head_dims``;
+    returns (B, L, W, hd, valid_len)."""
     if qkv.device.type != "cuda":
         raise ValueError(f"{fn}: unsupported device {qkv.device}")
     if qkv.dtype not in _DTYPES:
@@ -138,9 +147,9 @@ def _check_qkv(fn: str, qkv, num_heads: int, valid_len):
         raise ValueError(f"{fn}: width {threew} does not split "
                          f"into 3 x {num_heads} heads")
     hd = w // num_heads
-    if hd != HEAD_DIM:
+    if hd not in head_dims:
         raise ValueError(f"{fn}: head width {hd}; the kernel "
-                         f"takes {HEAD_DIM}")
+                         f"takes {' or '.join(map(str, head_dims))}")
     if qkv.data_ptr() % 16:
         raise ValueError(f"{fn}: qkv must be 16-byte aligned")
     vl = l if valid_len is None else int(valid_len)
@@ -163,14 +172,16 @@ def _forward(qkv, num_heads: int, scale: float, vv: bool, valid_len,
 
 def _launch(qkv, num_heads: int, scale: float, vv: bool, valid_len,
             with_lse: bool = False):
-    """The kernel on a CUDA qkv (the CUDA implementation of the two ops)."""
-    b, l, w, hd, vl = _check_qkv("flash_mha_packed", qkv, num_heads, valid_len)
+    """The kernel on a CUDA qkv (the CUDA implementation of the two ops):
+    the instance of the heads' width."""
+    b, l, w, hd, vl = _check_qkv("flash_mha_packed", qkv, num_heads, valid_len,
+                                 FORWARD_HEAD_DIMS)
     out = torch.empty((b, l, w), dtype=qkv.dtype, device=qkv.device)
     lse = (torch.empty((b, num_heads, l), dtype=torch.float32, device=qkv.device)
            if with_lse else None)
-    _FORWARD(qkv.device, qkv.data_ptr(), out.data_ptr(),
-             None if lse is None else lse.data_ptr(), b, l, w, num_heads, hd, vl, float(scale),
-             int(bool(vv)), _DTYPES[qkv.dtype])
+    _FORWARDS[hd](qkv.device, qkv.data_ptr(), out.data_ptr(),
+                  None if lse is None else lse.data_ptr(), b, l, w, num_heads, hd, vl,
+                  float(scale), int(bool(vv)), _DTYPES[qkv.dtype])
     return (out, lse) if with_lse else out
 
 

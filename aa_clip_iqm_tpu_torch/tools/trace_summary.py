@@ -98,8 +98,9 @@ def summarize(events, track_filter=None):
 
 def kernel_group(name: str) -> str:
     """The group of a device kernel, by its name: one of the port's
-    hand-written kernels (B1 ... B9; EVA-02's S1, its LayerNorm pass alone,
-    and R1), a cuBLAS GEMM, a copy, or other."""
+    hand-written kernels (B1 ... B9, B1's 112-wide instance; EVA-02's S1,
+    its LayerNorm pass alone, and R1; the post-norm EVA block's products P1
+    and its row pass P2), a cuBLAS GEMM, a copy, or other."""
     low = name.lower()
     if "attention_bwd" in low:
         return "B6 packed_attention_vv_bwd" if "<true>" in low else "B4 packed_attention_bwd"
@@ -107,8 +108,14 @@ def kernel_group(name: str) -> str:
         return "B7 flash_attention"
     if "ln_attn_residual" in low:
         return "B8 ln_attn_residual"
+    if "packed_attention_hd112" in low:
+        return "B1 packed_attention_hd112"
     if "packed_attention" in low:
         return "B1 packed_attention"
+    if "ln_residual_rows" in low:
+        return "P2 ln_residual_rows"
+    if "eva_postnorm" in low:
+        return "P1 eva_postnorm_gemm"
     if "ln_mlp_residual_dx" in low:
         return "B5 ln_mlp_residual_dx"
     if "ln_mlp_residual_int8_probe" in low:

@@ -50,7 +50,11 @@ to create rather than reuse from PyTorch's caching host allocator),
 EVA-02 vision tower ``rope.tables`` (rotary tables made), ``blocks.eva02``
 (EVA-02 blocks run) and ``mlp.swiglu_fused`` / ``mlp.swiglu_chain`` (its MLP
 halves run on ``ln_swiglu_residual``, or on the stock chain: ``use_pallas=
-False`` or under autograd); for every unmasked vision block off the stock
+False`` or under autograd); for a post-norm EVA tower ``blocks.eva_postnorm``
+(its blocks run) and ``postnorm.fused`` / ``postnorm.chain`` (one per block
+half under ``use_pallas``: on the block's kernels, or on the chain where
+autograd records the call); for every
+unmasked vision block off the stock
 route (``use_pallas``) ``attn.proj_fused`` / ``attn.proj_chain`` (its attention
 half's LayerNorm and projections run on B8's front and back kernels, or on the
 chain); ``launches.<name>`` for each hand-written kernel's C entry

@@ -104,10 +104,11 @@ def no_kernels(monkeypatch):
 def _kernel_wrappers():
     """The module-level names of ``models.clip`` and ``ops.attention`` bound
     to a kernel wrapper of ``ops/``: a function whose module has its plain
-    twin ``<name>_reference``, and the two whose plain versions are named
+    twin ``<name>_reference``, and those whose plain versions are named
     otherwise (``ln_mlp_residual_frozen``'s forward is
     ``ln_mlp_residual_reference``'s, ``layer_norm_rows``'s is
-    ``layers.layer_norm``)."""
+    ``layers.layer_norm``, the post-norm block's products' are ``gemm``'s
+    plain versions)."""
     found = set()
     for mod in (tclip, tattention):
         for name, obj in vars(mod).items():
@@ -115,7 +116,8 @@ def _kernel_wrappers():
             if (callable(obj) and home is not None and home.__name__.startswith(
                     "aa_clip_iqm_tpu_torch.ops.") and hasattr(home, name + "_reference")):
                 found.add((mod, name))
-    return found | {(tclip, "ln_mlp_residual_frozen"), (tclip, "layer_norm_rows")}
+    return found | {(tclip, "ln_mlp_residual_frozen"), (tclip, "layer_norm_rows"),
+                    (tclip, "gemm_act"), (tclip, "gemm_f32")}
 
 
 def test_plain_twins_swap_every_kernel_wrapper():
@@ -125,7 +127,8 @@ def test_plain_twins_swap_every_kernel_wrapper():
     sites = _kernel_wrappers()
     assert {n for _, n in sites} >= {"flash_mha_packed", "flash_mha", "ln_attn_front",
                                      "ln_attn_back", "ln_mlp_residual", "ln_mlp_residual_int8",
-                                     "ln_swiglu_residual", "rope_qk", "layer_norm_rows"}
+                                     "ln_swiglu_residual", "rope_qk", "layer_norm_rows",
+                                     "gemm_act", "gemm_f32", "ln_residual_rows"}
     before = {s: getattr(*s) for s in sites}
     with tbench.plain_twins():
         for (mod, name), kernel in before.items():

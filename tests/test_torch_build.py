@@ -24,6 +24,7 @@ from aa_clip_iqm_tpu_torch.ops import (  # noqa: F401  (each declares its entrie
     fused_mlp,
     gemm,
     packed_attention,
+    postnorm,
     rope,
     swiglu,
 )
@@ -56,7 +57,7 @@ C_ENTRIES = _c_entries()
 
 def test_every_c_entry_is_declared_once():
     assert sorted(_build.ENTRIES) == sorted(C_ENTRIES)
-    assert len(_build.ENTRIES) == 17
+    assert len(_build.ENTRIES) == 21
 
 
 @pytest.mark.parametrize("name", sorted(C_ENTRIES))
