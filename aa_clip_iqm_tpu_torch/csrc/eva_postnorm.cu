@@ -116,25 +116,26 @@ cudaError_t launch_rows(const float* z, const float* bias, const float* g, const
 }  // namespace
 
 // out (M, N) bf16 = act(a (M, K) . w (K, N) + bias), one rounding; act 0
-// exact GELU, 2 none. Row strides lda, ldw, ld_out; N a multiple of 128, K
-// of 64, pointers 16-byte aligned.
+// exact GELU, 2 none; tiles in bands of `group` M-tiles. Row strides lda,
+// ldw, ld_out; N a multiple of 128, K of 64, pointers 16-byte aligned.
 extern "C" int aaclip_eva_postnorm_gemm(const void* a, int lda, const void* w, int ldw,
                                         const void* bias, void* out, int ld_out, int M, int N,
-                                        int K, int act, void* stream) {
+                                        int K, int act, int group, void* stream) {
   if (act != gemm90::ACT_GELU && act != gemm90::ACT_NONE) return cudaErrorInvalidValue;
   return gemm90::gemm<eva_postnorm_stage>(
       static_cast<const bf16*>(a), lda, static_cast<const bf16*>(w), ldw,
       static_cast<const float*>(bias), nullptr, 0, static_cast<bf16*>(out), ld_out, M, N, K, act,
-      0, static_cast<cudaStream_t>(stream));
+      0, group, static_cast<cudaStream_t>(stream));
 }
 
-// out32 (M, N) fp32 = a (M, K) . w (K, N), no bias, not rounded.
+// out32 (M, N) fp32 = a (M, K) . w (K, N), no bias, not rounded; tiles in
+// bands of `group` M-tiles.
 extern "C" int aaclip_eva_postnorm_gemm_f32(const void* a, int lda, const void* w, int ldw,
                                             void* out32, int ld_out, int M, int N, int K,
-                                            void* stream) {
+                                            int group, void* stream) {
   return gemm90::gemm_f32<eva_postnorm_stage>(
       static_cast<const bf16*>(a), lda, static_cast<const bf16*>(w), ldw, 0, nullptr,
-      static_cast<float*>(out32), ld_out, M, N, K, 0, static_cast<cudaStream_t>(stream));
+      static_cast<float*>(out32), ld_out, M, N, K, 0, group, static_cast<cudaStream_t>(stream));
 }
 
 // y (M, d) bf16 = x + LN(z + bias) with scale g and shift b: z (M, d) fp32,

@@ -64,14 +64,15 @@ struct ln_attn_residual_stage {
 
 // x, y: (B, L, d) bf16; LayerNorm scale/bias and both biases fp32; w_qkv
 // (d, 3d) and w_out (d, d) bf16, (in, out); scratch: bf16 (B*L, 4d), or
-// (B*L, 2d) for vv. Four launches on `stream`. Returns the first failing
-// launch's cudaError_t.
+// (B*L, 2d) for vv. Four launches on `stream`, the two products' tiles in
+// bands of group1 and group2 M-tiles. Returns the first failing launch's
+// cudaError_t.
 extern "C" int aaclip_ln_attn_residual(const void* x, const void* ln_g, const void* ln_b,
                                        const void* w_qkv, const void* b_qkv,
                                        const void* w_out, const void* b_out, void* scratch,
                                        void* y, int B, int L, int d, int num_heads,
                                        int valid_len, float eps, float scale, int vv,
-                                       void* stream) {
+                                       int group1, int group2, void* stream) {
   if (B <= 0 || L <= 0 || B > 65535 || valid_len <= 0 || d % 128 != 0 || num_heads * HD != d)
     return cudaErrorInvalidValue;
   using Tag = ln_attn_residual_stage;
@@ -90,7 +91,7 @@ extern "C" int aaclip_ln_attn_residual(const void* x, const void* ln_g, const vo
                                                  eps, s);
   if (err == cudaSuccess)
     err = gemm90::gemm<Tag>(xn_o, ld, wq, 3 * d, bq, nullptr, 0, proj, ld, M, ncols, d,
-                            gemm90::ACT_NONE, 0, s);
+                            gemm90::ACT_NONE, 0, group1, s);
   if (err != cudaSuccess) return err;
 
   // Heads of q, k and v at column offsets 0, d and 2d of the projection
@@ -103,7 +104,7 @@ extern "C" int aaclip_ln_attn_residual(const void* x, const void* ln_g, const vo
 
   return gemm90::gemm<Tag>(xn_o, ld, static_cast<const bf16*>(w_out), d,
                            static_cast<const float*>(b_out), xb, d, static_cast<bf16*>(y), d, M,
-                           d, d, gemm90::ACT_NONE, 0, s);
+                           d, d, gemm90::ACT_NONE, 0, group2, s);
 }
 
 // The kernel's halves around an attention launch of the caller's, each its
@@ -112,11 +113,13 @@ extern "C" int aaclip_ln_attn_residual(const void* x, const void* ln_g, const vo
 //
 // front: xn = LayerNorm(x) into the caller's bf16 scratch (M, d), then qkv =
 // xn . w_qkv + b_qkv with epilogue (a) and no activation into qkv (M, 3d),
-// the packed (B, L, 3d) layout that B1 reads. x (M, d) bf16, LayerNorm
-// scale/bias and b_qkv fp32, w_qkv (d, 3d) bf16. Two launches.
+// the packed (B, L, 3d) layout that B1 reads, its tiles in bands of `group`
+// M-tiles. x (M, d) bf16, LayerNorm scale/bias and b_qkv fp32, w_qkv (d,
+// 3d) bf16. Two launches.
 extern "C" int aaclip_ln_attn_residual_front(const void* x, const void* ln_g, const void* ln_b,
                                              const void* w_qkv, const void* b_qkv, void* xn,
-                                             void* qkv, int M, int d, float eps, void* stream) {
+                                             void* qkv, int M, int d, float eps, int group,
+                                             void* stream) {
   if (M <= 0 || d % 128 != 0) return cudaErrorInvalidValue;
   using Tag = ln_attn_residual_stage;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -128,18 +131,21 @@ extern "C" int aaclip_ln_attn_residual_front(const void* x, const void* ln_g, co
   if (err != cudaSuccess) return err;
   return gemm90::gemm<Tag>(xn_b, d, static_cast<const bf16*>(w_qkv), 3 * d,
                            static_cast<const float*>(b_qkv), nullptr, 0,
-                           static_cast<bf16*>(qkv), 3 * d, M, 3 * d, d, gemm90::ACT_NONE, 0, s);
+                           static_cast<bf16*>(qkv), 3 * d, M, 3 * d, d, gemm90::ACT_NONE, 0,
+                           group, s);
 }
 
-// back: y = x + (o . w_out + b_out), epilogue (b), rounded once. o, x and y
-// (M, d) bf16, w_out (d, d) bf16, b_out fp32. One launch.
+// back: y = x + (o . w_out + b_out), epilogue (b), rounded once, its tiles
+// in bands of `group` M-tiles. o, x and y (M, d) bf16, w_out (d, d) bf16,
+// b_out fp32. One launch.
 extern "C" int aaclip_ln_attn_residual_back(const void* o, const void* w_out, const void* b_out,
-                                            const void* x, void* y, int M, int d, void* stream) {
+                                            const void* x, void* y, int M, int d, int group,
+                                            void* stream) {
   if (M <= 0 || d % 128 != 0) return cudaErrorInvalidValue;
   return gemm90::gemm<ln_attn_residual_stage>(
       static_cast<const bf16*>(o), d, static_cast<const bf16*>(w_out), d,
       static_cast<const float*>(b_out), static_cast<const bf16*>(x), d, static_cast<bf16*>(y),
-      d, M, d, d, gemm90::ACT_NONE, 0, static_cast<cudaStream_t>(stream));
+      d, M, d, d, gemm90::ACT_NONE, 0, group, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* aaclip_ln_attn_residual_error_string(int err) {

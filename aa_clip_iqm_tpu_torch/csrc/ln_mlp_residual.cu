@@ -212,18 +212,20 @@ cudaError_t dispatch_act(int act, const void* x, const float* ln_g,
 // from B8's (csrc/ln_attn_residual.cu builds the same core).
 struct ln_mlp_residual_stage {};
 
-// The bf16 path: the LayerNorm pass and the two GEMMs; xin (M, d) and hid
-// (M, h) are the caller's bf16 scratch.
+// The bf16 path: the LayerNorm pass and the two GEMMs, their tiles in bands
+// of group1 and group2 M-tiles; xin (M, d) and hid (M, h) are the caller's
+// bf16 scratch.
 cudaError_t launch_gemm_path(const bf16* x, const float* ln_g, const float* ln_b,
                              const bf16* w_fc, const float* b_fc, const bf16* w_proj,
                              const float* b_proj, bf16* xin, bf16* hid, bf16* y, int M, int d,
-                             int h, float eps, int act, cudaStream_t s) {
+                             int h, float eps, int act, int group1, int group2, cudaStream_t s) {
   using Tag = ln_mlp_residual_stage;
   cudaError_t err = gemm90::layer_norm_rows<Tag>(x, ln_g, ln_b, xin, d, M, d, eps, s);
   if (err == cudaSuccess)
-    err = gemm90::gemm<Tag>(xin, d, w_fc, h, b_fc, nullptr, 0, hid, h, M, h, d, act, 0, s);
+    err = gemm90::gemm<Tag>(xin, d, w_fc, h, b_fc, nullptr, 0, hid, h, M, h, d, act, 0, group1,
+                            s);
   if (err == cudaSuccess)
-    err = gemm90::gemm<Tag>(hid, h, w_proj, d, b_proj, x, d, y, d, M, d, h, act, 0, s);
+    err = gemm90::gemm<Tag>(hid, h, w_proj, d, b_proj, x, d, y, d, M, d, h, act, 0, group2, s);
   return err;
 }
 
@@ -232,14 +234,16 @@ cudaError_t launch_gemm_path(const bf16* x, const float* ln_g, const float* ln_b
 // dtype: 0 = float32, 1 = bfloat16; act: 0 = exact GELU, 1 = QuickGELU.
 // LayerNorm scale/bias and both biases are fp32; x, y and weights share dtype.
 // bf16 with d % 128 == 0 and h % 256 == 0 takes the GEMM path and needs the
-// bf16 scratch xin (M, d) and hid (M, h); anything else ignores them.
-// Returns the first failing launch's cudaError_t.
+// bf16 scratch xin (M, d) and hid (M, h), its GEMMs' tiles in bands of
+// group1 and group2 M-tiles; anything else ignores them. Returns the first
+// failing launch's cudaError_t.
 extern "C" int aaclip_ln_mlp_residual(const void* x, const void* ln_g,
                                       const void* ln_b, const void* w_fc,
                                       const void* b_fc, const void* w_proj,
                                       const void* b_proj, void* xin, void* hid,
                                       void* y, int M, int d, int h, float eps,
-                                      int act, int dtype, void* stream) {
+                                      int act, int dtype, int group1, int group2,
+                                      void* stream) {
   if (M <= 0 || d <= 0 || h <= 0 || d % 16 != 0 || h % CH != 0 || act < 0 || act > 1)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -252,7 +256,7 @@ extern "C" int aaclip_ln_mlp_residual(const void* x, const void* ln_g,
     return launch_gemm_path(static_cast<const bf16*>(x), g, b, static_cast<const bf16*>(w_fc),
                             bf, static_cast<const bf16*>(w_proj), bp, static_cast<bf16*>(xin),
                             static_cast<bf16*>(hid), static_cast<bf16*>(y), M, d, h, eps, act,
-                            s);
+                            group1, group2, s);
   }
   if (dtype == 0)
     return dispatch_act<float>(act, x, g, b, w_fc, bf, w_proj, bp, y, M, d,
@@ -266,15 +270,17 @@ extern "C" int aaclip_ln_mlp_residual(const void* x, const void* ln_g,
 // One product of the GEMM core alone (csrc/gemm_sm90.cuh): out (M, N) =
 // act(a . w + bias) (act 0 GELU, 1 QuickGELU, 2 none) or, where res is
 // given, res + (a . w + bias); row strides lda, ldw, ld_res, ld_out; tile_n
-// 0 (the core's choice), 128 or 256. bf16 operands, fp32 bias.
+// 0 (the core's choice), 128 or 256; tiles in bands of `group` M-tiles.
+// bf16 operands, fp32 bias.
 extern "C" int aaclip_ln_mlp_residual_gemm(const void* a, int lda, const void* w, int ldw,
                                            const void* bias, const void* res, int ld_res,
                                            void* out, int ld_out, int M, int N, int K, int act,
-                                           int tile_n, void* stream) {
+                                           int tile_n, int group, void* stream) {
   return gemm90::gemm<ln_mlp_residual_stage>(
       static_cast<const bf16*>(a), lda, static_cast<const bf16*>(w), ldw,
       static_cast<const float*>(bias), static_cast<const bf16*>(res), ld_res,
-      static_cast<bf16*>(out), ld_out, M, N, K, act, tile_n, static_cast<cudaStream_t>(stream));
+      static_cast<bf16*>(out), ld_out, M, N, K, act, tile_n, group,
+      static_cast<cudaStream_t>(stream));
 }
 
 namespace {

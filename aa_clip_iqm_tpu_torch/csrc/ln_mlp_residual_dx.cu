@@ -276,19 +276,20 @@ ln_dx_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ t,
   }
 }
 
-// The four stages; xin (M, d) bf16, dh (M, h) bf16 and t (M, d) fp32 are the
+// The four stages, the two products' tiles in bands of group1 and group2
+// M-tiles; xin (M, d) bf16, dh (M, h) bf16 and t (M, d) fp32 are the
 // caller's scratch.
 cudaError_t launch_gemm_path(const bf16* x, const bf16* g, const float* ln_g, const float* ln_b,
                              const bf16* w_fc, const float* b_fc, const bf16* w_proj, bf16* xin,
                              bf16* dh, float* t, bf16* dx, int M, int d, int h, float eps,
-                             int act, cudaStream_t s) {
+                             int act, int group1, int group2, cudaStream_t s) {
   using Tag = ln_mlp_residual_dx_stage;
   cudaError_t err = gemm90::layer_norm_rows<Tag>(x, ln_g, ln_b, xin, d, M, d, eps, s);
   if (err == cudaSuccess)
     err = gemm90::gemm_dual_dact<Tag>(xin, d, w_fc, h, b_fc, g, d, w_proj, d, dh, h, M, h, d,
-                                      act, s);
+                                      act, group1, s);
   if (err == cudaSuccess)
-    err = gemm90::gemm_f32<Tag>(dh, h, w_fc, h, 1, ln_g, t, d, M, d, h, 0, s);
+    err = gemm90::gemm_f32<Tag>(dh, h, w_fc, h, 1, ln_g, t, d, M, d, h, 0, group2, s);
   if (err != cudaSuccess) return err;
   ln_dx_rows_kernel<Tag><<<(M + gemm90::LN_WARPS - 1) / gemm90::LN_WARPS, gemm90::LN_WARPS * 32, 0,
                       s>>>(x, t, g, dx, M, d, eps);
@@ -339,13 +340,15 @@ cudaError_t dispatch_act(int act, const void* x, const void* g, const float* ln_
 // dtype: 0 = float32, 1 = bfloat16; act: 0 = exact GELU, 1 = QuickGELU.
 // LayerNorm scale/bias and b_fc are fp32; x, g, dx and the weights share
 // dtype. bf16 with d and h multiples of 128 takes the GEMM path and needs
-// the scratch xin (M, d) bf16, dh (M, h) bf16 and t (M, d) fp32; anything
-// else ignores them. Returns the first failing launch's cudaError_t.
+// the scratch xin (M, d) bf16, dh (M, h) bf16 and t (M, d) fp32, its two
+// products' tiles in bands of group1 and group2 M-tiles; anything else
+// ignores them. Returns the first failing launch's cudaError_t.
 extern "C" int aaclip_ln_mlp_residual_dx(const void* x, const void* g, const void* ln_g,
                                          const void* ln_b, const void* w_fc,
                                          const void* b_fc, const void* w_proj, void* xin,
                                          void* dh, void* t, void* dx, int M, int d, int h,
-                                         float eps, int act, int dtype, void* stream) {
+                                         float eps, int act, int dtype, int group1, int group2,
+                                         void* stream) {
   if (M <= 0 || d <= 0 || h <= 0 || d % 16 != 0 || h % CH != 0 || act < 0 || act > 1)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -357,7 +360,8 @@ extern "C" int aaclip_ln_mlp_residual_dx(const void* x, const void* g, const voi
     return launch_gemm_path(static_cast<const bf16*>(x), static_cast<const bf16*>(g), lg, lb,
                             static_cast<const bf16*>(w_fc), bf, static_cast<const bf16*>(w_proj),
                             static_cast<bf16*>(xin), static_cast<bf16*>(dh),
-                            static_cast<float*>(t), static_cast<bf16*>(dx), M, d, h, eps, act, s);
+                            static_cast<float*>(t), static_cast<bf16*>(dx), M, d, h, eps, act,
+                            group1, group2, s);
   }
   if (dtype == 0)
     return dispatch_act<float>(act, x, g, lg, lb, w_fc, bf, w_proj, dx, M, d, h, eps, s);
@@ -368,28 +372,30 @@ extern "C" int aaclip_ln_mlp_residual_dx(const void* x, const void* g, const voi
 
 // The core's two modes that B5 adds, alone (csrc/gemm_sm90.cuh), bf16
 // operands: out32 (M, N) fp32 = (a . W) * scale (scale may be null), W = w
-// (K, N) or with w_kmajor w (N, K); tile_n 0, 128 or 256.
+// (K, N) or with w_kmajor w (N, K); tile_n 0, 128 or 256; tiles in bands of
+// `group` M-tiles.
 extern "C" int aaclip_ln_mlp_residual_dx_gemm_f32(const void* a, int lda, const void* w, int ldw,
                                                   int w_kmajor, const void* scale, void* out32,
                                                   int ld_out, int M, int N, int K, int tile_n,
-                                                  void* stream) {
+                                                  int group, void* stream) {
   return gemm90::gemm_f32<ln_mlp_residual_dx_stage>(
       static_cast<const bf16*>(a), lda, static_cast<const bf16*>(w), ldw, w_kmajor,
       static_cast<const float*>(scale), static_cast<float*>(out32), ld_out, M, N, K, tile_n,
-      static_cast<cudaStream_t>(stream));
+      group, static_cast<cudaStream_t>(stream));
 }
 
 // ... and the dual mode: out (M, N) bf16 = (a2 . w2^T) * act'(a . w + bias),
-// w (K, N), w2 (N, K); act 0 GELU, 1 QuickGELU.
+// w (K, N), w2 (N, K); act 0 GELU, 1 QuickGELU; tiles in bands of `group`
+// M-tiles.
 extern "C" int aaclip_ln_mlp_residual_dx_gemm_dual(const void* a, int lda, const void* w,
                                                    int ldw, const void* bias, const void* a2,
                                                    int lda2, const void* w2, int ldw2, void* out,
                                                    int ld_out, int M, int N, int K, int act,
-                                                   void* stream) {
+                                                   int group, void* stream) {
   return gemm90::gemm_dual_dact<ln_mlp_residual_dx_stage>(
       static_cast<const bf16*>(a), lda, static_cast<const bf16*>(w), ldw,
       static_cast<const float*>(bias), static_cast<const bf16*>(a2), lda2,
-      static_cast<const bf16*>(w2), ldw2, static_cast<bf16*>(out), ld_out, M, N, K, act,
+      static_cast<const bf16*>(w2), ldw2, static_cast<bf16*>(out), ld_out, M, N, K, act, group,
       static_cast<cudaStream_t>(stream));
 }
 

@@ -35,7 +35,8 @@ from ctypes import c_float, c_int, c_void_p
 import torch
 
 from . import _build, custom_ops
-from .gemm import gemm_bias_act_reference, gemm_bias_residual_reference
+from .gemm import (count_grouped, gemm_bias_act_reference, gemm_bias_residual_reference,
+                   tile_groups)
 from .layers import layer_norm, linear
 from .packed_attention import (flash_mha_packed_reference, flash_mha_packed_stages,
                                mha_reference)
@@ -131,10 +132,11 @@ def ln_attn_back_reference(out_params, o, x):
 
 # Each call of the whole kernel is four launches, of the front two, of the back one.
 _WHOLE = _build.Entry("ln_attn_residual", "ln_attn_residual",
-                      [c_void_p] * 9 + [c_int] * 5 + [c_float, c_float, c_int])
+                      [c_void_p] * 9 + [c_int] * 5 + [c_float, c_float] + [c_int] * 3)
 _FRONT = _build.Entry("ln_attn_residual", "ln_attn_residual_front",
-                      [c_void_p] * 7 + [c_int, c_int, c_float])
-_BACK = _build.Entry("ln_attn_residual", "ln_attn_residual_back", [c_void_p] * 5 + [c_int, c_int])
+                      [c_void_p] * 7 + [c_int, c_int, c_float, c_int])
+_BACK = _build.Entry("ln_attn_residual", "ln_attn_residual_back",
+                     [c_void_p] * 5 + [c_int] * 3)
 
 
 def _operand(t, dtype, device, what):
@@ -191,9 +193,11 @@ def _launch(ln_params, attn_params, x, num_heads: int, vv: bool, valid_len, eps:
     # (B*L, d) value section, then d columns for LN(x) and, over it, the
     # attention output.
     scratch = torch.empty((b * l, (d if vv else 3 * d) + d), dtype=bf16, device=dev)
+    groups = tile_groups(dev, (b * l, d if vv else 3 * d, d, 0), (b * l, d, d, 0))
     y = torch.empty_like(x)
     _WHOLE(dev, x.data_ptr(), *(t.data_ptr() for t in ops), scratch.data_ptr(), y.data_ptr(),
-           b, l, d, num_heads, vl, float(eps), float(hd ** -0.5), int(bool(vv)))
+           b, l, d, num_heads, vl, float(eps), float(hd ** -0.5), int(bool(vv)), *groups)
+    count_grouped(groups)
     return y
 
 
@@ -226,8 +230,10 @@ def _launch_front(ln_params, qkv_params, x, eps: float):
            _operand(qkv_params["b"], torch.float32, dev, "qkv bias")]
     xn = torch.empty((m, d), dtype=x.dtype, device=dev)
     qkv = torch.empty((*x.shape[:-1], 3 * d), dtype=x.dtype, device=dev)
+    groups = tile_groups(dev, (m, 3 * d, d, 0))
     _FRONT(dev, x.data_ptr(), *(t.data_ptr() for t in ops), xn.data_ptr(), qkv.data_ptr(), m, d,
-           float(eps))
+           float(eps), *groups)
+    count_grouped(groups)
     return qkv
 
 
@@ -243,8 +249,10 @@ def _launch_back(out_params, o, x):
     w = _operand(out_params["w"], torch.bfloat16, dev, "out weight")
     b = _operand(out_params["b"], torch.float32, dev, "out bias")
     y = torch.empty_like(x)
+    groups = tile_groups(dev, (x.numel() // d, d, d, 0))
     _BACK(dev, o.data_ptr(), w.data_ptr(), b.data_ptr(), x.data_ptr(), y.data_ptr(),
-          x.numel() // d, d)
+          x.numel() // d, d, *groups)
+    count_grouped(groups)
     return y
 
 

@@ -43,6 +43,7 @@ import torch
 from . import _build, custom_ops
 from .gemm import (
     DACTS,
+    count_grouped,
     gemm_bias_act_reference,
     gemm_bias_residual_reference,
     gemm_dual_dact_reference,
@@ -52,6 +53,7 @@ from .gemm import (
     gemm_s8_quant_reference,
     ln_quant_rows_reference,
     quantize_rows,
+    tile_groups,
 )
 from .layers import frozen_layout, gelu, layer_norm, mlp_block, quick_gelu
 from .quant import int8_matmul
@@ -82,7 +84,7 @@ def ln_mlp_residual_stages(ln_params, mlp_params, x, act, eps: float = 1e-5):
 
 
 _FLOAT = _build.Entry("ln_mlp_residual", "ln_mlp_residual",
-                      [c_void_p] * 10 + [c_int] * 3 + [c_float, c_int, c_int])
+                      [c_void_p] * 10 + [c_int] * 3 + [c_float] + [c_int] * 4)
 # B3 and B9 share their operands: the int8 chain's (x, LayerNorm, both
 # weights with their scales and biases, scratch, y), M, d, h, ch, eps and the
 # variant (B3's activation, B9's ep_bf16).
@@ -90,7 +92,7 @@ _INT8_ARGS = [c_void_p] * 16 + [c_int] * 4 + [c_float, c_int]
 _INT8 = _build.Entry("ln_mlp_residual_int8", "ln_mlp_residual_int8", _INT8_ARGS)
 _PROBE = _build.Entry("ln_mlp_residual_int8", "ln_mlp_residual_int8_probe", _INT8_ARGS)
 _DX = _build.Entry("ln_mlp_residual_dx", "ln_mlp_residual_dx",
-                   [c_void_p] * 11 + [c_int] * 3 + [c_float, c_int, c_int])
+                   [c_void_p] * 11 + [c_int] * 3 + [c_float] + [c_int] * 4)
 
 
 def _operand(t, dtype, device, what, fn="ln_mlp_residual"):
@@ -152,13 +154,16 @@ def _launch(ln_params, mlp_params, x, act, eps: float = 1e-5):
     # multiple of 128 and h of 256): LN(x) and the hidden layer (M, h), 90 MB
     # at ViT-L/518 batch 8.
     xin = hid = None
+    groups = [1, 1]
     if x.dtype == torch.bfloat16 and d % 128 == 0 and h % 256 == 0:
         xin = torch.empty((m, d), dtype=x.dtype, device=dev)
         hid = torch.empty((m, h), dtype=x.dtype, device=dev)
+        groups = tile_groups(dev, (m, h, d, 0), (m, d, h, 0))
     y = torch.empty_like(x)
     _FLOAT(dev, *ptrs, xin if xin is None else xin.data_ptr(),
            hid if hid is None else hid.data_ptr(), y.data_ptr(), m, d, h, float(eps),
-           _ACTS[act], _DTYPES[x.dtype])
+           _ACTS[act], _DTYPES[x.dtype], *groups)
+    count_grouped(groups)
     return y
 
 
@@ -550,13 +555,17 @@ def ln_mlp_residual_dx(ln_params, mlp_params, x, g, act, eps: float = 1e-5):
     # and h multiples of 128): LN(x) and dh in bf16, t = du * ln_g in fp32;
     # 315 MB at ViT-L/518 batch 8.
     scratch = [None, None, None]
+    groups = [1, 1]
     if x.dtype == torch.bfloat16 and d % 128 == 0 and h % 128 == 0:
         scratch = [torch.empty((m, d), dtype=x.dtype, device=dev),
                    torch.empty((m, h), dtype=x.dtype, device=dev),
                    torch.empty((m, d), dtype=f32, device=dev)]
+        # The dual product on 128-wide tiles over two weights, then GEMM 3.
+        groups = tile_groups(dev, (m, h, d, 128, 2), (m, d, h, 0))
     dx = torch.empty_like(x)
     _DX(dev, *ptrs, *(t if t is None else t.data_ptr() for t in scratch), dx.data_ptr(),
-        m, d, h, float(eps), _ACTS[act], _DTYPES[x.dtype])
+        m, d, h, float(eps), _ACTS[act], _DTYPES[x.dtype], *groups)
+    count_grouped(groups)
     return dx
 
 

@@ -42,13 +42,22 @@ bit. :func:`gemm_bias_act`, :func:`gemm_bias_residual`, :func:`gemm_f32` and
 them; the model reaches the core through B2, B5 and B8, and through the
 post-norm EVA block's own entries (``ops/postnorm.py``).
 :func:`gelu_mismatches` holds the core's GELU to CUDA's erff.
+
+The order in which the core's persistent grid takes its tiles is chosen
+here, for every launch of the bf16 core: :func:`tile_group` is the rule,
+:func:`tile_groups` applies it on a card, :func:`tile_order` is the order's
+plain version, and :func:`count_grouped` counts the launches that take
+bands as ``gemm.grouped``.
 """
 from __future__ import annotations
 
+import functools
+import math
 from ctypes import c_int, c_long, c_void_p as ptr
 
 import torch
 
+from ..utils.profiling import count
 from . import _build
 from .layers import gelu, layer_norm, quick_gelu
 from .quant import int8_matmul
@@ -179,17 +188,99 @@ def gemm_s8_proj_reference(h_q, w_q, sh, s_proj, b_proj, x, ch):
     return (x32 + f * s_proj.reshape(n).float() + b_proj.float()).to(x.dtype)
 
 
+#: Rows of one of the core's tiles (BM in ``csrc/gemm_sm90.cuh``).
+TILE_M = 128
+#: The counter of the core's launches whose tiles go in bands of M-tiles.
+GROUPED = "gemm.grouped"
+
+
+def tile_group(m: int, n: int, k: int, bn: int, sms: int, l2_bytes: int,
+               pairs: int = 1) -> int:
+    """The M-tiles a band of the core's tile order holds, for the product
+    (m, k) . (k, n) on ``bn``-wide tiles (``pairs`` products over the same
+    tiles: 2 in the dual mode) on a card of ``sms`` SMs and ``l2_bytes`` of
+    L2. 1 is N-tiles fastest over the whole grid.
+
+    The persistent grid runs a tile an SM, so at each k-slice a wave of
+    ``sms`` tiles reads the A rows of the M-tiles it spans and the weight
+    columns of its N-tiles. N-tiles fastest, a wave spans every N-tile. That
+    costs nothing where the weights stay in L2 from wave to wave (at most
+    half of it: A and the output stream through the rest); else every wave
+    reads all of them from HBM again. Bands of g M-tiles, M-tiles fastest in
+    a band, make a wave g M-tiles by sms / g N-tiles: the band's A rows stay
+    in L2 (at most half of it) while the band walks its N-tiles, and the
+    weights are read once a band. g = sqrt(sms * bn / TILE_M) makes the A
+    and weight bytes of a wave's k-slice equal, which is their least sum.
+    No band where a wave would span every N-tile anyway."""
+    m_tiles, n_tiles = -(-m // TILE_M), n // bn
+    wave = min(sms, m_tiles * n_tiles)
+    if 2 * pairs * k * n * 2 <= l2_bytes:
+        return 1
+    g = min(round(math.sqrt(wave * bn / TILE_M)), m_tiles,
+            l2_bytes // (2 * pairs * TILE_M * k * 2))
+    return 1 if g < 2 or g * n_tiles <= wave else g
+
+
+def tile_order(m_tiles: int, n_tiles: int, group: int):
+    """The plain version of the core's tile order (``tile_origin`` in
+    ``csrc/gemm_sm90.cuh``): the (M-tile, N-tile) of each tile index in
+    turn, in bands of ``group`` M-tiles (the last holds what is left),
+    M-tiles fastest inside a band, then N-tiles."""
+    group = max(1, min(group, m_tiles))
+    order = []
+    for t in range(m_tiles * n_tiles):
+        first = t // (group * n_tiles) * group
+        rows = min(group, m_tiles - first)
+        r = t - first * n_tiles
+        order.append((first + r % rows, r // rows))
+    return order
+
+
+@functools.lru_cache(maxsize=None)
+def _card(index: int):
+    props = torch.cuda.get_device_properties(index)
+    return props.multi_processor_count, props.L2_cache_size
+
+
+def tile_groups(device, *products):
+    """:func:`tile_group` of each product ``(m, n, k, tile_n[, pairs])`` on
+    ``device``'s card, ``tile_n`` 0 for the core's choice (256 where N
+    allows, else 128)."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    sms, l2_bytes = _card(index)
+    return [tile_group(m, n, k, tile_n or (256 if n % 256 == 0 else 128), sms, l2_bytes, *pairs)
+            for m, n, k, tile_n, *pairs in products]
+
+
+def count_grouped(groups) -> None:
+    """Count the launches among ``groups`` that take bands (``gemm.grouped``):
+    after the launch, as ``launches.<entry>`` is counted."""
+    grouped = sum(g > 1 for g in groups)
+    if grouped:
+        count(GROUPED, grouped)
+
+
+def _group(device, m, n, k, tile_n, group, pairs=1):
+    """The band for a product of the core alone: ``group`` where given
+    (at most the M-tiles), else :func:`tile_group`'s."""
+    if group is None:
+        return tile_groups(device, (m, n, k, tile_n, pairs))[0]
+    if group < 1:
+        raise ValueError(f"gemm: group {group} must be at least 1")
+    return min(group, -(-m // TILE_M))
+
+
 # The core's products alone, each counted under its own entry's name.
 _GEMM = _build.Entry("ln_mlp_residual", "ln_mlp_residual_gemm",
-                     [ptr, c_int, ptr, c_int, ptr, ptr, c_int, ptr] + [c_int] * 6)
+                     [ptr, c_int, ptr, c_int, ptr, ptr, c_int, ptr] + [c_int] * 7)
 _GELU_CHECK = _build.Entry("ln_mlp_residual", "ln_mlp_residual_gelu_check", [c_long, c_long, ptr])
 _GEMM_F32 = _build.Entry("ln_mlp_residual_dx", "ln_mlp_residual_dx_gemm_f32",
-                         [ptr, c_int, ptr, c_int, c_int, ptr, ptr] + [c_int] * 5)
+                         [ptr, c_int, ptr, c_int, c_int, ptr, ptr] + [c_int] * 6)
 _GEMM_DUAL = _build.Entry("ln_mlp_residual_dx", "ln_mlp_residual_dx_gemm_dual",
-                          [ptr, c_int, ptr, c_int, ptr, ptr, c_int, ptr, c_int, ptr] + [c_int] * 5)
+                          [ptr, c_int, ptr, c_int, ptr, ptr, c_int, ptr, c_int, ptr] + [c_int] * 6)
 
 
-def _launch(a, w, b, res, act, tile_n):
+def _launch(a, w, b, res, act, tile_n, group):
     fn = "gemm"
     if a.device.type != "cuda":
         raise ValueError(f"{fn}: unsupported device {a.device}")
@@ -209,10 +300,12 @@ def _launch(a, w, b, res, act, tile_n):
             raise ValueError(f"{fn}: operands must be contiguous, 16-byte aligned, on one card")
     m = a.numel() // k
     bias = tensors[2]
+    group = _group(a.device, m, n, k, tile_n, group)
     out = torch.empty((*a.shape[:-1], n), dtype=torch.bfloat16, device=a.device)
     _GEMM(a.device, a.data_ptr(), k, w.data_ptr(), n, bias.data_ptr(),
           res.data_ptr() if res is not None else None, n, out.data_ptr(), n, m, n, k,
-          _ACTS[act], tile_n)
+          _ACTS[act], tile_n, group)
+    count_grouped([group])
     return out
 
 
@@ -228,9 +321,10 @@ def _checked(fn, a, *tensors):
             raise ValueError(f"{fn}: operands must be contiguous, 16-byte aligned, on one card")
 
 
-def gemm_f32(a, w, scale=None, w_kmajor: bool = False, tile_n: int = 0):
+def gemm_f32(a, w, scale=None, w_kmajor: bool = False, tile_n: int = 0, group=None):
     """:func:`gemm_f32_reference` through the core on a CUDA tensor: bf16 a
-    (..., K) and w, N a multiple of 128, K of 64; ``tile_n`` 0, 128 or 256."""
+    (..., K) and w, N a multiple of 128, K of 64; ``tile_n`` 0, 128 or 256;
+    ``group`` the M-tiles a band of the tile order (None: the rule's)."""
     if a.device.type == "cpu":
         return gemm_f32_reference(a, w, scale, w_kmajor)
     fn = "gemm_f32"
@@ -245,16 +339,19 @@ def gemm_f32(a, w, scale=None, w_kmajor: bool = False, tile_n: int = 0):
     scale = None if scale is None else scale.float().contiguous()
     _checked(fn, a, w, scale)
     m = a.numel() // k
+    group = _group(a.device, m, n, k, tile_n, group)
     out = torch.empty((*a.shape[:-1], n), dtype=torch.float32, device=a.device)
     _GEMM_F32(a.device, a.data_ptr(), k, w.data_ptr(), w.shape[-1], int(w_kmajor),
-              None if scale is None else scale.data_ptr(), out.data_ptr(), n, m, n, k, tile_n)
+              None if scale is None else scale.data_ptr(), out.data_ptr(), n, m, n, k, tile_n,
+              group)
+    count_grouped([group])
     return out
 
 
-def gemm_dual_dact(a, w, b, a2, w2t, act):
+def gemm_dual_dact(a, w, b, a2, w2t, act, group=None):
     """:func:`gemm_dual_dact_reference` through the core on a CUDA tensor:
     bf16 a, a2 (..., K), w (K, N), w2t (N, K), N a multiple of 128, K of
-    64; ``act`` GELU or QuickGELU."""
+    64; ``act`` GELU or QuickGELU; ``group`` as for :func:`gemm_f32`."""
     if a.device.type == "cpu":
         return gemm_dual_dact_reference(a, w, b, a2, w2t, act)
     fn = "gemm_dual_dact"
@@ -270,27 +367,30 @@ def gemm_dual_dact(a, w, b, a2, w2t, act):
     bias = b.float().contiguous()
     _checked(fn, a, w, bias, a2, w2t)
     m = a.numel() // k
+    group = _group(a.device, m, n, k, 128, group, 2)
     out = torch.empty((*a.shape[:-1], n), dtype=torch.bfloat16, device=a.device)
     _GEMM_DUAL(a.device, a.data_ptr(), k, w.data_ptr(), n, bias.data_ptr(), a2.data_ptr(), k,
-               w2t.data_ptr(), k, out.data_ptr(), n, m, n, k, _ACTS[act])
+               w2t.data_ptr(), k, out.data_ptr(), n, m, n, k, _ACTS[act], group)
+    count_grouped([group])
     return out
 
 
-def gemm_bias_act(a, w, b, act=None, tile_n: int = 0):
+def gemm_bias_act(a, w, b, act=None, tile_n: int = 0, group=None):
     """:func:`gemm_bias_act_reference` through the core on a CUDA tensor.
     bf16 a (..., K) and w (K, N), N a multiple of 128, K of 64; ``tile_n``
-    0 (the core's choice), 128 or 256."""
+    0 (the core's choice), 128 or 256; ``group`` the M-tiles a band of the
+    tile order (None: :func:`tile_group`'s)."""
     if a.device.type == "cpu":
         return gemm_bias_act_reference(a, w, b, act)
-    return _launch(a, w, b, None, act, tile_n)
+    return _launch(a, w, b, None, act, tile_n, group)
 
 
-def gemm_bias_residual(a, w, b, res, tile_n: int = 0):
+def gemm_bias_residual(a, w, b, res, tile_n: int = 0, group=None):
     """:func:`gemm_bias_residual_reference` through the core on a CUDA
     tensor; as :func:`gemm_bias_act`, res bf16 (..., N)."""
     if a.device.type == "cpu":
         return gemm_bias_residual_reference(a, w, b, res)
-    return _launch(a, w, b, res, None, tile_n)
+    return _launch(a, w, b, res, None, tile_n, group)
 
 
 def gelu_mismatches(device, base: int = 0, n: int = 1 << 32) -> int:

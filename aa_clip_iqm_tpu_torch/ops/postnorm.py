@@ -27,16 +27,16 @@ from ctypes import c_float, c_int, c_void_p as ptr
 import torch
 
 from . import _build
-from .gemm import gemm_bias_act_reference, gemm_f32_reference
+from .gemm import count_grouped, gemm_bias_act_reference, gemm_f32_reference, tile_groups
 from .layers import gelu
 
 #: The row pass's widest row (2,048 columns: 16 float4 a lane).
 ROWS_MAX_WIDTH = 2048
 
 _GEMM = _build.Entry("eva_postnorm", "eva_postnorm_gemm",
-                     [ptr, c_int, ptr, c_int, ptr, ptr] + [c_int] * 5)
+                     [ptr, c_int, ptr, c_int, ptr, ptr] + [c_int] * 6)
 _GEMM_F32 = _build.Entry("eva_postnorm", "eva_postnorm_gemm_f32",
-                         [ptr, c_int, ptr, c_int, ptr] + [c_int] * 4)
+                         [ptr, c_int, ptr, c_int, ptr] + [c_int] * 5)
 _ROWS = _build.Entry("eva_postnorm", "ln_residual_rows", [ptr] * 6 + [c_int, c_int, c_float])
 _ACTS = {gelu: 0, None: 2}
 
@@ -98,9 +98,11 @@ def gemm_act(a, w, b, act=None):
         raise ValueError(f"eva_postnorm_gemm: bias {tuple(b.shape)} for N={n}")
     bias = b.float()
     _check("eva_postnorm_gemm", a, w, bias)
+    groups = tile_groups(a.device, (m, n, k, 0))
     out = torch.empty((*a.shape[:-1], n), dtype=a.dtype, device=a.device)
     _GEMM(a.device, a.data_ptr(), k, w.data_ptr(), n, bias.data_ptr(), out.data_ptr(), n, m, n,
-          k, _ACTS[act])
+          k, _ACTS[act], *groups)
+    count_grouped(groups)
     return out
 
 
@@ -111,8 +113,10 @@ def gemm_f32(a, w):
         return gemm_f32_reference(a, w)
     m, n, k = _product_shape("eva_postnorm_gemm_f32", a, w)
     _check("eva_postnorm_gemm_f32", a, w)
+    groups = tile_groups(a.device, (m, n, k, 0))
     out = torch.empty((*a.shape[:-1], n), dtype=torch.float32, device=a.device)
-    _GEMM_F32(a.device, a.data_ptr(), k, w.data_ptr(), n, out.data_ptr(), n, m, n, k)
+    _GEMM_F32(a.device, a.data_ptr(), k, w.data_ptr(), n, out.data_ptr(), n, m, n, k, *groups)
+    count_grouped(groups)
     return out
 
 

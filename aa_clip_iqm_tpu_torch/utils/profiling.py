@@ -59,8 +59,10 @@ route (``use_pallas``) ``attn.proj_fused`` / ``attn.proj_chain`` (its attention
 half's LayerNorm and projections run on B8's front and back kernels, or on the
 chain); ``launches.<name>`` for each hand-written kernel's C entry
 ``aaclip_<name>`` (``ops._build.Entry``; B4 and B6 share one entry, counted
-``launches.packed_attention_bwd`` and ``launches.packed_attention_vv_bwd``).
-These counters count Python calls, so in a CUDA graph they count the
+``launches.packed_attention_bwd`` and ``launches.packed_attention_vv_bwd``);
+``gemm.grouped`` for the bf16 GEMM core's launches whose tiles go in bands
+of M-tiles (``ops.gemm.tile_group``'s choice: EVA02-CLIP-E/14+'s W1, 64 a
+forward). These counters count Python calls, so in a CUDA graph they count the
 warm-up and the capture, not the replays.
 ``cli.serve`` answers ``GET /v1/stats`` with them.
 """

@@ -186,6 +186,84 @@ def test_gemm_act_epilogue_tile_widths_match(dev, m, n, k):
     assert _build.launches(before) == {"ln_mlp_residual_gemm": 9}
 
 
+@pytest.mark.parametrize("m,grouped", [(1, 0), (130, 0), (21843, 1), (21920, 1)])
+def test_grouped_tile_order_is_bit_for_bit_the_n_fastest_one(dev, m, grouped):
+    """EVA02-CLIP-E/14+'s W1 (K 1,792, N 15,360, exact GELU) with its tiles
+    in bands of 4, 16 and 200 M-tiles and in the rule's bands, through the
+    core alone and through the post-norm block's own entry: bit for bit the
+    N-fastest order's output. The order moves no product, epilogue or
+    rounding, only which SM takes a tile when. The rule bands W1 where its
+    tiles take more than one wave (``grouped``)."""
+    from aa_clip_iqm_tpu_torch.ops import postnorm
+
+    gen = torch.Generator(device=dev).manual_seed(m)
+    a = torch.randn((m, 1792), generator=gen, device=dev).to(torch.bfloat16)
+    w = (torch.randn((1792, 15360), generator=gen, device=dev) * 1792 ** -0.5).to(torch.bfloat16)
+    b = torch.randn((15360,), generator=gen, device=dev) * 0.1
+    want = gemm.gemm_bias_act(a, w, b, gelu, group=1)
+    for group in (4, 16, 200, None):
+        assert torch.equal(gemm.gemm_bias_act(a, w, b, gelu, group=group), want), group
+    before = profiling.counters()
+    assert torch.equal(postnorm.gemm_act(a, w, b, gelu), want)
+    assert profiling.counters().get(gemm.GROUPED, 0) - before.get(gemm.GROUPED, 0) == grouped
+
+
+@pytest.mark.parametrize("m,n,k", [(130, 1792, 1792), (21920, 1792, 1536)])
+def test_grouped_tile_order_leaves_every_epilogue_bit_for_bit(dev, m, n, k):
+    """Epilogues (b), (c) and (d) in bands of 3 and 16 M-tiles against the
+    N-fastest order, bit for bit, with the rule's choice counted as it is
+    taken."""
+    gen = torch.Generator(device=dev).manual_seed(n + k)
+
+    def rnd(*shape, std=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * std
+
+    a, a2 = rnd(m, k).to(torch.bfloat16), rnd(m, k).to(torch.bfloat16)
+    w = rnd(k, n, std=k ** -0.5).to(torch.bfloat16)
+    w2t = rnd(n, k, std=k ** -0.5).to(torch.bfloat16)
+    b, res = rnd(n, std=0.1), rnd(m, n).to(torch.bfloat16)
+    runs = [lambda g: gemm.gemm_bias_residual(a, w, b, res, group=g),
+            lambda g: gemm.gemm_dual_dact(a, w, b, a2, w2t, gelu, group=g),
+            lambda g: gemm.gemm_f32(a, w, b, group=g),
+            lambda g: gemm.gemm_f32(a, w2t, None, w_kmajor=True, group=g)]
+    for run in runs:
+        want = run(1)
+        for group in (3, 16):
+            assert torch.equal(run(group), want), group
+    before = profiling.counters()
+    for run in runs:
+        run(None)
+    assert profiling.counters().get(gemm.GROUPED, 0) == before.get(gemm.GROUPED, 0)
+
+
+def _tower_forward(name, batch, dev):
+    """One bf16 forward of ``name``'s vision tower at 518 px on the kernels,
+    from seeded weights; returns the ``gemm.grouped`` launches it took."""
+    from aa_clip_iqm_tpu_torch.loader import build_model_config, random_backbone
+    from aa_clip_iqm_tpu_torch.models import clip as tclip
+    from benchmark import inputs
+
+    cfg = build_model_config(name, img_size=518)
+    visual = inputs.fill(random_backbone(cfg, device="meta", dtype=torch.bfloat16)["visual"],
+                         5, dev)
+    images = torch.randn((batch, 3, 518, 518), generator=torch.Generator(device=dev).manual_seed(6),
+                         device=dev)
+    before = profiling.counters().get(gemm.GROUPED, 0)
+    with torch.no_grad():
+        tclip.vision_forward(visual, cfg.clip.vision, images, compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    return profiling.counters().get(gemm.GROUPED, 0) - before
+
+
+def test_gemm_grouped_counts_the_w1_launches_of_a_forward(dev):
+    """``gemm.grouped``: one a W1 launch, 64 in a forward of the whole
+    EVA02-CLIP-E/14+ tower, none in a ViT-L/518 forward, whose products all
+    keep the N-fastest order."""
+    assert _tower_forward("EVA02-CLIP-bigE-14-plus", 1, dev) == 64
+    torch.cuda.empty_cache()
+    assert _tower_forward("ViT-L-14-336", 2, dev) == 0
+
+
 def test_gelu_matches_erff_on_every_float(dev):
     """The core's exact GELU and its erf (two polynomial chains and one
     select) against the same through CUDA's erff, over all 2^32 floats:

@@ -49,6 +49,7 @@ from aa_clip_iqm_tpu_torch.loader import build_model_config, init_trainable, ran
 from aa_clip_iqm_tpu_torch.models import clip as tclip
 from aa_clip_iqm_tpu_torch.ops import _build
 from aa_clip_iqm_tpu_torch.ops import attention as tattn
+from aa_clip_iqm_tpu_torch.ops import gemm as tgemm
 from aa_clip_iqm_tpu_torch.ops import packed_attention as pa
 from aa_clip_iqm_tpu_torch.ops import postnorm
 from aa_clip_iqm_tpu_torch.ops.compare import (BF16_MAX_ULPS, BF16_RMS_ULPS, WALK_MAX_ULPS,
@@ -515,6 +516,99 @@ def test_the_gate_takes_every_cpu_call_and_the_card_s_widths_only(tiny):
                 (x, _fake_block(1792, 15360, torch.float32), "weights qkv, out, c_fc, c_proj")):
             with pytest.raises(ValueError, match=why):
                 postnorm.check_postnorm(xs, block)
+
+
+# --------------------------------------------------------------------------
+# The GEMM core's tile order
+# --------------------------------------------------------------------------
+
+# An H100 SXM as torch reads it: 132 SMs, 50 MiB of L2.
+H100 = {"sms": 132, "l2_bytes": 50 * 2 ** 20}
+
+
+@pytest.mark.parametrize("group", [1, 3, 16, 200])
+@pytest.mark.parametrize("n_tiles", [1, 7, 60])
+@pytest.mark.parametrize("m", [1, 130, 21920])
+def test_the_tile_order_is_a_permutation_of_every_tile(m, n_tiles, group):
+    """The plain version of the core's order takes each tile once: ragged
+    M, bands that do not divide the M-tiles (3), and bands wider than them
+    (200). Bands of one M-tile are the N-fastest order."""
+    m_tiles = -(-m // tgemm.TILE_M)
+    order = tgemm.tile_order(m_tiles, n_tiles, group)
+    assert sorted(order) == [(i, j) for i in range(m_tiles) for j in range(n_tiles)]
+    if group == 1:
+        assert order == [(t // n_tiles, t % n_tiles) for t in range(m_tiles * n_tiles)]
+
+
+def test_a_wave_in_a_band_spans_the_band_s_m_tiles_and_few_n_tiles():
+    """W1's order at batch 16 (172 x 60 tiles) in bands of 16: any 132
+    tiles in a row inside a band take its 16 M-tiles and at most 10 of the
+    60 N-tiles, where the N-fastest order takes all 60 and 3 M-tiles."""
+    order = tgemm.tile_order(172, 60, 16)
+    for start in range(0, 960 - 132, 7):
+        wave = order[start:start + 132]
+        assert len({m for m, _ in wave}) == 16 and len({n for _, n in wave}) <= 10
+    flat = tgemm.tile_order(172, 60, 1)[:132]
+    assert len({n for _, n in flat}) == 60 and len({m for m, _ in flat}) == 3
+
+
+# The bf16 core's products in the other cells, (M, N, K, tile_n[, pairs]):
+# tile_n 0 is the core's choice, the dual mode takes 128 and two pairs.
+OTHER_CELLS = {
+    "518 px B2 GEMM 1, batch 32": (43840, 4096, 1024, 0),
+    "518 px B2 GEMM 2, batch 32": (43840, 1024, 4096, 0),
+    "518 px B8 front, batch 32": (43840, 3072, 1024, 0),
+    "518 px B8 back, batch 32": (43840, 1024, 1024, 0),
+    "1274 px B2 GEMM 1, batch 8": (66256, 4096, 1024, 0),
+    "1274 px B2 GEMM 2, batch 8": (66256, 1024, 4096, 0),
+    "1274 px B8 front, batch 8": (66256, 3072, 1024, 0),
+    "1274 px B8 back, batch 8": (66256, 1024, 1024, 0),
+    "training B2 GEMM 1, batch 8": (10960, 4096, 1024, 0),
+    "training B2 GEMM 2, batch 8": (10960, 1024, 4096, 0),
+    "training B5 dual, batch 8": (10960, 4096, 1024, 128, 2),
+    "training B5 GEMM 3, batch 8": (10960, 1024, 4096, 0),
+    "training B8 front, batch 8": (10960, 3072, 1024, 0),
+    "training B8 back, batch 8": (10960, 1024, 1024, 0),
+    "ViT-L text tower GEMM 1": (1155, 3072, 768, 0),
+    "ViT-L text tower GEMM 2": (1155, 768, 3072, 0),
+    "ViT-L text tower, 40 prompts a class": (46200, 3072, 768, 0),
+    "bigG text tower GEMM 1": (46200, 5120, 1280, 0),
+    "bigG text tower GEMM 2": (46200, 1280, 5120, 0),
+    "EVA02-CLIP-L B8 front, batch 32": (43840, 3072, 1024, 0),
+    "EVA02-CLIP-L B8 back, batch 32": (43840, 1024, 1024, 0),
+    "P1 W2, batch 16": (21920, 1792, 15360, 0),
+    "P1 out-projection, batch 16": (21920, 1792, 1792, 0),
+}
+
+
+@pytest.mark.parametrize("product", sorted(OTHER_CELLS))
+def test_the_rule_keeps_the_n_fastest_order_for_the_other_products(product):
+    """Their weights stay in L2 from wave to wave, or (W2's seven N-tiles)
+    a wave spans every N-tile anyway: the launch is the N-fastest one."""
+    m, n, k, tile_n, *pairs = OTHER_CELLS[product]
+    assert tgemm.tile_group(m, n, k, tile_n or (256 if n % 256 == 0 else 128), **H100,
+                            pairs=pairs[0] if pairs else 1) == 1
+
+
+@pytest.mark.parametrize("m,want", [(21920, 16), (21843, 16), (1370, 11), (130, 1), (1, 1)])
+def test_the_rule_bands_w1(m, want):
+    """EVA02-CLIP-E/14+'s W1 (a 55 MB weight, more than the L2) in bands of
+    sqrt(132 x 256 / 128) = 16 M-tiles, or of all of them below 16; one
+    wave's worth of tiles keeps the N-fastest order."""
+    assert tgemm.tile_group(m, 15360, 1792, 256, **H100) == want
+
+
+def test_the_rule_keeps_a_band_s_rows_within_the_l2():
+    """A band's A rows stay within half the L2: at K = 15,360 a band of 16
+    M-tiles would hold 63 MB, so it takes 6 (24 MB)."""
+    assert tgemm.tile_group(21920, 15360, 15360, 256, **H100) == 6
+
+
+def test_grouped_launches_are_counted_once_each():
+    before = profiling.counters().get(tgemm.GROUPED, 0)
+    tgemm.count_grouped([1, 16, 1, 3])
+    tgemm.count_grouped([1, 1])
+    assert profiling.counters()[tgemm.GROUPED] - before == 2
 
 
 # --------------------------------------------------------------------------
