@@ -4,9 +4,17 @@ Counterpart of ``aa_clip_iqm_tpu/configs.py``: the same dataclasses, field
 names and defaults, and the same JSON schema (``embed_dim`` / ``vision_cfg``
 / ``text_cfg``) read from this package's own ``registry/model_configs``.
 The models that the port runs and the JAX package does not (EVA02-CLIP's
-vision towers, :class:`Eva02VisionConfig`) live apart, in
+vision towers, :class:`Eva02VisionConfig`; SigLIP's towers,
+:class:`SiglipVisionConfig` and :class:`SiglipTextConfig`) live apart, in
 ``registry/port_models``, read after it: ``list_models`` stays the JAX
 package's list.
+
+Every vision config states its token layout and its norms, and every text
+config its mask, pooling and head: ``class_token``, ``pool``, ``ln_pre`` and
+``ln_eps`` (vision), ``causal``, ``pool``, ``head_bias``, ``ln_eps`` and
+``mlp_hidden`` (text). CLIP's configs give them as fixed properties, so that
+their fields stay the JAX package's; SigLIP's as class constants, beside
+the LayerNorm eps and MLP ratio that the registry file gives as fields.
 """
 from __future__ import annotations
 
@@ -43,6 +51,27 @@ class VisionConfig:
     def num_patches(self) -> int:
         return self.grid * self.grid
 
+    # CLIP's token layout and norms (SigLIP's tower sets them as fields).
+    @property
+    def class_token(self) -> bool:
+        """Whether row 0 of the tower's tokens is a class token."""
+        return True
+
+    @property
+    def pool(self) -> str:
+        """The pooled embedding: ``"token"``, the class row through ln_post
+        and the projection; ``"map"``, the attention-pool head on every
+        row after ln_post."""
+        return "token"
+
+    @property
+    def ln_pre(self) -> bool:
+        return True
+
+    @property
+    def ln_eps(self) -> float:
+        return 1e-5
+
 
 @dataclass(frozen=True)
 class Eva02VisionConfig(VisionConfig):
@@ -71,6 +100,28 @@ class Eva02VisionConfig(VisionConfig):
     postnorm: bool = False
     #: Every LayerNorm's eps (EVA-CLIP's ``partial(LayerNorm, eps=1e-6)``).
     ln_eps: ClassVar[float] = 1e-6
+    ln_pre: ClassVar[bool] = False
+
+    @property
+    def mlp_hidden(self) -> int:
+        return int(self.width * self.mlp_ratio)
+
+
+@dataclass(frozen=True)
+class SiglipVisionConfig(VisionConfig):
+    """A SigLIP ViT (Zhai et al., arXiv 2303.15343; timm's
+    ``vit_so400m_patch14_siglip_384``): CLIP's pre-norm block with biases on
+    every product, at LayerNorm eps ``ln_eps``, the tanh GELU (``CLIPConfig.act``
+    ``"gelu_tanh"``) and an MLP of hidden ``int(width * mlp_ratio)``; a
+    patch embedding with a bias and no class row (``class_token``), no
+    ln_pre, and the attention-pool head (``pool`` ``"map"``: one learned
+    probe attends over every row after ln_post, then an MLP with its
+    LayerNorm) as the pooled embedding, with no projection after it."""
+
+    class_token: ClassVar[bool] = False
+    pool: ClassVar[str] = "map"
+    ln_pre: ClassVar[bool] = False
+    ln_eps: float = 1e-6
 
     @property
     def mlp_hidden(self) -> int:
@@ -116,6 +167,52 @@ class TextConfig:
     layers: int = 12
     output_dim: int = 768
 
+    # CLIP's text tower (SigLIP's sets them as fields).
+    @property
+    def causal(self) -> bool:
+        """Whether each token attends to those before it only."""
+        return True
+
+    @property
+    def pool(self) -> str:
+        """The pooled row: ``"eot"``, the end token's (the row's largest
+        id); ``"last"``, the last position's."""
+        return "eot"
+
+    @property
+    def head_bias(self) -> bool:
+        """Whether the pooled row's projection has a bias (``head: {w, b}``
+        in ``text_projection``'s place)."""
+        return False
+
+    @property
+    def ln_eps(self) -> float:
+        return 1e-5
+
+    @property
+    def mlp_hidden(self) -> int:
+        return 4 * self.width
+
+
+@dataclass(frozen=True)
+class SiglipTextConfig(TextConfig):
+    """SigLIP's text tower (OpenCLIP's ``text_cfg`` with ``no_causal_mask``,
+    ``pool_type`` ``"last"`` and ``proj_bias``): CLIP's pre-norm blocks at
+    LayerNorm eps ``ln_eps`` and MLP hidden ``int(width * mlp_ratio)``, no
+    mask, the last position pooled after ln_final and projected with a
+    bias. Prompts are padded to ``context_length``
+    (``tokenizer.tokenize_padded``)."""
+
+    mlp_ratio: float = 4.0
+    causal: ClassVar[bool] = False
+    pool: ClassVar[str] = "last"
+    head_bias: ClassVar[bool] = True
+    ln_eps: float = 1e-6
+
+    @property
+    def mlp_hidden(self) -> int:
+        return int(self.width * self.mlp_ratio)
+
 
 @dataclass(frozen=True)
 class CLIPConfig:
@@ -123,7 +220,7 @@ class CLIPConfig:
     vision: VisionConfig = field(default_factory=VisionConfig)
     text: TextConfig = field(default_factory=TextConfig)
     # Exact (erf) GELU, as the live reference model runs; "quick_gelu" stays
-    # available.
+    # available; "gelu_tanh" is SigLIP's.
     act: str = "gelu"
 
     def with_image_size(self, img_size: int) -> "CLIPConfig":
@@ -270,6 +367,43 @@ def _eva_postnorm(model_name: str, v: dict) -> bool:
         f"({_EVA02_BLOCK}, no postnorm) and the post-norm block (postnorm alone)")
 
 
+# What a SigLIP configuration must say: timm's attention pool and no
+# projection after it, a tower without a class row or ln_pre, the tanh
+# GELU; a bidirectional text tower pooled at its last position, with a
+# biased head and the tanh GELU. The port has no other combination of
+# these settings.
+_SIGLIP_VISION = {"timm_pool": "map", "timm_proj": "none", "class_token": False,
+                  "ln_pre": False, "act": "gelu_tanh"}
+_SIGLIP_TEXT = {"no_causal_mask": True, "pool_type": "last", "proj_bias": True,
+                "act_kwargs": {"approximate": "tanh"}}
+
+
+def _siglip(model_name: str, raw: dict, img_size: Optional[int]) -> CLIPConfig:
+    """A SigLIP configuration (``vision_cfg`` naming a ``timm_model_name``)
+    as a CLIPConfig; raises ``NotImplementedError`` naming the keys where
+    the settings are another combination than :data:`_SIGLIP_VISION` and
+    :data:`_SIGLIP_TEXT`."""
+    v, t = raw["vision_cfg"], raw["text_cfg"]
+    given = {**{f"vision_cfg.{k}": v.get(k) for k in _SIGLIP_VISION},
+             **{f"text_cfg.{k}": t.get(k) for k in _SIGLIP_TEXT}}
+    want = {**{f"vision_cfg.{k}": w for k, w in _SIGLIP_VISION.items()},
+            **{f"text_cfg.{k}": w for k, w in _SIGLIP_TEXT.items()}}
+    if given != want:
+        wrong = {k: g for k, g in given.items() if g != want[k]}
+        raise NotImplementedError(
+            f"{model_name}: SigLIP settings {wrong}; the port has SigLIP's tower as "
+            f"{want} only")
+    vision = SiglipVisionConfig(
+        image_size=img_size or v["image_size"], patch_size=v["patch_size"], width=v["width"],
+        layers=v["layers"], head_width=v["head_width"], mlp_ratio=v["mlp_ratio"],
+        output_dim=raw["embed_dim"], ln_eps=v["ln_eps"])
+    text = SiglipTextConfig(
+        context_length=t["context_length"], vocab_size=t["vocab_size"], width=t["width"],
+        heads=t["heads"], layers=t["layers"], output_dim=raw["embed_dim"],
+        mlp_ratio=t["mlp_ratio"], ln_eps=t["norm_kwargs"]["eps"])
+    return CLIPConfig(embed_dim=raw["embed_dim"], vision=vision, text=text, act="gelu_tanh")
+
+
 def is_port_model(model_name: str) -> bool:
     """Whether ``model_name`` is one of the port's own models
     (``registry/port_models``), not the JAX package's."""
@@ -283,7 +417,8 @@ def get_model_config(model_name: str, img_size: Optional[int] = None) -> CLIPCon
     then the port's own), optionally overriding the image size. List-typed
     vision layers select the ModifiedResNet tower; an ``eva_model_name``
     (or any of the EVA block settings) an EVA-CLIP tower, whose block the
-    settings select (:func:`_eva_postnorm`)."""
+    settings select (:func:`_eva_postnorm`); a ``timm_model_name`` SigLIP's
+    towers (:func:`_siglip`)."""
     model_name = model_name.replace("/", "-")
     path = next((p for p in (os.path.join(d, model_name + ".json")
                              for d in (_CONFIG_DIR, _PORT_CONFIG_DIR)) if os.path.isfile(p)),
@@ -295,6 +430,8 @@ def get_model_config(model_name: str, img_size: Optional[int] = None) -> CLIPCon
     with open(path) as f:
         raw = json.load(f)
     v, t = raw["vision_cfg"], raw["text_cfg"]
+    if "timm_model_name" in v:
+        return _siglip(model_name, raw, img_size)
     if "eva_model_name" in v or any(k in v for k in _EVA_KEYS):
         postnorm = _eva_postnorm(model_name, v)
         vision = Eva02VisionConfig(
@@ -387,3 +524,24 @@ def tiny_eva_postnorm_config(img_size: int = 56) -> ModelConfig:
                                layers=v.layers, head_width=28, mlp_ratio=8.571428571428571,
                                output_dim=v.output_dim, postnorm=True)
     return dataclasses.replace(cfg, clip=dataclasses.replace(cfg.clip, vision=vision))
+
+
+def tiny_siglip_config(img_size: int = 56) -> ModelConfig:
+    """:func:`tiny_test_config` with SigLIP's towers at width 144: 3 vision
+    blocks of 2 heads of 72 and SigLIP's ``mlp_ratio`` (hidden 538, no
+    multiple of 128, so the kernels' padding of the hidden width runs), no
+    class row (16 rows at 56 px), the attention pool; a text tower of 3
+    such blocks on 16 tokens of a 32,000-id vocabulary; taps (2, 3), one
+    adapter on each tower."""
+    cfg = tiny_test_config(img_size)
+    ratio = 3.7362
+    clip = CLIPConfig(
+        embed_dim=32,
+        vision=SiglipVisionConfig(image_size=img_size, patch_size=14, width=144, layers=3,
+                                  head_width=72, mlp_ratio=ratio, output_dim=32),
+        text=SiglipTextConfig(context_length=16, vocab_size=32000, width=144, heads=2, layers=3,
+                              output_dim=32, mlp_ratio=ratio),
+        act="gelu_tanh")
+    adapter = AdapterConfig(text_adapt_until=1, image_adapt_until=1, levels=(2, 3))
+    iqm = dataclasses.replace(cfg.iqm, text_encoder_hidden_size=32)
+    return ModelConfig(clip=clip, adapter=adapter, iqm=iqm, surgery_until_layer=3)

@@ -5,9 +5,10 @@
 // q, k, v rows and output rows live, which a Layout of strides says. Each
 // source instantiates the kernels with a tag type named after itself, so
 // that a profiler tells them apart by the kernel's name; the tag also
-// carries the head width, `Tag::hd`: 64 for every tag, and 112 for B1's
-// second instance (packed_attention_hd112, EVA02-CLIP-E/14+'s heads), so
-// that the 64-wide kernels keep their names.
+// carries the head width, `Tag::hd`: 64 for every tag, 112 for B1's
+// second instance (packed_attention_hd112, EVA02-CLIP-E/14+'s heads) and 72
+// for its third (packed_attention_hd72, SigLIP's), so that the 64-wide
+// kernels keep their names.
 //
 // What it computes, per (batch b = blockIdx.z, head h = blockIdx.y):
 //   S = scale * Q K^T in fp32, keys >= n_keys masked to -inf,
@@ -64,6 +65,21 @@
 // 64. The extra 16 columns cost 14% more TMA traffic, which the L2 serves
 // (every query block of a head reads the same K and V), and no products.
 //
+// Head width 72 (bf16): a head row is 144 bytes, one 128-byte swizzle row
+// and 16 bytes more. So each operand is a 64-column box with 128-byte
+// swizzle, as at 64, and an 8-column box of the head's last 8 columns
+// without swizzle (128 rows x 16 bytes, rows 16 bytes apart, the layout of
+// wgmma's "interleave" mode). S = Q K^T takes four k16 steps in the first
+// box and a fifth over columns 64-79 of a head zero-filled from 72 to 80:
+// its descriptors read columns 64-71 from the 8-column boxes and, one LBO
+// further on, columns 72-79 from a 2 KB block of zeros in shared memory
+// (8-row groups SBO = 128 bytes apart; written once by the consumers),
+// for Q and K alike. O += P V is wgmma m64n64k16 on the first box and
+// m64n8k16 on the 8-column box (V read N-major without swizzle, 8-key
+// groups 128 bytes apart), so O holds 36 fp32 registers a thread. The ring
+// keeps four stages (Q 18 KB + 4 x 36 KB + the zeros: 164 KB). TMA moves
+// 144 bytes a row, the head's own, and no more.
+//
 // Online softmax differs from the TPU kernels' whole-row softmax only by fp32
 // rounding of the running rescale, plus the bf16 rounding of P (taken against
 // the running instead of the final row max); over 128-key tiles it is the
@@ -111,28 +127,54 @@ constexpr int STAGES = 4;
 constexpr int BOX = TQ * 64 * 2;       // bytes of one 128-row x 64-column box
 
 // The bf16 walk's shared memory at head width HD: the Q boxes, then the
-// ring's K and V boxes per stage (BOXES 64-column boxes each), then the
-// barriers.
+// ring's K and V boxes per stage (BOXES 64-column boxes each, and at head
+// width 72 an 8-column box, TAIL bytes), then at 72 the zeros of the fifth
+// k-step's second half, then the barriers.
 template <int HD_>
 struct Smem {
-  static_assert(HD_ == 64 || HD_ == 112, "head width 64 or 112");
-  static constexpr int BOXES = (HD_ + 63) / 64;
-  static constexpr int STAGES_ = HD_ == 64 ? STAGES : 3;
-  static constexpr int PANEL = BOXES * BOX;      // one operand's boxes of a tile
-  static constexpr int RING = PANEL;             // the ring follows the Q boxes
-  static constexpr int BARS = RING + STAGES_ * 2 * PANEL;
+  static_assert(HD_ == 64 || HD_ == 72 || HD_ == 112, "head width 64, 72 or 112");
+  static constexpr int BOXES = HD_ == 112 ? 2 : 1;
+  static constexpr int TAIL = HD_ == 72 ? TQ * 16 : 0;
+  static constexpr int STAGES_ = HD_ == 112 ? 3 : STAGES;
+  static constexpr int PANEL = BOXES * BOX + TAIL;   // one operand's boxes of a tile
+  static constexpr int RING = PANEL;                 // the ring follows the Q boxes
+  static constexpr int ZERO = RING + STAGES_ * 2 * PANEL;
+  static constexpr int BARS = ZERO + TAIL;
   static constexpr int SIZE = BARS + (2 * STAGES_ + 1) * 8 + 1024;   // + 1 KB to align
 };
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.69314718055994531f;
 
 // The tensor maps of q, k and v, each over (planes, L, columns) in 128 x 64
-// boxes, and where block (h, b)'s boxes are: columns from h * col_step,
-// plane b * zstep + h * ystep.
+// boxes (at head width 72 also qt, kt, vt in 128 x 8 boxes without
+// swizzle; unset at other widths), and where block (h, b)'s boxes are:
+// columns from h * col_step, plane b * zstep + h * ystep.
 struct Maps {
   CUtensorMap q, k, v;
   int col_step, ystep, zstep;
+  CUtensorMap qt, kt, vt;
 };
+
+// A wgmma operand in shared memory without swizzle ("interleave"): core
+// matrices of 8 rows x 16 bytes, rows 16 bytes apart. K-major: LBO the
+// distance from a core matrix to the next along k, SBO to the next 8-row
+// group; N-major: LBO to the next 8-k group, SBO to the next 8 columns.
+__device__ __forceinline__ uint64_t plain_desc(const void* p, unsigned lbo, unsigned sbo) {
+  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) | (uint64_t)((lbo >> 4) & 0x3FFF) << 16 |
+         (uint64_t)((sbo >> 4) & 0x3FFF) << 32;
+}
+
+// O += P V over 8 columns (head width 72's last): wgmma m64n8k16, P from
+// registers, V N-major behind its descriptor; d[2h + e] holds row row0 + 8h,
+// column 2 (lane % 4) + e.
+__device__ __forceinline__ void wgmma_pv8(float* d, const unsigned (&a)[4], uint64_t desc_v) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, %8, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_v), "r"(1));
+}
 
 // 2^x in one MUFU instruction (ex2.approx, relative error about 2^-22,
 // subnormal results flushed to zero): P is rounded to bf16 before it is
@@ -144,7 +186,8 @@ __device__ __forceinline__ float fast_exp2(float x) {
 }
 
 // O += P V for one k16 step of keys: wgmma m64nHDk16 with P (A) from
-// registers and V (B) N-major behind its descriptor.
+// registers and V (B) N-major behind its descriptor (at head width 72 the
+// first 64 columns: O's first 32 registers).
 template <int HD_>
 __device__ __forceinline__ void wgmma_pv(float (&o)[HD_ / 2], const unsigned (&a)[4],
                                          uint64_t desc_v);
@@ -153,6 +196,12 @@ template <>
 __device__ __forceinline__ void wgmma_pv<64>(float (&o)[32], const unsigned (&a)[4],
                                              uint64_t desc_v) {
   gemm90::wgmma_bf16_rs<1>(o, a, desc_v);
+}
+
+template <>
+__device__ __forceinline__ void wgmma_pv<72>(float (&o)[36], const unsigned (&a)[4],
+                                             uint64_t desc_v) {
+  gemm90::wgmma_bf16_rs<1>(*reinterpret_cast<float(*)[32]>(o), a, desc_v);
 }
 
 template <>
@@ -188,6 +237,7 @@ attention_wgmma_kernel(const __grid_constant__ Maps maps, bf16* __restrict__ out
   unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   auto kbox = [&](int s) { return smem + S::RING + s * 2 * S::PANEL; };
   auto vbox = [&](int s) { return smem + S::RING + s * 2 * S::PANEL + S::PANEL; };
+  constexpr int TAIL_AT = S::BOXES * BOX;   // an operand's 8-column box (head width 72)
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::BARS);
   uint64_t* empty = full + STAGES;
   uint64_t* q_full = empty + STAGES;
@@ -216,6 +266,8 @@ attention_wgmma_kernel(const __grid_constant__ Maps maps, bf16* __restrict__ out
 #pragma unroll
       for (int j = 0; j < S::BOXES; ++j)
         gemm90::tma_load_3d(smem + j * BOX, maps.q, q_full, col + 64 * j, q0, plane);
+      if constexpr (S::TAIL > 0)
+        gemm90::tma_load_3d(smem + TAIL_AT, maps.qt, q_full, col + 64, q0, plane);
       for (int t = 0; t < ntiles; ++t) {
         const int s = t % STAGES;
         gemm90::mbar_wait(&empty[s], ((t / STAGES) & 1) ^ 1);
@@ -225,12 +277,24 @@ attention_wgmma_kernel(const __grid_constant__ Maps maps, bf16* __restrict__ out
           gemm90::tma_load_3d(kbox(s) + j * BOX, maps.k, &full[s], col + 64 * j, t * TK, plane);
           gemm90::tma_load_3d(vbox(s) + j * BOX, maps.v, &full[s], col + 64 * j, t * TK, plane);
         }
+        if constexpr (S::TAIL > 0) {
+          gemm90::tma_load_3d(kbox(s) + TAIL_AT, maps.kt, &full[s], col + 64, t * TK, plane);
+          gemm90::tma_load_3d(vbox(s) + TAIL_AT, maps.vt, &full[s], col + 64, t * TK, plane);
+        }
       }
     }
     return;
   }
 
   asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  if constexpr (S::TAIL > 0) {
+    // The zeros of the fifth k-step's columns 72-79: 8 bytes a consumer
+    // thread, made visible to wgmma (the async proxy) before either
+    // warpgroup's first product.
+    reinterpret_cast<uint2*>(smem + S::ZERO)[threadIdx.x] = make_uint2(0u, 0u);
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("bar.sync 3, 256;\n" ::: "memory");
+  }
   const int lane = threadIdx.x % 32, tq = lane % 4;
   // This thread's rows: row0 (h = 0) and row0 + 8 (h = 1). Accumulator
   // register 4i + 2h + e holds column 8i + 2 tq + e of row row0 + 8h.
@@ -262,6 +326,13 @@ attention_wgmma_kernel(const __grid_constant__ Maps maps, bf16* __restrict__ out
       gemm90::wgmma_bf16<128, 0>(sc, gemm90::smem_desc(qa + at, 16, 1024),
                                  gemm90::smem_desc(kbox(s) + at, 16, 1024));
     }
+    if constexpr (S::TAIL > 0) {
+      // Columns 64-71 from the 8-column boxes, 72-79 from the zeros.
+      const unsigned char* qt = smem + TAIL_AT + wg * 64 * 16;
+      const unsigned char* kt = kbox(s) + TAIL_AT;
+      gemm90::wgmma_bf16<128, 0>(sc, plain_desc(qt, smem + S::ZERO - qt, 128),
+                                 plain_desc(kt, smem + S::ZERO - kt, 128));
+    }
     gemm90::wgmma_commit();
   };
   // O += P V of the tile in stage s, issued as one commit group; pa is read
@@ -269,8 +340,11 @@ attention_wgmma_kernel(const __grid_constant__ Maps maps, bf16* __restrict__ out
   auto issue_pv = [&](int s) {
     gemm90::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < TK / 16; ++kk)
+    for (int kk = 0; kk < TK / 16; ++kk) {
       wgmma_pv<HD>(o, pa[kk], gemm90::smem_desc(vbox(s) + kk * 16 * 128, BOX, 1024));
+      if constexpr (S::TAIL > 0)
+        wgmma_pv8(o + 32, pa[kk], plain_desc(vbox(s) + TAIL_AT + kk * 16 * 16, 128, 128));
+    }
     fence_p();
     gemm90::wgmma_commit();
   };
@@ -547,6 +621,15 @@ inline cudaError_t make_maps(Maps* maps, const bf16* q, const bf16* k, const bf1
   cudaError_t err = gemm90::tensor_map_3d(&maps->q, q, dim0, L, planes, lay.ld, ld2, TQ);
   if (err == cudaSuccess) err = gemm90::tensor_map_3d(&maps->k, k, dim0, L, planes, lay.ld, ld2, TK);
   if (err == cudaSuccess) err = gemm90::tensor_map_3d(&maps->v, v, dim0, L, planes, lay.ld, ld2, TK);
+  if (Smem<HD>::TAIL > 0) {
+    const CUtensorMapSwizzle none = CU_TENSOR_MAP_SWIZZLE_NONE;
+    if (err == cudaSuccess)
+      err = gemm90::tensor_map_3d(&maps->qt, q, dim0, L, planes, lay.ld, ld2, TQ, 8, none);
+    if (err == cudaSuccess)
+      err = gemm90::tensor_map_3d(&maps->kt, k, dim0, L, planes, lay.ld, ld2, TK, 8, none);
+    if (err == cudaSuccess)
+      err = gemm90::tensor_map_3d(&maps->vt, v, dim0, L, planes, lay.ld, ld2, TK, 8, none);
+  }
   maps->col_step = cols ? HD : 0;
   maps->ystep = cols ? 0 : 1;
   maps->zstep = cols ? 1 : heads;

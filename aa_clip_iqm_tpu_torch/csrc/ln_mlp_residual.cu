@@ -6,8 +6,8 @@
 //
 // What it computes, per row of x (M, d):
 //   xin = LayerNorm(x) in fp32, cast to x's dtype;
-//   hid = act(xin . W_fc + b_fc) in fp32 (exact erf GELU or QuickGELU), cast
-//         to x's dtype;
+//   hid = act(xin . W_fc + b_fc) in fp32 (exact erf GELU, QuickGELU or the
+//         tanh GELU), cast to x's dtype;
 //   y   = x + hid . W_proj + b_proj in fp32, cast once.
 // W is stored (in, out). GELU is the exact erff (the TPU kernel used an A&S
 // erf polynomial because Mosaic has no erf; the XLA chain it stands for is
@@ -50,10 +50,12 @@ namespace {
 constexpr int NWARPS = 8;
 constexpr int NTHREADS = NWARPS * 32;
 
-// 0: exact (erf) GELU; 1: QuickGELU x * sigmoid(1.702 x).
+// 0: exact (erf) GELU; 1: QuickGELU x * sigmoid(1.702 x); 3: the tanh GELU
+// (the core's numbering, gemm90::ACT_*).
 template <int ACT>
 __device__ __forceinline__ float activation(float v) {
   if (ACT == 0) return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
+  if (ACT == 3) return gemm90::activation<gemm90::ACT_GELU_TANH>(v);
   return v / (1.f + expf(-1.702f * v));
 }
 
@@ -205,6 +207,9 @@ cudaError_t dispatch_act(int act, const void* x, const float* ln_g,
   if (act == 1)
     return launch<T, 1>(x, ln_g, ln_b, w_fc, b_fc, w_proj, b_proj, y, M, d,
                             h, eps, stream);
+  if (act == 3)
+    return launch<T, 3>(x, ln_g, ln_b, w_fc, b_fc, w_proj, b_proj, y, M, d,
+                            h, eps, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -231,7 +236,8 @@ cudaError_t launch_gemm_path(const bf16* x, const float* ln_g, const float* ln_b
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; act: 0 = exact GELU, 1 = QuickGELU.
+// dtype: 0 = float32, 1 = bfloat16; act: 0 = exact GELU, 1 = QuickGELU,
+// 3 = the tanh GELU.
 // LayerNorm scale/bias and both biases are fp32; x, y and weights share dtype.
 // bf16 with d % 128 == 0 and h % 256 == 0 takes the GEMM path and needs the
 // bf16 scratch xin (M, d) and hid (M, h), its GEMMs' tiles in bands of
@@ -244,7 +250,8 @@ extern "C" int aaclip_ln_mlp_residual(const void* x, const void* ln_g,
                                       void* y, int M, int d, int h, float eps,
                                       int act, int dtype, int group1, int group2,
                                       void* stream) {
-  if (M <= 0 || d <= 0 || h <= 0 || d % 16 != 0 || h % CH != 0 || act < 0 || act > 1)
+  if (M <= 0 || d <= 0 || h <= 0 || d % 16 != 0 || h % CH != 0 ||
+      (act != 0 && act != 1 && act != 3))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* g = static_cast<const float*>(ln_g);
@@ -268,7 +275,7 @@ extern "C" int aaclip_ln_mlp_residual(const void* x, const void* ln_g,
 }
 
 // One product of the GEMM core alone (csrc/gemm_sm90.cuh): out (M, N) =
-// act(a . w + bias) (act 0 GELU, 1 QuickGELU, 2 none) or, where res is
+// act(a . w + bias) (act 0 GELU, 1 QuickGELU, 2 none, 3 the tanh GELU) or, where res is
 // given, res + (a . w + bias); row strides lda, ldw, ld_res, ld_out; tile_n
 // 0 (the core's choice), 128 or 256; tiles in bands of `group` M-tiles.
 // bf16 operands, fp32 bias.

@@ -20,10 +20,11 @@
 // attention stage) keeps the (L, L) scores on the SM: for bf16, 128-query
 // blocks on wgmma walk 128-key tiles streamed by TMA (3-D tensor maps over
 // (B, L, W) from each section's first column, so a head is a 64-column box,
-// or two at head width 112), for fp32 plain FMAs; here the layout is the
-// packed one: row stride 3W, head stride hd. Two instances, one per head
-// width (64, and 112 for EVA02-CLIP-E/14+'s 16 heads of 112), each a C
-// entry of its own.
+// two at head width 112, a 64-column and an 8-column box at 72), for fp32
+// plain FMAs; here the layout is the packed one: row stride 3W, head
+// stride hd. Three instances, one per head width (64; 112 for
+// EVA02-CLIP-E/14+'s 16 heads of 112; 72 for SigLIP So400m's 16 heads of
+// 72), each a C entry of its own.
 
 #include <stdint.h>
 
@@ -32,13 +33,17 @@
 using namespace aaclip;
 
 // The kernels' tags, which carry the head width: their names read
-// attention_wgmma_kernel<packed_attention> (heads of 64: ViT-L, EVA-02-L)
-// and attention_wgmma_kernel<packed_attention_hd112> (EVA02-CLIP-E/14+).
+// attention_wgmma_kernel<packed_attention> (heads of 64: ViT-L, EVA-02-L),
+// attention_wgmma_kernel<packed_attention_hd112> (EVA02-CLIP-E/14+) and
+// attention_wgmma_kernel<packed_attention_hd72> (SigLIP So400m).
 struct packed_attention {
   static constexpr int hd = 64;
 };
 struct packed_attention_hd112 {
   static constexpr int hd = 112;
+};
+struct packed_attention_hd72 {
+  static constexpr int hd = 72;
 };
 
 namespace {
@@ -77,6 +82,14 @@ extern "C" int aaclip_packed_attention_hd112(const void* qkv, void* out, void* l
                                              float scale, int vv, int dtype, void* stream) {
   return launch_packed<packed_attention_hd112>(qkv, out, lse, B, L, W, num_heads, head_dim,
                                                valid_len, scale, vv, dtype, stream);
+}
+
+// The same for heads of 72.
+extern "C" int aaclip_packed_attention_hd72(const void* qkv, void* out, void* lse, int B, int L,
+                                            int W, int num_heads, int head_dim, int valid_len,
+                                            float scale, int vv, int dtype, void* stream) {
+  return launch_packed<packed_attention_hd72>(qkv, out, lse, B, L, W, num_heads, head_dim,
+                                              valid_len, scale, vv, dtype, stream);
 }
 
 extern "C" const char* aaclip_packed_attention_error_string(int err) {

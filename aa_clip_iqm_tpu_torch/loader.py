@@ -22,10 +22,12 @@ from .configs import (
     IQMConfig,
     ModelConfig,
     ResNetVisionConfig,
+    SiglipVisionConfig,
     get_model_config,
     is_port_model,
     tiny_eva02_config,
     tiny_eva_postnorm_config,
+    tiny_siglip_config,
     tiny_test_config,
 )
 from .models.clip import resize_pos_embed_np
@@ -50,7 +52,8 @@ def build_model_config(model_name: str = "ViT-L-14-336", img_size: int = 518,
                        surgery_until_layer: int = 20,
                        patch_dropout: float = 0.0) -> ModelConfig:
     tiny = {"tiny-test": tiny_test_config, "tiny-eva02-test": tiny_eva02_config,
-            "tiny-eva-postnorm-test": tiny_eva_postnorm_config}
+            "tiny-eva-postnorm-test": tiny_eva_postnorm_config,
+            "tiny-siglip-test": tiny_siglip_config}
     if model_name in tiny:
         cfg = tiny[model_name](img_size)
         if patch_dropout:
@@ -147,8 +150,9 @@ def load_frozen_backbone(cfg: ModelConfig, backbone_path: Optional[str] = None,
                 "pointing to the OpenAI ViT-L-14-336px.pt (or a converted "
                 ".npz), or pass allow_random for an untrained backbone.")
         return random_backbone(cfg, seed=seed, device=device, dtype=dtype)
-    if isinstance(cfg.clip.vision, Eva02VisionConfig) and not path.endswith(".npz"):
-        raise NotImplementedError(f"{path}: the port reads no EVA-CLIP checkpoint yet; give it "
+    kind = {Eva02VisionConfig: "EVA-CLIP", SiglipVisionConfig: "SigLIP"}.get(type(cfg.clip.vision))
+    if kind and not path.endswith(".npz"):
+        raise NotImplementedError(f"{path}: the port reads no {kind} checkpoint yet; give it "
                                   "an .npz of its own layout, or a random backbone")
     if path.endswith(".npz"):
         params = load_params_npz(path)
@@ -158,8 +162,10 @@ def load_frozen_backbone(cfg: ModelConfig, backbone_path: Optional[str] = None,
         vis = params["visual"]
         holder = vis if "positional_embedding" in vis else vis["attnpool"]
         pos = np.asarray(holder["positional_embedding"])
-        if pos.shape[0] != cfg.clip.vision.grid ** 2 + 1:
-            holder["positional_embedding"] = resize_pos_embed_np(pos, cfg.clip.vision.grid)
+        v = cfg.clip.vision
+        class_token = getattr(v, "class_token", True)      # a ModifiedResNet's pool has one
+        if pos.shape[0] != v.grid ** 2 + class_token:
+            holder["positional_embedding"] = resize_pos_embed_np(pos, v.grid, class_token)
     else:
         params = _openai_params(cfg, path, cache_npz)
     frozen, _ = params_from_jax(params, None, cfg, device=device, dtype=dtype)

@@ -40,7 +40,8 @@ class AdaptedOutputs:
     seg_tokens: List[Any]        # per level: (B, L, embed_dim), L2-normalized
     det_token: Any               # (B, embed_dim), L2-normalized + mean-pooled
     iqm_queries: Optional[Any]   # (B, 2, iqm_hidden) or None
-    cls_raw: Any                 # (B, width) final-block CLS (pre ln_post)
+    cls_raw: Any                 # (B, width) final-block CLS (pre ln_post); the
+                                 # attention-pool output without a class token
     keep_idx: Optional[Any] = None  # (B, K) patch-dropout kept indices
 
 
@@ -71,7 +72,7 @@ def encode_image_adapted(frozen, trainable, cfg: ModelConfig, images,
                 patch_drop_rng, images.shape[0], cfg.clip.vision.num_patches,
                 rate, device=images.device)
 
-    _, taps, x_final = clip_model.vision_forward(
+    pooled, taps, x_final = clip_model.vision_forward(
         vis, cfg.clip.vision, images, out_layers=tuple(a.levels),
         act_name=cfg.clip.act, adapters=ia["layer_adapters"],
         adapter_weight=a.image_adapt_weight, adapt_until=a.image_adapt_until,
@@ -79,9 +80,13 @@ def encode_image_adapted(frozen, trainable, cfg: ModelConfig, images,
         fused_mlp=fused_mlp, use_pallas=use_pallas,
     )
 
-    # Patch tokens (CLS dropped) -> frozen ln_post.
-    eps = clip_model.ln_eps(cfg.clip.vision)
-    tokens = [layer_norm(vis["ln_post"], t[:, 1:, :], eps=eps) for t in taps]
+    # Patch tokens (CLS dropped, where the tower has one) -> frozen ln_post.
+    # The class feature that IQM's queries start from: the final block's
+    # CLS, or without a class token the attention pool's output.
+    v = cfg.clip.vision
+    first = 1 if v.class_token else 0
+    tokens = [layer_norm(vis["ln_post"], t[:, first:, :], eps=v.ln_eps) for t in taps]
+    cls_feature = x_final[:, 0] if v.class_token else pooled
 
     seg_tokens = [
         l2_normalize(simple_proj(ia["seg_proj"][i], t, a.relu))
@@ -92,17 +97,17 @@ def encode_image_adapted(frozen, trainable, cfg: ModelConfig, images,
 
     iqm_queries = None
     if text_anchors is not None:
-        iqm_queries = _iqm_branch(trainable, cfg, tokens, x_final, text_anchors)
+        iqm_queries = _iqm_branch(trainable, cfg, tokens, cls_feature, text_anchors)
 
     return AdaptedOutputs(seg_tokens=seg_tokens, det_token=det_token,
-                          iqm_queries=iqm_queries, cls_raw=x_final[:, 0],
+                          iqm_queries=iqm_queries, cls_raw=cls_feature,
                           keep_idx=keep_idx)
 
 
-def _iqm_branch(trainable, cfg: ModelConfig, tokens, x_final, text_anchors):
-    """IQM query pipeline with trained projections."""
+def _iqm_branch(trainable, cfg: ModelConfig, tokens, cls_feature, text_anchors):
+    """IQM query pipeline with trained projections; ``cls_feature`` (B,
+    width)."""
     mlp = trainable["class_query_mlp"]
-    cls_feature = x_final[:, 0]                                 # (B, width)
     q = linear(mlp["fc2"], torch.relu(linear(mlp["fc1"], cls_feature)))
     class_query = q[:, None, :].repeat(1, 2, 1)                  # (B, 2, hidden)
     query_embeds = class_query + trainable["pos_embedding"][:, :2, :].to(q.dtype)

@@ -34,6 +34,23 @@ the same embedding and head, and blocks
 run by :func:`_run_eva_postnorm_block`: ``x + LN1(attn(x))``, then ``x +
 LN2(c_proj(GELU(c_fc(x))))`` (``ops/postnorm.py``).
 
+A SigLIP vision tower (``configs.SiglipVisionConfig``) has no class token
+and no ln_pre, a bias on its patch embedding, CLIP's blocks (run by
+:func:`_run_siglip_block`, through :func:`_run_block`, at LayerNorm eps
+1e-6 with the tanh GELU), and its pooled embedding is the attention-pool
+head on every row after ln_post (:func:`map_head`):
+
+  "visual": {patch_embed: {w, b}, positional_embedding, blocks: [...],
+             ln_post, map: {probe: {w (1, width)}, attn: {qkv, out}, ln,
+                            mlp: {c_fc, c_proj}}}
+
+Its text tower has CLIP's blocks without a mask, ln_final at its own eps,
+the last position pooled and ``head: {w, b}`` in ``text_projection``'s
+place (``configs.SiglipTextConfig``). Each tower's config says which of
+these it has: ``class_token``, ``pool``, ``ln_pre`` and ``ln_eps`` for the
+vision tower, ``causal``, ``pool``, ``head_bias`` and ``ln_eps`` for the
+text tower.
+
 A block with float MLP weights, vision or text, runs its MLP half through
 :func:`..ops.fused_mlp.ln_mlp_residual`, or with ``fused_mlp="frozen"``
 through :func:`..ops.fused_mlp.ln_mlp_residual_frozen`, whose backward is the
@@ -70,15 +87,23 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..configs import CLIPConfig, Eva02VisionConfig, ResNetVisionConfig, TextConfig, VisionConfig
+from ..configs import (
+    CLIPConfig,
+    Eva02VisionConfig,
+    ResNetVisionConfig,
+    SiglipVisionConfig,
+    TextConfig,
+    VisionConfig,
+)
 from ..ops import attention as attn_ops
 from ..ops import custom_ops
-from ..ops.attn_block import ln_attn_back, ln_attn_front, ln_attn_halves_ok
+from ..ops.attn_block import check_halves, ln_attn_back, ln_attn_front, ln_attn_halves_ok
 from ..ops.fused_mlp import (
     ln_mlp_residual,
     ln_mlp_residual_frozen,
     ln_mlp_residual_int8,
     ln_mlp_residual_int8_ok,
+    padded_hidden,
 )
 from ..ops.layers import (
     ACTIVATIONS,
@@ -108,17 +133,18 @@ def patchify(params, images, patch_size: int):
 
 
 def _run_block(block, x, num_heads, act, attn_mask=None, vv=False,
-               valid_len=None, fused_mlp=True, use_pallas=True):
-    """Pre-norm residual attention block. ``vv`` selects the CLIP-Surgery
-    value-value attention. An unmasked block where ``ln_attn_halves_ok``
-    holds (int8 attention weights fail it), autograd records nothing and
-    ``vv`` is off runs its attention half as B8's front (the LayerNorm pass
-    and the qkv product), the routed attention kernel and B8's back (the
-    out-projection with the residual, rounded once), counted
-    ``attn.proj_fused``. Every other unmasked block runs the chain
-    (LayerNorm, cuBLAS projections, attention, residual add), counted
-    ``attn.proj_chain``; a masked one (the text tower) too, and the stock
-    route, uncounted.
+               valid_len=None, fused_mlp=True, use_pallas=True, eps=1e-5):
+    """Pre-norm residual attention block, every LayerNorm of eps ``eps``.
+    ``vv`` selects the CLIP-Surgery value-value attention. An unmasked
+    block where ``ln_attn_halves_ok`` holds (int8 attention weights fail
+    it), autograd records nothing and ``vv`` is off runs its attention half
+    as B8's front (the LayerNorm pass and the qkv product), the routed
+    attention kernel and B8's back (the out-projection with the residual,
+    rounded once), counted ``attn.proj_fused``. Every other unmasked block
+    runs the chain (LayerNorm, cuBLAS projections, attention, residual add),
+    counted ``attn.proj_chain``; a masked one (the text tower) too, and the
+    stock route, uncounted. A float MLP runs on B2, its hidden width padded
+    where no B2 path takes it (``fused_mlp.padded_hidden``).
     ``fused_mlp="frozen"`` takes the fused MLP whose backward is the dx-only
     kernel: valid only while the block's parameters carry no gradient (it
     raises otherwise). ``use_pallas=False``: the stock PyTorch chain (module
@@ -126,26 +152,26 @@ def _run_block(block, x, num_heads, act, attn_mask=None, vv=False,
     :func:`_run_tp_block`."""
     if isinstance(block, TensorParallelBlock):
         return _run_tp_block(block, x, num_heads, act, attn_mask=attn_mask, vv=vv,
-                             valid_len=valid_len, use_pallas=use_pallas)
+                             valid_len=valid_len, use_pallas=use_pallas, eps=eps)
     if not use_pallas:
-        h = layer_norm(block["ln_1"], x)
+        h = layer_norm(block["ln_1"], x, eps=eps)
         if vv:
             x = x + attn_ops.vv_attention(block["attn"], h, num_heads, use_pallas=False)
         else:
             x = x + attn_ops.mha(block["attn"], h, num_heads, attn_mask=attn_mask,
                                  use_pallas=False)
-        return x + mlp_block(block["mlp"], layer_norm(block["ln_2"], x), act)
+        return x + mlp_block(block["mlp"], layer_norm(block["ln_2"], x, eps=eps), act)
     attn = block["attn"]
     if (attn_mask is None and not vv and ln_attn_halves_ok(x, attn)
             and not _records_grad(block, x)):
         count("attn.proj_fused")
-        qkv = ln_attn_front(block["ln_1"], _f32_bias(attn["qkv"]), x)
+        qkv = ln_attn_front(block["ln_1"], _f32_bias(attn["qkv"]), x, eps=eps)
         x = ln_attn_back(_f32_bias(attn["out"]),
                          attn_ops.attend_qkv(qkv, num_heads, valid_len=valid_len), x)
     else:
         if attn_mask is None:
             count("attn.proj_chain")
-        h = layer_norm(block["ln_1"], x)
+        h = layer_norm(block["ln_1"], x, eps=eps)
         if vv:
             a = attn_ops.vv_attention(block["attn"], h, num_heads,
                                       valid_len=valid_len)
@@ -156,10 +182,47 @@ def _run_block(block, x, num_heads, act, attn_mask=None, vv=False,
     mlp = block["mlp"]
     if "w_q" not in mlp["c_fc"] and "w_q" not in mlp["c_proj"]:
         fn = ln_mlp_residual_frozen if fused_mlp == "frozen" else ln_mlp_residual
-        return fn(block["ln_2"], mlp, x, act)
+        return fn(block["ln_2"], padded_hidden(mlp), x, act, eps)
     if ln_mlp_residual_int8_ok(x, mlp, act):
-        return ln_mlp_residual_int8(block["ln_2"], mlp, x, act)
-    return x + mlp_block(mlp, layer_norm(block["ln_2"], x), act)
+        return ln_mlp_residual_int8(block["ln_2"], mlp, x, act, eps)
+    return x + mlp_block(mlp, layer_norm(block["ln_2"], x, eps=eps), act)
+
+
+def _run_siglip_block(block, x, num_heads, act, attn_mask=None, vv=False, valid_len=None,
+                      fused_mlp=True, use_pallas=True, *, eps):
+    """A block of SigLIP's vision tower: CLIP's pre-norm block through
+    :func:`_run_block`, LayerNorms of eps ``eps``, ``act`` the tanh GELU,
+    with every half on the kernels or a raise. With ``use_pallas``, where
+    autograd records nothing: B8's front (LN1, the qkv product with its
+    bias), B1 straight off the packed projection (heads of 72 on its third
+    instance), B8's back, then B2 (LN2, GEMM 1 with the tanh GELU on
+    epilogue (a) over the hidden width padded from 4304 to 4352, GEMM 2
+    with the residual); the plain versions on the CPU (where the tests'
+    float32 tower of width 144 takes the chain's attention half, as
+    ``_run_block`` routes it). On the card a call that B8's halves refuse
+    (``attn_block.check_halves``) or B1 does not take
+    (``attention.packed_ok``: 256 to 8,192 rows) raises, and B1 and B2
+    raise on what they refuse. Each half is counted ``siglip.fused``;
+    a call under ``use_pallas`` that autograd records runs the chain and
+    counts ``siglip.chain``, twice. That chain, and ``use_pallas=False``:
+    ``layer_norm``, ``linear`` and the stock attention (SDPA on the card).
+    Counted ``blocks.siglip``. Value-value attention and masks (stage 1's
+    surgery tower, the text tower) are not this tower's: they raise."""
+    if vv or attn_mask is not None:
+        raise NotImplementedError("SigLIP's vision blocks run plain self-attention only "
+                                  "(no stage-1 value-value attention on this tower)")
+    count("blocks.siglip")
+    kernels = use_pallas and not _records_grad(block, x)
+    if kernels:
+        check_halves(x, block["attn"])
+        if x.is_cuda and not attn_ops.packed_ok(x, num_heads, None):
+            raise ValueError(f"SigLIP block: {x.shape[1]} rows of {num_heads} heads; B1 takes "
+                             f"{2 * attn_ops.flash_attention.BLK_Q} to "
+                             f"{attn_ops.flash_attention.ROW_KERNEL_MAX_TOKENS}")
+    if use_pallas:
+        count("siglip.fused" if kernels else "siglip.chain", 2)
+    return _run_block(block, x, num_heads, act, valid_len=valid_len, fused_mlp=fused_mlp,
+                      use_pallas=kernels, eps=eps)
 
 
 def _float32(t):
@@ -300,7 +363,7 @@ def _row_parallel(params, x, group):
 
 
 def _run_tp_block(block, x, num_heads, act, attn_mask=None, vv=False,
-                  valid_len=None, use_pallas=True):
+                  valid_len=None, use_pallas=True, eps=1e-5):
     """One rank's share of a Megatron tensor-parallel block
     (``parallel.mesh.shard_backbone``): ``num_heads / n_model`` heads and a
     ``1 / n_model`` share of the MLP's hidden units.
@@ -321,7 +384,7 @@ def _run_tp_block(block, x, num_heads, act, attn_mask=None, vv=False,
     block backpropagates to the adapters below it."""
     group = block.group
     heads = num_heads // block.n_model
-    h = copy_to_model(layer_norm(block["ln_1"], x), group)
+    h = copy_to_model(layer_norm(block["ln_1"], x, eps=eps), group)
     if vv:
         a = attn_ops.vv_heads(block["attn"], h, heads, valid_len=valid_len,
                               use_pallas=use_pallas)
@@ -330,39 +393,64 @@ def _run_tp_block(block, x, num_heads, act, attn_mask=None, vv=False,
                                valid_len=valid_len, use_pallas=use_pallas)
     x = x + _row_parallel(block["attn"]["out"], a, group)
     mlp = block["mlp"]
-    h = copy_to_model(layer_norm(block["ln_2"], x), group)
+    h = copy_to_model(layer_norm(block["ln_2"], x, eps=eps), group)
     return x + _row_parallel(mlp["c_proj"], act(linear(mlp["c_fc"], h)), group)
 
 
 def embed_patches(params, cfg: VisionConfig, images, compute_dtype,
                   keep_idx=None):
-    """Patch embedding, class token, positional embedding and ln_pre (none
-    in an EVA-02 tower): (B, 3, H, W) -> (B, L+1, width), the input of the
-    first block. ``keep_idx`` (B, K): patch-dropout kept-token indices
+    """Patch embedding, class token (where ``cfg.class_token``), positional
+    embedding and ln_pre (where ``cfg.ln_pre``): (B, 3, H, W) -> (B, L+1,
+    width), or (B, L, width) without a class token, the input of the first
+    block. ``keep_idx`` (B, K): patch-dropout kept-token indices
     (``ops.layers.patch_dropout_indices``), applied after the positional
     embedding and before ln_pre; the class token is always kept."""
     x = patchify(params, images.to(compute_dtype), cfg.patch_size)
-    cls = params["class_embedding"].to(compute_dtype).expand(x.shape[0], 1, cfg.width)
-    x = torch.cat([cls, x], dim=1)
+    if cfg.class_token:
+        cls = params["class_embedding"].to(compute_dtype).expand(x.shape[0], 1, cfg.width)
+        x = torch.cat([cls, x], dim=1)
     x = x + params["positional_embedding"].to(compute_dtype)
     if keep_idx is not None:
         idx = keep_idx[..., None].expand(-1, -1, x.shape[-1])
-        x = torch.cat([x[:, :1], torch.gather(x[:, 1:], 1, idx)], dim=1)
-    if isinstance(cfg, Eva02VisionConfig):
-        return x
-    return layer_norm(params["ln_pre"], x)
+        x = (torch.cat([x[:, :1], torch.gather(x[:, 1:], 1, idx)], dim=1) if cfg.class_token
+             else torch.gather(x, 1, idx))
+    return layer_norm(params["ln_pre"], x) if cfg.ln_pre else x
 
 
-def ln_eps(cfg: VisionConfig) -> float:
-    """The vision tower's LayerNorm eps: EVA-02's, or CLIP's 1e-5."""
-    return cfg.ln_eps if isinstance(cfg, Eva02VisionConfig) else 1e-5
+def map_head(params, z, num_heads: int, act, eps: float):
+    """SigLIP's attention-pool head ("map", timm's ``AttentionPoolLatent``)
+    on ``z`` = ln_post of every row (B, L, d) -> (B, d): the probe's query
+    (``probe.w`` through the q columns of the packed in-projection, with
+    their bias) attends over z's keys and values (the k and v columns) in
+    ``num_heads`` heads, then the out-projection, then ``o + MLP(LN(o))``
+    (LayerNorm of eps ``eps``, the tower's ``act``). Stock calls inside the
+    program's graph: cuBLAS products and the stock attention with one query
+    (SDPA on the card, the plain ``sdpa`` on the CPU); counted
+    ``pool.map``."""
+    count("pool.map")
+    b, n, d = z.shape
+    hd = d // num_heads
+    qkv = params["attn"]["qkv"]
+    q = linear({"w": qkv["w"][:, :d], "b": qkv["b"][:d]}, params["probe"]["w"].to(z.dtype))
+    kv = linear({"w": qkv["w"][:, d:], "b": qkv["b"][d:]}, z)
+    qh = q.reshape(1, num_heads, 1, hd).expand(b, -1, -1, -1).contiguous()
+    kh, vh = (t.reshape(b, n, num_heads, hd).transpose(1, 2) for t in kv.chunk(2, dim=-1))
+    o = attn_ops.library_sdpa(qh, kh, vh, hd ** -0.5).transpose(1, 2).reshape(b, 1, d)
+    o = linear(params["attn"]["out"], o)
+    o = o + mlp_block(params["mlp"], layer_norm(params["ln"], o, eps=eps), act)
+    return o[:, 0]
 
 
-def pool(params, cfg: VisionConfig, x):
-    """The pooled embedding of the class token of the last block's output
-    ``x``: ln_post, then ``proj`` (an EVA-02 tower: ``head``, with a
-    bias)."""
-    pooled = layer_norm(params["ln_post"], x[:, 0], eps=ln_eps(cfg))
+def pool(params, cfg: VisionConfig, x, act_name: str = "gelu"):
+    """The pooled embedding of the last block's output ``x``: for
+    ``cfg.pool == "token"`` ln_post of the class token, then ``proj`` (an
+    EVA tower: ``head``, with a bias); for ``"map"`` the attention-pool head
+    on ln_post of every row (:func:`map_head`, the tower's activation
+    ``act_name``)."""
+    if cfg.pool == "map":
+        z = layer_norm(params["ln_post"], x, eps=cfg.ln_eps)
+        return map_head(params["map"], z, cfg.heads, ACTIVATIONS[act_name], cfg.ln_eps)
+    pooled = layer_norm(params["ln_post"], x[:, 0], eps=cfg.ln_eps)
     if isinstance(cfg, Eva02VisionConfig):
         return linear(params["head"], pooled)
     return linear({"w": params["proj"]}, pooled)
@@ -370,10 +458,13 @@ def pool(params, cfg: VisionConfig, x):
 
 def block_runner(cfg: VisionConfig, device, keep_idx=None):
     """The function that runs one of the tower's blocks, as
-    :func:`run_blocks` calls it: :func:`_run_block`; for a post-norm EVA
-    tower :func:`_run_eva_postnorm_block`; for an EVA-02 tower
+    :func:`run_blocks` calls it: :func:`_run_block`; for a SigLIP tower
+    :func:`_run_siglip_block` at its eps; for a post-norm EVA tower
+    :func:`_run_eva_postnorm_block`; for an EVA-02 tower
     :func:`_run_eva02_block` with its rotary table for the grid (made once,
     ``ops.rope.rope_table``; the kept patches' rows under patch dropout)."""
+    if isinstance(cfg, SiglipVisionConfig):
+        return functools.partial(_run_siglip_block, eps=cfg.ln_eps)
     if not isinstance(cfg, Eva02VisionConfig):
         return _run_block
     if cfg.postnorm:
@@ -435,15 +526,16 @@ def vision_forward(
 ):
     """ViT forward with multi-depth taps.
 
-    out_layers: 1-based layer indices whose full token outputs (incl. CLS)
-    are collected. vv_from: 0-based first value-value block. adapters: list
-    of SimpleAdapter params applied after blocks [0, adapt_until). remat:
-    checkpoint each block in the backward. keep_idx: (B, K) patch-dropout
+    out_layers: 1-based layer indices whose full token outputs (incl. CLS,
+    where the tower has one) are collected. vv_from: 0-based first
+    value-value block. adapters: list of SimpleAdapter params applied after
+    blocks [0, adapt_until). remat: checkpoint each block in the backward. keep_idx: (B, K) patch-dropout
     kept-token indices; the taps then carry K+1 tokens. fused_mlp: True, or
     "frozen" for the dx-only backward (see :func:`_run_block`). use_pallas:
     False for the stock PyTorch route (module docstring).
 
-    Returns: (pooled (B, output_dim), taps list of (B, L+1, width), final x).
+    Returns: (pooled (B, output_dim), taps list of (B, L+1, width) (L rows
+    without a class token), final x).
     """
     x = embed_patches(params, cfg, images, compute_dtype, keep_idx=keep_idx)
     x, taps = run_blocks(params["blocks"], x, cfg.heads, ACTIVATIONS[act_name],
@@ -452,7 +544,7 @@ def vision_forward(
                          out_layers=out_layers, remat=remat, fused_mlp=fused_mlp,
                          use_pallas=use_pallas,
                          run_block=block_runner(cfg, x.device, keep_idx))
-    return pool(params, cfg, x), taps, x
+    return pool(params, cfg, x, act_name), taps, x
 
 
 def encode_image(params, cfg: CLIPConfig, images, compute_dtype=torch.float32,
@@ -498,7 +590,7 @@ def dual_vision_features(params, cfg: VisionConfig, images,
                             run_block=run_block)
     xp, _ = run_blocks(blocks, x, cfg.heads, act, start=vv_from, use_pallas=use_pallas,
                        run_block=run_block)
-    return pool(params, cfg, xp), taps + vv_taps
+    return pool(params, cfg, xp, act_name), taps + vv_taps
 
 
 def surgery_vv_from(num_layers: int, dpam_layer: int) -> int:
@@ -521,32 +613,45 @@ def text_forward(
 ):
     """Text transformer, parity with CLIP.encode_text.
 
-    tokens: (B, ctx) integer ids (0-padded, EOT = max id in row).
-    final_proj: "clip" -> pooled @ text_projection; a callable is applied to
-    the pooled ln_final output instead. Returns pooled (B, out_dim).
+    tokens: (B, ctx) integer ids (0-padded, EOT = max id in row; for a
+    SigLIP tower ended and padded to ctx with id 1). The blocks are causal where
+    ``cfg.causal``, their LayerNorms and ln_final of eps ``cfg.ln_eps``; the
+    pooled row is the EOT's (``cfg.pool == "eot"``) or the last position's
+    (``"last"``). final_proj: "clip" -> pooled @ text_projection (with
+    ``cfg.head_bias``: the biased ``head``); a callable is applied to the
+    pooled ln_final output instead. Returns pooled (B, out_dim).
     """
     x = params["token_embedding"][tokens].to(compute_dtype)
     x = x + params["positional_embedding"].to(compute_dtype)
-    mask = attn_ops.causal_mask(cfg.context_length, device=x.device)
+    mask = attn_ops.causal_mask(cfg.context_length, device=x.device) if cfg.causal else None
     x, _ = run_blocks(params["blocks"], x, cfg.heads, ACTIVATIONS[act_name],
                       attn_mask=mask, adapters=adapters,
                       adapter_weight=adapter_weight, adapt_until=adapt_until,
-                      use_pallas=use_pallas)
-    x = layer_norm(params["ln_final"], x)
-    eot = torch.argmax(tokens, dim=-1)
-    pooled = x[torch.arange(x.shape[0], device=x.device), eot]
+                      use_pallas=use_pallas,
+                      run_block=functools.partial(_run_block, eps=cfg.ln_eps))
+    x = layer_norm(params["ln_final"], x, eps=cfg.ln_eps)
+    if cfg.pool == "last":
+        pooled = x[:, -1]
+    else:
+        eot = torch.argmax(tokens, dim=-1)
+        pooled = x[torch.arange(x.shape[0], device=x.device), eot]
     if final_proj == "clip":
+        if cfg.head_bias:
+            return linear(params["head"], pooled)
         return linear({"w": params["text_projection"]}, pooled)
     return final_proj(pooled)
 
 
-def resize_pos_embed_np(pos_embed: np.ndarray, new_grid: int) -> np.ndarray:
+def resize_pos_embed_np(pos_embed: np.ndarray, new_grid: int,
+                        class_token: bool = True) -> np.ndarray:
     """Bicubic-resize the (L+1, width) positional embedding to a new square
     grid (bicubic, antialias=True, align_corners=False); the CLS row passes
-    through. Host-side numpy, at load time."""
+    through. ``class_token`` False (the tower's ``vision.class_token``): an
+    (L, width) table of a tower without a class row, every row the grid's.
+    Host-side numpy, at load time."""
     from ..ops.interp import resize_grid_bicubic
 
-    tok, img = pos_embed[:1], pos_embed[1:]
+    tok, img = pos_embed[:int(class_token)], pos_embed[int(class_token):]
     old_grid = int(round(math.sqrt(img.shape[0])))
     if old_grid * old_grid != img.shape[0]:
         raise ValueError(f"pos embed length {img.shape[0]} not square")

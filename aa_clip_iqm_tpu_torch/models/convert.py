@@ -309,7 +309,7 @@ def resnet_state_dict_to_params(sd, cfg):
     visual["layers"] = stages
     visual["attnpool"] = {
         "positional_embedding": resize_pos_embed_np(
-            _f32(sd["visual.attnpool.positional_embedding"]), v.grid),
+            _f32(sd["visual.attnpool.positional_embedding"]), v.grid, True),
         **{n: _lin_t(sd, f"visual.attnpool.{n}_proj") for n in ("q", "k", "v")},
         "c_proj": _lin_t(sd, "visual.attnpool.c_proj"),
     }
@@ -337,7 +337,7 @@ def torch_state_dict_to_params(sd, cfg):
             conv_w.reshape(conv_w.shape[0], -1).T)},
         "class_embedding": _f32(sd["visual.class_embedding"]),
         "positional_embedding": resize_pos_embed_np(
-            _f32(sd["visual.positional_embedding"]), cfg.vision.grid),
+            _f32(sd["visual.positional_embedding"]), cfg.vision.grid, True),
         "ln_pre": _ln(sd, "visual.ln_pre"),
         "blocks": _stack_np([_block(sd, f"visual.transformer.resblocks.{i}")
                              for i in range(cfg.vision.layers)]),
@@ -524,15 +524,18 @@ def _eva_blocks(rng, n, width, hidden, postnorm):
 def init_clip_params_np(cfg: ModelConfig, seed: int = 0, shapes_only: bool = False):
     """Random frozen CLIP params (JAX layout, numpy float32). With
     ``shapes_only`` every matrix is a zero-stride array of zeros (for
-    :func:`params_from_jax` onto the meta device). An EVA vision tower takes
-    its own layout (``models/clip.py``)."""
-    from ..configs import Eva02VisionConfig, ResNetVisionConfig
+    :func:`params_from_jax` onto the meta device). An EVA or SigLIP vision
+    tower takes its own layout, and so does a text tower with a biased head
+    (``models/clip.py``)."""
+    from ..configs import Eva02VisionConfig, ResNetVisionConfig, SiglipVisionConfig
 
     rng = _rng(seed, shapes_only)
     v, t = cfg.clip.vision, cfg.clip.text
     scale = v.width ** -0.5
     if isinstance(v, ResNetVisionConfig):
         visual = _resnet_np(rng, v)
+    elif isinstance(v, SiglipVisionConfig):
+        visual = _siglip_np(rng, v)
     elif isinstance(v, Eva02VisionConfig):
         visual = {
             "patch_embed": {"w": _normal(rng, (3 * v.patch_size ** 2, v.width), scale),
@@ -557,12 +560,41 @@ def init_clip_params_np(cfg: ModelConfig, seed: int = 0, shapes_only: bool = Fal
     text = {
         "token_embedding": _normal(rng, (t.vocab_size, t.width), 0.02),
         "positional_embedding": _normal(rng, (t.context_length, t.width), 0.01),
-        "blocks": _blocks(rng, t.layers, t.width, 4 * t.width),
+        "blocks": _blocks(rng, t.layers, t.width, t.mlp_hidden),
         "ln_final": _ln_init(0, t.width),
-        "text_projection": _normal(rng, (t.width, t.output_dim), t.width ** -0.5),
     }
+    proj = _normal(rng, (t.width, t.output_dim), t.width ** -0.5)
+    if t.head_bias:
+        text["head"] = {"w": proj, "b": np.zeros(t.output_dim, np.float32)}
+    else:
+        text["text_projection"] = proj
     return {"visual": visual, "text": text,
             "logit_scale": np.float32(math.log(1 / 0.07))}
+
+
+def _siglip_np(rng, v):
+    """A SigLIP vision tower (``models/clip.py``'s layout): a patch
+    embedding with a bias, positional rows for the patches only, CLIP's
+    blocks of hidden ``v.mlp_hidden``, ln_post, and the attention-pool head
+    (its probe with timm's std width^-0.5, a packed in-projection and an
+    out-projection with biases, its LayerNorm and MLP)."""
+    scale = v.width ** -0.5
+
+    def lin(d_in, d_out):
+        return {"w": _normal(rng, (d_in, d_out), d_in ** -0.5),
+                "b": np.zeros(d_out, np.float32)}
+
+    return {
+        "patch_embed": {"w": _normal(rng, (3 * v.patch_size ** 2, v.width), scale),
+                        "b": np.zeros(v.width, np.float32)},
+        "positional_embedding": _normal(rng, (v.num_patches, v.width), scale),
+        "blocks": _blocks(rng, v.layers, v.width, v.mlp_hidden),
+        "ln_post": _ln_init(0, v.width),
+        "map": {"probe": {"w": _normal(rng, (1, v.width), scale)},
+                "attn": {"qkv": lin(v.width, 3 * v.width), "out": lin(v.width, v.width)},
+                "ln": _ln_init(0, v.width),
+                "mlp": {"c_fc": lin(v.width, v.mlp_hidden), "c_proj": lin(v.mlp_hidden, v.width)}},
+    }
 
 
 def _resnet_np(rng, cfg):

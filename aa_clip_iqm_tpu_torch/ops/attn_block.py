@@ -63,6 +63,26 @@ def ln_attn_halves_ok(x, attn_params) -> bool:
     return d % 128 == 0
 
 
+def check_halves(x, attn_params) -> None:
+    """The halves' gate for a block that must take them (a SigLIP tower's):
+    on a CUDA x that :func:`ln_attn_halves_ok` refuses, a ``ValueError``
+    naming the condition that failed; every CPU x passes (the halves' plain
+    versions take any width and dtype)."""
+    if x.device.type != "cuda" or ln_attn_halves_ok(x, attn_params):
+        return
+    qkv = attn_params["qkv"]
+    w = qkv.get("w", qkv.get("w_q"))
+    d = x.shape[-1]
+    failed = [why for bad, why in (
+        (x.dtype != torch.bfloat16, f"x is {x.dtype}, not bf16"),
+        (x.dim() != 3, f"x is {x.dim()}-D, not (B, L, d)"),
+        ("w" not in qkv or not w.is_floating_point(), "the qkv weight is not float"),
+        (tuple(w.shape[-2:]) != (d, 3 * d), f"the qkv weight is {tuple(w.shape)} for width {d}"),
+        (d % 128 != 0, f"width {d} is not a multiple of 128")) if bad]
+    raise ValueError("the block's attention half cannot take B8's halves: "
+                     + "; ".join(failed or ["the out-projection is not square"]))
+
+
 def ln_attn_residual_ok(x, attn_params, num_heads: int) -> bool:
     """Whether the fused route takes this call site: the gate of
     pallas_attn_block.py:116 without its backend test and without L % 128.

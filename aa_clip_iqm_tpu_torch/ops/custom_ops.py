@@ -22,7 +22,7 @@ Each op has three implementations:
 - CPU: the module's plain version, what the CPU has always run;
 - fake (also the meta device's): output shapes and dtypes only. On a fake
   CUDA tensor it also applies the card kernel's own shape limits (B1, B7 and
-  B8 take heads of 64, B1 also of 112; B3 needs d a multiple of 128 and a
+  B8 take heads of 64, B1 also of 112 and 72; B3 needs d a multiple of 128 and a
   hidden width that chunks), so that a trace for the card fails where the
   card would.
 
@@ -32,12 +32,13 @@ projection on the card) so that a trace records it whole, where some
 PyTorch versions' decomposition of that overload fails.
 
 Parameter dicts are passed as their tensors, the activation by name
-(``"gelu"`` or ``"quick_gelu"``). The public wrappers (``flash_mha_packed``,
-``ln_mlp_residual``, ...) and their ``autograd.Function`` forwards call these
-ops, so an eager call, a training step, a CUDA graph capture and a
-``torch.export`` program all reach the same launch, and the counters count
-wherever a kernel is launched. The backward kernels (B4, B5, B6) are not
-ops: no exported program runs a backward.
+(``"gelu"``, ``"quick_gelu"`` or, for B2 only, ``"gelu_tanh"``). The public
+wrappers (``flash_mha_packed``, ``ln_mlp_residual``, ...) and their
+``autograd.Function`` forwards call these ops, so an eager call, a training
+step, a CUDA graph capture and a ``torch.export`` program all reach the
+same launch, and the counters count wherever a kernel is launched. The
+backward kernels (B4, B5, B6) are not ops: no exported program runs a
+backward.
 
 Nothing here imports a kernel module at import time (they import this one);
 the implementations import them when called.
@@ -97,10 +98,10 @@ def _ln(scale, bias):
 # --------------------------------------------------------------------------
 
 def _packed_out_shape(fn: str, qkv: Tensor, num_heads: int):
-    from .packed_attention import WIDE_HEAD_DIM
+    from .packed_attention import FORWARD_HEAD_DIMS
 
     b, l, threew = qkv.shape
-    _cuda_head_width(fn, qkv, threew // 3, num_heads, (WIDE_HEAD_DIM,))
+    _cuda_head_width(fn, qkv, threew // 3, num_heads, FORWARD_HEAD_DIMS[1:])
     return b, l, threew // 3
 
 

@@ -12,7 +12,8 @@ kernel or raises. The two forwards go through the custom ops
 ``aaclip::ln_mlp_residual`` and ``aaclip::ln_mlp_residual_int8``
 (``ops/custom_ops.py``; their CUDA implementations are :func:`_launch` and
 :func:`_int8_launch`); the dx kernel is launched directly. GELU, and its
-derivative, are exact erf in all of them.
+derivative, are exact erf in all of them; B2 also takes the tanh GELU
+(SigLIP's; forward only: the dx kernel refuses it).
 
 In bf16 at both CLIP towers' widths the forward kernel runs three stages on
 the wgmma GEMM core (``ops/gemm.py``): the LayerNorm pass, GEMM 1 into the
@@ -39,6 +40,7 @@ from __future__ import annotations
 from ctypes import c_float, c_int, c_void_p
 
 import torch
+import torch.nn.functional as F
 
 from . import _build, custom_ops
 from .gemm import (
@@ -55,12 +57,60 @@ from .gemm import (
     quantize_rows,
     tile_groups,
 )
-from .layers import frozen_layout, gelu, layer_norm, mlp_block, quick_gelu
+from .layers import (
+    frozen_layout,
+    gelu,
+    gelu_tanh,
+    layer_norm,
+    mlp_block,
+    quick_gelu,
+    release_layouts,
+)
 from .quant import int8_matmul
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# The activations of B3 and B5 (and their number in the C entries).
 _ACTS = {gelu: 0, quick_gelu: 1}
-_ACT_NAMES = {gelu: "gelu", quick_gelu: "quick_gelu"}
+# B2's: those and the tanh GELU (SigLIP's), epilogue (a)'s fourth.
+_FLOAT_ACTS = {**_ACTS, gelu_tanh: 3}
+_ACT_NAMES = {gelu: "gelu", quick_gelu: "quick_gelu", gelu_tanh: "gelu_tanh"}
+
+
+#: B2's GEMM path takes a hidden width that is a multiple of this.
+GEMM_HIDDEN = 256
+
+
+def _pad_hidden(w_fc, b_fc, w_proj, b_proj):
+    """The MLP with its hidden width padded to a multiple of
+    :data:`GEMM_HIDDEN`: zero columns of W1 and b1, zero rows of W2."""
+    pad = -w_fc.shape[-1] % GEMM_HIDDEN
+    return {"c_fc": {"w": F.pad(w_fc, (0, pad)), "b": F.pad(b_fc, (0, pad))},
+            "c_proj": {"w": F.pad(w_proj, (0, 0, 0, pad)), "b": b_proj}}
+
+
+def padded_hidden(mlp_params):
+    """``mlp_params`` with a hidden width that no B2 path takes (not a
+    multiple of 128: SigLIP's 4304) padded to the GEMM path's multiple of
+    256 (4352): zero columns of W1 and b1 and zero rows of W2, exact since
+    each activation here maps 0 to 0. Made once per weight
+    (``layers.frozen_layout``, before any capture), under a trace as ops of
+    the trace. Any other MLP, and one whose weights need a gradient, is
+    returned as it is."""
+    c_fc, c_proj = mlp_params["c_fc"], mlp_params["c_proj"]
+    src = (c_fc["w"], c_fc["b"], c_proj["w"], c_proj["b"])
+    if src[0].shape[-1] % 128 == 0 or any(t.requires_grad for t in src):
+        return mlp_params
+    if custom_ops.is_traced(src[0]):
+        return _pad_hidden(*src)
+    return frozen_layout(_pad_hidden, *src)
+
+
+def release_padded(blocks):
+    """Drops :func:`padded_hidden`'s copies of ``blocks``' MLPs, for a tower
+    that runs at set-up alone (the text tower, for the anchors), so that
+    they hold no memory through serving."""
+    release_layouts(_pad_hidden, [b["mlp"]["c_fc"]["w"] for b in blocks
+                                  if isinstance(b, dict) and "w" in b["mlp"]["c_fc"]])
 
 
 def ln_mlp_residual_reference(ln_params, mlp_params, x, act, eps: float = 1e-5):
@@ -130,7 +180,7 @@ def _launch(ln_params, mlp_params, x, act, eps: float = 1e-5):
     if x.dtype not in _DTYPES:
         raise TypeError(f"ln_mlp_residual: dtype {x.dtype} not supported "
                         "(bfloat16 or float32)")
-    if act not in _ACTS:
+    if act not in _FLOAT_ACTS:
         raise ValueError(f"ln_mlp_residual: unsupported activation {act!r}")
     if not x.is_contiguous():
         raise ValueError("ln_mlp_residual: x must be contiguous")
@@ -162,7 +212,7 @@ def _launch(ln_params, mlp_params, x, act, eps: float = 1e-5):
     y = torch.empty_like(x)
     _FLOAT(dev, *ptrs, xin if xin is None else xin.data_ptr(),
            hid if hid is None else hid.data_ptr(), y.data_ptr(), m, d, h, float(eps),
-           _ACTS[act], _DTYPES[x.dtype], *groups)
+           _FLOAT_ACTS[act], _DTYPES[x.dtype], *groups)
     count_grouped(groups)
     return y
 

@@ -59,10 +59,11 @@ import torch
 
 from ..utils.profiling import count
 from . import _build
-from .layers import gelu, layer_norm, quick_gelu
+from .layers import gelu, gelu_tanh, layer_norm, quick_gelu
 from .quant import int8_matmul
 
-_ACTS = {gelu: 0, quick_gelu: 1, None: 2}
+# Epilogue (a)'s activations, as the core numbers them (csrc/gemm_sm90.cuh).
+_ACTS = {gelu: 0, quick_gelu: 1, None: 2, gelu_tanh: 3}
 
 _SQRT_HALF = 0.7071067811865476
 _INV_SQRT_2PI = 0.3989422804014327

@@ -3,7 +3,8 @@
 Counterpart of ``aa_clip_iqm_tpu/ops/layers.py``. Parameters are dicts of
 tensors with the JAX package's layout: a linear weight ``w`` is stored
 ``(in, out)`` and applied as ``x @ w``. Numerics follow the JAX functions:
-LayerNorm statistics in float32, exact-erf GELU, products accumulated in
+LayerNorm statistics in float32, exact-erf GELU (the tanh form for
+SigLIP's towers), products accumulated in
 float32, the bias added in float32, and one cast back to the input dtype.
 """
 from __future__ import annotations
@@ -34,7 +35,12 @@ def quick_gelu(x):
     return x * torch.sigmoid(1.702 * x)
 
 
-ACTIVATIONS = {"gelu": gelu, "quick_gelu": quick_gelu}
+def gelu_tanh(x):
+    """GELU with the tanh approximation (SigLIP's)."""
+    return F.gelu(x, approximate="tanh")
+
+
+ACTIVATIONS = {"gelu": gelu, "quick_gelu": quick_gelu, "gelu_tanh": gelu_tanh}
 
 
 class _AddmmF32Bias(torch.autograd.Function):
@@ -217,3 +223,12 @@ def frozen_layout(build, *sources):
         out = build(*sources)
     _LAYOUTS[key] = (weakref.ref(sources[0], lambda _: _LAYOUTS.pop(key, None)), ids, out)
     return out
+
+
+def release_layouts(build, firsts):
+    """Drops what :func:`frozen_layout` made by ``build`` from each tensor of
+    ``firsts`` (its first source): for layouts that a set-up pass alone
+    reads, which no captured graph may hold. A later call makes them
+    again."""
+    for t in firsts:
+        _LAYOUTS.pop((build, id(t)), None)

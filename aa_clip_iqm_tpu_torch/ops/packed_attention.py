@@ -37,7 +37,9 @@ HEAD_DIM = 64
 #: The forward's second head width, an instance of its own (EVA02-CLIP-E/14+:
 #: 16 heads of 112). The backward kernels take :data:`HEAD_DIM` only.
 WIDE_HEAD_DIM = 112
-FORWARD_HEAD_DIMS = (HEAD_DIM, WIDE_HEAD_DIM)
+#: Its third, an instance of its own too (SigLIP So400m: 16 heads of 72).
+HEAD_DIM_72 = 72
+FORWARD_HEAD_DIMS = (HEAD_DIM, WIDE_HEAD_DIM, HEAD_DIM_72)
 
 
 def flash_mha_packed_reference(qkv, num_heads: int, scale: float,
@@ -123,7 +125,10 @@ _FORWARD = _build.Entry("packed_attention", "packed_attention",
 # The forward at head width 112, counted ``packed_attention_hd112``.
 _FORWARD_HD112 = _build.Entry("packed_attention", "packed_attention_hd112",
                               [c_void_p] * 3 + [c_int] * 6 + [c_float, c_int, c_int])
-_FORWARDS = {HEAD_DIM: _FORWARD, WIDE_HEAD_DIM: _FORWARD_HD112}
+# The forward at head width 72, counted ``packed_attention_hd72``.
+_FORWARD_HD72 = _build.Entry("packed_attention", "packed_attention_hd72",
+                             [c_void_p] * 3 + [c_int] * 6 + [c_float, c_int, c_int])
+_FORWARDS = {HEAD_DIM: _FORWARD, WIDE_HEAD_DIM: _FORWARD_HD112, HEAD_DIM_72: _FORWARD_HD72}
 # B4, counted ``packed_attention_bwd``; for ``vv`` B6, counted
 # ``packed_attention_vv_bwd``.
 _BACKWARD = _build.Entry("packed_attention_bwd", "packed_attention_bwd",

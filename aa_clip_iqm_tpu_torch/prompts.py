@@ -9,16 +9,17 @@ anchor pair.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
-from .configs import ModelConfig
+from .configs import ModelConfig, TextConfig
 from .data.registry import CLASS_NAMES, PROMPTS, REAL_NAMES
 from .models import adapters as adapters_mod
+from .ops.fused_mlp import release_padded
 from .ops.layers import l2_normalize
-from .tokenizer import tokenize
+from .tokenizer import tokenize, tokenize_padded
 from .utils.profiling import span, timed
 
 
@@ -87,9 +88,12 @@ def stack_batch_anchors(anchor_dict, class_names) -> torch.Tensor:
     return torch.stack([anchor_dict[c] for c in class_names], dim=0)
 
 
-def batched_prompt_tokens(dataset_name: str):
+def batched_prompt_tokens(dataset_name: str, text_cfg: Optional[TextConfig] = None):
     """All classes' prompt tokens stacked for one batched encoder call:
-    returns (classes, tokens (C*S, 77) int32 numpy, n_normal, n_abnormal)."""
+    returns (classes, tokens (C*S, ctx) int32 numpy, n_normal, n_abnormal).
+    The tokens are CLIP's SOT/EOT-framed ids, 77 a row; for a text tower
+    pooled at its last position (``text_cfg.pool == "last"``, SigLIP's)
+    ``tokenizer.tokenize_padded`` at its context length and vocabulary."""
     classes = list(CLASS_NAMES[dataset_name])
     per_class = [class_prompt_sentences(dataset_name, c) for c in classes]
     n_normal = len(per_class[0][0])
@@ -98,7 +102,11 @@ def batched_prompt_tokens(dataset_name: str):
     for normal, abnormal in per_class:
         sentences.extend(normal)
         sentences.extend(abnormal)
-    return classes, tokenize(sentences), n_normal, n_abnormal
+    if text_cfg is not None and text_cfg.pool == "last":
+        tokens = tokenize_padded(sentences, text_cfg.context_length, text_cfg.vocab_size)
+    else:
+        tokens = tokenize(sentences)
+    return classes, tokens, n_normal, n_abnormal
 
 
 def anchors_from_flat_embeddings(emb, n_classes: int, n_normal: int,
@@ -125,9 +133,11 @@ def compute_frozen_anchors(frozen, trainable, model_cfg: ModelConfig,
     mode itself. ``use_pallas=False``: the text tower on stock PyTorch
     calls, no hand-written kernel (``models.clip``). Its seconds, the
     device's work included (it synchronises a CUDA device), add to the
-    counter ``setup.anchors_s``."""
+    counter ``setup.anchors_s``. The text tower's padded MLP copies
+    (``fused_mlp.padded_hidden``) are dropped after it."""
     with span("setup/anchors"), timed("setup.anchors_s"):
-        classes, tokens, n_norm, n_abn = batched_prompt_tokens(dataset_name)
+        classes, tokens, n_norm, n_abn = batched_prompt_tokens(dataset_name,
+                                                               model_cfg.clip.text)
         device = frozen["text"]["token_embedding"].device
         tokens = torch.from_numpy(np.asarray(tokens, np.int64)).to(device)
         with torch.inference_mode(False), torch.no_grad():
@@ -140,6 +150,7 @@ def compute_frozen_anchors(frozen, trainable, model_cfg: ModelConfig,
                     frozen, model_cfg, tokens, compute_dtype=compute_dtype,
                     use_pallas=use_pallas)
             anchors = anchors_from_flat_embeddings(emb, len(classes), n_norm, n_abn)
+        release_padded(frozen["text"]["blocks"])
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         return {c: anchors[i] for i, c in enumerate(classes)}

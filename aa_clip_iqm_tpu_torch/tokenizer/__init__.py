@@ -1,1 +1,1 @@
-from .bpe import ClipTokenizer, tokenize  # noqa: F401
+from .bpe import ClipTokenizer, tokenize, tokenize_padded  # noqa: F401

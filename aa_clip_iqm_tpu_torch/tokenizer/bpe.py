@@ -194,3 +194,24 @@ def tokenize(
             ids[-1] = tok.eot
         result[i, : len(ids)] = ids
     return result
+
+
+#: SigLIP's end and pad id (its SentencePiece vocabulary's ``</s>``).
+PAD_ID = 1
+
+
+def tokenize_padded(texts: Union[str, List[str]], context_length: int,
+                    vocab_size: int) -> np.ndarray:
+    """A SigLIP tower's prompts as the port makes them: each text's BPE ids
+    (no start or end token) modulo ``vocab_size``, then :data:`PAD_ID` as its
+    end, truncated to ``context_length`` and padded there with it,
+    (N, context_length) int32. SigLIP's own SentencePiece vocabulary is not
+    in the repository: these ids stand in for its ids."""
+    if isinstance(texts, str):
+        texts = [texts]
+    tok = _default_tokenizer()
+    result = np.full((len(texts), context_length), PAD_ID, dtype=np.int32)
+    for i, text in enumerate(texts):
+        ids = [t % vocab_size for t in tok.encode(text)][:context_length - 1] + [PAD_ID]
+        result[i, : len(ids)] = ids
+    return result

@@ -98,7 +98,7 @@ def summarize(events, track_filter=None):
 
 def kernel_group(name: str) -> str:
     """The group of a device kernel, by its name: one of the port's
-    hand-written kernels (B1 ... B9, B1's 112-wide instance; EVA-02's S1,
+    hand-written kernels (B1 ... B9, B1's 112- and 72-wide instances; EVA-02's S1,
     its LayerNorm pass alone, and R1; the post-norm EVA block's products P1
     and its row pass P2), a cuBLAS GEMM, a copy, or other."""
     low = name.lower()
@@ -110,6 +110,8 @@ def kernel_group(name: str) -> str:
         return "B8 ln_attn_residual"
     if "packed_attention_hd112" in low:
         return "B1 packed_attention_hd112"
+    if "packed_attention_hd72" in low:
+        return "B1 packed_attention_hd72"
     if "packed_attention" in low:
         return "B1 packed_attention"
     if "ln_residual_rows" in low:

@@ -53,7 +53,10 @@ halves run on ``ln_swiglu_residual``, or on the stock chain: ``use_pallas=
 False`` or under autograd); for a post-norm EVA tower ``blocks.eva_postnorm``
 (its blocks run) and ``postnorm.fused`` / ``postnorm.chain`` (one per block
 half under ``use_pallas``: on the block's kernels, or on the chain where
-autograd records the call); for every
+autograd records the call); for a SigLIP vision tower ``blocks.siglip`` (its
+blocks run), ``siglip.fused`` / ``siglip.chain`` (one per block half under
+``use_pallas``, as ``postnorm.*``) and ``pool.map`` (attention-pool head
+calls); for every
 unmasked vision block off the stock
 route (``use_pallas``) ``attn.proj_fused`` / ``attn.proj_chain`` (its attention
 half's LayerNorm and projections run on B8's front and back kernels, or on the

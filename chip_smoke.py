@@ -87,7 +87,20 @@ line):
      (the sub-LN; LN1 runs in B8's front) and 24 R1 and whose forwards must count no stock-chain MLP
      (mlp.swiglu_chain 0); its map against the same batch through the plain
      versions (and against a planted fault, the rotation dropped); timings;
-  4. main path: AnomalyDetector on ViT-L-14-336 at 518 px with seeded random
+  3c. SigLIP So400m/14 and EVA02-CLIP-E/14+'s kernel work at their cells'
+     shapes, bf16, counted from launch counters reset just before: B1's
+     72-wide instance at (32, 1369, 16 x 72) and its 112-wide one at (16,
+     1370, 16 x 112), each held in bf16 ulps to its plain version and to the
+     plain version of its walk, with a planted fault (heads scaled by
+     64^-0.5); epilogue (a) with the tanh GELU alone at B2's GEMM 1 (M =
+     43,808, N = 4352, K = 1152) against its plain version, on products
+     shifted to about -3 where the exact GELU in its place (planted) fails;
+     B2 at M = 43,808, d 1152, the hidden width 4304 padded to 4352, the
+     tanh GELU and eps 1e-6, against the unpadded plain version and its
+     stages, with a planted fault (the hidden tail past 4224 dropped); each
+     with the kernel's, the plain version's and the stock call's times and
+     the bound (of the model's own 4304 for B2);
+ 4. main path: AnomalyDetector on ViT-L-14-336 at 518 px with seeded random
      weights (dataset MVTec, bf16): builds the text anchors, answers predict
      at batch 1 and 8 and a mixed-class predict_multi, checks shapes, finite
      values and the kernels' launch counts (24 each of B1, B2, B8's front
@@ -300,15 +313,25 @@ GMMA_FORM = {"ln_mlp_residual_int8": "IGMMA"}
 # entry of ln_swiglu_residual.cu; B8's halves alone (the front: its LayerNorm
 # pass and qkv product; the back: its out-projection with the residual),
 # which every unmasked vision block runs at inference around B1 or B7, are
-# two more entries of ln_attn_residual.cu.
+# two more entries of ln_attn_residual.cu. B1's 72- and 112-wide instances
+# (SigLIP's and EVA02-CLIP-E/14+'s heads) are two more entries of
+# packed_attention.cu.
 KERNELS = ("packed_attention", "ln_mlp_residual", "ln_mlp_residual_int8",
            "packed_attention_bwd", "ln_mlp_residual_dx", "packed_attention_vv_bwd",
            "flash_attention", "ln_attn_residual", "ln_mlp_residual_int8_probe",
            "ln_swiglu_residual", "ln_swiglu_residual_layer_norm", "rope_qk",
-           "ln_attn_residual_front", "ln_attn_residual_back")
+           "ln_attn_residual_front", "ln_attn_residual_back",
+           "packed_attention_hd72", "packed_attention_hd112")
 # EVA02-CLIP-L-14-336 (phase 3b): the offline cell's batch, the MLP's hidden
 # width (2730, padded to 2816 inside S1) and the LayerNorms' eps.
 EVA_MODEL, EVA_B, EVA_HIDDEN, EVA_EPS = "EVA02-CLIP-L-14-336", 32, 2730, 1e-6
+# SigLIP So400m/14 (phase 3c, the cell offline-siglip-518-b32): its batch,
+# rows (37 x 37 patches, no class row), width, head width, MLP hidden width
+# (4304, padded to 4352 by fused_mlp.padded_hidden) and LayerNorm eps; and
+# EVA02-CLIP-E/14+'s batch and head width (offline-eva02e-518-b16).
+SIGLIP_B, SIGLIP_TOKENS, SIGLIP_WIDTH, SIGLIP_HD = 32, (IMG // 14) ** 2, 1152, 72
+SIGLIP_HIDDEN, SIGLIP_EPS = 4304, 1e-6
+EVA_E_B, EVA_E_HD = 16, 112
 HR_IMG = 1274                            # ViT-L/14 at 91 x 91 patches
 HR_TOKENS = (HR_IMG // 14) ** 2 + 1      # 8282, past the packed kernel's 8192
 # The 1274 px map against its twins', as the 518 px one: the kernels' own
@@ -2565,6 +2588,125 @@ def phase_eva02(card):
     torch.cuda.empty_cache()
     log(f"# EVA-02 phase: {time.perf_counter() - t_phase:.1f} s, launches "
         f"{ {k: v for k, v in launches.items() if v} }")
+    return results, launches
+
+
+def phase_siglip():
+    """Phase 3c (module docstring). Returns ({kernel: row of the kernels
+    line}, launches)."""
+    import torch
+    import torch.nn.functional as F
+
+    from aa_clip_iqm_tpu_torch.ops import _build, fused_mlp, gemm, packed_attention as pa
+    from aa_clip_iqm_tpu_torch.ops.layers import gelu, gelu_tanh
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4304)
+    bf16 = torch.bfloat16
+    results = {}
+
+    def rnd(*shape, std=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * std
+
+    reset_counts()
+    calls = 22                                  # one held, then cuda_time's 1 + 20
+    for tag, b, tokens, hd in (("packed_attention_hd72", SIGLIP_B, SIGLIP_TOKENS, SIGLIP_HD),
+                               ("packed_attention_hd112", EVA_E_B, TOKENS, EVA_E_HD)):
+        width = HEADS * hd
+        qkv = rnd(b, tokens, 3 * width).to(bf16)
+        scale = hd ** -0.5
+        what = f"B1 {tag} ({b}, {tokens}, {HEADS}x{hd})"
+        out = pa.flash_mha_packed(qkv, HEADS, scale)
+        ref = pa.flash_mha_packed_reference(qkv, HEADS, scale)
+        err = hold(what, out, ref)
+        hold_walk(f"{what} against the plain version of its walk", out,
+                  pa.flash_mha_packed_stages(qkv, HEADS, scale, False, None))
+        planted(f"{what}, heads scaled by 64^-0.5",
+                pa.flash_mha_packed_reference(qkv, HEADS, 64 ** -0.5), ref)
+        del out, ref
+        ms = cuda_time(lambda: pa.flash_mha_packed(qkv, HEADS, scale), 20)
+        plain_ms = cuda_time(lambda: pa.flash_mha_packed_reference(qkv, HEADS, scale), 3)
+        q, k, v = qkv.view(b, tokens, 3, HEADS, hd).permute(2, 0, 3, 1, 4)
+        lib_ms = cuda_time(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale), 20)
+        flops = 4 * b * HEADS * tokens * tokens * hd
+        nbytes = qkv.numel() * 2 + b * tokens * width * 2
+        b_ms, b_by = bound(flops, nbytes)
+        log(f"# B1 time, {tag} ({b}, {tokens}, {HEADS}x{hd}): kernel {ms:.3f} ms "
+            f"({tflops(flops, ms)}), plain {plain_ms:.3f} ms, sdpa {lib_ms:.3f} ms "
+            f"({tflops(flops, lib_ms)}), bound {b_ms:.4f} ms ({b_by}; {flops:.3e} FLOP, "
+            f"{nbytes / 1e6:.1f} MB)")
+        results[tag] = {
+            "name": tag, "route": "cuda",
+            "source": "aa_clip_iqm_tpu_torch/csrc/packed_attention.cu", "replaces": "aa_clip_iqm_tpu/ops/pallas_attention.py:88", "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib_ms}
+        del qkv, q, k, v
+
+    # Epilogue (a) with the tanh GELU alone, at B2's GEMM 1. The two GELUs
+    # differ by less than a bf16 ulp near 1, so the planted fault runs on
+    # products shifted to about -3, where the outputs are small.
+    m, d, h = SIGLIP_B * SIGLIP_TOKENS, SIGLIP_WIDTH, SIGLIP_HIDDEN
+    n = h + (-h % fused_mlp.GEMM_HIDDEN)
+    where = f"epilogue (a), tanh GELU (M={m}, N={n}, K={d})"
+    a = rnd(m, d).to(bf16)
+    before = _build.launches()
+    for shift, std in ((0.0, 1.0), (-3.0, 0.25)):
+        w = rnd(d, n, std=std * d ** -0.5).to(bf16)
+        bias = rnd(n, std=0.5 * std) + shift
+        out = gemm.gemm_bias_act(a, w, bias, gelu_tanh)
+        ref = gemm.gemm_bias_act_reference(a, w, bias, gelu_tanh)
+        hold(f"{where}, products shifted by {shift}", out, ref)
+    planted(f"{where}, the exact GELU for the tanh GELU",
+            gemm.gemm_bias_act_reference(a, w, bias, gelu), ref)
+    ms = cuda_time(lambda: gemm.gemm_bias_act(a, w, bias, gelu_tanh), 10)
+    core = _build.launches(before).get("ln_mlp_residual_gemm", 0)
+    require(core == 13, f"{where}: {core} launches of the core, not 13")
+    flop = 2 * m * n * d
+    b_ms, b_by = bound(flop, (m * d + d * n + m * n) * 2 + n * 4)
+    log(f"# GEMM core {where}: {ms:.4f} ms ({tflops(flop, ms)}); bound {b_ms:.4f} ms ({b_by})")
+    del a, w, bias, out, ref
+
+    # B2 at SigLIP's widths: the hidden width padded once per weight.
+    ln = {"scale": 1.0 + 0.1 * rnd(d), "bias": 0.1 * rnd(d)}
+    mlp = {"c_fc": {"w": rnd(d, h, std=d ** -0.5).to(bf16), "b": rnd(h, std=0.02)},
+           "c_proj": {"w": rnd(h, d, std=h ** -0.5).to(bf16), "b": rnd(d, std=0.02)}}
+    x = rnd(m, d).to(bf16)
+    padded = fused_mlp.padded_hidden(mlp)
+    require(padded["c_fc"]["w"].shape == (d, n) and padded["c_proj"]["w"].shape == (n, d)
+            and not padded["c_fc"]["w"][:, h:].any() and not padded["c_proj"]["w"][h:].any(),
+            f"B2 SigLIP: the hidden width {h} is not padded to {n} with zero weights")
+    what = f"B2 SigLIP M={m} d={d} h={h} (padded to {n}), tanh GELU"
+    out = fused_mlp.ln_mlp_residual(ln, padded, x, gelu_tanh, SIGLIP_EPS)
+    ref = fused_mlp.ln_mlp_residual_reference(ln, mlp, x, gelu_tanh, SIGLIP_EPS)
+    hold(what, out, ref, x)
+    hold(f"{what} against the plain version of its stages", out,
+         fused_mlp.ln_mlp_residual_stages(ln, mlp, x, gelu_tanh, SIGLIP_EPS), x)
+    cut = h - 80
+    short = {"c_fc": {"w": mlp["c_fc"]["w"][:, :cut], "b": mlp["c_fc"]["b"][:cut]},
+             "c_proj": {"w": mlp["c_proj"]["w"][:cut], "b": mlp["c_proj"]["b"]}}
+    planted(f"{what}, the hidden tail past {cut} dropped",
+            fused_mlp.ln_mlp_residual_reference(ln, short, x, gelu_tanh, SIGLIP_EPS), ref, x)
+    del out, ref, short
+    ms = cuda_time(lambda: fused_mlp.ln_mlp_residual(ln, padded, x, gelu_tanh, SIGLIP_EPS), 20)
+    plain_ms = cuda_time(lambda: fused_mlp.ln_mlp_residual_reference(
+        ln, mlp, x, gelu_tanh, SIGLIP_EPS), 5)
+    xn = F.layer_norm(x, (d,), eps=SIGLIP_EPS)
+    b_fc, b_proj = mlp["c_fc"]["b"].to(bf16), mlp["c_proj"]["b"].to(bf16)
+    lib_ms = cuda_time(lambda: torch.addmm(b_proj, F.gelu(
+        torch.addmm(b_fc, xn, mlp["c_fc"]["w"]), approximate="tanh"), mlp["c_proj"]["w"]), 20)
+    flops = 4 * m * d * h
+    nbytes = 2 * m * d * 2 + 2 * d * h * 2 + (3 * d + h) * 4
+    b_ms, b_by = bound(flops, nbytes)
+    log(f"# B2 time, SigLIP (M={m}, d={d}, h={h} padded to {n}): kernel {ms:.3f} ms "
+        f"({tflops(flops, ms)} of the model's own {h}), plain {plain_ms:.3f} ms, "
+        f"addmm-gelu_tanh-addmm {lib_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+    del ln, mlp, padded, x, xn
+
+    launches = read_counts()
+    want = counts_of(packed_attention_hd72=calls, packed_attention_hd112=calls,
+                     ln_mlp_residual=22)
+    log(f"# SigLIP / EVA02-CLIP-E/14+ kernels' launches: {json.dumps(launches)}")
+    require(launches == want, f"launches {launches}, not {want}")
     return results, launches
 
 
@@ -5451,8 +5593,11 @@ def main():
         kernels.update(phase_attn_halves())
         eva_kernels, eva_launches = phase_eva02(card)
         kernels.update(eva_kernels)
+        siglip_kernels, siglip_launches = phase_siglip()
+        kernels.update(siglip_kernels)
         launches, ctx = phase_main_path(card)
         add_counts(launches, eva_launches)
+        add_counts(launches, siglip_launches)
         add_counts(launches, phase_int8_tiers(card, ctx))
         add_counts(launches, phase_sweep(card, ctx))
         add_counts(launches, phase_highres(card, ctx))

@@ -926,3 +926,134 @@ def test_stage2_step_on_the_card_int8_mlp(dev):
     assert got == (3, 2, 0, 0, 3)
     assert loss == loss and all(g is None or torch.isfinite(g).all() for g in grads)
     assert any(g is not None and g.abs().max() > 0 for g in grads)
+
+
+# --------------------------------------------------------------------------
+# SigLIP So400m's widths: B1 at heads of 72, the core's tanh GELU, B2 at
+# width 1152 with the hidden width padded from 4304
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,heads,seq_len,vv,valid_len", [
+    (32, 16, 1369, False, None),
+    (2, 16, 1369, True, 1300),
+    (2, 16, 1369, False, 1000),
+    (2, 4, 1, False, None),
+    (2, 4, 127, False, None),
+    (2, 4, 129, False, 1),
+    (2, 4, 201, True, None),
+    (2, 4, 333, False, 257),
+    (1, 16, 8192, False, None),
+])
+def test_the_hd72_instance_matches_its_plain_versions(dev, dtype, b, heads, seq_len, vv,
+                                                      valid_len):
+    """B1 at heads of 72 against the twin (bf16 ulps) and the plain version
+    of its walk (2 ulps). A head is a 64-column box and an 8-column box, and
+    the fifth k-step's columns 72-79 are zeros, not the next head's: a
+    planted scale of 64^-0.5 fails, and so would a product that took the
+    next head's columns."""
+    gen = torch.Generator(device=dev).manual_seed(seq_len + 72)
+    qkv = torch.randn((b, seq_len, 3 * heads * 72), generator=gen, device=dev).to(dtype)
+    scale = 72 ** -0.5
+    before = profiling.counters()
+    out = pa.flash_mha_packed(qkv, heads, scale, vv=vv, valid_len=valid_len)
+    assert _build.launches(before) == {"packed_attention_hd72": 1}
+    twin = pa.flash_mha_packed_reference(qkv, heads, scale, vv=vv, valid_len=valid_len)
+    if dtype == torch.float32:
+        _check(out, twin)
+        return
+    _check(out, twin)
+    _check_walk(out, pa.flash_mha_packed_stages(qkv, heads, scale, vv, valid_len))
+    if min(seq_len, valid_len or seq_len) > 1:         # one key: softmax is 1 at any scale
+        wrong = pa.flash_mha_packed_reference(qkv, heads, 64 ** -0.5, vv=vv,
+                                              valid_len=valid_len)
+        assert bf16_error(out, wrong)[0] > BF16_MAX_ULPS
+
+
+def test_the_hd72_instance_writes_the_log_sum_exp(dev):
+    gen = torch.Generator(device=dev).manual_seed(7)
+    qkv = torch.randn((2, 1369, 3 * 16 * 72), generator=gen, device=dev).to(torch.bfloat16)
+    out, lse = pa._forward(qkv, 16, 72 ** -0.5, False, None, with_lse=True)
+    want = pa.packed_lse_reference(qkv, 16, 72 ** -0.5)
+    torch.cuda.synchronize()
+    assert ((lse - want).abs() / want.abs().clamp_min(1.0)).max().item() <= 1e-5
+    assert torch.equal(out, pa._forward(qkv, 16, 72 ** -0.5, False, None))
+
+
+def test_heads_of_72_above_b1_s_rows_raise_on_b7(dev):
+    """B7 (above 8,192 rows) stays 64-wide: a 72-wide call raises."""
+    q = torch.zeros((1, 16, 8282, 72), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head width 72"):
+        fa.flash_mha(q, q, q, 72 ** -0.5)
+
+
+@pytest.mark.parametrize("m,n,k", [(1, 4352, 1152), (2738, 4352, 1152), (43808, 4352, 1152),
+                                   (77, 256, 128), (130, 384, 64)])
+def test_gemm_tanh_epilogue_matches_torch(dev, m, n, k):
+    """Epilogue (a) with the tanh GELU against ``torch.nn.functional.gelu(
+    approximate="tanh")`` of the fp32 product, rounded once (bf16 ulps), at
+    both tile widths alike. The two GELUs differ by less than a bf16 ulp
+    near 1, so the fault check shifts the products to about -3, where the
+    outputs are small and the exact GELU in the tanh GELU's place fails."""
+    from aa_clip_iqm_tpu_torch.ops.layers import gelu_tanh
+
+    gen = torch.Generator(device=dev).manual_seed(m + n)
+    a = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+    w = (torch.randn((k, n), generator=gen, device=dev) * k ** -0.5).to(torch.bfloat16)
+    for shift, std in ((0.0, 1.0), (-3.0, 0.25)):
+        ws = (w.float() * std).to(torch.bfloat16)
+        b = torch.randn(n, generator=gen, device=dev) * 0.5 * std + shift
+        acc = torch.addmm(b, a.float(), ws.float())
+        want = torch.nn.functional.gelu(acc, approximate="tanh").to(torch.bfloat16)
+        for tile_n in (0, 128):
+            out = gemm.gemm_bias_act(a, ws, b, gelu_tanh, tile_n=tile_n)
+            _check(out, want)
+    assert bf16_error(out, gelu(acc).to(torch.bfloat16))[0] > BF16_MAX_ULPS
+
+
+@pytest.mark.parametrize("m", [1, 1369, 43808])
+def test_ln_mlp_residual_at_siglip_s_widths(dev, m):
+    """B2 at d 1152 with the tanh GELU and the hidden width 4304 padded to
+    4352 (``fused_mlp.padded_hidden``): against the unpadded chain's twin
+    and stages in bf16 ulps; the padding is zero weights."""
+    from aa_clip_iqm_tpu_torch.ops.layers import gelu_tanh
+
+    ln, mlp, x, _ = _float_case(dev, torch.bfloat16, m, 1152, 4304, 11)
+    padded = fused_mlp.padded_hidden(mlp)
+    assert padded["c_fc"]["w"].shape == (1152, 4352) and padded["c_proj"]["w"].shape == (4352,
+                                                                                          1152)
+    assert not padded["c_fc"]["w"][:, 4304:].any() and not padded["c_proj"]["w"][4304:].any()
+    assert fused_mlp.padded_hidden(mlp) is padded                  # made once per weight
+    before = profiling.counters()
+    out = fused_mlp.ln_mlp_residual(ln, padded, x, gelu_tanh, 1e-6)
+    assert _build.launches(before) == {"ln_mlp_residual": 1}
+    _check(out, fused_mlp.ln_mlp_residual_reference(ln, mlp, x, gelu_tanh, 1e-6), x)
+    _check(out, fused_mlp.ln_mlp_residual_stages(ln, mlp, x, gelu_tanh, 1e-6), x)
+    with pytest.raises(RuntimeError):
+        fused_mlp.ln_mlp_residual(ln, mlp, x, gelu_tanh, 1e-6)      # 4304 unpadded: refused
+
+
+def test_the_kernels_keep_their_names(dev):
+    """The profiler's names of B1's 64- and 112-wide instances and of
+    epilogue (a)'s GELU instance are what the accepted rooflines match; the
+    72-wide instance and the tanh-GELU epilogue have names of their own."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from aa_clip_iqm_tpu_torch.ops.layers import gelu_tanh
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    ln, mlp, x, _ = _float_case(dev, torch.bfloat16, 300, 1024, 4096, 2)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for hd in (64, 112, 72):
+            qkv = torch.randn((1, 300, 3 * 4 * hd), generator=gen, device=dev)
+            pa.flash_mha_packed(qkv.to(torch.bfloat16), 4, hd ** -0.5)
+        fused_mlp.ln_mlp_residual(ln, mlp, x, gelu)
+        gemm.gemm_bias_act(x, mlp["c_fc"]["w"], mlp["c_fc"]["b"], gelu_tanh)
+        torch.cuda.synchronize()
+    names = {e.key for e in prof.key_averages()}
+    for tag in ("packed_attention", "packed_attention_hd112", "packed_attention_hd72"):
+        assert any(f"attention_wgmma_kernel<{tag}>" in n for n in names), (tag, names)
+    assert any("gemm_bias_act_kernel<(anonymous namespace)::ln_mlp_residual_stage, 256, 0>"
+               in n for n in names), names
+    assert any("gemm_bias_act_kernel<(anonymous namespace)::ln_mlp_residual_stage, 256, 3>"
+               in n for n in names), names
